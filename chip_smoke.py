@@ -7,23 +7,45 @@ Phases, each of which must pass:
 
 1. the card: name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``mpc_mmd_tpu_torch/csrc`` (nvcc, sm_90a);
-3. each kernel against its plain PyTorch twin on the card, at the shapes of
-   the full-width fastrt solve, with CUDA-event times of both:
+3. each kernel against its plain PyTorch twin on the card, with CUDA-event
+   times of both:
    K1 top-k indices equal exactly (rows with NaNs and ties included),
    K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64,
-   K4 rollout within atol 1e-4;
+   K4 rollout within atol 1e-4, all at the fastrt solve's shapes;
+   K3 fused selection at the dynamic workload's shape (100, 100, 101) and
+   at the fastrt shape (64, 64, 101), k = 10, rows with a NaN lane and
+   tied |beta| included: indices equal exactly, row sums and K_red within
+   rtol 1e-5 + atol 1e-6;
+   K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
+   equal exactly;
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
-   sum(beta) = 1 within 1e-3, with every kernel's launch count above 0;
+   sum(beta) = 1 within 1e-3, with K1, K2 and K4 launched;
 5. one outer iteration on the card against the same on the CPU with
    identical draws: the controls of the returned coefficients within 1e-3
    (the JAX package's parity bar) and the coefficients within 1e-3 of
-   their scale.
+   their scale;
+6. Path A, the dynamic cut-in workload in ``mmd_opt`` with the fused
+   selection (``MPC_MMD_FUSED_CEM=1``) at full width: 100 candidates x 20
+   iterations, 100 mother rollouts, inner CEM 100 samples x 20 iterations,
+   Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios from
+   ``mpc_mmd_tpu_torch/data/dynamic_cutin.npz``, each checked as in 4, with
+   exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
+   and maxiter_cem of K4 per solve; then 2 solves with the default "xla"
+   selection at the same width;
+7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
+   solve each of ``mmd_random`` and ``saa``: finite, with K4 launched;
+8. one outer iteration of Path A on the card against the CPU with
+   identical draws (the CPU run records its Beta draws, the card replays
+   them), held as in 5.
 
 Prints the kernels' JSON record and the card's nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.  Exits non-zero, with no
-result, when there is no CUDA card or the package is not beside it.
+last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
+counts the launches of the paths' timed solves (phases 4, 6 and 7); K5 is
+on no path of the package, and its count is that of its own phase.
+Exits non-zero, with no result, when there is no CUDA card or the package
+is not beside it.
 """
 
 import dataclasses
@@ -131,6 +153,53 @@ def check_rollout(torch, ops, rollout_plain, dev, gen):
     return err, ms, plain
 
 
+def check_fused_selection(torch, ops, plain, dev, gen):
+    """K3 at the dynamic workload's (100, 100, 101) and the fastrt
+    (64, 64, 101) selection shapes, k = 10; D from random features."""
+    err = 0.0
+    timed = None
+    for C, S in ((100, 100), (64, 64)):
+        M = 100
+        samples = torch.randn(C, S, M + 1, device=dev, generator=gen)
+        samples[..., M] = samples[..., M].abs() * 3 + 0.01
+        samples[0, 1, 7] = float("nan")                      # NaN lane
+        samples[0, 2, :M] = torch.round(samples[0, 2, :M])   # tied |beta|
+        f = torch.randn(C, M, 22, device=dev, generator=gen)
+        D = (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
+        got = ops.topk_kernel_matrices(samples, D, 10)
+        ref = plain(samples, D, 10)
+        torch.cuda.synchronize()
+        if not torch.equal(got[2], ref[2]) or not bool((got[2][0, 1] == M).all()):
+            fail(f"K3 topk_kernel_matrices indices differ from the twin at {(C, S)}")
+        for name, g, r in (("row_sum", got[0], ref[0]), ("K_red", got[1], ref[1])):
+            bad = (g - r).abs() > 1e-5 * r.abs() + 1e-6
+            if bool(bad.any()) or not bool(torch.isfinite(g).all()):
+                fail(f"K3 {name} outside rtol 1e-5 + atol 1e-6 of the twin at "
+                     f"{int(bad.sum())} entries, shape {(C, S)}")
+            err = max(err, float((g - r).abs().max()))
+        if timed is None:
+            timed = (samples, D)
+    ms = cuda_ms(torch, lambda: ops.topk_kernel_matrices(*timed, 10))
+    plain_ms = cuda_ms(torch, lambda: plain(*timed, 10), reps=10)
+    return err, ms, plain_ms
+
+
+def check_topk_onehot(torch, ops, plain, dev, gen):
+    """K5 at (64, 57, 101), k = 10, ranking |x| over the first 100 lanes."""
+    x = torch.randn(64, 57, 101, device=dev, generator=gen)
+    x[0, 0] = float("nan")
+    x[1] = torch.round(x[1] * 2) / 2
+    kw = dict(absolute=True, slice_to=100)
+    idx, oh = ops.topk_onehot(x, 10, **kw)
+    ridx, roh = plain(x, 10, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ridx) or not torch.equal(oh, roh):
+        fail("K5 topk_onehot differs from its plain twin")
+    ms = cuda_ms(torch, lambda: ops.topk_onehot(x, 10, **kw))
+    plain_ms = cuda_ms(torch, lambda: plain(x, 10, **kw))
+    return 0.0, ms, plain_ms
+
+
 def obstacle_scenarios(torch, n, num_obs, tot_time, blocking=False):
     """bench.py's static scenarios (obstacles on a 35-75 m grid in either
     lane), or with ``blocking`` the tie-free near-field ones of
@@ -173,6 +242,63 @@ def check_solve(result, cfg):
         fail(f"sum(beta) = {s}, not 1 within 1e-3")
 
 
+def cuda_vs_cpu(torch, cfg1, args, label):
+    """One outer iteration on the card and on the CPU with identical draws
+    (Beta draws recorded on the CPU and replayed on the card)."""
+    from mpc_mmd_tpu_torch import Solver
+    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
+    arrays, record = record_solve_draws(TorchNoise(torch.Generator(), "cpu"),
+                                        cfg1, 5)
+    out = {}
+    for name in ("cpu", "cuda"):
+        s = Solver(cfg1, device=name, noise=FixedNoise(arrays, name, record))
+        res = s.solve(5, *args)
+        out[name] = (s.ws, [t.cpu() for t in (res.cx, res.cy)],
+                     float(res.risk_obs))
+    ws_cpu = out["cpu"][0]
+    (cxg, cyg), (cxc, cyc) = out["cuda"][1], out["cpu"][1]
+    ag, sg = controls(ws_cpu, cfg1, cxg, cyg)
+    ac, sc = controls(ws_cpu, cfg1, cxc, cyc)
+    ctrl_err = max(float((ag - ac).abs().max()), float((sg - sc).abs().max()))
+    scale = max(1.0, float(cxc.abs().max()), float(cyc.abs().max()))
+    coef_err = max(float((cxg - cxc).abs().max()), float((cyg - cyc).abs().max()))
+    log(f"{label} cuda vs cpu, one outer iteration: controls max diff "
+        f"{ctrl_err:.3e}, coefficients max diff {coef_err:.3e} (scale "
+        f"{scale:.1f}), risk_obs {out['cuda'][2]:.6f} vs {out['cpu'][2]:.6f}")
+    if not ctrl_err <= 1e-3:
+        fail(f"{label}: controls differ between cuda and cpu by {ctrl_err} (> 1e-3)")
+    if not coef_err <= 1e-3 * scale:
+        fail(f"{label}: coefficients differ between cuda and cpu by {coef_err} "
+             f"(> 1e-3 x {scale})")
+
+
+def timed_solves(torch, ops, solver, cfg, calls, label, path_kernels):
+    """Runs ``calls`` (seed, scenario) solves with the launch counts set to 0
+    just before and read just after; checks each solve and that every
+    kernel of ``path_kernels`` was launched.  Returns the counts."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    lat = []
+    t0 = time.perf_counter()
+    for seed, args in calls:
+        ts = time.perf_counter()
+        r = solver.solve(seed, *args)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - ts)
+        check_solve(r, cfg)
+    rate = len(calls) / (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    missing = [fn.__name__ for fn in path_kernels if launches[fn.__name__] < 1]
+    if missing:
+        fail(f"{label}: kernels of the path not launched: {missing}; {launches}")
+    per_solve = {k: v / len(calls) for k, v in launches.items() if v}
+    log(f"{label}: {rate:.2f} solves/s, latencies "
+        f"{[round(1e3 * x, 1) for x in lat]} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches per "
+        f"solve {per_solve}; last risk_obs {float(r.risk_obs):.4f}")
+    return launches
+
+
 def controls(ws, cfg, cx, cy):
     from mpc_mmd_tpu_torch.dynamics import controls_from_trajectory
     T = cfg.horizon.num_prime
@@ -195,12 +321,13 @@ def main():
     if not os.path.abspath(mpc_mmd_tpu_torch.__file__).startswith(HERE + os.sep):
         fail(f"imported mpc_mmd_tpu_torch from {mpc_mmd_tpu_torch.__file__}, "
              f"not from {HERE}")
-    from mpc_mmd_tpu_torch import Solver, fastrt_workload, ops
+    from mpc_mmd_tpu_torch import Solver, dynamic_workload, fastrt_workload, ops
     from mpc_mmd_tpu_torch.dynamics import rollout as rollout_plain
     from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
-    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise
     from mpc_mmd_tpu_torch.ops import _build
-    from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain
+    from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
+    from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
+    from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
     # ---- 1. the card ------------------------------------------------------
     dev = torch.device("cuda", 0)
@@ -231,8 +358,14 @@ def main():
     k4 = check_rollout(torch, ops, rollout_plain, dev, gen)
     log(f"K4 fused_rollout: max abs err {k4[0]:.3e}; "
         f"{k4[1]:.4f} ms vs plain {k4[2]:.4f} ms")
+    k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen)
+    log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3[0]:.3e}; "
+        f"{k3[1]:.4f} ms vs plain {k3[2]:.4f} ms at (100, 100, 101)")
+    k5 = check_topk_onehot(torch, ops, topk_onehot_plain, dev, gen)
+    k5_launches = ops.topk_onehot.launches
+    log(f"K5 topk_onehot: exact; {k5[1]:.4f} ms vs plain {k5[2]:.4f} ms")
 
-    # ---- 4. the full-width solve ------------------------------------------
+    # ---- 4. the full-width fastrt solve -----------------------------------
     cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50,
                           mode="mmd_opt", noise="gaussian", noise_level=0.1)
     t0 = time.perf_counter()
@@ -240,73 +373,82 @@ def main():
     scen = obstacle_scenarios(torch, 4, cfg.obstacles.num_obs, solver.ws.tot_time)
     r = solver.solve(0, INIT, MEAN, COV, *scen[0], 15.0)
     torch.cuda.synchronize()
-    warmup_s = time.perf_counter() - t0
+    log(f"fastrt warm-up solve: {time.perf_counter() - t0:.2f} s")
     check_solve(r, cfg)
-
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    lat = []
-    t0 = time.perf_counter()
-    for i in range(1, 4):
-        ts = time.perf_counter()
-        r = solver.solve(i, INIT, MEAN, COV, *scen[i], 15.0)
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - ts)
-        check_solve(r, cfg)
-    solves_per_s = 3 / (time.perf_counter() - t0)
-    launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the main path was not launched: {launches}")
-    log(f"solve: warm-up {warmup_s:.2f} s, {solves_per_s:.2f} solves/s, "
-        f"latencies {[round(1e3 * x, 1) for x in lat]} ms, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB on {smi}; "
-        f"launches {launches}; last risk_obs {float(r.risk_obs):.4f}")
+    path_launches = [timed_solves(
+        torch, ops, solver, cfg,
+        [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
+        "fastrt (static, gaussian 0.1, xla selection)",
+        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout))]
 
     # ---- 5. one outer iteration, card against CPU -------------------------
-    cfg1 = cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1))
-    c, bc = cfg1.cem, cfg1.beta_cem
-    src = TorchNoise(torch.Generator(), "cpu")
-    R, T, M = cfg1.risk.num_reduced, cfg1.horizon.num_prime, cfg1.risk.num_mother
-    inner = src.inner_cem(bc.num_samples_cem, M, bc.num_ellite, bc.maxiter)
-    eps = src.rollout_eps(5, 0, R, T)
-    arrays = {"initial_z": src.initial_z(c.num_batch, c.num_params),
-              "samples0": inner.samples0, "u": inner.u, "z": inner.z,
-              "eps_acc": eps[0][None], "eps_steer": eps[1][None],
-              "eps_const": eps[2][None],
-              "cem_z": src.cem_z(5, 0, c.num_batch - c.ellite_num,
-                                 c.num_params)[None]}
-    arrays = {k: v.numpy() for k, v in arrays.items()}
-    xo, yo = obstacle_scenarios(torch, 1, cfg1.obstacles.num_obs,
+    xo, yo = obstacle_scenarios(torch, 1, cfg.obstacles.num_obs,
                                 solver.ws.tot_time.cpu(), blocking=True)[0]
-    out = {}
-    for name in ("cuda", "cpu"):
-        s = Solver(cfg1, device=name, noise=FixedNoise(arrays, name))
-        res = s.solve(5, INIT, MEAN, COV, xo, yo, 15.0)
-        out[name] = (s.ws, [t.cpu() for t in (res.cx, res.cy)],
-                     float(res.risk_obs))
-    ws_cpu = out["cpu"][0]
-    (cxg, cyg), (cxc, cyc) = out["cuda"][1], out["cpu"][1]
-    ag, sg = controls(ws_cpu, cfg1, cxg, cyg)
-    ac, sc = controls(ws_cpu, cfg1, cxc, cyc)
-    ctrl_err = max(float((ag - ac).abs().max()), float((sg - sc).abs().max()))
-    scale = max(1.0, float(cxc.abs().max()), float(cyc.abs().max()))
-    coef_err = max(float((cxg - cxc).abs().max()), float((cyg - cyc).abs().max()))
-    log(f"cuda vs cpu, one outer iteration: controls max diff {ctrl_err:.3e}, "
-        f"coefficients max diff {coef_err:.3e} (scale {scale:.1f}), risk_obs "
-        f"{out['cuda'][2]:.6f} vs {out['cpu'][2]:.6f}")
-    if not ctrl_err <= 1e-3:
-        fail(f"controls differ between cuda and cpu by {ctrl_err} (> 1e-3)")
-    if not coef_err <= 1e-3 * scale:
-        fail(f"coefficients differ between cuda and cpu by {coef_err} "
-             f"(> 1e-3 x {scale})")
+    cuda_vs_cpu(torch, cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1)),
+                (INIT, MEAN, COV, xo, yo, 15.0), "fastrt")
+
+    # ---- 6. Path A: dynamic cut-in, fused selection -----------------------
+    cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta",
+                             noise_level=0.2, num_prime=50, mode="mmd_opt")
+    init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
+    xs, ys = dynamic_cutin(dev)
+    os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    t0 = time.perf_counter()
+    solver_a = Solver(cfg_a, device=dev)
+    check_solve(solver_a.solve(0, init_d, mean_d, cov_d, xs[0], ys[0], v_des), cfg_a)
+    torch.cuda.synchronize()
+    log(f"Path A warm-up solve: {time.perf_counter() - t0:.2f} s")
+    calls_a = [(i, (init_d, mean_d, cov_d, xs[i], ys[i], v_des)) for i in (1, 2)]
+    got = timed_solves(torch, ops, solver_a, cfg_a, calls_a,
+                       "Path A (dynamic cut-in, beta 0.2, mmd_opt, fused selection)",
+                       (ops.topk_kernel_matrices, ops.eq_qp_solve,
+                        ops.topk_indices, ops.fused_rollout))
+    n_inner = cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
+    want = {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
+            "topk_indices": n_inner, "fused_rollout": cfg_a.cem.maxiter_cem,
+            "topk_onehot": 0}
+    want = {k: v * len(calls_a) for k, v in want.items()}
+    if got != want:
+        fail(f"Path A launches {got}, expected {want} ({len(calls_a)} solves)")
+    path_launches.append(got)
+    os.environ.pop("MPC_MMD_FUSED_CEM")
+    check_solve(solver_a.solve(0, init_d, mean_d, cov_d, xs[0], ys[0], v_des), cfg_a)
+    path_launches.append(timed_solves(
+        torch, ops, solver_a, cfg_a, calls_a,
+        "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
+        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout)))
+
+    # ---- 7. Path B: the same workload in cvar, mmd_random, saa -------------
+    for mode, warm, n in (("cvar", True, 2), ("mmd_random", False, 1),
+                          ("saa", False, 1)):
+        cfg_b = cfg_a.with_risk_mode(mode)
+        solver_b = Solver(cfg_b, device=dev)
+        if warm:
+            check_solve(solver_b.solve(0, init_d, mean_d, cov_d, xs[0], ys[0],
+                                       v_des), cfg_b)
+        path_launches.append(timed_solves(
+            torch, ops, solver_b, cfg_b, calls_a[:n],
+            f"Path B (dynamic cut-in, beta 0.2, {mode})", (ops.fused_rollout,)))
+
+    # ---- 8. Path A, one outer iteration, card against CPU -----------------
+    os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    cuda_vs_cpu(torch, cfg_a.replace(cem=dataclasses.replace(cfg_a.cem, maxiter_cem=1)),
+                (init_d, mean_d, cov_d, xs[0].cpu(), ys[0].cpu(), v_des), "Path A")
+    os.environ.pop("MPC_MMD_FUSED_CEM")
 
     # ---- records ----------------------------------------------------------
+    launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
+                for fn in ops.KERNELS}
+    launches["topk_onehot"] = k5_launches
     record = []
     for fn, src_file, tpu, (err, ms, plain_ms) in (
             (ops.topk_indices, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:116", k1),
             (ops.eq_qp_solve, "eq_qp.cu", "mpc_mmd_tpu/ops/qp_pallas.py:109", k2),
+            (ops.topk_kernel_matrices, "topk_kernel.cu",
+             "mpc_mmd_tpu/ops/topk_kernel_pallas.py:87", k3),
             (ops.fused_rollout, "rollout.cu",
-             "mpc_mmd_tpu/ops/rollout_pallas.py:101", k4)):
+             "mpc_mmd_tpu/ops/rollout_pallas.py:101", k4),
+            (ops.topk_onehot, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:146", k5)):
         record.append({"name": fn.__name__, "route": "cuda",
                        "source": f"mpc_mmd_tpu_torch/csrc/{src_file}",
                        "replaces": tpu, "launches": launches[fn.__name__],

@@ -15,9 +15,11 @@ import torch
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
-from .config import (ProblemConfig, fastrt_workload,  # noqa: E402
+from .config import (ProblemConfig, dynamic_workload,  # noqa: E402
+                     fast_workload, fastrt_workload, realtime_workload,
                      static_workload)
 from .solver import SolveResult, Solver  # noqa: E402
 
-__all__ = ["ProblemConfig", "Solver", "SolveResult", "fastrt_workload",
+__all__ = ["ProblemConfig", "Solver", "SolveResult", "dynamic_workload",
+           "fast_workload", "fastrt_workload", "realtime_workload",
            "static_workload"]

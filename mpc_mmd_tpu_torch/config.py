@@ -214,8 +214,10 @@ class ProblemConfig:
 
 
 # Budgets of the JAX package's presets (mpc_mmd_tpu/config.py, where their
-# quality certification is documented).
+# quality certification is documented): (samples, iterations) of the inner
+# beta-CEM, (candidates, iterations) of the outer CEM.
 REALTIME_INNER_BUDGET = (64, 12)
+FAST_OUTER_BUDGET = (64, 12)
 FASTRT_OUTER_BUDGET = (64, 10)
 
 
@@ -231,6 +233,38 @@ def static_workload(num_reduced: int = 10, num_obs: int = 6, noise: str = "gauss
                           acc_const=acc_const_noise, steer_const=steer_const_noise),
         risk=RiskConfig(mode=mode, num_reduced=num_reduced),
     )
+
+
+def realtime_workload(num_reduced: int = 10, num_obs: int = 6,
+                      noise: str = "gaussian", noise_level: float = 0.1,
+                      num_prime: int = 50, mode: str = "mmd_opt",
+                      acc_const_noise: float = 0.0,
+                      steer_const_noise: float = 0.0) -> ProblemConfig:
+    """static_workload with the inner beta-CEM at 64x12."""
+    cfg = static_workload(num_reduced=num_reduced, num_obs=num_obs,
+                          noise=noise, noise_level=noise_level,
+                          num_prime=num_prime, mode=mode,
+                          acc_const_noise=acc_const_noise,
+                          steer_const_noise=steer_const_noise)
+    S, it = REALTIME_INNER_BUDGET
+    return cfg.replace(beta_cem=dataclasses.replace(
+        cfg.beta_cem, num_samples_cem=S, maxiter=it))
+
+
+def fast_workload(num_reduced: int = 10, num_obs: int = 6,
+                  noise: str = "gaussian", noise_level: float = 0.1,
+                  num_prime: int = 50, mode: str = "mmd_opt",
+                  acc_const_noise: float = 0.0,
+                  steer_const_noise: float = 0.0) -> ProblemConfig:
+    """static_workload with the outer CEM at 64x12."""
+    cfg = static_workload(num_reduced=num_reduced, num_obs=num_obs,
+                          noise=noise, noise_level=noise_level,
+                          num_prime=num_prime, mode=mode,
+                          acc_const_noise=acc_const_noise,
+                          steer_const_noise=steer_const_noise)
+    B, it = FAST_OUTER_BUDGET
+    return cfg.replace(cem=dataclasses.replace(
+        cfg.cem, num_batch=B, maxiter_cem=it))
 
 
 def fastrt_workload(num_reduced: int = 10, num_obs: int = 6,
@@ -251,3 +285,19 @@ def fastrt_workload(num_reduced: int = 10, num_obs: int = 6,
         cem=dataclasses.replace(cfg.cem, num_batch=B, maxiter_cem=it_o),
         beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=S,
                                      maxiter=it_i))
+
+
+def dynamic_workload(num_reduced: int = 10, num_obs: int = 6, noise: str = "beta",
+                     noise_level: float = 0.3, num_prime: int = 50,
+                     mode: str = "mmd_opt", acc_const_noise: float = 0.0,
+                     steer_const_noise: float = 0.0) -> ProblemConfig:
+    """synthetic_dynamic_obs equivalent: lane band (-2.25, -1.25), K_steer=0.05,
+    beta noise by default, reference budget."""
+    return ProblemConfig(
+        horizon=HorizonConfig(num_prime=num_prime),
+        obstacles=ObstacleConfig(num_obs=num_obs),
+        lane=LaneConfig(y_lb=-2.25, y_ub=-1.25),
+        noise=NoiseConfig(kind=noise, level=noise_level, k_steer=0.05,
+                          acc_const=acc_const_noise, steer_const=steer_const_noise),
+        risk=RiskConfig(mode=mode, num_reduced=num_reduced),
+    )

@@ -1,8 +1,17 @@
-// K1: row-wise top-k indices, one warp per row.
+// K1: row-wise top-k indices, one warp per row; K5: the same rounds that
+// also write each round's one-hot row.
 //
-// Replaces the TPU kernel mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas
+// K1 replaces the TPU kernel mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas
 // (pl.pallas_call at topk_pallas.py:116), which runs k max-and-mask rounds per
-// row block in VMEM.
+// row block in VMEM.  K5 replaces topk_pallas.py::topk_onehot_pallas
+// (pl.pallas_call at topk_pallas.py:146), whose rounds are the same and which
+// writes the f32 indicator (rows, k, m) of every round's winner beside the
+// indices.  One kernel body serves both, behind the kOneHot template flag: with
+// it, every round ends with the warp writing the m floats of that round's
+// one-hot row, coalesced (lane l writes columns l, l+32, ...).  That write,
+// rows * k * m * 4 bytes (40 MB at 10^4 rows, k = 10, m = 100), bounds K5;
+// no path of the package calls it (reduced_set.py:535-539 of the JAX package
+// says why).
 //
 // Semantics (identical to the Pallas kernel and lax.top_k on NaN-free rows):
 // indices of the k largest values in descending order; equal values go to
@@ -35,8 +44,10 @@ __device__ __forceinline__ bool better(float v, int i, float v2, int i2) {
   return v > v2 || (v == v2 && i < i2);
 }
 
+template <bool kOneHot>
 __global__ void topk_kernel(const float* __restrict__ x, int* __restrict__ out,
-                            int rows, int width, int m, int k, int absolute) {
+                            float* __restrict__ onehot, int rows, int width,
+                            int m, int k, int absolute) {
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kWarpsPerBlock + threadIdx.x / kWarp;
   if (row >= rows) return;  // whole warp leaves together
@@ -76,17 +87,33 @@ __global__ void topk_kernel(const float* __restrict__ x, int* __restrict__ out,
     for (int j = 0; j < kPerLane; ++j)
       if (idx[j] == bi) v[j] = -INFINITY;
     if (lane == 0) out[static_cast<long long>(row) * k + round] = bi;
+    if (kOneHot) {
+      float* oh = onehot + (static_cast<long long>(row) * k + round) * m;
+      for (int c = lane; c < m; c += kWarp) oh[c] = c == bi ? 1.0f : 0.0f;
+    }
   }
+}
+
+template <bool kOneHot>
+int launch(const float* x, int* out, float* onehot, int rows, int width, int m,
+           int k, int absolute, void* stream) {
+  if (rows <= 0) return 0;
+  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  topk_kernel<kOneHot><<<blocks, kWarpsPerBlock * kWarp, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      x, out, onehot, rows, width, m, k, absolute);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int mmd_topk_indices(const float* x, int* out, int rows, int width,
                                 int m, int k, int absolute, void* stream) {
-  if (rows <= 0) return 0;
-  const int blocks = (rows + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  topk_kernel<<<blocks, kWarpsPerBlock * kWarp, 0,
-                static_cast<cudaStream_t>(stream)>>>(x, out, rows, width, m, k,
-                                                     absolute);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x, out, nullptr, rows, width, m, k, absolute, stream);
+}
+
+extern "C" int mmd_topk_onehot(const float* x, int* out, float* onehot,
+                               int rows, int width, int m, int k, int absolute,
+                               void* stream) {
+  return launch<true>(x, out, onehot, rows, width, m, k, absolute, stream);
 }

@@ -1,4 +1,4 @@
-"""Bicycle-kinematics rollouts under gaussian control noise.
+"""Bicycle-kinematics rollouts under gaussian or Beta control noise.
 
 Counterpart of ``mpc_mmd_tpu/dynamics.py``.  :func:`rollout` is the plain
 twin of the K4 rollout kernel (``ops/rollout.py``): a Python loop over time,
@@ -45,24 +45,40 @@ def rollout(acc: torch.Tensor, steer: torch.Tensor, state0: torch.Tensor,
     return torch.stack(xs, dim=1), torch.stack(ys, dim=1)
 
 
+def beta_parameters(acc: torch.Tensor, steer: torch.Tensor,
+                    noise: NoiseConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Beta noise parameters (2, ..., T) of the (acc, steer) channels.
+
+    Beta(a |u|, b |u|) per step, with |u| floored at 1e-8 as in the JAX
+    package (dynamics.py:99-109): every candidate's steer is exactly 0 at
+    t = 0, and Beta(0, 0) is undefined.
+    """
+    u = torch.abs(torch.stack((acc, steer))) + 1e-8
+    return noise.beta_a * u, noise.beta_b * u
+
+
 def perturb_controls(acc: torch.Tensor, steer: torch.Tensor,
-                     eps_acc: torch.Tensor, eps_steer: torch.Tensor,
+                     d_acc: torch.Tensor, d_steer: torch.Tensor,
                      eps_const: torch.Tensor, noise: NoiseConfig
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Noisy variants of control sequences from injected standard normals.
+    """Noisy variants of control sequences from injected draws.
 
-    acc, steer: (..., T); eps_*: (R, T) shared by every leading index.
-    Returns (..., R, T) each.  Multiplicative gaussian noise
-    ``level * |u| * eps`` plus the reference's const noise, whose single draw
-    perturbs both channels.
+    acc, steer: (..., T).  Returns (..., R, T) each.  Gaussian noise: d_acc
+    and d_steer are (R, T) standard normals shared by every leading index,
+    and the perturbation is ``level * |u| * d``.  Beta noise: they are the
+    (..., R, T) Beta draws of :func:`beta_parameters`' parameters, and the
+    perturbation is ``level * (2 d - 1)``, scaled by ``k_steer`` on the
+    steer channel.  Both add the reference's const noise, whose single
+    (R, T) draw perturbs both channels.
     """
-    if noise.kind != "gaussian":
-        raise NotImplementedError(
-            f"the PyTorch port has only gaussian noise, got {noise.kind!r}")
     acc = acc[..., None, :]
     steer = steer[..., None, :]
-    acc_pert = noise.level * torch.abs(acc) * eps_acc
-    steer_pert = noise.level * torch.abs(steer) * eps_steer
+    if noise.kind == "gaussian":
+        acc_pert = noise.level * torch.abs(acc) * d_acc
+        steer_pert = noise.level * torch.abs(steer) * d_steer
+    else:
+        acc_pert = noise.level * (2.0 * d_acc - 1.0)
+        steer_pert = noise.k_steer * noise.level * (2.0 * d_steer - 1.0)
     acc_noisy = acc + acc_pert + noise.acc_const * eps_const
     steer_noisy = steer + steer_pert + noise.steer_const * eps_const
     return acc_noisy, steer_noisy

@@ -1,13 +1,15 @@
 """The single injection point for every random draw of the solve.
 
 A torch generator cannot reproduce JAX's threefry bits, so the solve never
-draws itself: it asks a noise source for standard-normal tensors, and the
-shapes and sharing below are those of the JAX package's key chain.  Every
-multivariate-normal draw of the path is ``mean + z @ chol(cov).T`` (equal to
-``jax.random.multivariate_normal`` of the same key for an identity
-covariance), so standard-normal ``z`` is all a source supplies.
+draws itself: it asks a noise source for standard-normal and Beta tensors,
+and the shapes and sharing below are those of the JAX package's key chain.
+Every multivariate-normal draw of the path is ``mean + z @ chol(cov).T``
+(equal to ``jax.random.multivariate_normal`` of the same key for an
+identity covariance), so standard-normal ``z`` is all a source supplies
+there.
 
-Draws and where the JAX package makes them:
+Draws, in the order a solve asks for them, and where the JAX package makes
+them:
 
 * ``initial_z`` (nb, 8): the initial parameter batch.  The JAX package
   reuses ``split(PRNGKey(0))[0]`` for every solve (sampling.py:34-39), so
@@ -15,16 +17,26 @@ Draws and where the JAX package makes them:
 * ``inner_cem``: ``samples0`` (S, M+1), ``u`` (maxiter, S-n_el, n_el) and
   ``z`` (maxiter, S-n_el, M+1) of the inner beta-CEM, keyed from
   ``PRNGKey(0)`` (reduced_set.py:432-466) and so also drawn once.
-* ``rollout_eps`` per outer iteration: ``eps_acc``, ``eps_steer`` and
-  ``eps_const``, each (R, T), shared by all candidates (the JAX key is
-  closed over in the vmap, solver.py:115-116, dynamics.py:91-120).
-* ``cem_z`` per outer iteration: (nb - ellite_num, 8) for the resample of
-  the outer CEM update (solver.py:299).
+* per outer iteration ``it``, with ``k_roll = split(PRNGKey(3*idx_mpc +
+  5*it + 7))[0]`` (solver.py:186,202):
+
+  - ``rollout_eps``: ``eps_acc`` from ``k_roll``, ``eps_steer`` from
+    ``split(k_roll)[0]`` and ``eps_const`` from ``split(split(k_roll)[0])[0]``,
+    each (R, T) and shared by all candidates (the JAX key is closed over in
+    the vmap, solver.py:115-116, dynamics.py:91-120).  Under Beta noise
+    only ``eps_const`` is used.
+  - ``rollout_beta``, Beta noise only: the acc draw from ``k_roll``, the
+    steer draw from ``split(k_roll)[0]`` (dynamics.py:110-114), each
+    (C, R, T).  Their parameters depend on every candidate's controls, so
+    they are drawn during the solve, after the controls; the JAX package
+    draws every candidate's from the same key.
+  - ``cem_z`` (nb - ellite_num, 8) for the resample of the outer CEM
+    update (solver.py:299).
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,8 +48,32 @@ class InnerDraws(NamedTuple):
     z: torch.Tensor             # (maxiter, S - n_el, M + 1)
 
 
+def sample_beta(alpha: torch.Tensor, beta: torch.Tensor,
+                generator: torch.Generator) -> torch.Tensor:
+    """Beta(alpha, beta) draws of the broadcast shape, in log space.
+
+    ``log G(a) = log G(a + 1) + log(U) / a`` for a gamma variate G and a
+    uniform U in (0, 1], and ``Beta = sigmoid(log G_a - log G_b)``: the way
+    ``jax.random.beta`` samples.  The plain forms are wrong at the
+    parameters the solve meets: every candidate's steer is exactly 0 at
+    t = 0, so a = 2e-8, where gamma draws underflow float32 and
+    ``torch.distributions.Beta`` and ``G_a / (G_a + G_b)`` return a mean of
+    1/2 instead of a / (a + b).  In log space the draw becomes the
+    Bernoulli(a / (a + b)) on {0, 1} that Beta tends to as a, b -> 0.
+    """
+    alpha, beta = torch.broadcast_tensors(alpha, beta)
+
+    def log_gamma(a):
+        g = torch._standard_gamma(a + 1.0, generator=generator)
+        u = 1.0 - torch.rand(a.shape, generator=generator, device=a.device,
+                             dtype=a.dtype)
+        return torch.log(g) + torch.log(u) / a
+
+    return torch.sigmoid(log_gamma(alpha) - log_gamma(beta))
+
+
 class TorchNoise:
-    """Production noise: ``torch.randn`` on ``device`` from ``generator``.
+    """Production noise: draws on ``device`` from ``generator``.
 
     Each family of draws re-seeds the generator from a fixed tuple, so a
     solve is a function of its ``idx_mpc`` (as in the JAX package, whose
@@ -52,10 +88,14 @@ class TorchNoise:
                              f"noise on {self.device}")
         self.generator = generator
 
-    def _randn(self, seed: Tuple[int, ...], *shapes):
+    def _seed(self, seed: Tuple[int, ...]) -> torch.Generator:
         self.generator.manual_seed(hash(seed) & (2 ** 63 - 1))
-        return tuple(torch.randn(s, generator=self.generator,
-                                 device=self.device) for s in shapes)
+        return self.generator
+
+    def _randn(self, seed: Tuple[int, ...], *shapes):
+        g = self._seed(seed)
+        return tuple(torch.randn(s, generator=g, device=self.device)
+                     for s in shapes)
 
     def initial_z(self, nb: int, n_params: int) -> torch.Tensor:
         return self._randn((0,), (nb, n_params))[0]
@@ -69,8 +109,20 @@ class TorchNoise:
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self._randn((2, idx_mpc, it), (R, T), (R, T), (R, T))
 
+    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+        """Beta draws (2, C, R, T) for parameters alpha, beta (2, C, T) of
+        the (acc, steer) channels; R draws per candidate and step."""
+        g = self._seed((4, idx_mpc, it))
+        shape = (alpha.shape[0], alpha.shape[1], R, alpha.shape[2])
+        return sample_beta(alpha[:, :, None].expand(shape),
+                           beta[:, :, None].expand(shape), g)
+
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self._randn((3, idx_mpc, it), (n, n_params))[0]
+
+
+BetaFn = Callable[[int, int, int, np.ndarray, np.ndarray], np.ndarray]
 
 
 class FixedNoise:
@@ -80,13 +132,19 @@ class FixedNoise:
     :class:`InnerDraws`), and per outer iteration ``eps_acc``,
     ``eps_steer``, ``eps_const`` (maxiter_cem, R, T) and ``cem_z``
     (maxiter_cem, nb - ellite_num, 8).  ``idx_mpc`` is ignored.
+
+    Beta draws come from ``arrays["beta"]`` (maxiter_cem, 2, C, R, T) if
+    given, else from ``beta_fn(idx_mpc, it, R, alpha, beta)``, which gets
+    the parameters (2, C, T) as numpy arrays and returns (2, C, R, T).
     """
 
-    def __init__(self, arrays: Dict[str, np.ndarray], device):
+    def __init__(self, arrays: Dict[str, np.ndarray], device,
+                 beta_fn: Optional[BetaFn] = None):
         self.device = torch.device(device)
         self.arrays = {k: torch.as_tensor(np.array(v, np.float32),
                                           device=self.device)
                        for k, v in arrays.items()}
+        self.beta_fn = beta_fn
 
     def _get(self, name: str, shape) -> torch.Tensor:
         a = self.arrays[name]
@@ -108,5 +166,57 @@ class FixedNoise:
         return tuple(self.arrays[n][it] for n in
                      ("eps_acc", "eps_steer", "eps_const"))
 
+    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+        shape = (alpha.shape[0], alpha.shape[1], R, alpha.shape[2])
+        if "beta" in self.arrays:
+            draws = self.arrays["beta"][it]
+        elif self.beta_fn is not None:
+            draws = torch.as_tensor(np.array(self.beta_fn(
+                idx_mpc, it, R, alpha.cpu().numpy(), beta.cpu().numpy()),
+                np.float32), device=self.device)
+        else:
+            raise ValueError("Beta noise needs arrays['beta'] or a beta_fn")
+        if tuple(draws.shape) != shape:
+            raise ValueError(f"beta: have {tuple(draws.shape)}, need {shape}")
+        return draws
+
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self.arrays["cem_z"][it]
+
+
+def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray], BetaFn]:
+    """The draws one solve of ``cfg`` asks ``source`` for, as
+    :class:`FixedNoise` arrays, and a ``beta_fn`` that draws the Beta noise
+    from ``source`` and records it in those arrays as ``"beta"``.
+
+    A first solve on ``FixedNoise(arrays, device, beta_fn)`` records; a
+    solve on ``FixedNoise(arrays, other_device)`` made after it replays
+    every draw, Beta included, so two devices can be held to one another.
+    """
+    c, bc = cfg.cem, cfg.beta_cem
+    R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
+    inner = source.inner_cem(bc.num_samples_cem, cfg.risk.num_mother,
+                             bc.num_ellite, bc.maxiter)
+    its = range(c.maxiter_cem)
+    eps = [source.rollout_eps(idx_mpc, it, R, T) for it in its]
+    arrays = {"initial_z": source.initial_z(c.num_batch, c.num_params),
+              "samples0": inner.samples0, "u": inner.u, "z": inner.z,
+              "eps_acc": torch.stack([e[0] for e in eps]),
+              "eps_steer": torch.stack([e[1] for e in eps]),
+              "eps_const": torch.stack([e[2] for e in eps]),
+              "cem_z": torch.stack([source.cem_z(idx_mpc, it,
+                                                 c.num_batch - c.ellite_num,
+                                                 c.num_params) for it in its])}
+    arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
+    drawn = []
+
+    def beta_fn(idx, it, R, alpha, beta):
+        d = source.rollout_beta(idx, it, R,
+                                torch.as_tensor(alpha, device=source.device),
+                                torch.as_tensor(beta, device=source.device))
+        drawn.append(d.cpu().numpy())
+        arrays["beta"] = np.stack(drawn)
+        return drawn[-1]
+
+    return arrays, beta_fn

@@ -34,9 +34,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # name -> argtypes of the C entry points (pointers and the stream as void*)
 _SIGNATURES = {
     "mmd_topk_indices": [_P, _P, _I, _I, _I, _I, _I, _P],
+    "mmd_topk_onehot": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "mmd_topk_kernel_matrices": [_P, _L, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mmd_eq_qp_solve": [_P, _P, _P, _P, _I, _I, _P],
     "mmd_fused_rollout": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _P],
 }

@@ -1,15 +1,17 @@
-"""K1: row-wise top-k indices (CUDA source ``csrc/topk.cu``).
+"""K1 and K5: row-wise top-k indices, and with K5 their one-hot rows
+(CUDA source ``csrc/topk.cu``, one kernel body for both).
 
-Replaces ``mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas``.  On the
+K1 replaces ``mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas``.  On the
 main path it picks the top-10 |beta| lanes of every inner-CEM sample
-((C, S', M+1) with ``slice_to=M``) and the elite samples (top-7 of -cost
-over (C, S)).  What bounds it on the card and what the design does about
+((C, S', M+1) with ``slice_to=M``) and the elite samples (top-n_el of -cost
+over (C, S)).  K5 replaces ``topk_onehot_pallas``, which no path of either
+package calls.  What bounds them on the card and what the design does about
 it: see the note at the top of the CUDA source.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -37,6 +39,23 @@ def topk_indices_plain(x: torch.Tensor, k: int, absolute: bool = False,
     return torch.cat(idxs, dim=-1).to(torch.int32)
 
 
+def _check(x: torch.Tensor, k: int, slice_to: Optional[int]) -> int:
+    """The ranked width m; raises on arguments neither version takes."""
+    width = x.shape[-1]
+    m = width if slice_to is None else slice_to
+    if not 0 < m <= width:
+        raise ValueError(f"slice_to={slice_to} outside (0, {width}]")
+    if k < 1:
+        raise ValueError(f"k={k} must be positive")
+    return m
+
+
+def _require_kernel(name: str, x: torch.Tensor, m: int) -> None:
+    _build.require_cuda_f32(name, x)
+    if m > MAX_WIDTH:
+        raise ValueError(f"{name}: ranks at most {MAX_WIDTH} lanes, got {m}")
+
+
 def topk_indices(x: torch.Tensor, k: int, absolute: bool = False,
                  slice_to: Optional[int] = None) -> torch.Tensor:
     """Top-k indices (descending) along the last axis, int32 (..., k).
@@ -46,25 +65,57 @@ def topk_indices(x: torch.Tensor, k: int, absolute: bool = False,
     A CPU tensor takes :func:`topk_indices_plain`; a CUDA tensor launches
     the kernel (float32, contiguous, last axis at most 128 wide).
     """
-    width = x.shape[-1]
-    m = width if slice_to is None else slice_to
-    if not 0 < m <= width:
-        raise ValueError(f"slice_to={slice_to} outside (0, {width}]")
-    if k < 1:
-        raise ValueError(f"k={k} must be positive")
+    m = _check(x, k, slice_to)
     if x.device.type == "cpu":
         return topk_indices_plain(x, k, absolute, slice_to)
-    _build.require_cuda_f32("topk_indices", x)
-    if m > MAX_WIDTH:
-        raise ValueError(f"topk_indices: ranks at most {MAX_WIDTH} lanes, got {m}")
-    rows = x.numel() // width
+    _require_kernel("topk_indices", x, m)
+    width = x.shape[-1]
     out = torch.empty(x.shape[:-1] + (k,), dtype=torch.int32, device=x.device)
     err = _build.library().mmd_topk_indices(
-        x.data_ptr(), out.data_ptr(), rows, width, m, k, int(absolute),
-        _build.stream())
+        x.data_ptr(), out.data_ptr(), x.numel() // width, width, m, k,
+        int(absolute), _build.stream())
     _build.check(err, "topk_indices")
     topk_indices.launches += 1
     return out
 
 
 topk_indices.launches = 0
+
+
+def topk_onehot_plain(x: torch.Tensor, k: int, absolute: bool = False,
+                      slice_to: Optional[int] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of K5: K1's indices and their float32 indicator rows."""
+    m = x.shape[-1] if slice_to is None else slice_to
+    idx = topk_indices_plain(x, k, absolute, slice_to)
+    iota = torch.arange(m, device=x.device)
+    return idx, (idx[..., None] == iota).to(torch.float32)
+
+
+def topk_onehot(x: torch.Tensor, k: int, absolute: bool = False,
+                slice_to: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k indices and their one-hot rows along the last axis.
+
+    Returns (idx (..., k) int32, onehot (..., k, m) float32), with m the
+    ranked width and ``onehot[..., j, :]`` the indicator of
+    ``idx[..., j]``; ranking as :func:`topk_indices`.  A CPU tensor takes
+    :func:`topk_onehot_plain`; a CUDA tensor launches the kernel.
+    """
+    m = _check(x, k, slice_to)
+    if x.device.type == "cpu":
+        return topk_onehot_plain(x, k, absolute, slice_to)
+    _require_kernel("topk_onehot", x, m)
+    width = x.shape[-1]
+    idx = torch.empty(x.shape[:-1] + (k,), dtype=torch.int32, device=x.device)
+    onehot = torch.empty(x.shape[:-1] + (k, m), dtype=torch.float32,
+                         device=x.device)
+    err = _build.library().mmd_topk_onehot(
+        x.data_ptr(), idx.data_ptr(), onehot.data_ptr(), x.numel() // width,
+        width, m, k, int(absolute), _build.stream())
+    _build.check(err, "topk_onehot")
+    topk_onehot.launches += 1
+    return idx, onehot
+
+
+topk_onehot.launches = 0

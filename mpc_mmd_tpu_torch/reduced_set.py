@@ -1,35 +1,47 @@
 """Reduced-set selection: the batched inner beta-CEM of every candidate.
 
 Counterpart of ``select_reduced_set_batched`` in
-``mpc_mmd_tpu/reduced_set.py`` with its production configuration: the
-"xla" selection, elite-carry, and the candidate-shared iteration 0.
+``mpc_mmd_tpu/reduced_set.py`` with its "xla" and "fused" selections.
 
 Per candidate, the (M, M) L1 distance matrix of the mother rollouts'
-coefficients is computed once; each inner iteration then picks the top-k
-|beta| lanes of every sample (K1), gathers those rows of D, takes
-exp(-rows/sigma), and solves the k x k weight QP (K2).  The JAX package
-writes these gathers as one-hot einsums to suit the TPU; here they are
-direct gathers, which are exact, so the elite rows and every carried value
-pass through bit-unchanged (TF32 is off in any case, see ``__init__``).
+coefficients is computed once; each inner iteration then runs the
+selection stage on every sample and solves the k x k weight QP (K2).  The
+"xla" selection picks the top-k |beta| lanes (K1), gathers those rows of D
+and takes exp(-rows/sigma); the "fused" one does all of that in one kernel
+(K3).  The JAX package writes the gathers as one-hot einsums to suit the
+TPU; here they are direct gathers, which are exact, so the elite rows and
+every carried value pass through bit-unchanged (TF32 is off in any case,
+see ``__init__``).
+
+The selection is resolved at call time as in the JAX package
+(reduced_set.py:394-406): ``MPC_MMD_SELECTION``, else "fused" when
+``MPC_MMD_FUSED_CEM=1``, else "xla".  The JAX package's "xt" and "g"
+selections are not ported (ROADMAP.md, "Not to port").
 
 The inner CEM update is affine in the elites: the fresh rows are
 ``A_t @ elites + sqrt(jitter) * z_t`` with A_t built from the draws alone,
 and the next batch is ``cat(elites, fresh)``, so rows 0..n_el-1 are the
 elites by construction.  Their selection and QP results are carried
-instead of recomputed.
+instead of recomputed (elite-carry, with a candidate-shared iteration 0).
+The "fused" selection, and "xla" with ``MPC_MMD_ELITE_CARRY=0``, run the
+full-recompute loop instead: every row in every iteration, from the
+broadcast (C, S, M+1) batch at iteration 0 (reduced_set.py:721-740).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+import os
+from typing import NamedTuple, Optional
 
 import torch
 
 from .config import ProblemConfig
 from .kernels import kernel_of, pairwise_l1
 from .noise import InnerDraws
-from .ops import eq_qp_solve, topk_indices
+from .ops import eq_qp_solve, topk_indices, topk_kernel_matrices
+
+SELECTIONS = ("xla", "fused")
 
 
 class ReducedSet(NamedTuple):
@@ -66,17 +78,39 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return torch.gather(t, 1, view.expand(idx.shape + t.shape[2:]))
 
 
+def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> str:
+    """The selection a call runs: the argument, else ``MPC_MMD_SELECTION``,
+    else "fused" if ``MPC_MMD_FUSED_CEM=1`` (never under the exact
+    strategy), else "xla"; as the JAX package resolves it."""
+    if selection is None:
+        fused = (cfg.solve_strategy != "exact"
+                 and os.environ.get("MPC_MMD_FUSED_CEM") == "1")
+        selection = os.environ.get("MPC_MMD_SELECTION") or (
+            "fused" if fused else "xla")
+    if selection in ("xt", "g"):
+        raise NotImplementedError(
+            f"selection {selection!r} is not ported: it exists only to suit "
+            "the TPU (ROADMAP.md, 'Not to port')")
+    if selection not in SELECTIONS:
+        raise ValueError(f"unknown selection {selection!r} "
+                         "(expected 'xla', 'xt', 'fused' or 'g')")
+    return selection
+
+
 def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                                cy: torch.Tensor, x_roll: torch.Tensor,
-                               y_roll: torch.Tensor,
-                               draws: InnerDraws) -> ReducedSet:
+                               y_roll: torch.Tensor, draws: InnerDraws,
+                               selection: Optional[str] = None) -> ReducedSet:
     """Inner CEM over all candidates.
 
     cx, cy: (C, M, nvar) coefficients of the mother rollouts (the kernel's
     feature space); x_roll, y_roll: (C, M, T).  ``draws`` are the standard
     normals of :class:`mpc_mmd_tpu_torch.noise.InnerDraws`, shared by every
-    candidate.
+    candidate.  ``selection``: see :func:`resolve_selection`.
     """
+    selection = resolve_selection(cfg, selection)
+    elite_carry = (selection != "fused"
+                   and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
     b = cfg.beta_cem
     M = cfg.risk.num_mother
     k = cfg.risk.num_reduced
@@ -113,14 +147,19 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
 
     def selection_qp(samples_sub):
         """Selection and weight QP of the rows (C, S', M+1)."""
-        sigma = samples_sub[..., M]                          # (C, S')
-        idx = topk_indices(samples_sub.contiguous(), k, absolute=True,
-                           slice_to=M).long()                # (C, S', k)
-        rows = D[c_ix, idx]                                  # (C, S', k, M)
-        K_mixed = kernel_of(kind, sigma[..., None, None], rows)
-        K_red = torch.gather(K_mixed, 3, idx[:, :, None, :].expand(
-            idx.shape[:2] + (k, k)))
-        beta, cost = _beta_qp(K_red, K_mixed.sum(dim=-1), M, cfg)
+        if selection == "fused":
+            row_sum, K_red, idx = topk_kernel_matrices(samples_sub, D, k)
+            idx = idx.long()
+        else:
+            sigma = samples_sub[..., M]                      # (C, S')
+            idx = topk_indices(samples_sub.contiguous(), k, absolute=True,
+                               slice_to=M).long()            # (C, S', k)
+            rows = D[c_ix, idx]                              # (C, S', k, M)
+            K_mixed = kernel_of(kind, sigma[..., None, None], rows)
+            K_red = torch.gather(K_mixed, 3, idx[:, :, None, :].expand(
+                idx.shape[:2] + (k, k)))
+            row_sum = K_mixed.sum(dim=-1)
+        beta, cost = _beta_qp(K_red, row_sum, M, cfg)
         return (idx,) + finish(beta, cost)
 
     def update(samples, cost, t):
@@ -131,29 +170,37 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         return (torch.cat((elites, fresh), dim=1), idx_el,
                 torch.gather(cost, 1, idx_el))
 
-    # iteration 0: every candidate starts from the same sample rows, so the
-    # top-k is computed once and gathered against each candidate's D
-    sigma0 = samples0_row[:, M]                              # (S,)
-    idx0 = topk_indices(samples0_row[None].contiguous(), k, absolute=True,
-                        slice_to=M)[0].long()                # (S, k)
-    rows0 = D[:, idx0]                                       # (C, S, k, M)
-    K_mixed0 = kernel_of(kind, sigma0[None, :, None, None], rows0)
-    K_red0 = torch.gather(K_mixed0, 3, idx0[None, :, None, :].expand(C, S, k, k))
-    beta_all, cost = finish(*_beta_qp(K_red0, K_mixed0.sum(dim=-1), M, cfg))
-    idx_all = idx0[None].expand(C, S, k)
     samples = samples0_row[None].expand(C, S, M + 1)
-
     mins = []
-    for t in range(b.maxiter):
-        if t > 0:
-            idx_f, beta_f, cost_f = selection_qp(samples[:, n_el:])
-            idx_all = torch.cat((el_idx, idx_f), dim=1)
-            beta_all = torch.cat((el_beta, beta_f), dim=1)
-            cost = torch.cat((el_cost, cost_f), dim=1)
-        samples, idx_el, el_cost = update(samples, cost, t)
-        el_idx = _take_rows(idx_all, idx_el)
-        el_beta = _take_rows(beta_all, idx_el)
-        mins.append(cost.min(dim=1).values)
+    if elite_carry:
+        # iteration 0: every candidate starts from the same sample rows, so
+        # the top-k is computed once and gathered against each candidate's D
+        sigma0 = samples0_row[:, M]                          # (S,)
+        idx0 = topk_indices(samples0_row[None].contiguous(), k, absolute=True,
+                            slice_to=M)[0].long()            # (S, k)
+        rows0 = D[:, idx0]                                   # (C, S, k, M)
+        K_mixed0 = kernel_of(kind, sigma0[None, :, None, None], rows0)
+        K_red0 = torch.gather(K_mixed0, 3,
+                              idx0[None, :, None, :].expand(C, S, k, k))
+        beta_all, cost = finish(*_beta_qp(K_red0, K_mixed0.sum(dim=-1), M, cfg))
+        idx_all = idx0[None].expand(C, S, k)
+        for t in range(b.maxiter):
+            if t > 0:
+                idx_f, beta_f, cost_f = selection_qp(samples[:, n_el:])
+                idx_all = torch.cat((el_idx, idx_f), dim=1)
+                beta_all = torch.cat((el_beta, beta_f), dim=1)
+                cost = torch.cat((el_cost, cost_f), dim=1)
+            samples, idx_el, el_cost = update(samples, cost, t)
+            el_idx = _take_rows(idx_all, idx_el)
+            el_beta = _take_rows(beta_all, idx_el)
+            mins.append(cost.min(dim=1).values)
+    else:
+        # full recompute; iteration 0 runs on the broadcast batch (K3 takes
+        # its candidate stride of 0, the "xla" top-k a copy)
+        for t in range(b.maxiter):
+            idx_all, beta_all, cost = selection_qp(samples)
+            samples = update(samples, cost, t)[0]
+            mins.append(cost.min(dim=1).values)
 
     # winner of the last iteration; sigma from the post-update batch (the
     # reference's quirk)

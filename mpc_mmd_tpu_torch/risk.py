@@ -1,6 +1,7 @@
-"""MMD risk over reduced rollout sets.
+"""Risk costs over rollout ensembles: MMD, CVaR and SAA.
 
-Counterpart of ``f_bar_obs``, ``lane_bars``, ``mmd_obs`` and ``mmd_lane`` in
+Counterpart of ``f_bar_obs``, ``lane_bars``, ``cvar_reduce``,
+``saa_reduce`` and the ``{mmd,cvar,saa}_{obs,lane}`` risks in
 ``mpc_mmd_tpu/risk.py``.  The JAX functions take one candidate and are
 vmapped; these take any leading batch of candidates.
 """
@@ -33,6 +34,26 @@ def lane_bars(cfg: ProblemConfig, y_roll: torch.Tensor):
     return lb.amax(dim=-1), ub.amax(dim=-1)
 
 
+def cvar_reduce(samples: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Mean of the samples at or above their alpha-quantile, (..., R) -> (...).
+
+    The quantile interpolates linearly, as ``jnp.quantile`` does; the mask
+    is ``>=``, so an all-zero row gives 0.
+    """
+    var_alpha = torch.quantile(samples, alpha, dim=-1, keepdim=True,
+                               interpolation="linear")
+    mask = samples >= var_alpha
+    n = torch.sum(mask, dim=-1)
+    s = torch.sum(torch.where(mask, samples, torch.zeros_like(samples)), dim=-1)
+    return torch.where(n > 0, s / torch.clamp(n, min=1), torch.zeros_like(s))
+
+
+def saa_reduce(samples: torch.Tensor, num_reduced: int) -> torch.Tensor:
+    """Fraction of violating samples, normalised by num_reduced as in the
+    reference (also for the lane's two-sided sum)."""
+    return torch.sum((samples > 0.0).to(samples.dtype), dim=-1) / num_reduced
+
+
 def mmd_obs(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
             x_roll: torch.Tensor, y_roll: torch.Tensor,
             x_obs: torch.Tensor, y_obs: torch.Tensor) -> torch.Tensor:
@@ -46,3 +67,27 @@ def mmd_lane(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
     lb, ub = lane_bars(cfg, y_roll)
     return (mmd_vs_zero(beta, lb, sigma, cfg.risk.ker_wt, kind=cfg.risk.kernel)
             + mmd_vs_zero(beta, ub, sigma, cfg.risk.ker_wt, kind=cfg.risk.kernel))
+
+
+def cvar_obs(cfg: ProblemConfig, x_roll: torch.Tensor, y_roll: torch.Tensor,
+             x_obs: torch.Tensor, y_obs: torch.Tensor) -> torch.Tensor:
+    return cvar_reduce(f_bar_obs(cfg, x_roll, y_roll, x_obs, y_obs),
+                       cfg.risk.alpha_quant)
+
+
+def cvar_lane(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
+    lb, ub = lane_bars(cfg, y_roll)
+    return (cvar_reduce(lb, cfg.risk.alpha_quant)
+            + cvar_reduce(ub, cfg.risk.alpha_quant))
+
+
+def saa_obs(cfg: ProblemConfig, x_roll: torch.Tensor, y_roll: torch.Tensor,
+            x_obs: torch.Tensor, y_obs: torch.Tensor) -> torch.Tensor:
+    return saa_reduce(f_bar_obs(cfg, x_roll, y_roll, x_obs, y_obs),
+                      cfg.risk.num_reduced)
+
+
+def saa_lane(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
+    lb, ub = lane_bars(cfg, y_roll)
+    return (saa_reduce(lb, cfg.risk.num_reduced)
+            + saa_reduce(ub, cfg.risk.num_reduced))

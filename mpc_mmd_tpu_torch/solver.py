@@ -1,13 +1,19 @@
-"""Outer CEM solver: the risk-aware MPC solve in ``mmd_opt`` mode.
+"""Outer CEM solver: the risk-aware MPC solve in the ``mmd_opt``,
+``mmd_random``, ``cvar`` and ``saa`` modes.
 
-Counterpart of ``mpc_mmd_tpu/solver.py`` for the main path.  One outer
-iteration:
+Counterpart of ``mpc_mmd_tpu/solver.py``.  One outer iteration:
 
   guess QP -> AM projection -> stable sort by projection residual ->
-  controls -> 100 mother rollouts per candidate (K4) -> Bernstein refit ->
-  inner beta-CEM reduced-set selection (K1, K2) -> MMD obstacle risk ->
-  keep the ellite_num_cost lowest risks -> lane risk -> scalar cost ->
-  elites -> CEM update.
+  controls -> noisy rollouts (K4) -> obstacle risk -> keep the
+  ellite_num_cost lowest risks -> lane risk -> scalar cost -> elites ->
+  CEM update.
+
+``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them, and
+picks a weighted reduced set of R with the inner beta-CEM (K1, K2, or K3
+and K2 under the fused selection) before the MMD risks.  The other modes
+roll R rollouts per candidate: ``mmd_random`` scores them by MMD with
+uniform weights 1/R and bandwidth 0.01 and no lane risk, ``cvar`` and
+``saa`` by CVaR and by the violation fraction.
 
 The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
 that leaves every value on the device (no host synchronisation inside a
@@ -16,6 +22,7 @@ solve).  Every sort is stable, as ``jnp.argsort`` is.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -23,7 +30,7 @@ import torch
 
 from . import risk as risk_mod
 from .config import ProblemConfig
-from .dynamics import controls_from_trajectory, perturb_controls
+from .dynamics import beta_parameters, controls_from_trajectory, perturb_controls
 from .noise import TorchNoise
 from .ops import fused_rollout
 from .projection import project
@@ -49,23 +56,38 @@ class SolveResult(NamedTuple):
     cov_param: torch.Tensor   # (8, 8)
 
 
-def batched_rollouts(cfg: ProblemConfig, eps, acc_T: torch.Tensor,
-                     steer_T: torch.Tensor, state0: torch.Tensor):
-    """Mother rollouts of every candidate as one flat-lane rollout call.
+def noisy_controls(cfg: ProblemConfig, noise, idx_mpc: int, it: int,
+                   acc_T: torch.Tensor, steer_T: torch.Tensor):
+    """R noisy variants (C, R, T) of every candidate's controls (C, T),
+    from the iteration's draws (see :mod:`mpc_mmd_tpu_torch.noise`)."""
+    R, T = cfg.risk.num_reduced, acc_T.shape[1]
+    d_acc, d_steer, eps_const = noise.rollout_eps(idx_mpc, it, R, T)
+    if cfg.noise.kind == "beta":
+        d_acc, d_steer = noise.rollout_beta(
+            idx_mpc, it, R, *beta_parameters(acc_T, steer_T, cfg.noise))
+    return perturb_controls(acc_T, steer_T, d_acc, d_steer, eps_const,
+                            cfg.noise)
 
-    acc_T, steer_T: (C, T); eps: the (R, T) draws (acc, steer, const),
-    shared by all candidates; state0 (5,).  Mother row m pairs acc draw
-    m // R with steer draw m % R.  Returns x, y of shape (C, R^2, T).
+
+def batched_rollouts(cfg: ProblemConfig, a_n: torch.Tensor, s_n: torch.Tensor,
+                     state0: torch.Tensor, mother: bool):
+    """Rollouts of every candidate as one flat-lane rollout call (K4).
+
+    a_n, s_n: the (C, R, T) noisy controls; state0 (5,).  With ``mother``,
+    row m pairs acc draw m // R with steer draw m % R, giving R^2 rollouts
+    per candidate; else R.  Returns x, y of shape (C, n, T).
     """
-    C, T = acc_T.shape
-    R = cfg.risk.num_reduced
-    a_n, s_n = perturb_controls(acc_T, steer_T, *eps, cfg.noise)   # (C, R, T)
-    a_l = torch.repeat_interleave(a_n, R, dim=1)
-    s_l = s_n.repeat(1, R, 1)
-    n = a_l.shape[1]
-    x, y = fused_rollout(a_l.reshape(C * n, T), s_l.reshape(C * n, T), state0,
+    C, R, T = a_n.shape
+    if mother:
+        a_n = torch.repeat_interleave(a_n, R, dim=1)
+        s_n = s_n.repeat(1, R, 1)
+    n = a_n.shape[1]
+    x, y = fused_rollout(a_n.reshape(C * n, T), s_n.reshape(C * n, T), state0,
                          cfg.horizon.dt, cfg.vehicle.wheel_base)
     return x.reshape(C, n, T), y.reshape(C, n, T)
+
+
+MODES = ("mmd_opt", "mmd_random", "cvar", "saa")
 
 
 class Solver:
@@ -74,19 +96,23 @@ class Solver:
 
     Usage::
 
-        solver = Solver(fastrt_workload(), device="cuda")
+        solver = Solver(dynamic_workload(mode="cvar"), device="cuda")
         result = solver.solve(seed, init_state, mean, cov, x_obs, y_obs, v_des)
 
     ``noise`` defaults to :class:`TorchNoise` on ``device``.  On a CUDA
-    device the rollouts, top-k selections and weight QPs run the hand-written
-    kernels (``ops``); on the CPU their plain twins.
+    device the rollouts, top-k selections, fused selections and weight QPs
+    run the hand-written kernels (``ops``); on the CPU their plain twins.
+    ``scenario_chunk`` (default ``MPC_MMD_SCENARIO_CHUNK``, else 1) is the
+    JAX package's count of scenarios ``solve_batch`` runs at once; the port
+    runs them one at a time and refuses a chunk above 1.
     """
 
     def __init__(self, cfg: ProblemConfig, device="cpu", noise=None,
-                 ws: Optional[Workspace] = None):
-        if cfg.risk.mode != "mmd_opt":
+                 ws: Optional[Workspace] = None,
+                 scenario_chunk: Optional[int] = None):
+        if cfg.risk.mode not in MODES:
             raise NotImplementedError(
-                f"the PyTorch port has only mode 'mmd_opt', got {cfg.risk.mode!r}")
+                f"the PyTorch port has the modes {MODES}, got {cfg.risk.mode!r}")
         if cfg.solve_strategy != "prefactored":
             raise NotImplementedError("the PyTorch port has only the "
                                       "'prefactored' solve strategy")
@@ -95,6 +121,12 @@ class Solver:
                                       "rollout_backend='auto'")
         if cfg.cem.maxiter_cem < 1 or cfg.beta_cem.maxiter < 1:
             raise ValueError("maxiter_cem and beta_cem.maxiter must be >= 1")
+        if scenario_chunk is None:
+            scenario_chunk = int(os.environ.get("MPC_MMD_SCENARIO_CHUNK", "1"))
+        if scenario_chunk > 1:
+            raise NotImplementedError(
+                f"scenario_chunk={scenario_chunk}: the PyTorch port solves "
+                "the scenarios of solve_batch one at a time")
         self.cfg = cfg
         self.device = torch.device(device)
         self.ws = ws if ws is not None else build_workspace(cfg, self.device)
@@ -103,13 +135,59 @@ class Solver:
         self.noise = noise
         c, bc = cfg.cem, cfg.beta_cem
         self._z0 = noise.initial_z(c.num_batch, c.num_params)
-        self._inner = noise.inner_cem(bc.num_samples_cem, cfg.risk.num_mother,
-                                      bc.num_ellite, bc.maxiter)
+        if cfg.risk.mode == "mmd_opt":
+            self._inner = noise.inner_cem(bc.num_samples_cem,
+                                          cfg.risk.num_mother, bc.num_ellite,
+                                          bc.maxiter)
 
     def _tensor(self, a) -> torch.Tensor:
         if not torch.is_tensor(a):
             a = np.array(a, dtype=np.float32)   # a copy: inputs stay untouched
         return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+    def _risks(self, it, idx_mpc, acc_T, steer_T, state0, x_obs_T, y_obs_T):
+        """Obstacle risk (C,), the rollouts the lane risk reads (C, R, T),
+        beta (C, R), sigma (C,) and the inner residuals (C, maxiter)."""
+        cfg = self.cfg
+        nb, M = cfg.cem.num_batch, cfg.risk.num_mother
+        mode = cfg.risk.mode
+        a_n, s_n = noisy_controls(cfg, self.noise, idx_mpc, it, acc_T, steer_T)
+        xr, yr = batched_rollouts(cfg, a_n, s_n, state0,
+                                  mother=mode == "mmd_opt")
+        if mode == "mmd_opt":
+            T, nvar = acc_T.shape[1], cfg.horizon.nvar
+            cxr, cyr = refit_coefficients(self.ws, xr.reshape(nb * M, T),
+                                          yr.reshape(nb * M, T))
+            rs = select_reduced_set_batched(cfg, cxr.reshape(nb, M, nvar),
+                                            cyr.reshape(nb, M, nvar), xr, yr,
+                                            self._inner)
+            risk_obs = risk_mod.mmd_obs(cfg, rs.beta, rs.sigma, rs.x_red,
+                                        rs.y_red, x_obs_T, y_obs_T)
+            return risk_obs, rs.y_red, rs.beta, rs.sigma, rs.res
+        R = cfg.risk.num_reduced
+        beta = torch.full((nb, R), 1.0 / R, device=self.device)
+        sigma = torch.full((nb,), 0.01, device=self.device)
+        res_beta = torch.zeros(nb, cfg.beta_cem.maxiter, device=self.device)
+        if mode == "mmd_random":
+            risk_obs = risk_mod.mmd_obs(cfg, beta, sigma, xr, yr, x_obs_T,
+                                        y_obs_T)
+        elif mode == "cvar":
+            risk_obs = risk_mod.cvar_obs(cfg, xr, yr, x_obs_T, y_obs_T)
+        else:
+            risk_obs = risk_mod.saa_obs(cfg, xr, yr, x_obs_T, y_obs_T)
+        return risk_obs, yr, beta, sigma, res_beta
+
+    def _lane_risk(self, beta_e, sigma_e, y_roll_e):
+        cfg = self.cfg
+        mode = cfg.risk.mode
+        if mode == "mmd_opt":
+            return risk_mod.mmd_lane(cfg, beta_e, sigma_e, y_roll_e)
+        if mode == "mmd_random":
+            # the reference zeroes the lane risk on the random path
+            return torch.zeros(beta_e.shape[0], device=self.device)
+        if mode == "cvar":
+            return risk_mod.cvar_lane(cfg, y_roll_e)
+        return risk_mod.saa_lane(cfg, y_roll_e)
 
     @torch.no_grad()
     def solve(self, idx_mpc: int, init_state, mean_param, cov_param,
@@ -125,8 +203,6 @@ class Solver:
         n_cost = cfg.cem.ellite_num_cost
         n_el = cfg.cem.ellite_num
         T = cfg.horizon.num_prime
-        R = cfg.risk.num_reduced
-        M = cfg.risk.num_mother
         nvar = cfg.horizon.nvar
         w_lane, w_obs = cfg.risk.weights()
 
@@ -148,9 +224,6 @@ class Solver:
         res, res_2 = zeros(cfg.cem.maxiter_cem), zeros(cfg.cem.maxiter_cem)
 
         for it in range(cfg.cem.maxiter_cem):
-            eps = noise.rollout_eps(idx_mpc, it, R, T)
-            cem_z = noise.cem_z(idx_mpc, it, nb - n_el, cfg.cem.num_params)
-
             cx_bar, cy_bar = compute_guess(cfg, ws, params, b_eq_x, b_eq_y)
             pr = project(cfg, ws, cx_bar, cy_bar, b_eq_x, b_eq_y,
                          lamda_x, lamda_y, s_lane)
@@ -166,23 +239,17 @@ class Solver:
             acc_T = acc[:, :T].contiguous()
             steer_T = steer[:, :T].contiguous()
 
-            xr, yr = batched_rollouts(cfg, eps, acc_T, steer_T, state0)
-            cxr, cyr = refit_coefficients(ws, xr.reshape(nb * M, T),
-                                          yr.reshape(nb * M, T))
-            rs = select_reduced_set_batched(cfg, cxr.reshape(nb, M, nvar),
-                                            cyr.reshape(nb, M, nvar), xr, yr,
-                                            self._inner)
-            risk_obs = risk_mod.mmd_obs(cfg, rs.beta, rs.sigma, rs.x_red,
-                                        rs.y_red, x_obs_T, y_obs_T)
+            risk_obs, y_roll, beta, sigma, res_beta = self._risks(
+                it, idx_mpc, acc_T, steer_T, state0, x_obs_T, y_obs_T)
 
             order2 = torch.argsort(risk_obs, stable=True)[:n_cost]
             (risk_obs_e, y_e, xdot_e, ydot_e, xddot_e, yddot_e, c_x_e, c_y_e,
              res_e, params_e, steer_e, y_roll_e, beta_e, sigma_e,
              res_beta_e) = (t[order2] for t in (
                  risk_obs, y, xdot, ydot, xddot, yddot, c_x, c_y, res_p,
-                 params_p, steer, rs.y_red, rs.beta, rs.sigma, rs.res))
+                 params_p, steer, y_roll, beta, sigma, res_beta))
 
-            risk_lane = risk_mod.mmd_lane(cfg, beta_e, sigma_e, y_roll_e)
+            risk_lane = self._lane_risk(beta_e, sigma_e, y_roll_e)
             cost_batch = scalar_cost(cfg, w_obs * risk_obs_e, w_lane * risk_lane,
                                      y_e, res_e, xdot_e, ydot_e, xddot_e,
                                      yddot_e, steer_e, v_des)
@@ -190,6 +257,7 @@ class Solver:
             elite_idx = torch.argsort(cost_batch, stable=True)[:n_el]
             params_elite = params_e[elite_idx]
             cost_elite = cost_batch[elite_idx]
+            cem_z = noise.cem_z(idx_mpc, it, nb - n_el, cfg.cem.num_params)
             mean, cov, params = cem_update(cfg, cem_z, params_elite, cost_elite,
                                            mean, cov)
 
@@ -208,3 +276,15 @@ class Solver:
                            risk_obs=risk_obs_b, beta=beta_b, sigma=sigma_b,
                            res_beta=res_beta_b, res=res, res_2=res_2,
                            mean_param=mean, cov_param=cov)
+
+    def solve_batch(self, seeds, init_state, mean_param, cov_param,
+                    x_obs_trajs, y_obs_trajs, v_des) -> SolveResult:
+        """One solve per scenario, stacked along a leading axis.
+
+        seeds (n,); x_obs_trajs, y_obs_trajs (n, num_obs, num); the other
+        arguments as :meth:`solve`, shared by every scenario.
+        """
+        results = [self.solve(int(seed), init_state, mean_param, cov_param,
+                              x_obs_trajs[i], y_obs_trajs[i], v_des)
+                   for i, seed in enumerate(seeds)]
+        return SolveResult(*(torch.stack(f) for f in zip(*results)))

@@ -26,6 +26,15 @@ def _as_tree(cfg):
                              noise_level=0.3, acc_const_noise=0.02)),
     ("fastrt_workload", {}),
     ("fastrt_workload", dict(num_reduced=4, num_obs=2)),
+    ("realtime_workload", {}),
+    ("realtime_workload", dict(num_reduced=3, noise="beta", mode="cvar")),
+    ("fast_workload", {}),
+    ("fast_workload", dict(num_obs=2, noise_level=0.2, steer_const_noise=0.01)),
+    ("dynamic_workload", {}),
+    ("dynamic_workload", dict(num_reduced=10, num_obs=6, noise="beta",
+                              noise_level=0.2, num_prime=50, mode="cvar")),
+    ("dynamic_workload", dict(num_reduced=3, num_obs=2, num_prime=15,
+                              noise="gaussian", mode="saa")),
 ])
 def test_presets_match_jax(preset, kwargs):
     assert _as_tree(getattr(tc, preset)(**kwargs)) == \
@@ -41,6 +50,7 @@ def test_defaults_and_derived_values_match_jax():
     assert t.risk.weights() == j.risk.weights()
     assert tc.REALTIME_INNER_BUDGET == jc.REALTIME_INNER_BUDGET
     assert tc.FASTRT_OUTER_BUDGET == jc.FASTRT_OUTER_BUDGET
+    assert tc.FAST_OUTER_BUDGET == jc.FAST_OUTER_BUDGET
     assert _as_tree(t.with_risk_mode("cvar")) == _as_tree(j.with_risk_mode("cvar"))
 
 

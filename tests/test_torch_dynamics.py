@@ -1,5 +1,8 @@
 """PyTorch port vs JAX package: rollout (K4's plain twin), noise, controls.
 
+Gaussian and Beta control noise are compared on the JAX key chain's own
+draws (``test_torch_noise.jax_draws`` and ``jax_beta``).
+
 Tolerance: atol 1e-5 on rollout positions, the bound tests/test_ops.py
 holds the Pallas rollout to against the scan, plus rtol 1e-6: torch's and
 XLA's CPU sin/cos/tan differ in the last ulp, and after 50 steps positions
@@ -16,8 +19,10 @@ from mpc_mmd_tpu import config as jc
 from mpc_mmd_tpu import dynamics as jdyn
 from mpc_mmd_tpu.ops import fused_rollout as j_fused_rollout
 from mpc_mmd_tpu_torch import dynamics as tdyn
+from mpc_mmd_tpu_torch.noise import FixedNoise
 from mpc_mmd_tpu_torch.ops import fused_rollout
-from test_torch_noise import jax_draws, to_torch_cfg
+from mpc_mmd_tpu_torch.solver import noisy_controls
+from test_torch_noise import jax_beta, jax_draws, to_torch_cfg
 
 torch.set_num_threads(1)
 
@@ -90,11 +95,46 @@ def test_perturb_controls_on_injected_draws(rng, acc_const, steer_const):
     np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("acc_const,steer_const", [(0.0, 0.0), (0.02, 0.01)])
+def test_perturb_controls_beta_on_injected_draws(rng, acc_const, steer_const):
+    """Beta noise of the dynamic workload (k_steer 0.05, the 1e-8 floor on
+    |u|) on the JAX key chain's Beta draws equals the JAX package's; the
+    controls include the exact zeros every solve has (steer at t = 0, acc
+    at the last step)."""
+    cfg = jc.dynamic_workload(num_reduced=4, num_obs=2, num_prime=20,
+                              noise_level=0.2, acc_const_noise=acc_const,
+                              steer_const_noise=steer_const)
+    C, R, T, it, idx_mpc = 5, 4, 20, 1, 42
+    acc, steer = _controls(rng, C, T)
+    steer[:, 0] = 0.0
+    acc[:, -1] = 0.0
+    key, _ = jax.random.split(jax.random.PRNGKey(3 * idx_mpc + 5 * it + 7))
+    ja, js = jax.vmap(lambda a, s: jdyn.perturb_controls(
+        key, a, s, R, cfg.noise))(jnp.asarray(acc), jnp.asarray(steer))
+    tcfg = to_torch_cfg(cfg)
+    alpha, beta = tdyn.beta_parameters(torch.from_numpy(acc),
+                                       torch.from_numpy(steer), tcfg.noise)
+    assert alpha.shape == (2, C, T)
+    draws = torch.from_numpy(jax_beta(idx_mpc, it, R, alpha.numpy(), beta.numpy()))
+    eps_const = torch.from_numpy(jax_draws(cfg, idx_mpc)["eps_const"][it])
+    ta, ts = tdyn.perturb_controls(torch.from_numpy(acc), torch.from_numpy(steer),
+                                   draws[0], draws[1], eps_const, tcfg.noise)
+    assert ta.shape == (C, R, T)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ts.numpy(), np.asarray(js), rtol=1e-6, atol=1e-6)
+
+
 def test_perturb_controls_rejects_beta_noise():
-    cfg = to_torch_cfg(jc.static_workload(noise="beta"))
-    z = torch.zeros(2, 3)
-    with pytest.raises(NotImplementedError):
-        tdyn.perturb_controls(z[0], z[0], z, z, z, cfg.noise)
+    """Beta noise needs its Beta draws: a noise source that has neither
+    replayed draws nor a function to draw them refuses it."""
+    cfg = to_torch_cfg(jc.dynamic_workload(num_reduced=2, num_prime=3))
+    eps = np.zeros((1, 2, 3), np.float32)
+    noise = FixedNoise({"eps_acc": eps, "eps_steer": eps, "eps_const": eps}, "cpu")
+    z = torch.zeros(4, 3)
+    with pytest.raises(ValueError):
+        noisy_controls(cfg, noise, 0, 0, z, z)
+    gaussian = to_torch_cfg(jc.static_workload(num_reduced=2, num_prime=3))
+    assert noisy_controls(gaussian, noise, 0, 0, z, z)[0].shape == (4, 2, 3)
 
 
 def test_controls_from_trajectory_matches_jax(rng):

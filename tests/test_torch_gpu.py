@@ -6,9 +6,11 @@ one, and without JAX, run them with
     python -m pytest --noconftest -p no:cacheprovider -m gpu tests/test_torch_gpu.py
 
 (``--noconftest`` because tests/conftest.py imports JAX).  This file
-imports no JAX.  Tolerances: top-k indices exact; QP within rtol 1e-4 +
-atol 1e-5 of the twin in float64; rollout within atol 1e-4 of the twin on
-the card (accurate tanf/sinf/cosf, FMA contraction).
+imports no JAX.  Tolerances: top-k indices and one-hot rows exact; QP
+within rtol 1e-4 + atol 1e-5 of the twin in float64; rollout within atol
+1e-4 of the twin on the card (accurate tanf/sinf/cosf, FMA contraction);
+the fused selection's indices exact, its row sums and K_red within rtol
+1e-5 + atol 1e-6 (expf within 2 ulp, and sums taken in another order).
 """
 
 import dataclasses
@@ -17,12 +19,14 @@ import numpy as np
 import pytest
 import torch
 
-from mpc_mmd_tpu_torch import Solver, fastrt_workload
+from mpc_mmd_tpu_torch import Solver, dynamic_workload, fastrt_workload
 from mpc_mmd_tpu_torch.dynamics import rollout as rollout_plain
 from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
-from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise
-from mpc_mmd_tpu_torch.ops import eq_qp_solve, fused_rollout, topk_indices
-from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain
+from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
+from mpc_mmd_tpu_torch.ops import (eq_qp_solve, fused_rollout, topk_indices,
+                                   topk_kernel_matrices, topk_onehot)
+from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
+from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -96,19 +100,98 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         eq_qp_solve(C[:, :4, :4].contiguous(), torch.ones(3, 4))   # mixed devices
 
 
+def _selection_inputs(gen, C, S, M):
+    samples = torch.randn(C, S, M + 1, device="cuda", generator=gen)
+    samples[..., M] = samples[..., M].abs() * 3 + 0.01
+    samples[0, 1, 7] = float("nan")                      # NaN lane: index M
+    samples[0, 2, :M] = torch.round(samples[0, 2, :M])   # tied |beta|
+    samples[-1, -1, 3] = float("inf")                    # wins every round
+    f = torch.randn(C, M, 22, device="cuda", generator=gen)
+    D = (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
+    return samples, D
+
+
+@pytest.mark.parametrize("C,S,M,k", [(100, 100, 100, 10), (64, 64, 100, 10),
+                                     (3, 37, 128, 32), (2, 5, 9, 3)])
+def test_fused_selection_kernel_matches_twin(cuda, C, S, M, k):
+    samples, D = _selection_inputs(cuda, C, S, M)
+    before = topk_kernel_matrices.launches
+    got = topk_kernel_matrices(samples, D, k)
+    assert topk_kernel_matrices.launches == before + 1
+    ref = topk_kernel_matrices_plain(samples, D, k)
+    assert got[2].dtype == torch.int32
+    assert torch.equal(got[2], ref[2])
+    assert bool((got[2][0, 1] == M).all())
+    for g, r in zip(got[:2], ref[:2]):
+        torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    # one batch shared by every candidate: a candidate stride of 0
+    shared = samples[:1].expand(C, S, M + 1)
+    got0 = topk_kernel_matrices(shared, D, k)
+    ref0 = topk_kernel_matrices(shared.contiguous(), D, k)
+    for g, r in zip(got0, ref0):
+        assert torch.equal(g, r)
+
+
+def test_fused_selection_wrapper_refuses(cuda):
+    samples = torch.randn(4, 8, 130, device="cuda", generator=cuda)
+    D = torch.rand(4, 129, 129, device="cuda", generator=cuda)
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(samples, D, 5)                 # M > 128
+    s = samples[..., :11].contiguous()
+    d = D[:, :10, :10].contiguous()
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(s.transpose(0, 1).contiguous().transpose(0, 1), d, 3)
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(s, d.cpu(), 3)                 # mixed devices
+
+
+@pytest.mark.parametrize("shape,k,kw", [
+    ((64, 57, 101), 10, dict(absolute=True, slice_to=100)),
+    ((40, 50, 64), 10, {}),
+    ((7, 33), 5, {}),
+])
+def test_onehot_topk_kernel_matches_twin(cuda, shape, k, kw):
+    x = torch.randn(shape, device="cuda", generator=cuda)
+    x.view(-1, shape[-1])[0] = float("nan")
+    x.view(-1, shape[-1])[-1, ::2] = float("nan")
+    for t in (x, torch.round(x * 2) / 2):
+        before = topk_onehot.launches
+        idx, oh = topk_onehot(t, k, **kw)
+        assert topk_onehot.launches == before + 1
+        ridx, roh = topk_onehot_plain(t, k, **kw)
+        assert torch.equal(idx, ridx) and torch.equal(oh, roh)
+        assert torch.equal(idx, topk_indices(t, k, **kw))
+
+
+def test_dynamic_fused_outer_iteration_cuda_matches_cpu(cuda, monkeypatch):
+    """Path A (dynamic workload, Beta noise, fused selection) for one outer
+    iteration: the CPU run records its Beta draws and the card replays them."""
+    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
+    cfg = dynamic_workload(num_reduced=4, num_obs=2, noise_level=0.2)
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=16, maxiter_cem=1),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=16,
+                                                   maxiter=4))
+    arrays, record = record_solve_draws(TorchNoise(torch.Generator(), "cpu"),
+                                        cfg, 0)
+    t = np.linspace(0.0, 15.0, 100)
+    xo = np.stack([8.0 + 0 * t, 13.0 + 0 * t])
+    yo = np.stack([-1.75 + 0 * t, -1.5 + 0 * t])
+    args = ([0.0, -1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
+            np.diag([20.0] * 4 + [100.0] * 4), xo, yo, 15.0)
+    h = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(0, *args)
+    assert arrays["beta"].shape == (1, 2, 16, 4, cfg.horizon.num_prime)
+    before = topk_kernel_matrices.launches
+    g = Solver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
+    assert topk_kernel_matrices.launches == before + cfg.beta_cem.maxiter
+    torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(g.risk_obs.cpu(), h.risk_obs, rtol=1e-3, atol=1e-3)
+
+
 def test_one_outer_iteration_cuda_matches_cpu(cuda):
     cfg = fastrt_workload(num_reduced=4, num_obs=2)
     cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=16, maxiter_cem=1))
-    c, bc = cfg.cem, cfg.beta_cem
-    src = TorchNoise(torch.Generator(), "cpu")
-    inner = src.inner_cem(bc.num_samples_cem, cfg.risk.num_mother,
-                          bc.num_ellite, bc.maxiter)
-    eps = src.rollout_eps(0, 0, 4, cfg.horizon.num_prime)
-    arrays = {"initial_z": src.initial_z(c.num_batch, 8), "samples0": inner.samples0,
-              "u": inner.u, "z": inner.z, "eps_acc": eps[0][None],
-              "eps_steer": eps[1][None], "eps_const": eps[2][None],
-              "cem_z": src.cem_z(0, 0, c.num_batch - c.ellite_num, 8)[None]}
-    arrays = {k: v.numpy() for k, v in arrays.items()}
+    arrays, _ = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg, 0)
     t = np.linspace(0.0, 15.0, 100)
     xo = np.stack([8.0 + 0 * t, 13.0 + 0 * t])
     yo = np.stack([1.75 + 0 * t, 0.6 + 0 * t])

@@ -1,11 +1,16 @@
 """The PyTorch port's noise injection, and the JAX key chain it replays.
 
 :func:`jax_draws` rebuilds, with ``jax.random``, every standard-normal draw
-the JAX package makes in one ``mmd_opt`` solve, in the shapes of
-``mpc_mmd_tpu_torch.noise``.  Fed through ``FixedNoise``, it lets the port
+the JAX package makes in one solve, in the shapes of
+``mpc_mmd_tpu_torch.noise``, and :func:`jax_beta` its Beta draws for the
+parameters the port passes.  Fed through ``FixedNoise``, they let the port
 run on the JAX package's exact random numbers; the other ``test_torch_*``
-files import it from here.  The key chain follows sampling.py:34-39,
+files import them from here.  The key chain follows sampling.py:34-39,
 solver.py:186,202,299, dynamics.py:91-120 and reduced_set.py:432-466.
+
+The port's own Beta sampler is held by distribution: at the parameters of
+the dynamic workload, Beta(2 u, 5 u) for u from 1e-8 up, mean and variance
+within 5 Monte-Carlo standard errors of the closed form.
 """
 
 import dataclasses
@@ -20,7 +25,8 @@ import mpc_mmd_tpu.config as jcfg_mod
 import mpc_mmd_tpu_torch.config as tcfg_mod
 from mpc_mmd_tpu import sampling as jsampling
 from mpc_mmd_tpu_torch import sampling as tsampling
-from mpc_mmd_tpu_torch.noise import FixedNoise, InnerDraws, TorchNoise
+from mpc_mmd_tpu_torch.noise import (FixedNoise, InnerDraws, TorchNoise,
+                                     sample_beta)
 
 torch.set_num_threads(1)
 
@@ -75,6 +81,20 @@ def jax_draws(cfg, idx_mpc):
                                                 c.num_params)))
     out.update({n: jnp.stack(v) for n, v in per_it.items()})
     return {n: np.array(v) for n, v in out.items()}
+
+
+def jax_beta(idx_mpc, it, R, alpha, beta):
+    """The JAX package's Beta draws (2, C, R, T) of outer iteration ``it``
+    for parameters (2, C, T): acc from ``k_roll``, steer from
+    ``split(k_roll)[0]``, every candidate from the same key
+    (dynamics.py:110-114, solver.py:115-116,186,202)."""
+    k_roll, _ = jax.random.split(jax.random.PRNGKey(3 * idx_mpc + 5 * it + 7))
+    k_steer, _ = jax.random.split(k_roll)
+    T = alpha.shape[-1]
+    return np.stack([np.asarray(jax.vmap(
+        lambda a, b: jax.random.beta(key, a, b, (R, T)))(
+            jnp.asarray(alpha[ch]), jnp.asarray(beta[ch])))
+        for ch, key in enumerate((k_roll, k_steer))])
 
 
 def _cfg():
@@ -151,3 +171,67 @@ def test_cem_update_matches_jax_with_a_full_covariance(rng):
                                torch.from_numpy(cov))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("alpha", [2e-8, 2e-3, 0.2, 2.0, 20.0])
+def test_beta_sampler_by_distribution(alpha):
+    """Beta(alpha, 2.5 alpha), the ratio of the presets' beta_a / beta_b:
+    mean 2/7 and variance (10/49) / (3.5 alpha + 1) within 5 Monte-Carlo
+    standard errors; at alpha = 2e-8, the every-solve case (steer(0) = 0),
+    a Bernoulli(2/7) on {0, 1}."""
+    n = 200_000
+    a = torch.full((n,), alpha, dtype=torch.float32)
+    x = sample_beta(a, 2.5 * a, torch.Generator().manual_seed(7)).double()
+    assert bool(((x >= 0) & (x <= 1)).all())
+    mean, var = 2 / 7, (2 / 7) * (5 / 7) / (3.5 * alpha + 1)
+    assert abs(float(x.mean()) - mean) < 5 * np.sqrt(var / n)
+    d2 = (x - mean) ** 2
+    assert abs(float(d2.mean()) - var) < 5 * float(d2.std()) / np.sqrt(n)
+    if alpha == 2e-8:
+        p = float((x > 0.5).double().mean())
+        assert abs(p - 2 / 7) < 5 * np.sqrt(mean * (1 - mean) / n)
+        assert float(((x == 0) | (x == 1)).double().mean()) > 0.999
+
+
+def test_rollout_beta_draws():
+    """TorchNoise draws (2, C, R, T) as a function of the solve; FixedNoise
+    replays arrays or asks its function, and checks the shape."""
+    noise = TorchNoise(torch.Generator(), "cpu")
+    alpha = torch.rand(2, 5, 7) + 1e-8
+    d1 = noise.rollout_beta(3, 1, 4, alpha, 2.5 * alpha)
+    assert d1.shape == (2, 5, 4, 7)
+    assert torch.equal(d1, noise.rollout_beta(3, 1, 4, alpha, 2.5 * alpha))
+    assert not torch.equal(d1, noise.rollout_beta(3, 2, 4, alpha, 2.5 * alpha))
+    replay = FixedNoise({"beta": d1[None].numpy()}, "cpu")
+    assert torch.equal(replay.rollout_beta(0, 0, 4, alpha, alpha), d1)
+    with pytest.raises(ValueError):
+        replay.rollout_beta(0, 0, 3, alpha, alpha)
+    asked = FixedNoise({}, "cpu", jax_beta)
+    got = asked.rollout_beta(3, 1, 4, alpha, 2.5 * alpha)
+    np.testing.assert_array_equal(
+        got.numpy(), jax_beta(3, 1, 4, alpha.numpy(), 2.5 * alpha.numpy()))
+    with pytest.raises(ValueError):
+        FixedNoise({}, "cpu").rollout_beta(0, 0, 4, alpha, alpha)
+
+
+def test_recorded_draws_replay_a_solve():
+    """record_solve_draws: a solve that records its Beta draws and a second
+    solve that replays every draw give the same result (on the card, the
+    second runs on the other device: tests/test_torch_gpu.py)."""
+    from mpc_mmd_tpu_torch import Solver
+    from mpc_mmd_tpu_torch.noise import record_solve_draws
+    cfg = to_torch_cfg(jcfg_mod.dynamic_workload(num_reduced=3, num_obs=2,
+                                                 num_prime=12, noise_level=0.2))
+    cfg = cfg.replace(
+        cem=dataclasses.replace(cfg.cem, num_batch=12, maxiter_cem=2),
+        beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=12, maxiter=2))
+    arrays, record = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg, 3)
+    t = np.linspace(0.0, 15.0, 100)
+    args = ([0.0, -1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
+            np.diag([20.0] * 4 + [100.0] * 4), np.stack([8 + 0 * t, 13 + 0 * t]),
+            np.stack([-1.75 + 0 * t, -1.5 + 0 * t]), 15.0)
+    first = Solver(cfg, noise=FixedNoise(arrays, "cpu", record)).solve(3, *args)
+    assert arrays["beta"].shape == (2, 2, 12, 3, 12)
+    again = Solver(cfg, noise=FixedNoise(arrays, "cpu")).solve(3, *args)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)

@@ -1,10 +1,12 @@
-"""K1 and K2 of the PyTorch port: plain twins vs the Pallas kernels.
+"""K1, K2, K3 and K5 of the PyTorch port: plain twins vs the Pallas kernels.
 
 The CUDA kernels cannot run here; on CPU tensors each wrapper takes its
 plain twin, and these tests hold the twins to the JAX package's Pallas
 kernels in interpret mode (the pattern of tests/test_ops.py) and to its
-plain references.  Top-k indices must be equal exactly; the QP agrees at
-rtol 1e-4, the bound tests/test_ops.py uses for the Pallas QP.
+plain references.  Top-k indices and one-hot rows must be equal exactly;
+the QP agrees at rtol 1e-4, the bound tests/test_ops.py uses for the
+Pallas QP; the fused selection's row sums and K_red at rtol 1e-5 + atol
+1e-5, the bound tests/test_ops.py holds that Pallas kernel to.
 """
 
 import jax
@@ -15,9 +17,11 @@ import torch
 
 from mpc_mmd_tpu.linalg import eq_qp_solve as j_eq_qp_solve
 from mpc_mmd_tpu.ops.qp_pallas import eq_qp_solve_pallas
-from mpc_mmd_tpu.ops.topk_pallas import topk_indices_pallas
+from mpc_mmd_tpu.ops.topk_kernel_pallas import topk_kernel_matrices as j_fused
+from mpc_mmd_tpu.ops.topk_pallas import topk_indices_pallas, topk_onehot_pallas
 from mpc_mmd_tpu.reduced_set import _topk
-from mpc_mmd_tpu_torch.ops import eq_qp_solve, topk_indices
+from mpc_mmd_tpu_torch.ops import (eq_qp_solve, topk_indices,
+                                   topk_kernel_matrices, topk_onehot)
 from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain
 
 torch.set_num_threads(1)
@@ -128,3 +132,67 @@ def test_eq_qp_twin_matches_float64_solve(rng):
 def test_eq_qp_wrapper_validates():
     with pytest.raises(ValueError):
         eq_qp_solve(torch.eye(3)[None], torch.zeros(1, 4))
+
+
+def _selection_inputs(rng, C, S, M):
+    """tests/test_ops.py's inputs, plus a NaN lane, tied |beta| and an
+    infinite lane."""
+    samples = rng.normal(0, 1, (C, S, M + 1)).astype(np.float32)
+    samples[:, :, -1] = np.abs(samples[:, :, -1]) + 0.2
+    samples[0, 1, 3] = np.nan
+    samples[0, 2, :M] = np.round(samples[0, 2, :M])
+    samples[-1, -1, 2] = np.inf
+    D = np.abs(rng.normal(0, 1, (C, M, M))).astype(np.float32)
+    return samples, D + np.swapaxes(D, 1, 2)
+
+
+@pytest.mark.parametrize("C,S,M,k", [(2, 100, 9, 3), (1, 130, 25, 5)])
+def test_fused_selection_twin_matches_pallas(rng, C, S, M, k):
+    samples, D = _selection_inputs(rng, C, S, M)
+    ref = j_fused(jnp.asarray(samples), jnp.asarray(D), k, interpret=True)
+    before = topk_kernel_matrices.launches
+    got = topk_kernel_matrices(torch.from_numpy(samples), torch.from_numpy(D), k)
+    assert topk_kernel_matrices.launches == before
+    assert got[2].dtype == torch.int32
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    for g, r in zip(got[:2], ref[:2]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-5, atol=1e-5)
+    # the Pallas kernel has no NaN mask: a NaN lane emits index M every
+    # round, zero rows (row sum M) and a zero K_red; an infinite lane stays
+    # infinite under the subtracted mask and wins every round
+    np.testing.assert_array_equal(got[2][0, 1].numpy(), np.full(k, M))
+    np.testing.assert_allclose(got[0][0, 1].numpy(), float(M))
+    assert not got[1][0, 1].any()
+    np.testing.assert_array_equal(got[2][-1, -1].numpy(), np.full(k, 2))
+
+
+def test_fused_selection_wrapper_validates():
+    s, D = torch.zeros(2, 4, 10), torch.zeros(2, 9, 9)
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(s, D, 10)                   # k > M
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(s, D[:, :8, :8], 3)         # D does not match
+    with pytest.raises(ValueError):
+        topk_kernel_matrices(s[0], D[0], 3)              # not batched
+    # a batch shared by every candidate (stride 0) gives the copy's result
+    shared = torch.randn(1, 4, 10).expand(2, 4, 10)
+    for g, r in zip(topk_kernel_matrices(shared, D + 1.0, 3),
+                    topk_kernel_matrices(shared.contiguous(), D + 1.0, 3)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("shape,k", [((40, 50, 64), 10), ((7, 33), 5)])
+@pytest.mark.parametrize("absolute", [False, True])
+def test_onehot_topk_twin_matches_pallas(rng, shape, k, absolute):
+    x = rng.normal(0, 1, shape).astype(np.float32)
+    x.reshape(-1, shape[-1])[0, ::3] = np.nan
+    kw = dict(absolute=True, slice_to=shape[-1] - 1) if absolute else {}
+    for xt in (x, np.round(x * 2) / 2):
+        ref_i, ref_oh = topk_onehot_pallas(jnp.asarray(xt), k, interpret=True, **kw)
+        before = topk_onehot.launches
+        idx, oh = topk_onehot(torch.from_numpy(xt), k, **kw)
+        assert topk_onehot.launches == before
+        assert idx.dtype == torch.int32 and oh.dtype == torch.float32
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
+        np.testing.assert_array_equal(oh.numpy(), np.asarray(ref_oh))
+        assert torch.equal(idx, topk_indices(torch.from_numpy(xt), k, **kw))

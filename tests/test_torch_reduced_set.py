@@ -4,7 +4,9 @@ Both packages get identical (cx, cy, x_roll, y_roll) and the same inner
 draws (the port through ``FixedNoise``, rebuilt from the JAX key chain).
 Index-derived outputs (which rollouts form the reduced set, in which slot
 order) must be equal exactly; float outputs agree at rtol 1e-4, the bound
-tests/test_ops.py holds the JAX package's selection variants to.
+tests/test_ops.py holds the JAX package's selection variants to.  The
+"xla" selection runs with and without elite-carry, the "fused" one (the
+Pallas kernel in interpret mode on the JAX side) with full recompute.
 """
 
 import dataclasses
@@ -20,6 +22,7 @@ from mpc_mmd_tpu import risk as jrisk
 from mpc_mmd_tpu.reduced_set import select_reduced_set_batched as j_select
 from mpc_mmd_tpu_torch import risk as trisk
 from mpc_mmd_tpu_torch.noise import FixedNoise
+from mpc_mmd_tpu_torch.reduced_set import resolve_selection
 from mpc_mmd_tpu_torch.reduced_set import select_reduced_set_batched as t_select
 from test_torch_noise import jax_draws, to_torch_cfg
 
@@ -65,6 +68,81 @@ def test_select_reduced_set_batched_matches_jax(rng, maxiter):
                                    np.asarray(getattr(ref, name)),
                                    rtol=1e-4, atol=1e-6, err_msg=name)
     np.testing.assert_allclose(got.beta.sum(-1).numpy(), 1.0, atol=1e-4)
+
+
+def _both(cfg, inputs, **jkw):
+    bc, M = cfg.beta_cem, cfg.risk.num_mother
+    ref = j_select(cfg, *map(jnp.asarray, inputs), **jkw)
+    draws = FixedNoise(jax_draws(cfg, 0), "cpu").inner_cem(
+        bc.num_samples_cem, M, bc.num_ellite, bc.maxiter)
+    got = t_select(to_torch_cfg(cfg), *map(torch.from_numpy, inputs), draws,
+                   selection=jkw.get("selection"))
+    return got, ref
+
+
+def _assert_same(got, ref, C, maxiter):
+    np.testing.assert_array_equal(got.x_red.numpy(), np.asarray(ref.x_red))
+    np.testing.assert_array_equal(got.y_red.numpy(), np.asarray(ref.y_red))
+    assert got.res.shape == (C, maxiter)
+    for name in ("beta", "sigma", "res"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-4, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(got.beta.sum(-1).numpy(), 1.0, atol=1e-4)
+
+
+def _cfg3(maxiter):
+    cfg = jc.static_workload(num_reduced=3, num_obs=2, num_prime=15)
+    return cfg.replace(beta_cem=dataclasses.replace(
+        cfg.beta_cem, num_samples_cem=40, maxiter=maxiter))
+
+
+@pytest.mark.parametrize("maxiter", [1, 2, 4])
+def test_fused_selection_matches_jax(rng, monkeypatch, maxiter):
+    """K3's twin, the weight QP and the full-recompute loop against the
+    JAX package's fused selection (Pallas kernel in interpret mode)."""
+    monkeypatch.delenv("MPC_MMD_SELECTION", raising=False)
+    cfg = _cfg3(maxiter)
+    inputs = _inputs(rng, 3, cfg.risk.num_mother, T=15)
+    got, ref = _both(cfg, inputs, selection="fused", interpret=True)
+    _assert_same(got, ref, 3, maxiter)
+    # MPC_MMD_FUSED_CEM=1 selects it when no selection is given
+    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
+    bc = cfg.beta_cem
+    draws = FixedNoise(jax_draws(cfg, 0), "cpu").inner_cem(
+        bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite, bc.maxiter)
+    again = t_select(to_torch_cfg(cfg), *map(torch.from_numpy, inputs), draws)
+    for a, b in zip(again, got):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("maxiter", [1, 2, 4])
+def test_full_recompute_xla_selection_matches_jax(rng, monkeypatch, maxiter):
+    """MPC_MMD_ELITE_CARRY=0: every row recomputed in every iteration."""
+    monkeypatch.setenv("MPC_MMD_ELITE_CARRY", "0")
+    cfg = _cfg3(maxiter)
+    inputs = _inputs(rng, 3, cfg.risk.num_mother, T=15)
+    got, ref = _both(cfg, inputs, selection="xla")
+    _assert_same(got, ref, 3, maxiter)
+
+
+def test_selection_resolves_as_in_jax(monkeypatch):
+    cfg = to_torch_cfg(_cfg3(1))
+    for var in ("MPC_MMD_SELECTION", "MPC_MMD_FUSED_CEM"):
+        monkeypatch.delenv(var, raising=False)
+    assert resolve_selection(cfg) == "xla"
+    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
+    assert resolve_selection(cfg) == "fused"
+    assert resolve_selection(cfg.replace(solve_strategy="exact")) == "xla"
+    monkeypatch.setenv("MPC_MMD_SELECTION", "xla")
+    assert resolve_selection(cfg) == "xla"
+    assert resolve_selection(cfg, "fused") == "fused"
+    for sel in ("xt", "g"):
+        monkeypatch.setenv("MPC_MMD_SELECTION", sel)
+        with pytest.raises(NotImplementedError):
+            resolve_selection(cfg)
+    with pytest.raises(ValueError):
+        resolve_selection(cfg, "bogus")
 
 
 def test_select_reduced_set_survives_nan_samples(rng):

@@ -102,10 +102,28 @@ def test_three_outer_iterations_match_jax():
         assert np.all(np.isfinite(getattr(got, name).numpy())), name
 
 
-def test_solver_rejects_what_is_not_ported():
+def test_solver_rejects_what_is_not_ported(monkeypatch):
+    """The det mode, the exact strategy, other rollout backends,
+    non-Laplace kernels, the TPU-only selections and batched scenario
+    chunks raise NotImplementedError."""
     tcfg = to_torch_cfg(_cfg(1))
-    for bad in (tcfg.with_risk_mode("cvar"),
-                tcfg.replace(solve_strategy="exact"),
-                tcfg.replace(rollout_backend="pallas")):
+    for bad in (lambda: tcfg.with_risk_mode("det"),
+                lambda: tcfg.replace(solve_strategy="exact"),
+                lambda: tcfg.replace(rollout_backend="pallas"),
+                lambda: tcfg.replace(risk=dataclasses.replace(
+                    tcfg.risk, kernel="gaussian"))):
         with pytest.raises(NotImplementedError):
-            TSolver(bad)
+            TSolver(bad())
+    with pytest.raises(NotImplementedError):
+        TSolver(tcfg, scenario_chunk=2)
+    monkeypatch.setenv("MPC_MMD_SCENARIO_CHUNK", "4")
+    with pytest.raises(NotImplementedError):
+        TSolver(tcfg)
+    monkeypatch.delenv("MPC_MMD_SCENARIO_CHUNK")
+    solver = TSolver(tcfg)
+    t = solver.ws.tot_time
+    xo, yo = torch.stack([8.0 + 0 * t, 13.0 + 0 * t]), torch.stack([1.75 + 0 * t] * 2)
+    for sel in ("xt", "g"):
+        monkeypatch.setenv("MPC_MMD_SELECTION", sel)
+        with pytest.raises(NotImplementedError):
+            solver.solve(0, INIT, MEAN, COV, xo, yo, 15.0)

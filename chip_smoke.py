@@ -11,7 +11,9 @@ Phases, each of which must pass:
    times of both:
    K1 top-k indices equal exactly (rows with NaNs and ties included),
    K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64,
-   K4 rollout within atol 1e-4, all at the fastrt solve's shapes;
+   K4 rollout within atol 1e-4, all at the fastrt solve's shapes, and K4
+   again at the Monte-Carlo validator's shape (256 solves x 1000 rollouts
+   x 50 steps);
    K3 fused selection at the dynamic workload's shape (100, 100, 101) and
    at the fastrt shape (64, 64, 101), k = 10, rows with a NaN lane and
    tied |beta| included: indices equal exactly, row sums and K_red within
@@ -29,8 +31,8 @@ Phases, each of which must pass:
 6. Path A, the dynamic cut-in workload in ``mmd_opt`` with the fused
    selection (``MPC_MMD_FUSED_CEM=1``) at full width: 100 candidates x 20
    iterations, 100 mother rollouts, inner CEM 100 samples x 20 iterations,
-   Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios from
-   ``mpc_mmd_tpu_torch/data/dynamic_cutin.npz``, each checked as in 4, with
+   Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios of
+   ``scenarios.dynamic_cutin``, each checked as in 4, with
    exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
    and maxiter_cem of K4 per solve; then 2 solves with the default "xla"
    selection at the same width;
@@ -38,22 +40,45 @@ Phases, each of which must pass:
    solve each of ``mmd_random`` and ``saa``: finite, with K4 launched;
 8. one outer iteration of Path A on the card against the CPU with
    identical draws (the CPU run records its Beta draws, the card replays
-   them), held as in 5.
+   them), held as in 5;
+9. Path C, the researcher's pipeline through ``mpc_mmd_tpu_torch.cli``:
+   a. the sweep CLI over 40 static scenarios (gaussian 0.1, N = 10, 6
+      obstacles, ts 50, fastrt budgets) in ``mmd_opt`` and ``cvar``, chunks
+      of 20, ``pipeline`` dispatch, into a temporary directory;
+   b. the same command again, which must solve nothing (every chunk
+      resumes);
+   c. ``validate_compare`` of the two stores at n_mc = 1000;
+   d. a dynamic cut-in ``cvar`` sweep of 20 scenarios (Beta 0.2) and its
+      validation at n_mc = 1000;
+   e. the validator alone over 1200 solves (the stored ones repeated) at
+      n_mc = 1000: time and peak memory, then once more under
+      ``torch.profiler``: device busy time, idle share, device events and
+      K4's device time;
+   f. the validator on the card against the CPU on 8 stored solves with
+      identical draws: counts within +-1 per solve, mean collision % within
+      0.1 pp;
+   g. one fastrt ``mmd_opt`` solve with the gaussian and one with the
+      matern52 MMD kernel: finite, with K1, K2 and K4 launched.
+   Each of a-e and g runs with the launch counts set to 0 just before it
+   and read just after; a, c, d, e and g fail unless their kernels were
+   launched, b if any kernel was.
 
 Prints the kernels' JSON record and the card's nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
-counts the launches of the paths' timed solves (phases 4, 6 and 7); K5 is
-on no path of the package, and its count is that of its own phase.
+counts the launches of the paths' runs (phases 4, 6, 7 and 9 a-e, g); K5
+is on no path of the package, and its count is that of its own phase.
 Exits non-zero, with no result, when there is no CUDA card or the package
 is not beside it.
 """
 
 import dataclasses
+import glob
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -136,10 +161,11 @@ def check_eq_qp(torch, ops, qp_plain, dev, gen):
     return err, ms, plain
 
 
-def check_rollout(torch, ops, rollout_plain, dev, gen):
-    """K4 on 6400 lanes x 50 steps from one shared initial state."""
-    acc = (1.0 + 0.5 * torch.randn(6400, 50, device=dev, generator=gen)).contiguous()
-    steer = (0.1 * torch.randn(6400, 50, device=dev, generator=gen)).contiguous()
+def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
+    """K4 on ``lanes`` x 50 steps from one shared initial state: 6400 in a
+    fastrt outer iteration, 256,000 in a chunk of the MC validator."""
+    acc = (1.0 + 0.5 * torch.randn(lanes, 50, device=dev, generator=gen)).contiguous()
+    steer = (0.1 * torch.randn(lanes, 50, device=dev, generator=gen)).contiguous()
     s0 = torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0], device=dev)
     args = (acc, steer, s0, 0.15, 2.5)
     x, y = ops.fused_rollout(*args)
@@ -147,7 +173,8 @@ def check_rollout(torch, ops, rollout_plain, dev, gen):
     torch.cuda.synchronize()
     err = max(float((x - xr).abs().max()), float((y - yr).abs().max()))
     if not err <= 1e-4:
-        fail(f"K4 fused_rollout differs from its plain twin by {err} (> 1e-4)")
+        fail(f"K4 fused_rollout differs from its plain twin by {err} (> 1e-4) "
+             f"at {lanes} lanes")
     ms = cuda_ms(torch, lambda: ops.fused_rollout(*args))
     plain = cuda_ms(torch, lambda: rollout_plain(*args), reps=10)
     return err, ms, plain
@@ -308,6 +335,188 @@ def controls(ws, cfg, cx, cy):
     return a[0, :T], s[0, :T]
 
 
+def counted(torch, ops, label, path_kernels, fn):
+    """Runs ``fn()`` with the launch counts set to 0 just before and read
+    just after, and the peak memory reset; fails unless every kernel of
+    ``path_kernels`` was launched.  Returns (result, seconds, launches)."""
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {f.__name__: f.launches for f in ops.KERNELS}
+    missing = [f.__name__ for f in path_kernels if launches[f.__name__] < 1]
+    if missing:
+        fail(f"{label}: kernels of the path not launched: {missing}; {launches}")
+    return out, secs, launches
+
+
+SWEEP_FLAGS = ["--workload", "static", "--noise_levels", "0.1", "--noises",
+               "gaussian", "--num_reduced_sets", "10", "--num_obs", "6",
+               "--num_prime", "50", "--num_configs", "40", "--chunk", "20",
+               "--outer_budget", "64x10", "--inner_budget", "64x12",
+               "--dispatch", "pipeline", "--device", "cuda"]
+
+
+def path_c(torch, ops, dev, work):
+    """Phase 9: sweep, resume, validate, the validator at 1200 solves, card
+    vs CPU, and the gaussian / matern52 kernels.  Returns the launch counts
+    of the path's runs."""
+    from mpc_mmd_tpu_torch import Solver, fastrt_workload
+    from mpc_mmd_tpu_torch.cli import sweep as sweep_cli
+    from mpc_mmd_tpu_torch.cli import validate as validate_cli
+    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise
+    from mpc_mmd_tpu_torch.qp import build_workspace
+    from mpc_mmd_tpu_torch.utils.io_store import ResultStore
+    from mpc_mmd_tpu_torch.utils.observability import device_trace
+    from mpc_mmd_tpu_torch.validate import CHUNK, make_validator
+
+    K1, K2, K4 = ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout
+    data = os.path.join(work, "data")
+    path_launches, roots = [], {}
+
+    # a. the sweep CLI, one mode per command
+    for mode in ("mmd_opt", "cvar"):
+        _, secs, got = counted(
+            torch, ops, f"Path C sweep {mode}",
+            (K1, K2, K4) if mode == "mmd_opt" else (K4,),
+            lambda: sweep_cli.main(["--costs", mode, "--out", data, *SWEEP_FLAGS]))
+        found = glob.glob(os.path.join(data, "static", "*", "*", "*", f"{mode}_*"))
+        if len(found) != 1:
+            fail(f"Path C sweep {mode}: expected one store, found {found}")
+        roots[mode] = found[0]
+        store = ResultStore(roots[mode])
+        arrays = store.concatenated()
+        if store.done_chunks() != [0, 1] or not np.all(np.isfinite(arrays["cx"])):
+            fail(f"Path C sweep {mode}: chunks {store.done_chunks()}, or "
+                 "non-finite coefficients")
+        log(f"Path C sweep {mode} (static, gaussian 0.1, fastrt budgets, 40 "
+            f"scenarios, pipeline): {secs:.2f} s, {40 / secs:.2f} solves/s, "
+            f"accepted {len(arrays['cx'])}/40, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches {got}")
+        path_launches.append(got)
+
+    # b. the same commands again: every chunk resumes, nothing is solved
+    chunk_files = {r: sorted(os.listdir(r)) for r in roots.values()}
+    stamps = {r: [os.stat(os.path.join(r, f)).st_mtime_ns for f in chunk_files[r]]
+              for r in roots.values()}
+    _, secs, got = counted(torch, ops, "Path C resume", (), lambda: [
+        sweep_cli.main(["--costs", m, "--out", data, *SWEEP_FLAGS]) for m in roots])
+    if any(got.values()) or any(
+            sorted(os.listdir(r)) != chunk_files[r]
+            or [os.stat(os.path.join(r, f)).st_mtime_ns for f in chunk_files[r]]
+            != stamps[r] for r in roots.values()):
+        fail(f"Path C resume: the rerun solved or rewrote something ({got})")
+    log(f"Path C resume: both sweeps again in {secs:.2f} s, no solve, no launch")
+
+    # c. paired validation of the two modes
+    res, secs, got = counted(
+        torch, ops, "Path C validate_compare", (K4,),
+        lambda: validate_cli.validate_compare(
+            [roots["mmd_opt"], roots["cvar"]], n_mc=1000, seed=0,
+            out_root=os.path.join(work, "stats"), device=dev))
+    if res["n_common"] < 1:
+        fail("Path C validate_compare: no scenario accepted by both modes")
+    pair = res["pairs"]["mmd_opt_vs_cvar"]
+    log(f"Path C validate_compare at n_mc=1000: n_common {res['n_common']}, "
+        f"collision % mmd_opt {res['modes']['mmd_opt']['coll_pct_mean']:.4f}, "
+        f"cvar {res['modes']['cvar']['coll_pct_mean']:.4f}, Wilcoxon p "
+        f"{pair['p_wilcoxon']}; {secs:.2f} s; launches {got}")
+    path_launches.append(got)
+
+    # d. dynamic cut-in cvar sweep (every solve kept) and its validation
+    dyn, secs, got = counted(
+        torch, ops, "Path C dynamic sweep", (K4,),
+        lambda: sweep_cli.run_sweep("dynamic", "cvar", "beta", 0.2, 10, 6, 50,
+                                    20, data, chunk=20, dispatch="pipeline",
+                                    accept_all=True, device=dev))
+    risk = dyn.concatenated()["risk_obs"]
+    path_launches.append(got)
+    stats, vsecs, got = counted(
+        torch, ops, "Path C dynamic validation", (K4,),
+        lambda: validate_cli.validate_store(dyn.root, n_mc=1000, seed=0,
+                                            out_root=os.path.join(work, "dyn"),
+                                            device=dev))
+    if stats["n_solves"] != 20:
+        fail(f"Path C dynamic validation: {stats['n_solves']} solves, not 20")
+    log(f"Path C dynamic sweep (cut-in, beta 0.2, cvar, 100 x 20 outer): "
+        f"{secs:.2f} s, {20 / secs:.2f} solves/s, {int(np.sum(risk <= 1e-5))}/20 "
+        f"under the acceptance threshold; validation at n_mc=1000 in "
+        f"{vsecs:.2f} s, collision % {stats['coll_pct_mean']:.4f} "
+        f"(p95 {stats['coll_pct_p95']:.4f}); launches {got}")
+    path_launches.append(got)
+
+    # e. the validator alone over 1200 solves
+    store = ResultStore(roots["mmd_opt"])
+    cfg = validate_cli.config_of(store.meta)
+    arrays = store.concatenated()
+    idx = np.resize(np.arange(len(arrays["cx"])), 1200)
+    args = [arrays[f][idx] for f in ("cx", "cy")] + [arrays["init_state"][0]] + \
+        [arrays[f][idx] for f in ("x_obs_traj", "y_obs_traj")]
+    validator = make_validator(cfg, build_workspace(cfg, dev), n_mc=1000)
+    validator(*(a[:8] if a.ndim > 1 else a for a in args))        # warm-up
+    out, secs, got = counted(
+        torch, ops, "Path C validator", (K4,),
+        lambda: [t.cpu().numpy() for t in validator(*args)])
+    n_k4 = -(-1200 // CHUNK)
+    if got["fused_rollout"] != n_k4 or out[0].shape != (1200,) or \
+            not (0 <= out[0].min() and out[0].max() <= 1000):
+        fail(f"Path C validator: K4 launches {got['fused_rollout']} (expected "
+             f"{n_k4}) or counts out of range")
+    log(f"Path C validator: 1200 solves x 1000 rollouts x 50 steps in "
+        f"{secs:.3f} s, {1200 / secs:.1f} validations/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, {n_k4} K4 "
+        f"launches of up to {CHUNK * 1000} lanes; mean collision % "
+        f"{out[0].mean() / 10:.4f}")
+    path_launches.append(got)
+    trace_dir = os.path.join(work, "trace")
+    with device_trace(trace_dir):
+        validator(*args)
+    with open(glob.glob(os.path.join(trace_dir, "summary_*.json"))[0]) as f:
+        prof = json.load(f)
+    k4_ms = sum(ms for name, ms, _ in prof["top"] if "rollout_kernel" in name)
+    log(f"Path C validator under torch.profiler: {prof['wall_ms']:.1f} ms wall, "
+        f"device busy {prof['device_busy_ms']:.2f} ms (idle share "
+        f"{prof['idle_share']:.3f}), {prof['device_events']} device events, "
+        f"K4 {k4_ms:.3f} ms; top {prof['top'][:4]}")
+
+    # f. the validator on the card against the CPU, identical draws
+    T = cfg.horizon.num_prime
+    draws = TorchNoise(torch.Generator(), "cpu").mc_draws(0, range(8), 1000, T)
+    arrays8 = dict(zip(("mc_eps_acc", "mc_eps_steer", "mc_eps_const"),
+                       (d.numpy() for d in draws)))
+    counts = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        v = make_validator(cfg, build_workspace(cfg, device), 1000,
+                           FixedNoise(arrays8, device))
+        counts[name] = [t.cpu().numpy().astype(np.int64) for t in v(
+            *(a[:8] if a.ndim > 1 else a for a in args))[:2]]
+    d_coll = np.abs(counts["cuda"][0] - counts["cpu"][0]).max()
+    d_lane = np.abs(counts["cuda"][1] - counts["cpu"][1]).max()
+    d_pct = abs(counts["cuda"][0].mean() - counts["cpu"][0].mean()) / 10
+    log(f"Path C validator cuda vs cpu, 8 solves, identical draws: coll_count "
+        f"max diff {d_coll}, lane_count max diff {d_lane}, mean collision % "
+        f"{counts['cuda'][0].mean() / 10:.4f} vs {counts['cpu'][0].mean() / 10:.4f}")
+    if d_coll > 1 or d_lane > 1 or d_pct > 0.1:
+        fail("Path C: the validator on the card disagrees with the CPU beyond "
+             "+-1 per solve or 0.1 pp")
+
+    # g. the gaussian and matern52 MMD kernels at the fastrt width
+    for kind in ("gaussian", "matern52"):
+        cfg_k = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50)
+        cfg_k = cfg_k.replace(risk=dataclasses.replace(cfg_k.risk, kernel=kind))
+        solver = Solver(cfg_k, device=dev)
+        scen = obstacle_scenarios(torch, 1, 6, solver.ws.tot_time)[0]
+        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (K1, K2, K4),
+                               lambda: solver.solve(0, INIT, MEAN, COV, *scen, 15.0))
+        check_solve(r, cfg_k)
+        log(f"Path C fastrt mmd_opt, {kind} kernel: {1e3 * secs:.1f} ms (first "
+            f"solve), risk_obs {float(r.risk_obs):.4f}; launches {got}")
+        path_launches.append(got)
+    return path_launches
+
+
 def main():
     import torch
 
@@ -358,6 +567,9 @@ def main():
     k4 = check_rollout(torch, ops, rollout_plain, dev, gen)
     log(f"K4 fused_rollout: max abs err {k4[0]:.3e}; "
         f"{k4[1]:.4f} ms vs plain {k4[2]:.4f} ms")
+    k4v = check_rollout(torch, ops, rollout_plain, dev, gen, lanes=256_000)
+    log(f"K4 fused_rollout at the validator's shape (256,000 x 50): max abs err "
+        f"{k4v[0]:.3e}; {k4v[1]:.4f} ms vs plain {k4v[2]:.4f} ms")
     k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen)
     log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3[0]:.3e}; "
         f"{k3[1]:.4f} ms vs plain {k3[2]:.4f} ms at (100, 100, 101)")
@@ -391,7 +603,8 @@ def main():
     cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta",
                              noise_level=0.2, num_prime=50, mode="mmd_opt")
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
-    xs, ys = dynamic_cutin(dev)
+    cutin = dynamic_cutin(cfg_a, 3, device=dev)
+    xs, ys = cutin.x_traj, cutin.y_traj
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
     t0 = time.perf_counter()
     solver_a = Solver(cfg_a, device=dev)
@@ -436,6 +649,10 @@ def main():
                 (init_d, mean_d, cov_d, xs[0].cpu(), ys[0].cpu(), v_des), "Path A")
     os.environ.pop("MPC_MMD_FUSED_CEM")
 
+    # ---- 9. Path C: sweep -> validation pipeline ---------------------------
+    with tempfile.TemporaryDirectory() as work:
+        path_launches += path_c(torch, ops, dev, work)
+
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
@@ -447,7 +664,8 @@ def main():
             (ops.topk_kernel_matrices, "topk_kernel.cu",
              "mpc_mmd_tpu/ops/topk_kernel_pallas.py:87", k3),
             (ops.fused_rollout, "rollout.cu",
-             "mpc_mmd_tpu/ops/rollout_pallas.py:101", k4),
+             "mpc_mmd_tpu/ops/rollout_pallas.py:101",
+             (max(k4[0], k4v[0]), k4[1], k4[2])),
             (ops.topk_onehot, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:146", k5)):
         record.append({"name": fn.__name__, "route": "cuda",
                        "source": f"mpc_mmd_tpu_torch/csrc/{src_file}",

@@ -4,8 +4,8 @@ Frozen dataclasses that copy ``mpc_mmd_tpu/config.py`` field for field, so a
 configuration means the same problem in both packages.  The JAX config is not
 imported: its ``RiskConfig.__post_init__`` imports jax.
 
-Only the Laplace MMD kernel is ported; any other ``RiskConfig.kernel`` raises
-``NotImplementedError`` at construction.  ``solve_strategy``,
+Every ``RiskConfig.kernel`` of the JAX package (laplace, gaussian,
+matern52) is ported.  ``solve_strategy``,
 ``rollout_backend`` and ``matmul_precision`` keep their JAX fields and
 defaults; :class:`mpc_mmd_tpu_torch.solver.Solver` says which values it runs
 (every matmul of the port is full float32, see ``__init__``).
@@ -158,9 +158,6 @@ class RiskConfig:
         if self.kernel not in KERNEL_KINDS:
             raise ValueError(f"kernel must be one of {KERNEL_KINDS}, "
                              f"got {self.kernel!r}")
-        if self.kernel != "laplace":
-            raise NotImplementedError(
-                f"the PyTorch port has only the laplace kernel, got {self.kernel!r}")
 
     @property
     def num_mother(self) -> int:

@@ -57,6 +57,19 @@ def beta_parameters(acc: torch.Tensor, steer: torch.Tensor,
     return noise.beta_a * u, noise.beta_b * u
 
 
+def mc_beta_parameters(acc: torch.Tensor, steer: torch.Tensor,
+                       noise: NoiseConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Monte-Carlo validator's Beta parameters (2, ..., T), which are
+    not the solve's (mpc_mmd_tpu/validate.py:50-54): Beta(a |acc|, b |acc|)
+    with no floor, and Beta(a |steer| + 1e-5, b |steer| + 1e-5).  Where acc
+    is exactly 0 that is Beta(0, 0): the draw, and with it the rollout from
+    that step on, is NaN, as ``jax.random.beta`` makes it.
+    """
+    a_acc, a_steer = torch.abs(acc), torch.abs(steer)
+    return (torch.stack((noise.beta_a * a_acc, noise.beta_a * a_steer + 1e-5)),
+            torch.stack((noise.beta_b * a_acc, noise.beta_b * a_steer + 1e-5)))
+
+
 def perturb_controls(acc: torch.Tensor, steer: torch.Tensor,
                      d_acc: torch.Tensor, d_steer: torch.Tensor,
                      eps_const: torch.Tensor, noise: NoiseConfig

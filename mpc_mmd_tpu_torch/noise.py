@@ -32,6 +32,15 @@ them:
     draws every candidate's from the same key.
   - ``cem_z`` (nb - ellite_num, 8) for the resample of the outer CEM
     update (solver.py:299).
+
+The Monte-Carlo validator (``validate.py``) asks for ``mc_draws``: per
+solve row r of a validation with seed s, the JAX package keys
+``split(split(PRNGKey(s), S)[r], 3)`` (validate.py:45,127) and draws from
+the three keys (n_mc, T) each: ``eps_acc`` and ``eps_steer``, standard
+normal, or under Beta noise the acc and steer Beta draws instead, and
+``eps_const``.  A source draws them per (seed, row), so a solve's draws
+do not depend on how the validator chunks the solves, and every mode of a
+comparison meets the same draws in the same row.
 """
 
 from __future__ import annotations
@@ -121,6 +130,28 @@ class TorchNoise:
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self._randn((3, idx_mpc, it), (n, n_params))[0]
 
+    def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The validator's draws of the solve rows ``rows``: ``d_acc``,
+        ``d_steer`` and ``eps_const``, each (len(rows), n_mc, T).
+
+        Gaussian noise (``params`` None): standard normals.  Beta noise:
+        ``params`` = (alpha, beta), each (2, len(rows), T) for the (acc,
+        steer) channels, and ``d_acc``, ``d_steer`` are Beta draws.  Each
+        row re-seeds the generator from (seed, row).
+        """
+        out = torch.empty((len(rows), 3, n_mc, T), device=self.device)
+        for i, r in enumerate(rows):
+            g = self._seed((5, int(seed), int(r)))
+            if params is None:
+                torch.randn((3, n_mc, T), generator=g, out=out[i])
+            else:
+                shape = (2, n_mc, T)
+                out[i, :2] = sample_beta(params[0][:, i, None].expand(shape),
+                                         params[1][:, i, None].expand(shape), g)
+                torch.randn((n_mc, T), generator=g, out=out[i, 2])
+        return out[:, 0], out[:, 1], out[:, 2]
+
 
 BetaFn = Callable[[int, int, int, np.ndarray, np.ndarray], np.ndarray]
 
@@ -136,6 +167,10 @@ class FixedNoise:
     Beta draws come from ``arrays["beta"]`` (maxiter_cem, 2, C, R, T) if
     given, else from ``beta_fn(idx_mpc, it, R, alpha, beta)``, which gets
     the parameters (2, C, T) as numpy arrays and returns (2, C, R, T).
+
+    The validator's draws come from ``mc_eps_acc``, ``mc_eps_steer``,
+    ``mc_eps_const`` (N, n_mc, T) and, under Beta noise, ``mc_beta``
+    (N, 2, n_mc, T), indexed by solve row; the seed is ignored.
     """
 
     def __init__(self, arrays: Dict[str, np.ndarray], device,
@@ -183,6 +218,22 @@ class FixedNoise:
 
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self.arrays["cem_z"][it]
+
+    def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
+        want = (len(idx), n_mc, T)
+        eps = self.arrays["mc_eps_const"][idx]
+        if params is None:
+            d_acc = self.arrays["mc_eps_acc"][idx]
+            d_steer = self.arrays["mc_eps_steer"][idx]
+        else:
+            beta = self.arrays["mc_beta"][idx]
+            d_acc, d_steer = beta[:, 0], beta[:, 1]
+        for name, d in (("d_acc", d_acc), ("d_steer", d_steer), ("eps_const", eps)):
+            if tuple(d.shape) != want:
+                raise ValueError(f"mc {name}: have {tuple(d.shape)}, need {want}")
+        return d_acc, d_steer, eps
 
 
 def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray], BetaFn]:

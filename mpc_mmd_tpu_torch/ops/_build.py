@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) as one library.
 
-``nvcc`` compiles every source of ``csrc/`` for ``sm_90a`` into one shared
+``nvcc`` compiles every source of ``csrc/`` for ``sm_90a``, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which is loaded with ``ctypes``.  The
 build happens at first use, under ``build/torch_kernels/`` at the root of
 the checkout, and is keyed on a hash of the sources and flags, so a changed
@@ -29,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,17 +76,28 @@ def build() -> Path:
     target = BUILD_DIR / f"libmpc_mmd_kernels_{_digest()}.so"
     if target.exists():
         return target
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / (target.stem + ".log")).write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)
+    nvcc = _nvcc()
+    sources = sorted(CSRC.glob("*.cu"))
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in sources]
+        lib = Path(tmp) / "lib.so"
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                    for src, obj in zip(sources, objs)]
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(lib), *map(str, objs)]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in compiles]
+        runs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, proc in zip(compiles, procs)]
+        if all(rc == 0 for _, _, rc in runs):
+            done = subprocess.run(link, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            runs.append((link, done.stdout, done.returncode))
+        text = "".join(" ".join(cmd) + "\n" + out for cmd, out, _ in runs)
+        (BUILD_DIR / (target.stem + ".log")).write_text(text)
+        if any(rc != 0 for _, _, rc in runs) or not lib.exists():
+            raise RuntimeError(f"nvcc failed:\n{text}")
+        os.replace(lib, target)
     return target
 
 

@@ -8,10 +8,12 @@ coefficients is computed once; each inner iteration then runs the
 selection stage on every sample and solves the k x k weight QP (K2).  The
 "xla" selection picks the top-k |beta| lanes (K1), gathers those rows of D
 and takes exp(-rows/sigma); the "fused" one does all of that in one kernel
-(K3).  The JAX package writes the gathers as one-hot einsums to suit the
-TPU; here they are direct gathers, which are exact, so the elite rows and
-every carried value pass through bit-unchanged (TF32 is off in any case,
-see ``__init__``).
+(K3).  Under the gaussian and matern52 kernels the "xla" selection also
+keeps the squared L2 distance matrix D2 and gathers its rows beside those
+of D, and ``kernel_of`` maps the pair to K.  The JAX package writes the
+gathers as one-hot einsums to suit the TPU; here they are direct gathers,
+which are exact, so the elite rows and every carried value pass through
+bit-unchanged (TF32 is off in any case, see ``__init__``).
 
 The selection is resolved at call time as in the JAX package
 (reduced_set.py:394-406): ``MPC_MMD_SELECTION``, else "fused" when
@@ -37,7 +39,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .config import ProblemConfig
-from .kernels import kernel_of, pairwise_l1
+from .kernels import kernel_of, pairwise_l1, pairwise_l2sq
 from .noise import InnerDraws
 from .ops import eq_qp_solve, topk_indices, topk_kernel_matrices
 
@@ -81,12 +83,20 @@ def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> str:
     """The selection a call runs: the argument, else ``MPC_MMD_SELECTION``,
     else "fused" if ``MPC_MMD_FUSED_CEM=1`` (never under the exact
-    strategy), else "xla"; as the JAX package resolves it."""
+    strategy), else "xla"; as the JAX package resolves it.
+
+    Under a kernel other than laplace, "fused" (and "g") become "xla": K3
+    hard-codes the Laplace exp, and the JAX package applies the same rule
+    (reduced_set.py:402-406).  The gaussian and matern52 selections run
+    K1 and K2 as the laplace "xla" one does.
+    """
     if selection is None:
         fused = (cfg.solve_strategy != "exact"
                  and os.environ.get("MPC_MMD_FUSED_CEM") == "1")
         selection = os.environ.get("MPC_MMD_SELECTION") or (
             "fused" if fused else "xla")
+    if cfg.risk.kernel != "laplace" and selection in ("fused", "g"):
+        selection = "xla"
     if selection in ("xt", "g"):
         raise NotImplementedError(
             f"selection {selection!r} is not ported: it exists only to suit "
@@ -122,6 +132,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
 
     feats = torch.cat((cx, cy), dim=2)                       # (C, M, 2 nvar)
     D = pairwise_l1(feats, feats)                            # (C, M, M)
+    # squared L2 distances only for the kernels that read them
+    D2 = pairwise_l2sq(feats, feats) if kind != "laplace" else None
     c_ix = torch.arange(C, device=dev)[:, None, None]
 
     samples0_row = math.sqrt(b.init_cov_scale) * draws.samples0
@@ -155,7 +167,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
             idx = topk_indices(samples_sub.contiguous(), k, absolute=True,
                                slice_to=M).long()            # (C, S', k)
             rows = D[c_ix, idx]                              # (C, S', k, M)
-            K_mixed = kernel_of(kind, sigma[..., None, None], rows)
+            rows2 = None if D2 is None else D2[c_ix, idx]
+            K_mixed = kernel_of(kind, sigma[..., None, None], rows, rows2)
             K_red = torch.gather(K_mixed, 3, idx[:, :, None, :].expand(
                 idx.shape[:2] + (k, k)))
             row_sum = K_mixed.sum(dim=-1)
@@ -179,7 +192,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         idx0 = topk_indices(samples0_row[None].contiguous(), k, absolute=True,
                             slice_to=M)[0].long()            # (S, k)
         rows0 = D[:, idx0]                                   # (C, S, k, M)
-        K_mixed0 = kernel_of(kind, sigma0[None, :, None, None], rows0)
+        rows0_2 = None if D2 is None else D2[:, idx0]
+        K_mixed0 = kernel_of(kind, sigma0[None, :, None, None], rows0, rows0_2)
         K_red0 = torch.gather(K_mixed0, 3,
                               idx0[None, :, None, :].expand(C, S, k, k))
         beta_all, cost = finish(*_beta_qp(K_red0, K_mixed0.sum(dim=-1), M, cfg))

@@ -55,8 +55,10 @@ def test_defaults_and_derived_values_match_jax():
 
 
 def test_validation():
-    with pytest.raises(NotImplementedError):
-        tc.RiskConfig(kernel="gaussian")
+    for kind in tc.KERNEL_KINDS:
+        assert tc.RiskConfig(kernel=kind).kernel == kind
+    from mpc_mmd_tpu.kernels import KERNEL_KINDS
+    assert tc.KERNEL_KINDS == KERNEL_KINDS
     with pytest.raises(ValueError):
         tc.RiskConfig(kernel="cosine")
     with pytest.raises(ValueError):

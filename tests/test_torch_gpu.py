@@ -205,3 +205,44 @@ def test_one_outer_iteration_cuda_matches_cpu(cuda):
     torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.risk_obs.cpu(), h.risk_obs, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("noise", ["gaussian", "beta"])
+def test_validator_cuda_matches_cpu(cuda, noise):
+    """The MC validator on the card (K4) against the CPU with identical
+    draws: counts within one per solve (a rollout grazing a bound can flip
+    on K4's last-ulp differences), collision fractions within 1/n_mc."""
+    from mpc_mmd_tpu_torch import static_workload
+    from mpc_mmd_tpu_torch.qp import build_workspace
+    from mpc_mmd_tpu_torch.validate import make_validator
+    cfg = static_workload(num_reduced=3, num_obs=2, num_prime=50, noise=noise,
+                          noise_level=0.3, steer_const_noise=0.02)
+    S, n_mc, T = 6, 1000, 50
+    ws = build_workspace(cfg)
+    t = np.linspace(0.0, 15.0, 100)
+    P = ws.P.double().numpy()
+    cx = np.stack([np.linalg.lstsq(P, (5 + 0.3 * i) * t, rcond=None)[0]
+                   for i in range(S)]).astype(np.float32)
+    cy = np.stack([np.linalg.lstsq(P, 1.75 - 0.02 * i * t, rcond=None)[0]
+                   for i in range(S)]).astype(np.float32)
+    xo = np.zeros((S, 2, 100), np.float32)
+    yo = np.full((S, 2, 100), -1.75, np.float32)
+    xo[:, 0] = (12.0 + 2.0 * np.arange(S))[:, None]
+    yo[:, 0] = -0.9
+    xo[:, 1] = 300.0
+    g = torch.Generator().manual_seed(0)
+    arrays = {f"mc_eps_{n}": torch.randn(S, n_mc, T, generator=g).numpy()
+              for n in ("acc", "steer", "const")}
+    arrays["mc_beta"] = torch.rand(S, 2, n_mc, T, generator=g).numpy()
+    init = np.asarray([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        v = make_validator(cfg, build_workspace(cfg, dev), n_mc,
+                           FixedNoise(arrays, dev))
+        before = fused_rollout.launches
+        out[dev] = [x.cpu().numpy() for x in v(cx, cy, init, xo, yo)]
+        assert fused_rollout.launches == before + (dev == "cuda")
+    for i in range(2):
+        assert np.abs(out["cuda"][i].astype(np.int64) - out["cpu"][i]).max() <= 1
+    assert np.abs(out["cuda"][2] - out["cpu"][2]).max() <= 1.0 / n_mc + 1e-7
+    assert out["cpu"][0].max() > 0

@@ -187,3 +187,22 @@ def test_mmd_risks_match_jax(rng):
     j1 = jrisk.mmd_lane(cfg, jnp.asarray(beta[0]), 2.0, jnp.asarray(yr[0]))
     t1 = trisk.mmd_lane(tcfg, torch.from_numpy(beta[0]), 2.0, torch.from_numpy(yr[0]))
     np.testing.assert_allclose(t1.numpy(), np.asarray(j1), rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "matern52"])
+@pytest.mark.parametrize("elite_carry", ["1", "0"])
+def test_other_kernel_selection_matches_jax(rng, monkeypatch, kind, elite_carry):
+    """The "xla" selection under the gaussian and matern52 kernels: rows of
+    D and of the squared L2 matrix D2 gathered side by side, with
+    elite-carry and with full recompute.  Asked for "fused", both packages
+    run "xla" (K3 hard-codes the Laplace exp)."""
+    monkeypatch.setenv("MPC_MMD_ELITE_CARRY", elite_carry)
+    cfg = _cfg3(3)
+    cfg = cfg.replace(risk=dataclasses.replace(cfg.risk, kernel=kind))
+    inputs = _inputs(rng, 3, cfg.risk.num_mother, T=15)
+    got, ref = _both(cfg, inputs, selection="xla")
+    _assert_same(got, ref, 3, 3)
+    assert resolve_selection(to_torch_cfg(cfg), "fused") == "xla"
+    fused, _ = _both(cfg, inputs, selection="fused", interpret=True)
+    for a, b in zip(fused, got):
+        assert torch.equal(a, b)

@@ -20,6 +20,11 @@ Phases, each of which must pass:
    rtol 1e-5 + atol 1e-6;
    K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
    equal exactly;
+   then, for each kernel at the shape above (K4 at both), its own device
+   time per launch from ``torch.profiler``, its bound, and the device time
+   of the one PyTorch call that computes the same function, where there is
+   one (``torch.topk`` for K1, ``torch.linalg.solve`` of the bordered KKT
+   system for K2; the port never calls either);
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
@@ -34,8 +39,10 @@ Phases, each of which must pass:
    Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios of
    ``scenarios.dynamic_cutin``, each checked as in 4, with
    exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
-   and maxiter_cem of K4 per solve; then 2 solves with the default "xla"
-   selection at the same width;
+   and maxiter_cem of K4 per solve; one more fused solve under
+   ``torch.profiler`` (device busy ms, idle share, K3's device ms per
+   solve); then 2 solves with the default "xla" selection at the same
+   width;
 7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
    solve each of ``mmd_random`` and ``saa``: finite, with K4 launched;
 8. one outer iteration of Path A on the card against the CPU with
@@ -67,6 +74,24 @@ Prints the kernels' JSON record and the card's nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
 counts the launches of the paths' runs (phases 4, 6, 7 and 9 a-e, g); K5
 is on no path of the package, and its count is that of its own phase.
+``launches_per_solve`` splits them by path (per solve; the validator's per
+1200 validations).  The times, all in milliseconds at ``shape``:
+
+- ``ms``: CUDA events around a Python loop of 50 wrapper calls, over 50.
+  It includes the wrapper's host work (checks, ``torch.empty``, the
+  ``ctypes`` call), which sets a floor of tens of microseconds: an upper
+  bound on the kernel, not its time.
+- ``plain_ms``: the same for the plain PyTorch twin.
+- ``device_ms``: the kernel's own device time per launch, from
+  ``torch.profiler`` over 20 launches.
+- ``bound_ms``: the larger of the bytes (each input read once, each output
+  written once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s
+  (``bound_by`` says which).
+- ``library_ms``: the device time per call of the library call named in
+  ``library``, or null where no single call computes the function
+  (``library`` then says so).
+
+K4 also carries ``largest``: the same at the validator's 256,000 lanes.
 Exits non-zero, with no result, when there is no CUDA card or the package
 is not beside it.
 """
@@ -110,6 +135,50 @@ def cuda_ms(torch, fn, reps=50, warmup=3):
     return start.elapsed_time(end) / reps
 
 
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+
+
+def bound(nbytes, ops):
+    """Least milliseconds the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def profiled_ms(torch, fn, reps=20, match=None):
+    """Device milliseconds per call of ``fn`` from ``torch.profiler``.
+
+    With ``match`` (a kernel's name), the device events whose name holds it
+    must number exactly ``reps`` (one launch a call), and their summed time
+    is divided by ``reps``: the kernel's own device time per launch.  Without
+    it, every device event of the window counts: a library call's device
+    time, whatever kernels it launches.  Returns (ms, names seen).
+    """
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and (match is None or match in e.name)]
+        if ev and (match is None or len(ev) == reps):
+            break
+    names = sorted({e.name for e in ev})
+    if not ev or (match is not None and len(ev) != reps):
+        fail(f"profiler: {len(ev)} device events named {match!r} for {reps} "
+             f"launches in 3 sessions ({names})")
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, names
+
+
+def f32_bytes(*tensors):
+    return sum(4 * t.numel() for t in tensors)
+
+
 def check_topk(torch, ops, topk_plain, dev, gen):
     """K1 at the selection shape (C, S - n_el, M + 1), the iteration-0 shape
     and the elite pick (-cost over (C, S))."""
@@ -132,9 +201,17 @@ def check_topk(torch, ops, topk_plain, dev, gen):
         err = max(err, int((got.long() - ref.long()).abs().max()))
     if err != 0:
         fail(f"K1 topk_indices disagrees with its plain twin (max index diff {err})")
-    ms = cuda_ms(torch, lambda: ops.topk_indices(x, 10, absolute=True, slice_to=100))
-    plain = cuda_ms(torch, lambda: topk_plain(x, 10, absolute=True, slice_to=100))
-    return err, ms, plain
+    call = lambda: ops.topk_indices(x, 10, absolute=True, slice_to=100)
+    absx = x[..., :100].abs().contiguous()       # outside the timed window
+    rows = x.numel() // 101
+    return dict(max_abs_err=err, ms=cuda_ms(torch, call),
+                plain_ms=cuda_ms(torch, lambda: topk_plain(x, 10, absolute=True,
+                                                           slice_to=100)),
+                shape="(64, 57, 101), k=10, |x| of the first 100 lanes",
+                call=call, match="topk_kernel",
+                nbytes=f32_bytes(x) + 4 * rows * 10, ops=rows * 10 * 100,
+                library=("torch.topk(|x|[..., :100], 10) on the precomputed slice",
+                         lambda: torch.topk(absx, 10, dim=-1)))
 
 
 def check_eq_qp(torch, ops, qp_plain, dev, gen):
@@ -156,9 +233,22 @@ def check_eq_qp(torch, ops, qp_plain, dev, gen):
                  f"float64 twin at {int(bad.sum())} entries")
     err = max(float((b.double() - b64).abs().max()),
               float((mu.double() - mu64).abs().max()))
-    ms = cuda_ms(torch, lambda: ops.eq_qp_solve(C, r))
-    plain = cuda_ms(torch, lambda: qp_plain(C, r), reps=10)
-    return err, ms, plain
+    # the bordered (n+1) x (n+1) KKT system [[C, 1], [1^T, 0]] [b; mu] =
+    # [r; 1], built outside the timed window
+    n = C.shape[-1]
+    kkt = torch.zeros(C.shape[:-2] + (n + 1, n + 1), device=dev)
+    kkt[..., :n, :n] = C
+    kkt[..., :n, n] = 1.0
+    kkt[..., n, :n] = 1.0
+    rhs = torch.cat((r, torch.ones_like(r[..., :1])), dim=-1)[..., None]
+    systems = r.numel() // n
+    return dict(max_abs_err=err, ms=cuda_ms(torch, lambda: ops.eq_qp_solve(C, r)),
+                plain_ms=cuda_ms(torch, lambda: qp_plain(C, r), reps=10),
+                shape="3648 systems, n=10", call=lambda: ops.eq_qp_solve(C, r),
+                match="eq_qp_kernel", nbytes=f32_bytes(C, r, b, mu),
+                ops=systems * (n ** 3 // 3 + 4 * n * n),
+                library=("torch.linalg.solve on the bordered (n+1)x(n+1) KKT "
+                         "system", lambda: torch.linalg.solve(kkt, rhs)))
 
 
 def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
@@ -175,9 +265,14 @@ def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
     if not err <= 1e-4:
         fail(f"K4 fused_rollout differs from its plain twin by {err} (> 1e-4) "
              f"at {lanes} lanes")
-    ms = cuda_ms(torch, lambda: ops.fused_rollout(*args))
-    plain = cuda_ms(torch, lambda: rollout_plain(*args), reps=10)
-    return err, ms, plain
+    return dict(max_abs_err=err, ms=cuda_ms(torch, lambda: ops.fused_rollout(*args)),
+                plain_ms=cuda_ms(torch, lambda: rollout_plain(*args), reps=10),
+                shape=f"{lanes} lanes x 50 steps, one shared state",
+                call=lambda: ops.fused_rollout(*args), match="rollout_kernel",
+                # two inputs read, two outputs written; ~16 float32
+                # operations a lane-step (tan, cos, sin and sqrt as one each)
+                nbytes=f32_bytes(acc, steer, s0, x, y), ops=16 * acc.numel(),
+                library=("no single call", None))
 
 
 def check_fused_selection(torch, ops, plain, dev, gen):
@@ -205,10 +300,18 @@ def check_fused_selection(torch, ops, plain, dev, gen):
                      f"{int(bad.sum())} entries, shape {(C, S)}")
             err = max(err, float((g - r).abs().max()))
         if timed is None:
-            timed = (samples, D)
-    ms = cuda_ms(torch, lambda: ops.topk_kernel_matrices(*timed, 10))
-    plain_ms = cuda_ms(torch, lambda: plain(*timed, 10), reps=10)
-    return err, ms, plain_ms
+            timed = (samples, D, got)
+    samples, D, out = timed
+    C, S, Mp1 = samples.shape
+    call = lambda: ops.topk_kernel_matrices(samples, D, 10)
+    return dict(max_abs_err=err, ms=cuda_ms(torch, call),
+                plain_ms=cuda_ms(torch, lambda: plain(samples, D, 10), reps=10),
+                shape="(100, 100, 101), k=10", call=call,
+                match="topk_kernel_matrices_kernel",
+                nbytes=f32_bytes(samples, D, *out),
+                # a division, an exp and an add per (row, selected row, column)
+                ops=3 * C * S * 10 * (Mp1 - 1),
+                library=("no single call", None))
 
 
 def check_topk_onehot(torch, ops, plain, dev, gen):
@@ -222,9 +325,61 @@ def check_topk_onehot(torch, ops, plain, dev, gen):
     torch.cuda.synchronize()
     if not torch.equal(idx, ridx) or not torch.equal(oh, roh):
         fail("K5 topk_onehot differs from its plain twin")
-    ms = cuda_ms(torch, lambda: ops.topk_onehot(x, 10, **kw))
-    plain_ms = cuda_ms(torch, lambda: plain(x, 10, **kw))
-    return 0.0, ms, plain_ms
+    call = lambda: ops.topk_onehot(x, 10, **kw)
+    return dict(max_abs_err=0.0, ms=cuda_ms(torch, call),
+                plain_ms=cuda_ms(torch, lambda: plain(x, 10, **kw)),
+                shape="(64, 57, 101), k=10, |x| of the first 100 lanes",
+                call=call, match="topk_kernel", nbytes=f32_bytes(x, idx, oh),
+                ops=idx.numel() * 100, library=("no single call", None))
+
+
+def measure(torch, name, rec):
+    """Adds to a kernel's check result its device time per launch, its bound
+    and its library call's device time, and logs them."""
+    rec["device_ms"], names = profiled_ms(torch, rec["call"], match=rec["match"])
+    rec["bound_ms"], rec["bound_by"] = bound(rec["nbytes"], rec["ops"])
+    what, lib = rec["library"]
+    rec["library_ms"] = profiled_ms(torch, lib)[0] if lib else None
+    log(f"{name} at {rec['shape']}: device {rec['device_ms']:.4f} ms per launch "
+        f"({names[0][:60]}), bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
+        f"({rec['nbytes'] / 1e6:.2f} MB, {rec['ops']:.3g} ops), "
+        f"{100 * rec['bound_ms'] / rec['device_ms']:.1f} % of it; library "
+        f"{what}: {rec['library_ms']}")
+
+
+def kernel_record(ops, launches, per_solve, k1, k2, k3, k4, k5):
+    """The kernels' JSON record (see the module docstring); ``k4`` is the
+    pair (main path shape, validator shape)."""
+    record = []
+    for fn, src_file, tpu, (rec, largest) in (
+            (ops.topk_indices, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:116",
+             (k1, None)),
+            (ops.eq_qp_solve, "eq_qp.cu", "mpc_mmd_tpu/ops/qp_pallas.py:109",
+             (k2, None)),
+            (ops.topk_kernel_matrices, "topk_kernel.cu",
+             "mpc_mmd_tpu/ops/topk_kernel_pallas.py:87", (k3, None)),
+            (ops.fused_rollout, "rollout.cu",
+             "mpc_mmd_tpu/ops/rollout_pallas.py:101", k4),
+            (ops.topk_onehot, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:146",
+             (k5, None))):
+        name = fn.__name__
+        row = {"name": name, "route": "cuda",
+               "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
+               "launches": launches[name],
+               "launches_per_solve": {p: n[name] for p, n in per_solve.items()
+                                      if n.get(name)},
+               "max_abs_err": max(rec["max_abs_err"],
+                                  largest["max_abs_err"] if largest else 0.0),
+               "shape": rec["shape"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+               "device_ms": rec["device_ms"], "bound_ms": rec["bound_ms"],
+               "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+               "library": rec["library"][0]}
+        if largest:
+            row["largest"] = {k: largest[k] for k in (
+                "shape", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
+                "bound_by")}
+        record.append(row)
+    return record
 
 
 def obstacle_scenarios(torch, n, num_obs, tot_time, blocking=False):
@@ -326,6 +481,31 @@ def timed_solves(torch, ops, solver, cfg, calls, label, path_kernels):
     return launches
 
 
+def trace_path_a(torch, ops, solver, cfg, call):
+    """One Path A fused solve under ``torch.profiler`` (``device_trace``):
+    device busy ms, idle share and K3's device ms per solve."""
+    from mpc_mmd_tpu_torch.utils.observability import device_trace
+    with tempfile.TemporaryDirectory() as trace_dir:
+        with device_trace(trace_dir) as prof:
+            r = solver.solve(call[0], *call[1])
+        with open(glob.glob(os.path.join(trace_dir, "summary_*.json"))[0]) as f:
+            summary = json.load(f)
+    check_solve(r, cfg)
+    k3 = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "topk_kernel_matrices_kernel" in e.name]
+    k3_ms = sum(e.time_range.elapsed_us() for e in k3) / 1e3
+    n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
+    if len(k3) != n_inner:
+        fail(f"Path A trace: {len(k3)} K3 launches in one solve, expected {n_inner}")
+    log(f"Path A fused, one solve under torch.profiler: {summary['wall_ms']:.1f} ms "
+        f"wall, device busy {summary['device_busy_ms']:.2f} ms, idle share "
+        f"{summary['idle_share']:.3f}, {summary['device_events']} device events; K3 "
+        f"{k3_ms:.3f} ms over {len(k3)} launches (PERF.md's profile before the K3 "
+        f"redesign: busy 90.9 ms, idle 0.786, K3 33.2 ms over 400); top "
+        f"{summary['top'][:4]}")
+
+
 def controls(ws, cfg, cx, cy):
     from mpc_mmd_tpu_torch.dynamics import controls_from_trajectory
     T = cfg.horizon.num_prime
@@ -359,10 +539,11 @@ SWEEP_FLAGS = ["--workload", "static", "--noise_levels", "0.1", "--noises",
                "--dispatch", "pipeline", "--device", "cuda"]
 
 
-def path_c(torch, ops, dev, work):
+def path_c(torch, ops, dev, work, per_solve):
     """Phase 9: sweep, resume, validate, the validator at 1200 solves, card
     vs CPU, and the gaussian / matern52 kernels.  Returns the launch counts
-    of the path's runs."""
+    of the path's runs; adds the sweeps' launches per solve and the
+    validator's per 1200 validations to ``per_solve``."""
     from mpc_mmd_tpu_torch import Solver, fastrt_workload
     from mpc_mmd_tpu_torch.cli import sweep as sweep_cli
     from mpc_mmd_tpu_torch.cli import validate as validate_cli
@@ -396,6 +577,7 @@ def path_c(torch, ops, dev, work):
             f"accepted {len(arrays['cx'])}/40, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; launches {got}")
         path_launches.append(got)
+        per_solve[f"sweep_{mode}"] = {k: v / 40 for k, v in got.items()}
 
     # b. the same commands again: every chunk resumes, nothing is solved
     chunk_files = {r: sorted(os.listdir(r)) for r in roots.values()}
@@ -470,6 +652,7 @@ def path_c(torch, ops, dev, work):
         f"launches of up to {CHUNK * 1000} lanes; mean collision % "
         f"{out[0].mean() / 10:.4f}")
     path_launches.append(got)
+    per_solve["validator_1200"] = dict(got)
     trace_dir = os.path.join(work, "trace")
     with device_trace(trace_dir):
         validator(*args)
@@ -560,22 +743,27 @@ def main():
     # ---- 3. kernels against their plain twins -----------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = check_topk(torch, ops, topk_indices_plain, dev, gen)
-    log(f"K1 topk_indices: exact; {k1[1]:.4f} ms vs plain {k1[2]:.4f} ms")
+    log(f"K1 topk_indices: exact; {k1['ms']:.4f} ms vs plain {k1['plain_ms']:.4f} ms")
     k2 = check_eq_qp(torch, ops, qp_plain, dev, gen)
-    log(f"K2 eq_qp_solve: max abs err {k2[0]:.3e} vs float64; "
-        f"{k2[1]:.4f} ms vs plain {k2[2]:.4f} ms")
+    log(f"K2 eq_qp_solve: max abs err {k2['max_abs_err']:.3e} vs float64; "
+        f"{k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms")
     k4 = check_rollout(torch, ops, rollout_plain, dev, gen)
-    log(f"K4 fused_rollout: max abs err {k4[0]:.3e}; "
-        f"{k4[1]:.4f} ms vs plain {k4[2]:.4f} ms")
+    log(f"K4 fused_rollout: max abs err {k4['max_abs_err']:.3e}; "
+        f"{k4['ms']:.4f} ms vs plain {k4['plain_ms']:.4f} ms")
     k4v = check_rollout(torch, ops, rollout_plain, dev, gen, lanes=256_000)
     log(f"K4 fused_rollout at the validator's shape (256,000 x 50): max abs err "
-        f"{k4v[0]:.3e}; {k4v[1]:.4f} ms vs plain {k4v[2]:.4f} ms")
+        f"{k4v['max_abs_err']:.3e}; {k4v['ms']:.4f} ms vs plain {k4v['plain_ms']:.4f} ms")
     k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen)
-    log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3[0]:.3e}; "
-        f"{k3[1]:.4f} ms vs plain {k3[2]:.4f} ms at (100, 100, 101)")
+    log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3['max_abs_err']:.3e}; "
+        f"{k3['ms']:.4f} ms vs plain {k3['plain_ms']:.4f} ms at (100, 100, 101)")
     k5 = check_topk_onehot(torch, ops, topk_onehot_plain, dev, gen)
     k5_launches = ops.topk_onehot.launches
-    log(f"K5 topk_onehot: exact; {k5[1]:.4f} ms vs plain {k5[2]:.4f} ms")
+    log(f"K5 topk_onehot: exact; {k5['ms']:.4f} ms vs plain {k5['plain_ms']:.4f} ms")
+
+    # ---- 3b. each kernel's device time, bound and library yardstick -------
+    for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
+                      ("K4", k4v), ("K5", k5)):
+        measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
     cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50,
@@ -592,6 +780,7 @@ def main():
         [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
         "fastrt (static, gaussian 0.1, xla selection)",
         (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout))]
+    per_solve = {"fastrt": {k: v / 3 for k, v in path_launches[-1].items()}}
 
     # ---- 5. one outer iteration, card against CPU -------------------------
     xo, yo = obstacle_scenarios(torch, 1, cfg.obstacles.num_obs,
@@ -624,12 +813,16 @@ def main():
     if got != want:
         fail(f"Path A launches {got}, expected {want} ({len(calls_a)} solves)")
     path_launches.append(got)
+    per_solve["path_a_fused"] = {k: v / len(calls_a) for k, v in got.items()}
+    trace_path_a(torch, ops, solver_a, cfg_a, calls_a[0])
     os.environ.pop("MPC_MMD_FUSED_CEM")
     check_solve(solver_a.solve(0, init_d, mean_d, cov_d, xs[0], ys[0], v_des), cfg_a)
     path_launches.append(timed_solves(
         torch, ops, solver_a, cfg_a, calls_a,
         "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
         (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout)))
+    per_solve["path_a_xla"] = {k: v / len(calls_a)
+                               for k, v in path_launches[-1].items()}
 
     # ---- 7. Path B: the same workload in cvar, mmd_random, saa -------------
     for mode, warm, n in (("cvar", True, 2), ("mmd_random", False, 1),
@@ -642,6 +835,7 @@ def main():
         path_launches.append(timed_solves(
             torch, ops, solver_b, cfg_b, calls_a[:n],
             f"Path B (dynamic cut-in, beta 0.2, {mode})", (ops.fused_rollout,)))
+        per_solve[f"path_b_{mode}"] = {k: v / n for k, v in path_launches[-1].items()}
 
     # ---- 8. Path A, one outer iteration, card against CPU -----------------
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
@@ -651,26 +845,13 @@ def main():
 
     # ---- 9. Path C: sweep -> validation pipeline ---------------------------
     with tempfile.TemporaryDirectory() as work:
-        path_launches += path_c(torch, ops, dev, work)
+        path_launches += path_c(torch, ops, dev, work, per_solve)
 
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
     launches["topk_onehot"] = k5_launches
-    record = []
-    for fn, src_file, tpu, (err, ms, plain_ms) in (
-            (ops.topk_indices, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:116", k1),
-            (ops.eq_qp_solve, "eq_qp.cu", "mpc_mmd_tpu/ops/qp_pallas.py:109", k2),
-            (ops.topk_kernel_matrices, "topk_kernel.cu",
-             "mpc_mmd_tpu/ops/topk_kernel_pallas.py:87", k3),
-            (ops.fused_rollout, "rollout.cu",
-             "mpc_mmd_tpu/ops/rollout_pallas.py:101",
-             (max(k4[0], k4v[0]), k4[1], k4[2])),
-            (ops.topk_onehot, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:146", k5)):
-        record.append({"name": fn.__name__, "route": "cuda",
-                       "source": f"mpc_mmd_tpu_torch/csrc/{src_file}",
-                       "replaces": tpu, "launches": launches[fn.__name__],
-                       "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+    record = kernel_record(ops, launches, per_solve, k1, k2, k3, (k4, k4v), k5)
     log(json.dumps({"kernels": record}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

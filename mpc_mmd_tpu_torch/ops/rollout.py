@@ -16,6 +16,8 @@ import torch
 from . import _build
 from ..dynamics import rollout as rollout_plain
 
+MAX_STEPS = 900   # T: a block's two (32, T) slabs fit in shared memory
+
 
 def fused_rollout(acc: torch.Tensor, steer: torch.Tensor, state0: torch.Tensor,
                   dt: float, wheel_base: float
@@ -25,7 +27,7 @@ def fused_rollout(acc: torch.Tensor, steer: torch.Tensor, state0: torch.Tensor,
     state0 is (5,) shared by every lane or (L, 5).  Column t holds the state
     before controls[t].  A CPU tensor takes the plain loop
     (``dynamics.rollout``); a CUDA tensor launches the kernel (float32,
-    contiguous).
+    contiguous, T at most :data:`MAX_STEPS`).
     """
     if acc.dim() != 2 or steer.shape != acc.shape:
         raise ValueError(f"fused_rollout: acc {tuple(acc.shape)} and steer "
@@ -37,6 +39,9 @@ def fused_rollout(acc: torch.Tensor, steer: torch.Tensor, state0: torch.Tensor,
     if acc.device.type == "cpu":
         return rollout_plain(acc, steer, state0, dt, wheel_base)
     _build.require_cuda_f32("fused_rollout", acc, steer, state0)
+    if T > MAX_STEPS:
+        raise ValueError(f"fused_rollout: the kernel takes T <= {MAX_STEPS}, "
+                         f"got {T}")
     x = torch.empty_like(acc)
     y = torch.empty_like(acc)
     err = _build.library().mmd_fused_rollout(

@@ -19,6 +19,7 @@ import torch
 
 from .basis import segment_slices, uniform_basis
 from .config import ProblemConfig
+from .device import resolve_device
 
 
 class Workspace(NamedTuple):
@@ -132,9 +133,10 @@ def workspace_from_numpy(d: Dict[str, np.ndarray], device) -> Workspace:
         for name in Workspace._fields})
 
 
-def build_workspace(cfg: ProblemConfig, device="cpu") -> Workspace:
-    """Float64 host precompute of every constant matrix, as float32 tensors."""
-    return workspace_from_numpy(_workspace_float64(cfg), device)
+def build_workspace(cfg: ProblemConfig, device="cuda") -> Workspace:
+    """Float64 host precompute of every constant matrix, as float32 tensors
+    on ``device`` (the card by default; ``device="cpu"`` for the CPU)."""
+    return workspace_from_numpy(_workspace_float64(cfg), resolve_device(device))
 
 
 def kkt_solve(kkt_inv: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:

@@ -34,6 +34,7 @@ import torch
 
 from .basis import uniform_basis
 from .config import ProblemConfig
+from .device import resolve_device
 
 CUTIN_PARAMS = Path(__file__).resolve().parent / "data" / "dynamic_cutin_params.npz"
 
@@ -55,9 +56,11 @@ _LANE_YS = np.array([-1.75, 1.75])
 
 
 def static_grid(cfg: ProblemConfig, n_configs: int, seed0: int = 0,
-                device="cpu") -> ScenarioBatch:
+                device="cuda") -> ScenarioBatch:
     """Random static obstacles on the 2-lane grid; config k uses numpy seed
-    seed0 + k (the reference's compute_obs_data)."""
+    seed0 + k (the reference's compute_obs_data).  Tensors on ``device``
+    (the card by default; ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     n_obs = cfg.obstacles.num_obs
     num = cfg.horizon.num
     xs = np.zeros((n_configs, n_obs))
@@ -120,10 +123,12 @@ def _cutin_params(n_obs: int, n_configs: int, seed0: int):
 
 
 def dynamic_cutin(cfg: ProblemConfig, n_configs: int, y_target: float = -1.75,
-                  seed0: int = 0, device="cpu") -> ScenarioBatch:
+                  seed0: int = 0, device="cuda") -> ScenarioBatch:
     """Cut-in traffic: obstacles at y = +1.75 with v ~ N(6, 0.1) tracking
     y_target, for configs seed0 .. seed0 + n_configs - 1 (at most 1200 and
-    15 obstacles, see the module docstring)."""
+    15 obstacles, see the module docstring).  The obstacles' QP is solved
+    on ``device`` (the card by default; ``device="cpu"`` for the CPU)."""
+    device = resolve_device(device)
     n_obs = cfg.obstacles.num_obs
     nvar = cfg.horizon.nvar
     x0, vx0, v_des = (torch.as_tensor(a, device=device)

@@ -30,6 +30,7 @@ import torch
 
 from . import risk as risk_mod
 from .config import ProblemConfig
+from .device import resolve_device
 from .dynamics import beta_parameters, controls_from_trajectory, perturb_controls
 from .noise import TorchNoise
 from .ops import fused_rollout
@@ -96,9 +97,12 @@ class Solver:
 
     Usage::
 
-        solver = Solver(dynamic_workload(mode="cvar"), device="cuda")
+        solver = Solver(dynamic_workload(mode="cvar"))      # on the card
         result = solver.solve(seed, init_state, mean, cov, x_obs, y_obs, v_des)
+        cpu_solver = Solver(cfg, device="cpu")              # plain twins
 
+    ``device`` defaults to ``"cuda"``; without a card that raises a
+    ``RuntimeError`` naming ``device="cpu"``, the only way onto the CPU.
     ``noise`` defaults to :class:`TorchNoise` on ``device``.  On a CUDA
     device the rollouts, top-k selections, fused selections and weight QPs
     run the hand-written kernels (``ops``); on the CPU their plain twins.
@@ -107,7 +111,7 @@ class Solver:
     runs them one at a time and refuses a chunk above 1.
     """
 
-    def __init__(self, cfg: ProblemConfig, device="cpu", noise=None,
+    def __init__(self, cfg: ProblemConfig, device="cuda", noise=None,
                  ws: Optional[Workspace] = None,
                  scenario_chunk: Optional[int] = None):
         if cfg.risk.mode not in MODES:
@@ -128,7 +132,7 @@ class Solver:
                 f"scenario_chunk={scenario_chunk}: the PyTorch port solves "
                 "the scenarios of solve_batch one at a time")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.ws = ws if ws is not None else build_workspace(cfg, self.device)
         if noise is None:
             noise = TorchNoise(torch.Generator(device=self.device), self.device)

@@ -9,8 +9,9 @@ one, and without JAX, run them with
 imports no JAX.  Tolerances: top-k indices and one-hot rows exact; QP
 within rtol 1e-4 + atol 1e-5 of the twin in float64; rollout within atol
 1e-4 of the twin on the card (accurate tanf/sinf/cosf, FMA contraction);
-the fused selection's indices exact, its row sums and K_red within rtol
-1e-5 + atol 1e-6 (expf within 2 ulp, and sums taken in another order).
+the fused selection's indices and K_red exact (the kernel and the twin on
+the card take the same IEEE quotient and expf), its row sums within rtol
+1e-5 + atol 1e-6 (sums taken in another order).
 """
 
 import dataclasses
@@ -72,14 +73,20 @@ def test_eq_qp_kernel_matches_float64_twin(cuda, n):
     torch.testing.assert_close(mu.double(), mu64, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("T", [1, 37, 50])
+@pytest.mark.parametrize("lanes", [1, 1000, 6401, 255_999])
 @pytest.mark.parametrize("per_lane", [False, True])
-def test_rollout_kernel_matches_twin(cuda, per_lane):
-    L, T = 1000, 50
-    acc = 1.0 + 0.5 * torch.randn(L, T, device="cuda", generator=cuda)
-    steer = 0.1 * torch.randn(L, T, device="cuda", generator=cuda)
-    s0 = (torch.randn(L, 5, device="cuda", generator=cuda) if per_lane
+def test_rollout_kernel_matches_twin(cuda, lanes, T, per_lane):
+    """K4 at lane counts that are not multiples of its 32-lane block and
+    at several horizons, with a shared (stride 0) and a per-lane (stride 5)
+    state."""
+    acc = 1.0 + 0.5 * torch.randn(lanes, T, device="cuda", generator=cuda)
+    steer = 0.1 * torch.randn(lanes, T, device="cuda", generator=cuda)
+    s0 = (torch.randn(lanes, 5, device="cuda", generator=cuda) if per_lane
           else torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0], device="cuda"))
+    before = fused_rollout.launches
     x, y = fused_rollout(acc, steer, s0, 0.15, 2.5)
+    assert fused_rollout.launches == before + 1
     xr, yr = rollout_plain(acc, steer, s0, 0.15, 2.5)
     torch.testing.assert_close(x, xr, rtol=0, atol=1e-4)
     torch.testing.assert_close(y, yr, rtol=0, atol=1e-4)
@@ -111,9 +118,19 @@ def _selection_inputs(gen, C, S, M):
     return samples, D
 
 
-@pytest.mark.parametrize("C,S,M,k", [(100, 100, 100, 10), (64, 64, 100, 10),
-                                     (3, 37, 128, 32), (2, 5, 9, 3)])
+@pytest.mark.parametrize("C,S,M,k", [
+    (100, 100, 100, 10), (64, 64, 100, 10), (3, 37, 128, 32), (2, 5, 9, 3),
+    (1, 33, 37, 1),      # one candidate, S past one block's 32 rows, k = 1
+    (1, 100, 128, 32),   # the widest rows and the most rounds
+    (5, 7, 37, 32),      # fewer rows than a block's warps, k = 32 of 37
+    (4, 65, 128, 1),
+    (6, 97, 100, 17),
+])
 def test_fused_selection_kernel_matches_twin(cuda, C, S, M, k):
+    """K3 against its twin, NaN, tied and infinite rows included, at shapes
+    that do and do not fill its blocks.  K_red is bit-equal to the twin's
+    on the card: both take the IEEE quotient and expf of the same operands
+    (only the row sums add in another order)."""
     samples, D = _selection_inputs(cuda, C, S, M)
     before = topk_kernel_matrices.launches
     got = topk_kernel_matrices(samples, D, k)
@@ -124,12 +141,29 @@ def test_fused_selection_kernel_matches_twin(cuda, C, S, M, k):
     assert bool((got[2][0, 1] == M).all())
     for g, r in zip(got[:2], ref[:2]):
         torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+    assert torch.equal(got[1], ref[1])
     # one batch shared by every candidate: a candidate stride of 0
     shared = samples[:1].expand(C, S, M + 1)
     got0 = topk_kernel_matrices(shared, D, k)
     ref0 = topk_kernel_matrices(shared.contiguous(), D, k)
     for g, r in zip(got0, ref0):
         assert torch.equal(g, r)
+
+
+def test_fused_selection_kernel_divides_exactly_out_of_range(cuda):
+    """Rows whose sigma, and a candidate whose D, leave the range where the
+    kernel's division takes its fast path divide with / : K_red stays
+    bit-equal to the twin's there too."""
+    C, S, M, k = 3, 40, 100, 10
+    samples, D = _selection_inputs(cuda, C, S, M)
+    samples[1, :5, M] = 1e-25       # a quotient past 2^60
+    samples[1, 5:10, M] = 1e25      # a divisor past 2^60
+    D[2, 3, 7] = 1e30               # one candidate's D out of range
+    got = topk_kernel_matrices(samples, D, k)
+    ref = topk_kernel_matrices_plain(samples, D, k)
+    assert torch.equal(got[2], ref[2])
+    assert torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
 
 
 def test_fused_selection_wrapper_refuses(cuda):
@@ -218,7 +252,7 @@ def test_validator_cuda_matches_cpu(cuda, noise):
     cfg = static_workload(num_reduced=3, num_obs=2, num_prime=50, noise=noise,
                           noise_level=0.3, steer_const_noise=0.02)
     S, n_mc, T = 6, 1000, 50
-    ws = build_workspace(cfg)
+    ws = build_workspace(cfg, "cpu")
     t = np.linspace(0.0, 15.0, 100)
     P = ws.P.double().numpy()
     cx = np.stack([np.linalg.lstsq(P, (5 + 0.3 * i) * t, rcond=None)[0]

@@ -116,7 +116,7 @@ def test_dynamic_beta_fused_iteration_matches_jax(monkeypatch):
 def test_solve_batch_equals_per_scenario_solves():
     cfg = to_torch_cfg(_small(jc.dynamic_workload(num_reduced=3, num_obs=2,
                                                   num_prime=15, mode="cvar")))
-    solver = TSolver(cfg)
+    solver = TSolver(cfg, device="cpu")
     xts, yts = blocking_scenarios(jnp.asarray(solver.ws.tot_time.numpy()), 3)
     xts, yts = np.asarray(xts), np.asarray(yts)
     seeds = [5, 6, 7]

@@ -230,8 +230,8 @@ def test_recorded_draws_replay_a_solve():
     args = ([0.0, -1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
             np.diag([20.0] * 4 + [100.0] * 4), np.stack([8 + 0 * t, 13 + 0 * t]),
             np.stack([-1.75 + 0 * t, -1.5 + 0 * t]), 15.0)
-    first = Solver(cfg, noise=FixedNoise(arrays, "cpu", record)).solve(3, *args)
+    first = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(3, *args)
     assert arrays["beta"].shape == (2, 2, 12, 3, 12)
-    again = Solver(cfg, noise=FixedNoise(arrays, "cpu")).solve(3, *args)
+    again = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu")).solve(3, *args)
     for a, b in zip(first, again):
         assert torch.equal(a, b)

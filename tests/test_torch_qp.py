@@ -30,7 +30,7 @@ def _ws_numpy(ws):
 def test_build_workspace_matches_jax(num_prime):
     cfg = jc.fastrt_workload(num_reduced=4, num_obs=2, num_prime=num_prime)
     ref = jqp.build_workspace(cfg)
-    got = tqp.build_workspace(to_torch_cfg(cfg))
+    got = tqp.build_workspace(to_torch_cfg(cfg), "cpu")
     assert got._fields == ref._fields
     for name in ref._fields:
         r, g = np.asarray(getattr(ref, name)), getattr(got, name)

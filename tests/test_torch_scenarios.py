@@ -66,7 +66,8 @@ def test_cutin_choice_is_prefix_stable(n_obs):
 def test_dynamic_cutin_matches_jax(n_obs, n_configs, seed0):
     cfg = jc.dynamic_workload(num_obs=n_obs)
     ref = jscen.dynamic_cutin(cfg, n_configs, seed0=seed0)
-    got = tscen.dynamic_cutin(to_torch_cfg(cfg), n_configs, seed0=seed0)
+    got = tscen.dynamic_cutin(to_torch_cfg(cfg), n_configs, seed0=seed0,
+                              device="cpu")
     assert type(got).__name__ == "ScenarioBatch" and got._fields == ref._fields
     for name in ("x_obs", "y_obs", "vx_obs", "vy_obs", "psi_obs"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
@@ -81,16 +82,17 @@ def test_dynamic_cutin_matches_jax(n_obs, n_configs, seed0):
 def test_dynamic_cutin_refuses_beyond_the_stored_draws():
     cfg = to_torch_cfg(jc.dynamic_workload(num_obs=6))
     with pytest.raises(ValueError, match="dynamic_cutin_params.npz"):
-        tscen.dynamic_cutin(cfg, 20, seed0=1190)
+        tscen.dynamic_cutin(cfg, 20, seed0=1190, device="cpu")
     with pytest.raises(ValueError, match="scenarios.py"):
-        tscen.dynamic_cutin(to_torch_cfg(jc.dynamic_workload(num_obs=16)), 2)
+        tscen.dynamic_cutin(to_torch_cfg(jc.dynamic_workload(num_obs=16)), 2,
+                            device="cpu")
 
 
 @pytest.mark.parametrize("n_obs,seed0", [(6, 0), (2, 5), (9, 0)])
 def test_static_grid_is_bit_equal_to_jax(n_obs, seed0):
     cfg = jc.static_workload(num_obs=n_obs)
     ref = jscen.static_grid(cfg, 25, seed0=seed0)
-    got = tscen.static_grid(to_torch_cfg(cfg), 25, seed0=seed0)
+    got = tscen.static_grid(to_torch_cfg(cfg), 25, seed0=seed0, device="cpu")
     for name in ref._fields:
         g = getattr(got, name)
         assert g.dtype == torch.float32
@@ -103,7 +105,7 @@ def test_stored_cutin_scenarios_equal_their_source():
     and the port's dynamic sweeps solve them."""
     cfg = jc.dynamic_workload()
     ref = jscen.dynamic_cutin(cfg, 4)
-    got = tscen.dynamic_cutin(to_torch_cfg(cfg), 4)
+    got = tscen.dynamic_cutin(to_torch_cfg(cfg), 4, device="cpu")
     xs, ys = got.x_traj, got.y_traj
     assert xs.shape == (4, 6, 100) and xs.dtype == torch.float32
     np.testing.assert_allclose(xs.numpy(), np.asarray(ref.x_traj), rtol=0,

@@ -171,17 +171,34 @@ def test_solver_rejects_what_is_not_ported(monkeypatch):
                 lambda: tcfg.replace(solve_strategy="exact"),
                 lambda: tcfg.replace(rollout_backend="pallas")):
         with pytest.raises(NotImplementedError):
-            TSolver(bad())
+            TSolver(bad(), device="cpu")
     with pytest.raises(NotImplementedError):
-        TSolver(tcfg, scenario_chunk=2)
+        TSolver(tcfg, device="cpu", scenario_chunk=2)
     monkeypatch.setenv("MPC_MMD_SCENARIO_CHUNK", "4")
     with pytest.raises(NotImplementedError):
-        TSolver(tcfg)
+        TSolver(tcfg, device="cpu")
     monkeypatch.delenv("MPC_MMD_SCENARIO_CHUNK")
-    solver = TSolver(tcfg)
+    solver = TSolver(tcfg, device="cpu")
     t = solver.ws.tot_time
     xo, yo = torch.stack([8.0 + 0 * t, 13.0 + 0 * t]), torch.stack([1.75 + 0 * t] * 2)
     for sel in ("xt", "g"):
         monkeypatch.setenv("MPC_MMD_SELECTION", sel)
         with pytest.raises(NotImplementedError):
             solver.solve(0, INIT, MEAN, COV, xo, yo, 15.0)
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one(monkeypatch):
+    """Solver, build_workspace, static_grid and dynamic_cutin run on the
+    card unless asked for the CPU: without a card their default raises a
+    RuntimeError that names device="cpu", and nothing runs on the CPU."""
+    from mpc_mmd_tpu_torch import scenarios
+    from mpc_mmd_tpu_torch.qp import build_workspace
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tcfg = to_torch_cfg(_cfg(1))
+    for call in (lambda: TSolver(tcfg), lambda: build_workspace(tcfg),
+                 lambda: TSolver(tcfg, device="cuda:0"),
+                 lambda: scenarios.static_grid(tcfg, 2),
+                 lambda: scenarios.dynamic_cutin(tcfg, 2)):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+    assert TSolver(tcfg, device="cpu").ws.P.device.type == "cpu"

@@ -96,7 +96,7 @@ def test_validator_matches_jax(rng, noise):
     tcfg = to_torch_cfg(cfg)
     arrays = jax_mc_draws(cfg, jws, jnp.asarray(cx), jnp.asarray(cy), seed, n_mc)
     # chunk 3 splits the 4 solves, so the per-row draws cross a chunk
-    core = make_validator_core(tcfg, build_workspace(tcfg), n_mc,
+    core = make_validator_core(tcfg, build_workspace(tcfg, "cpu"), n_mc,
                                FixedNoise(arrays, "cpu"), chunk=3)
     got = core(cx, cy, INIT, xo, yo, seed, range(S))
 
@@ -117,7 +117,7 @@ def test_validator_draws_do_not_depend_on_chunking():
     cfg = to_torch_cfg(jc.static_workload(num_reduced=3, num_obs=2,
                                           num_prime=30, noise_level=0.3,
                                           steer_const_noise=0.02))
-    ws = build_workspace(cfg)
+    ws = build_workspace(cfg, "cpu")
     S, n_mc = 5, 200
     cx, cy = _solves(ws, S, np.random.default_rng(2))
     xo, yo = _obstacles(S, cfg.horizon.num)
@@ -162,7 +162,7 @@ def test_nan_rollouts_count_as_clear():
     cfg = jc.static_workload(num_reduced=3, num_obs=2, num_prime=30,
                              noise="beta", noise_level=0.2)
     tcfg = to_torch_cfg(cfg)
-    ws = build_workspace(tcfg)
+    ws = build_workspace(tcfg, "cpu")
     n_mc, T = 40, 30
     cx, cy = _solves(ws, 1, np.random.default_rng(0))
     xo = np.full((1, 2, 100), 300.0, np.float32)

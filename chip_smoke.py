@@ -9,22 +9,30 @@ Phases, each of which must pass:
 2. builds the CUDA kernels from ``mpc_mmd_tpu_torch/csrc`` (nvcc, sm_90a);
 3. each kernel against its plain PyTorch twin on the card, with CUDA-event
    times of both:
-   K1 top-k indices equal exactly (rows with NaNs and ties included),
-   K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64,
-   K4 rollout within atol 1e-4, all at the fastrt solve's shapes, and K4
-   again at the Monte-Carlo validator's shape (256 solves x 1000 rollouts
-   x 50 steps);
+   K1 top-k indices equal exactly at every shape a solve path launches it
+   with (``launch_shapes``: the fastrt selection (64, 57, 101), k = 10, its
+   iteration-0 batch (1, 64, 101) and elite pick (64, 64), k = 7; Path A's
+   "xla" selection (100, 89, 101) and (1, 100, 101), and its elite pick
+   (100, 100), k = 11), each with an all-NaN row, NaN lanes, ties, -0.0
+   against +0.0, +-inf and fewer finite lanes than k;
+   K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64 at every
+   path's number of systems (3,648, 4,096, 8,900, 10,000);
+   K4 rollout within atol 1e-4 at the fastrt solve's shape, and again at
+   the Monte-Carlo validator's shape (256 solves x 1000 rollouts x 50
+   steps);
    K3 fused selection at the dynamic workload's shape (100, 100, 101) and
    at the fastrt shape (64, 64, 101), k = 10, rows with a NaN lane and
    tied |beta| included: indices equal exactly, row sums and K_red within
    rtol 1e-5 + atol 1e-6;
    K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
    equal exactly;
-   then, for each kernel at the shape above (K4 at both), its own device
-   time per launch from ``torch.profiler``, its bound, and the device time
-   of the one PyTorch call that computes the same function, where there is
-   one (``torch.topk`` for K1, ``torch.linalg.solve`` of the bordered KKT
-   system for K2; the port never calls either);
+   then the launch floor (the device time of ``fill_`` on one float) and,
+   for each kernel at the shapes above (K1 and K2 at every path shape, K4
+   at both), its own device time per launch from ``torch.profiler``, its
+   bound, and the device time of the one PyTorch call that computes the
+   same function, where there is one (``torch.topk`` for K1,
+   ``torch.linalg.solve`` of the bordered KKT system for K2; the port
+   never calls either);
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
@@ -92,6 +100,10 @@ is on no path of the package, and its count is that of its own phase.
   (``library`` then says so).
 
 K4 also carries ``largest``: the same at the validator's 256,000 lanes.
+K1 and K2 carry ``shapes``: for every path shape its device time, bound,
+plain twin's time, library time and launches per solve per path (the sums over the shapes
+must equal the launches each path's run counted).  Every row carries
+``launch_floor_ms``.
 Exits non-zero, with no result, when there is no CUDA card or the package
 is not beside it.
 """
@@ -179,76 +191,121 @@ def f32_bytes(*tensors):
     return sum(4 * t.numel() for t in tensors)
 
 
-def check_topk(torch, ops, topk_plain, dev, gen):
-    """K1 at the selection shape (C, S - n_el, M + 1), the iteration-0 shape
-    and the elite pick (-cost over (C, S))."""
-    x = torch.randn(64, 57, 101, device=dev, generator=gen)
-    x[0, 0] = float("nan")                        # all-NaN row
-    x[0, 1, ::3] = float("nan")                   # NaN lanes
-    x[1] = torch.round(x[1] * 2) / 2              # ties in every row
-    x0 = torch.randn(1, 64, 101, device=dev, generator=gen)
-    cost = torch.randn(64, 64, device=dev, generator=gen)
-    cost[3, 5] = float("inf")
-    cost[4] = torch.round(cost[4])
-    cases = [(x, 10, dict(absolute=True, slice_to=100)),
-             (x0, 10, dict(absolute=True, slice_to=100)),
-             (-cost, 7, {})]
-    err = 0
-    for t, k, kw in cases:
-        got = ops.topk_indices(t, k, **kw)
-        ref = topk_plain(t, k, **kw)
+def launch_shapes(paths):
+    """K1's and K2's launch shapes on each path, from its configuration.
+
+    ``paths`` maps a path's name to (config, selection).  Returns (k1, k2):
+    k1 maps (shape, k, kwargs) and k2 the number of n x n systems to
+    {path: launches per solve}.  The "xla" selection runs with elite-carry:
+    the top-k of the shared iteration-0 batch (1, S, M+1) and the QP of all
+    C x S rows once per outer iteration, then the S - n_el fresh rows of
+    every candidate; the "fused" one recomputes every row with K3 and
+    solves C x S systems.  Both pick the n_el elites of every candidate's S
+    costs in every inner iteration.
+    """
+    k1, k2 = {}, {}
+    for path, (cfg, selection) in paths.items():
+        b, C = cfg.beta_cem, cfg.cem.num_batch
+        S, n_el, it, outer = (b.num_samples_cem, b.num_ellite, b.maxiter,
+                              cfg.cem.maxiter_cem)
+        M, k = cfg.risk.num_mother, cfg.risk.num_reduced
+        sel = (("absolute", True), ("slice_to", M))
+        if selection == "fused":
+            t1 = {}
+            t2 = {C * S: it * outer}
+        else:
+            t1 = {((C, S - n_el, M + 1), k, sel): (it - 1) * outer,
+                  ((1, S, M + 1), k, sel): outer}
+            t2 = {C * (S - n_el): (it - 1) * outer, C * S: outer}
+        t1[((C, S), n_el, ())] = it * outer
+        for table, add in ((k1, t1), (k2, t2)):
+            for key, n in add.items():
+                table.setdefault(key, {})[path] = n
+    return k1, k2
+
+
+def check_launch_shapes(k1, k2, per_solve):
+    """The launches per solve of every path that ``launch_shapes`` covers,
+    summed over its shapes, must be those its run counted."""
+    for name, table in (("topk_indices", k1), ("eq_qp_solve", k2)):
+        for path in {p for at in table.values() for p in at}:
+            want = sum(at.get(path, 0) for at in table.values())
+            if per_solve[path].get(name, 0) != want:
+                fail(f"{name} on {path}: {per_solve[path].get(name)} launches per "
+                     f"solve, but its shapes add up to {want}")
+
+
+def check_topk(torch, ops, topk_plain, gen, shapes):
+    """K1 at every path shape (``launch_shapes``), with the edge rows of
+    ``kernel_ab.k1_inputs`` (all NaN, NaN lanes, ties, -0.0 against +0.0,
+    +-inf, fewer finite lanes than k): indices equal to the twin's exactly.  Returns the selection shape's
+    record, with the other shapes under ``cases``."""
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k1_inputs
+    cases = []
+    for (shape, k, kw), at in shapes.items():
+        kw = dict(kw)
+        x = k1_inputs(gen, shape, k, bool(kw))   # the elite pick ranks -cost
+        got = ops.topk_indices(x, k, **kw)
+        ref = topk_plain(x, k, **kw)
         torch.cuda.synchronize()
-        err = max(err, int((got.long() - ref.long()).abs().max()))
-    if err != 0:
-        fail(f"K1 topk_indices disagrees with its plain twin (max index diff {err})")
-    call = lambda: ops.topk_indices(x, 10, absolute=True, slice_to=100)
-    absx = x[..., :100].abs().contiguous()       # outside the timed window
-    rows = x.numel() // 101
-    return dict(max_abs_err=err, ms=cuda_ms(torch, call),
-                plain_ms=cuda_ms(torch, lambda: topk_plain(x, 10, absolute=True,
-                                                           slice_to=100)),
-                shape="(64, 57, 101), k=10, |x| of the first 100 lanes",
-                call=call, match="topk_kernel",
-                nbytes=f32_bytes(x) + 4 * rows * 10, ops=rows * 10 * 100,
-                library=("torch.topk(|x|[..., :100], 10) on the precomputed slice",
-                         lambda: torch.topk(absx, 10, dim=-1)))
+        if not torch.equal(got, ref):
+            fail(f"K1 topk_indices disagrees with its plain twin at {shape}, k={k} "
+                 f"(rows {(got != ref).any(-1).nonzero()[:4].tolist()})")
+        m = kw.get("slice_to", shape[-1])
+        rows = x.numel() // shape[-1]
+        ranked = x[..., :m].abs() if kw.get("absolute") else x[..., :m]
+        ranked = ranked.contiguous()                   # outside the timed window
+        cases.append(dict(
+            shape=f"{shape}, k={k}" + (f", |x| of the first {m} lanes" if kw else ""),
+            call=(lambda x=x, k=k, kw=kw: ops.topk_indices(x, k, **kw)),
+            match="topk_rounds_kernel", nbytes=f32_bytes(x) + 4 * rows * k,
+            ops=rows * k * m, launches_per_solve=at,
+            library=(f"torch.topk on the {'|x| slice' if kw else 'rows'}",
+                     lambda r=ranked, k=k: torch.topk(r, k, dim=-1)),
+            plain_ms=cuda_ms(torch, lambda: topk_plain(x, k, **kw))))
+    main = dict(cases[0], max_abs_err=0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
 
 
-def check_eq_qp(torch, ops, qp_plain, dev, gen):
-    """K2 on (64, 57, 10, 10) systems built as the inner CEM builds them:
-    rho K + reg I with K a Laplace kernel matrix, r = rho/M row sums."""
-    f = torch.randn(64, 57, 10, 22, device=dev, generator=gen)
-    d = (f[..., :, None, :] - f[..., None, :, :]).abs().sum(-1)
-    sigma = torch.randn(64, 57, 1, 1, device=dev, generator=gen).abs() * 4.5 + 0.01
-    K = torch.exp(-d / sigma)
-    C = (K + 0.05 * torch.eye(10, device=dev)).contiguous()
-    r = (K.sum(-1) / 100.0).contiguous()
-    b, mu = ops.eq_qp_solve(C, r)
-    b64, mu64 = qp_plain(C.double(), r.double())
-    torch.cuda.synchronize()
-    for name, got, ref in (("b", b, b64), ("mu", mu, mu64)):
-        bad = (got.double() - ref).abs() > 1e-4 * ref.abs() + 1e-5
-        if bool(bad.any()) or not bool(torch.isfinite(got).all()):
-            fail(f"K2 eq_qp_solve {name} outside rtol 1e-4 + atol 1e-5 of the "
-                 f"float64 twin at {int(bad.sum())} entries")
-    err = max(float((b.double() - b64).abs().max()),
-              float((mu.double() - mu64).abs().max()))
-    # the bordered (n+1) x (n+1) KKT system [[C, 1], [1^T, 0]] [b; mu] =
-    # [r; 1], built outside the timed window
-    n = C.shape[-1]
-    kkt = torch.zeros(C.shape[:-2] + (n + 1, n + 1), device=dev)
-    kkt[..., :n, :n] = C
-    kkt[..., :n, n] = 1.0
-    kkt[..., n, :n] = 1.0
-    rhs = torch.cat((r, torch.ones_like(r[..., :1])), dim=-1)[..., None]
-    systems = r.numel() // n
-    return dict(max_abs_err=err, ms=cuda_ms(torch, lambda: ops.eq_qp_solve(C, r)),
-                plain_ms=cuda_ms(torch, lambda: qp_plain(C, r), reps=10),
-                shape="3648 systems, n=10", call=lambda: ops.eq_qp_solve(C, r),
-                match="eq_qp_kernel", nbytes=f32_bytes(C, r, b, mu),
-                ops=systems * (n ** 3 // 3 + 4 * n * n),
-                library=("torch.linalg.solve on the bordered (n+1)x(n+1) KKT "
-                         "system", lambda: torch.linalg.solve(kkt, rhs)))
+def check_eq_qp(torch, ops, qp_plain, dev, gen, systems):
+    """K2 at every path's number of systems (``launch_shapes``), built as the
+    inner CEM builds them (``kernel_ab.k2_inputs``), each within rtol 1e-4 +
+    atol 1e-5 of the twin run in float64.  Returns the fastrt
+    selection's record, with the others under ``cases``."""
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k2_inputs
+    cases, err = [], 0.0
+    for count, at in systems.items():
+        C, r = k2_inputs(gen, count)
+        b, mu = ops.eq_qp_solve(C, r)
+        b64, mu64 = qp_plain(C.double(), r.double())
+        torch.cuda.synchronize()
+        for name, got, ref in (("b", b, b64), ("mu", mu, mu64)):
+            bad = (got.double() - ref).abs() > 1e-4 * ref.abs() + 1e-5
+            if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                fail(f"K2 eq_qp_solve {name} outside rtol 1e-4 + atol 1e-5 of the "
+                     f"float64 twin at {int(bad.sum())} entries ({count} systems)")
+        err = max(err, float((b.double() - b64).abs().max()),
+                  float((mu.double() - mu64).abs().max()))
+        # the bordered (n+1) x (n+1) KKT system [[C, 1], [1^T, 0]] [b; mu] =
+        # [r; 1], built outside the timed window
+        n = C.shape[-1]
+        kkt = torch.zeros(C.shape[:-2] + (n + 1, n + 1), device=dev)
+        kkt[..., :n, :n] = C
+        kkt[..., :n, n] = 1.0
+        kkt[..., n, :n] = 1.0
+        rhs = torch.cat((r, torch.ones_like(r[..., :1])), dim=-1)[..., None]
+        cases.append(dict(
+            shape=f"{count} systems, n={n}",
+            call=(lambda C=C, r=r: ops.eq_qp_solve(C, r)), match="eq_qp_kernel",
+            nbytes=f32_bytes(C, r, b, mu), ops=count * (n ** 3 // 3 + 4 * n * n),
+            launches_per_solve=at,
+            library=("torch.linalg.solve on the bordered (n+1)x(n+1) KKT system",
+                     lambda kkt=kkt, rhs=rhs: torch.linalg.solve(kkt, rhs)),
+            plain_ms=cuda_ms(torch, lambda: qp_plain(C, r), reps=10)))
+    main = dict(cases[0], max_abs_err=err, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
 
 
 def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
@@ -329,25 +386,31 @@ def check_topk_onehot(torch, ops, plain, dev, gen):
     return dict(max_abs_err=0.0, ms=cuda_ms(torch, call),
                 plain_ms=cuda_ms(torch, lambda: plain(x, 10, **kw)),
                 shape="(64, 57, 101), k=10, |x| of the first 100 lanes",
-                call=call, match="topk_kernel", nbytes=f32_bytes(x, idx, oh),
+                call=call, match="topk_rounds_kernel", nbytes=f32_bytes(x, idx, oh),
                 ops=idx.numel() * 100, library=("no single call", None))
 
 
 def measure(torch, name, rec):
     """Adds to a kernel's check result its device time per launch, its bound
-    and its library call's device time, and logs them."""
-    rec["device_ms"], names = profiled_ms(torch, rec["call"], match=rec["match"])
-    rec["bound_ms"], rec["bound_by"] = bound(rec["nbytes"], rec["ops"])
-    what, lib = rec["library"]
-    rec["library_ms"] = profiled_ms(torch, lib)[0] if lib else None
-    log(f"{name} at {rec['shape']}: device {rec['device_ms']:.4f} ms per launch "
-        f"({names[0][:60]}), bound {rec['bound_ms']:.4f} ms by {rec['bound_by']} "
-        f"({rec['nbytes'] / 1e6:.2f} MB, {rec['ops']:.3g} ops), "
-        f"{100 * rec['bound_ms'] / rec['device_ms']:.1f} % of it; library "
-        f"{what}: {rec['library_ms']}")
+    and its library call's device time, and logs them; the same for each of
+    its ``cases`` (K1's and K2's other path shapes)."""
+    for case in rec.get("cases", [rec]):
+        case["device_ms"], names = profiled_ms(torch, case["call"], match=case["match"])
+        case["bound_ms"], case["bound_by"] = bound(case["nbytes"], case["ops"])
+        what, lib = case["library"]
+        case["library_ms"] = profiled_ms(torch, lib)[0] if lib else None
+        per_solve = case.get("launches_per_solve")
+        log(f"{name} at {case['shape']}: device {case['device_ms']:.4f} ms per launch "
+            f"({names[0][:60]}), bound {case['bound_ms']:.4f} ms by {case['bound_by']} "
+            f"({case['nbytes'] / 1e6:.2f} MB, {case['ops']:.3g} ops), "
+            f"{100 * case['bound_ms'] / case['device_ms']:.1f} % of it; library "
+            f"{what}: {case['library_ms']}"
+            + (f"; launches per solve {per_solve}" if per_solve else ""))
+    for key in ("device_ms", "bound_ms", "bound_by", "library_ms"):
+        rec[key] = rec.get("cases", [rec])[0][key]
 
 
-def kernel_record(ops, launches, per_solve, k1, k2, k3, k4, k5):
+def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape)."""
     record = []
@@ -373,7 +436,11 @@ def kernel_record(ops, launches, per_solve, k1, k2, k3, k4, k5):
                "shape": rec["shape"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
                "device_ms": rec["device_ms"], "bound_ms": rec["bound_ms"],
                "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-               "library": rec["library"][0]}
+               "library": rec["library"][0], "launch_floor_ms": floor_ms}
+        if "cases" in rec:
+            row["shapes"] = [{k: c[k] for k in (
+                "shape", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                "library_ms", "launches_per_solve")} for c in rec["cases"]]
         if largest:
             row["largest"] = {k: largest[k] for k in (
                 "shape", "max_abs_err", "ms", "plain_ms", "device_ms", "bound_ms",
@@ -741,12 +808,20 @@ def main():
             log(f"  ptxas: {line.strip()}")
 
     # ---- 3. kernels against their plain twins -----------------------------
+    cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50,
+                          mode="mmd_opt", noise="gaussian", noise_level=0.1)
+    cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta",
+                             noise_level=0.2, num_prime=50, mode="mmd_opt")
+    k1_at, k2_at = launch_shapes({"fastrt": (cfg, "xla"), "sweep_mmd_opt": (cfg, "xla"),
+                                  "path_a_fused": (cfg_a, "fused"),
+                                  "path_a_xla": (cfg_a, "xla")})
     gen = torch.Generator(device=dev).manual_seed(0)
-    k1 = check_topk(torch, ops, topk_indices_plain, dev, gen)
-    log(f"K1 topk_indices: exact; {k1['ms']:.4f} ms vs plain {k1['plain_ms']:.4f} ms")
-    k2 = check_eq_qp(torch, ops, qp_plain, dev, gen)
-    log(f"K2 eq_qp_solve: max abs err {k2['max_abs_err']:.3e} vs float64; "
-        f"{k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms")
+    k1 = check_topk(torch, ops, topk_indices_plain, gen, k1_at)
+    log(f"K1 topk_indices: exact at {len(k1_at)} path shapes, edge rows included; "
+        f"{k1['ms']:.4f} ms vs plain {k1['plain_ms']:.4f} ms")
+    k2 = check_eq_qp(torch, ops, qp_plain, dev, gen, k2_at)
+    log(f"K2 eq_qp_solve: max abs err {k2['max_abs_err']:.3e} vs float64 at "
+        f"{sorted(k2_at)} systems; {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms")
     k4 = check_rollout(torch, ops, rollout_plain, dev, gen)
     log(f"K4 fused_rollout: max abs err {k4['max_abs_err']:.3e}; "
         f"{k4['ms']:.4f} ms vs plain {k4['plain_ms']:.4f} ms")
@@ -761,13 +836,14 @@ def main():
     log(f"K5 topk_onehot: exact; {k5['ms']:.4f} ms vs plain {k5['plain_ms']:.4f} ms")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
+    one = torch.zeros(1, device=dev)
+    floor_ms = profiled_ms(torch, lambda: one.fill_(1.0), match="")[0]
+    log(f"launch floor: fill_ of one float, {floor_ms:.4f} ms device time")
     for name, rec in (("K1", k1), ("K2", k2), ("K3", k3), ("K4", k4),
                       ("K4", k4v), ("K5", k5)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
-    cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50,
-                          mode="mmd_opt", noise="gaussian", noise_level=0.1)
     t0 = time.perf_counter()
     solver = Solver(cfg, device=dev)
     scen = obstacle_scenarios(torch, 4, cfg.obstacles.num_obs, solver.ws.tot_time)
@@ -789,8 +865,6 @@ def main():
                 (INIT, MEAN, COV, xo, yo, 15.0), "fastrt")
 
     # ---- 6. Path A: dynamic cut-in, fused selection -----------------------
-    cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta",
-                             noise_level=0.2, num_prime=50, mode="mmd_opt")
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
     cutin = dynamic_cutin(cfg_a, 3, device=dev)
     xs, ys = cutin.x_traj, cutin.y_traj
@@ -851,7 +925,8 @@ def main():
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
     launches["topk_onehot"] = k5_launches
-    record = kernel_record(ops, launches, per_solve, k1, k2, k3, (k4, k4v), k5)
+    check_launch_shapes(k1_at, k2_at, per_solve)
+    record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5)
     log(json.dumps({"kernels": record}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -40,34 +40,107 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _edge_rows(x, k):
+    """x (..., w) with, in as many leading rows as it has: all NaN, NaN
+    lanes, ties, -0.0 against +0.0, +-inf, fewer finite lanes than k."""
+    flat = x.view(-1, x.shape[-1])
+    w = x.shape[-1]
+    edits = [lambda r: r.fill_(float("nan")),
+             lambda r: r[::3].fill_(float("nan")),
+             lambda r: r.copy_(torch.round(r * 2) / 2),
+             lambda r: (r.fill_(0.0), r[::2].fill_(-0.0)),
+             lambda r: (r[5 % w].fill_(float("inf")), r[7 % w].fill_(-float("inf"))),
+             lambda r: r[:max(1, w - k + 2)].fill_(float("nan"))]
+    for row, edit in zip(flat, edits):
+        edit(row)
+    return x
+
+
 @pytest.mark.parametrize("shape,k,kw", [
     ((64, 57, 101), 10, dict(absolute=True, slice_to=100)),
     ((5, 128), 20, {}),
     ((3, 7, 33), 33, dict(absolute=True)),
-    ((64, 64), 7, {}),
-    ((1, 1, 3), 5, {}),                                   # k > width
+    ((64, 64), 7, {}),                                         # fastrt elites
+    ((1, 1, 3), 5, {}),                                        # k > width
+    ((1, 101), 10, dict(absolute=True, slice_to=100)),
+    ((33, 101), 10, dict(absolute=True, slice_to=100)),
+    ((3649, 101), 10, dict(absolute=True, slice_to=100)),
+    ((100, 89, 101), 10, dict(absolute=True, slice_to=100)),   # Path A, "xla"
+    ((1, 100, 101), 10, dict(absolute=True, slice_to=100)),    # its iteration 0
+    ((100, 100), 11, {}),                                      # Path A elites
+    ((6, 70), 40, {}),                                         # k > 32
+    ((8900, 101), 10, dict(absolute=True, slice_to=100)),      # two rows a warp
 ])
 def test_topk_kernel_matches_twin(cuda, shape, k, kw):
-    x = torch.randn(shape, device="cuda", generator=cuda)
-    x.view(-1, shape[-1])[0] = float("nan")
+    """K1 at the path shapes and at row counts off its rows per block, with
+    NaN, ties, -0.0/+0.0, +-inf (without `absolute` too) and rows with
+    fewer finite lanes than k: equal to the twin exactly."""
+    x = _edge_rows(torch.randn(shape, device="cuda", generator=cuda), k)
     x.view(-1, shape[-1])[-1, ::2] = float("nan")
-    for t in (x, torch.round(x * 2) / 2):
+    for t in (x, -x, torch.round(x * 2) / 2):
         before = topk_indices.launches
         got = topk_indices(t, k, **kw)
         assert topk_indices.launches == before + 1
         assert got.dtype == torch.int32
         assert torch.equal(got, topk_indices_plain(t, k, **kw))
+    if got.numel() > 4 * k and k <= shape[-1]:  # the -0.0/+0.0 row ties everywhere
+        assert torch.equal(got.view(-1, k)[3].long(), torch.arange(k, device="cuda"))
+
+
+def test_topk_kernel_on_a_view_at_an_odd_row_offset(cuda):
+    """A contiguous view that starts one 101-float row in: not 16-byte
+    aligned."""
+    x = _edge_rows(torch.randn(3650, 101, device="cuda", generator=cuda), 10)
+    for v, k, kw in ((x[1:], 10, dict(absolute=True, slice_to=100)),
+                     (x[1:].view(-1)[:64 * 64].view(64, 64), 7, {})):
+        assert v.is_contiguous() and v.data_ptr() % 16 != 0
+        assert torch.equal(topk_indices(v, k, **kw), topk_indices_plain(v, k, **kw))
+
+
+def _qp_systems(gen, batch, n):
+    """``batch`` (a shape) systems as the inner CEM builds them."""
+    f = torch.randn(batch + (n, 22), device="cuda", generator=gen)
+    d = (f[..., :, None, :] - f[..., None, :, :]).abs().sum(-1)
+    sigma = torch.rand(batch + (1, 1), device="cuda", generator=gen) * 10 + 0.01
+    K = torch.exp(-d / sigma)
+    C = (K + 0.05 * torch.eye(n, device="cuda")).contiguous()
+    return C, (K.sum(-1) / 100.0).contiguous()
+
+
+def _shifted(t, floats):
+    """A contiguous copy of t that starts ``floats`` floats into a buffer."""
+    buf = torch.empty(t.numel() + floats, device=t.device)
+    view = buf[floats:].view(t.shape)
+    view.copy_(t)
+    return view
 
 
 @pytest.mark.parametrize("n", [4, 10])
-def test_eq_qp_kernel_matches_float64_twin(cuda, n):
-    f = torch.randn(64, 57, n, 22, device="cuda", generator=cuda)
-    d = (f[..., :, None, :] - f[..., None, :, :]).abs().sum(-1)
-    sigma = torch.rand(64, 57, 1, 1, device="cuda", generator=cuda) * 10 + 0.01
-    K = torch.exp(-d / sigma)
-    C = (K + 0.05 * torch.eye(n, device="cuda")).contiguous()
-    r = (K.sum(-1) / 100.0).contiguous()
+def test_eq_qp_kernel_on_views_at_an_odd_system_offset(cuda, n):
+    """C and r one system in (r's span then starts 40 bytes in for n = 10),
+    and both one float in: spans that are not 16-byte aligned, which the
+    kernel copies 4 bytes at a time.  The result is that of the aligned
+    copies, bit for bit."""
+    C, r = _qp_systems(cuda, (101,), n)
+    bc, muc = eq_qp_solve(C[1:].clone(), r[1:].clone())
+    for Cv, rv in ((C[1:], r[1:]), (_shifted(C[1:], 1), _shifted(r[1:], 1))):
+        assert Cv.is_contiguous() and rv.is_contiguous()
+        b, mu = eq_qp_solve(Cv, rv)
+        assert torch.equal(b, bc) and torch.equal(mu, muc)
+    b64, mu64 = qp_plain(C[1:].double(), r[1:].double())
+    torch.testing.assert_close(b.double(), b64, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mu.double(), mu64, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [4, 10])
+@pytest.mark.parametrize("batch", [(64, 57), (1,), (31,), (33,), (3648,), (10000,),
+                                   (10001,)])
+def test_eq_qp_kernel_matches_float64_twin(cuda, n, batch):
+    """K2 at the paths' sizes and at batches off its 64 systems a block."""
+    C, r = _qp_systems(cuda, batch, n)
+    before = eq_qp_solve.launches
     b, mu = eq_qp_solve(C, r)
+    assert eq_qp_solve.launches == before + 1
     b64, mu64 = qp_plain(C.double(), r.double())
     torch.testing.assert_close(b.double(), b64, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(mu.double(), mu64, rtol=1e-4, atol=1e-5)

@@ -72,6 +72,35 @@ def test_topk_twin_nan_lanes_rank_last(rng, absolute):
         got, np.asarray(_topk(jnp.asarray(x), k, absolute=absolute)))
 
 
+def test_topk_twin_matches_pallas_on_elite_pick_edge_rows(rng):
+    """The elite pick ranks -cost without `absolute`, so -0.0 and +0.0, and
+    +-inf, reach the rounds as they are.  -0.0 ties +0.0 (the lowest index
+    wins), +inf wins, -inf ranks with NaN, and once a row's finite lanes
+    run out every later round emits index 0.  The CUDA kernel's order-key
+    rounds keep exactly these rules."""
+    k = 7
+    x = -rng.normal(0, 1, (8, 64)).astype(np.float32)
+    x[0] = 0.0
+    x[0, ::2] = -0.0                          # ties across signed zeros
+    x[1, [3, 20]] = np.inf
+    x[1, 9] = -np.inf
+    x[2, :60] = np.nan                        # 4 finite lanes, k = 7
+    x[3] = -np.inf
+    x[3, 10] = np.nan
+    x[3, 40] = -0.0                           # one finite lane
+    x[4] = np.round(x[4])
+    x[4][x[4] == 0] = -0.0                    # -0.0 ties among rounded values
+    x[4, 1::5] = 0.0
+    x[5, :62] = -np.inf                       # 2 finite lanes
+    got, ref = _topk_both(x, k)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got[0], np.arange(k))
+    np.testing.assert_array_equal(got[1, :2], [3, 20])
+    assert set(got[2, :4]) == {60, 61, 62, 63} and not got[2, 4:].any()
+    assert got[3, 0] == 40 and not got[3, 1:].any()
+    assert set(got[5, :2]) == {62, 63} and not got[5, 2:].any()
+
+
 def test_topk_wrapper_validates():
     x = torch.zeros(3, 10)
     with pytest.raises(ValueError):
@@ -196,3 +225,17 @@ def test_onehot_topk_twin_matches_pallas(rng, shape, k, absolute):
         np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_i))
         np.testing.assert_array_equal(oh.numpy(), np.asarray(ref_oh))
         assert torch.equal(idx, topk_indices(torch.from_numpy(xt), k, **kw))
+
+
+def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path):
+    """The A/B tool's variants are textual changes of csrc/topk.cu and
+    csrc/eq_qp.cu: each must find its anchor and change the source."""
+    from mpc_mmd_tpu_torch.ops import _build
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    for name in ("topk.cu", "eq_qp.cu"):
+        (tmp_path / name).write_text((_build.CSRC / name).read_text())
+    srcs = kernel_ab.builds(tmp_path, diagnose=True)
+    assert srcs["k1_before"][1] == srcs["k1_now"][1]
+    for name, (kind, src) in srcs.items():
+        if name not in ("k1_now", "k2_now", "k1_before", "k2_before", "micro"):
+            assert src != srcs[f"{kind}_now"][1], name

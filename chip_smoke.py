@@ -13,22 +13,26 @@ Phases, each of which must pass:
    with (``launch_shapes``: the fastrt selection (64, 57, 101), k = 10, its
    iteration-0 batch (1, 64, 101) and elite pick (64, 64), k = 7; Path A's
    "xla" selection (100, 89, 101) and (1, 100, 101), and its elite pick
-   (100, 100), k = 11), each with an all-NaN row, NaN lanes, ties, -0.0
+   (100, 100), k = 11; Path D's (100, 89, 17) and (1, 100, 17), k = 4, and
+   the same elite pick), each with an all-NaN row, NaN lanes, ties, -0.0
    against +0.0, +-inf and fewer finite lanes than k;
    K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64 at every
-   path's number of systems (3,648, 4,096, 8,900, 10,000);
-   K4 rollout within atol 1e-4 at the fastrt solve's shape, and again at
-   the Monte-Carlo validator's shape (256 solves x 1000 rollouts x 50
-   steps);
+   path's number and size of systems (3,648, 4,096, 8,900, 10,000 of
+   n = 10; Path D's 8,900 and 10,000 of n = 4);
+   K4 rollout within atol 1e-4 at the fastrt solve's shape, at Path D's
+   (1,600 lanes x 50 steps from a state per lane in ``mmd_opt``, 400 in
+   ``cvar``, ``saa`` and ``mmd_random``), and at the Monte-Carlo
+   validator's (256 solves x 1000 rollouts x 50 steps);
    K3 fused selection at the dynamic workload's shape (100, 100, 101) and
-   at the fastrt shape (64, 64, 101), k = 10, rows with a NaN lane and
-   tied |beta| included: indices equal exactly, row sums and K_red within
-   rtol 1e-5 + atol 1e-6;
+   at the fastrt shape (64, 64, 101), k = 10, and at Path D's (100, 100,
+   17), k = 4, rows with a NaN lane and tied |beta| included: indices
+   equal exactly, row sums and K_red within rtol 1e-5 + atol 1e-6;
    K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
    equal exactly;
    then the launch floor (the device time of ``fill_`` on one float) and,
-   for each kernel at the shapes above (K1 and K2 at every path shape, K4
-   at both), its own device time per launch from ``torch.profiler``, its
+   for each kernel at the shapes above (K1 and K2 at every path shape, K3
+   and K4 at each timed one), its own device time per launch from
+   ``torch.profiler``, its
    bound, and the device time of the one PyTorch call that computes the
    same function, where there is one (``torch.topk`` for K1,
    ``torch.linalg.solve`` of the bordered KKT system for K2; the port
@@ -76,11 +80,35 @@ Phases, each of which must pass:
       matern52 MMD kernel: finite, with K1, K2 and K4 launched.
    Each of a-e and g runs with the launch counts set to 0 just before it
    and read just after; a, c, d, e and g fail unless their kernels were
-   launched, b if any kernel was.
+   launched, b if any kernel was;
+10. Path D, the on-road stack at full width: ``onroad_workload(num_reduced
+   =4, num_obs=4, num_prime=50)``, gaussian 0.1, 100 candidates x 20
+   iterations, 16 mother rollouts from 16 noisy initial states, inner CEM
+   100 x 20; the frame of step 0 of a curved-route episode built on the
+   card as ``run_episode`` builds it (waypoint window, smoothing, path
+   parameters, obstacles in Frenet):
+   a. (in phase 3) K1, K2, K3 and K4 at its shapes;
+   b. ``FrenetSolver`` in ``mmd_opt`` with the "xla" selection: one
+      warm-up solve, then 2 solves with finite cx, cy, v_best and
+      steering_best and exactly 800 K1, 400 K2 and 20 K4 launches each,
+      and one more under ``torch.profiler`` (device busy, idle share);
+   c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 400 each of K3, K2
+      and K1 and 20 of K4;
+   d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 K4
+      launches, nothing else) and ``det`` (no launch);
+   e. one outer iteration of ``mmd_opt`` on the card against the CPU with
+      identical draws: v_best and steering_best within 1e-3;
+   f. the closed-loop CLI, ``python -m mpc_mmd_tpu_torch.cli.closedloop
+      --route curved --episodes 1 --max_steps 20``, in ``mmd_opt``, ``cvar``
+      and ``det``, run in this process: each prints its episode line, the
+      first two launch their kernels and ``det`` none.
+   Each of b-d and f runs with the launch counts set to 0 just before it
+   and read just after.
 
 Prints the kernels' JSON record and the card's nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
-counts the launches of the paths' runs (phases 4, 6, 7 and 9 a-e, g); K5
+counts the launches of the paths' runs (phases 4, 6, 7, 9 a-e, g and 10
+b-d, f); K5
 is on no path of the package, and its count is that of its own phase.
 ``launches_per_solve`` splits them by path (per solve; the validator's per
 1200 validations).  The times, all in milliseconds at ``shape``:
@@ -100,9 +128,10 @@ is on no path of the package, and its count is that of its own phase.
   (``library`` then says so).
 
 K4 also carries ``largest``: the same at the validator's 256,000 lanes.
-K1 and K2 carry ``shapes``: for every path shape its device time, bound,
-plain twin's time, library time and launches per solve per path (the sums over the shapes
-must equal the launches each path's run counted).  Every row carries
+K1, K2, K3 and K4 carry ``shapes``: for every path shape timed its device
+time, bound, plain twin's time, library time and launches per solve per
+path (for each path a shape names, the sum over the shapes must equal the
+launches that path's run counted).  Every row carries
 ``launch_floor_ms``.
 Exits non-zero, with no result, when there is no CUDA card or the package
 is not beside it.
@@ -162,29 +191,49 @@ def profiled_ms(torch, fn, reps=20, match=None):
     """Device milliseconds per call of ``fn`` from ``torch.profiler``.
 
     With ``match`` (a kernel's name), the device events whose name holds it
-    must number exactly ``reps`` (one launch a call), and their summed time
-    is divided by ``reps``: the kernel's own device time per launch.  Without
-    it, every device event of the window counts: a library call's device
-    time, whatever kernels it launches.  Returns (ms, names seen).
+    are the kernel's launches, one a call, and their summed time over their
+    number is the kernel's own device time per launch.  The profiler now and
+    then records no device event in a session, or drops a launch's record:
+    up to five sessions are tried for one that records all ``reps``; failing
+    that, the fullest session is used if it recorded at least half of them
+    (never more than ``reps``: more would mean ``match`` names another
+    kernel too).  Without ``match``, every device event of the window
+    counts, over ``reps``: a library call's device time, whatever kernels
+    it launches.  Each session opens with a short ``spin_kernel``, left out
+    of the count, so that no launch under test is the session's first.
+    Returns (ms, names seen).
     """
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device event
+    best = []
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
+              and "spin_kernel" not in e.name
               and (match is None or match in e.name)]
+        names = sorted({e.name for e in ev})
+        if match is not None and len(ev) > reps:
+            fail(f"profiler: {len(ev)} device events named {match!r} for {reps} "
+                 f"launches ({names})")
+        if len(ev) > len(best):
+            best = ev
         if ev and (match is None or len(ev) == reps):
             break
-    names = sorted({e.name for e in ev})
-    if not ev or (match is not None and len(ev) != reps):
-        fail(f"profiler: {len(ev)} device events named {match!r} for {reps} "
-             f"launches in 3 sessions ({names})")
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps, names
+    names = sorted({e.name for e in best})
+    if not best or (match is not None and 2 * len(best) < reps):
+        fail(f"profiler: at most {len(best)} device events named {match!r} for "
+             f"{reps} launches in 5 sessions ({names})")
+    if match is not None and len(best) < reps:
+        log(f"profiler: {len(best)} of {reps} launches of {match!r} recorded in "
+            f"the fullest of 5 sessions; the time is per recorded launch")
+    per = len(best) if match is not None else reps
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / per, names
 
 
 def f32_bytes(*tensors):
@@ -195,7 +244,7 @@ def launch_shapes(paths):
     """K1's and K2's launch shapes on each path, from its configuration.
 
     ``paths`` maps a path's name to (config, selection).  Returns (k1, k2):
-    k1 maps (shape, k, kwargs) and k2 the number of n x n systems to
+    k1 maps (shape, k, kwargs) and k2 (number of systems, n) to
     {path: launches per solve}.  The "xla" selection runs with elite-carry:
     the top-k of the shared iteration-0 batch (1, S, M+1) and the QP of all
     C x S rows once per outer iteration, then the S - n_el fresh rows of
@@ -210,13 +259,15 @@ def launch_shapes(paths):
                               cfg.cem.maxiter_cem)
         M, k = cfg.risk.num_mother, cfg.risk.num_reduced
         sel = (("absolute", True), ("slice_to", M))
+        # K2 is keyed by (systems, n): two paths may solve as many systems
+        # of another size
         if selection == "fused":
             t1 = {}
-            t2 = {C * S: it * outer}
+            t2 = {(C * S, k): it * outer}
         else:
             t1 = {((C, S - n_el, M + 1), k, sel): (it - 1) * outer,
                   ((1, S, M + 1), k, sel): outer}
-            t2 = {C * (S - n_el): (it - 1) * outer, C * S: outer}
+            t2 = {(C * (S - n_el), k): (it - 1) * outer, (C * S, k): outer}
         t1[((C, S), n_el, ())] = it * outer
         for table, add in ((k1, t1), (k2, t2)):
             for key, n in add.items():
@@ -224,10 +275,11 @@ def launch_shapes(paths):
     return k1, k2
 
 
-def check_launch_shapes(k1, k2, per_solve):
-    """The launches per solve of every path that ``launch_shapes`` covers,
-    summed over its shapes, must be those its run counted."""
-    for name, table in (("topk_indices", k1), ("eq_qp_solve", k2)):
+def check_launch_shapes(tables, per_solve):
+    """The launches per solve of every path that a kernel's shapes name,
+    summed over those shapes, must be those its run counted.  ``tables``
+    maps a kernel's name to {shape: {path: launches per solve}}."""
+    for name, table in tables.items():
         for path in {p for at in table.values() for p in at}:
             want = sum(at.get(path, 0) for at in table.values())
             if per_solve[path].get(name, 0) != want:
@@ -269,14 +321,14 @@ def check_topk(torch, ops, topk_plain, gen, shapes):
 
 
 def check_eq_qp(torch, ops, qp_plain, dev, gen, systems):
-    """K2 at every path's number of systems (``launch_shapes``), built as the
-    inner CEM builds them (``kernel_ab.k2_inputs``), each within rtol 1e-4 +
-    atol 1e-5 of the twin run in float64.  Returns the fastrt
-    selection's record, with the others under ``cases``."""
+    """K2 at every path's number and size of systems (``launch_shapes``),
+    built as the inner CEM builds them (``kernel_ab.k2_inputs``), each
+    within rtol 1e-4 + atol 1e-5 of the twin run in float64.  Returns the
+    fastrt selection's record, with the others under ``cases``."""
     from mpc_mmd_tpu_torch.utils.kernel_ab import k2_inputs
     cases, err = [], 0.0
-    for count, at in systems.items():
-        C, r = k2_inputs(gen, count)
+    for (count, n), at in systems.items():
+        C, r = k2_inputs(gen, count, n)
         b, mu = ops.eq_qp_solve(C, r)
         b64, mu64 = qp_plain(C.double(), r.double())
         torch.cuda.synchronize()
@@ -308,12 +360,20 @@ def check_eq_qp(torch, ops, qp_plain, dev, gen, systems):
     return main
 
 
-def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
-    """K4 on ``lanes`` x 50 steps from one shared initial state: 6400 in a
-    fastrt outer iteration, 256,000 in a chunk of the MC validator."""
+def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400,
+                  per_lane=False, launches_per_solve=None):
+    """K4 on ``lanes`` x 50 steps from one shared initial state (6400 in a
+    fastrt outer iteration, 256,000 in a chunk of the MC validator) or,
+    with ``per_lane``, from a state per lane (1,600 in an on-road
+    ``mmd_opt`` outer iteration: 100 candidates x 16 mother rollouts, each
+    from its noisy initial state; 400 in the other modes' 100 x 4), within
+    atol 1e-4 of the twin."""
     acc = (1.0 + 0.5 * torch.randn(lanes, 50, device=dev, generator=gen)).contiguous()
     steer = (0.1 * torch.randn(lanes, 50, device=dev, generator=gen)).contiguous()
     s0 = torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0], device=dev)
+    if per_lane:
+        s0 = (s0 + torch.tensor([0.05, 0.1, 0.5, 0.1, 0.02], device=dev)
+              * torch.randn(lanes, 5, device=dev, generator=gen)).contiguous()
     args = (acc, steer, s0, 0.15, 2.5)
     x, y = ops.fused_rollout(*args)
     xr, yr = rollout_plain(*args)
@@ -321,54 +381,61 @@ def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400):
     err = max(float((x - xr).abs().max()), float((y - yr).abs().max()))
     if not err <= 1e-4:
         fail(f"K4 fused_rollout differs from its plain twin by {err} (> 1e-4) "
-             f"at {lanes} lanes")
+             f"at {lanes} lanes{', a state per lane' if per_lane else ''}")
     return dict(max_abs_err=err, ms=cuda_ms(torch, lambda: ops.fused_rollout(*args)),
                 plain_ms=cuda_ms(torch, lambda: rollout_plain(*args), reps=10),
-                shape=f"{lanes} lanes x 50 steps, one shared state",
+                shape=f"{lanes} lanes x 50 steps, "
+                      + ("a state per lane" if per_lane else "one shared state"),
                 call=lambda: ops.fused_rollout(*args), match="rollout_kernel",
                 # two inputs read, two outputs written; ~16 float32
                 # operations a lane-step (tan, cos, sin and sqrt as one each)
                 nbytes=f32_bytes(acc, steer, s0, x, y), ops=16 * acc.numel(),
+                launches_per_solve=launches_per_solve,
                 library=("no single call", None))
 
 
 def check_fused_selection(torch, ops, plain, dev, gen):
     """K3 at the dynamic workload's (100, 100, 101) and the fastrt
-    (64, 64, 101) selection shapes, k = 10; D from random features."""
+    (64, 64, 101) selection shapes, k = 10, and at the on-road (100, 100,
+    17), k = 4; D from random features.  Returns the dynamic shape's
+    record, with the on-road one under ``cases``."""
     err = 0.0
-    timed = None
-    for C, S in ((100, 100), (64, 64)):
-        M = 100
+    cases = []
+    for C, S, M, k, at in ((100, 100, 100, 10, {"path_a_fused": 400}),
+                           (64, 64, 100, 10, None),
+                           (100, 100, 16, 4, {"path_d_fused": 400})):
         samples = torch.randn(C, S, M + 1, device=dev, generator=gen)
         samples[..., M] = samples[..., M].abs() * 3 + 0.01
         samples[0, 1, 7] = float("nan")                      # NaN lane
         samples[0, 2, :M] = torch.round(samples[0, 2, :M])   # tied |beta|
         f = torch.randn(C, M, 22, device=dev, generator=gen)
         D = (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
-        got = ops.topk_kernel_matrices(samples, D, 10)
-        ref = plain(samples, D, 10)
+        got = ops.topk_kernel_matrices(samples, D, k)
+        ref = plain(samples, D, k)
         torch.cuda.synchronize()
         if not torch.equal(got[2], ref[2]) or not bool((got[2][0, 1] == M).all()):
-            fail(f"K3 topk_kernel_matrices indices differ from the twin at {(C, S)}")
+            fail(f"K3 topk_kernel_matrices indices differ from the twin at "
+                 f"{(C, S, M + 1)}, k={k}")
         for name, g, r in (("row_sum", got[0], ref[0]), ("K_red", got[1], ref[1])):
             bad = (g - r).abs() > 1e-5 * r.abs() + 1e-6
             if bool(bad.any()) or not bool(torch.isfinite(g).all()):
                 fail(f"K3 {name} outside rtol 1e-5 + atol 1e-6 of the twin at "
-                     f"{int(bad.sum())} entries, shape {(C, S)}")
+                     f"{int(bad.sum())} entries, shape {(C, S, M + 1)}, k={k}")
             err = max(err, float((g - r).abs().max()))
-        if timed is None:
-            timed = (samples, D, got)
-    samples, D, out = timed
-    C, S, Mp1 = samples.shape
-    call = lambda: ops.topk_kernel_matrices(samples, D, 10)
-    return dict(max_abs_err=err, ms=cuda_ms(torch, call),
-                plain_ms=cuda_ms(torch, lambda: plain(samples, D, 10), reps=10),
-                shape="(100, 100, 101), k=10", call=call,
-                match="topk_kernel_matrices_kernel",
-                nbytes=f32_bytes(samples, D, *out),
-                # a division, an exp and an add per (row, selected row, column)
-                ops=3 * C * S * 10 * (Mp1 - 1),
-                library=("no single call", None))
+        if at is None:
+            continue
+        call = (lambda s=samples, d=D, k=k: ops.topk_kernel_matrices(s, d, k))
+        cases.append(dict(
+            shape=f"({C}, {S}, {M + 1}), k={k}", call=call,
+            match="topk_kernel_matrices_kernel", launches_per_solve=at,
+            nbytes=f32_bytes(samples, D, *got),
+            # a division, an exp and an add per (row, selected row, column)
+            ops=3 * C * S * k * M, library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda s=samples, d=D, k=k: plain(s, d, k),
+                             reps=10)))
+    main = dict(cases[0], max_abs_err=err, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
 
 
 def check_topk_onehot(torch, ops, plain, dev, gen):
@@ -548,23 +615,34 @@ def timed_solves(torch, ops, solver, cfg, calls, label, path_kernels):
     return launches
 
 
-def trace_path_a(torch, ops, solver, cfg, call):
-    """One Path A fused solve under ``torch.profiler`` (``device_trace``):
-    device busy ms, idle share and K3's device ms per solve."""
+def traced(fn):
+    """``fn()`` under ``torch.profiler`` (``device_trace``): returns its
+    result, the trace summary (wall ms, device busy ms, idle share, device
+    events, top kernels) and the profiler."""
     from mpc_mmd_tpu_torch.utils.observability import device_trace
     with tempfile.TemporaryDirectory() as trace_dir:
         with device_trace(trace_dir) as prof:
-            r = solver.solve(call[0], *call[1])
+            r = fn()
         with open(glob.glob(os.path.join(trace_dir, "summary_*.json"))[0]) as f:
             summary = json.load(f)
+    return r, summary, prof
+
+
+def trace_path_a(torch, ops, solver, cfg, call):
+    """One Path A fused solve under ``torch.profiler``: device busy ms, idle
+    share and K3's device ms per solve."""
+    r, summary, prof = traced(lambda: solver.solve(call[0], *call[1]))
     check_solve(r, cfg)
     k3 = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
           and "topk_kernel_matrices_kernel" in e.name]
     k3_ms = sum(e.time_range.elapsed_us() for e in k3) / 1e3
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
-    if len(k3) != n_inner:
-        fail(f"Path A trace: {len(k3)} K3 launches in one solve, expected {n_inner}")
+    # the launches themselves are counted exactly by the wrapper (the path's
+    # check); the profiler may drop a record, never add one
+    if not n_inner <= 2 * len(k3) <= 2 * n_inner:
+        fail(f"Path A trace: {len(k3)} K3 device events in one solve of "
+             f"{n_inner} launches")
     log(f"Path A fused, one solve under torch.profiler: {summary['wall_ms']:.1f} ms "
         f"wall, device busy {summary['device_busy_ms']:.2f} ms, idle share "
         f"{summary['idle_share']:.3f}, {summary['device_events']} device events; K3 "
@@ -767,6 +845,154 @@ def path_c(torch, ops, dev, work, per_solve):
     return path_launches
 
 
+# Path D's world: two obstacles block both lanes 12-18 m ahead, two more
+# further on, so every candidate meets a distinct risk
+ONROAD_OBSTACLES = ((12.0, 0.5), (18.0, 3.0), (40.0, 0.0), (60.0, 3.5))
+
+
+def onroad_problem(torch, cfg, dev):
+    """Step 0 of an on-road episode, built on the card as ``run_episode``
+    builds it: the curved route's waypoint window, smoothed, its path
+    parameters, the obstacles in Frenet.  Returns the arguments of
+    ``FrenetSolver.solve`` after ``idx_mpc``."""
+    from mpc_mmd_tpu_torch.closedloop import (SyntheticPlant, local_problem,
+                                              make_route)
+    from mpc_mmd_tpu_torch.frenet import build_smoother
+    plant = SyntheticPlant(cfg, make_route("curved"), ONROAD_OBSTACLES)
+    tot_time = torch.as_tensor(np.linspace(0, cfg.horizon.t_fin, cfg.horizon.num),
+                               dtype=torch.float32, device=dev)
+    frame, x_obs, y_obs, init = local_problem(
+        cfg, plant, build_smoother(cfg.frenet.num_path, device=dev), tot_time)
+    return init, MEAN, COV, x_obs, y_obs, 15.0, frame
+
+
+def check_frenet_solve(r, cfg, label):
+    for name, n in (("cx", cfg.horizon.nvar), ("cy", cfg.horizon.nvar),
+                    ("v_best", cfg.horizon.num), ("steering_best", cfg.horizon.num)):
+        t = getattr(r, name)
+        if tuple(t.shape) != (n,) or not bool(t.isfinite().all()):
+            fail(f"{label}: {name} of shape {tuple(t.shape)} with non-finite values")
+    if not math.isfinite(float(r.risk_obs)):
+        fail(f"{label}: risk_obs {float(r.risk_obs)}")
+
+
+def path_d(torch, ops, dev, cfg, per_solve):
+    """Phase 10: the on-road stack at full width (see the module
+    docstring).  Returns the launch counts of its runs; adds each run's
+    launches per solve to ``per_solve``."""
+    import contextlib
+    import io
+    from mpc_mmd_tpu_torch import FrenetSolver
+    from mpc_mmd_tpu_torch.cli import closedloop as closedloop_cli
+    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
+
+    K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
+                      ops.fused_rollout)
+    n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
+    outer = cfg.cem.maxiter_cem
+    args = onroad_problem(torch, cfg, dev)
+    path_launches = []
+
+    def expect(got, want, n, label):
+        want = {fn.__name__: want.get(fn.__name__, 0) * n for fn in ops.KERNELS}
+        if got != want:
+            fail(f"{label}: launches {got}, expected {want} ({n} solves)")
+
+    # b. mmd_opt, "xla" selection
+    solver = FrenetSolver(cfg, device=dev)
+    t0 = time.perf_counter()
+    check_frenet_solve(solver.solve(0, *args), cfg, "Path D warm-up")
+    torch.cuda.synchronize()
+    log(f"Path D warm-up solve: {time.perf_counter() - t0:.2f} s")
+    ops.reset_launch_counts()
+    lat = []
+    for i in (1, 2):
+        ts = time.perf_counter()
+        r = solver.solve(i, *args)
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - ts)
+        check_frenet_solve(r, cfg, "Path D mmd_opt")
+    got = {fn.__name__: fn.launches for fn in ops.KERNELS}
+    expect(got, {"topk_indices": 2 * n_inner, "eq_qp_solve": n_inner,
+                 "fused_rollout": outer}, 2, "Path D mmd_opt xla")
+    path_launches.append(got)
+    per_solve["path_d_xla"] = {k: v / 2 for k, v in got.items()}
+    log(f"Path D (on-road, gaussian 0.1, mmd_opt, xla selection): "
+        f"{2 / sum(lat):.2f} solves/s, latencies {[round(1e3 * x, 1) for x in lat]} "
+        f"ms; launches per solve {per_solve['path_d_xla']}; last risk_obs "
+        f"{float(r.risk_obs):.4f}, v_best[:4] {r.v_best[:4].tolist()}")
+    r, summary, _ = traced(lambda: solver.solve(3, *args))
+    check_frenet_solve(r, cfg, "Path D traced")
+    log(f"Path D mmd_opt xla, one solve under torch.profiler: "
+        f"{summary['wall_ms']:.1f} ms wall, device busy "
+        f"{summary['device_busy_ms']:.2f} ms, idle share {summary['idle_share']:.3f}, "
+        f"{summary['device_events']} device events; top {summary['top'][:5]}")
+
+    # c. the fused selection
+    os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4),
+                           lambda: solver.solve(4, *args))
+    os.environ.pop("MPC_MMD_FUSED_CEM")
+    check_frenet_solve(r, cfg, "Path D fused")
+    expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
+                 "topk_indices": n_inner, "fused_rollout": outer}, 1,
+           "Path D fused")
+    path_launches.append(got)
+    per_solve["path_d_fused"] = dict(got)
+    log(f"Path D mmd_opt, fused selection: {1e3 * secs:.1f} ms (first fused "
+        f"solve); launches {got}")
+
+    # d. the other modes, one solve each
+    for mode in ("cvar", "saa", "mmd_random", "det"):
+        cfg_m = cfg.with_risk_mode(mode)
+        s = FrenetSolver(cfg_m, device=dev)
+        r, secs, got = counted(torch, ops, f"Path D {mode}",
+                               () if mode == "det" else (K4,),
+                               lambda: s.solve(5, *args))
+        check_frenet_solve(r, cfg_m, f"Path D {mode}")
+        expect(got, {} if mode == "det" else {"fused_rollout": outer}, 1,
+               f"Path D {mode}")
+        path_launches.append(got)
+        per_solve[f"path_d_{mode}"] = dict(got)
+        log(f"Path D {mode}: {1e3 * secs:.1f} ms (first solve), risk_obs "
+            f"{float(r.risk_obs):.4f}; launches {got}")
+
+    # e. one outer iteration of mmd_opt, card against CPU, identical draws
+    cfg1 = cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1))
+    arrays, _ = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg1, 5)
+    out = {}
+    for name, device in (("cpu", "cpu"), ("cuda", dev)):
+        r = FrenetSolver(cfg1, device=device,
+                         noise=FixedNoise(arrays, device)).solve(5, *args)
+        out[name] = [t.cpu() for t in (r.v_best, r.steering_best)]
+    err = max(float((g - c).abs().max()) for g, c in zip(out["cuda"], out["cpu"]))
+    log(f"Path D cuda vs cpu, one outer iteration of mmd_opt: v_best and "
+        f"steering_best max diff {err:.3e}")
+    if not err <= 1e-3:
+        fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
+
+    # f. the closed-loop CLI
+    for mode, kernels in (("mmd_opt", (K1, K2, K4)), ("cvar", (K4,)), ("det", ())):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            results, secs, got = counted(
+                torch, ops, f"Path D closed loop {mode}", kernels,
+                lambda: closedloop_cli.main(["--mode", mode, "--route", "curved",
+                                             "--episodes", "1", "--max_steps", "20"]))
+        episode = json.loads(buf.getvalue().splitlines()[0])
+        if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
+            fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
+        if mode == "det" and any(got.values()):
+            fail(f"Path D closed loop det launched kernels: {got}")
+        steps = results[0].steps
+        path_launches.append(got)
+        per_solve[f"closedloop_{mode}"] = {k: v / steps for k, v in got.items()}
+        log(f"Path D closed loop, python -m mpc_mmd_tpu_torch.cli.closedloop --mode "
+            f"{mode} --route curved --episodes 1 --max_steps 20: {secs:.2f} s; "
+            f"{json.dumps(episode)}; launches {got}")
+    return path_launches
+
+
 def main():
     import torch
 
@@ -780,7 +1006,8 @@ def main():
     if not os.path.abspath(mpc_mmd_tpu_torch.__file__).startswith(HERE + os.sep):
         fail(f"imported mpc_mmd_tpu_torch from {mpc_mmd_tpu_torch.__file__}, "
              f"not from {HERE}")
-    from mpc_mmd_tpu_torch import Solver, dynamic_workload, fastrt_workload, ops
+    from mpc_mmd_tpu_torch import (Solver, dynamic_workload, fastrt_workload,
+                                   onroad_workload, ops)
     from mpc_mmd_tpu_torch.dynamics import rollout as rollout_plain
     from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
     from mpc_mmd_tpu_torch.ops import _build
@@ -812,9 +1039,14 @@ def main():
                           mode="mmd_opt", noise="gaussian", noise_level=0.1)
     cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta",
                              noise_level=0.2, num_prime=50, mode="mmd_opt")
+    cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50,
+                            noise="gaussian", noise_level=0.1)
     k1_at, k2_at = launch_shapes({"fastrt": (cfg, "xla"), "sweep_mmd_opt": (cfg, "xla"),
                                   "path_a_fused": (cfg_a, "fused"),
-                                  "path_a_xla": (cfg_a, "xla")})
+                                  "path_a_xla": (cfg_a, "xla"),
+                                  "path_d_xla": (cfg_d, "xla"),
+                                  "path_d_fused": (cfg_d, "fused"),
+                                  "closedloop_mmd_opt": (cfg_d, "xla")})
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = check_topk(torch, ops, topk_indices_plain, gen, k1_at)
     log(f"K1 topk_indices: exact at {len(k1_at)} path shapes, edge rows included; "
@@ -822,7 +1054,22 @@ def main():
     k2 = check_eq_qp(torch, ops, qp_plain, dev, gen, k2_at)
     log(f"K2 eq_qp_solve: max abs err {k2['max_abs_err']:.3e} vs float64 at "
         f"{sorted(k2_at)} systems; {k2['ms']:.4f} ms vs plain {k2['plain_ms']:.4f} ms")
-    k4 = check_rollout(torch, ops, rollout_plain, dev, gen)
+    k4 = check_rollout(torch, ops, rollout_plain, dev, gen,
+                       launches_per_solve={"fastrt": 10})
+    # the on-road shapes: 100 candidates x 16 mother rollouts in mmd_opt, x 4
+    # rollouts in cvar / saa / mmd_random (400 lanes end in a partial block)
+    k4_onroad = []
+    for lanes, paths in ((1600, ("path_d_xla", "path_d_fused", "closedloop_mmd_opt")),
+                         (400, ("path_d_cvar", "path_d_saa", "path_d_mmd_random",
+                                "closedloop_cvar"))):
+        k4_onroad.append(check_rollout(
+            torch, ops, rollout_plain, dev, gen, lanes=lanes, per_lane=True,
+            launches_per_solve={p: cfg_d.cem.maxiter_cem for p in paths}))
+        log(f"K4 fused_rollout at the on-road shape ({lanes:,} x 50, a state per "
+            f"lane): max abs err {k4_onroad[-1]['max_abs_err']:.3e}; "
+            f"{k4_onroad[-1]['ms']:.4f} ms vs plain {k4_onroad[-1]['plain_ms']:.4f} ms")
+    k4 = dict(k4, cases=[k4, *k4_onroad],
+              max_abs_err=max(c["max_abs_err"] for c in (k4, *k4_onroad)))
     log(f"K4 fused_rollout: max abs err {k4['max_abs_err']:.3e}; "
         f"{k4['ms']:.4f} ms vs plain {k4['plain_ms']:.4f} ms")
     k4v = check_rollout(torch, ops, rollout_plain, dev, gen, lanes=256_000)
@@ -830,7 +1077,8 @@ def main():
         f"{k4v['max_abs_err']:.3e}; {k4v['ms']:.4f} ms vs plain {k4v['plain_ms']:.4f} ms")
     k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen)
     log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3['max_abs_err']:.3e}; "
-        f"{k3['ms']:.4f} ms vs plain {k3['plain_ms']:.4f} ms at (100, 100, 101)")
+        f"{k3['ms']:.4f} ms vs plain {k3['plain_ms']:.4f} ms at (100, 100, 101); "
+        f"plain {k3['cases'][1]['plain_ms']:.4f} ms at (100, 100, 17), k=4")
     k5 = check_topk_onehot(torch, ops, topk_onehot_plain, dev, gen)
     k5_launches = ops.topk_onehot.launches
     log(f"K5 topk_onehot: exact; {k5['ms']:.4f} ms vs plain {k5['plain_ms']:.4f} ms")
@@ -921,11 +1169,18 @@ def main():
     with tempfile.TemporaryDirectory() as work:
         path_launches += path_c(torch, ops, dev, work, per_solve)
 
+    # ---- 10. Path D: the on-road stack -------------------------------------
+    path_launches += path_d(torch, ops, dev, cfg_d, per_solve)
+
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
     launches["topk_onehot"] = k5_launches
-    check_launch_shapes(k1_at, k2_at, per_solve)
+    checked = lambda rec: {c["shape"]: c["launches_per_solve"]
+                           for c in rec["cases"] if c["launches_per_solve"]}
+    check_launch_shapes({"topk_indices": k1_at, "eq_qp_solve": k2_at,
+                         "topk_kernel_matrices": checked(k3),
+                         "fused_rollout": checked(k4)}, per_solve)
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5)
     log(json.dumps({"kernels": record}))
     log(smi)

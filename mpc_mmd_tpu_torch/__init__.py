@@ -16,10 +16,13 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from .config import (ProblemConfig, dynamic_workload,  # noqa: E402
-                     fast_workload, fastrt_workload, realtime_workload,
-                     static_workload)
+                     fast_workload, fastrt_workload, onroad_workload,
+                     realtime_workload, static_workload)
 from .solver import SolveResult, Solver  # noqa: E402
+from .solver_frenet import FrenetSolveResult, FrenetSolver  # noqa: E402
+from .closedloop import run_episode  # noqa: E402
 
-__all__ = ["ProblemConfig", "Solver", "SolveResult", "dynamic_workload",
-           "fast_workload", "fastrt_workload", "realtime_workload",
-           "static_workload"]
+__all__ = ["FrenetSolveResult", "FrenetSolver", "ProblemConfig", "Solver",
+           "SolveResult", "dynamic_workload", "fast_workload",
+           "fastrt_workload", "onroad_workload", "realtime_workload",
+           "run_episode", "static_workload"]

@@ -1,5 +1,6 @@
-"""Command-line tools of the PyTorch port: ``sweep``, ``validate`` and
-``report``, run as ``python -m mpc_mmd_tpu_torch.cli.<tool>``."""
+"""Command-line tools of the PyTorch port: ``sweep``, ``validate``,
+``report`` and ``closedloop``, run as
+``python -m mpc_mmd_tpu_torch.cli.<tool>``."""
 
 import torch
 

@@ -59,18 +59,19 @@ def run_sweep(workload: str, mode: str, noise: str, noise_level: float,
     package's "pipeline" dispatch, and its "batch" dispatch differs from it
     only above ``scenario_chunk`` 1, so ``dispatch`` "pipeline" (default)
     and "batch" run the same path.  Not ported: "mesh" and a heartbeat
-    (ROADMAP.md Queue 1 item 11), ``scenario_chunk`` above 1 (item 8).
+    (ROADMAP.md Queue 1, "Distribution and operations"), ``scenario_chunk``
+    above 1 (Queue 1, "scenario_chunk above 1").
     """
     if dispatch is not None and dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if dispatch == "mesh" or heartbeat_every:
         raise NotImplementedError(
             "the mesh dispatch and the multi-host heartbeat are not ported "
-            "(ROADMAP.md Queue 1 item 11)")
+            "(ROADMAP.md Queue 1, 'Distribution and operations')")
     if scenario_chunk is not None and scenario_chunk > 1:
         raise NotImplementedError(
             f"scenario_chunk={scenario_chunk}: the port solves one scenario "
-            "at a time (ROADMAP.md Queue 1 item 8)")
+            "at a time (ROADMAP.md Queue 1, 'scenario_chunk above 1')")
     dev = resolve_device(device)
     logger = logger or MetricLogger()
     make = static_workload if workload == "static" else dynamic_workload

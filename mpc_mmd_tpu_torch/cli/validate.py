@@ -49,7 +49,8 @@ def config_of(meta: dict):
 def _refuse_mesh(mesh: bool) -> None:
     if mesh:
         raise NotImplementedError("the mesh-sharded validator is not ported "
-                                  "(ROADMAP.md Queue 1 item 11)")
+                                  "(ROADMAP.md Queue 1, 'Distribution and "
+                                  "operations')")
 
 
 def _validate(meta, arrays, idx, n_mc, seed, dev, noise):

@@ -298,3 +298,30 @@ def dynamic_workload(num_reduced: int = 10, num_obs: int = 6, noise: str = "beta
                           acc_const=acc_const_noise, steer_const=steer_const_noise),
         risk=RiskConfig(mode=mode, num_reduced=num_reduced),
     )
+
+
+def onroad_workload(num_reduced: int = 4, num_obs: int = 4, noise: str = "gaussian",
+                    noise_level: float = 0.1, num_prime: int = 50,
+                    mode: str = "mmd_opt", right_hand_lanes: bool = True,
+                    acc_const_noise: float = 0.0,
+                    steer_const_noise: float = 0.0) -> ProblemConfig:
+    """The on-road closed-loop workload of the Frenet solver: wheel base
+    2.875, obstacle ellipse 4.5 x 3.0, the lane band on the right-hand
+    (default) or left-hand side, unscaled steer noise (k_steer 1) and the
+    on-road risk weights."""
+    lane = (LaneConfig(y_lb=-0.3, y_ub=3.8, y_des_1=0.0, y_des_2=3.5)
+            if right_hand_lanes else
+            LaneConfig(y_lb=-3.8, y_ub=0.3, y_des_1=0.0, y_des_2=-3.5))
+    return ProblemConfig(
+        horizon=HorizonConfig(num_prime=num_prime),
+        vehicle=VehicleConfig(wheel_base=2.875),
+        obstacles=ObstacleConfig(num_obs=num_obs, a_obs=4.5, b_obs=3.0),
+        lane=lane,
+        noise=NoiseConfig(kind=noise, level=noise_level, k_steer=1.0,
+                          acc_const=acc_const_noise, steer_const=steer_const_noise),
+        risk=RiskConfig(mode=mode, num_reduced=num_reduced,
+                        weight_mmd_lane=0.01, weight_mmd_obs=0.1,
+                        weight_cvar_lane=25.0, weight_cvar_obs=100.0,
+                        weight_saa_lane=1000.0, weight_saa_obs=1000.0,
+                        sigma_ker=1.0e-2),
+    )

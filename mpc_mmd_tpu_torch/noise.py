@@ -33,6 +33,13 @@ them:
   - ``cem_z`` (nb - ellite_num, 8) for the resample of the outer CEM
     update (solver.py:299).
 
+The Frenet solve (``solver_frenet.py``) asks first, once per solve, for
+``init_state_z`` (n, 4): the standard normals of ``split(PRNGKey(idx_mpc))[0]``
+behind its n noisy initial states (solver_frenet.py:52-64; the identity
+covariance makes the multivariate normal equal to z).  n is
+:func:`init_state_count`.  Its outer iterations draw from the keys above
+(solver_frenet.py:149,164,256), so they ask for the same families.
+
 The Monte-Carlo validator (``validate.py``) asks for ``mc_draws``: per
 solve row r of a validation with seed s, the JAX package keys
 ``split(split(PRNGKey(s), S)[r], 3)`` (validate.py:45,127) and draws from
@@ -49,6 +56,13 @@ from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+
+def init_state_count(cfg) -> int:
+    """Noisy initial states of a Frenet solve: M in ``mmd_opt`` (one per
+    mother rollout), 1 in ``det``, else R."""
+    return {"mmd_opt": cfg.risk.num_mother, "det": 1}.get(cfg.risk.mode,
+                                                          cfg.risk.num_reduced)
 
 
 class InnerDraws(NamedTuple):
@@ -130,6 +144,9 @@ class TorchNoise:
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self._randn((3, idx_mpc, it), (n, n_params))[0]
 
+    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
+        return self._randn((6, idx_mpc), (n, 4))[0]
+
     def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The validator's draws of the solve rows ``rows``: ``d_acc``,
@@ -162,7 +179,8 @@ class FixedNoise:
     ``arrays`` holds ``initial_z`` (nb, 8), ``samples0``, ``u``, ``z`` (see
     :class:`InnerDraws`), and per outer iteration ``eps_acc``,
     ``eps_steer``, ``eps_const`` (maxiter_cem, R, T) and ``cem_z``
-    (maxiter_cem, nb - ellite_num, 8).  ``idx_mpc`` is ignored.
+    (maxiter_cem, nb - ellite_num, 8), and for a Frenet solve
+    ``init_state_z`` (n, 4).  ``idx_mpc`` is ignored.
 
     Beta draws come from ``arrays["beta"]`` (maxiter_cem, 2, C, R, T) if
     given, else from ``beta_fn(idx_mpc, it, R, alpha, beta)``, which gets
@@ -219,6 +237,9 @@ class FixedNoise:
     def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
         return self.arrays["cem_z"][it]
 
+    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
+        return self._get("init_state_z", (n, 4))
+
     def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
@@ -244,6 +265,7 @@ def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray]
     A first solve on ``FixedNoise(arrays, device, beta_fn)`` records; a
     solve on ``FixedNoise(arrays, other_device)`` made after it replays
     every draw, Beta included, so two devices can be held to one another.
+    The arrays also hold the Frenet solve's ``init_state_z``.
     """
     c, bc = cfg.cem, cfg.beta_cem
     R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
@@ -252,6 +274,7 @@ def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray]
     its = range(c.maxiter_cem)
     eps = [source.rollout_eps(idx_mpc, it, R, T) for it in its]
     arrays = {"initial_z": source.initial_z(c.num_batch, c.num_params),
+              "init_state_z": source.init_state_z(idx_mpc, init_state_count(cfg)),
               "samples0": inner.samples0, "u": inner.u, "z": inner.z,
               "eps_acc": torch.stack([e[0] for e in eps]),
               "eps_steer": torch.stack([e[1] for e in eps]),

@@ -3,14 +3,17 @@
 Replaces ``mpc_mmd_tpu/ops/qp_pallas.py::eq_qp_solve_pallas`` and, with it,
 the body of the lane-major entry ``eq_qp_solve_pallas_t`` (that layout is
 not ported).  On the solve paths it solves the reduced-set weight QP of
-every inner-CEM sample: 3,648 to 10,000 systems of n = 10 a call.
+every inner-CEM sample: 3,648 to 10,000 systems of n = 10 a call on the
+straight-road paths, and 8,900 or 10,000 systems of n = 4 on the on-road
+path (num_reduced 4).
 
 One thread solves one system by the Pallas body's unrolled Cholesky, step
-for step.  On the card a block of 32 systems (one warp) copies its
+for step.  On the card a block of 64 systems (two warps) copies its
 contiguous C and r into shared memory with cp.async and writes b back as
 one span, so the loads and stores coalesce and the blocks spread over the
-SMs.  What is left is each thread's chain of dependent multiply-adds and
-the launch; the note at the top of the CUDA source has the numbers.
+SMs.  What is left is the staging, each thread's chain of dependent
+multiply-adds and the launch; the note at the top of the CUDA source has
+the numbers.
 """
 
 from __future__ import annotations

@@ -2,16 +2,19 @@
 (CUDA source ``csrc/topk.cu``, one kernel body for both).
 
 K1 replaces ``mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas``.  On the
-solve paths it picks the top-10 |beta| lanes of every inner-CEM sample
+solve paths it picks the top-k |beta| lanes of every inner-CEM sample
 ((C, S - n_el, M+1) with ``slice_to=M``, and the shared iteration-0 batch
 (1, S, M+1)) and the elite samples (top-n_el of -cost over (C, S)): rows
-from 64 to 8,900, of 64 or 101 floats.  K5 replaces ``topk_onehot_pallas``,
-which no path of either package calls.
+from 64 to 8,900, of 64, 100 or 101 floats with k = 10 on the straight-road
+paths, and of 17 floats with k = 4 (num_reduced 4, M = 16) on the on-road
+path.  K5 replaces ``topk_onehot_pallas``, which no path of either package
+calls.
 
 Both run k rounds per row, as the Pallas kernel does: the max, the lowest
 column holding it, that column masked to -inf.  On the card a round is two
-warp reductions on integer order keys, one warp per row, and the k indices
-of a row are stored at once.  A row is a chain of k dependent rounds, so
+warp reductions on integer order keys, one row per warp while the card
+holds every row's warp at once and two rows per warp past that (the
+occupancy decides), and the k indices of a row are stored at once.  A row is a chain of k dependent rounds, so
 the kernel is bound by that chain's latency and the launch, not by its
 bytes; the note at the top of the CUDA source has the numbers and the
 design.

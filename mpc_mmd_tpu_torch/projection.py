@@ -1,20 +1,25 @@
-"""Alternating-minimisation feasibility projection (stochastic variant).
+"""Alternating-minimisation feasibility projection.
 
-Counterpart of ``project`` in ``mpc_mmd_tpu/projection.py`` with
-``with_obstacle_terms=False`` and no Frenet inputs (so its result has no
-Frenet steering or curvature fields): obstacles are handled by the risk
-cost, so each AM round is two matmuls with the prefactored KKT
-inverses plus elementwise trigonometry.
+Counterpart of ``project`` in ``mpc_mmd_tpu/projection.py``.  Each AM round
+is two matmuls with the prefactored KKT inverses plus elementwise
+trigonometry.  The stochastic variant (every risk-aware mode) leaves the
+obstacles to the risk cost.  With ``ProjectionConfig.with_obstacle_terms``
+(the ``det`` baseline) the obstacle ellipses enter the QPs through a polar
+decomposition per obstacle and step, laid out obstacle-major: blocks of
+``num`` steps, one block per obstacle circle.  Given the path's
+``arc_vec`` and ``kappa`` (the Frenet solve), the result also carries the
+curvature-coupled steering and the path curvature under each candidate.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .config import ProblemConfig
+from .frenet import interp
 from .qp import Workspace, kkt_solve
 
 
@@ -31,6 +36,8 @@ class ProjectionResult(NamedTuple):
     lamda_x: torch.Tensor    # (batch, nvar)
     lamda_y: torch.Tensor
     s_lane: torch.Tensor     # (batch, 2*(num-1))
+    steering: torch.Tensor   # (batch, num) Frenet steering (zeros off the path)
+    kappa_interp: torch.Tensor  # (batch, num) path curvature at x (zeros off it)
 
 
 def unwrap(p: torch.Tensor) -> torch.Tensor:
@@ -60,22 +67,71 @@ def _polar_clip(wx, wy, rho, lo, hi, unwrap_angle: bool):
     return alpha, torch.clamp(c2 / c1, lo, hi)
 
 
+def _obs_geometry(x, y, x_obs, y_obs):
+    """Displacements from every obstacle, (batch, num_obs * num),
+    obstacle-major.  x, y (batch, num); x_obs, y_obs (num_obs, num)."""
+    nb = x.shape[0]
+    return ((x[:, None, :] - x_obs[None]).reshape(nb, -1),
+            (y[:, None, :] - y_obs[None]).reshape(nb, -1))
+
+
+def _obs_polar(cfg: ProblemConfig, wc, ws, d_floor):
+    """Obstacle polar step: alpha from the scaled ellipse, d >= d_floor."""
+    a, b = cfg.obstacles.a_obs, cfg.obstacles.b_obs
+    rho = cfg.projection.rho_obs
+    alpha = torch.atan2(ws * a, wc * b)
+    c1 = rho * (a ** 2 * torch.cos(alpha) ** 2 + b ** 2 * torch.sin(alpha) ** 2)
+    c2 = rho * (a * wc * torch.cos(alpha) + b * ws * torch.sin(alpha))
+    return alpha, torch.clamp(c2 / c1, min=d_floor)
+
+
+def _obs_blocks(cfg: ProblemConfig, t: torch.Tensor) -> torch.Tensor:
+    """(batch, n_blk * num) -> (batch, n_blk, num), one block per obstacle
+    circle."""
+    n_blk = cfg.obstacles.num_obs * cfg.obstacles.num_circles
+    return t.reshape(t.shape[0], n_blk, cfg.horizon.num)
+
+
+def _shift_d_obs(cfg: ProblemConfig, d_obs):
+    """Warm start of d_obs one step forward in every block, with a leading 1."""
+    blocks = _obs_blocks(cfg, d_obs)
+    shifted = torch.cat((torch.ones_like(blocks[:, :, :1]), blocks[:, :, :-1]),
+                        dim=2)
+    return shifted.reshape(d_obs.shape[0], -1)
+
+
+def _obs_residuals(cfg: ProblemConfig, ws: Workspace, wc, wsa, alpha_obs, d_obs):
+    """The obstacle residuals (res_ox, res_oy) and their multiplier steps
+    A_obs^T r = P^T (sum of the blocks of r), for x and y."""
+    res_ox = wc - cfg.obstacles.a_obs * d_obs * torch.cos(alpha_obs)
+    res_oy = wsa - cfg.obstacles.b_obs * d_obs * torch.sin(alpha_obs)
+    return (res_ox, res_oy, _obs_blocks(cfg, res_ox).sum(dim=1) @ ws.P,
+            _obs_blocks(cfg, res_oy).sum(dim=1) @ ws.P)
+
+
 def project(cfg: ProblemConfig, ws: Workspace,
             c_x_bar: torch.Tensor, c_y_bar: torch.Tensor,
             b_eq_x: torch.Tensor, b_eq_y: torch.Tensor,
             lamda_x: torch.Tensor, lamda_y: torch.Tensor,
-            s_lane: torch.Tensor) -> ProjectionResult:
+            s_lane: torch.Tensor,
+            x_obs: Optional[torch.Tensor] = None,
+            y_obs: Optional[torch.Tensor] = None,
+            arc_vec: Optional[torch.Tensor] = None,
+            kappa: Optional[torch.Tensor] = None) -> ProjectionResult:
     """Project guess coefficients onto the feasible set (AM iterations).
 
     One polar initialisation with the multiplier pre-update, then
     ``projection.maxiter`` rounds of QP solve, polar re-estimate and
     multiplier update.  Multipliers and lane slack are warm-started across
-    outer CEM iterations by the caller.
+    outer CEM iterations by the caller.  x_obs, y_obs (num_obs, num) are
+    read only with ``with_obstacle_terms``.  With ``arc_vec`` and ``kappa``
+    (the path, in the Frenet solve) the result carries the steering
+    ``atan((kappa_f + kappa cos(a_v) / (1 - y kappa)) L)``, with kappa the
+    path curvature at the candidate's arc length x (clipped to the path)
+    and kappa_f = d_a sin(a_a - a_v) / d_v^2 the trajectory's own.
     """
     pj, veh, lane = cfg.projection, cfg.vehicle, cfg.lane
-    if pj.with_obstacle_terms:
-        raise NotImplementedError("the PyTorch port has only the stochastic "
-                                  "projection (with_obstacle_terms=False)")
+    with_obs = pj.with_obstacle_terms
     if pj.maxiter < 1:
         raise ValueError("projection.maxiter must be at least 1")
     nvar = cfg.horizon.nvar
@@ -99,6 +155,15 @@ def project(cfg: ProblemConfig, ws: Workspace,
     lamda_x = lamda_x - pj.rho_ineq * (res_ax @ ws.Pddot) - pj.rho_ineq * (res_vx @ ws.Pdot)
     lamda_y = lamda_y - pj.rho_ineq * (res_ay @ ws.Pddot) - pj.rho_ineq * (res_vy @ ws.Pdot)
 
+    if with_obs:
+        wc, wsa = _obs_geometry(c_x_bar @ ws.P.T, c_y_bar @ ws.P.T, x_obs, y_obs)
+        alpha_obs, d_obs = _obs_polar(cfg, wc, wsa, 1.0)
+        _, _, step_x, step_y = _obs_residuals(cfg, ws, wc, wsa, alpha_obs, d_obs)
+        lamda_x = lamda_x - pj.rho_obs * step_x
+        lamda_y = lamda_y - pj.rho_obs * step_y
+        x_obs_flat = x_obs.reshape(-1)[None]             # obstacle-major
+        y_obs_flat = y_obs.reshape(-1)[None]
+
     b_lane_ub = pj.gamma * lane.y_ub * torch.ones_like(s_lane[:, :num - 1])
     b_lane_lb = -pj.gamma * lane.y_lb * torch.ones_like(s_lane[:, :num - 1])
     b_lane = torch.cat((b_lane_ub, b_lane_lb), dim=1)
@@ -117,6 +182,13 @@ def project(cfg: ProblemConfig, ws: Workspace,
                      - pj.rho_ineq * (b_ay @ ws.Pddot)
                      - pj.rho_ineq * (b_vy @ ws.Pdot)
                      - pj.rho_lane * (b_lane_aug @ ws.A_lane))
+        if with_obs:
+            b_obs_x = x_obs_flat + d_obs * torch.cos(alpha_obs) * cfg.obstacles.a_obs
+            b_obs_y = y_obs_flat + d_obs * torch.sin(alpha_obs) * cfg.obstacles.b_obs
+            lincost_x = lincost_x - pj.rho_obs * (
+                _obs_blocks(cfg, b_obs_x).sum(dim=1) @ ws.P)
+            lincost_y = lincost_y - pj.rho_obs * (
+                _obs_blocks(cfg, b_obs_y).sum(dim=1) @ ws.P)
 
         sol_x = kkt_solve(ws.proj_kkt_x_inv, torch.cat((-lincost_x, b_eq_x), dim=1))
         sol_y = kkt_solve(ws.proj_kkt_y_inv, torch.cat((-lincost_y, b_eq_y), dim=1))
@@ -153,6 +225,28 @@ def project(cfg: ProblemConfig, ws: Workspace,
         lamda_y = (lamda_y - pj.rho_ineq * (res_ay @ ws.Pddot)
                    - pj.rho_ineq * (res_vy @ ws.Pdot)
                    - pj.rho_lane * (res_lane @ ws.A_lane))
-        out = (c_x, c_y, x, y, xdot, ydot, xddot, yddot, res_norm)
 
-    return ProjectionResult(*out, lamda_x, lamda_y, s_lane)
+        if with_obs:
+            wc, wsa = _obs_geometry(x, y, x_obs, y_obs)
+            d_floor = 1.0 + (1.0 - pj.gamma_obs) * (_shift_d_obs(cfg, d_obs) - 1.0)
+            alpha_obs, d_obs = _obs_polar(cfg, wc, wsa, d_floor)
+            res_ox, res_oy, step_x, step_y = _obs_residuals(
+                cfg, ws, wc, wsa, alpha_obs, d_obs)
+            res_norm = res_norm + torch.linalg.vector_norm(
+                torch.cat((res_ox, res_oy), dim=1), dim=1)
+            lamda_x = lamda_x - pj.rho_obs * step_x
+            lamda_y = lamda_y - pj.rho_obs * step_y
+
+    if arc_vec is not None:
+        x_on_path = torch.minimum(torch.clamp(x, min=0.0), arc_vec[-1])
+        kappa_interp = interp(x_on_path.reshape(-1), arc_vec, kappa).reshape(x.shape)
+        kappa_frenet = d_a * torch.sin(alpha_a - alpha_v) / (d_v ** 2)
+        steering = torch.atan(
+            (kappa_frenet + kappa_interp * torch.cos(alpha_v)
+             / (1.0 - y * kappa_interp)) * veh.wheel_base)
+    else:
+        kappa_interp = torch.zeros_like(x)
+        steering = torch.zeros_like(x)
+
+    return ProjectionResult(c_x, c_y, x, y, xdot, ydot, xddot, yddot, res_norm,
+                            lamda_x, lamda_y, s_lane, steering, kappa_interp)

@@ -59,10 +59,6 @@ def _kkt(cost: np.ndarray, A_eq: np.ndarray) -> np.ndarray:
 def _workspace_float64(cfg: ProblemConfig) -> Dict[str, np.ndarray]:
     """Host float64 precompute; the same arithmetic as the JAX package."""
     h, g, pj = cfg.horizon, cfg.guess, cfg.projection
-    if pj.with_obstacle_terms:
-        raise NotImplementedError(
-            "the PyTorch port has only the stochastic projection "
-            "(with_obstacle_terms=False)")
     basis = uniform_basis(h.order, h.t_fin, h.num)
     P, Pdot, Pddot = basis.P, basis.Pdot, basis.Pddot
     nvar = basis.nvar
@@ -98,6 +94,12 @@ def _workspace_float64(cfg: ProblemConfig) -> Dict[str, np.ndarray]:
                + pj.rho_ineq * (Pddot.T @ Pddot)
                + pj.rho_ineq * (Pdot.T @ Pdot))
     cost_py = cost_px + pj.rho_lane * (A_lane.T @ A_lane)
+    if pj.with_obstacle_terms:
+        # the obstacle rows tile P once per obstacle circle, so their
+        # Gram matrix is that count times P^T P
+        n_rows = cfg.obstacles.num_obs * cfg.obstacles.num_circles
+        cost_px = cost_px + pj.rho_obs * n_rows * (P.T @ P)
+        cost_py = cost_py + pj.rho_obs * n_rows * (P.T @ P)
     proj_kkt_x = _kkt(cost_px, A_eq_x)
     proj_kkt_y = _kkt(cost_py, A_eq_y)
 

@@ -1,8 +1,8 @@
 """Risk costs over rollout ensembles: MMD, CVaR and SAA.
 
 Counterpart of ``f_bar_obs``, ``lane_bars``, ``cvar_reduce``,
-``saa_reduce`` and the ``{mmd,cvar,saa}_{obs,lane}`` risks in
-``mpc_mmd_tpu/risk.py``.  The JAX functions take one candidate and are
+``saa_reduce``, ``lane_des_bar`` and the ``{mmd,cvar,saa}_{obs,lane,
+lane_des}`` risks in ``mpc_mmd_tpu/risk.py``.  The JAX functions take one candidate and are
 vmapped; these take any leading batch of candidates.
 """
 
@@ -91,3 +91,28 @@ def saa_lane(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
     lb, ub = lane_bars(cfg, y_roll)
     return (saa_reduce(lb, cfg.risk.num_reduced)
             + saa_reduce(ub, cfg.risk.num_reduced))
+
+
+def lane_des_bar(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
+    """Desired-lane violation (..., R) of rollouts (..., R, T), in the
+    reference's form: the product of the Frobenius distances of each
+    candidate's whole (R, T) block to the two lane centres, minus the
+    margin, floored at 0 (so the same value for every rollout)."""
+    norm = lambda t: torch.linalg.vector_norm(t, dim=(-2, -1))
+    cost = (norm(y_roll - cfg.lane.y_des_1) * norm(y_roll - cfg.lane.y_des_2)
+            - cfg.lane.gamma_lane_des)
+    return torch.clamp(cost, min=0.0)[..., None].expand(y_roll.shape[:-1])
+
+
+def mmd_lane_des(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
+                 y_roll: torch.Tensor) -> torch.Tensor:
+    return mmd_vs_zero(beta, lane_des_bar(cfg, y_roll), sigma, cfg.risk.ker_wt,
+                       kind=cfg.risk.kernel)
+
+
+def cvar_lane_des(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
+    return cvar_reduce(lane_des_bar(cfg, y_roll), cfg.risk.alpha_quant_lane)
+
+
+def saa_lane_des(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
+    return saa_reduce(lane_des_bar(cfg, y_roll), cfg.risk.num_reduced)

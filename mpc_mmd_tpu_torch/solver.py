@@ -17,7 +17,9 @@ uniform weights 1/R and bandwidth 0.01 and no lane risk, ``cvar`` and
 
 The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
 that leaves every value on the device (no host synchronisation inside a
-solve).  Every sort is stable, as ``jnp.argsort`` is.
+solve).  Every sort is stable, as ``jnp.argsort`` is.  The loop
+(``SolverSetup._outer_cem``) is shared with the on-road solve
+(``solver_frenet.py``); each solver supplies the hooks that differ.
 """
 
 from __future__ import annotations
@@ -74,15 +76,20 @@ def batched_rollouts(cfg: ProblemConfig, a_n: torch.Tensor, s_n: torch.Tensor,
                      state0: torch.Tensor, mother: bool):
     """Rollouts of every candidate as one flat-lane rollout call (K4).
 
-    a_n, s_n: the (C, R, T) noisy controls; state0 (5,).  With ``mother``,
-    row m pairs acc draw m // R with steer draw m % R, giving R^2 rollouts
-    per candidate; else R.  Returns x, y of shape (C, n, T).
+    a_n, s_n: the (C, R, T) noisy controls.  With ``mother``, row m pairs
+    acc draw m // R with steer draw m % R, giving n = R^2 rollouts per
+    candidate; else n = R.  state0 is (5,), shared by every rollout, or
+    (n, 5): rollout m of every candidate starts from state m (the Frenet
+    solve's noisy initial states), and K4 takes a (C n, 5) state per lane.
+    Returns x, y of shape (C, n, T).
     """
     C, R, T = a_n.shape
     if mother:
         a_n = torch.repeat_interleave(a_n, R, dim=1)
         s_n = s_n.repeat(1, R, 1)
     n = a_n.shape[1]
+    if state0.dim() == 2:
+        state0 = state0.expand(C, n, 5).reshape(C * n, 5)
     x, y = fused_rollout(a_n.reshape(C * n, T), s_n.reshape(C * n, T), state0,
                          cfg.horizon.dt, cfg.vehicle.wheel_base)
     return x.reshape(C, n, T), y.reshape(C, n, T)
@@ -90,8 +97,127 @@ def batched_rollouts(cfg: ProblemConfig, a_n: torch.Tensor, s_n: torch.Tensor,
 
 MODES = ("mmd_opt", "mmd_random", "cvar", "saa")
 
+# the projection's values of every candidate that the outer loop sorts, by
+# the names the loop's dicts give them
+_CANDIDATE = (("y", "y"), ("xdot", "xdot"), ("ydot", "ydot"), ("xddot", "xddot"),
+              ("yddot", "yddot"), ("cx", "c_x"), ("cy", "c_y"),
+              ("res_norm", "res_norm"))
 
-class Solver:
+
+class SolverSetup:
+    """What a solver builds once: the checked configuration, its device,
+    the workspace, the noise source and the solver-fixed draws (the initial
+    parameter batch and, in ``mmd_opt``, the inner CEM's); and the outer
+    CEM loop (``_outer_cem``) that both solvers run through their hooks."""
+
+    # the names of the kept candidates' values a solve returns of its best
+    BEST: tuple = ()
+
+    def __init__(self, cfg: ProblemConfig, device, noise, ws: Optional[Workspace],
+                 modes):
+        if cfg.risk.mode not in modes:
+            raise NotImplementedError(
+                f"{type(self).__name__} has the modes {modes}, got "
+                f"{cfg.risk.mode!r}")
+        if cfg.solve_strategy != "prefactored":
+            raise NotImplementedError("the PyTorch port has only the "
+                                      "'prefactored' solve strategy")
+        if cfg.rollout_backend != "auto":
+            raise NotImplementedError("the PyTorch port has only "
+                                      "rollout_backend='auto'")
+        if cfg.cem.maxiter_cem < 1 or cfg.beta_cem.maxiter < 1:
+            raise ValueError("maxiter_cem and beta_cem.maxiter must be >= 1")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.ws = ws if ws is not None else build_workspace(cfg, self.device)
+        if noise is None:
+            noise = TorchNoise(torch.Generator(device=self.device), self.device)
+        self.noise = noise
+        c, bc = cfg.cem, cfg.beta_cem
+        self._z0 = noise.initial_z(c.num_batch, c.num_params)
+        if cfg.risk.mode == "mmd_opt":
+            self._inner = noise.inner_cem(bc.num_samples_cem,
+                                          cfg.risk.num_mother, bc.num_ellite,
+                                          bc.maxiter)
+
+    def _tensor(self, a) -> torch.Tensor:
+        if not torch.is_tensor(a):
+            a = np.array(a, dtype=np.float32)   # a copy: inputs stay untouched
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+    def _outer_cem(self, idx_mpc: int, ctx, b_eq_x, b_eq_y, mean, cov, x_obs,
+                   y_obs, v_des):
+        """The outer CEM loop, one iteration as the module docstring lists
+        it.  x_obs, y_obs (num_obs, num); ``ctx`` is what the hooks read of
+        the solve (the rollouts' initial state, the path).  Returns the last
+        iteration's best candidate {name: value} for the names in ``BEST``,
+        the best cost and its projection residual of every iteration
+        (maxiter_cem,), and the final CEM moments.
+
+        The subclass's hooks:
+
+        * ``_project_kwargs(ctx)``: the projection's keyword arguments;
+        * ``_steering(ctx, pr, order, steer)``: the candidates' values that
+          depend on the path, "steer" (C, num) among them, from the
+          projection ``pr``, its residual order and the controls' steer;
+        * ``_risks(ctx, it, idx_mpc, acc_T, steer_T, x_obs_T, y_obs_T)``:
+          the obstacle risk (C,) and {name: (C, ...)} the cost reads;
+        * ``_cost(kept, v_des)``: the scalar cost (n_cost,) of the
+          candidates kept by risk, from the dict of their values, to which
+          it adds the lane risks it computes.
+        """
+        cfg, ws, noise = self.cfg, self.ws, self.noise
+        nb, nvar, T = cfg.cem.num_batch, cfg.horizon.nvar, cfg.horizon.num_prime
+        n_cost, n_el = cfg.cem.ellite_num_cost, cfg.cem.ellite_num
+        x_obs_T, y_obs_T = x_obs[:, :T], y_obs[:, :T]
+        project_kw = self._project_kwargs(ctx)
+        params = initial_params(cfg, mean, cov, self._z0)
+
+        zeros = lambda *s: torch.zeros(s, device=self.device)
+        lamda_x, lamda_y = zeros(nb, nvar), zeros(nb, nvar)
+        s_lane = zeros(nb, 2 * (cfg.horizon.num - 1))
+        res, res_2 = zeros(cfg.cem.maxiter_cem), zeros(cfg.cem.maxiter_cem)
+
+        for it in range(cfg.cem.maxiter_cem):
+            cx_bar, cy_bar = compute_guess(cfg, ws, params, b_eq_x, b_eq_y)
+            pr = project(cfg, ws, cx_bar, cy_bar, b_eq_x, b_eq_y, lamda_x,
+                         lamda_y, s_lane, x_obs, y_obs, **project_kw)
+
+            order = torch.argsort(pr.res_norm, stable=True)
+            cand = {name: getattr(pr, field)[order] for name, field in _CANDIDATE}
+            cand["params"] = params[order]
+            acc, steer = controls_from_trajectory(
+                cand["xdot"], cand["ydot"], cand["xddot"], cand["yddot"],
+                cfg.horizon.dt, cfg.vehicle.wheel_base)
+            cand.update(self._steering(ctx, pr, order, steer))
+            acc_T = acc[:, :T].contiguous()
+            steer_T = cand["steer"][:, :T].contiguous()
+
+            risk_obs, per_cand = self._risks(ctx, it, idx_mpc, acc_T, steer_T,
+                                             x_obs_T, y_obs_T)
+
+            order2 = torch.argsort(risk_obs, stable=True)[:n_cost]
+            kept = {name: t[order2] for name, t in (
+                ("risk_obs", risk_obs), *cand.items(), *per_cand.items())}
+            cost_batch = self._cost(kept, v_des)
+
+            elite_idx = torch.argsort(cost_batch, stable=True)[:n_el]
+            cost_elite = cost_batch[elite_idx]
+            cem_z = noise.cem_z(idx_mpc, it, nb - n_el, cfg.cem.num_params)
+            mean, cov, params = cem_update(cfg, cem_z, kept["params"][elite_idx],
+                                           cost_elite, mean, cov)
+
+            # The reference's final-selection quirk: the argmin over the
+            # SORTED elite costs (so 0) indexes the risk-sorted arrays.
+            idx_min = torch.argmin(cost_elite)
+            res[it] = torch.min(cost_elite)
+            res_2[it] = kept["res_norm"][idx_min]
+            best = {name: kept[name][idx_min] for name in self.BEST}
+            lamda_x, lamda_y, s_lane = pr.lamda_x, pr.lamda_y, pr.s_lane
+        return best, res, res_2, mean, cov
+
+
+class Solver(SolverSetup):
     """Builds the workspace and the fixed draws once; ``solve`` runs one MPC
     solve on ``device``.
 
@@ -114,44 +240,26 @@ class Solver:
     def __init__(self, cfg: ProblemConfig, device="cuda", noise=None,
                  ws: Optional[Workspace] = None,
                  scenario_chunk: Optional[int] = None):
-        if cfg.risk.mode not in MODES:
-            raise NotImplementedError(
-                f"the PyTorch port has the modes {MODES}, got {cfg.risk.mode!r}")
-        if cfg.solve_strategy != "prefactored":
-            raise NotImplementedError("the PyTorch port has only the "
-                                      "'prefactored' solve strategy")
-        if cfg.rollout_backend != "auto":
-            raise NotImplementedError("the PyTorch port has only "
-                                      "rollout_backend='auto'")
-        if cfg.cem.maxiter_cem < 1 or cfg.beta_cem.maxiter < 1:
-            raise ValueError("maxiter_cem and beta_cem.maxiter must be >= 1")
         if scenario_chunk is None:
             scenario_chunk = int(os.environ.get("MPC_MMD_SCENARIO_CHUNK", "1"))
         if scenario_chunk > 1:
             raise NotImplementedError(
                 f"scenario_chunk={scenario_chunk}: the PyTorch port solves "
                 "the scenarios of solve_batch one at a time")
-        self.cfg = cfg
-        self.device = resolve_device(device)
-        self.ws = ws if ws is not None else build_workspace(cfg, self.device)
-        if noise is None:
-            noise = TorchNoise(torch.Generator(device=self.device), self.device)
-        self.noise = noise
-        c, bc = cfg.cem, cfg.beta_cem
-        self._z0 = noise.initial_z(c.num_batch, c.num_params)
-        if cfg.risk.mode == "mmd_opt":
-            self._inner = noise.inner_cem(bc.num_samples_cem,
-                                          cfg.risk.num_mother, bc.num_ellite,
-                                          bc.maxiter)
+        super().__init__(cfg, device, noise, ws, MODES)
 
-    def _tensor(self, a) -> torch.Tensor:
-        if not torch.is_tensor(a):
-            a = np.array(a, dtype=np.float32)   # a copy: inputs stay untouched
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    BEST = ("cx", "cy", "risk_lane", "risk_obs", "beta", "sigma", "res_beta")
 
-    def _risks(self, it, idx_mpc, acc_T, steer_T, state0, x_obs_T, y_obs_T):
-        """Obstacle risk (C,), the rollouts the lane risk reads (C, R, T),
-        beta (C, R), sigma (C,) and the inner residuals (C, maxiter)."""
+    def _project_kwargs(self, state0):
+        return {}
+
+    def _steering(self, state0, pr, order, steer):
+        return {"steer": steer}
+
+    def _risks(self, state0, it, idx_mpc, acc_T, steer_T, x_obs_T, y_obs_T):
+        """Obstacle risk (C,) and, per candidate, the rollouts the lane risk
+        reads (C, R, T), beta (C, R), sigma (C,) and the inner residuals
+        (C, maxiter)."""
         cfg = self.cfg
         nb, M = cfg.cem.num_batch, cfg.risk.num_mother
         mode = cfg.risk.mode
@@ -167,7 +275,8 @@ class Solver:
                                             self._inner)
             risk_obs = risk_mod.mmd_obs(cfg, rs.beta, rs.sigma, rs.x_red,
                                         rs.y_red, x_obs_T, y_obs_T)
-            return risk_obs, rs.y_red, rs.beta, rs.sigma, rs.res
+            return risk_obs, dict(roll=rs.y_red, beta=rs.beta, sigma=rs.sigma,
+                                  res_beta=rs.res)
         R = cfg.risk.num_reduced
         beta = torch.full((nb, R), 1.0 / R, device=self.device)
         sigma = torch.full((nb,), 0.01, device=self.device)
@@ -179,7 +288,7 @@ class Solver:
             risk_obs = risk_mod.cvar_obs(cfg, xr, yr, x_obs_T, y_obs_T)
         else:
             risk_obs = risk_mod.saa_obs(cfg, xr, yr, x_obs_T, y_obs_T)
-        return risk_obs, yr, beta, sigma, res_beta
+        return risk_obs, dict(roll=yr, beta=beta, sigma=sigma, res_beta=res_beta)
 
     def _lane_risk(self, beta_e, sigma_e, y_roll_e):
         cfg = self.cfg
@@ -193,6 +302,13 @@ class Solver:
             return risk_mod.cvar_lane(cfg, y_roll_e)
         return risk_mod.saa_lane(cfg, y_roll_e)
 
+    def _cost(self, k, v_des):
+        w_lane, w_obs = self.cfg.risk.weights()
+        k["risk_lane"] = self._lane_risk(k["beta"], k["sigma"], k["roll"])
+        return scalar_cost(self.cfg, w_obs * k["risk_obs"], w_lane * k["risk_lane"],
+                           k["y"], k["res_norm"], k["xdot"], k["ydot"],
+                           k["xddot"], k["yddot"], k["steer"], v_des)
+
     @torch.no_grad()
     def solve(self, idx_mpc: int, init_state, mean_param, cov_param,
               x_obs_traj, y_obs_traj, v_des) -> SolveResult:
@@ -202,84 +318,17 @@ class Solver:
         cov_param (8, 8); x_obs_traj, y_obs_traj (num_obs, num); v_des a
         float.  Arrays may be numpy, tensors or sequences.
         """
-        cfg, ws, noise = self.cfg, self.ws, self.noise
-        nb = cfg.cem.num_batch
-        n_cost = cfg.cem.ellite_num_cost
-        n_el = cfg.cem.ellite_num
-        T = cfg.horizon.num_prime
-        nvar = cfg.horizon.nvar
-        w_lane, w_obs = cfg.risk.weights()
-
         init_state = self._tensor(init_state)
-        mean = self._tensor(mean_param)
-        cov = self._tensor(cov_param)
-        x_obs_T = self._tensor(x_obs_traj)[:, :T]
-        y_obs_T = self._tensor(y_obs_traj)[:, :T]
-
-        params = initial_params(cfg, mean, cov, self._z0)
-        b_eq_x, b_eq_y = boundary_vectors(cfg, init_state)
+        b_eq_x, b_eq_y = boundary_vectors(self.cfg, init_state)
         state0 = torch.stack((init_state[0], init_state[1], init_state[2],
                               init_state[3],
                               torch.atan2(init_state[3], init_state[2])))
-
-        zeros = lambda *s: torch.zeros(s, device=self.device)
-        lamda_x, lamda_y = zeros(nb, nvar), zeros(nb, nvar)
-        s_lane = zeros(nb, 2 * (cfg.horizon.num - 1))
-        res, res_2 = zeros(cfg.cem.maxiter_cem), zeros(cfg.cem.maxiter_cem)
-
-        for it in range(cfg.cem.maxiter_cem):
-            cx_bar, cy_bar = compute_guess(cfg, ws, params, b_eq_x, b_eq_y)
-            pr = project(cfg, ws, cx_bar, cy_bar, b_eq_x, b_eq_y,
-                         lamda_x, lamda_y, s_lane)
-
-            order = torch.argsort(pr.res_norm, stable=True)
-            x, y, xdot, ydot, xddot, yddot, c_x, c_y = (
-                t[order] for t in (pr.x, pr.y, pr.xdot, pr.ydot, pr.xddot,
-                                   pr.yddot, pr.c_x, pr.c_y))
-            res_p, params_p = pr.res_norm[order], params[order]
-
-            acc, steer = controls_from_trajectory(
-                xdot, ydot, xddot, yddot, cfg.horizon.dt, cfg.vehicle.wheel_base)
-            acc_T = acc[:, :T].contiguous()
-            steer_T = steer[:, :T].contiguous()
-
-            risk_obs, y_roll, beta, sigma, res_beta = self._risks(
-                it, idx_mpc, acc_T, steer_T, state0, x_obs_T, y_obs_T)
-
-            order2 = torch.argsort(risk_obs, stable=True)[:n_cost]
-            (risk_obs_e, y_e, xdot_e, ydot_e, xddot_e, yddot_e, c_x_e, c_y_e,
-             res_e, params_e, steer_e, y_roll_e, beta_e, sigma_e,
-             res_beta_e) = (t[order2] for t in (
-                 risk_obs, y, xdot, ydot, xddot, yddot, c_x, c_y, res_p,
-                 params_p, steer, y_roll, beta, sigma, res_beta))
-
-            risk_lane = self._lane_risk(beta_e, sigma_e, y_roll_e)
-            cost_batch = scalar_cost(cfg, w_obs * risk_obs_e, w_lane * risk_lane,
-                                     y_e, res_e, xdot_e, ydot_e, xddot_e,
-                                     yddot_e, steer_e, v_des)
-
-            elite_idx = torch.argsort(cost_batch, stable=True)[:n_el]
-            params_elite = params_e[elite_idx]
-            cost_elite = cost_batch[elite_idx]
-            cem_z = noise.cem_z(idx_mpc, it, nb - n_el, cfg.cem.num_params)
-            mean, cov, params = cem_update(cfg, cem_z, params_elite, cost_elite,
-                                           mean, cov)
-
-            # The reference's final-selection quirk: the argmin over the
-            # SORTED elite costs (so 0) indexes the risk-sorted arrays.
-            idx_min = torch.argmin(cost_elite)
-            res[it] = torch.min(cost_elite)
-            res_2[it] = res_e[idx_min]
-            out = (c_x_e[idx_min], c_y_e[idx_min], risk_lane[idx_min],
-                   risk_obs_e[idx_min], beta_e[idx_min], sigma_e[idx_min],
-                   res_beta_e[idx_min])
-            lamda_x, lamda_y, s_lane = pr.lamda_x, pr.lamda_y, pr.s_lane
-
-        cx, cy, risk_lane_b, risk_obs_b, beta_b, sigma_b, res_beta_b = out
-        return SolveResult(cx=cx, cy=cy, risk_lane=risk_lane_b,
-                           risk_obs=risk_obs_b, beta=beta_b, sigma=sigma_b,
-                           res_beta=res_beta_b, res=res, res_2=res_2,
-                           mean_param=mean, cov_param=cov)
+        best, res, res_2, mean, cov = self._outer_cem(
+            idx_mpc, state0, b_eq_x, b_eq_y, self._tensor(mean_param),
+            self._tensor(cov_param), self._tensor(x_obs_traj),
+            self._tensor(y_obs_traj), v_des)
+        return SolveResult(**best, res=res, res_2=res_2, mean_param=mean,
+                           cov_param=cov)
 
     def solve_batch(self, seeds, init_state, mean_param, cov_param,
                     x_obs_trajs, y_obs_trajs, v_des) -> SolveResult:

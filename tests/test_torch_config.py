@@ -35,6 +35,10 @@ def _as_tree(cfg):
                               noise_level=0.2, num_prime=50, mode="cvar")),
     ("dynamic_workload", dict(num_reduced=3, num_obs=2, num_prime=15,
                               noise="gaussian", mode="saa")),
+    ("onroad_workload", {}),
+    ("onroad_workload", dict(num_reduced=3, num_obs=2, num_prime=20, mode="cvar")),
+    ("onroad_workload", dict(right_hand_lanes=False, noise="beta",
+                             acc_const_noise=0.02, steer_const_noise=0.01)),
 ])
 def test_presets_match_jax(preset, kwargs):
     assert _as_tree(getattr(tc, preset)(**kwargs)) == \

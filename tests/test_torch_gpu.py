@@ -70,6 +70,8 @@ def _edge_rows(x, k):
     ((100, 100), 11, {}),                                      # Path A elites
     ((6, 70), 40, {}),                                         # k > 32
     ((8900, 101), 10, dict(absolute=True, slice_to=100)),      # two rows a warp
+    ((100, 89, 17), 4, dict(absolute=True, slice_to=16)),      # on-road, "xla"
+    ((1, 100, 17), 4, dict(absolute=True, slice_to=16)),       # its iteration 0
 ])
 def test_topk_kernel_matches_twin(cuda, shape, k, kw):
     """K1 at the path shapes and at row counts off its rows per block, with
@@ -133,10 +135,11 @@ def test_eq_qp_kernel_on_views_at_an_odd_system_offset(cuda, n):
 
 
 @pytest.mark.parametrize("n", [4, 10])
-@pytest.mark.parametrize("batch", [(64, 57), (1,), (31,), (33,), (3648,), (10000,),
-                                   (10001,)])
+@pytest.mark.parametrize("batch", [(64, 57), (1,), (31,), (33,), (3648,), (8900,),
+                                   (10000,), (10001,)])
 def test_eq_qp_kernel_matches_float64_twin(cuda, n, batch):
-    """K2 at the paths' sizes and at batches off its 64 systems a block."""
+    """K2 at the paths' sizes (n = 4 on the on-road path) and at batches off
+    its 64 systems a block."""
     C, r = _qp_systems(cuda, batch, n)
     before = eq_qp_solve.launches
     b, mu = eq_qp_solve(C, r)
@@ -147,12 +150,12 @@ def test_eq_qp_kernel_matches_float64_twin(cuda, n, batch):
 
 
 @pytest.mark.parametrize("T", [1, 37, 50])
-@pytest.mark.parametrize("lanes", [1, 1000, 6401, 255_999])
+@pytest.mark.parametrize("lanes", [1, 400, 1000, 1600, 6401, 255_999])
 @pytest.mark.parametrize("per_lane", [False, True])
 def test_rollout_kernel_matches_twin(cuda, lanes, T, per_lane):
     """K4 at lane counts that are not multiples of its 32-lane block and
     at several horizons, with a shared (stride 0) and a per-lane (stride 5)
-    state."""
+    state (1,600 lanes: the on-road mmd_opt solve's)."""
     acc = 1.0 + 0.5 * torch.randn(lanes, T, device="cuda", generator=cuda)
     steer = 0.1 * torch.randn(lanes, T, device="cuda", generator=cuda)
     s0 = (torch.randn(lanes, 5, device="cuda", generator=cuda) if per_lane
@@ -198,6 +201,7 @@ def _selection_inputs(gen, C, S, M):
     (5, 7, 37, 32),      # fewer rows than a block's warps, k = 32 of 37
     (4, 65, 128, 1),
     (6, 97, 100, 17),
+    (100, 100, 16, 4),   # the on-road fused selection
 ])
 def test_fused_selection_kernel_matches_twin(cuda, C, S, M, k):
     """K3 against its twin, NaN, tied and infinite rows included, at shapes
@@ -353,3 +357,31 @@ def test_validator_cuda_matches_cpu(cuda, noise):
         assert np.abs(out["cuda"][i].astype(np.int64) - out["cpu"][i]).max() <= 1
     assert np.abs(out["cuda"][2] - out["cpu"][2]).max() <= 1.0 / n_mc + 1e-7
     assert out["cpu"][0].max() > 0
+
+
+def test_frenet_outer_iteration_cuda_matches_cpu(cuda):
+    """One outer iteration of the on-road mmd_opt solve (K1, K2 and K4 with
+    a state per lane, 16 mother rollouts from 16 noisy initial states) on
+    the card against the CPU with identical draws and the same frame: the
+    controls within 1e-3."""
+    from mpc_mmd_tpu_torch import FrenetSolver, onroad_workload
+    from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
+    from mpc_mmd_tpu_torch.frenet import build_smoother
+    cfg = onroad_workload(num_reduced=4, num_obs=2)
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=24, maxiter_cem=1),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=16,
+                                                   maxiter=4))
+    plant = SyntheticPlant(cfg, make_route("curved"), ((12.0, 0.5), (18.0, 3.0)))
+    tot_time = torch.linspace(0.0, 15.0, 100, device="cuda")
+    frame, xo, yo, init = local_problem(cfg, plant, build_smoother(device="cuda"),
+                                        tot_time)
+    arrays, _ = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg, 0)
+    args = (init, [10.0] * 4 + [0.0] * 4, np.diag([20.0] * 4 + [100.0] * 4),
+            xo, yo, 10.0, frame)
+    before = fused_rollout.launches
+    g = FrenetSolver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
+    assert fused_rollout.launches == before + 1
+    h = FrenetSolver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu")).solve(0, *args)
+    for name in ("v_best", "steering_best"):
+        torch.testing.assert_close(getattr(g, name).cpu(), getattr(h, name),
+                                   rtol=0, atol=1e-3)

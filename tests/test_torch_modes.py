@@ -96,6 +96,15 @@ def test_one_outer_iteration_of_each_mode_matches_jax(monkeypatch, mode,
     assert not got.res_beta.any()
 
 
+def test_obstacle_term_projection_in_the_straight_solve_matches_jax(monkeypatch):
+    """``with_obstacle_terms`` in ``Solver``: the projection reads the
+    obstacles' full trajectories, as the JAX solve hands them over."""
+    cfg = _small(jc.fastrt_workload(num_reduced=4, num_obs=2, mode="cvar"))
+    cfg = cfg.replace(projection=dataclasses.replace(cfg.projection,
+                                                     with_obstacle_terms=True))
+    _one_iteration(cfg, monkeypatch)
+
+
 def test_dynamic_beta_fused_iteration_matches_jax(monkeypatch):
     """Path A at a small size: Beta noise 0.2, k_steer 0.05, the fused
     selection in the port against the JAX package's default selection."""

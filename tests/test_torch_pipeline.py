@@ -336,7 +336,7 @@ def test_unported_options_raise(tmp_path):
             _sweep(tmp_path, **kw)
     with pytest.raises(ValueError):
         _sweep(tmp_path, dispatch="bogus")
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="Distribution and operations"):
         validate.validate_store(str(tmp_path), mesh=True, device="cpu")
 
 

@@ -23,7 +23,7 @@ import torch
 from . import resolve_device
 from ..config import dynamic_workload, static_workload
 from ..scenarios import dynamic_cutin, ego_initial_state, static_grid
-from ..solver import Solver
+from ..solver import Solver, SolveResult
 from ..utils.io_store import ResultStore
 from ..utils.observability import MetricLogger, device_trace, phase_timer
 
@@ -53,25 +53,21 @@ def run_sweep(workload: str, mode: str, noise: str, noise_level: float,
               device="cuda") -> ResultStore:
     """One sweep into ``{out_root}/{tag}``; arguments as the JAX package's.
 
-    Every chunk runs ``Solver.solve_batch``, which in the port enqueues
-    one solve per scenario and stacks the results on the device; the
-    chunk's cx, cy and risk_obs are then fetched once.  That is the JAX
-    package's "pipeline" dispatch, and its "batch" dispatch differs from it
-    only above ``scenario_chunk`` 1, so ``dispatch`` "pipeline" (default)
-    and "batch" run the same path.  Not ported: "mesh" and a heartbeat
-    (ROADMAP.md Queue 1, "Distribution and operations"), ``scenario_chunk``
-    above 1 (Queue 1, "scenario_chunk above 1").
+    ``dispatch`` (default "pipeline"): "pipeline" enqueues one
+    ``Solver.solve`` per scenario of a chunk and stacks the results on the
+    device; "batch" runs the chunk through
+    ``Solver.solve_batch``, ``scenario_chunk`` scenarios per outer loop.
+    Either way the chunk's cx, cy and risk_obs are fetched once.  Not
+    ported: "mesh" and a heartbeat (ROADMAP.md Queue 1, "Distribution and
+    operations").
     """
-    if dispatch is not None and dispatch not in DISPATCHES:
+    dispatch = dispatch or "pipeline"
+    if dispatch not in DISPATCHES:
         raise ValueError(f"unknown dispatch {dispatch!r}")
     if dispatch == "mesh" or heartbeat_every:
         raise NotImplementedError(
             "the mesh dispatch and the multi-host heartbeat are not ported "
             "(ROADMAP.md Queue 1, 'Distribution and operations')")
-    if scenario_chunk is not None and scenario_chunk > 1:
-        raise NotImplementedError(
-            f"scenario_chunk={scenario_chunk}: the port solves one scenario "
-            "at a time (ROADMAP.md Queue 1, 'scenario_chunk above 1')")
     dev = resolve_device(device)
     logger = logger or MetricLogger()
     make = static_workload if workload == "static" else dynamic_workload
@@ -148,8 +144,14 @@ def run_sweep(workload: str, mode: str, noise: str, noise_level: float,
         lo, hi = cid * chunk, min((cid + 1) * chunk, num_configs)
         sl = slice(lo, hi)
         with phase_timer(logger, "solve_chunk", chunk=cid, size=hi - lo):
-            out = solver.solve_batch(seeds_all[sl], init_t, mean_t, cov_t,
-                                     batch.x_traj[sl], batch.y_traj[sl], v_des)
+            if dispatch == "pipeline":
+                outs = [solver.solve(int(seeds_all[i]), init_t, mean_t, cov_t,
+                                     batch.x_traj[i], batch.y_traj[i], v_des)
+                        for i in range(lo, hi)]
+                out = SolveResult(*(torch.stack(f) for f in zip(*outs)))
+            else:
+                out = solver.solve_batch(seeds_all[sl], init_t, mean_t, cov_t,
+                                         batch.x_traj[sl], batch.y_traj[sl], v_des)
             # one fetch of the chunk: cx | cy | risk_obs side by side
             packed = torch.cat((out.cx, out.cy, out.risk_obs[:, None]),
                                dim=1).cpu().numpy()
@@ -202,7 +204,8 @@ def main(argv=None):
                         "(num_batch x maxiter_cem; store tag gains a "
                         "_B{B}x{IT} suffix)")
     p.add_argument("--scenario_chunk", type=int, default=None,
-                   help="scenarios per solve_batch pass: the port runs 1")
+                   help="scenarios per outer loop of solve_batch (dispatch "
+                        "batch; default: env MPC_MMD_SCENARIO_CHUNK or 1)")
     p.add_argument("--kernel", default="laplace",
                    choices=["laplace", "gaussian", "matern52"],
                    help="MMD kernel family (RiskConfig.kernel); non-laplace "
@@ -211,8 +214,9 @@ def main(argv=None):
                    help="persist every solve (no acceptance threshold); "
                         "store tag gains an _all suffix")
     p.add_argument("--dispatch", choices=list(DISPATCHES), default=None,
-                   help="pipeline (default) and batch both enqueue one "
-                        "solve per scenario and fetch each chunk once; mesh "
+                   help="pipeline (default): one solve per scenario; "
+                        "batch: solve_batch over each chunk, scenario_chunk "
+                        "scenarios at once; each chunk is fetched once; mesh "
                         "is not ported")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; fails without a card)")

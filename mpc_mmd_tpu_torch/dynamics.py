@@ -77,12 +77,13 @@ def perturb_controls(acc: torch.Tensor, steer: torch.Tensor,
     """Noisy variants of control sequences from injected draws.
 
     acc, steer: (..., T).  Returns (..., R, T) each.  Gaussian noise: d_acc
-    and d_steer are (R, T) standard normals shared by every leading index,
-    and the perturbation is ``level * |u| * d``.  Beta noise: they are the
-    (..., R, T) Beta draws of :func:`beta_parameters`' parameters, and the
-    perturbation is ``level * (2 d - 1)``, scaled by ``k_steer`` on the
+    and d_steer are standard normals (R, T) shared by every leading index
+    (or (N, 1, R, T), one set per scenario of a chunk of candidates (N, C,
+    T)), and the perturbation is ``level * |u| * d``.  Beta noise: they are
+    the (..., R, T) Beta draws of :func:`beta_parameters`' parameters, and
+    the perturbation is ``level * (2 d - 1)``, scaled by ``k_steer`` on the
     steer channel.  Both add the reference's const noise, whose single
-    (R, T) draw perturbs both channels.
+    (R, T) draw (a scenario's) perturbs both channels.
     """
     acc = acc[..., None, :]
     steer = steer[..., None, :]

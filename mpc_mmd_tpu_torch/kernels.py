@@ -2,7 +2,8 @@
 
 Counterpart of ``mpc_mmd_tpu/kernels.py``: ``pairwise_l1``,
 ``pairwise_l2sq``, the laplace, gaussian and Matern-5/2 kernels,
-``kernel_of`` and ``mmd_vs_zero``.  Every kernel is an elementwise map of
+``kernel_of``, ``mmd_vs_zero`` and its row-blocked form
+``blockwise_mmd_vs_zero``.  Every kernel is an elementwise map of
 pairwise distances computed once, so callers keep the L1 distances and,
 for the gaussian and matern52 kinds, the squared L2 ones.
 """
@@ -15,8 +16,9 @@ import torch
 
 from .config import KERNEL_KINDS
 
-__all__ = ["KERNEL_KINDS", "gaussian_kernel", "kernel_of", "laplace_kernel",
-           "matern52_kernel", "mmd_vs_zero", "pairwise_l1", "pairwise_l2sq"]
+__all__ = ["KERNEL_KINDS", "blockwise_mmd_vs_zero", "gaussian_kernel",
+           "kernel_of", "laplace_kernel", "matern52_kernel", "mmd_vs_zero",
+           "pairwise_l1", "pairwise_l2sq"]
 
 
 def pairwise_l1(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
@@ -78,10 +80,48 @@ def mmd_vs_zero(beta: torch.Tensor, cost: torch.Tensor, sigma,
     d_aa = torch.abs(cost[..., :, None] - cost[..., None, :])
     K_aa = kernel_of(kind, sigma[..., None, None] if batched else sigma,
                      d_aa, d_aa * d_aa)
-    quad = torch.einsum("...i,...ij,...j->...", beta, K_aa, beta)
+    quad = torch.sum(beta[..., :, None] * K_aa * beta[..., None, :], dim=(-2, -1))
     d_ab = torch.abs(cost)
     cross = torch.sum(
         beta * kernel_of(kind, sigma[..., None] if batched else sigma,
                          d_ab, d_ab * d_ab),
         dim=-1)
     return ker_wt * (quad - 2.0 * cross)
+
+
+def blockwise_mmd_vs_zero(beta: torch.Tensor, cost: torch.Tensor, sigma,
+                          ker_wt: float, block: int = 1024,
+                          kind: str = "laplace") -> torch.Tensor:
+    """:func:`mmd_vs_zero` of large sample sets without the (n, n) Gram
+    matrix: the quadratic term beta^T K beta accumulates over row blocks of
+    ``block`` samples, so memory is O(block n).  Exact.
+
+    beta, cost (..., n) of one shape; sigma a float or a tensor that
+    broadcasts to the leading shape (with 1-d samples, a batch of
+    bandwidths gives one MMD each, as ``mmd_vs_zero`` does).  The samples
+    are padded with zero weights to a whole number of blocks.  No caller in
+    either package.
+    """
+    if beta.shape != cost.shape:
+        raise ValueError(f"beta {tuple(beta.shape)} and cost "
+                         f"{tuple(cost.shape)} must share a shape")
+    batched = torch.is_tensor(sigma) and sigma.dim() > 0
+    if cost.dim() == 1 and batched:
+        beta = beta.expand(sigma.shape + beta.shape)
+        cost = cost.expand(sigma.shape + cost.shape)
+    lead, n = cost.shape[:-1], cost.shape[-1]
+    b2, c2 = beta.reshape(-1, n), cost.reshape(-1, n)
+    sig = sigma.expand(lead).reshape(-1, 1, 1) if batched else sigma
+    pad = (-n) % block
+    if pad:
+        b2 = torch.cat((b2, b2.new_zeros(b2.shape[0], pad)), dim=1)
+        c2 = torch.cat((c2, c2.new_zeros(c2.shape[0], pad)), dim=1)
+    quad = b2.new_zeros(b2.shape[0])
+    for lo in range(0, n + pad, block):
+        d = torch.abs(c2[:, lo:lo + block, None] - c2[:, None, :])   # (B, block, n)
+        K_rows = kernel_of(kind, sig, d, d * d)
+        quad = quad + (b2[:, None, lo:lo + block] @ (K_rows @ b2[:, :, None]))[:, 0, 0]
+    d_ab = torch.abs(c2)
+    cross = torch.sum(b2 * kernel_of(kind, sig[..., 0] if batched else sig,
+                                     d_ab, d_ab * d_ab), dim=-1)
+    return (ker_wt * (quad - 2.0 * cross)).reshape(lead)

@@ -33,6 +33,20 @@ them:
   - ``cem_z`` (nb - ellite_num, 8) for the resample of the outer CEM
     update (solver.py:299).
 
+A chunk of scenarios (``Solver.solve_batch`` above ``scenario_chunk``
+1) asks for the per-iteration families once per scenario, each keyed by
+that scenario's ``idx_mpc``, and stacks them on a leading scenario axis
+(:func:`chunk_rollout_eps`, :func:`chunk_rollout_beta`,
+:func:`chunk_cem_z`), so a scenario meets the same draws in a chunk as
+alone; the solver-fixed draws stay shared by every scenario.
+
+Under the ``exact`` strategy the inner CEM asks for ``inner_exact``:
+``samples0`` as above (the JAX package draws it from the same key with
+the covariance ``init_cov_scale * I``) and ``z`` (maxiter, S-n_el, M+1),
+the standard normals of the multivariate normal that each iteration draws
+straight from its update key ``split(split(key)[0])[0]``
+(reduced_set.py:289-291,315-317).
+
 The Frenet solve (``solver_frenet.py``) asks first, once per solve, for
 ``init_state_z`` (n, 4): the standard normals of ``split(PRNGKey(idx_mpc))[0]``
 behind its n noisy initial states (solver_frenet.py:52-64; the identity
@@ -52,7 +66,7 @@ comparison meets the same draws in the same row.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -69,6 +83,32 @@ class InnerDraws(NamedTuple):
     samples0: torch.Tensor      # (S, M+1) standard normal
     u: torch.Tensor             # (maxiter, S - n_el, n_el)
     z: torch.Tensor             # (maxiter, S - n_el, M + 1)
+
+
+class ExactInnerDraws(NamedTuple):
+    samples0: torch.Tensor      # (S, M+1) standard normal, InnerDraws' own
+    z: torch.Tensor             # (maxiter, S - n_el, M + 1)
+
+
+def chunk_rollout_eps(noise, seeds: Sequence[int], it: int, R: int, T: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``rollout_eps`` of every scenario of a chunk, each (N, R, T)."""
+    eps = [noise.rollout_eps(int(s), it, R, T) for s in seeds]
+    return tuple(torch.stack(e) for e in zip(*eps))
+
+
+def chunk_rollout_beta(noise, seeds: Sequence[int], it: int, R: int,
+                       alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """``rollout_beta`` of every scenario of a chunk: parameters (2, N, C,
+    T), draws (2, N, C, R, T), scenario i's from its own seed."""
+    return torch.stack([noise.rollout_beta(int(s), it, R, alpha[:, i], beta[:, i])
+                        for i, s in enumerate(seeds)], dim=1)
+
+
+def chunk_cem_z(noise, seeds: Sequence[int], it: int, n: int, n_params: int
+                ) -> torch.Tensor:
+    """``cem_z`` of every scenario of a chunk, (N, n, n_params)."""
+    return torch.stack([noise.cem_z(int(s), it, n, n_params) for s in seeds])
 
 
 def sample_beta(alpha: torch.Tensor, beta: torch.Tensor,
@@ -128,6 +168,11 @@ class TorchNoise:
             (1,), (S, M + 1), (maxiter, S - n_el, n_el),
             (maxiter, S - n_el, M + 1)))
 
+    def inner_exact(self, S: int, M: int, n_el: int, maxiter: int
+                    ) -> ExactInnerDraws:
+        return ExactInnerDraws(self._randn((1,), (S, M + 1))[0],
+                               self._randn((7,), (maxiter, S - n_el, M + 1))[0])
+
     def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return self._randn((2, idx_mpc, it), (R, T), (R, T), (R, T))
@@ -146,6 +191,17 @@ class TorchNoise:
 
     def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
         return self._randn((6, idx_mpc), (n, 4))[0]
+
+    def gmm_init_draws(self, idx_mpc: int, n: int, probs
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``sampling.gmm_noisy_init_state``'s draws: standard normals
+        (n, 4) and each member's mode (n,) in {1, 2, 3} with the
+        probabilities ``probs``."""
+        z, = self._randn((8, idx_mpc), (n, 4))
+        p = torch.tensor(probs, dtype=torch.float32, device=self.device)
+        modes = torch.multinomial(p, n, replacement=True,
+                                  generator=self.generator) + 1
+        return z, modes
 
     def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -177,10 +233,13 @@ class FixedNoise:
     """Replays given arrays: the draws of one solve, for tests and checks.
 
     ``arrays`` holds ``initial_z`` (nb, 8), ``samples0``, ``u``, ``z`` (see
-    :class:`InnerDraws`), and per outer iteration ``eps_acc``,
+    :class:`InnerDraws`), under the exact strategy ``z_exact`` (see
+    :class:`ExactInnerDraws`), and per outer iteration ``eps_acc``,
     ``eps_steer``, ``eps_const`` (maxiter_cem, R, T) and ``cem_z``
-    (maxiter_cem, nb - ellite_num, 8), and for a Frenet solve
-    ``init_state_z`` (n, 4).  ``idx_mpc`` is ignored.
+    (maxiter_cem, nb - ellite_num, 8), for a Frenet solve
+    ``init_state_z`` (n, 4), and for ``sampling.gmm_noisy_init_state``
+    ``gmm_z`` (n, 4) and ``gmm_modes`` (n,).  ``idx_mpc`` is ignored, so
+    every scenario of a chunk meets the same draws.
 
     Beta draws come from ``arrays["beta"]`` (maxiter_cem, 2, C, R, T) if
     given, else from ``beta_fn(idx_mpc, it, R, alpha, beta)``, which gets
@@ -214,6 +273,11 @@ class FixedNoise:
                           self._get("u", (maxiter, S - n_el, n_el)),
                           self._get("z", (maxiter, S - n_el, M + 1)))
 
+    def inner_exact(self, S: int, M: int, n_el: int, maxiter: int
+                    ) -> ExactInnerDraws:
+        return ExactInnerDraws(self._get("samples0", (S, M + 1)),
+                               self._get("z_exact", (maxiter, S - n_el, M + 1)))
+
     def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         return tuple(self.arrays[n][it] for n in
@@ -240,6 +304,11 @@ class FixedNoise:
     def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
         return self._get("init_state_z", (n, 4))
 
+    def gmm_init_draws(self, idx_mpc: int, n: int, probs
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return (self._get("gmm_z", (n, 4)),
+                self._get("gmm_modes", (n,)).to(torch.int64))
+
     def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         idx = torch.as_tensor(list(rows), dtype=torch.long, device=self.device)
@@ -265,12 +334,14 @@ def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray]
     A first solve on ``FixedNoise(arrays, device, beta_fn)`` records; a
     solve on ``FixedNoise(arrays, other_device)`` made after it replays
     every draw, Beta included, so two devices can be held to one another.
-    The arrays also hold the Frenet solve's ``init_state_z``.
+    The arrays also hold the Frenet solve's ``init_state_z`` and, under
+    the exact strategy, ``z_exact``.
     """
     c, bc = cfg.cem, cfg.beta_cem
     R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
-    inner = source.inner_cem(bc.num_samples_cem, cfg.risk.num_mother,
-                             bc.num_ellite, bc.maxiter)
+    inner_args = (bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite,
+                  bc.maxiter)
+    inner = source.inner_cem(*inner_args)
     its = range(c.maxiter_cem)
     eps = [source.rollout_eps(idx_mpc, it, R, T) for it in its]
     arrays = {"initial_z": source.initial_z(c.num_batch, c.num_params),
@@ -282,6 +353,8 @@ def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray]
               "cem_z": torch.stack([source.cem_z(idx_mpc, it,
                                                  c.num_batch - c.ellite_num,
                                                  c.num_params) for it in its])}
+    if cfg.solve_strategy == "exact":
+        arrays["z_exact"] = source.inner_exact(*inner_args).z
     arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
     drawn = []
 

@@ -1,8 +1,10 @@
 """Alternating-minimisation feasibility projection.
 
 Counterpart of ``project`` in ``mpc_mmd_tpu/projection.py``.  Each AM round
-is two matmuls with the prefactored KKT inverses plus elementwise
-trigonometry.  The stochastic variant (every risk-aware mode) leaves the
+is two products with the prefactored KKT inverses plus elementwise
+trigonometry; every product is ``linalg.scenario_mm``, so a candidate's
+bits do not depend on how many scenarios' rows a chunk gives the
+projection.  The stochastic variant (every risk-aware mode) leaves the
 obstacles to the risk cost.  With ``ProjectionConfig.with_obstacle_terms``
 (the ``det`` baseline) the obstacle ellipses enter the QPs through a polar
 decomposition per obstacle and step, laid out obstacle-major: blocks of
@@ -16,10 +18,12 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .config import ProblemConfig
 from .frenet import interp
+from .linalg import scenario_mm
 from .qp import Workspace, kkt_solve
 
 
@@ -44,10 +48,12 @@ def unwrap(p: torch.Tensor) -> torch.Tensor:
     """``jnp.unwrap(p, axis=-1)`` with period 2 pi, written out in torch.
 
     Adds multiples of 2 pi wherever a step exceeds pi, with the same
-    boundary rule as numpy and JAX: a step of exactly +pi stays +pi.
+    boundary rule as numpy and JAX: a step of exactly +pi stays +pi.  The
+    constants are the float32 2 pi and pi as Python floats (a tensor made
+    on the card from the host would be a blocking copy).
     """
-    period = torch.tensor(2.0 * math.pi, dtype=p.dtype, device=p.device)
-    interval = period / 2
+    period = float(np.float32(2.0 * math.pi))
+    interval = float(np.float32(2.0 * math.pi) / 2)
     dd = torch.diff(p, dim=-1)
     ddmod = torch.remainder(dd + interval, period) - interval
     ddmod = torch.where((ddmod == -interval) & (dd > 0), interval, ddmod)
@@ -67,12 +73,21 @@ def _polar_clip(wx, wy, rho, lo, hi, unwrap_angle: bool):
     return alpha, torch.clamp(c2 / c1, lo, hi)
 
 
+def _obs_rows(obs: torch.Tensor, rows: int) -> torch.Tensor:
+    """Obstacle trajectories per projection row, (rows, num_obs, num), from
+    (num_obs, num) shared by every row or (N, num_obs, num), one per
+    scenario of a chunk whose rows come one scenario after another."""
+    n = 1 if obs.dim() == 2 else obs.shape[0]
+    return obs.reshape(n, 1, *obs.shape[-2:]).expand(
+        n, rows // n, *obs.shape[-2:]).reshape(rows, *obs.shape[-2:])
+
+
 def _obs_geometry(x, y, x_obs, y_obs):
     """Displacements from every obstacle, (batch, num_obs * num),
-    obstacle-major.  x, y (batch, num); x_obs, y_obs (num_obs, num)."""
+    obstacle-major.  x, y (batch, num); x_obs, y_obs (batch, num_obs, num)."""
     nb = x.shape[0]
-    return ((x[:, None, :] - x_obs[None]).reshape(nb, -1),
-            (y[:, None, :] - y_obs[None]).reshape(nb, -1))
+    return ((x[:, None, :] - x_obs).reshape(nb, -1),
+            (y[:, None, :] - y_obs).reshape(nb, -1))
 
 
 def _obs_polar(cfg: ProblemConfig, wc, ws, d_floor):
@@ -100,13 +115,14 @@ def _shift_d_obs(cfg: ProblemConfig, d_obs):
     return shifted.reshape(d_obs.shape[0], -1)
 
 
-def _obs_residuals(cfg: ProblemConfig, ws: Workspace, wc, wsa, alpha_obs, d_obs):
+def _obs_residuals(cfg: ProblemConfig, ws: Workspace, wc, wsa, alpha_obs, d_obs, mm):
     """The obstacle residuals (res_ox, res_oy) and their multiplier steps
-    A_obs^T r = P^T (sum of the blocks of r), for x and y."""
+    A_obs^T r = P^T (sum of the blocks of r), for x and y; ``mm`` the
+    projection's product."""
     res_ox = wc - cfg.obstacles.a_obs * d_obs * torch.cos(alpha_obs)
     res_oy = wsa - cfg.obstacles.b_obs * d_obs * torch.sin(alpha_obs)
-    return (res_ox, res_oy, _obs_blocks(cfg, res_ox).sum(dim=1) @ ws.P,
-            _obs_blocks(cfg, res_oy).sum(dim=1) @ ws.P)
+    return (res_ox, res_oy, mm(_obs_blocks(cfg, res_ox).sum(dim=1), ws.P),
+            mm(_obs_blocks(cfg, res_oy).sum(dim=1), ws.P))
 
 
 def project(cfg: ProblemConfig, ws: Workspace,
@@ -123,8 +139,11 @@ def project(cfg: ProblemConfig, ws: Workspace,
     One polar initialisation with the multiplier pre-update, then
     ``projection.maxiter`` rounds of QP solve, polar re-estimate and
     multiplier update.  Multipliers and lane slack are warm-started across
-    outer CEM iterations by the caller.  x_obs, y_obs (num_obs, num) are
-    read only with ``with_obstacle_terms``.  With ``arc_vec`` and ``kappa``
+    outer CEM iterations by the caller.  x_obs, y_obs (num_obs, num), or
+    (N, num_obs, num) when the rows are the candidates of N scenarios one
+    after another (which sets the products' ``scenarios``), are read as
+    obstacles only with ``with_obstacle_terms``.  The KKT
+    systems are solved by ``cfg.solve_strategy``.  With ``arc_vec`` and ``kappa``
     (the path, in the Frenet solve) the result carries the steering
     ``atan((kappa_f + kappa cos(a_v) / (1 - y kappa)) L)``, with kappa the
     path curvature at the candidate's arc length x (clipped to the path)
@@ -136,11 +155,13 @@ def project(cfg: ProblemConfig, ws: Workspace,
         raise ValueError("projection.maxiter must be at least 1")
     nvar = cfg.horizon.nvar
     num = cfg.horizon.num
+    n = 1 if x_obs is None or x_obs.dim() == 2 else x_obs.shape[0]
+    mm = lambda a, w: scenario_mm(a, w, n)
 
-    xdot_g = c_x_bar @ ws.Pdot.T
-    ydot_g = c_y_bar @ ws.Pdot.T
-    xddot_g = c_x_bar @ ws.Pddot.T
-    yddot_g = c_y_bar @ ws.Pddot.T
+    xdot_g = mm(c_x_bar, ws.Pdot.T)
+    ydot_g = mm(c_y_bar, ws.Pdot.T)
+    xddot_g = mm(c_x_bar, ws.Pddot.T)
+    yddot_g = mm(c_y_bar, ws.Pddot.T)
 
     alpha_v, d_v = _polar_clip(xdot_g, ydot_g, pj.rho_ineq,
                                veh.v_min, veh.v_max, unwrap_angle=True)
@@ -152,17 +173,19 @@ def project(cfg: ProblemConfig, ws: Workspace,
     res_ax = xddot_g - d_a * torch.cos(alpha_a)
     res_ay = yddot_g - d_a * torch.sin(alpha_a)
 
-    lamda_x = lamda_x - pj.rho_ineq * (res_ax @ ws.Pddot) - pj.rho_ineq * (res_vx @ ws.Pdot)
-    lamda_y = lamda_y - pj.rho_ineq * (res_ay @ ws.Pddot) - pj.rho_ineq * (res_vy @ ws.Pdot)
+    lamda_x = lamda_x - pj.rho_ineq * mm(res_ax, ws.Pddot) - pj.rho_ineq * mm(res_vx, ws.Pdot)
+    lamda_y = lamda_y - pj.rho_ineq * mm(res_ay, ws.Pddot) - pj.rho_ineq * mm(res_vy, ws.Pdot)
 
     if with_obs:
-        wc, wsa = _obs_geometry(c_x_bar @ ws.P.T, c_y_bar @ ws.P.T, x_obs, y_obs)
+        x_obs = _obs_rows(x_obs, c_x_bar.shape[0])
+        y_obs = _obs_rows(y_obs, c_x_bar.shape[0])
+        wc, wsa = _obs_geometry(mm(c_x_bar, ws.P.T), mm(c_y_bar, ws.P.T), x_obs, y_obs)
         alpha_obs, d_obs = _obs_polar(cfg, wc, wsa, 1.0)
-        _, _, step_x, step_y = _obs_residuals(cfg, ws, wc, wsa, alpha_obs, d_obs)
+        _, _, step_x, step_y = _obs_residuals(cfg, ws, wc, wsa, alpha_obs, d_obs, mm)
         lamda_x = lamda_x - pj.rho_obs * step_x
         lamda_y = lamda_y - pj.rho_obs * step_y
-        x_obs_flat = x_obs.reshape(-1)[None]             # obstacle-major
-        y_obs_flat = y_obs.reshape(-1)[None]
+        x_obs_flat = x_obs.reshape(x_obs.shape[0], -1)   # obstacle-major
+        y_obs_flat = y_obs.reshape(y_obs.shape[0], -1)
 
     b_lane_ub = pj.gamma * lane.y_ub * torch.ones_like(s_lane[:, :num - 1])
     b_lane_lb = -pj.gamma * lane.y_lb * torch.ones_like(s_lane[:, :num - 1])
@@ -176,33 +199,35 @@ def project(cfg: ProblemConfig, ws: Workspace,
         b_ay = d_a * torch.sin(alpha_a)
 
         lincost_x = (-lamda_x - pj.rho_projection * c_x_bar
-                     - pj.rho_ineq * (b_ax @ ws.Pddot)
-                     - pj.rho_ineq * (b_vx @ ws.Pdot))
+                     - pj.rho_ineq * mm(b_ax, ws.Pddot)
+                     - pj.rho_ineq * mm(b_vx, ws.Pdot))
         lincost_y = (-lamda_y - pj.rho_projection * c_y_bar
-                     - pj.rho_ineq * (b_ay @ ws.Pddot)
-                     - pj.rho_ineq * (b_vy @ ws.Pdot)
-                     - pj.rho_lane * (b_lane_aug @ ws.A_lane))
+                     - pj.rho_ineq * mm(b_ay, ws.Pddot)
+                     - pj.rho_ineq * mm(b_vy, ws.Pdot)
+                     - pj.rho_lane * mm(b_lane_aug, ws.A_lane))
         if with_obs:
             b_obs_x = x_obs_flat + d_obs * torch.cos(alpha_obs) * cfg.obstacles.a_obs
             b_obs_y = y_obs_flat + d_obs * torch.sin(alpha_obs) * cfg.obstacles.b_obs
             lincost_x = lincost_x - pj.rho_obs * (
-                _obs_blocks(cfg, b_obs_x).sum(dim=1) @ ws.P)
+                mm(_obs_blocks(cfg, b_obs_x).sum(dim=1), ws.P))
             lincost_y = lincost_y - pj.rho_obs * (
-                _obs_blocks(cfg, b_obs_y).sum(dim=1) @ ws.P)
+                mm(_obs_blocks(cfg, b_obs_y).sum(dim=1), ws.P))
 
-        sol_x = kkt_solve(ws.proj_kkt_x_inv, torch.cat((-lincost_x, b_eq_x), dim=1))
-        sol_y = kkt_solve(ws.proj_kkt_y_inv, torch.cat((-lincost_y, b_eq_y), dim=1))
+        sol_x = kkt_solve(ws.proj_kkt_x, ws.proj_kkt_x_inv,
+                          torch.cat((-lincost_x, b_eq_x), dim=1), cfg.solve_strategy, n)
+        sol_y = kkt_solve(ws.proj_kkt_y, ws.proj_kkt_y_inv,
+                          torch.cat((-lincost_y, b_eq_y), dim=1), cfg.solve_strategy, n)
         c_x = sol_x[:, :nvar]
         c_y = sol_y[:, :nvar]
 
-        x = c_x @ ws.P.T
-        y = c_y @ ws.P.T
-        xdot = c_x @ ws.Pdot.T
-        ydot = c_y @ ws.Pdot.T
-        xddot = c_x @ ws.Pddot.T
-        yddot = c_y @ ws.Pddot.T
+        x = mm(c_x, ws.P.T)
+        y = mm(c_y, ws.P.T)
+        xdot = mm(c_x, ws.Pdot.T)
+        ydot = mm(c_y, ws.Pdot.T)
+        xddot = mm(c_x, ws.Pddot.T)
+        yddot = mm(c_y, ws.Pddot.T)
 
-        lane_val = c_y @ ws.A_lane.T
+        lane_val = mm(c_y, ws.A_lane.T)
         s_lane = torch.clamp(-lane_val + b_lane, min=0.0)
         res_lane = lane_val - b_lane + s_lane
 
@@ -220,18 +245,18 @@ def project(cfg: ProblemConfig, ws: Workspace,
                     + torch.linalg.vector_norm(torch.cat((res_vx, res_vy), dim=1), dim=1)
                     + torch.linalg.vector_norm(res_lane, dim=1))
 
-        lamda_x = (lamda_x - pj.rho_ineq * (res_ax @ ws.Pddot)
-                   - pj.rho_ineq * (res_vx @ ws.Pdot))
-        lamda_y = (lamda_y - pj.rho_ineq * (res_ay @ ws.Pddot)
-                   - pj.rho_ineq * (res_vy @ ws.Pdot)
-                   - pj.rho_lane * (res_lane @ ws.A_lane))
+        lamda_x = (lamda_x - pj.rho_ineq * mm(res_ax, ws.Pddot)
+                   - pj.rho_ineq * mm(res_vx, ws.Pdot))
+        lamda_y = (lamda_y - pj.rho_ineq * mm(res_ay, ws.Pddot)
+                   - pj.rho_ineq * mm(res_vy, ws.Pdot)
+                   - pj.rho_lane * mm(res_lane, ws.A_lane))
 
         if with_obs:
             wc, wsa = _obs_geometry(x, y, x_obs, y_obs)
             d_floor = 1.0 + (1.0 - pj.gamma_obs) * (_shift_d_obs(cfg, d_obs) - 1.0)
             alpha_obs, d_obs = _obs_polar(cfg, wc, wsa, d_floor)
             res_ox, res_oy, step_x, step_y = _obs_residuals(
-                cfg, ws, wc, wsa, alpha_obs, d_obs)
+                cfg, ws, wc, wsa, alpha_obs, d_obs, mm)
             res_norm = res_norm + torch.linalg.vector_norm(
                 torch.cat((res_ox, res_oy), dim=1), dim=1)
             lamda_x = lamda_x - pj.rho_obs * step_x

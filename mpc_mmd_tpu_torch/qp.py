@@ -2,8 +2,13 @@
 
 Counterpart of ``mpc_mmd_tpu/qp.py``.  Every KKT matrix on the path is
 constant, so it is inverted once on the host in float64 and every
-per-iteration solve is one float32 matmul with that inverse (the
-"prefactored" strategy; the port has no other).
+per-iteration solve is one float32 product with that inverse (the
+"prefactored" strategy).  The "exact" strategy, the reference-parity path,
+solves the float32 KKT matrix itself instead, by LU (``solve_ex``, which
+does not synchronise with the device).  Rows are candidates, the
+candidates of every scenario of a chunk one after another; ``scenarios``
+says how many, and every product is ``linalg.scenario_mm``, which gives a
+row the bits it has in a solve of its scenario alone.
 
 The package has no trained weights: these prefactored inverses and bases are
 its parameters.  :func:`workspace_from_numpy` loads them from arrays, which
@@ -20,6 +25,7 @@ import torch
 from .basis import segment_slices, uniform_basis
 from .config import ProblemConfig
 from .device import resolve_device
+from .linalg import scenario_mm
 
 
 class Workspace(NamedTuple):
@@ -141,25 +147,34 @@ def build_workspace(cfg: ProblemConfig, device="cuda") -> Workspace:
     return workspace_from_numpy(_workspace_float64(cfg), resolve_device(device))
 
 
-def kkt_solve(kkt_inv: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Solve KKT @ sol^T = rhs^T for a batch (batch, n) with the inverse."""
-    return rhs @ kkt_inv.T
+def kkt_solve(kkt: torch.Tensor, kkt_inv: torch.Tensor, rhs: torch.Tensor,
+              strategy: str, scenarios: int = 1) -> torch.Tensor:
+    """Solve KKT @ sol^T = rhs^T for a batch (batch, n) of ``scenarios``
+    scenarios' rows: "prefactored" by one product with the inverse,
+    "exact" by an LU solve of the matrix (a singular one gives inf or NaN,
+    as ``jnp.linalg.solve`` does)."""
+    if strategy == "prefactored":
+        return scenario_mm(rhs, kkt_inv.T, scenarios)
+    return torch.linalg.solve_ex(kkt, rhs.T, check_errors=False).result.T
 
 
 def compute_guess(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
-                  b_eq_x: torch.Tensor, b_eq_y: torch.Tensor
+                  b_eq_x: torch.Tensor, b_eq_y: torch.Tensor, scenarios: int = 1
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Behavioral params (batch, 8) -> Bernstein coefficient guess (batch, nvar)."""
+    """Behavioral params (batch, 8) of ``scenarios`` scenarios -> Bernstein
+    coefficient guess (batch, nvar)."""
     nvar = cfg.horizon.nvar
     nseg = cfg.guess.num_segments
     V = params[:, :nseg]
     Y = params[:, nseg:2 * nseg]
-    lincost_x = V @ ws.G_vx
-    lincost_y = Y @ ws.G_py
+    lincost_x = scenario_mm(V, ws.G_vx, scenarios)
+    lincost_y = scenario_mm(Y, ws.G_py, scenarios)
     rhs_x = torch.cat((-lincost_x, b_eq_x), dim=1)
     rhs_y = torch.cat((-lincost_y, b_eq_y), dim=1)
-    sol_x = kkt_solve(ws.guess_kkt_x_inv, rhs_x)
-    sol_y = kkt_solve(ws.guess_kkt_y_inv, rhs_y)
+    sol_x = kkt_solve(ws.guess_kkt_x, ws.guess_kkt_x_inv, rhs_x, cfg.solve_strategy,
+                      scenarios)
+    sol_y = kkt_solve(ws.guess_kkt_y, ws.guess_kkt_y_inv, rhs_y, cfg.solve_strategy,
+                      scenarios)
     return sol_x[:, :nvar], sol_y[:, :nvar]
 
 
@@ -178,9 +193,11 @@ def boundary_vectors(cfg: ProblemConfig, init_state: torch.Tensor
     return b_eq_x, b_eq_y
 
 
-def refit_coefficients(ws: Workspace, x: torch.Tensor, y: torch.Tensor
-                       ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Ridge-regularised Bernstein fit of rollouts (..., B, num_prime)."""
-    cx = (x @ ws.P_prime) @ ws.refit_inv.T
-    cy = (y @ ws.P_prime) @ ws.refit_inv.T
+def refit_coefficients(ws: Workspace, x: torch.Tensor, y: torch.Tensor,
+                       scenarios: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Ridge-regularised Bernstein fit of rollouts (..., B, num_prime) of
+    ``scenarios`` scenarios."""
+    fit = lambda t: scenario_mm(scenario_mm(t, ws.P_prime, scenarios),
+                                ws.refit_inv.T, scenarios)
+    cx, cy = fit(x), fit(y)
     return cx, cy

@@ -1,7 +1,9 @@
 """Reduced-set selection: the batched inner beta-CEM of every candidate.
 
 Counterpart of ``select_reduced_set_batched`` in
-``mpc_mmd_tpu/reduced_set.py`` with its "xla" and "fused" selections.
+``mpc_mmd_tpu/reduced_set.py`` with its "xla" and "fused" selections, and
+of ``select_reduced_set`` under the "exact" strategy (see
+:func:`select_reduced_set`).
 
 Per candidate, the (M, M) L1 distance matrix of the mother rollouts'
 coefficients is computed once; each inner iteration then runs the
@@ -36,18 +38,20 @@ import math
 import os
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from .config import ProblemConfig
 from .kernels import kernel_of, pairwise_l1, pairwise_l2sq
-from .noise import InnerDraws
+from .noise import ExactInnerDraws, InnerDraws
 from .ops import eq_qp_solve, topk_indices, topk_kernel_matrices
 
 SELECTIONS = ("xla", "fused")
 
 
 class ReducedSet(NamedTuple):
-    beta: torch.Tensor      # (C, k) weights, slots in descending-|beta| order
+    beta: torch.Tensor      # (C, k) weights; slots in descending-|beta| order
+    #                       # on the fast path, ascending under "exact"
     sigma: torch.Tensor     # (C,) bandwidth, from the post-update batch
     x_red: torch.Tensor     # (C, k, T) reduced rollouts
     y_red: torch.Tensor
@@ -141,14 +145,17 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         (samples0_row[:, :M], torch.clamp(samples0_row[:, M:], min=b.sigma_clip)),
         dim=1)
 
-    # affine update coefficients for every iteration (see module docstring)
-    inv_sqrt = 1.0 / torch.sqrt(torch.tensor(n_el - 1.0, dtype=dt, device=dev))
-    sqrt_jit = torch.sqrt(torch.tensor(b.cov_jitter, dtype=dt, device=dev))
+    # affine update coefficients for every iteration (see module docstring),
+    # with the JAX package's float32 constants as Python floats (a tensor
+    # made on the card from the host would be a blocking copy)
+    inv_sqrt = float(np.float32(1.0) / np.sqrt(np.float32(n_el - 1.0)))
+    sqrt_jit = float(np.sqrt(np.float32(b.cov_jitter)))
     s_u = torch.sum(draws.u, dim=2)                          # (maxiter, S-n_el)
     A_all = inv_sqrt * draws.u + ((1.0 - inv_sqrt * s_u) / n_el)[..., None]
     Zf_all = sqrt_jit * draws.z                              # (maxiter, S-n_el, M+1)
-    lane_floor = torch.full((M + 1,), -torch.inf, dtype=dt, device=dev)
-    lane_floor[M] = b.sigma_clip
+    # (built on the card: an indexed store of a host scalar synchronises)
+    lane_floor = torch.cat((torch.full((M,), -torch.inf, dtype=dt, device=dev),
+                            torch.full((1,), b.sigma_clip, dtype=dt, device=dev)))
 
     def finish(beta, cost):
         # NaN cost -> +inf keeps poisoned samples out of the elites; NaN
@@ -226,3 +233,103 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     y_red = _take_rows(y_roll, idx_best)
     return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=x_red, y_red=y_red,
                       res=torch.stack(mins, dim=1))
+
+
+def _beta_qp_exact(K_red: torch.Tensor, row_sum: torch.Tensor, M: int,
+                   cfg: ProblemConfig):
+    """The weight QP of :func:`_beta_qp` as the reference solves it: the
+    bordered KKT system [[rho K_red + reg I, 1], [1^T, 0]] densely by LU
+    (``solve_ex``: no device synchronisation; a singular system gives inf
+    or NaN), and the mmd cost b'K_red b + q.b with q = -2/M row_sum."""
+    b = cfg.beta_cem
+    k = K_red.shape[-1]
+    eye = torch.eye(k, dtype=K_red.dtype, device=K_red.device)
+    cost = b.rho_beta * K_red + b.qp_reg * eye
+    lincost = -b.rho_beta * (1.0 / M) * row_sum
+    kkt = torch.zeros(K_red.shape[:-2] + (k + 1, k + 1), dtype=K_red.dtype,
+                      device=K_red.device)
+    kkt[..., :k, :k] = cost
+    kkt[..., :k, k] = 1.0
+    kkt[..., k, :k] = 1.0
+    rhs = torch.cat((-lincost, torch.ones_like(lincost[..., :1])), dim=-1)
+    sol = torch.linalg.solve_ex(kkt, rhs[..., None], check_errors=False).result
+    beta = sol[..., :k, 0]
+    q = -2.0 * (1.0 / M) * row_sum
+    mmd = (torch.einsum("...i,...ij,...j->...", beta, K_red, beta)
+           + torch.sum(q * beta, dim=-1))
+    return beta, mmd
+
+
+def _cov_ddof1(X: torch.Tensor) -> torch.Tensor:
+    """np.cov of the rows of X (..., n, d) with ddof 1, as (..., d, d)."""
+    Xc = X - torch.mean(X, dim=-2, keepdim=True)
+    return (Xc.mT @ Xc) / (X.shape[-2] - 1)
+
+
+def select_reduced_set(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
+                       x_roll: torch.Tensor, y_roll: torch.Tensor,
+                       draws: ExactInnerDraws) -> ReducedSet:
+    """The reference-parity inner CEM (the "exact" strategy) of every
+    candidate: the JAX ``vmap`` of ``select_reduced_set``
+    (reduced_set.py:195-336).  Arguments as
+    :func:`select_reduced_set_batched`; ``draws`` are the standard normals
+    of :class:`mpc_mmd_tpu_torch.noise.ExactInnerDraws`, shared by every
+    candidate.
+
+    Per iteration: the top k of |beta| as the last k of a stable argsort
+    (slots in ascending |beta|), direct gathers of the D rows and their
+    columns, the dense weight QP, elites by a stable argsort of the cost,
+    and the resample from N(mean, cov(elites, ddof 1) + jitter I) as
+    ``mean + z @ chol(cov)^T`` (a covariance that is not positive definite
+    gives NaN, as in JAX), with sigma clipped on every row.  Nothing
+    synchronises with the device.
+    """
+    b = cfg.beta_cem
+    M, k = cfg.risk.num_mother, cfg.risk.num_reduced
+    S, n_el = b.num_samples_cem, b.num_ellite
+    kind = cfg.risk.kernel
+    C = cx.shape[0]
+    dev, dt = cx.device, cx.dtype
+
+    feats = torch.cat((cx, cy), dim=2)
+    D = pairwise_l1(feats, feats)                            # (C, M, M)
+    D2 = pairwise_l2sq(feats, feats) if kind != "laplace" else None
+    c_ix = torch.arange(C, device=dev)
+    eye = torch.eye(M + 1, dtype=dt, device=dev)
+
+    # N(0, init_cov_scale I) from the prefactored path's own draw
+    samples = math.sqrt(b.init_cov_scale) * draws.samples0
+    samples = torch.cat((samples[:, :M], torch.clamp(samples[:, M:], min=b.sigma_clip)),
+                        dim=1)[None].expand(C, S, M + 1)
+    mins = []
+    for t in range(b.maxiter):
+        sigma = samples[..., M, None, None]                  # (C, S, 1, 1)
+        idx_top = torch.argsort(torch.abs(samples[..., :M]), dim=-1,
+                                stable=True)[..., M - k:]    # (C, S, k)
+        rows = D[c_ix[:, None, None], idx_top]               # (C, S, k, M)
+        cols = idx_top[:, :, None, :].expand(C, S, k, k)
+        if kind == "laplace":
+            K_mixed = torch.exp(-rows / sigma)
+            K_red = torch.exp(-torch.take_along_dim(rows, cols, dim=3) / sigma)
+        else:
+            K_mixed = kernel_of(kind, sigma, rows, D2[c_ix[:, None, None], idx_top])
+            K_red = torch.take_along_dim(K_mixed, cols, dim=3)
+        beta, cost = _beta_qp_exact(K_red, K_mixed.sum(dim=-1), M, cfg)
+
+        elites = _take_rows(samples, torch.argsort(cost, dim=1, stable=True)[:, :n_el])
+        mean = torch.mean(elites, dim=1)                     # (C, M+1)
+        factor, info = torch.linalg.cholesky_ex(_cov_ddof1(elites) + b.cov_jitter * eye)
+        factor = torch.where((info == 0)[:, None, None], factor,
+                             torch.full_like(factor, torch.nan))
+        fresh = mean[:, None, :] + draws.z[t] @ factor.mT    # (C, S-n_el, M+1)
+        samples = torch.cat((elites, fresh), dim=1)
+        samples = torch.cat((samples[..., :M],
+                             torch.clamp(samples[..., M:], min=b.sigma_clip)), dim=-1)
+
+        # the winner; sigma from the post-update batch (the reference's quirk)
+        i_min = torch.argmin(cost, dim=1)
+        beta_w, sigma_w = beta[c_ix, i_min], samples[c_ix, i_min, M]
+        idx_w = idx_top[c_ix, i_min]                         # (C, k)
+        mins.append(cost.min(dim=1).values)
+    return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=_take_rows(x_roll, idx_w),
+                      y_red=_take_rows(y_roll, idx_w), res=torch.stack(mins, dim=1))

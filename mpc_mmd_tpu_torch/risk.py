@@ -3,7 +3,8 @@
 Counterpart of ``f_bar_obs``, ``lane_bars``, ``cvar_reduce``,
 ``saa_reduce``, ``lane_des_bar`` and the ``{mmd,cvar,saa}_{obs,lane,
 lane_des}`` risks in ``mpc_mmd_tpu/risk.py``.  The JAX functions take one candidate and are
-vmapped; these take any leading batch of candidates.
+vmapped; these take any leading batch of candidates, (C, ...) or, for a
+chunk of N scenarios, (N, C, ...).
 """
 
 from __future__ import annotations
@@ -18,10 +19,13 @@ def f_bar_obs(cfg: ProblemConfig, x_roll: torch.Tensor, y_roll: torch.Tensor,
               x_obs: torch.Tensor, y_obs: torch.Tensor) -> torch.Tensor:
     """Elliptical obstacle violation, max over time and obstacles.
 
-    x_roll, y_roll: (..., R, T); x_obs, y_obs: (num_obs, T).  Returns (..., R).
+    x_roll, y_roll: (..., R, T); x_obs, y_obs: (..., num_obs, T), their
+    leading dims broadcast against the rollouts' (so (num_obs, T) for every
+    candidate, or (N, 1, num_obs, T) against a chunk's (N, C, R, T)).
+    Returns (..., R).
     """
-    dx = x_roll[..., :, None, :] - x_obs
-    dy = y_roll[..., :, None, :] - y_obs
+    dx = x_roll[..., :, None, :] - x_obs[..., None, :, :]
+    dy = y_roll[..., :, None, :] - y_obs[..., None, :, :]
     cost = (1.0 - (dx ** 2) / cfg.obstacles.a_obs ** 2
             - (dy ** 2) / cfg.obstacles.b_obs ** 2)
     return torch.clamp(cost, min=0.0).amax(dim=(-2, -1))

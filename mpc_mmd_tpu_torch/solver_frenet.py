@@ -19,7 +19,10 @@ straight-road solve (``solver.py``):
 
 The outer loop is ``solver.py``'s (``SolverSetup._outer_cem``): Python
 over outer iterations, with no host synchronisation inside a solve and
-every sort stable; this module supplies its hooks.
+every sort stable; this module supplies its hooks, which take the loop's
+leading scenario axis and run at N = 1 (the JAX ``FrenetSolver`` has no
+``solve_batch``).  The "exact" strategy runs the reference-parity inner
+CEM and KKT solves, as in ``solver.py``.
 """
 
 from __future__ import annotations
@@ -33,10 +36,10 @@ from . import risk as risk_mod
 from .config import ProblemConfig
 from .frenet import FrenetFrame, global_to_frenet_points, global_to_frenet_state
 from .noise import init_state_count
-from .qp import Workspace, refit_coefficients
-from .reduced_set import select_reduced_set_batched
+from .qp import Workspace
 from .sampling import scalar_cost
-from .solver import MODES, SolverSetup, batched_rollouts, noisy_controls
+from .solver import (MODES, SolverSetup, batched_rollouts, noisy_controls,
+                     select_reduced)
 
 FRENET_MODES = MODES + ("det",)
 
@@ -62,10 +65,10 @@ def frenet_scalar_cost(cfg: ProblemConfig, risk_des_lane, risk_obs, risk_lane,
     base = scalar_cost(cfg, zeros, zeros, y, res_norm, xdot, ydot, xddot,
                        yddot, steering, v_des)
     norm = torch.linalg.vector_norm
-    c1 = norm(y - cfg.lane.y_des_1, dim=1)
-    c2 = norm(y - cfg.lane.y_des_2, dim=1)
+    c1 = norm(y - cfg.lane.y_des_1, dim=-1)
+    c2 = norm(y - cfg.lane.y_des_2, dim=-1)
     centr = torch.abs((xdot ** 2) * kappa_interp)
-    centr_cost = norm(torch.clamp(centr - cfg.vehicle.a_centr, min=0.0), dim=1)
+    centr_cost = norm(torch.clamp(centr - cfg.vehicle.a_centr, min=0.0), dim=-1)
     return (base + cfg.frenet.weight_des_lane * c1 * c2
             + cfg.frenet.weight_centr * centr_cost
             + risk_obs + risk_lane + risk_des_lane)
@@ -81,8 +84,8 @@ class FrenetSolver(SolverSetup):
         r = solver.solve(idx_mpc, init_state_global, mean, cov,
                          x_obs_traj, y_obs_traj, v_des, frame)
 
-    Modes ``mmd_opt``, ``mmd_random``, ``cvar``, ``saa`` and ``det``, with
-    the "prefactored" strategy only, and the selections of
+    Modes ``mmd_opt``, ``mmd_random``, ``cvar``, ``saa`` and ``det``, the
+    "prefactored" and "exact" strategies, and the selections of
     :class:`mpc_mmd_tpu_torch.solver.Solver`.  ``device`` defaults to
     ``"cuda"`` and raises without a card; pass ``device="cpu"`` for the CPU.
     """
@@ -127,35 +130,30 @@ class FrenetSolver(SolverSetup):
         frame, _ = ctx
         return dict(arc_vec=frame.arc_vec, kappa=frame.kappa)
 
-    def _steering(self, ctx, pr, order, steer):
+    def _steering(self, ctx, pr, in_order, steer):
         """The projection's curvature-coupled steering and the path
         curvature under each candidate, in residual order."""
-        return {"steer": pr.steering[order], "kappa": pr.kappa_interp[order]}
+        return {"steer": in_order(pr.steering), "kappa": in_order(pr.kappa_interp)}
 
-    def _risks(self, ctx, it, idx_mpc, acc_T, steer_T, x_obs_T, y_obs_T):
-        """Obstacle risk (C,) and, per candidate, the Frenet lateral
-        offsets of the rollouts the lane risks read (C, R, T), beta (C, R)
-        and sigma (C,)."""
+    def _risks(self, ctx, it, seeds, acc_T, steer_T, x_obs_T, y_obs_T):
+        """Obstacle risk (N, C) and, per candidate, the Frenet lateral
+        offsets of the rollouts the lane risks read (N, C, R, T), beta
+        (N, C, R) and sigma (N, C)."""
         frame, states0 = ctx
         cfg = self.cfg
-        nb, R, T = cfg.cem.num_batch, cfg.risk.num_reduced, acc_T.shape[1]
+        lead, R, T = acc_T.shape[:-1], cfg.risk.num_reduced, acc_T.shape[-1]
         mode = cfg.risk.mode
-        beta = torch.full((nb, R), 1.0 / R, device=self.device)
-        sigma = torch.full((nb,), 0.01, device=self.device)
+        beta = torch.full(lead + (R,), 1.0 / R, device=self.device)
+        sigma = torch.full(lead, 0.01, device=self.device)
         if mode == "det":
-            return torch.zeros(nb, device=self.device), dict(
-                roll=torch.zeros(nb, R, T, device=self.device), beta=beta,
+            return torch.zeros(lead, device=self.device), dict(
+                roll=torch.zeros(lead + (R, T), device=self.device), beta=beta,
                 sigma=sigma)
-        a_n, s_n = noisy_controls(cfg, self.noise, idx_mpc, it, acc_T, steer_T)
+        a_n, s_n = noisy_controls(cfg, self.noise, seeds, it, acc_T, steer_T)
         xg, yg = batched_rollouts(cfg, a_n, s_n, states0,
                                   mother=mode == "mmd_opt")
         if mode == "mmd_opt":
-            M, nvar = cfg.risk.num_mother, cfg.horizon.nvar
-            cxr, cyr = refit_coefficients(self.ws, xg.reshape(nb * M, T),
-                                          yg.reshape(nb * M, T))
-            rs = select_reduced_set_batched(cfg, cxr.reshape(nb, M, nvar),
-                                            cyr.reshape(nb, M, nvar), xg, yg,
-                                            self._inner)
+            rs = select_reduced(cfg, self.ws, xg, yg, self._inner)
             xg, yg, beta, sigma = rs.x_red, rs.y_red, rs.beta, rs.sigma
         s_roll, l_roll = global_to_frenet_points(frame, xg, yg)
         if mode in ("mmd_opt", "mmd_random"):
@@ -171,7 +169,7 @@ class FrenetSolver(SolverSetup):
         """(lane risk, weighted desired-lane risk) of the kept candidates."""
         cfg = self.cfg
         mode = cfg.risk.mode
-        zeros = torch.zeros(beta_e.shape[0], device=self.device)
+        zeros = torch.zeros(sigma_e.shape, device=self.device)
         if mode == "det":
             return zeros, zeros
         mmd = mode in ("mmd_opt", "mmd_random")
@@ -217,9 +215,11 @@ class FrenetSolver(SolverSetup):
         states0, b_eq_x, b_eq_y = self._initial_states(
             frame, idx_mpc, self._tensor(init_state_global))
         best, res, _, mean, cov = self._outer_cem(
-            idx_mpc, (frame, states0), b_eq_x, b_eq_y, self._tensor(mean_param),
-            self._tensor(cov_param), self._tensor(x_obs_traj),
-            self._tensor(y_obs_traj), v_des)
+            [int(idx_mpc)], (frame, states0), b_eq_x, b_eq_y,
+            self._tensor(mean_param), self._tensor(cov_param),
+            self._tensor(x_obs_traj)[None], self._tensor(y_obs_traj)[None], v_des)
+        best = {name: t[0] for name, t in best.items()}
+        res, mean, cov = res[0], mean[0], cov[0]
         Pdot = self.ws.Pdot
         v_best = torch.sqrt((Pdot @ best["cx"]) ** 2 + (Pdot @ best["cy"]) ** 2)
         return FrenetSolveResult(cx=best["cx"], cy=best["cy"], v_best=v_best,

@@ -310,6 +310,6 @@ def test_frenet_solver_with_the_desired_lane_risk_matches_jax():
 def test_frenet_solver_refuses_what_is_not_ported():
     tcfg = to_torch_cfg(frenet_cfg("cvar", 1))
     with pytest.raises(NotImplementedError):
-        TFrenetSolver(tcfg.replace(solve_strategy="exact"), device="cpu")
+        TFrenetSolver(tcfg.replace(rollout_backend="scan"), device="cpu")
     det = TFrenetSolver(tcfg.with_risk_mode("det"), device="cpu")
     assert det.cfg.projection.with_obstacle_terms

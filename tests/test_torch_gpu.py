@@ -22,12 +22,15 @@ import torch
 
 from mpc_mmd_tpu_torch import Solver, dynamic_workload, fastrt_workload
 from mpc_mmd_tpu_torch.dynamics import rollout as rollout_plain
+from mpc_mmd_tpu_torch.kernels import pairwise_l2sq
 from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
+from mpc_mmd_tpu_torch.linalg import scenario_mm
 from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
 from mpc_mmd_tpu_torch.ops import (eq_qp_solve, fused_rollout, topk_indices,
                                    topk_kernel_matrices, topk_onehot)
 from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
 from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
+from mpc_mmd_tpu_torch.sampling import _cholesky
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -72,6 +75,10 @@ def _edge_rows(x, k):
     ((8900, 101), 10, dict(absolute=True, slice_to=100)),      # two rows a warp
     ((100, 89, 17), 4, dict(absolute=True, slice_to=16)),      # on-road, "xla"
     ((1, 100, 17), 4, dict(absolute=True, slice_to=16)),       # its iteration 0
+    ((256, 57, 101), 10, dict(absolute=True, slice_to=100)),   # fastrt chunk of 4
+    ((512, 57, 101), 10, dict(absolute=True, slice_to=100)),   # fastrt chunk of 8
+    ((256, 64), 7, {}), ((512, 64), 7, {}),                    # their elite picks
+    ((400, 100), 11, {}),                                      # Path A chunk of 4
 ])
 def test_topk_kernel_matches_twin(cuda, shape, k, kw):
     """K1 at the path shapes and at row counts off its rows per block, with
@@ -136,7 +143,10 @@ def test_eq_qp_kernel_on_views_at_an_odd_system_offset(cuda, n):
 
 @pytest.mark.parametrize("n", [4, 10])
 @pytest.mark.parametrize("batch", [(64, 57), (1,), (31,), (33,), (3648,), (8900,),
-                                   (10000,), (10001,)])
+                                   (10000,), (10001,),
+                                   # fastrt chunks of 4 and 8, Path A's of 4
+                                   (14592,), (16384,), (29184,), (32768,),
+                                   (40000,)])
 def test_eq_qp_kernel_matches_float64_twin(cuda, n, batch):
     """K2 at the paths' sizes (n = 4 on the on-road path) and at batches off
     its 64 systems a block."""
@@ -150,7 +160,8 @@ def test_eq_qp_kernel_matches_float64_twin(cuda, n, batch):
 
 
 @pytest.mark.parametrize("T", [1, 37, 50])
-@pytest.mark.parametrize("lanes", [1, 400, 1000, 1600, 6401, 255_999])
+@pytest.mark.parametrize("lanes", [1, 400, 1000, 1600, 4000, 6401, 25_600, 40_000,
+                                   51_200, 255_999])
 @pytest.mark.parametrize("per_lane", [False, True])
 def test_rollout_kernel_matches_twin(cuda, lanes, T, per_lane):
     """K4 at lane counts that are not multiples of its 32-lane block and
@@ -202,6 +213,7 @@ def _selection_inputs(gen, C, S, M):
     (4, 65, 128, 1),
     (6, 97, 100, 17),
     (100, 100, 16, 4),   # the on-road fused selection
+    (400, 100, 100, 10), # Path A's fused selection, a chunk of 4 scenarios
 ])
 def test_fused_selection_kernel_matches_twin(cuda, C, S, M, k):
     """K3 against its twin, NaN, tied and infinite rows included, at shapes
@@ -385,3 +397,132 @@ def test_frenet_outer_iteration_cuda_matches_cpu(cuda):
     for name in ("v_best", "steering_best"):
         torch.testing.assert_close(getattr(g, name).cpu(), getattr(h, name),
                                    rtol=0, atol=1e-3)
+
+
+def _chunk_case(strategy="prefactored"):
+    cfg = fastrt_workload(num_reduced=4, num_obs=2)
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=24, maxiter_cem=2),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=16,
+                                                   maxiter=3),
+                      solve_strategy=strategy)
+    t = torch.linspace(0.0, 15.0, 100, device="cuda")
+    xs = torch.stack([torch.stack([8.0 + 0.37 * i + 0 * t, 13.0 + 0.53 * i + 0 * t])
+                      for i in range(3)])
+    ys = torch.stack([torch.stack([1.75 - 0.11 * i + 0 * t, 0.6 + 0.13 * i + 0 * t])
+                      for i in range(3)])
+    args = [torch.tensor(a, dtype=torch.float32, device="cuda")
+            for a in ([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
+                      np.diag([20.0] * 4 + [100.0] * 4))]
+    return cfg, xs, ys, args
+
+
+def test_chunk_on_the_card_equals_its_scenarios_one_at_a_time(cuda):
+    """A chunk of 3 tie-free scenarios in one outer loop on the card: each
+    scenario within 1e-4 of its scale of the same scenario solved alone,
+    and the chunk launches each kernel as often as one solve does."""
+    cfg, xs, ys, (init, mean, cov) = _chunk_case()
+    solver = Solver(cfg, device="cuda", scenario_chunk=3)
+    counts = lambda: [f.launches for f in (topk_indices, eq_qp_solve, fused_rollout)]
+    before = counts()
+    one = solver.solve(5, init, mean, cov, xs[0], ys[0], 15.0)
+    per_solve = [b - a for a, b in zip(before, counts())]
+    before = counts()
+    batch = solver.solve_batch([5, 6, 7], init, mean, cov, xs, ys, 15.0)
+    assert [b - a for a, b in zip(before, counts())] == per_solve
+    assert per_solve[0] > 0 and per_solve[2] == cfg.cem.maxiter_cem
+    for i, seed in enumerate((5, 6, 7)):
+        ref = one if i == 0 else solver.solve(seed, init, mean, cov, xs[i], ys[i], 15.0)
+        for name in ("cx", "cy", "risk_obs", "res", "mean_param"):
+            r = getattr(ref, name)
+            scale = max(1.0, float(r.abs().max()))
+            torch.testing.assert_close(getattr(batch, name)[i], r, rtol=0,
+                                       atol=1e-4 * scale)
+
+
+def test_exact_solve_on_the_card_makes_no_host_sync(cuda):
+    """The exact strategy on the card, its inputs already there: no call
+    synchronises with the host (the sync debug mode raises on one), and
+    only K4 of the kernels is launched."""
+    cfg, xs, ys, (init, mean, cov) = _chunk_case("exact")
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1))
+    solver = Solver(cfg, device="cuda")
+    solver.solve(1, init, mean, cov, xs[0], ys[0], 15.0)
+    torch.cuda.synchronize()
+    before = [f.launches for f in (topk_indices, eq_qp_solve, fused_rollout)]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        r = solver.solve(2, init, mean, cov, xs[1], ys[1], 15.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = [f.launches for f in (topk_indices, eq_qp_solve, fused_rollout)]
+    assert [b - a for a, b in zip(before, after)] == [0, 0, 1]
+    assert bool(torch.isfinite(r.cx).all()) and bool(torch.isfinite(r.risk_obs))
+
+
+# The shared-weight products of the fastrt (64 candidates), dynamic and
+# on-road (100) solves, (rows of one scenario, K, N): the guess QP, the
+# projection and its KKT solves, and the refit of the mother rollouts.
+PRODUCT_SHAPES = [(R, K, N) for R in (64, 100) for K, N in (
+    (4, 11), (11, 100), (11, 198), (14, 14), (15, 15), (100, 11), (198, 11))] + [
+    (6400, 50, 11), (6400, 11, 11), (10000, 50, 11), (10000, 11, 11),
+    (1600, 50, 11), (1600, 11, 11)]
+
+
+@pytest.mark.parametrize("rows,K,N", PRODUCT_SHAPES)
+def test_scenario_mm_gives_a_scenario_its_bits_in_any_chunk(cuda, rows, K, N):
+    """Each scenario's rows of ``scenario_mm`` over 2-16 scenarios equal
+    that scenario's product alone, bit for bit, and the product is a GEMM's
+    to float32 round-off."""
+    w = torch.randn(K, N, device="cuda", generator=cuda)
+    x = torch.randn(16 * rows, K, device="cuda", generator=cuda)
+    alone = [scenario_mm(x[i * rows:(i + 1) * rows], w) for i in range(16)]
+    for n in (2, 3, 4, 5, 8, 16):
+        out = scenario_mm(x[:n * rows], w, n)
+        for i in range(n):
+            assert torch.equal(out[i * rows:(i + 1) * rows], alone[i]), (n, i)
+    torch.testing.assert_close(alone[0], x[:rows] @ w, rtol=1e-5, atol=1e-4)
+
+
+def test_outer_cem_cholesky_gives_a_scenario_its_bits_in_any_chunk(cuda):
+    """The outer CEM's factors of 1-8 covariances at once equal each
+    factored alone, bit for bit; a covariance that is not positive definite
+    gives NaN."""
+    L = torch.randn(8, 8, 8, device="cuda", generator=cuda)
+    A = L @ L.mT + 0.1 * torch.eye(8, device="cuda")
+    alone = [_cholesky(A[i]) for i in range(8)]
+    torch.testing.assert_close(alone[0], torch.linalg.cholesky(A[0]), rtol=1e-5,
+                               atol=1e-5)
+    for n in range(1, 9):
+        out = _cholesky(A[:n])
+        for i in range(n):
+            assert torch.equal(out[i], alone[i]), (n, i)
+    bad = torch.stack((A[0], -torch.eye(8, device="cuda")))
+    out = _cholesky(bad)
+    assert bool(torch.isfinite(out[0]).all()) and bool(torch.isnan(out[1]).all())
+
+
+@pytest.mark.parametrize("S,n_el,M1,nb", [(57, 7, 101, 64), (89, 11, 101, 100),
+                                          (89, 11, 17, 100)])
+def test_inner_resample_gives_a_candidate_its_bits_in_any_chunk(cuda, S, n_el, M1, nb):
+    """The inner CEM's resample ``A_t @ elites`` over the candidates of
+    1-8 scenarios: each scenario's candidates equal them alone."""
+    A = torch.randn(S, n_el, device="cuda", generator=cuda)
+    E = torch.randn(8 * nb, n_el, M1, device="cuda", generator=cuda)
+    alone = [A @ E[i * nb:(i + 1) * nb] for i in range(8)]
+    for n in (2, 3, 4, 8):
+        out = A @ E[:n * nb]
+        for i in range(n):
+            assert torch.equal(out[i * nb:(i + 1) * nb], alone[i]), (n, i)
+
+
+@pytest.mark.parametrize("M,nb", [(100, 64), (100, 100), (16, 100)])
+def test_pairwise_l2sq_gives_a_candidate_its_bits_in_any_chunk(cuda, M, nb):
+    """``pairwise_l2sq`` of the refitted features (C, M, 22) of 1-8
+    scenarios' candidates: each scenario's block equals it alone."""
+    F = torch.randn(8 * nb, M, 22, device="cuda", generator=cuda)
+    alone = [pairwise_l2sq(F[i * nb:(i + 1) * nb], F[i * nb:(i + 1) * nb])
+             for i in range(8)]
+    for n in (2, 3, 4, 8):
+        out = pairwise_l2sq(F[:n * nb], F[:n * nb])
+        for i in range(n):
+            assert torch.equal(out[i * nb:(i + 1) * nb], alone[i]), (n, i)

@@ -67,6 +67,13 @@ def jax_draws(cfg, idx_mpc):
         kz_list.append(kz)
     out["u"] = jax.vmap(lambda k: normal(k, (S - n_el, n_el)))(jnp.stack(ku_list))
     out["z"] = jax.vmap(lambda k: normal(k, (S - n_el, M + 1)))(jnp.stack(kz_list))
+    # the exact strategy's multivariate normal draws straight from the update
+    # key, split(carried key)[0] (reduced_set.py:289-291,315-317)
+    kc, upd = key0, []
+    for _ in range(bc.maxiter):
+        kc, _ = split(kc)
+        upd.append(split(kc)[0])
+    out["z_exact"] = jax.vmap(lambda k: normal(k, (S - n_el, M + 1)))(jnp.stack(upd))
 
     per_it = {n: [] for n in ("eps_acc", "eps_steer", "eps_const", "cem_z")}
     for it in range(c.maxiter_cem):
@@ -95,6 +102,40 @@ def jax_beta(idx_mpc, it, R, alpha, beta):
         lambda a, b: jax.random.beta(key, a, b, (R, T)))(
             jnp.asarray(alpha[ch]), jnp.asarray(beta[ch])))
         for ch, key in enumerate((k_roll, k_steer))])
+
+
+class JaxKeyChain:
+    """The JAX key chain's draws of every solve of a sweep or a chunk: the
+    initial batch and inner-CEM draws every solve shares, and each solve's
+    own per-iteration draws (Beta ones too), keyed by its seed
+    (``idx_mpc``)."""
+
+    def __init__(self, cfg):
+        self.cfg, self.by_seed = cfg, {}
+
+    def _of(self, idx_mpc):
+        if idx_mpc not in self.by_seed:
+            self.by_seed[idx_mpc] = FixedNoise(jax_draws(self.cfg, idx_mpc), "cpu",
+                                               jax_beta)
+        return self.by_seed[idx_mpc]
+
+    def initial_z(self, *a):
+        return self._of(0).initial_z(*a)
+
+    def inner_cem(self, *a):
+        return self._of(0).inner_cem(*a)
+
+    def inner_exact(self, *a):
+        return self._of(0).inner_exact(*a)
+
+    def rollout_eps(self, idx_mpc, *a):
+        return self._of(idx_mpc).rollout_eps(idx_mpc, *a)
+
+    def rollout_beta(self, idx_mpc, *a):
+        return self._of(idx_mpc).rollout_beta(idx_mpc, *a)
+
+    def cem_z(self, idx_mpc, *a):
+        return self._of(idx_mpc).cem_z(idx_mpc, *a)
 
 
 def _cfg():

@@ -239,3 +239,19 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path):
     for name, (kind, src) in srcs.items():
         if name not in ("k1_now", "k2_now", "k1_before", "k2_before", "micro"):
             assert src != srcs[f"{kind}_now"][1], name
+
+
+def test_solve_ab_checks_its_arguments_and_needs_a_card(tmp_path, monkeypatch):
+    """The single-solve A/B tool refuses a root without chip_smoke.py and
+    turns other than A and B, and without a card it stops before any
+    turn; its worker is valid Python."""
+    from mpc_mmd_tpu_torch.utils import solve_ab
+    compile(solve_ab.WORKER, "solve_ab.WORKER", "exec")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(SystemExit, match="no chip_smoke.py"):
+        solve_ab.main(["--before", str(tmp_path)])
+    with pytest.raises(SystemExit, match="takes A and B"):
+        solve_ab.main(["--before", str(tmp_path), "--turns", "ABC"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="needs a CUDA card"):
+        solve_ab.main(["--before", str(tmp_path)])

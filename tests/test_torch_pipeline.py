@@ -28,7 +28,7 @@ from mpc_mmd_tpu_torch.noise import FixedNoise
 from mpc_mmd_tpu_torch.utils.io_store import ResultStore
 from mpc_mmd_tpu_torch.utils.observability import (MetricLogger, device_trace,
                                                    phase_timer, trace_summary)
-from test_torch_noise import jax_draws
+from test_torch_noise import JaxKeyChain
 from test_torch_validate import jax_mc_draws
 
 torch.set_num_threads(1)
@@ -162,32 +162,6 @@ def test_sweep_store_layout_matches_jax(tmp_path):
         for name in a.files:
             np.testing.assert_array_equal(a[name], b[name])
             assert a[name].dtype == b[name].dtype, name
-
-
-class JaxKeyChain:
-    """The JAX key chain's draws of every solve of a sweep: the initial
-    batch and inner-CEM draws every solve shares, and each solve's own
-    per-iteration draws, keyed by its seed (``idx_mpc``)."""
-
-    def __init__(self, cfg):
-        self.cfg, self.by_seed = cfg, {}
-
-    def _of(self, idx_mpc):
-        if idx_mpc not in self.by_seed:
-            self.by_seed[idx_mpc] = FixedNoise(jax_draws(self.cfg, idx_mpc), "cpu")
-        return self.by_seed[idx_mpc]
-
-    def initial_z(self, *a):
-        return self._of(0).initial_z(*a)
-
-    def inner_cem(self, *a):
-        return self._of(0).inner_cem(*a)
-
-    def rollout_eps(self, idx_mpc, *a):
-        return self._of(idx_mpc).rollout_eps(idx_mpc, *a)
-
-    def cem_z(self, idx_mpc, *a):
-        return self._of(idx_mpc).cem_z(idx_mpc, *a)
 
 
 @pytest.mark.parametrize("mode", ["mmd_opt", "cvar"])
@@ -330,14 +304,42 @@ def test_cuda_without_a_card_fails(tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    for kw in (dict(dispatch="mesh"), dict(heartbeat_every=1),
-               dict(scenario_chunk=2)):
+    for kw in (dict(dispatch="mesh"), dict(heartbeat_every=1)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             _sweep(tmp_path, **kw)
     with pytest.raises(ValueError):
         _sweep(tmp_path, dispatch="bogus")
     with pytest.raises(NotImplementedError, match="Distribution and operations"):
         validate.validate_store(str(tmp_path), mesh=True, device="cpu")
+
+
+@pytest.mark.parametrize("mode", ["mmd_opt", "cvar"])
+def test_batch_dispatch_writes_the_pipeline_store(tmp_path, monkeypatch, mode):
+    """--dispatch batch at scenario_chunk 2 (chunks of 3, so a short last
+    scenario chunk) solves each chunk in outer loops over 2 scenarios and
+    stores what the per-scenario pipeline stores: the same seeds accepted,
+    cx and cy within 1e-5 of their scale; the pipeline calls
+    ``Solver.solve`` once per scenario, the batch dispatch never."""
+    calls = []
+    orig = sweep.Solver.solve
+
+    def counting(self, *a, **k):
+        calls.append(a[0])
+        return orig(self, *a, **k)
+
+    monkeypatch.setattr(sweep.Solver, "solve", counting)
+    kw = dict(mode=mode, num_configs=5, chunk=3, inner_budget=(16, 2))
+    ref = _sweep(tmp_path / "p", dispatch="pipeline", **kw).concatenated()
+    assert len(calls) == 5
+    store = _sweep(tmp_path / "b", dispatch="batch", scenario_chunk=2, **kw)
+    assert len(calls) == 5 and store.done_chunks() == [0, 1]
+    got = store.concatenated()
+    assert set(got) == set(ref) and len(ref["seeds"]) >= 1
+    np.testing.assert_array_equal(got["seeds"], ref["seeds"])
+    for name in ("cx", "cy", "risk_obs"):
+        scale = max(1.0, float(np.abs(ref[name]).max()))
+        np.testing.assert_allclose(got[name], ref[name], rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
 
 
 def test_report_renders_from_port_stats(tmp_path):

@@ -163,21 +163,22 @@ def test_three_outer_iterations_match_jax():
 
 
 def test_solver_rejects_what_is_not_ported(monkeypatch):
-    """The det mode, the exact strategy, other rollout backends, the
-    TPU-only selections and batched scenario chunks raise
-    NotImplementedError."""
+    """The det mode, other rollout backends and the TPU-only selections
+    raise NotImplementedError; scenario chunks (argument or
+    MPC_MMD_SCENARIO_CHUNK) and the exact strategy build."""
     tcfg = to_torch_cfg(_cfg(1))
     for bad in (lambda: tcfg.with_risk_mode("det"),
-                lambda: tcfg.replace(solve_strategy="exact"),
                 lambda: tcfg.replace(rollout_backend="pallas")):
         with pytest.raises(NotImplementedError):
             TSolver(bad(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        TSolver(tcfg, device="cpu", scenario_chunk=2)
+    with pytest.raises(ValueError):
+        TSolver(tcfg.replace(solve_strategy="bogus"), device="cpu")
+    assert TSolver(tcfg, device="cpu", scenario_chunk=2).scenario_chunk == 2
     monkeypatch.setenv("MPC_MMD_SCENARIO_CHUNK", "4")
-    with pytest.raises(NotImplementedError):
-        TSolver(tcfg, device="cpu")
+    assert TSolver(tcfg, device="cpu").scenario_chunk == 4
     monkeypatch.delenv("MPC_MMD_SCENARIO_CHUNK")
+    exact = TSolver(tcfg.replace(solve_strategy="exact"), device="cpu")
+    assert exact.cfg.solve_strategy == "exact" and exact.scenario_chunk == 1
     solver = TSolver(tcfg, device="cpu")
     t = solver.ws.tot_time
     xo, yo = torch.stack([8.0 + 0 * t, 13.0 + 0 * t]), torch.stack([1.75 + 0 * t] * 2)

@@ -171,12 +171,44 @@ Phases, each of which must pass:
       launched.
    Each of 12's solves and 13 a, e runs with the launch counts set to 0
    just before it and read just after; b-d read each rank's counts.
+14. every reduced-set size N = num_reduced = 2 ... 16 (Path F: the JAX
+   record's static acceptance cells, ``record_config``: Beta noise 0.3, 6
+   obstacles, ts 50, 100 x 20 outer and inner, M = N^2 mother rollouts):
+   a. K1 at (100, 89, N^2 + 1) and (1, 100, N^2 + 1), k = N, |x| of the
+      first N^2 lanes, edge rows included, and K5 at the first, indices
+      and one-hot rows equal to the twins; K2 at 8,900 and 10,000 systems
+      of n = N within rtol 1e-4 + atol 1e-5 of the float64 twin, and its
+      lane-major entry bit-equal to it; K3 at (100, 100, N^2 + 1), k = N,
+      indices and K_red equal to the twin, row sums within rtol 1e-5 +
+      atol 1e-6; for every N;
+   b. at N = 5 and 15, under the "xla", "fused" and "xt" selections: one
+      warm-up and 3 timed solves each, launches per solve exactly what
+      ``launch_shapes`` (and phase 3's K3 and K4 shapes) give the path;
+      then one outer iteration on the card against the CPU with identical
+      draws, held as in 5; and one solve under "g" at N = 15 (its blocked
+      (C, S', M, M) exponential is 1.8 GB an inner iteration), its time
+      and peak memory logged, launches as in 12;
+   c. the sweep CLI at ``--workload static --costs mmd_opt cvar --noises
+      beta --noise_levels 0.3 --num_reduced_sets 5 15 --num_obs 6
+      --num_prime 50 --num_configs 4``, each store's meta naming its N, and
+      ``validate --compare --n_mc 1000`` on each N's pair of stores
+      (acceptance counts and n_common logged, no claim);
+   d. ``python -m mpc_mmd_tpu_torch.parallel --device cuda`` in a
+      subprocess (the distribution layer's dryrun, K2 at n = 2): exit 0
+      and ``dryrun ok``.
+   Path F's shapes are in phase 3's checks and times: K1 (100, 89, 26) and
+   (1, 100, 26), k = 5, and (100, 89, 226) and (1, 100, 226), k = 15; K2
+   and its lane-major entry at 8,900 and 10,000 systems of n = 5 and 15;
+   K3 (100, 100, 26), k = 5, and (100, 100, 226), k = 15; K4 at 2,500 and
+   22,500 lanes.  b's solves and c's commands run with the launch counts
+   set to 0 just before and read just after; a's launches are
+   comparisons and are not counted.
 
 Prints the kernels' JSON record and the card's nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
 counts the launches of the paths' runs (phases 4, 6, 7, 9 a-e, g, 10
-b-d, f, 11 a, c-f, 12 and 13; K2's lane-major entry, its own row,
-launches only under "xt" in 12); K5
+b-d, f, 11 a, c-f, 12, 13 and 14 b-c; K2's lane-major entry, its own
+row, launches only under "xt" in 12 and 14b); K5
 is on no path of the package, and its count is that of its own phase.
 ``launches_per_solve`` splits them by path (per solve; per chunk on
 Path E's chunked runs; the validator's per 1200 validations).  The
@@ -209,8 +241,10 @@ Exits non-zero, with no result, when there is no CUDA card or the package
 is not beside it.
 """
 
+import contextlib
 import dataclasses
 import glob
+import io
 import json
 import math
 import os
@@ -526,15 +560,19 @@ def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400,
 def check_fused_selection(torch, ops, plain, dev, gen):
     """K3 at the dynamic workload's (100, 100, 101) and the fastrt
     (64, 64, 101) selection shapes, k = 10, at the on-road (100, 100,
-    17), k = 4, and at Path A's chunk of 4 scenarios (400, 100, 101); D
-    from random features.  Returns the dynamic shape's record, with the
-    on-road and chunk ones under ``cases``."""
+    17), k = 4, at Path A's chunk of 4 scenarios (400, 100, 101), and at
+    Path F's (100, 100, 26), k = 5, and (100, 100, 226), k = 15 (D read
+    from device memory there); D from random features.  Returns the
+    dynamic shape's record, with the on-road, chunk and Path F ones under
+    ``cases``."""
     err = 0.0
     cases = []
     for C, S, M, k, at in ((100, 100, 100, 10, {"path_a_fused": 400}),
                            (64, 64, 100, 10, None),
                            (100, 100, 16, 4, {"path_d_fused": 400}),
-                           (400, 100, 100, 10, {"path_e_fused4": 400})):
+                           (400, 100, 100, 10, {"path_e_fused4": 400}),
+                           *((100, 100, N * N, N, {f"path_f{N}_fused": 400})
+                             for N in RECORD_SIZES)):
         samples = torch.randn(C, S, M + 1, device=dev, generator=gen)
         samples[..., M] = samples[..., M].abs() * 3 + 0.01
         samples[0, 1, 7] = float("nan")                      # NaN lane
@@ -1032,8 +1070,6 @@ def path_d(torch, ops, dev, cfg, per_solve):
     """Phase 10: the on-road stack at full width (see the module
     docstring).  Returns the launch counts of its runs; adds each run's
     launches per solve to ``per_solve``."""
-    import contextlib
-    import io
     from mpc_mmd_tpu_torch import FrenetSolver
     from mpc_mmd_tpu_torch.cli import closedloop as closedloop_cli
 
@@ -1480,8 +1516,6 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     """Phase 13: the distribution layer (see the module docstring).
     Returns the launch counts of its runs (the two ranks' summed); adds
     launches per solve to ``per_solve``."""
-    import contextlib
-    import io
     import signal
     import torch.distributed as dist
     from mpc_mmd_tpu_torch import Solver
@@ -1638,6 +1672,198 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     return path_launches
 
 
+RECORD_SIZES = (5, 15)         # the JAX record's N = 5 and N = 15 cells
+SELECTIONS_F = ("xla", "fused", "xt")
+
+
+def record_config(N):
+    """The static workload of the JAX record's acceptance grid at N
+    (artifacts/acceptance/run_static_r3.sh): Beta noise 0.3, 6 obstacles,
+    ts 50, the reference budget (100 x 20 outer and inner)."""
+    from mpc_mmd_tpu_torch import static_workload
+    return static_workload(num_reduced=N, num_obs=6, num_prime=50, noise="beta",
+                           noise_level=0.3, mode="mmd_opt")
+
+
+def path_sizes(torch, ops, dev, work, per_solve, tables):
+    """Phase 14: every reduced-set size N = 2 ... 16 (see the module
+    docstring).  ``tables`` maps each kernel's name to {shape: {path:
+    launches per solve}} (``launch_shapes`` and phase 3's K3 and K4
+    shapes).  Returns the launch counts of its runs; adds Path F's
+    launches per solve to ``per_solve``."""
+    from mpc_mmd_tpu_torch import Solver
+    from mpc_mmd_tpu_torch.cli import sweep as sweep_cli
+    from mpc_mmd_tpu_torch.cli import validate as validate_cli
+    from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
+    from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
+    from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
+    from mpc_mmd_tpu_torch.utils.io_store import ResultStore
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k1_inputs, k2_inputs, k3_inputs
+
+    t_phase = time.perf_counter()
+    names = [fn.__name__ for fn in ops.KERNELS]
+    path_launches = []
+
+    # a. K1, K5, K2, K2t and K3 against their twins at every N
+    gen = torch.Generator(device=dev).manual_seed(14)
+    err = 0.0
+    for N in range(2, 17):
+        M = N * N
+        kw = dict(absolute=True, slice_to=M)
+        for shape in ((100, 89, M + 1), (1, 100, M + 1)):
+            x = k1_inputs(gen, shape, N, True)
+            if not torch.equal(ops.topk_indices(x, N, **kw),
+                               topk_indices_plain(x, N, **kw)):
+                fail(f"14a: K1 differs from its twin at {shape}, k={N}")
+        x = k1_inputs(gen, (100, 89, M + 1), N, True)
+        if not all(torch.equal(a, b) for a, b in zip(ops.topk_onehot(x, N, **kw),
+                                                     topk_onehot_plain(x, N, **kw))):
+            fail(f"14a: K5 differs from its twin at (100, 89, {M + 1}), k={N}")
+        for count in (8900, 10000):
+            C, r = k2_inputs(gen, count, N)
+            b, mu = ops.eq_qp_solve(C, r)
+            b64, mu64 = qp_plain(C.double(), r.double())
+            for name, got, ref in (("b", b, b64), ("mu", mu, mu64)):
+                bad = (got.double() - ref).abs() > 1e-4 * ref.abs() + 1e-5
+                if bool(bad.any()) or not bool(torch.isfinite(got).all()):
+                    fail(f"14a: K2 {name} outside rtol 1e-4 + atol 1e-5 of the float64 "
+                         f"twin at {int(bad.sum())} entries ({count} systems, n={N})")
+            err = max(err, float((b.double() - b64).abs().max()))
+            b_t, mu_t = ops.eq_qp_solve_t(C.reshape(count, N * N).T.contiguous(),
+                                          r.T.contiguous())
+            if not (torch.equal(b_t, b.T) and torch.equal(mu_t, mu)):
+                fail(f"14a: K2t is not bit-equal to K2 at {count} systems, n={N}")
+        samples, D = k3_inputs(gen, 100, 100, M)
+        got = ops.topk_kernel_matrices(samples, D, N)
+        ref = topk_kernel_matrices_plain(samples, D, N)
+        bad = (got[0] - ref[0]).abs() > 1e-5 * ref[0].abs() + 1e-6
+        if not (torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])) \
+                or bool(bad.any()):
+            fail(f"14a: K3 differs from its twin at (100, 100, {M + 1}), k={N}")
+    torch.cuda.synchronize()
+    log(f"14a: K1 (100, 89, N^2+1) and (1, 100, N^2+1), K5, K2 and K2t at 8,900 and "
+        f"10,000 systems, K3 (100, 100, N^2+1) against their twins at N = 2 ... 16: "
+        f"indices, one-hot rows and K_red equal, K2t bit-equal to K2, K2 within "
+        f"{err:.3e} of float64; {time.perf_counter() - t_phase:.1f} s")
+
+    # b. the record's N = 5 and N = 15 solves under three selections
+    def want(path):
+        return {k: sum(at.get(path, 0) for at in tables.get(k, {}).values())
+                for k in names}
+
+    solvers = {}
+    for N in RECORD_SIZES:
+        cfg = record_config(N)
+        solver = Solver(cfg, device=dev)
+        scen = obstacle_scenarios(torch, 4, cfg.obstacles.num_obs, solver.ws.tot_time)
+        calls = [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in (1, 2, 3)]
+        solvers[N] = (cfg, solver, calls)
+        xo, yo = obstacle_scenarios(torch, 1, cfg.obstacles.num_obs,
+                                    solver.ws.tot_time.cpu(), blocking=True)[0]
+        one_iter = cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1))
+        for sel in SELECTIONS_F:
+            path = f"path_f{N}_{sel}"
+            os.environ["MPC_MMD_SELECTION"] = sel
+            try:
+                check_solve(solver.solve(0, INIT, MEAN, COV, *scen[0], 15.0), cfg)
+                expect = want(path)
+                got = timed_solves(
+                    torch, ops, solver, cfg, calls,
+                    f"14b: static beta 0.3, N = {N}, mmd_opt, {sel!r} selection",
+                    [fn for fn in ops.KERNELS if expect[fn.__name__]])
+                per = {k: v / len(calls) for k, v in got.items()}
+                if per != expect:
+                    fail(f"14b {path}: launches per solve {per}, but its shapes give "
+                         f"{expect}")
+                per_solve[path] = per
+                path_launches.append(got)
+                cuda_vs_cpu(torch, one_iter, (INIT, MEAN, COV, xo, yo, 15.0),
+                            f"14b N = {N} {sel}")
+            finally:
+                os.environ.pop("MPC_MMD_SELECTION")
+
+    # "g" at N = 15: its blocked (C, S', M, M) exponential, 1.8 GB an inner
+    # iteration in G_BLOCK_BYTES blocks, once, its time and peak memory
+    # logged with no limit on either
+    from mpc_mmd_tpu_torch.reduced_set import G_BLOCK_BYTES
+    os.environ["MPC_MMD_SELECTION"] = "g"
+    try:
+        cfg, solver, calls = solvers[15]
+        r, secs, got = counted(torch, ops, "14b N = 15 g",
+                               (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout),
+                               lambda: solver.solve(calls[0][0], *calls[0][1]))
+    finally:
+        os.environ.pop("MPC_MMD_SELECTION")
+    check_solve(r, cfg)
+    n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
+    expect = {k: 0 for k in names}
+    expect.update({ops.topk_indices.__name__: 2 * n_inner,
+                   ops.eq_qp_solve.__name__: n_inner,
+                   ops.fused_rollout.__name__: cfg.cem.maxiter_cem})
+    if got != expect:
+        fail(f"14b N = 15 g: launches {got}, expected {expect}")
+    path_launches.append(got)
+    b, M = cfg.beta_cem, cfg.risk.num_mother
+    exp_gb = 4 * cfg.cem.num_batch * (b.num_samples_cem - b.num_ellite) * M * M / 1e9
+    log(f"14b: static beta 0.3, N = 15, mmd_opt, 'g' selection, one solve: "
+        f"{1e3 * secs:.1f} ms, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; its exponential "
+        f"{exp_gb:.2f} GB an inner iteration in blocks of {G_BLOCK_BYTES // 2**20} "
+        f"MB; launches {got}")
+
+    # c. the sweep CLI at both N in mmd_opt and cvar, validate --compare per N
+    data, stats = os.path.join(work, "data_f"), os.path.join(work, "stats_f")
+    argv = ["--workload", "static", "--costs", "mmd_opt", "cvar", "--noises", "beta",
+            "--noise_levels", "0.3", "--num_reduced_sets", *map(str, RECORD_SIZES),
+            "--num_obs", "6", "--num_prime", "50", "--num_configs", "4", "--out", data,
+            "--device", "cuda"]
+    _, secs, got = counted(torch, ops, "14c sweep", (ops.topk_indices, ops.eq_qp_solve,
+                                                     ops.fused_rollout),
+                           lambda: sweep_cli.main(argv))
+    path_launches.append(got)
+    log(f"14c: python -m mpc_mmd_tpu_torch.cli.sweep {' '.join(argv)}: {secs:.1f} s; "
+        f"launches {got}")
+    for N in RECORD_SIZES:
+        roots = {}
+        for mode in ("mmd_opt", "cvar"):
+            found = [f for tag in (f"{mode}_{N}", f"{mode}_*_{N}")   # budgets, if given
+                     for f in glob.glob(os.path.join(data, "static", "*", "*", "*",
+                                                     f"{tag}_samples_6_obs"))]
+            if len(found) != 1:
+                fail(f"14c: expected one {mode} store at N = {N}, found {found}")
+            store = ResultStore(found[0])
+            if store.meta.get("num_reduced") != N:
+                fail(f"14c: the store {found[0]} names num_reduced "
+                     f"{store.meta.get('num_reduced')}, not {N}")
+            roots[mode] = (found[0], len(store.concatenated().get("cx", ())))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            _, vsecs, vgot = counted(torch, ops, f"14c validate --compare N = {N}", (), (
+                lambda: validate_cli.main(["--compare", "--data", roots["mmd_opt"][0],
+                                           roots["cvar"][0], "--n_mc", "1000", "--out",
+                                           stats, "--device", "cuda"])))
+        res = json.loads(buf.getvalue())
+        path_launches.append(vgot)
+        log(f"14c: N = {N}: accepted mmd_opt {roots['mmd_opt'][1]}/4, cvar "
+            f"{roots['cvar'][1]}/4; validate --compare --n_mc 1000 in {vsecs:.2f} s: "
+            f"n_common {res['n_common']}, collision % "
+            f"{ {m: v['coll_pct_mean'] for m, v in res.get('modes', {}).items()} }; "
+            f"launches {vgot}")
+
+    # d. the distribution layer's dryrun on the card, a world of one
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "mpc_mmd_tpu_torch.parallel",
+                           "--device", "cuda"], cwd=HERE, capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0 or "dryrun ok" not in proc.stdout:
+        fail(f"14d: python -m mpc_mmd_tpu_torch.parallel --device cuda exited "
+             f"{proc.returncode}:\n{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
+    log(f"14d: python -m mpc_mmd_tpu_torch.parallel --device cuda: "
+        f"{proc.stdout.strip().splitlines()[-1]!r} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return path_launches
+
+
 def main():
     import torch
 
@@ -1686,7 +1912,11 @@ def main():
                              noise_level=0.2, num_prime=50, mode="mmd_opt")
     cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50,
                             noise="gaussian", noise_level=0.1)
-    k1_at, k2_at, k2t_at = launch_shapes({"fastrt": (cfg, "xla"), "sweep_mmd_opt": (cfg, "xla"),
+    # Path F: the JAX record's static beta 0.3 cells at N = 5 and 15
+    paths_f = {f"path_f{N}_{sel}": (record_config(N), sel)
+               for N in RECORD_SIZES for sel in SELECTIONS_F}
+    k1_at, k2_at, k2t_at = launch_shapes({**paths_f, "fastrt": (cfg, "xla"),
+                                  "sweep_mmd_opt": (cfg, "xla"),
                                   "path_a_fused": (cfg_a, "fused"),
                                   "path_a_xla": (cfg_a, "xla"),
                                   "path_d_xla": (cfg_d, "xla"),
@@ -1732,14 +1962,17 @@ def main():
             f"{k4_onroad[-1]['ms']:.4f} ms vs plain {k4_onroad[-1]['plain_ms']:.4f} ms")
     # Path E's chunks: fastrt's 4 and 8 scenarios x 64 candidates x 100
     # mother rollouts, Path A's 4 x 100 x 100, Path B cvar's 4 x 100 x 10
+    # and Path F's: 100 candidates x N^2 mother rollouts at N = 5 and 15
     for lanes, paths in ((25_600, {"path_e_chunk4": 10, "sweep_batch_mmd_opt": 10,
                                    "dist_mesh_sweep": 10}),
                          (51_200, {"path_e_chunk8": 10}),
                          (40_000, {"path_e_fused4": 20}),
-                         (4_000, {"path_e_cvar4": 20})):
+                         (4_000, {"path_e_cvar4": 20}),
+                         *((100 * N * N, {p: 20 for p in paths_f if p.startswith(
+                             f"path_f{N}_")}) for N in RECORD_SIZES)):
         k4_onroad.append(check_rollout(torch, ops, rollout_plain, dev, gen,
                                        lanes=lanes, launches_per_solve=paths))
-        log(f"K4 fused_rollout at a chunk's shape ({lanes:,} x 50): max abs err "
+        log(f"K4 fused_rollout at a chunk's or Path F's shape ({lanes:,} x 50): max abs err "
             f"{k4_onroad[-1]['max_abs_err']:.3e}; {k4_onroad[-1]['ms']:.4f} ms vs "
             f"plain {k4_onroad[-1]['plain_ms']:.4f} ms")
     k4 = dict(k4, cases=[k4, *k4_onroad],
@@ -1839,6 +2072,9 @@ def main():
                 (init_d, mean_d, cov_d, xs[0].cpu(), ys[0].cpu(), v_des), "Path A")
     os.environ.pop("MPC_MMD_FUSED_CEM")
 
+    checked = lambda rec: {c["shape"]: c["launches_per_solve"]
+                           for c in rec["cases"] if c["launches_per_solve"]}
+
     # ---- 9. Path C: sweep -> validation pipeline ---------------------------
     # ---- 11e runs in Path C's directory, against its pipeline sweep --------
     with tempfile.TemporaryDirectory() as work:
@@ -1858,16 +2094,18 @@ def main():
         # ---- 13. the distribution layer (against 11e's batch store) --------
         path_launches += path_dist(torch, ops, dev, cfg, work, per_solve)
 
+        # ---- 14. every reduced-set size, the record's N = 5 and 15 cells ----
+        shape_tables = {"topk_indices": k1_at, "eq_qp_solve": k2_at,
+                        "eq_qp_solve_t": k2t_at,
+                        "topk_kernel_matrices": checked(k3),
+                        "fused_rollout": checked(k4)}
+        path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
+
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
     launches["topk_onehot"] = k5_launches
-    checked = lambda rec: {c["shape"]: c["launches_per_solve"]
-                           for c in rec["cases"] if c["launches_per_solve"]}
-    check_launch_shapes({"topk_indices": k1_at, "eq_qp_solve": k2_at,
-                         "eq_qp_solve_t": k2t_at,
-                         "topk_kernel_matrices": checked(k3),
-                         "fused_rollout": checked(k4)}, per_solve)
+    check_launch_shapes(shape_tables, per_solve)
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
                            k2t)
     log(json.dumps({"kernels": record}))

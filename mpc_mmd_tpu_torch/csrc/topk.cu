@@ -30,11 +30,12 @@
 // to 100 rows.  The earlier kernel (5.4 us at 3,648 rows) ran a round as a
 // 5-step shuffle of two registers (~30 cycles a step), one row per warp,
 // and stored one index per round.  The design:
-// - a lane holds columns l, l+32, l+64, l+96 of the row as order keys
-//   (unsigned integers that order as the floats compare, -0.0 and +0.0
-//   alike), loaded coalesced once; NaN gets -inf's key, the columns at or
-//   past m get 0, below -inf's key, so they never win; the lane sorts its
-//   slots once, so its head is its best (the lower column on a tie);
+// - a lane holds columns l, l+32, ... (at most 8: m <= 256) of the row as
+//   order keys (unsigned integers that order as the floats compare, -0.0
+//   and +0.0 alike), loaded coalesced once; NaN gets -inf's key, the
+//   columns at or past m get 0, below -inf's key, so they never win; the
+//   lane sorts its slots once, so its head is its best (the lower column
+//   on a tie);
 // - a round is two redux.sync (~47 cycles each): the max of the heads'
 //   keys, then the least column holding it.  The winner's lane drops its
 //   head: the Pallas kernel masks a winner to -inf instead, which changes
@@ -44,15 +45,20 @@
 // - a warp runs one row while the card holds all of them at once; past
 //   that, two rows, round r of each before round r+1, without a branch per
 //   row, so their reductions interleave (launch_rows);
-// - a template on the slots a lane needs (ceil(m / 32)) keeps the narrower
-//   rows of the elite pick (m = 64) from sorting empty slots;
+// - a template on the slots a lane needs (ceil(m / 32), 1 ... 8) keeps
+//   the narrower rows (the elite pick's m = 64, N = 5's m = 25) from
+//   sorting empty slots, and lets the widest, m = N^2 = 225 and 256 at
+//   reduced-set sizes N = 15 and 16, keep 8 keys and columns a lane;
 // - lane i keeps round i's winner and lanes 0..k-1 store the row's indices
 //   at once, one coalesced store per row (per 32 rounds when k > 32).
 // Each instantiation keeps every array in registers (a 0-byte stack frame
-// in nvcc -Xptxas -v).  Measured (PERF.md): 3.5 us at 3,648 rows (the
-// earlier kernel: 5.5), 6.2 us at 8,900 (11.4), 1.8-2.3 us at the elite
-// pick's 64-100 rows (2.1-2.7).  Rows wider than 128 are refused by the
-// wrapper.
+// in nvcc -Xptxas -v, 29-46 registers; two rows a warp at 8 slots hold 16
+// keys and 16 columns a lane in 46).  Measured (PERF.md): 3.5 us at 3,648
+// rows (the earlier kernel: 5.5), 6.2 us at 8,900 (11.4), 1.8-2.3 us at
+// the elite pick's 64-100 rows (2.1-2.7); at N = 15, 13.5 us at (100, 89,
+// 226), k = 15, against a bound of 2.6 (the rounds' chain, 1.5x k = 10's,
+// and the sort of 8 slots).  Rows wider than 256 are refused by the
+// wrapper (and by the C entry).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +67,7 @@ namespace {
 
 constexpr int kWarp = 32;
 constexpr int kWarps = 4;                    // warps per block
+constexpr int kMaxSlots = 8;                 // columns a lane holds: m <= 256
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kNegInfKey = 0x007fffffu;  // order_key(-inf)
 constexpr unsigned kPadKey = 0u;              // columns at or past m
@@ -202,18 +209,33 @@ int launch_rows(const Args& a, cudaStream_t stream) {
   return launch<kSlots, 2, false>(a, stream);
 }
 
+// K5: one row a warp, on the slots that m needs
+template <int kSlots = 1>
+int onehot_slots(const Args& a, int slots, cudaStream_t stream) {
+  if (slots == kSlots) return launch<kSlots, 1, true>(a, stream);
+  if constexpr (kSlots < kMaxSlots) return onehot_slots<kSlots + 1>(a, slots, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
+// m at most kMaxSlots * 32 = 256 (the wrapper checks first); returns
+// cudaErrorInvalidValue otherwise.
 extern "C" int mmd_topk_indices(const float* x, int* out, int rows, int width,
                                 int m, int k, int absolute, void* stream) {
   if (rows <= 0) return 0;
   const Args a{x, out, nullptr, rows, width, m, k, absolute};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((m + kWarp - 1) / kWarp) {  // the wrapper keeps m <= 128
+  switch ((m + kWarp - 1) / kWarp) {
     case 1: return launch_rows<1>(a, st);
     case 2: return launch_rows<2>(a, st);
     case 3: return launch_rows<3>(a, st);
-    default: return launch_rows<4>(a, st);
+    case 4: return launch_rows<4>(a, st);
+    case 5: return launch_rows<5>(a, st);
+    case 6: return launch_rows<6>(a, st);
+    case 7: return launch_rows<7>(a, st);
+    case 8: return launch_rows<8>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
@@ -221,6 +243,6 @@ extern "C" int mmd_topk_onehot(const float* x, int* out, float* onehot,
                                int rows, int width, int m, int k, int absolute,
                                void* stream) {
   if (rows <= 0) return 0;
-  return launch<4, 1, true>(Args{x, out, onehot, rows, width, m, k, absolute},
-                            static_cast<cudaStream_t>(stream));
+  const Args a{x, out, onehot, rows, width, m, k, absolute};
+  return onehot_slots(a, (m + kWarp - 1) / kWarp, static_cast<cudaStream_t>(stream));
 }

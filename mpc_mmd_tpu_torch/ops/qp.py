@@ -3,10 +3,12 @@
 Replaces ``mpc_mmd_tpu/ops/qp_pallas.py``: ``eq_qp_solve`` the row-major
 entry ``eq_qp_solve_pallas`` and ``eq_qp_solve_t`` the lane-major
 ``eq_qp_solve_pallas_t``, one body for both.  On the solve paths K2 solves
-the reduced-set weight QP of every inner-CEM sample: 3,648 to 10,000
-systems of n = 10 a call on the straight-road paths, and 8,900 or 10,000
-systems of n = 4 on the on-road path (num_reduced 4); the lane-major entry
-the same counts under the "xt" selection.
+the reduced-set weight QP of every inner-CEM sample, n = num_reduced:
+3,648 to 10,000 systems of n = 10 a call on the straight-road paths
+(8,900 and 10,000 at the record's N = 5 and 15 cells), 8,900 or 10,000 of
+n = 4 on the on-road path; the lane-major entry the same counts under the
+"xt" selection.  Both are built for every n in :data:`SIZES`, 2 ... 16,
+the range the Pallas body's docstring gives.
 
 One thread solves one system by the Pallas body's unrolled Cholesky, step
 for step.  On the card the row-major kernel's block of 64 systems (two
@@ -27,7 +29,7 @@ import torch
 from . import _build
 from ..linalg import eq_qp_solve as eq_qp_solve_plain
 
-SIZES = (4, 10)  # the n the kernel is instantiated for
+SIZES = range(2, 17)  # the n the kernels are instantiated for
 
 
 def eq_qp_solve(C: torch.Tensor, r: torch.Tensor
@@ -46,7 +48,8 @@ def eq_qp_solve(C: torch.Tensor, r: torch.Tensor
         return eq_qp_solve_plain(C, r)
     _build.require_cuda_f32("eq_qp_solve", C, r)
     if n not in SIZES:
-        raise ValueError(f"eq_qp_solve: kernel built for n in {SIZES}, got {n}")
+        raise ValueError(f"eq_qp_solve: kernel built for n in {SIZES.start} ... "
+                         f"{SIZES.stop - 1}, got {n}")
     batch = r.numel() // n
     b = torch.empty_like(r)
     mu = torch.empty(r.shape[:-1], dtype=r.dtype, device=r.device)
@@ -87,7 +90,8 @@ def eq_qp_solve_t(C_t: torch.Tensor, r_t: torch.Tensor
     _build.require_cuda_f32("eq_qp_solve_t", C_t, r_t)
     n, batch = r_t.shape
     if n not in SIZES:
-        raise ValueError(f"eq_qp_solve_t: kernel built for n in {SIZES}, got {n}")
+        raise ValueError(f"eq_qp_solve_t: kernel built for n in {SIZES.start} ... "
+                         f"{SIZES.stop - 1}, got {n}")
     b_t = torch.empty_like(r_t)
     mu = torch.empty(batch, dtype=r_t.dtype, device=r_t.device)
     err = _build.library().mmd_eq_qp_solve_t(

@@ -5,10 +5,12 @@ K1 replaces ``mpc_mmd_tpu/ops/topk_pallas.py::topk_indices_pallas``.  On the
 solve paths it picks the top-k |beta| lanes of every inner-CEM sample
 ((C, S - n_el, M+1) with ``slice_to=M``, and the shared iteration-0 batch
 (1, S, M+1)) and the elite samples (top-n_el of -cost over (C, S)): rows
-from 64 to 8,900, of 64, 100 or 101 floats with k = 10 on the straight-road
-paths, and of 17 floats with k = 4 (num_reduced 4, M = 16) on the on-road
-path.  K5 replaces ``topk_onehot_pallas``, which no path of either package
-calls.
+from 64 to 8,900, with k = num_reduced = N of M = N^2 ranked lanes, N = 2
+... 16 (101 floats with k = 10 on the fastrt and dynamic paths, 17 with
+k = 4 on the on-road path, 26 and 226 at the record's N = 5 and 15), and
+64 or 100 floats with k = 7 or 11 at the elite pick.  The kernel ranks at
+most :data:`MAX_WIDTH` = 256 lanes (N = 16).  K5 replaces
+``topk_onehot_pallas``, which no path of either package calls.
 
 Both run k rounds per row, as the Pallas kernel does: the max, the lowest
 column holding it, that column masked to -inf.  On the card a round is two
@@ -28,7 +30,7 @@ import torch
 
 from . import _build
 
-MAX_WIDTH = 128
+MAX_WIDTH = 256   # 8 columns a lane: M = N^2 up to N = 16
 
 
 def topk_indices_plain(x: torch.Tensor, k: int, absolute: bool = False,
@@ -74,7 +76,7 @@ def topk_indices(x: torch.Tensor, k: int, absolute: bool = False,
     Ranks the first ``slice_to`` lanes (default all) of |x| if
     ``absolute`` else x.  Ties go to the lowest index; NaN ranks last.
     A CPU tensor takes :func:`topk_indices_plain`; a CUDA tensor launches
-    the kernel (float32, contiguous, last axis at most 128 wide).
+    the kernel (float32, contiguous, at most 256 lanes ranked).
     """
     m = _check(x, k, slice_to)
     if x.device.type == "cpu":

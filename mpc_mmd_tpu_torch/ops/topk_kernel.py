@@ -5,8 +5,10 @@ top-k of |beta|, the gather of the k selected rows of the candidate's
 (M, M) L1 distance matrix, ``exp(-rows / sigma)``, its row sums and the
 k x k reduced kernel matrix, in one launch.  The "fused" selection of
 :func:`mpc_mmd_tpu_torch.reduced_set.select_reduced_set_batched` runs it on
-every inner-CEM iteration.  What bounds it on the card and what the design
-does about it: see the note at the top of the CUDA source.
+every inner-CEM iteration, at M = N^2 lanes and k = N for N = 2 ... 16.
+What bounds it on the card and what the design does about it, D staged in
+shared memory up to M = 128 and read from device memory past it: see the
+note at the top of the CUDA source.
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 
 from . import _build
 
-MAX_WIDTH = 128   # M, the lanes ranked and the side of D
+MAX_WIDTH = 256   # M, the lanes ranked and the side of D (N = 16)
 MAX_K = 32
 
 _MASK = 3.0e38
@@ -66,7 +68,7 @@ def topk_kernel_matrices(samples: torch.Tensor, D: torch.Tensor, k: int
     A CPU tensor takes :func:`topk_kernel_matrices_plain`; a CUDA tensor
     launches the kernel: float32, D contiguous, each candidate's (S, M+1)
     block contiguous with a candidate stride of S*(M+1) or 0 (one batch
-    broadcast to every candidate), M <= 128, k <= 32.
+    broadcast to every candidate), M <= 256, k <= 32.
     """
     if samples.dim() != 3 or D.dim() != 3:
         raise ValueError(f"topk_kernel_matrices: samples {tuple(samples.shape)} "

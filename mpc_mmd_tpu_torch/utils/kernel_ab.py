@@ -1,10 +1,11 @@
-"""K1, K2 and K5 built from several sources, checked and timed in turns.
+"""K1, K2, K3 and K5 built from several sources, checked and timed in turns.
 
     python -m mpc_mmd_tpu_torch.utils.kernel_ab --before DIR [--diagnose] [--out DIR]
 
 ``--before DIR`` names a directory that holds an earlier version's
-``topk.cu`` and ``eq_qp.cu``, for example from ``git show
-<commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  Each build below
+``topk.cu`` and ``eq_qp.cu`` (and, if it is there, ``topk_kernel.cu``),
+for example from ``git show <commit>:mpc_mmd_tpu_torch/csrc/topk.cu >
+DIR/topk.cu``.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
 and loaded with ``ctypes``; their C symbols do not clash.
@@ -12,7 +13,11 @@ and loaded with ``ctypes``; their C symbols do not clash.
 Builds: ``now`` (the sources in ``csrc/``), ``before`` (DIR), and variants
 of the current sources, each one textual change:
 ``k1_rows1`` / ``k1_rows2`` (K1 with one or two rows per warp whatever the
-row count), ``k2_threads32`` (K2 with one warp a block); with
+row count), ``k2_threads32`` (K2 with one warp a block, which keeps a
+block's staging under 48 KB at every n), ``k3_global`` / ``k3_staged``
+(K3 reading D from device memory at every M, or staging it in shared
+memory wherever it fits), ``k3_bounds3`` (K3 at 3 blocks an SM, 85
+registers a thread, not 4 and 64); with
 ``--diagnose`` also ``k1_no_rounds`` (K1 loads, sorts and stores each
 lane's head, no round),
 ``k2_no_copies`` (K2 without its cp.async staging) and ``k2_no_math`` (K2
@@ -24,9 +29,11 @@ On the card, the checks: every K1 build but ``k1_no_rounds`` equals the
 plain twin exactly at K1's path shapes, with an all-NaN row, NaN lanes,
 ties, -0.0 against +0.0, +-inf and fewer finite lanes than k; every K2
 build but the diagnostic ones is within rtol 1e-4 + atol 1e-5 of the
-float64 twin at K2's path sizes, and whether ``now`` is bit-equal to
-``before`` is recorded, also on a view at an odd system offset; K5 of
-``now`` against ``before``.  Then the times: each build's device time per
+float64 twin at K2's path sizes (``before`` only at the sizes it was
+built for), and whether ``now`` is bit-equal to ``before`` is recorded,
+also on a view at an odd system offset; every K3 build gives the twin's
+indices and K_red exactly at K3's shapes (M = N^2 for N = 5, 10 ... 16);
+K5 of ``now`` against ``before``.  Then the times: each build's device time per
 launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
 floor (``fill_`` of one float) and ``torch.topk``.  Writes
@@ -49,6 +56,7 @@ import torch
 from ..linalg import eq_qp_solve as qp_plain
 from ..ops import _build
 from ..ops.topk import topk_indices_plain
+from ..ops.topk_kernel import topk_kernel_matrices_plain
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "kernel_ab"
@@ -57,8 +65,17 @@ OUT_DIR = ROOT / "build" / "kernel_ab"
 # chip_smoke.py's launch_shapes gives them
 K1_SHAPES = (((64, 57, 101), 10, True, 100), ((1, 64, 101), 10, True, 100),
              ((64, 64), 7, False, 64), ((100, 89, 101), 10, True, 100),
-             ((1, 100, 101), 10, True, 100), ((100, 100), 11, False, 100))
-K2_SIZES = (3648, 4096, 8900, 10000)
+             ((1, 100, 101), 10, True, 100), ((100, 100), 11, False, 100),
+             ((100, 89, 226), 15, True, 225), ((100, 89, 257), 16, True, 256))
+# K2's (systems, n): the straight-road paths' at n = 10, the record's
+# N = 5 and 15 cells, and the sizes past 48 KB of staging at 64 a block
+K2_SIZES = ((3648, 10), (4096, 10), (8900, 10), (10000, 10), (8900, 5), (8900, 14),
+            (8900, 15), (10000, 15), (8900, 16))
+# K3's (C, S, M, k): the static workload's fused selection at N = 5 and
+# 10 ... 16, where D[c] outgrows the staging that fits it at 4 blocks an SM
+K3_SHAPES = ((100, 100, 25, 5), (100, 100, 100, 10), (100, 100, 121, 11),
+             (100, 100, 144, 12), (100, 100, 169, 13), (100, 100, 196, 14),
+             (100, 100, 225, 15), (100, 100, 256, 16))
 
 MICRO = r"""
 #include <cuda_runtime.h>
@@ -97,12 +114,26 @@ def _between(src: str, start: str, end: str, name: str):
 
 
 def builds(before: Path, diagnose: bool = False) -> dict:
-    """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu)
-    or "micro"."""
+    """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
+    "k3" (topk_kernel.cu) or "micro"."""
     topk = (_build.CSRC / "topk.cu").read_text()
     qp = (_build.CSRC / "eq_qp.cu").read_text()
+    fused = (_build.CSRC / "topk_kernel.cu").read_text()
     out = {"k1_now": ("k1", topk), "k1_before": ("k1", (before / "topk.cu").read_text()),
-           "k2_now": ("k2", qp), "k2_before": ("k2", (before / "eq_qp.cu").read_text())}
+           "k2_now": ("k2", qp), "k2_before": ("k2", (before / "eq_qp.cu").read_text()),
+           "k3_now": ("k3", fused)}
+    if (before / "topk_kernel.cu").exists():
+        out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
+    staged_max = re.compile(r"constexpr int kStagedMaxM = \d+;")
+    if not staged_max.search(fused):
+        raise ValueError("variant k3: kStagedMaxM is not in topk_kernel.cu")
+    for name, m in (("k3_global", 0), ("k3_staged", 256)):
+        src = staged_max.sub(f"constexpr int kStagedMaxM = {m};", fused)
+        if src != fused:                     # one of them may be the source's own
+            out[name] = ("k3", src)
+    out["k3_bounds3"] = ("k3", _replace(fused, "__launch_bounds__(kWarps * kWarp, 4)",
+                                        "__launch_bounds__(kWarps * kWarp, 3)",
+                                        "k3_bounds3"))
     rows = re.compile(r"(int launch_rows\(const Args& a, cudaStream_t stream\) \{\n).*?\n\}",
                       re.S)
     if not rows.search(topk):
@@ -161,6 +192,9 @@ def build_all(sources: dict, log) -> dict:
         elif kind == "k1":
             lib.mmd_topk_indices.argtypes = [P, P, I, I, I, I, I, P]
             lib.mmd_topk_onehot.argtypes = [P, P, P, I, I, I, I, I, P]
+        elif kind == "k3":
+            lib.mmd_topk_kernel_matrices.argtypes = [P, ctypes.c_longlong, P, P, P, P,
+                                                     I, I, I, I, P]
         else:
             lib.mmd_eq_qp_solve.argtypes = [P, P, P, P, I, I, P]
         libs[name] = lib
@@ -169,21 +203,33 @@ def build_all(sources: dict, log) -> dict:
 
 def device_ms(fn, match: str, reps: int = 20) -> float:
     """Device milliseconds per call: the device events whose name holds
-    ``match`` in a profiled window of ``reps`` calls, which must number at
-    least ``reps`` (a library call may launch several kernels)."""
+    ``match`` in a profiled window of ``reps`` calls, which should number at
+    least ``reps`` (a library call may launch several kernels).  The
+    profiler now and then records no device event in a session, or drops
+    launches' records: as in chip_smoke.py's ``profiled_ms``, each session
+    opens with a short ``spin_kernel`` left out of the count, and of five
+    sessions the first full one counts, else the fullest, per recorded
+    event, if it holds at least half of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device event
+    best = []
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         ev = [e for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name]
+              if e.device_type == torch.autograd.DeviceType.CUDA and match in e.name
+              and "spin_kernel" not in e.name]
         if len(ev) >= reps:
             return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / reps
-    raise RuntimeError(f"profiler: {len(ev)} device events named {match!r} for {reps} calls")
+        best = max(best, ev, key=len)
+    if 2 * len(best) < reps:
+        raise RuntimeError(f"profiler: {len(best)} device events named {match!r} for "
+                           f"{reps} calls")
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / len(best)
 
 
 def _stream() -> int:
@@ -197,27 +243,48 @@ def _call(err: int, name: str) -> None:
 
 def k1_inputs(gen, shape, k, absolute):
     """Random rows with the edge rows of the module docstring; the elite
-    pick's rows are -cost."""
-    x = torch.randn(shape, device="cuda", generator=gen)
+    pick's rows are -cost.  On the generator's device, as the other
+    builders here."""
+    x = torch.randn(shape, device=gen.device, generator=gen)
     flat = x.view(-1, shape[-1])
     flat[0] = float("nan")
     flat[1, ::3] = float("nan")
     flat[2] = torch.round(flat[2] * 2) / 2
     flat[3] = 0.0
     flat[3, ::2] = -0.0
-    flat[4, 5], flat[4, 7] = float("inf"), -float("inf")
+    flat[4, 5 % shape[-1]], flat[4, 7 % shape[-1]] = float("inf"), -float("inf")
     flat[5, :shape[-1] - k + 2] = float("nan")
     return x if absolute else -x
 
 
 def k2_inputs(gen, batch, n=10):
     """Systems as the inner CEM builds them (rho K + reg I, Laplace K)."""
-    f = torch.randn(batch, n, 22, device="cuda", generator=gen)
+    f = torch.randn(batch, n, 22, device=gen.device, generator=gen)
     d = (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1)
-    sigma = torch.rand(batch, 1, 1, device="cuda", generator=gen) * 10 + 0.01
+    sigma = torch.rand(batch, 1, 1, device=gen.device, generator=gen) * 10 + 0.01
     K = torch.exp(-d / sigma)
-    return ((K + 0.05 * torch.eye(n, device="cuda")).contiguous(),
+    return ((K + 0.05 * torch.eye(n, device=gen.device)).contiguous(),
             (K.sum(-1) / 100.0).contiguous())
+
+
+def k3_inputs(gen, C, S, M):
+    """Samples (C, S, M+1) with a NaN lane and tied |beta|, D from random
+    features, as chip_smoke.py checks K3."""
+    samples = torch.randn(C, S, M + 1, device=gen.device, generator=gen)
+    samples[..., M] = samples[..., M].abs() * 3 + 0.01
+    samples[0, 1, 7 % M] = float("nan")
+    samples[0, 2, :M] = torch.round(samples[0, 2, :M])
+    f = torch.randn(C, M, 22, device=gen.device, generator=gen)
+    return samples, (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
+
+
+def _k3(lib, samples, D, k, outs):
+    C, S, Mp1 = samples.shape
+    row_sum, K_red, idx = outs
+    _call(lib.mmd_topk_kernel_matrices(samples.data_ptr(), S * Mp1, D.data_ptr(),
+                                       row_sum.data_ptr(), K_red.data_ptr(),
+                                       idx.data_ptr(), C, S, Mp1 - 1, k, _stream()),
+          "mmd_topk_kernel_matrices")
 
 
 def _k1(lib, x, k, absolute, m, out):
@@ -258,6 +325,7 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
     k1s = [n for n, (kind, _) in sources.items() if kind == "k1"]
     k2s = [n for n, (kind, _) in sources.items() if kind == "k2"]
+    k3s = [n for n, (kind, _) in sources.items() if kind == "k3"]
     exact_k1 = [n for n in k1s if n != "k1_no_rounds"]
     exact_k2 = [n for n in k2s if n not in ("k2_no_copies", "k2_no_math")]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -278,15 +346,17 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
         x = k1_inputs(gen, shape, k, absolute)
         ref = topk_indices_plain(x, k, absolute, m if m < shape[-1] else None)
         idx = torch.empty(shape[:-1] + (k,), dtype=torch.int32, device="cuda")
-        for name in exact_k1:
+        # an earlier build, and the 4-slot variant, rank at most 128 lanes
+        k1s_here = [n for n in k1s if n not in ("k1_before", "k1_slots4") or m <= 128]
+        for name in [n for n in exact_k1 if n in k1s_here]:
             idx.fill_(-1)
             _k1(libs[name], x, k, absolute, m, idx)
             torch.cuda.synchronize()
             if not torch.equal(idx, ref):
                 raise RuntimeError(f"{name} differs from the twin at {shape}, k={k}")
         ranked = (x[..., :m].abs() if absolute else x).contiguous()
-        times = in_turns({n: (lambda n=n: _k1(libs[n], x, k, absolute, m, idx)) for n in k1s},
-                         "topk")
+        times = in_turns({n: (lambda n=n: _k1(libs[n], x, k, absolute, m, idx))
+                          for n in k1s_here}, "topk")
         lib_ms = device_ms(lambda: torch.topk(ranked, k, dim=-1), "")
         rec["k1"].append({"shape": list(shape), "k": k, "absolute": absolute, "m": m,
                           "device_ms": times, "torch_topk_ms": lib_ms})
@@ -295,25 +365,31 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
             + f"; torch.topk {1e3 * lib_ms:.3f}")
 
     rec["k2"] = []
-    for batch in K2_SIZES:
-        C, r = k2_inputs(gen, batch)
+    for batch, n in K2_SIZES:
+        C, r = k2_inputs(gen, batch, n)
         b64, mu64 = qp_plain(C.double(), r.double())
+        # the earlier build took n = 4 and 10 only
+        k2s_here = [m for m in k2s if m != "k2_before" or n in (4, 10)]
         got = {}
-        for name in exact_k2:
+        for name in [m for m in exact_k2 if m in k2s_here]:
             b = torch.full_like(r, float("nan"))
             mu = torch.full((batch,), float("nan"), device="cuda")
             _k2(libs[name], C, r, b, mu)
             torch.cuda.synchronize()
             for t, t64 in ((b, b64), (mu, mu64)):
                 if not bool(((t.double() - t64).abs() <= 1e-4 * t64.abs() + 1e-5).all()):
-                    raise RuntimeError(f"{name} outside rtol 1e-4 + atol 1e-5 at {batch}")
+                    raise RuntimeError(f"{name} outside rtol 1e-4 + atol 1e-5 at {batch}, "
+                                       f"n={n}")
             got[name] = (b, mu)
-        equal = all(torch.equal(a, c) for a, c in zip(got["k2_now"], got["k2_before"]))
+        equal = (all(torch.equal(a, c) for a, c in zip(got["k2_now"], got["k2_before"]))
+                 if "k2_before" in got else None)
         b, mu = torch.empty_like(r), torch.empty(batch, device="cuda")
-        times = in_turns({n: (lambda n=n: _k2(libs[n], C, r, b, mu)) for n in k2s}, "eq_qp")
-        rec["k2"].append({"systems": batch, "bit_equal_to_before": equal, "device_ms": times})
-        log(f"K2 {batch} systems: now bit-equal to before {equal}; device us "
-            + ", ".join(f"{n} {[round(1e3 * t, 3) for t in ts]}" for n, ts in times.items()))
+        times = in_turns({m: (lambda m=m: _k2(libs[m], C, r, b, mu)) for m in k2s_here},
+                         "eq_qp")
+        rec["k2"].append({"systems": batch, "n": n, "bit_equal_to_before": equal,
+                          "device_ms": times})
+        log(f"K2 {batch} systems, n={n}: now bit-equal to before {equal}; device us "
+            + ", ".join(f"{m} {[round(1e3 * t, 3) for t in ts]}" for m, ts in times.items()))
     C, r = k2_inputs(gen, 101)
     views = []
     for name in ("k2_now", "k2_before"):
@@ -324,6 +400,33 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
     rec["k2_odd_offset_bit_equal"] = all(torch.equal(a, c) for a, c in zip(*views))
     log(f"K2 on views one system in: now bit-equal to before "
         f"{rec['k2_odd_offset_bit_equal']}")
+
+    rec["k3"] = []
+    for C, S, M, k in K3_SHAPES:
+        samples, D = k3_inputs(gen, C, S, M)
+        ref = topk_kernel_matrices_plain(samples, D, k)
+        outs = (torch.empty(C, S, k, device="cuda"), torch.empty(C, S, k, k, device="cuda"),
+                torch.empty(C, S, k, dtype=torch.int32, device="cuda"))
+        # an earlier build may take fewer lanes, and staging does not fit at
+        # every M: a build takes part where it launches
+        here = []
+        for name in k3s:
+            for t in outs:
+                t.fill_(-1)
+            try:
+                _k3(libs[name], samples, D, k, outs)
+            except RuntimeError:
+                continue
+            torch.cuda.synchronize()
+            if not (torch.equal(outs[2], ref[2]) and torch.equal(outs[1], ref[1])):
+                raise RuntimeError(f"{name} differs from the twin at {(C, S, M + 1)}, k={k}")
+            here.append(name)
+        times = in_turns({n: (lambda n=n: _k3(libs[n], samples, D, k, outs)) for n in here},
+                         "topk_kernel_matrices")
+        rec["k3"].append({"shape": [C, S, M + 1], "k": k, "device_ms": times})
+        log(f"K3 {(C, S, M + 1)} k={k}: indices and K_red equal to the twin in {here}; "
+            "device us " + ", ".join(f"{n} {[round(1e3 * t, 3) for t in ts]}"
+                                     for n, ts in times.items()))
 
     x = torch.randn(64, 57, 101, device="cuda", generator=gen)
     idx = torch.empty(64, 57, 10, dtype=torch.int32, device="cuda")

@@ -200,21 +200,25 @@ def test_rollout_kernel_matches_twin(cuda, lanes, T, per_lane):
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    x = torch.randn(4, 129, device="cuda", generator=cuda)
-    with pytest.raises(ValueError):
-        topk_indices(x, 3)                                 # wider than 128
+    x = torch.randn(4, 257, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="256"):
+        topk_indices(x, 3)                                 # wider than 256
+    with pytest.raises(ValueError, match="256"):
+        topk_onehot(x, 3)
     with pytest.raises(ValueError):
         topk_indices(x[:, :100].t(), 3)                    # not contiguous
     with pytest.raises(TypeError):
         topk_indices(x.double(), 3)
-    C = torch.eye(5, device="cuda").expand(3, 5, 5).contiguous()
-    with pytest.raises(ValueError):
-        eq_qp_solve(C, torch.ones(3, 5, device="cuda"))    # n not built
+    C = torch.eye(17, device="cuda").expand(3, 17, 17).contiguous()
+    with pytest.raises(ValueError, match="2 ... 16"):
+        eq_qp_solve(C, torch.ones(3, 17, device="cuda"))   # n past 16
+    with pytest.raises(ValueError, match="2 ... 16"):
+        eq_qp_solve(C[:, :1, :1].contiguous(), torch.ones(3, 1, device="cuda"))
     with pytest.raises(ValueError):
         eq_qp_solve(C[:, :4, :4].contiguous(), torch.ones(3, 4))   # mixed devices
-    with pytest.raises(ValueError):
-        eq_qp_solve_t(torch.ones(25, 3, device="cuda"),
-                      torch.ones(5, 3, device="cuda"))     # n not built
+    with pytest.raises(ValueError, match="2 ... 16"):
+        eq_qp_solve_t(torch.ones(289, 3, device="cuda"),
+                      torch.ones(17, 3, device="cuda"))    # n past 16
     with pytest.raises(ValueError):
         eq_qp_solve_t(torch.ones(16, 3, device="cuda").T.contiguous().T,
                       torch.ones(4, 3, device="cuda"))     # not contiguous
@@ -223,7 +227,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 def _selection_inputs(gen, C, S, M):
     samples = torch.randn(C, S, M + 1, device="cuda", generator=gen)
     samples[..., M] = samples[..., M].abs() * 3 + 0.01
-    samples[0, 1, 7] = float("nan")                      # NaN lane: index M
+    samples[0, 1, 7 % M] = float("nan")                  # NaN lane: index M
     samples[0, 2, :M] = torch.round(samples[0, 2, :M])   # tied |beta|
     samples[-1, -1, 3] = float("inf")                    # wins every round
     f = torch.randn(C, M, 22, device="cuda", generator=gen)
@@ -282,10 +286,10 @@ def test_fused_selection_kernel_divides_exactly_out_of_range(cuda):
 
 
 def test_fused_selection_wrapper_refuses(cuda):
-    samples = torch.randn(4, 8, 130, device="cuda", generator=cuda)
-    D = torch.rand(4, 129, 129, device="cuda", generator=cuda)
-    with pytest.raises(ValueError):
-        topk_kernel_matrices(samples, D, 5)                 # M > 128
+    samples = torch.randn(4, 8, 258, device="cuda", generator=cuda)
+    D = torch.rand(4, 257, 257, device="cuda", generator=cuda)
+    with pytest.raises(ValueError, match="256"):
+        topk_kernel_matrices(samples, D, 5)                 # M > 256
     s = samples[..., :11].contiguous()
     d = D[:, :10, :10].contiguous()
     with pytest.raises(ValueError):
@@ -310,6 +314,163 @@ def test_onehot_topk_kernel_matches_twin(cuda, shape, k, kw):
         ridx, roh = topk_onehot_plain(t, k, **kw)
         assert torch.equal(idx, ridx) and torch.equal(oh, roh)
         assert torch.equal(idx, topk_indices(t, k, **kw))
+
+
+REDUCED_SET_SIZES = range(2, 17)   # N = num_reduced; M = N^2 mother rollouts
+
+
+def test_sizes_that_were_refused_now_launch(cuda):
+    """K2 at n = 5 and K1 over 225 lanes (the record's N = 5 and N = 15
+    cells): both launch their kernel and agree with their twins, where the
+    wrappers once raised."""
+    C, r = _qp_systems(cuda, (8900,), 5)
+    before = eq_qp_solve.launches
+    b, mu = eq_qp_solve(C, r)
+    assert eq_qp_solve.launches == before + 1
+    b64, mu64 = qp_plain(C.double(), r.double())
+    torch.testing.assert_close(b.double(), b64, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(mu.double(), mu64, rtol=1e-4, atol=1e-5)
+    x = _edge_rows(torch.randn(100, 89, 226, device="cuda", generator=cuda), 15)
+    before = topk_indices.launches
+    got = topk_indices(x, 15, absolute=True, slice_to=225)
+    assert topk_indices.launches == before + 1
+    assert torch.equal(got, topk_indices_plain(x, 15, absolute=True, slice_to=225))
+
+
+@pytest.mark.parametrize("N", REDUCED_SET_SIZES)
+def test_topk_kernels_match_twins_at_every_reduced_set_size(cuda, N):
+    """K1 at the inner CEM's shapes for num_reduced N (the fresh rows
+    (100, 89, N^2 + 1) and the iteration-0 batch (1, 100, N^2 + 1), k = N,
+    |x| of the first N^2 lanes), edge rows included, and K5 on the fresh
+    rows: indices and one-hot rows equal to the twins exactly."""
+    M = N * N
+    kw = dict(absolute=True, slice_to=M)
+    for shape in ((100, 89, M + 1), (1, 100, M + 1)):
+        x = _edge_rows(torch.randn(shape, device="cuda", generator=cuda), N)
+        for t in (x, torch.round(x * 2) / 2):
+            before = topk_indices.launches
+            got = topk_indices(t, N, **kw)
+            assert topk_indices.launches == before + 1
+            assert torch.equal(got, topk_indices_plain(t, N, **kw))
+    before = topk_onehot.launches
+    idx, oh = topk_onehot(x, N, **kw)
+    assert topk_onehot.launches == before + 1
+    ridx, roh = topk_onehot_plain(x, N, **kw)
+    assert torch.equal(idx, ridx) and torch.equal(oh, roh)
+
+
+@pytest.mark.parametrize("N", REDUCED_SET_SIZES)
+def test_eq_qp_kernels_match_twins_at_every_reduced_set_size(cuda, N):
+    """K2 and its lane-major entry at n = N on the inner CEM's 8,900 and
+    10,000 systems (and 33, off a block): within rtol 1e-4 + atol 1e-5 of
+    the twin in float64 (the bound of the n = 4 and 10 cases: C = K + 0.05 I
+    with K a Laplace kernel matrix, positive definite with row sums at most
+    n, so cond(C) <= (n + 0.05) / 0.05 <= 321), and the lane-major entry
+    bit-equal to K2."""
+    for batch in (33, 8900, 10000):
+        C, r = _qp_systems(cuda, (batch,), N)
+        before = (eq_qp_solve.launches, eq_qp_solve_t.launches)
+        b, mu = eq_qp_solve(C, r)
+        b_t, mu_t = eq_qp_solve_t(C.reshape(batch, N * N).T.contiguous(), r.T.contiguous())
+        assert (eq_qp_solve.launches, eq_qp_solve_t.launches) == (before[0] + 1,
+                                                                   before[1] + 1)
+        b64, mu64 = qp_plain(C.double(), r.double())
+        torch.testing.assert_close(b.double(), b64, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(mu.double(), mu64, rtol=1e-4, atol=1e-5)
+        assert torch.equal(b_t, b.T) and torch.equal(mu_t, mu)
+    # a view one system in: spans that are not 16-byte aligned
+    bv, muv = eq_qp_solve(C[1:], r[1:])
+    bc, muc = eq_qp_solve(C[1:].clone(), r[1:].clone())
+    assert torch.equal(bv, bc) and torch.equal(muv, muc)
+
+
+@pytest.mark.parametrize("N", REDUCED_SET_SIZES)
+def test_fused_selection_kernel_matches_twin_at_every_reduced_set_size(cuda, N):
+    """K3 at the static workload's fused selection for num_reduced N,
+    (100, 100, N^2 + 1) with k = N, NaN, tied and infinite rows included:
+    indices and K_red equal to the twin, row sums within rtol 1e-5 + atol
+    1e-6; and with one batch shared by every candidate (stride 0)."""
+    M = N * N
+    samples, D = _selection_inputs(cuda, 100, 100, M)
+    before = topk_kernel_matrices.launches
+    got = topk_kernel_matrices(samples, D, N)
+    assert topk_kernel_matrices.launches == before + 1
+    ref = topk_kernel_matrices_plain(samples, D, N)
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+    shared = samples[:1].expand(100, 100, M + 1)
+    for g, r in zip(topk_kernel_matrices(shared, D, N),
+                    topk_kernel_matrices(shared.contiguous(), D, N)):
+        assert torch.equal(g, r)
+
+
+def test_fused_selection_kernel_divides_exactly_out_of_range_from_device_memory(cuda):
+    """Past the staged widths K3 reads D's selected rows from device memory
+    and checks each row's range as it reads it: out-of-range rows and sigmas
+    still divide with / and K_red stays bit-equal to the twin's."""
+    C, S, M, k = 3, 40, 225, 15
+    samples, D = _selection_inputs(cuda, C, S, M)
+    samples[1, :5, M] = 1e-25
+    samples[1, 5:10, M] = 1e25
+    D[2, :, 7] = 1e30
+    got = topk_kernel_matrices(samples, D, k)
+    ref = topk_kernel_matrices_plain(samples, D, k)
+    assert torch.equal(got[2], ref[2]) and torch.equal(got[1], ref[1])
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("N", [5, 15])
+@pytest.mark.parametrize("selection", ["xla", "fused", "xt"])
+def test_record_cell_outer_iteration_cuda_matches_cpu(cuda, monkeypatch, N, selection):
+    """One outer iteration of static mmd_opt with Beta noise 0.3 at the
+    record's N = 5 and N = 15 (M = 25 and 225 mother rollouts), at a cut
+    budget (16 candidates, inner CEM 16 x 4), on the card against the CPU
+    on the same draws (the CPU run records its Beta draws):
+
+    - the returned candidate's coefficients within the bounds of the N = 4
+      cases above;
+    - the inner CEM on the card, given the CPU run's own inputs (mother
+      rollouts, their refits and the inner draws), selects the same rollouts
+      and gives beta and sigma within 1e-5 and the residuals within 1e-6
+      (measured on an H100: 1.7e-6, 3.3e-6 and 1.8e-7).
+
+    risk_obs is not held: these candidates' projection residuals are
+    float32 round-off (6e-6 to 1.2e-5), the card sorts them in another order
+    than the CPU, and the Beta draws go to a candidate by its place in that
+    order, so a candidate's mother rollouts differ between the two runs
+    (ROADMAP Queue 3)."""
+    from mpc_mmd_tpu_torch import static_workload
+    from mpc_mmd_tpu_torch import solver as solver_mod
+    monkeypatch.setenv("MPC_MMD_SELECTION", selection)
+    cfg = static_workload(num_reduced=N, num_obs=2, noise="beta", noise_level=0.3)
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=16, maxiter_cem=1),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=16,
+                                                   maxiter=4))
+    arrays, record = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg, 0)
+    t = np.linspace(0.0, 15.0, 100)
+    xo = np.stack([8.0 + 0 * t, 13.0 + 0 * t])
+    yo = np.stack([1.75 + 0 * t, 0.6 + 0 * t])
+    args = ([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
+            np.diag([20.0] * 4 + [100.0] * 4), xo, yo, 15.0)
+    inner = solver_mod.select_reduced_set_batched
+    seen = []
+    monkeypatch.setattr(solver_mod, "select_reduced_set_batched",
+                        lambda c, *a, **kw: seen.append(a) or inner(c, *a, **kw))
+    h = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(0, *args)
+    qp = eq_qp_solve_t if selection == "xt" else eq_qp_solve
+    before = qp.launches
+    g = Solver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
+    assert qp.launches == before + cfg.beta_cem.maxiter
+    torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
+    cpu_in = seen[0]
+    ref = inner(cfg, *cpu_in)
+    got = inner(cfg, *(t.cuda() for t in cpu_in[:4]), seen[1][4])
+    for name in ("x_red", "y_red"):
+        assert torch.equal(getattr(got, name).cpu(), getattr(ref, name))
+    for name, tol in (("beta", 1e-5), ("sigma", 1e-5), ("res", 1e-6)):
+        torch.testing.assert_close(getattr(got, name).cpu(), getattr(ref, name),
+                                   rtol=0, atol=tol)
 
 
 def test_dynamic_fused_outer_iteration_cuda_matches_cpu(cuda, monkeypatch):

@@ -43,6 +43,11 @@ def _topk_both(x, k, **kw):
     ((4, 64), 7, {}),                                     # elite pick
     ((7, 33), 5, {}),
     ((2, 5, 40), 40, {}),                                 # k == width
+    # N = 2, the record's N = 5 and 15 cells and N = 16 (M = N^2 ranked lanes)
+    ((4, 16, 5), 2, dict(absolute=True, slice_to=4)),
+    ((3, 16, 26), 5, dict(absolute=True, slice_to=25)),
+    ((2, 8, 226), 15, dict(absolute=True, slice_to=225)),
+    ((2, 8, 257), 16, dict(absolute=True, slice_to=256)),
 ])
 def test_topk_twin_matches_pallas(rng, shape, k, kw):
     x = rng.normal(0, 1, shape).astype(np.float32)
@@ -117,19 +122,24 @@ def _spd(rng, batch, n):
     return C.astype(np.float32), rng.normal(0, 1, batch + (n,)).astype(np.float32)
 
 
-def _beta_qp_systems(rng, batch, n):
+def _beta_qp_systems(rng, batch, n, wide=False):
     """Systems as the inner CEM builds them: rho K + reg I with K a Laplace
-    kernel matrix of random features (rho = 1, reg = 0.05)."""
+    kernel matrix of random features (rho = 1, reg = 0.05).  ``wide``: a
+    bandwidth of 1000-2000, past the features' distances, so K is near
+    rank one and cond(C) near its ceiling (n + 0.05) / 0.05."""
     f = rng.normal(0, 1, batch + (n, 22))
     d = np.abs(f[..., :, None, :] - f[..., None, :, :]).sum(-1)
-    sigma = np.abs(rng.normal(0, 4.5, batch))[..., None, None] + 0.01
+    if wide:
+        sigma = (1000.0 * (1.0 + rng.random(batch)))[..., None, None]
+    else:
+        sigma = np.abs(rng.normal(0, 4.5, batch))[..., None, None] + 0.01
     K = np.exp(-d / sigma)
     C = K + 0.05 * np.eye(n)
     r = K.sum(-1) / 100.0
     return C.astype(np.float32), r.astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [4, 10])
+@pytest.mark.parametrize("n", [4, 10, 2, 5, 15, 16])
 @pytest.mark.parametrize("build", [_spd, _beta_qp_systems])
 def test_eq_qp_twin_matches_pallas_and_linalg(rng, n, build):
     C, r = build(rng, (3, 19), n)
@@ -145,18 +155,42 @@ def test_eq_qp_twin_matches_pallas_and_linalg(rng, n, build):
     np.testing.assert_allclose(b.sum(-1).numpy(), 1.0, atol=1e-4)
 
 
-def test_eq_qp_twin_matches_float64_solve(rng):
-    """The block elimination solves the KKT system [[C, 1], [1^T, 0]]."""
-    C, r = _beta_qp_systems(rng, (50,), 10)
-    b, mu = eq_qp_solve(torch.from_numpy(C).double(), torch.from_numpy(r).double())
-    kkt = np.zeros((50, 11, 11))
-    kkt[:, :10, :10] = C
-    kkt[:, :10, 10] = 1.0
-    kkt[:, 10, :10] = 1.0
-    rhs = np.concatenate((r, np.ones((50, 1))), axis=1)
+def _kkt_solve(C, r):
+    """(b, mu) of the KKT system [[C, 1], [1^T, 0]] [b; mu] = [r; 1] in
+    float64 (numpy)."""
+    n = C.shape[-1]
+    kkt = np.zeros(C.shape[:-2] + (n + 1, n + 1))
+    kkt[..., :n, :n] = C
+    kkt[..., :n, n] = 1.0
+    kkt[..., n, :n] = 1.0
+    rhs = np.concatenate((r, np.ones(r.shape[:-1] + (1,))), axis=-1)
     sol = np.linalg.solve(kkt, rhs[..., None])[..., 0]
-    np.testing.assert_allclose(b.numpy(), sol[:, :10], rtol=1e-9, atol=1e-9)
-    np.testing.assert_allclose(mu.numpy(), sol[:, 10], rtol=1e-9, atol=1e-9)
+    return sol[..., :n], sol[..., n]
+
+
+@pytest.mark.parametrize("n", [10, 2, 5, 15, 16])
+def test_eq_qp_twin_matches_float64_solve(rng, n):
+    """The block elimination solves the KKT system [[C, 1], [1^T, 0]]: run
+    in float64, to 1e-9.  Run in float32 (the kernel's type), each system
+    within n cond(C) eps_float32 of the float64 solution, relative to the
+    larger of 1 and its largest entry: the bound of a backward-stable
+    Cholesky, which the twin meets with a margin of 2 or more at every n
+    here, on systems as the inner CEM builds them and on wide-bandwidth
+    ones whose cond(C) reaches 250-290 at n = 15 and 16."""
+    C, r = _beta_qp_systems(rng, (50,), n)
+    b, mu = eq_qp_solve(torch.from_numpy(C).double(), torch.from_numpy(r).double())
+    sol_b, sol_mu = _kkt_solve(C, r)
+    np.testing.assert_allclose(b.numpy(), sol_b, rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(mu.numpy(), sol_mu, rtol=1e-9, atol=1e-9)
+    eps = np.finfo(np.float32).eps
+    for C, r in (_beta_qp_systems(rng, (50,), n),
+                 _beta_qp_systems(rng, (50,), n, wide=True)):
+        b, mu = eq_qp_solve(torch.from_numpy(C), torch.from_numpy(r))
+        sol_b, sol_mu = _kkt_solve(C.astype(np.float64), r.astype(np.float64))
+        scale = np.maximum(1.0, np.maximum(np.abs(sol_b).max(-1), np.abs(sol_mu)))
+        tol = n * np.linalg.cond(C.astype(np.float64)) * eps * scale
+        assert np.all(np.abs(b.numpy() - sol_b).max(-1) <= tol)
+        assert np.all(np.abs(mu.numpy() - sol_mu) <= tol)
 
 
 def test_eq_qp_wrapper_validates():
@@ -166,7 +200,7 @@ def test_eq_qp_wrapper_validates():
         eq_qp_solve_t(torch.zeros(9, 5), torch.zeros(3, 4))
 
 
-@pytest.mark.parametrize("n", [3, 4, 10])
+@pytest.mark.parametrize("n", [3, 4, 10, 2, 5, 15, 16])
 def test_lane_major_qp_twin_matches_pallas(rng, n):
     """K2's lane-major entry on CPU tensors (its twin: the row-major twin
     on transposed views) against the Pallas kernel's lane-major entry in
@@ -200,7 +234,11 @@ def _selection_inputs(rng, C, S, M):
     return samples, D + np.swapaxes(D, 1, 2)
 
 
-@pytest.mark.parametrize("C,S,M,k", [(2, 100, 9, 3), (1, 130, 25, 5)])
+@pytest.mark.parametrize("C,S,M,k", [(2, 100, 9, 3), (1, 130, 25, 5),
+                                     # N = 2, the record's N = 5 and 15
+                                     # cells and N = 16
+                                     (2, 16, 4, 2), (2, 16, 25, 5),
+                                     (2, 8, 225, 15), (2, 8, 256, 16)])
 def test_fused_selection_twin_matches_pallas(rng, C, S, M, k):
     samples, D = _selection_inputs(rng, C, S, M)
     ref = j_fused(jnp.asarray(samples), jnp.asarray(D), k, interpret=True)
@@ -253,16 +291,19 @@ def test_onehot_topk_twin_matches_pallas(rng, shape, k, absolute):
 
 
 def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path):
-    """The A/B tool's variants are textual changes of csrc/topk.cu and
-    csrc/eq_qp.cu: each must find its anchor and change the source."""
+    """The A/B tool's variants are textual changes of csrc/topk.cu,
+    csrc/eq_qp.cu and csrc/topk_kernel.cu: each must find its anchor and
+    change the source."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
     for name in ("topk.cu", "eq_qp.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]
+    assert srcs["k3_now"][1] == (_build.CSRC / "topk_kernel.cu").read_text()
+    assert "k3_global" in srcs or "k3_staged" in srcs
     for name, (kind, src) in srcs.items():
-        if name not in ("k1_now", "k2_now", "k1_before", "k2_before", "micro"):
+        if not name.endswith(("_now", "_before")) and name != "micro":
             assert src != srcs[f"{kind}_now"][1], name
 
 

@@ -17,6 +17,7 @@ iterations still agree.
 """
 
 import dataclasses
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,7 +31,7 @@ from mpc_mmd_tpu import dynamics as jdyn
 from mpc_mmd_tpu_torch import Solver as TSolver
 from mpc_mmd_tpu_torch.noise import FixedNoise
 from mpc_mmd_tpu_torch.qp import workspace_from_numpy
-from test_torch_noise import jax_draws, to_torch_cfg
+from test_torch_noise import jax_beta, jax_draws, to_torch_cfg
 
 torch.set_num_threads(1)
 
@@ -139,6 +140,55 @@ def test_one_outer_iteration_of_the_xt_and_g_selections_matches_jax(
     through the whole solve, both packages reading it at call time."""
     monkeypatch.setenv("MPC_MMD_SELECTION", selection)
     _assert_one_iteration(*_solve_both(1, 42, 0))
+
+
+@functools.lru_cache(maxsize=None)
+def _record_cell_jax(N):
+    """The JAX solve of one outer iteration of the record's static cell at
+    N (Beta noise 0.3) at a cut budget (24 candidates, inner CEM 16 x 2), on
+    the first blocking scenario; computed once per N for both selections."""
+    cfg = jc.static_workload(num_reduced=N, num_obs=2, noise="beta", noise_level=0.3)
+    cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=24, maxiter_cem=1),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=16,
+                                                   maxiter=2))
+    js = JSolver(cfg)
+    xts, yts = blocking_scenarios(js.ws.tot_time, 1)
+    xo, yo = np.asarray(xts[0]), np.asarray(yts[0])
+    ref = js.solve(42, jnp.asarray(INIT), jnp.asarray(MEAN), jnp.asarray(COV),
+                   jnp.asarray(xo), jnp.asarray(yo), 15.0)
+    return cfg, js.ws, ref, xo, yo
+
+
+@pytest.mark.parametrize("N", [5, 15])
+@pytest.mark.parametrize("selection", ["xla", "fused"])
+def test_one_outer_iteration_of_the_record_cells_matches_jax(monkeypatch, N, selection):
+    """The JAX record's static acceptance cells at N = 5 and N = 15 (M = 25
+    and 225 mother rollouts, Beta noise 0.3), the port's "xla" and "fused"
+    selections against the JAX package's default one on its own draws: the
+    controls within 1e-3 and the risks, CEM moments and weights at the
+    bounds of tests/test_torch_modes.py's Beta case (rtol 1e-3 + atol 1e-3;
+    beta rtol 1e-3 + atol 1e-4)."""
+    monkeypatch.delenv("MPC_MMD_SELECTION", raising=False)
+    monkeypatch.delenv("MPC_MMD_FUSED_CEM", raising=False)
+    cfg, ws, ref, xo, yo = _record_cell_jax(N)
+    monkeypatch.setenv("MPC_MMD_SELECTION", selection)
+    ts = TSolver(to_torch_cfg(cfg), device="cpu",
+                 noise=FixedNoise(jax_draws(cfg, 42), "cpu", jax_beta),
+                 ws=workspace_from_numpy({n: np.asarray(getattr(ws, n))
+                                          for n in ws._fields}, "cpu"))
+    got = ts.solve(42, INIT, MEAN, COV, xo, yo, 15.0)
+    a_r, s_r = _controls(ws, cfg, ref.cx, ref.cy)
+    a_m, s_m = _controls(ws, cfg, jnp.asarray(got.cx.numpy()),
+                         jnp.asarray(got.cy.numpy()))
+    assert np.max(np.abs(a_r - a_m)) <= 1e-3
+    assert np.max(np.abs(s_r - s_m)) <= 1e-3
+    for name in ("risk_obs", "risk_lane", "mean_param", "cov_param", "res", "sigma"):
+        np.testing.assert_allclose(getattr(got, name).numpy(),
+                                   np.asarray(getattr(ref, name)),
+                                   rtol=1e-3, atol=1e-3, err_msg=name)
+    assert got.beta.shape == (N,)
+    np.testing.assert_allclose(got.beta.numpy(), np.asarray(ref.beta),
+                               rtol=1e-3, atol=1e-4)
 
 
 def _assert_one_iteration(cfg, ws, ref, got):

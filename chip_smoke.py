@@ -203,6 +203,35 @@ Phases, each of which must pass:
    22,500 lanes.  b's solves and c's commands run with the launch counts
    set to 0 just before and read just after; a's launches are
    comparisons and are not counted.
+15. the JAX key chain's draws: ``noise.JaxNoise``, the default noise of
+   every path above, draws through kernel (a) ``ops.prng_draws`` (keys to
+   bits, uniforms or normals) and kernel (b) ``ops.prng_beta`` (Beta),
+   CUDA source ``csrc/prng.cu``.  Every exact launch check above counts
+   them too (``draw_launches``: per outer iteration one draw for the
+   rollout noise, one for the CEM resample, one Beta launch under Beta
+   noise; one more draw a Frenet solve; a fresh solver's first solve adds
+   the solver-fixed draws), and ``draw_shapes`` gives their shapes:
+   a. kernel (a) against its twin at every path shape (a solve's rollout
+      noise, 3 keys a scenario of R x T normals; its resample, a key a
+      scenario; a Frenet solve's initial states) and at the validator's
+      chunks (768 and 528 keys x 50,000: 256 solves x 1000 rollouts x 50
+      steps x 3 families): bits equal, uniforms and normals within 1 ulp
+      (the twin's double-rounded fma);
+   b. kernel (b) against its twin at Path A's Beta 0.2 shape (2 keys x 100
+      candidates x 500), its chunk of 4, Path F's at N = 5 and 15, and a
+      Beta validator chunk (512 keys x 50,000): within rtol 1e-5 + atol
+      1e-6;
+   c. both against ``jax.random``'s draws for fixed keys
+      (``mpc_mmd_tpu_torch/data/prng_reference.npz``, the card has no
+      JAX): bits and uniforms equal, normals within 4 ulp, Beta within
+      rtol 1e-5 + atol 1e-6;
+   d. the full-width fastrt ``mmd_opt`` solve of idx_mpc 5 on its default
+      noise against the JAX package's solve stored in that file: the
+      controls within 1e-3, both runs' costs per outer iteration printed;
+   e. both kernels' device time, bound and library call (``torch.randn``
+      with a generator; ``torch._standard_gamma``), then the validator's
+      time at 1200 x 1000 and the fastrt and Path A solve latencies on the
+      new draws.
 
 Prints the kernels' JSON record and the card's nvidia-smi line, and as the
 last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
@@ -221,9 +250,15 @@ times, all in milliseconds at ``shape``:
 - ``plain_ms``: the same for the plain PyTorch twin.
 - ``device_ms``: the kernel's own device time per launch, from
   ``torch.profiler`` over 20 launches.
-- ``bound_ms``: the larger of the bytes (each input read once, each output
-  written once) over 3.35 TB/s and the float32 operations over 67 TFLOP/s
-  (``bound_by`` says which).  K2 needs only the lower triangle of each
+- ``bound_ms``: the largest of the bytes (each input read once, each output
+  written once) over 3.35 TB/s, the float32 operations over 67 TFLOP/s and
+  the integer operations (the draw kernels' hashes) over 16.75 T/s, a
+  quarter of the float32 rate (``bound_by`` says which: "operations" for
+  either of the last two).  The Beta kernel's candidates share their key
+  chains (the keys, the bits and the normals of a round depend only on
+  the key, the element and the round), so its bound counts that work once
+  a (key, element), over the rounds some candidate takes, and only the
+  tests a candidate's own.  K2 needs only the lower triangle of each
   SPD system C: the lane-major entry, whose C rows lie apart, counts those
   n(n+1)/2 rows of B words; the row-major entry counts all of C, whose
   triangles share each 32-byte sector the card fetches.
@@ -256,6 +291,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+TIMES = {}      # host seconds of the timed runs, by label, for phase 15's summary
 
 
 def fail(msg):
@@ -284,16 +320,21 @@ def cuda_ms(torch, fn, reps=50, warmup=3):
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+# H100 SXM 32-bit integer operations: 64 INT32 lanes an SM against 128
+# float32 lanes, whose fused multiply-add counts twice in the 67 TFLOP/s
+INT32_OPS_PER_S = FP32_OPS_PER_S / 4
 
 
-def bound(nbytes, ops):
-    """Least milliseconds the card could take: the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def bound(nbytes, ops, int_ops=0):
+    """Least milliseconds the card could take: the largest of the bytes over
+    the memory rate, the float32 operations over the float32 rate and the
+    integer operations over the INT32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = max(ops / FP32_OPS_PER_S, int_ops / INT32_OPS_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def profiled_ms(torch, fn, reps=20, match=None):
+def profiled_ms(torch, fn, reps=20, match=None, least=None):
     """Device milliseconds per call of ``fn`` from ``torch.profiler``.
 
     With ``match`` (a kernel's name), the device events whose name holds it
@@ -301,9 +342,11 @@ def profiled_ms(torch, fn, reps=20, match=None):
     number is the kernel's own device time per launch.  The profiler now and
     then records no device event in a session, or drops a launch's record:
     up to five sessions are tried for one that records all ``reps``; failing
-    that, the fullest session is used if it recorded at least half of them
-    (never more than ``reps``: more would mean ``match`` names another
-    kernel too).  Without ``match``, every device event of the window
+    that, the fullest session is used if it recorded at least ``least`` of
+    them (default half; never more than ``reps``: more would mean ``match``
+    names another kernel too).  A library call's kernel is timed with
+    ``least`` 1: its name is matched exactly, and the profiler has kept
+    only 4 of 20 records of a 64-element ``torch.randn`` in five sessions.  Without ``match``, every device event of the window
     counts, over ``reps``: a library call's device time, whatever kernels
     it launches.  Each session opens with a short ``spin_kernel``, left out
     of the count, so that no launch under test is the session's first.
@@ -332,7 +375,8 @@ def profiled_ms(torch, fn, reps=20, match=None):
         if ev and (match is None or len(ev) == reps):
             break
     names = sorted({e.name for e in best})
-    if not best or (match is not None and 2 * len(best) < reps):
+    least = reps / 2 if least is None else least
+    if not best or (match is not None and len(best) < least):
         fail(f"profiler: at most {len(best)} device events named {match!r} for "
              f"{reps} launches in 5 sessions ({names})")
     if match is not None and len(best) < reps:
@@ -396,6 +440,52 @@ def check_launch_shapes(tables, per_solve):
             if per_solve[path].get(name, 0) != want:
                 fail(f"{name} on {path}: {per_solve[path].get(name)} launches per "
                      f"solve, but its shapes add up to {want}")
+
+
+def draw_launches(cfg, n=1, frenet=False, fresh=False):
+    """The draw kernels' launches in ``n`` solves (or chunks) of ``cfg`` on
+    its default noise (``noise.JaxNoise``): per outer iteration one
+    ``prng_draws`` for the rollout noise (``det`` rolls nothing out) and
+    one for the outer CEM's resample, and under Beta noise one
+    ``prng_beta``; a Frenet solve one ``prng_draws`` more for its noisy
+    initial states.  A fresh solver's first solve also makes the
+    solver-fixed draws: the initial batch and, in ``mmd_opt``, the inner
+    CEM's samples0, u and z (samples0 and z under "exact")."""
+    outer, det = cfg.cem.maxiter_cem, cfg.risk.mode == "det"
+    draws = n * (outer * (1 if det else 2) + (1 if frenet else 0))
+    if fresh:
+        draws += 1 + ((2 if cfg.solve_strategy == "exact" else 3)
+                      if cfg.risk.mode == "mmd_opt" else 0)
+    beta = 0 if det or cfg.noise.kind != "beta" else n * outer
+    return {"prng_draws": draws, "prng_beta": beta}
+
+
+def draw_shapes(paths):
+    """The draw kernels' launch shapes on each path, as ``launch_shapes``
+    gives K1's: ``paths`` maps a path's name to (config, Frenet?,
+    scenarios per chunk).  Returns (draws, beta): {(keys, n): {path:
+    launches per solve}} and {(keys, candidates, n, P): {...}}.  A chunk
+    draws its scenarios' keys in one launch: the rollout noise 3 keys a
+    scenario of R x T normals, the resample a key a scenario, the Beta
+    draws 2 keys a scenario over every candidate's R x T."""
+    from mpc_mmd_tpu_torch.noise import init_state_count
+    dr, be = {}, {}
+
+    def add(table, key, path, count):
+        at = table.setdefault(key, {})
+        at[path] = at.get(path, 0) + count
+
+    for path, (cfg, frenet, chunk) in paths.items():
+        outer, R, T = cfg.cem.maxiter_cem, cfg.risk.num_reduced, cfg.horizon.num_prime
+        nb, c = cfg.cem.num_batch, cfg.cem
+        if cfg.risk.mode != "det":
+            add(dr, (3 * chunk, R * T), path, outer)
+            if cfg.noise.kind == "beta":
+                add(be, (2 * chunk, nb, R * T, T), path, outer)
+        add(dr, (chunk, (nb - c.ellite_num) * c.num_params), path, outer)
+        if frenet:
+            add(dr, (1, init_state_count(cfg) * 4), path, 1)
+    return dr, be
 
 
 def check_topk(torch, ops, topk_plain, gen, shapes):
@@ -632,13 +722,20 @@ def measure(torch, name, rec):
     its ``cases`` (K1's and K2's other path shapes)."""
     for case in rec.get("cases", [rec]):
         case["device_ms"], names = profiled_ms(torch, case["call"], match=case["match"])
-        case["bound_ms"], case["bound_by"] = bound(case["nbytes"], case["ops"])
+        case["bound_ms"], case["bound_by"] = bound(case["nbytes"], case["ops"],
+                                                   case.get("int_ops", 0))
         what, lib = case["library"]
-        case["library_ms"] = profiled_ms(torch, lib)[0] if lib else None
+        # a library call named by its kernel is held to one device event a
+        # call (``profiled_ms``'s retries); unnamed, every event counts
+        case["library_ms"] = (profiled_ms(torch, lib, match=case.get("library_match"),
+                                          least=1)[0]
+                              if lib else None)
         per_solve = case.get("launches_per_solve")
         log(f"{name} at {case['shape']}: device {case['device_ms']:.4f} ms per launch "
             f"({names[0][:60]}), bound {case['bound_ms']:.4f} ms by {case['bound_by']} "
-            f"({case['nbytes'] / 1e6:.2f} MB, {case['ops']:.3g} ops), "
+            f"({case['nbytes'] / 1e6:.2f} MB, {case['ops']:.3g} ops"
+            + (f", {case['int_ops']:.3g} integer ops" if case.get("int_ops") else "")
+            + "), "
             f"{100 * case['bound_ms'] / case['device_ms']:.1f} % of it; library "
             f"{what}: {case['library_ms']}"
             + (f"; launches per solve {per_solve}" if per_solve else ""))
@@ -646,9 +743,12 @@ def measure(torch, name, rec):
         rec[key] = rec.get("cases", [rec])[0][key]
 
 
-def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t):
+def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
+                  kd, kb):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
-    pair (main path shape, validator shape)."""
+    pair (main path shape, validator shape).  The draw kernels replace no
+    TPU kernel: ``replaces`` names the JAX package's draw site and the
+    XLA lowering they stand for."""
     record = []
     for fn, src_file, tpu, (rec, largest) in (
             (ops.topk_indices, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:116",
@@ -662,7 +762,13 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t):
             (ops.topk_onehot, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:146",
              (k5, None)),
             (ops.eq_qp_solve_t, "eq_qp.cu", "mpc_mmd_tpu/ops/qp_pallas.py:85",
-             (k2t, None))):
+             (k2t, None)),
+            (ops.prng_draws, "prng.cu", "mpc_mmd_tpu/dynamics.py:91 (jax.random.normal "
+             "through XLA's threefry2x32, jax/_src/prng.py:1092; no Pallas kernel)",
+             (kd, None)),
+            (ops.prng_beta, "prng.cu", "mpc_mmd_tpu/dynamics.py:110 (jax.random.beta "
+             "through XLA, jax/_src/random.py:1133,1398; no Pallas kernel)",
+             (kb, None))):
         name = fn.__name__
         row = {"name": name, "route": "cuda",
                "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
@@ -687,6 +793,196 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t):
                 "bound_by")}
         record.append(row)
     return record
+
+
+# Work counts of the draw kernels (csrc/prng.cu), for their bounds: about 73
+# integer operations a threefry hash (20 rounds of add, rotate, xor and 5 key
+# injections); about 50 float32 operations a normal (log1pf, sqrt, the
+# erfinv polynomial's 8 fused multiply-adds counted twice).  The Beta
+# function's keys and draws depend only on the key, the element and the
+# round, so its candidates share them and the bound counts them once a
+# (key, element) chain: 2 hashes a key (the root split), 8 a chain outside
+# the loops (element keys, each gamma's split and final uniform) with about
+# 45 float operations (the final uniforms' log1p), 4 hashes an outer round
+# and 3 and a normal an inner one, over the rounds some candidate takes.
+# A candidate's own work: about 110 float operations an element (d, c,
+# logs, exps, the ratio), 60 an outer round (squeeze and log tests) and 2
+# an inner one (the fused multiply-add and its test)
+HASH_OPS, NORMAL_OPS = 73, 50
+CHAIN_HASHES, CHAIN_OPS = 8, 45
+BETA_OPS, OUTER_OPS, INNER_OPS = 110, 60, 2
+
+
+def ulp_gap(torch, a, b):
+    """Largest distance in float32 ulps between two tensors."""
+    ia, ib = (t.contiguous().view(torch.int32).to(torch.int64) for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+def random_keys(torch, gen, dev, K):
+    return torch.randint(0, 2 ** 32, (K, 2), generator=gen, device=dev,
+                         dtype=torch.int64)
+
+
+def check_prng_draws(torch, ops, dev, gen, shapes):
+    """Kernel (a) against its twin on the card at every path shape
+    (``draw_shapes``; the first is fastrt's rollout noise) and at the
+    validator's: bits equal, uniforms and normals within 1 ulp (equal but
+    where the twin's double-rounded fma meets a tie).  Returns the first
+    shape's record, with the others under ``cases``."""
+    from mpc_mmd_tpu_torch import prng
+    cases, err, worst = [], 0.0, 0
+    lib_gen = torch.Generator(device=dev).manual_seed(1)
+    for (K, n), at in shapes.items():
+        keys = random_keys(torch, gen, dev, K)
+        if not torch.equal(ops.prng_draws(keys, n, "bits"), prng.draws(keys, n, "bits")):
+            fail(f"prng_draws: bits differ from the twin's at {K} keys x {n}")
+        for dist in ("uniform", "normal"):
+            got, ref = ops.prng_draws(keys, n, dist), prng.draws(keys, n, dist)
+            gap = ulp_gap(torch, got, ref)
+            worst = max(worst, gap)
+            err = max(err, float((got - ref).abs().max()))
+            if gap > 1:
+                fail(f"prng_draws: {dist} {gap} ulp from the twin's at {K} keys x {n}")
+        cases.append(dict(
+            shape=f"{K} keys x {n} normals",
+            call=(lambda keys=keys, n=n: ops.prng_draws(keys, n)), match="draws_kernel",
+            nbytes=16 * K + 4 * K * n, int_ops=HASH_OPS * K * n, ops=NORMAL_OPS * K * n,
+            launches_per_solve=at,
+            library=("torch.randn with a generator",
+                     lambda K=K, n=n: torch.randn((K, n), generator=lib_gen, device=dev)),
+            library_match="distribution_elementwise_grid_stride_kernel",
+            plain_ms=cuda_ms(torch, lambda keys=keys, n=n: prng.draws(keys, n), reps=10)))
+    torch.cuda.synchronize()
+    main = dict(cases[0], max_abs_err=err, ulp=worst, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
+
+
+def check_prng_beta(torch, ops, dev, gen, shapes):
+    """Kernel (b) against its twin on the card at every path shape (the
+    first is Path A's): Beta draws within rtol 1e-5 + atol 1e-6, with the
+    parameters of a solve (2 and 5 times a 1e-8-floored |u|, u = 0 at the
+    first step) and the rejection rounds of this data, counted by the
+    twin, in the bound (the shared key chains' rounds once, see
+    ``CHAIN_HASHES``).  Returns the first shape's record, with the others
+    under ``cases``."""
+    from mpc_mmd_tpu_torch import prng
+    cases, err, flips = [], 0.0, 0
+    for (K, B, n, P), at in shapes.items():
+        keys = random_keys(torch, gen, dev, K)
+        u = 0.6 * torch.rand((K, B, P), generator=gen, device=dev)
+        u[..., 0] = 0.0
+        alpha, beta = (c * (u + 1e-8) for c in (2.0, 5.0))
+        got = ops.prng_beta(keys, alpha, beta, n)
+        tally = {}
+        ref = prng.beta_draws(keys, alpha, beta, n, tally)
+        d = (got - ref).abs()
+        bad = d > 1e-5 * ref.abs() + 1e-6
+        if bool(bad.any()) or not bool(got.isfinite().all()):
+            at_bad = bad.nonzero()[:4].tolist()
+            fail(f"prng_beta: {int(bad.sum())} draws outside rtol 1e-5 + atol 1e-6 "
+                 f"of the twin at {K} keys x {B} x {n}: at {at_bad} kernel "
+                 f"{[float(got[tuple(i)]) for i in at_bad]}, twin "
+                 f"{[float(ref[tuple(i)]) for i in at_bad]}, alpha "
+                 f"{[float(alpha[i[0], i[1], i[2] % P]) for i in at_bad]}")
+        err, flips = max(err, float(d.max())), flips + int((d > 1e-3).sum())
+        elems, chains = K * B * n, K * n
+        inner, inner_chains = tally.get("inner", 0), tally.get("inner_chains", 0)
+        hashes = (2 * K + CHAIN_HASHES * chains + 4 * tally["outer_chains"]
+                  + 3 * inner_chains)
+        shape = (2, K, B, n)
+        a_full = torch.stack((alpha, beta))[:, :, :, None, :].expand(
+            2, K, B, n // P, P).reshape(shape).contiguous()
+        cases.append(dict(
+            shape=f"{K} keys x {B} x {n}, P = {P} (rounds an element: "
+                  f"{tally['outer'] / elems:.3f} outer, {inner / elems:.3f} inner, "
+                  f"both gammas; a chain {tally['outer_chains'] / chains:.3f} / "
+                  f"{inner_chains / chains:.3f})",
+            call=(lambda keys=keys, a=alpha, b=beta, n=n: ops.prng_beta(keys, a, b, n)),
+            match="beta_kernel", nbytes=16 * K + 8 * K * B * P + 4 * elems,
+            int_ops=HASH_OPS * hashes,
+            ops=BETA_OPS * elems + OUTER_OPS * tally["outer"] + INNER_OPS * inner
+            + CHAIN_OPS * chains + NORMAL_OPS * inner_chains,
+            launches_per_solve=at,
+            library=("torch._standard_gamma of both halves' parameters",
+                     lambda a=a_full: torch._standard_gamma(a)),
+            library_match="gamma_cuda_kernel",
+            plain_ms=cuda_ms(torch, lambda keys=keys, a=alpha, b=beta, n=n:
+                             prng.beta_draws(keys, a, b, n), reps=3, warmup=1)))
+    torch.cuda.synchronize()
+    main = dict(cases[0], max_abs_err=err, flips=flips, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
+
+
+def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
+    """Phase 15: the JAX key chain's draws on the card (see the module
+    docstring).  Returns the records of kernels (a) and (b)."""
+    from mpc_mmd_tpu_torch import Solver
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(15)
+
+    # a, b. both kernels against their twins at every path shape
+    kd = check_prng_draws(torch, ops, dev, gen, draw_at)
+    log(f"15a: prng_draws against its twin at {sorted(draw_at)} (keys, n): bits equal, "
+        f"uniforms and normals within {kd['ulp']} ulp (max abs {kd['max_abs_err']:.3e}); "
+        f"{kd['ms']:.4f} ms vs plain {kd['plain_ms']:.4f} ms at {kd['shape']}")
+    kb = check_prng_beta(torch, ops, dev, gen, beta_at)
+    log(f"15b: prng_beta against its twin at {sorted(beta_at)} (keys, candidates, n, P): "
+        f"max abs {kb['max_abs_err']:.3e}, {kb['flips']} accept tests flipped; "
+        f"{kb['ms']:.4f} ms vs plain {kb['plain_ms']:.4f} ms at {kb['shape']}")
+
+    # c. both kernels against the JAX package's draws for fixed keys
+    with np.load(os.path.join(HERE, "mpc_mmd_tpu_torch", "data",
+                              "prng_reference.npz")) as f:
+        ref = dict(f)
+    keys = torch.as_tensor(ref["keys"], device=dev)
+    n = ref["bits"].shape[1]
+    if not np.array_equal(ops.prng_draws(keys, n, "bits").cpu().numpy(), ref["bits"]) \
+            or not np.array_equal(ops.prng_draws(keys, n, "uniform").cpu().numpy(),
+                                  ref["uniform"]):
+        fail("15c: prng_draws' bits or uniforms differ from the JAX package's")
+    gap = ulp_gap(torch, ops.prng_draws(keys, n).cpu(), torch.as_tensor(ref["normal"]))
+    got = ops.prng_beta(torch.as_tensor(ref["beta_keys"], device=dev),
+                        torch.as_tensor(ref["beta_alpha"], device=dev),
+                        torch.as_tensor(ref["beta_beta"], device=dev),
+                        ref["beta"].shape[-1]).cpu().numpy()
+    beta_err = float(np.abs(got - ref["beta"]).max())
+    log(f"15c: against jax.random's draws for {len(keys)} fixed keys: bits and uniforms "
+        f"equal, normals within {gap} ulp; Beta max abs {beta_err:.3e}")
+    if gap > 4 or not np.allclose(got, ref["beta"], rtol=1e-5, atol=1e-6):
+        fail(f"15c: normals {gap} ulp (> 4) or Beta {beta_err} off the JAX package's")
+
+    # d. the full-width fastrt solve on default noise against the JAX solve
+    solver = Solver(cfg, device=dev)
+    xo, yo = (torch.as_tensor(ref[k], device=dev) for k in ("solve_x_obs", "solve_y_obs"))
+    idx = int(ref["solve_idx"])
+    r = solver.solve(idx, INIT, MEAN, COV, xo, yo, 15.0)
+    acc, steer = controls(solver.ws, cfg, r.cx, r.cy)
+    ctrl = max(float(np.abs(acc.cpu().numpy() - ref["solve_acc"]).max()),
+               float(np.abs(steer.cpu().numpy() - ref["solve_steer"]).max()))
+    log(f"15d: fastrt mmd_opt at full width, idx_mpc {idx}, default noise, against the "
+        f"JAX package's solve: controls max diff {ctrl:.3e}; cost per outer iteration "
+        f"card {np.round(r.res.cpu().numpy(), 2).tolist()}, JAX "
+        f"{np.round(ref['solve_res'], 2).tolist()}; risk_obs {float(r.risk_obs):.4f} vs "
+        f"{float(ref['solve_risk_obs']):.4f}")
+    if not ctrl <= 1e-3:
+        fail(f"15d: the controls differ from the JAX package's by {ctrl} (> 1e-3)")
+
+    # e. device times, bounds and library calls; the solves and the validator
+    # on the new draws
+    measure(torch, "prng_draws", kd)
+    measure(torch, "prng_beta", kb)
+    lat = {k: [round(1e3 * x, 1) for x in v] for k, v in TIMES.items()
+           if k.startswith(("fastrt (", "Path A ("))}
+    log(f"15e: on the JAX key chain's draws: the validator at 1200 x 1000 in "
+        f"{1e3 * TIMES['validator_1200']:.1f} ms (30-98 ms with the former "
+        f"per-row draws, PERF.md); solve latencies (ms) {lat}")
+    log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return kd, kb
 
 
 def obstacle_scenarios(torch, n, num_obs, tot_time, blocking=False):
@@ -735,9 +1031,8 @@ def cuda_vs_cpu(torch, cfg1, args, label):
     """One outer iteration on the card and on the CPU with identical draws
     (Beta draws recorded on the CPU and replayed on the card)."""
     from mpc_mmd_tpu_torch import Solver
-    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
-    arrays, record = record_solve_draws(TorchNoise(torch.Generator(), "cpu"),
-                                        cfg1, 5)
+    from mpc_mmd_tpu_torch.noise import FixedNoise, JaxNoise, record_solve_draws
+    arrays, record = record_solve_draws(JaxNoise("cpu"), cfg1, 5)
     out = {}
     for name in ("cpu", "cuda"):
         s = Solver(cfg1, device=name, noise=FixedNoise(arrays, name, record))
@@ -776,6 +1071,7 @@ def timed_solves(torch, ops, solver, cfg, calls, label, path_kernels):
         lat.append(time.perf_counter() - ts)
         check_solve(r, cfg)
     rate = len(calls) / (time.perf_counter() - t0)
+    TIMES[label] = lat
     launches = {fn.__name__: fn.launches for fn in ops.KERNELS}
     missing = [fn.__name__ for fn in path_kernels if launches[fn.__name__] < 1]
     if missing:
@@ -866,13 +1162,14 @@ def path_c(torch, ops, dev, work, per_solve):
     from mpc_mmd_tpu_torch import Solver, fastrt_workload
     from mpc_mmd_tpu_torch.cli import sweep as sweep_cli
     from mpc_mmd_tpu_torch.cli import validate as validate_cli
-    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise
+    from mpc_mmd_tpu_torch.noise import FixedNoise, JaxNoise
     from mpc_mmd_tpu_torch.qp import build_workspace
     from mpc_mmd_tpu_torch.utils.io_store import ResultStore
     from mpc_mmd_tpu_torch.utils.observability import device_trace
     from mpc_mmd_tpu_torch.validate import CHUNK, make_validator
 
     K1, K2, K4 = ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout
+    D, B = ops.prng_draws, ops.prng_beta
     data = os.path.join(work, "data")
     path_launches, roots, sweeps = [], {}, {}
 
@@ -880,7 +1177,7 @@ def path_c(torch, ops, dev, work, per_solve):
     for mode in ("mmd_opt", "cvar"):
         _, secs, got = counted(
             torch, ops, f"Path C sweep {mode}",
-            (K1, K2, K4) if mode == "mmd_opt" else (K4,),
+            (K1, K2, K4, D) if mode == "mmd_opt" else (K4, D),
             lambda: sweep_cli.main(["--costs", mode, "--out", data, *SWEEP_FLAGS]))
         found = glob.glob(os.path.join(data, "static", "*", "*", "*", f"{mode}_*"))
         if len(found) != 1:
@@ -914,7 +1211,7 @@ def path_c(torch, ops, dev, work, per_solve):
 
     # c. paired validation of the two modes
     res, secs, got = counted(
-        torch, ops, "Path C validate_compare", (K4,),
+        torch, ops, "Path C validate_compare", (K4, D),
         lambda: validate_cli.validate_compare(
             [roots["mmd_opt"], roots["cvar"]], n_mc=1000, seed=0,
             out_root=os.path.join(work, "stats"), device=dev))
@@ -929,14 +1226,14 @@ def path_c(torch, ops, dev, work, per_solve):
 
     # d. dynamic cut-in cvar sweep (every solve kept) and its validation
     dyn, secs, got = counted(
-        torch, ops, "Path C dynamic sweep", (K4,),
+        torch, ops, "Path C dynamic sweep", (K4, D, B),
         lambda: sweep_cli.run_sweep("dynamic", "cvar", "beta", 0.2, 10, 6, 50,
                                     20, data, chunk=20, dispatch="pipeline",
                                     accept_all=True, device=dev))
     risk = dyn.concatenated()["risk_obs"]
     path_launches.append(got)
     stats, vsecs, got = counted(
-        torch, ops, "Path C dynamic validation", (K4,),
+        torch, ops, "Path C dynamic validation", (K4, D, B),
         lambda: validate_cli.validate_store(dyn.root, n_mc=1000, seed=0,
                                             out_root=os.path.join(work, "dyn"),
                                             device=dev))
@@ -959,13 +1256,15 @@ def path_c(torch, ops, dev, work, per_solve):
     validator = make_validator(cfg, build_workspace(cfg, dev), n_mc=1000)
     validator(*(a[:8] if a.ndim > 1 else a for a in args))        # warm-up
     out, secs, got = counted(
-        torch, ops, "Path C validator", (K4,),
+        torch, ops, "Path C validator", (K4, D),
         lambda: [t.cpu().numpy() for t in validator(*args)])
     n_k4 = -(-1200 // CHUNK)
-    if got["fused_rollout"] != n_k4 or out[0].shape != (1200,) or \
-            not (0 <= out[0].min() and out[0].max() <= 1000):
-        fail(f"Path C validator: K4 launches {got['fused_rollout']} (expected "
-             f"{n_k4}) or counts out of range")
+    if got["fused_rollout"] != n_k4 or got["prng_draws"] != n_k4 or \
+            out[0].shape != (1200,) or not (0 <= out[0].min() and out[0].max() <= 1000):
+        fail(f"Path C validator: K4 launches {got['fused_rollout']} and draw "
+             f"launches {got['prng_draws']} (expected {n_k4} each) or counts out "
+             f"of range")
+    TIMES["validator_1200"] = secs
     log(f"Path C validator: 1200 solves x 1000 rollouts x 50 steps in "
         f"{secs:.3f} s, {1200 / secs:.1f} validations/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB, {n_k4} K4 "
@@ -986,7 +1285,7 @@ def path_c(torch, ops, dev, work, per_solve):
 
     # f. the validator on the card against the CPU, identical draws
     T = cfg.horizon.num_prime
-    draws = TorchNoise(torch.Generator(), "cpu").mc_draws(0, range(8), 1000, T)
+    draws = JaxNoise("cpu").mc_draws(0, range(8), 1000, T)
     arrays8 = dict(zip(("mc_eps_acc", "mc_eps_steer", "mc_eps_const"),
                        (d.numpy() for d in draws)))
     counts = {}
@@ -1011,7 +1310,7 @@ def path_c(torch, ops, dev, work, per_solve):
         cfg_k = cfg_k.replace(risk=dataclasses.replace(cfg_k.risk, kernel=kind))
         solver = Solver(cfg_k, device=dev)
         scen = obstacle_scenarios(torch, 1, 6, solver.ws.tot_time)[0]
-        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (K1, K2, K4),
+        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (K1, K2, K4, D),
                                lambda: solver.solve(0, INIT, MEAN, COV, *scen, 15.0))
         check_solve(r, cfg_k)
         log(f"Path C fastrt mmd_opt, {kind} kernel: {1e3 * secs:.1f} ms (first "
@@ -1055,9 +1354,9 @@ def frenet_cuda_vs_cpu(torch, cfg, dev, args, seed):
     """One outer iteration of ``FrenetSolver`` on the card and on the CPU
     with seed's draws; the largest difference of v_best and steering_best."""
     from mpc_mmd_tpu_torch import FrenetSolver
-    from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
+    from mpc_mmd_tpu_torch.noise import FixedNoise, JaxNoise, record_solve_draws
     cfg1 = cfg.replace(cem=dataclasses.replace(cfg.cem, maxiter_cem=1))
-    arrays, _ = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg1, seed)
+    arrays, _ = record_solve_draws(JaxNoise("cpu"), cfg1, seed)
     out = {}
     for name, device in (("cpu", "cpu"), ("cuda", dev)):
         r = FrenetSolver(cfg1, device=device,
@@ -1075,8 +1374,10 @@ def path_d(torch, ops, dev, cfg, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.fused_rollout)
+    D = ops.prng_draws
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
+    draws = draw_launches(cfg, frenet=True)
     args = onroad_problem(torch, cfg, dev)
     path_launches = []
 
@@ -1101,7 +1402,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
         check_frenet_solve(r, cfg, "Path D mmd_opt")
     got = {fn.__name__: fn.launches for fn in ops.KERNELS}
     expect(got, {"topk_indices": 2 * n_inner, "eq_qp_solve": n_inner,
-                 "fused_rollout": outer}, 2, "Path D mmd_opt xla")
+                 "fused_rollout": outer, **draws}, 2, "Path D mmd_opt xla")
     path_launches.append(got)
     per_solve["path_d_xla"] = {k: v / 2 for k, v in got.items()}
     log(f"Path D (on-road, gaussian 0.1, mmd_opt, xla selection): "
@@ -1117,12 +1418,12 @@ def path_d(torch, ops, dev, cfg, per_solve):
 
     # c. the fused selection
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
-    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4),
+    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4, D),
                            lambda: solver.solve(4, *args))
     os.environ.pop("MPC_MMD_FUSED_CEM")
     check_frenet_solve(r, cfg, "Path D fused")
     expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner, "fused_rollout": outer}, 1,
+                 "topk_indices": n_inner, "fused_rollout": outer, **draws}, 1,
            "Path D fused")
     path_launches.append(got)
     per_solve["path_d_fused"] = dict(got)
@@ -1134,10 +1435,11 @@ def path_d(torch, ops, dev, cfg, per_solve):
         cfg_m = cfg.with_risk_mode(mode)
         s = FrenetSolver(cfg_m, device=dev)
         r, secs, got = counted(torch, ops, f"Path D {mode}",
-                               () if mode == "det" else (K4,),
+                               (D,) if mode == "det" else (K4, D),
                                lambda: s.solve(5, *args))
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
-        expect(got, {} if mode == "det" else {"fused_rollout": outer}, 1,
+        fresh = draw_launches(cfg_m, frenet=True, fresh=True)
+        expect(got, fresh if mode == "det" else {"fused_rollout": outer, **fresh}, 1,
                f"Path D {mode}")
         path_launches.append(got)
         per_solve[f"path_d_{mode}"] = dict(got)
@@ -1158,7 +1460,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
     # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (K1, K2, K4)), ("cvar", (K4,)), ("det", ())):
+    for mode, kernels in (("mmd_opt", (K1, K2, K4, D)), ("cvar", (K4, D)),
+                          ("det", (D,))):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             results, secs, got = counted(
@@ -1168,8 +1471,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
         episode = json.loads(buf.getvalue().splitlines()[0])
         if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
             fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
-        if mode == "det" and any(got.values()):
-            fail(f"Path D closed loop det launched kernels: {got}")
+        if mode == "det" and {k for k, v in got.items() if v} != {D.__name__}:
+            fail(f"Path D closed loop det launched kernels but the draws: {got}")
         steps = results[0].steps
         path_launches.append(got)
         per_solve[f"closedloop_{mode}"] = {k: v / steps for k, v in got.items()}
@@ -1213,6 +1516,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.fused_rollout)
+    D, B = ops.prng_draws, ops.prng_beta
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(v) for k, v in per_solve["fastrt"].items()}
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -1235,7 +1539,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
                                       xs[:n], ys[:n], 15.0), cfg)        # warm-up
         held = torch.cuda.memory_allocated()
         r, secs, got = counted(
-            torch, ops, f"Path E chunk {n}", (K1, K2, K4),
+            torch, ops, f"Path E chunk {n}", (K1, K2, K4, D),
             lambda: solver.solve_batch(list(range(1, 9)), init, mean, cov, xs, ys,
                                        15.0))
         peak = torch.cuda.max_memory_allocated() - held
@@ -1286,15 +1590,15 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         check_rows(sa.solve_batch([5, 6, 7, 8], init_d, mean_d, cov_d, cut.x_traj[4:],
                                   cut.y_traj[4:], v_des), cfg_a)        # warm-up
         r, secs, got = counted(
-            torch, ops, "Path E fused chunk", (K3, K2, K1, K4),
+            torch, ops, "Path E fused chunk", (K3, K2, K1, K4, D, B),
             lambda: sa.solve_batch([1, 2, 3, 4], init_d, mean_d, cov_d,
                                    cut.x_traj[:4], cut.y_traj[:4], v_des))
     finally:
         os.environ.pop("MPC_MMD_FUSED_CEM")
     check_rows(r, cfg_a)
     expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner, "fused_rollout": outer_a},
-           "Path E c, one chunk of 4")
+                 "topk_indices": n_inner, "fused_rollout": outer_a,
+                 **draw_launches(cfg_a)}, "Path E c, one chunk of 4")
     per_solve["path_e_fused4"] = dict(got)
     path_launches.append(got)
     log(f"Path E c, Path A fused at scenario_chunk 4 (4 cut-in scenarios): "
@@ -1306,11 +1610,12 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     check_rows(sb.solve_batch([5, 6, 7, 8], init_d, mean_d, cov_d, cut.x_traj[4:],
                               cut.y_traj[4:], v_des), cfg_a)            # warm-up
     r, secs, got = counted(
-        torch, ops, "Path E cvar chunk", (K4,),
+        torch, ops, "Path E cvar chunk", (K4, D, B),
         lambda: sb.solve_batch([1, 2, 3, 4], init_d, mean_d, cov_d, cut.x_traj[:4],
                                cut.y_traj[:4], v_des))
     check_rows(r, cfg_a)
-    expect(got, {"fused_rollout": outer_a}, "Path E d, one chunk of 4")
+    expect(got, {"fused_rollout": outer_a, **draw_launches(cfg_a.with_risk_mode("cvar"))},
+           "Path E d, one chunk of 4")
     per_solve["path_e_cvar4"] = dict(got)
     path_launches.append(got)
     log(f"Path E d, Path B cvar at scenario_chunk 4: {4 / secs:.2f} solves/s "
@@ -1324,11 +1629,12 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     n_chunks = sum(-(-min(8, n_cfg - lo) // 4) for lo in range(0, n_cfg, 8))
     data_b = os.path.join(work, "data_batch")
     _, secs_b, got = counted(
-        torch, ops, "Path E batch sweep", (K1, K2, K4),
+        torch, ops, "Path E batch sweep", (K1, K2, K4, D),
         lambda: sweep_cli.main(["--costs", "mmd_opt", "--out", data_b, *flags,
                                 "--scenario_chunk", "4"]))
-    expect(got, {k: n_chunks * v for k, v in one_solve.items()},
-           f"Path E e, {n_chunks} chunks of 4 scenarios")
+    want = {k: n_chunks * v for k, v in one_solve.items()}
+    want[D.__name__] += draw_launches(cfg, 0, fresh=True)[D.__name__]   # its solver's
+    expect(got, want, f"Path E e, {n_chunks} chunks of 4 scenarios")
     per_solve["sweep_batch_mmd_opt"] = {k: v / n_chunks for k, v in got.items()}
     path_launches.append(got)
     root_p, secs_p = sweeps["mmd_opt"]
@@ -1352,10 +1658,11 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     cfg_x = cfg.replace(solve_strategy="exact")
     sx = Solver(cfg_x, device=dev)
     check_solve(sx.solve(0, init, mean, cov, xs[0], ys[0], 15.0), cfg_x)   # warm-up
-    r, secs, got = counted(torch, ops, "Path E exact", (K4,), lambda: without_sync(
+    r, secs, got = counted(torch, ops, "Path E exact", (K4, D), lambda: without_sync(
         torch, lambda: sx.solve(1, init, mean, cov, xs[1], ys[1], 15.0)))
     check_solve(r, cfg_x)
-    expect(got, {"fused_rollout": cfg.cem.maxiter_cem}, "Path E f, fastrt exact")
+    expect(got, {"fused_rollout": cfg.cem.maxiter_cem, **draw_launches(cfg_x)},
+           "Path E f, fastrt exact")
     per_solve["path_e_exact"] = dict(got)
     path_launches.append(got)
     log(f"Path E f, fastrt mmd_opt exact: {1e3 * secs:.1f} ms a solve under the sync "
@@ -1365,10 +1672,11 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     args = (init_o, f32(mean_o), f32(cov_o), *rest)
     fx = FrenetSolver(cfg_dx, device=dev)
     check_frenet_solve(fx.solve(0, *args), cfg_dx, "Path E exact on-road warm-up")
-    r, secs, got = counted(torch, ops, "Path E exact on-road", (K4,),
+    r, secs, got = counted(torch, ops, "Path E exact on-road", (K4, D),
                            lambda: without_sync(torch, lambda: fx.solve(1, *args)))
     check_frenet_solve(r, cfg_dx, "Path E exact on-road")
-    expect(got, {"fused_rollout": cfg_d.cem.maxiter_cem}, "Path E f, on-road exact")
+    expect(got, {"fused_rollout": cfg_d.cem.maxiter_cem,
+                 **draw_launches(cfg_dx, frenet=True)}, "Path E f, on-road exact")
     per_solve["path_d_exact"] = dict(got)
     path_launches.append(got)
     log(f"Path E f, Path D mmd_opt exact FrenetSolver: {1e3 * secs:.1f} ms a solve "
@@ -1417,12 +1725,14 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         try:
             for name, (c, solver, check, calls) in paths.items():
                 check(solver.solve(calls[0][0], *calls[0][1]), c)       # warm-up
-                r, secs, got = counted(torch, ops, f"{name} {sel}", (K1, qp, K4),
+                r, secs, got = counted(torch, ops, f"{name} {sel}",
+                                       (K1, qp, K4, ops.prng_draws),
                                        lambda: solver.solve(calls[1][0], *calls[1][1]))
                 check(r, c)
                 n_inner = c.cem.maxiter_cem * c.beta_cem.maxiter
                 want = {K1.__name__: 2 * n_inner, qp.__name__: n_inner,
-                        K4.__name__: c.cem.maxiter_cem}
+                        K4.__name__: c.cem.maxiter_cem,
+                        **draw_launches(c, frenet=name == "path_d")}
                 want = {k: want.get(k, 0) for k in names}
                 if got != want:
                     fail(f"{name} with the {sel!r} selection: launches {got}, "
@@ -1532,8 +1842,12 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches = []
 
-    def expect(got, n, label):
+    def expect(got, n, label, fresh=0):
+        """n solves' launches, and the solver-fixed draws of ``fresh``
+        solvers' first solves."""
         want = {k: n * v for k, v in one_solve.items()}
+        want[ops.prng_draws.__name__] += fresh * draw_launches(
+            cfg, 0, fresh=True)[ops.prng_draws.__name__]
         if got != want:
             fail(f"{label}: launches {got}, expected {want} ({n} solves' worth)")
 
@@ -1548,9 +1862,9 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
                                                    solver.ws.tot_time))
         seeds, init, mean, cov = list(range(1, 9)), f32(INIT), f32(MEAN), f32(COV)
         sweep = sharded_sweep(cfg, solver.ws, make_mesh(1))
-        r, secs, got = counted(torch, ops, "distribution a", (K1, K2, K4),
+        r, secs, got = counted(torch, ops, "distribution a", (K1, K2, K4, ops.prng_draws),
                                lambda: sweep(seeds, init, mean, cov, xs, ys, 15.0))
-        expect(got, 8, "distribution a, sharded_sweep of 8 scenarios")
+        expect(got, 8, "distribution a, sharded_sweep of 8 scenarios", fresh=1)
         per_solve["dist_nccl"] = {k: v / 8 for k, v in got.items()}
         path_launches.append(got)
         ref = solver.solve_batch(seeds, init, mean, cov, xs, ys, 15.0)
@@ -1606,7 +1920,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     n_cfg = int(flags[flags.index("--num_configs") + 1])
     n_chunks = sum(-(-min(8, n_cfg - lo) // 4) for lo in range(0, n_cfg, 8))
     expect(summed["sweep"], n_chunks, f"distribution b, {n_chunks} chunks of 4 "
-           "scenarios over 2 ranks")
+           "scenarios over 2 ranks", fresh=2)
     per_solve["dist_mesh_sweep"] = {k: v / n_chunks for k, v in summed["sweep"].items()}
     found = [glob.glob(os.path.join(work, d, "static", "*", "*", "*", "mmd_opt_*"))
              for d in ("data_mesh", "data_batch")]
@@ -1790,7 +2104,8 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     try:
         cfg, solver, calls = solvers[15]
         r, secs, got = counted(torch, ops, "14b N = 15 g",
-                               (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout),
+                               (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout,
+                                ops.prng_draws, ops.prng_beta),
                                lambda: solver.solve(calls[0][0], *calls[0][1]))
     finally:
         os.environ.pop("MPC_MMD_SELECTION")
@@ -1799,7 +2114,8 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     expect = {k: 0 for k in names}
     expect.update({ops.topk_indices.__name__: 2 * n_inner,
                    ops.eq_qp_solve.__name__: n_inner,
-                   ops.fused_rollout.__name__: cfg.cem.maxiter_cem})
+                   ops.fused_rollout.__name__: cfg.cem.maxiter_cem,
+                   **draw_launches(cfg)})
     if got != expect:
         fail(f"14b N = 15 g: launches {got}, expected {expect}")
     path_launches.append(got)
@@ -1818,7 +2134,8 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
             "--num_obs", "6", "--num_prime", "50", "--num_configs", "4", "--out", data,
             "--device", "cuda"]
     _, secs, got = counted(torch, ops, "14c sweep", (ops.topk_indices, ops.eq_qp_solve,
-                                                     ops.fused_rollout),
+                                                     ops.fused_rollout, ops.prng_draws,
+                                                     ops.prng_beta),
                            lambda: sweep_cli.main(argv))
     path_launches.append(got)
     log(f"14c: python -m mpc_mmd_tpu_torch.cli.sweep {' '.join(argv)}: {secs:.1f} s; "
@@ -1932,6 +2249,26 @@ def main():
                                   "path_a_g": (cfg_a, "g"), "path_d_g": (cfg_d, "g"),
                                   "dist_nccl": (cfg, "xla"),
                                   "dist_mesh_sweep": (cfg, "xla", 4)})
+    # the draw kernels' shapes, on the paths whose launches per solve are read
+    # after a warm-up solve (a fresh solver's first solve adds the
+    # solver-fixed draws), and the validator's chunks of 256 and 176 solves
+    cfg_b = cfg_a.with_risk_mode("cvar")
+    cfg_x, cfg_dx = (c.replace(solve_strategy="exact") for c in (cfg, cfg_d))
+    draw_at, beta_at = draw_shapes({
+        "fastrt": (cfg, False, 1), "path_a_fused": (cfg_a, False, 1),
+        "path_a_xla": (cfg_a, False, 1), "path_b_cvar": (cfg_b, False, 1),
+        "path_d_xla": (cfg_d, True, 1), "path_d_fused": (cfg_d, True, 1),
+        "path_e_chunk1": (cfg, False, 1), "path_e_chunk4": (cfg, False, 4),
+        "path_e_chunk8": (cfg, False, 8), "path_e_fused4": (cfg_a, False, 4),
+        "path_e_cvar4": (cfg_b, False, 4), "path_e_exact": (cfg_x, False, 1),
+        "path_d_exact": (cfg_dx, True, 1), "fastrt_xt": (cfg, False, 1),
+        "path_a_xt": (cfg_a, False, 1), "path_d_xt": (cfg_d, True, 1),
+        "fastrt_g": (cfg, False, 1), "path_a_g": (cfg_a, False, 1),
+        "path_d_g": (cfg_d, True, 1),
+        **{p: (c, False, 1) for p, (c, _) in paths_f.items()}})
+    draw_at[(768, 50_000)] = {"validator_1200": 4}
+    draw_at[(528, 50_000)] = {"validator_1200": 1}
+    beta_at[(512, 1, 50_000, 50)] = {}          # a validator chunk under Beta noise
     gen = torch.Generator(device=dev).manual_seed(0)
     k1 = check_topk(torch, ops, topk_indices_plain, gen, k1_at)
     log(f"K1 topk_indices: exact at {len(k1_at)} path shapes, edge rows included; "
@@ -2011,7 +2348,7 @@ def main():
         torch, ops, solver, cfg,
         [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
         "fastrt (static, gaussian 0.1, xla selection)",
-        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout))]
+        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout, ops.prng_draws))]
     per_solve = {"fastrt": {k: v / 3 for k, v in path_launches[-1].items()}}
 
     # ---- 5. one outer iteration, card against CPU -------------------------
@@ -2034,10 +2371,12 @@ def main():
     got = timed_solves(torch, ops, solver_a, cfg_a, calls_a,
                        "Path A (dynamic cut-in, beta 0.2, mmd_opt, fused selection)",
                        (ops.topk_kernel_matrices, ops.eq_qp_solve,
-                        ops.topk_indices, ops.fused_rollout))
+                        ops.topk_indices, ops.fused_rollout, ops.prng_draws,
+                        ops.prng_beta))
     n_inner = cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
     want = {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-            "topk_indices": n_inner, "fused_rollout": cfg_a.cem.maxiter_cem}
+            "topk_indices": n_inner, "fused_rollout": cfg_a.cem.maxiter_cem,
+            **draw_launches(cfg_a)}
     want = {fn.__name__: want.get(fn.__name__, 0) * len(calls_a) for fn in ops.KERNELS}
     if got != want:
         fail(f"Path A launches {got}, expected {want} ({len(calls_a)} solves)")
@@ -2049,7 +2388,8 @@ def main():
     path_launches.append(timed_solves(
         torch, ops, solver_a, cfg_a, calls_a,
         "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
-        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout)))
+        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout, ops.prng_draws,
+         ops.prng_beta)))
     per_solve["path_a_xla"] = {k: v / len(calls_a)
                                for k, v in path_launches[-1].items()}
 
@@ -2063,7 +2403,8 @@ def main():
                                        v_des), cfg_b)
         path_launches.append(timed_solves(
             torch, ops, solver_b, cfg_b, calls_a[:n],
-            f"Path B (dynamic cut-in, beta 0.2, {mode})", (ops.fused_rollout,)))
+            f"Path B (dynamic cut-in, beta 0.2, {mode})",
+            (ops.fused_rollout, ops.prng_draws, ops.prng_beta)))
         per_solve[f"path_b_{mode}"] = {k: v / n for k, v in path_launches[-1].items()}
 
     # ---- 8. Path A, one outer iteration, card against CPU -----------------
@@ -2098,8 +2439,13 @@ def main():
         shape_tables = {"topk_indices": k1_at, "eq_qp_solve": k2_at,
                         "eq_qp_solve_t": k2t_at,
                         "topk_kernel_matrices": checked(k3),
-                        "fused_rollout": checked(k4)}
+                        "fused_rollout": checked(k4),
+                        "prng_draws": draw_at,
+                        "prng_beta": {k: v for k, v in beta_at.items() if v}}
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
+
+    # ---- 15. the JAX key chain's draws on the card ---------------------------
+    kd, kb = path_draws(torch, ops, dev, cfg, draw_at, beta_at)
 
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
@@ -2107,7 +2453,7 @@ def main():
     launches["topk_onehot"] = k5_launches
     check_launch_shapes(shape_tables, per_solve)
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t)
+                           k2t, kd, kb)
     log(json.dumps({"kernels": record}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -142,14 +142,14 @@ def _rerolled(data_root: str, solve_indices, n_mc: int, seed: int, device):
     from ..qp import build_workspace
     from ..utils.io_store import ResultStore
     from ..validate import mc_rollouts
-    from ..noise import TorchNoise
+    from ..noise import JaxNoise
 
     dev = resolve_device(device)
     store = ResultStore(data_root)
     meta = store.meta
     cfg = config_of(meta)
     ws = build_workspace(cfg, dev)
-    noise = TorchNoise(torch.Generator(device=dev), dev)
+    noise = JaxNoise(dev)
     arrays = store.concatenated()
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
     out = []

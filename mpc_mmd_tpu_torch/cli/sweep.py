@@ -59,6 +59,11 @@ def accept_threshold(mode: str, ker_wt: float) -> float:
     return 1.0e-5
 
 
+def sweep_seeds(num_configs: int) -> np.ndarray:
+    """The seed of each config's solve (the JAX CLI's rule)."""
+    return np.random.RandomState(0).randint(1, 10000, size=num_configs)
+
+
 def run_sweep(workload: str, mode: str, noise: str, noise_level: float,
               num_reduced: int, num_obs: int, num_prime: int,
               num_configs: int, out_root: str, chunk: int = 20,
@@ -159,8 +164,7 @@ def run_sweep(workload: str, mode: str, noise: str, noise_level: float,
     store = ResultStore(f"{out_root}/{tag}", meta=meta,
                         process_id=process_id, num_processes=num_processes)
 
-    rng = np.random.RandomState(0)
-    seeds_all = rng.randint(1, 10000, size=num_configs)
+    seeds_all = sweep_seeds(num_configs)
 
     # the scenario fields on the host once; the solve's inputs on the device
     # once (a pageable host-to-device copy per solve would sync each one)

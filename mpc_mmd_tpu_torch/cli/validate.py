@@ -77,7 +77,7 @@ def validate_store(data_root: str, n_mc: int = 1000, seed: int = 0,
     """Validate every solve of one store; writes ``validation.npz`` and
     ``summary.json`` under ``out_root`` (default: the store's path with
     /data/ replaced by /stats/, else ``<store>/stats``).  ``noise``
-    defaults to TorchNoise on the device.  ``mesh``: over the ranks of
+    defaults to JaxNoise on the device.  ``mesh``: over the ranks of
     the group, rank 0 writing the files."""
     dev = resolve_device(device)
     store = ResultStore(data_root)

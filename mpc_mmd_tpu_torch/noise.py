@@ -1,12 +1,18 @@
 """The single injection point for every random draw of the solve.
 
-A torch generator cannot reproduce JAX's threefry bits, so the solve never
-draws itself: it asks a noise source for standard-normal and Beta tensors,
-and the shapes and sharing below are those of the JAX package's key chain.
-Every multivariate-normal draw of the path is ``mean + z @ chol(cov).T``
-(equal to ``jax.random.multivariate_normal`` of the same key for an
-identity covariance), so standard-normal ``z`` is all a source supplies
-there.
+The solve never draws itself: it asks a noise source for standard-normal
+and Beta tensors, and the shapes and sharing below are those of the JAX
+package's key chain.  Every multivariate-normal draw of the path is
+``mean + z @ chol(cov).T`` (equal to ``jax.random.multivariate_normal`` of
+the same key for an identity covariance), so standard-normal ``z`` is all
+a source supplies there.
+
+Sources: :class:`JaxNoise`, the default of every entry point, draws what
+the JAX package draws, from its own keys (``prng.py``, through the CUDA
+kernels of ``ops/prng.py`` on the card), so a solve of ``idx_mpc`` meets
+the JAX solve's numbers; :class:`TorchNoise` draws from a re-seeded
+``torch.Generator`` and :class:`FixedNoise` replays given arrays, for the
+tests and for recorded draws.
 
 Draws, in the order a solve asks for them, and where the JAX package makes
 them:
@@ -37,8 +43,9 @@ A chunk of scenarios (``Solver.solve_batch`` above ``scenario_chunk``
 1) asks for the per-iteration families once per scenario, each keyed by
 that scenario's ``idx_mpc``, and stacks them on a leading scenario axis
 (:func:`chunk_rollout_eps`, :func:`chunk_rollout_beta`,
-:func:`chunk_cem_z`), so a scenario meets the same draws in a chunk as
-alone; the solver-fixed draws stay shared by every scenario.
+:func:`chunk_cem_z`; :class:`JaxNoise` draws a chunk's keys in one
+launch), so a scenario meets the same draws in a chunk as alone; the
+solver-fixed draws stay shared by every scenario.
 
 Under the ``exact`` strategy the inner CEM asks for ``inner_exact``:
 ``samples0`` as above (the JAX package draws it from the same key with
@@ -61,15 +68,21 @@ the three keys (n_mc, T) each: ``eps_acc`` and ``eps_steer``, standard
 normal, or under Beta noise the acc and steer Beta draws instead, and
 ``eps_const``.  A source draws them per (seed, row), so a solve's draws
 do not depend on how the validator chunks the solves, and every mode of a
-comparison meets the same draws in the same row.
+comparison meets the same draws in the same row.  (Split keys are
+fold-like, ``jax_threefry_partitionable``: row r's key does not depend on
+how many solves the validation holds.)
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from . import prng
+from .ops import prng_beta, prng_draws
 
 
 def init_state_count(cfg) -> int:
@@ -92,7 +105,11 @@ class ExactInnerDraws(NamedTuple):
 
 def chunk_rollout_eps(noise, seeds: Sequence[int], it: int, R: int, T: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``rollout_eps`` of every scenario of a chunk, each (N, R, T)."""
+    """``rollout_eps`` of every scenario of a chunk, each (N, R, T): the
+    source's own ``chunk_rollout_eps`` where it has one, else its draws
+    per seed stacked."""
+    if hasattr(noise, "chunk_rollout_eps"):
+        return noise.chunk_rollout_eps(seeds, it, R, T)
     eps = [noise.rollout_eps(int(s), it, R, T) for s in seeds]
     return tuple(torch.stack(e) for e in zip(*eps))
 
@@ -101,6 +118,8 @@ def chunk_rollout_beta(noise, seeds: Sequence[int], it: int, R: int,
                        alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """``rollout_beta`` of every scenario of a chunk: parameters (2, N, C,
     T), draws (2, N, C, R, T), scenario i's from its own seed."""
+    if hasattr(noise, "chunk_rollout_beta"):
+        return noise.chunk_rollout_beta(seeds, it, R, alpha, beta)
     return torch.stack([noise.rollout_beta(int(s), it, R, alpha[:, i], beta[:, i])
                         for i, s in enumerate(seeds)], dim=1)
 
@@ -108,6 +127,8 @@ def chunk_rollout_beta(noise, seeds: Sequence[int], it: int, R: int,
 def chunk_cem_z(noise, seeds: Sequence[int], it: int, n: int, n_params: int
                 ) -> torch.Tensor:
     """``cem_z`` of every scenario of a chunk, (N, n, n_params)."""
+    if hasattr(noise, "chunk_cem_z"):
+        return noise.chunk_cem_z(seeds, it, n, n_params)
     return torch.stack([noise.cem_z(int(s), it, n, n_params) for s in seeds])
 
 
@@ -136,7 +157,8 @@ def sample_beta(alpha: torch.Tensor, beta: torch.Tensor,
 
 
 class TorchNoise:
-    """Production noise: draws on ``device`` from ``generator``.
+    """Draws on ``device`` from a re-seeded ``generator`` (for tests; not
+    the JAX package's numbers).
 
     Each family of draws re-seeds the generator from a fixed tuple, so a
     solve is a function of its ``idx_mpc`` (as in the JAX package, whose
@@ -224,6 +246,146 @@ class TorchNoise:
                                          params[1][:, i, None].expand(shape), g)
                 torch.randn((n_mc, T), generator=g, out=out[i, 2])
         return out[:, 0], out[:, 1], out[:, 2]
+
+
+def _first(k: Tuple[int, int]) -> Tuple[int, int]:
+    """``split(k)[0]`` of a key held as two ints."""
+    return prng.threefry2x32(k[0], k[1], 0, 0)
+
+
+def _seed_key(seed: int) -> Tuple[int, int]:
+    return (0, int(seed) & prng.M32)
+
+
+class JaxNoise:
+    """The JAX package's draws, from its own key chain (the default noise).
+
+    Keys are derived on the host (``prng.threefry2x32`` on Python ints, or
+    on a CPU tensor for the validator's rows), copied to ``device`` without
+    a host sync, and each family is drawn in one call of
+    ``ops.prng_draws`` (standard normals, uniforms) or ``ops.prng_beta``
+    (Beta): the CUDA kernels on the card, their plain twins on the CPU.
+    Every draw is ``jax.random``'s for the same key and shape, normals and
+    Beta draws to within a few ulp (``prng.py``).
+    """
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _keys(self, keys) -> torch.Tensor:
+        if not torch.is_tensor(keys):
+            keys = torch.tensor(keys, dtype=torch.int64)
+        return self._to_device(keys.reshape(-1, 2))
+
+    def _normal(self, keys, shape) -> torch.Tensor:
+        """Standard normals (len(keys), *shape), each row one key's."""
+        keys = self._keys(keys)
+        return prng_draws(keys, math.prod(shape), "normal").view(-1, *shape)
+
+    @staticmethod
+    def _iteration_keys(idx_mpc: int, it: int) -> Tuple[Tuple[int, int], ...]:
+        """k_roll, k_steer = split(k_roll)[0] (also the outer CEM's key) and
+        k_const = split(k_steer)[0] of outer iteration ``it``."""
+        k_roll = _first(_seed_key(3 * int(idx_mpc) + 5 * it + 7))
+        k_steer = _first(k_roll)
+        return k_roll, k_steer, _first(k_steer)
+
+    def initial_z(self, nb: int, n_params: int) -> torch.Tensor:
+        return self._normal([_first(_seed_key(0))], (nb, n_params))[0]
+
+    def _inner_keys(self, maxiter: int):
+        """init_key = split(key0)[0] with key0 = split(PRNGKey(0))[0], and per
+        inner iteration the update key split(split(carried key)[0])[0]."""
+        key0 = _first(_seed_key(0))
+        kc, upd = key0, []
+        for _ in range(maxiter):
+            kc = _first(kc)
+            upd.append(_first(kc))
+        return _first(key0), upd
+
+    def inner_cem(self, S: int, M: int, n_el: int, maxiter: int) -> InnerDraws:
+        init_key, upd = self._inner_keys(maxiter)
+        ku_kz = [prng.split_int(k) for k in upd]
+        return InnerDraws(self._normal([init_key], (S, M + 1))[0],
+                          self._normal([k[0] for k in ku_kz], (S - n_el, n_el)),
+                          self._normal([k[1] for k in ku_kz], (S - n_el, M + 1)))
+
+    def inner_exact(self, S: int, M: int, n_el: int, maxiter: int
+                    ) -> ExactInnerDraws:
+        init_key, upd = self._inner_keys(maxiter)
+        return ExactInnerDraws(self._normal([init_key], (S, M + 1))[0],
+                               self._normal(upd, (S - n_el, M + 1)))
+
+    def chunk_rollout_eps(self, seeds: Sequence[int], it: int, R: int, T: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        keys = [self._iteration_keys(s, it) for s in seeds]
+        eps = self._normal(keys, (R, T)).view(len(seeds), 3, R, T)
+        return eps[:, 0], eps[:, 1], eps[:, 2]
+
+    def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return tuple(e[0] for e in self.chunk_rollout_eps([idx_mpc], it, R, T))
+
+    def chunk_rollout_beta(self, seeds: Sequence[int], it: int, R: int,
+                           alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+        """Parameters (2, N, C, T): acc draws from each seed's k_roll, steer
+        draws from its k_steer, every candidate from the same element keys
+        (2, N, C, R, T)."""
+        _, N, C, T = alpha.shape
+        keys = [[self._iteration_keys(s, it)[ch] for s in seeds] for ch in (0, 1)]
+        draws = prng_beta(self._keys(keys), alpha.reshape(2 * N, C, T).contiguous(),
+                          beta.reshape(2 * N, C, T).contiguous(), R * T)
+        return draws.view(2, N, C, R, T)
+
+    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+        return self.chunk_rollout_beta([idx_mpc], it, R, alpha[:, None],
+                                       beta[:, None])[:, 0]
+
+    def chunk_cem_z(self, seeds: Sequence[int], it: int, n: int, n_params: int
+                    ) -> torch.Tensor:
+        return self._normal([self._iteration_keys(s, it)[1] for s in seeds],
+                            (n, n_params))
+
+    def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
+        return self.chunk_cem_z([idx_mpc], it, n, n_params)[0]
+
+    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
+        return self._normal([_first(_seed_key(idx_mpc))], (n, 4))[0]
+
+    def gmm_init_draws(self, idx_mpc: int, n: int, probs
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``normal(key, (n, 4))`` and ``choice(key, [1, 2, 3], (n,), p=probs)``
+        from the one key split(PRNGKey(idx_mpc))[0] (sampling.py:142-150)."""
+        key = _first(_seed_key(idx_mpc))
+        z = self._normal([key], (n, 4))[0]
+        u = prng_draws(self._keys([key]), n, "uniform")[0]
+        p_cuml = torch.cumsum(self._to_device(torch.tensor(probs, dtype=torch.float32)), 0)
+        return z, torch.searchsorted(p_cuml, p_cuml[-1] * (1.0 - u)) + 1
+
+    def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Row r's keys k1, k2, k3 = split(split(PRNGKey(seed), S)[r], 3),
+        every row in one launch a family (see :meth:`TorchNoise.mc_draws`
+        for the shapes and ``params``)."""
+        r = torch.as_tensor(list(rows), dtype=torch.int64)
+        root = _seed_key(seed)
+        row_keys = torch.stack(prng.threefry2x32(root[0], root[1], r >> 32,
+                                                 r & prng.M32), dim=-1)
+        k = prng.split(row_keys, 3)                          # (S, 3, 2)
+        S = len(r)
+        if params is None:
+            eps = self._normal(k, (n_mc, T)).view(S, 3, n_mc, T)
+            return eps[:, 0], eps[:, 1], eps[:, 2]
+        alpha, beta = (p.reshape(2 * S, 1, T).contiguous() for p in params)
+        b = prng_beta(self._keys(k[:, :2].transpose(0, 1)), alpha, beta, n_mc * T)
+        b = b.view(2, S, n_mc, T)
+        return b[0], b[1], self._normal(k[:, 2], (n_mc, T))
 
 
 BetaFn = Callable[[int, int, int, np.ndarray, np.ndarray], np.ndarray]

@@ -7,7 +7,9 @@ build happens at first use, under ``build/torch_kernels/`` at the root of
 the checkout, and is keyed on a hash of the sources and flags, so a changed
 source rebuilds and an unchanged one is loaded as it is.  No fast-math: the
 rollout kernel chains ``tanf``/``sinf``/``cosf`` over 50 steps, and its
-tolerance assumes the IEEE-accurate functions.
+tolerance assumes the IEEE-accurate functions; the random-number kernels
+(``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
+own kernels to give their twins' bits.
 
 Each exported function returns its ``cudaError_t``; :func:`check` raises if
 it is not 0.  Kernels launch on PyTorch's current stream and allocate
@@ -44,6 +46,8 @@ _SIGNATURES = {
     "mmd_eq_qp_solve": [_P, _P, _P, _P, _I, _I, _P],
     "mmd_eq_qp_solve_t": [_P, _P, _P, _P, _I, _I, _P],
     "mmd_fused_rollout": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _P],
+    "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
+    "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
 }
 
 _lock = threading.Lock()

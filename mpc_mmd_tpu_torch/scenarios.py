@@ -4,39 +4,27 @@ Counterpart of ``mpc_mmd_tpu/scenarios.py``, with its signatures and field
 names.  ``static_grid`` draws with numpy's ``RandomState(seed0 + k)`` as the
 JAX package does, so it is bit-equal to it.
 
-``dynamic_cutin`` draws with ``jax.random`` in the JAX package (obstacle
-positions and speeds by ``jax.random.choice`` from ``PRNGKey(k)``, desired
-speeds from ``PRNGKey(43 k + 11 t + 5)``), which torch cannot reproduce.
-The port carries those draws as data, ``data/dynamic_cutin_params.npz``:
-``x0``, ``vx0`` and ``v_des``, float32 (1200, 15), for config indices
-0-1199 and 15 obstacle slots, the most the 15-point speed grid allows.
-``jax.random.choice(..., replace=False)`` takes a prefix of one
-permutation, so slot t of config k is the same draw for every
-``num_obs``.  The obstacles' tracking QP then runs here: a float64
-precompute on the host and a float32 solve on the device.  To write the
-file again, with the JAX key chain that ``tests/test_torch_scenarios.py``
-holds it to (JAX needed)::
-
-    python -c "import sys, numpy as np; sys.path.insert(0, 'tests'); \\
-      from test_torch_scenarios import jax_cutin_draws; \\
-      x0, vx0, v_des = jax_cutin_draws(1200, 15); \\
-      np.savez_compressed('mpc_mmd_tpu_torch/data/dynamic_cutin_params.npz', \\
-                          x0=x0, vx0=vx0, v_des=v_des)"
+``dynamic_cutin`` draws the JAX package's ``jax.random`` chain with the
+port's copy of it (``prng.py``), on the host: obstacle positions and
+speeds by ``choice`` without replacement from ``PRNGKey(seed0 + k)`` on
+its 30- and 15-point grids, desired speeds from ``PRNGKey(43 (seed0 + k) +
+11 t + 5)``, for any configs and up to the 15 obstacles the speed grid
+allows (more raise, as ``jax.random.choice`` does).  The obstacles'
+tracking QP then runs here: a float64 precompute on the host and a
+float32 solve on the device.
 """
 
 from __future__ import annotations
 
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from . import prng
 from .basis import uniform_basis
 from .config import ProblemConfig
 from .device import resolve_device
-
-CUTIN_PARAMS = Path(__file__).resolve().parent / "data" / "dynamic_cutin_params.npz"
 
 
 class ScenarioBatch(NamedTuple):
@@ -106,33 +94,46 @@ def _obs_guess_workspace(cfg: ProblemConfig):
                 g_py=rho_off * k_p * (A_pd.T @ ones))
 
 
-def _cutin_params(n_obs: int, n_configs: int, seed0: int):
-    """x0, vx0, v_des (n_configs, n_obs) from the data file."""
-    with np.load(CUTIN_PARAMS) as f:
-        x0, vx0, v_des = f["x0"], f["vx0"], f["v_des"]
-    n_rows, n_slots = x0.shape
-    if n_obs > n_slots or seed0 < 0 or seed0 + n_configs > n_rows:
-        raise ValueError(
-            f"dynamic_cutin: the port holds the cut-in draws of configs "
-            f"0-{n_rows - 1} with {n_slots} obstacles in {CUTIN_PARAMS}; "
-            f"asked for configs {seed0}-{seed0 + n_configs - 1} with {n_obs}. "
-            "Rewrite the file with the script in the docstring of "
-            "mpc_mmd_tpu_torch/scenarios.py, widened to what is asked.")
-    sl = slice(seed0, seed0 + n_configs)
-    return x0[sl, :n_obs], vx0[sl, :n_obs], v_des[sl, :n_obs]
+# jnp.linspace(15, 45, 30) and jnp.linspace(0.5, 5, 15) as the JAX package
+# draws from them (scenarios.py:126-127): XLA's float32 rounding, which
+# numpy's linspace does not give
+_CUTIN_X_GRID = (
+    15, 16.034483, 17.0689659, 18.103447, 19.1379299, 20.1724129, 21.2068958,
+    22.2413788, 23.2758598, 24.3103447, 25.3448277, 26.3793087, 27.4137936,
+    28.4482746, 29.4827576, 30.5172405, 31.5517235, 32.5862045, 33.6206894,
+    34.6551704, 35.6896553, 36.7241364, 37.7586212, 38.7931023, 39.8275833,
+    40.8620682, 41.8965492, 42.9310341, 43.9655151, 45)
+_CUTIN_V_GRID = (
+    0.5, 0.821428537, 1.14285719, 1.46428573, 1.78571439, 2.10714293,
+    2.42857146, 2.75, 3.07142854, 3.39285707, 3.71428585, 4.03571415,
+    4.35714293, 4.6785717, 5)
+
+
+def cutin_draws(n_obs: int, n_configs: int, seed0: int = 0):
+    """x0, vx0, v_des (n_configs, n_obs) float32 on the CPU: the JAX
+    package's cut-in draws (mpc_mmd_tpu/scenarios.py:128-140)."""
+    k = torch.arange(seed0, seed0 + n_configs, dtype=torch.int64)
+    keys = torch.stack((torch.zeros_like(k), k & prng.M32), dim=-1)
+    grid = lambda g: torch.tensor(g, dtype=torch.float32)
+    x0 = prng.choice(keys, grid(_CUTIN_X_GRID), (n_obs,), replace=False)
+    vx0 = prng.choice(keys, grid(_CUTIN_V_GRID), (n_obs,), replace=False)
+    v_seed = 43 * k[:, None] + 11 * torch.arange(n_obs) + 5
+    v_keys = torch.stack((torch.zeros_like(v_seed), v_seed & prng.M32), dim=-1)
+    v_des = prng.normal(v_keys, ()) * 0.1 + 6.0
+    return x0, vx0, v_des
 
 
 def dynamic_cutin(cfg: ProblemConfig, n_configs: int, y_target: float = -1.75,
                   seed0: int = 0, device="cuda") -> ScenarioBatch:
     """Cut-in traffic: obstacles at y = +1.75 with v ~ N(6, 0.1) tracking
-    y_target, for configs seed0 .. seed0 + n_configs - 1 (at most 1200 and
-    15 obstacles, see the module docstring).  The obstacles' QP is solved
-    on ``device`` (the card by default; ``device="cpu"`` for the CPU)."""
+    y_target, for configs seed0 .. seed0 + n_configs - 1 (at most 15
+    obstacles, see the module docstring).  The obstacles' QP is solved on
+    ``device`` (the card by default; ``device="cpu"`` for the CPU)."""
     device = resolve_device(device)
     n_obs = cfg.obstacles.num_obs
     nvar = cfg.horizon.nvar
     x0, vx0, v_des = (torch.as_tensor(a, device=device)
-                      for a in _cutin_params(n_obs, n_configs, seed0))
+                      for a in cutin_draws(n_obs, n_configs, seed0))
     ws = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
           for k, v in _obs_guess_workspace(cfg).items()}
     zero = torch.zeros_like(x0)

@@ -32,6 +32,7 @@ inner CEM of ``reduced_set.select_reduced_set``.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple, Optional
 
@@ -42,7 +43,7 @@ from . import risk as risk_mod
 from .config import ProblemConfig
 from .device import resolve_device
 from .dynamics import beta_parameters, controls_from_trajectory, perturb_controls
-from .noise import TorchNoise, chunk_cem_z, chunk_rollout_beta, chunk_rollout_eps
+from .noise import JaxNoise, chunk_cem_z, chunk_rollout_beta, chunk_rollout_eps
 from .ops import fused_rollout
 from .projection import project
 from .qp import (Workspace, boundary_vectors, build_workspace, compute_guess,
@@ -158,14 +159,23 @@ class SolverSetup:
         self.device = resolve_device(device)
         self.ws = ws if ws is not None else build_workspace(cfg, self.device)
         if noise is None:
-            noise = TorchNoise(torch.Generator(device=self.device), self.device)
+            noise = JaxNoise(self.device)
         self.noise = noise
-        c, bc = cfg.cem, cfg.beta_cem
-        self._z0 = noise.initial_z(c.num_batch, c.num_params)
-        if cfg.risk.mode == "mmd_opt":
-            draw = noise.inner_exact if cfg.solve_strategy == "exact" else noise.inner_cem
-            self._inner = draw(bc.num_samples_cem, cfg.risk.num_mother,
-                               bc.num_ellite, bc.maxiter)
+
+    # the solver-fixed draws, made at the first solve that needs them (a
+    # solver that only resumes finished work draws nothing)
+    @functools.cached_property
+    def _z0(self) -> torch.Tensor:
+        c = self.cfg.cem
+        return self.noise.initial_z(c.num_batch, c.num_params)
+
+    @functools.cached_property
+    def _inner(self):
+        cfg, bc = self.cfg, self.cfg.beta_cem
+        draw = (self.noise.inner_exact if cfg.solve_strategy == "exact"
+                else self.noise.inner_cem)
+        return draw(bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite,
+                    bc.maxiter)
 
     def _tensor(self, a) -> torch.Tensor:
         if not torch.is_tensor(a):
@@ -277,7 +287,8 @@ class Solver(SolverSetup):
 
     ``device`` defaults to ``"cuda"``; without a card that raises a
     ``RuntimeError`` naming ``device="cpu"``, the only way onto the CPU.
-    ``noise`` defaults to :class:`TorchNoise` on ``device``.  On a CUDA
+    ``noise`` defaults to :class:`JaxNoise` on ``device``: the JAX
+    package's draws for the same ``idx_mpc``.  On a CUDA
     device the rollouts, top-k selections, fused selections and weight QPs
     run the hand-written kernels (``ops``); on the CPU their plain twins.
     ``cfg.solve_strategy`` "exact" runs the reference-parity inner CEM

@@ -23,7 +23,7 @@ import torch
 from .config import ProblemConfig
 from .dynamics import (controls_from_trajectory, mc_beta_parameters,
                        perturb_controls)
-from .noise import TorchNoise
+from .noise import JaxNoise
 from .ops import fused_rollout
 from .qp import Workspace
 
@@ -95,11 +95,11 @@ def make_validator_core(cfg: ProblemConfig, ws: Workspace, n_mc: int = 1000,
     obstacle trajectories (S, num_obs, num), and ``rows`` (S,) the solve
     rows that key each solve's draws (see ``noise.py``), as the JAX core
     takes one key per solve.  Inputs may be numpy arrays.  ``noise``
-    defaults to :class:`TorchNoise` on the device.
+    defaults to :class:`JaxNoise` on the device.
     """
     dev = ws.P.device
     if noise is None:
-        noise = TorchNoise(torch.Generator(device=dev), dev)
+        noise = JaxNoise(dev)
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
 
     @torch.no_grad()

@@ -713,3 +713,66 @@ def test_pairwise_l2sq_gives_a_candidate_its_bits_in_any_chunk(cuda, M, nb):
         out = pairwise_l2sq(F[:n * nb], F[:n * nb])
         for i in range(n):
             assert torch.equal(out[i * nb:(i + 1) * nb], alone[i]), (n, i)
+
+
+def _keys(gen, K):
+    return torch.randint(0, 2 ** 32, (K, 2), generator=gen, device="cuda",
+                         dtype=torch.int64)
+
+
+def _ulp_gap(a, b):
+    ia, ib = (t.contiguous().view(torch.int32).to(torch.int64) for t in (a, b))
+    ia = torch.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = torch.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int((ia - ib).abs().max())
+
+
+@pytest.mark.parametrize("K,n", [(1, 1), (1, 472), (3, 500), (7, 1001), (768, 50_000)])
+def test_prng_draws_kernel_matches_twin(cuda, K, n):
+    """Kernel (a): bits equal; uniforms and normals within 1 ulp (equal but
+    where the twin's double-rounded fma meets a tie)."""
+    from mpc_mmd_tpu_torch import prng
+    from mpc_mmd_tpu_torch.ops import prng_draws
+    keys = _keys(cuda, K)
+    assert torch.equal(prng_draws(keys, n, "bits"), prng.draws(keys, n, "bits"))
+    for dist in ("uniform", "normal"):
+        assert _ulp_gap(prng_draws(keys, n, dist), prng.draws(keys, n, dist)) <= 1
+
+
+@pytest.mark.parametrize("K,B,n,P", [(2, 100, 500, 50), (8, 100, 500, 50),
+                                     (2, 100, 250, 50), (2, 100, 750, 50),
+                                     (40, 1, 50_000, 50), (3, 2, 7, 7)])
+def test_prng_beta_kernel_matches_twin(cuda, K, B, n, P):
+    """Kernel (b) at the solves' parameters (1e-8-floored |u| times 2 and 5,
+    u = 0 at the first step) and at Beta(0, 0), which is NaN in both:
+    within rtol 1e-5 + atol 1e-6."""
+    from mpc_mmd_tpu_torch import prng
+    from mpc_mmd_tpu_torch.ops import prng_beta
+    keys = _keys(cuda, K)
+    u = 0.6 * torch.rand((K, B, P), generator=cuda, device="cuda")
+    u[..., 0] = 0.0
+    alpha, beta = 2.0 * (u + 1e-8), 5.0 * (u + 1e-8)
+    alpha[0, 0, -1] = beta[0, 0, -1] = 0.0
+    got, ref = prng_beta(keys, alpha, beta, n), prng.beta_draws(keys, alpha, beta, n)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, equal_nan=True)
+    assert bool(got[0, 0, P - 1::P].isnan().all())
+
+
+def test_prng_kernels_give_the_jax_reference_draws(cuda):
+    """Against jax.random's draws for fixed keys
+    (mpc_mmd_tpu_torch/data/prng_reference.npz): bits and uniforms equal,
+    normals within 4 ulp, Beta within rtol 1e-5 + atol 1e-6."""
+    from pathlib import Path
+    from mpc_mmd_tpu_torch.ops import prng_beta, prng_draws
+    path = Path(__file__).resolve().parents[1] / "mpc_mmd_tpu_torch" / "data"
+    with np.load(path / "prng_reference.npz") as f:
+        ref = dict(f)
+    keys = torch.as_tensor(ref["keys"], device="cuda")
+    n = ref["bits"].shape[1]
+    assert np.array_equal(prng_draws(keys, n, "bits").cpu().numpy(), ref["bits"])
+    assert np.array_equal(prng_draws(keys, n, "uniform").cpu().numpy(), ref["uniform"])
+    assert _ulp_gap(prng_draws(keys, n).cpu(), torch.as_tensor(ref["normal"])) <= 4
+    got = prng_beta(*(torch.as_tensor(ref[k], device="cuda")
+                      for k in ("beta_keys", "beta_alpha", "beta_beta")),
+                    ref["beta"].shape[-1])
+    np.testing.assert_allclose(got.cpu().numpy(), ref["beta"], rtol=1e-5, atol=1e-6)

@@ -7,7 +7,7 @@ package's ResultStore and validate_store read a store the port wrote, the
 port's validate_store reads a JAX-written one and, fed the JAX key chain's
 draws, gives the JAX validator's counts exactly; with accept_all both
 sweeps write the same tag, meta, seeds, initial states and obstacle
-fields row for row (the solves themselves differ: their draws do).
+fields row for row.
 """
 
 import json
@@ -169,8 +169,8 @@ def test_sweep_accepts_as_jax_on_jax_draws(tmp_path, monkeypatch, mode):
     """Fed the JAX key chain's draws, the port's sweep accepts exactly the
     scenarios the JAX sweep accepts, with the same risks (rtol 1e-4).  The
     scenarios are chosen so that some pass the threshold and some do not.
-    With its own draws the port accepts other scenarios: a sweep's
-    acceptance turns on the draws (ROADMAP.md Queue 3)."""
+    The port's default draws are the same numbers
+    (tests/test_torch_prng.py::test_sweep_accepts_as_jax_on_default_noise)."""
     kw = dict(workload="static", mode=mode, noise="gaussian", noise_level=0.1,
               num_reduced=3, num_obs=6, num_prime=50, num_configs=8, chunk=4,
               accept_all=True, inner_budget=(16, 2), outer_budget=(16, 4))

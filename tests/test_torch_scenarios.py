@@ -1,11 +1,11 @@
 """PyTorch port vs JAX package: scenario generation.
 
 ``static_grid`` draws with numpy in both packages: bit-equal.
-``dynamic_cutin`` draws with ``jax.random`` in the JAX package; the port
-carries those draws in ``data/dynamic_cutin_params.npz`` (1200 configs x
-15 obstacle slots), which this file holds to its source, and solves the
-obstacles' tracking QP itself: trajectories within 1e-5 of their scale
-(float32 matmuls summed in another order).
+``dynamic_cutin`` draws with ``jax.random`` in the JAX package and with
+the port's copy of it (``prng.py``) in the port: positions and speeds
+equal, desired speeds within an ulp (the normal's ``log1p``); the port
+solves the obstacles' tracking QP itself: trajectories within 1e-5 of
+their scale (float32 matmuls summed in another order).
 """
 
 import jax
@@ -38,12 +38,18 @@ def jax_cutin_draws(n_configs, n_slots):
     return tuple(map(np.asarray, jax.vmap(one)(jnp.arange(n_configs))))
 
 
-def test_cutin_params_file_equals_jax_draws():
-    with np.load(tscen.CUTIN_PARAMS) as f:
-        stored = tuple(f[n] for n in ("x0", "vx0", "v_des"))
-    for got, ref in zip(stored, jax_cutin_draws(1200, 15)):
-        assert got.shape == (1200, 15) and got.dtype == np.float32
-        np.testing.assert_array_equal(got, ref)
+def test_cutin_draws_equal_jax_draws():
+    """The port's draws of configs 0-1199 with 15 obstacles (what the port
+    once shipped as data) against the JAX key chain: x0 and vx0 equal,
+    v_des within one ulp (2 of 18,000 differ, through the normal's float32
+    log1p)."""
+    got = tscen.cutin_draws(15, 1200)
+    ref = jax_cutin_draws(1200, 15)
+    for g, r in zip(got[:2], ref[:2]):
+        assert g.shape == (1200, 15) and g.dtype == torch.float32
+        np.testing.assert_array_equal(g.numpy(), r)
+    np.testing.assert_allclose(got[2].numpy(), ref[2], rtol=0,
+                               atol=float(np.spacing(np.float32(6.0))))
 
 
 @pytest.mark.parametrize("n_obs", [1, 4, 6, 8, 15])
@@ -79,11 +85,19 @@ def test_dynamic_cutin_matches_jax(n_obs, n_configs, seed0):
                                    err_msg=name)
 
 
-def test_dynamic_cutin_refuses_beyond_the_stored_draws():
-    cfg = to_torch_cfg(jc.dynamic_workload(num_obs=6))
-    with pytest.raises(ValueError, match="dynamic_cutin_params.npz"):
-        tscen.dynamic_cutin(cfg, 20, seed0=1190, device="cpu")
-    with pytest.raises(ValueError, match="scenarios.py"):
+def test_dynamic_cutin_past_configs_1199_matches_jax_and_refuses_16_obstacles():
+    """Any configs: seed0 1190 and 20 configs as the JAX function draws
+    them; 16 obstacles are more than the 15-point speed grid, and raise as
+    ``jax.random.choice`` does."""
+    cfg = jc.dynamic_workload(num_obs=6)
+    ref = jscen.dynamic_cutin(cfg, 20, seed0=1190)
+    got = tscen.dynamic_cutin(to_torch_cfg(cfg), 20, seed0=1190, device="cpu")
+    for name in ("x_obs", "vx_obs"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)), err_msg=name)
+    np.testing.assert_allclose(got.x_traj.numpy(), np.asarray(ref.x_traj), rtol=0,
+                               atol=1e-5 * float(np.abs(ref.x_traj).max()))
+    with pytest.raises(ValueError, match="larger sample"):
         tscen.dynamic_cutin(to_torch_cfg(jc.dynamic_workload(num_obs=16)), 2,
                             device="cpu")
 

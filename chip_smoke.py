@@ -124,7 +124,9 @@ Phases, each of which must pass:
       launches per chunk, which must equal one solve's exactly; and every
       scenario's cx, cy, risk_obs, res and CEM moments at chunks 4 and 8
       bit-equal to chunk 1's (these scenarios meet near-ties that
-      round-off decides, so any change of summation order shows);
+      round-off decides, so any change of summation order shows); then
+      one chunk of 32 static scenarios, its first, a middle and its last
+      scenario's same fields bit-equal to each solved alone;
    b. a chunk of 4 tie-free blocking scenarios against each scenario
       solved alone on the card, on the same draws: cx, cy and risk_obs
       within 1e-4 of their scale;
@@ -902,7 +904,7 @@ def check_prng_beta(torch, ops, dev, gen, shapes):
                   f"both gammas; a chain {tally['outer_chains'] / chains:.3f} / "
                   f"{inner_chains / chains:.3f})",
             call=(lambda keys=keys, a=alpha, b=beta, n=n: ops.prng_beta(keys, a, b, n)),
-            match="beta_kernel", nbytes=16 * K + 8 * K * B * P + 4 * elems,
+            match="beta_", nbytes=16 * K + 8 * K * B * P + 4 * elems,
             int_ops=HASH_OPS * hashes,
             ops=BETA_OPS * elems + OUTER_OPS * tally["outer"] + INNER_OPS * inner
             + CHAIN_OPS * chains + NORMAL_OPS * inner_chains,
@@ -1562,6 +1564,29 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         f"difference in {', '.join(fields)}: {gaps}")
     if any(gaps.values()):
         fail(f"Path E a: a chunk did not give its scenarios the bits of chunk 1: {gaps}")
+    # a chunk of 32 (the shared-weight products, the outer CEM's Cholesky,
+    # the inner resample hold their bits to 64 scenarios,
+    # tests/test_torch_gpu.py): its first, a middle and its last scenario
+    # against each solved alone, bit for bit
+    big = Solver(cfg, device=dev, scenario_chunk=32)
+    x32, y32 = stacked(torch, obstacle_scenarios(torch, 32, cfg.obstacles.num_obs,
+                                                 big.ws.tot_time))
+    seeds32 = list(range(200, 232))
+    t0 = time.perf_counter()
+    r32 = big.solve_batch(seeds32, init, mean, cov, x32, y32, 15.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    check_rows(r32, cfg)
+    apart = {}
+    for i in (0, 15, 31):
+        one = solvers[1].solve(seeds32[i], init, mean, cov, x32[i], y32[i], 15.0)
+        apart[i] = [f for f in fields if not torch.equal(getattr(r32, f)[i],
+                                                         getattr(one, f))]
+    log(f"Path E a, fastrt mmd_opt at scenario_chunk 32: {32 / secs:.2f} solves/s "
+        f"({1e3 * secs:.1f} ms, first chunk), scenarios 0, 15, 31 against each alone, "
+        f"fields with another bit: {apart}")
+    if any(apart.values()):
+        fail(f"Path E a: the chunk of 32 did not give its scenarios their bits: {apart}")
 
     # b. each scenario of a chunk of 4 against the same scenario alone, on
     # the tie-free blocking scenarios

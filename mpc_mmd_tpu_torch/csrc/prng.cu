@@ -29,25 +29,48 @@
 // reads its key (L1-resident) and writes one word, neighbours on
 // neighbouring addresses.
 //
-// Kernel b, one thread per element: derives the element's two keys (the
-// halves of split(key), then split(half, n)[e]) and runs _gamma_one's
-// Marsaglia-Tsang loops for a and for b in log space, with alpha < 1
-// boosted to alpha + 1 and the boost log(u) / alpha added, as jax.random's
-// loggamma does; the draw is G_a / (G_a + G_b) from the logs.  A round of
-// the outer loop costs 3 hashes (split(key, 3)) plus 3 per round of the
-// inner one (split, then the normal's bits); at the solves' parameters
-// (alpha + 1 >= 1, so d >= 2/3) about 1.05 outer and 1.01 inner rounds an
-// element, about 11 hashes a gamma, 26 an element with the key
-// derivation: about 1,900 integer operations.  The candidates of a key
-// share those hashes and the normals (a round's keys and bits depend only
-// on the key, the element and the round), so the function needs them once
-// a (key, element) and is bound by the candidates' own float operations
-// (about 110 an element and 60 an outer round; chip_smoke.py phase 15
-// counts this data's rounds).  This kernel redoes the chain for every
-// candidate, about a hundred times the hashes the function needs at a
-// solve's 100 candidates: sharing it (a warp an element) is open.  The
-// loops diverge only where an element is rejected, about one lane in
-// twenty.
+// Kernel b, Beta draws for K keys x B candidates x n elements.  Element e
+// of every candidate of key k draws from the same keys: the halves of
+// split(key), then split(half, n)[e], and from there each gamma's chain of
+// Marsaglia-Tsang rounds (an outer round: split(key, 3), a uniform U and
+// the inner loop's normals from their own split chain).  A chain's keys,
+// U and normals depend only on (key, element, half, round); a candidate
+// brings only its alpha, hence its d and c, and its two acceptance tests.
+// At the solves' parameters (alpha + 1 >= 1, d >= 2/3) a candidate takes
+// about 1.05 outer and 1.01 inner rounds; a chain, the rounds its slowest
+// candidate takes, about 2.1 and 2.1 at 100 candidates.  Hashing a chain
+// once for all candidates leaves about 2 hashes a key and 23 a chain
+// (73 integer operations each), against about 26 a candidate element
+// (about 1,900 integer operations) when each candidate redoes its chain:
+// the function is bound by the candidates' float operations (about 110 an
+// element and 60 an outer round; chip_smoke.py phase 15 counts this
+// data's rounds).  A kernel that shares the chains then waits on their
+// latency: a round's key lies r + 3 dependent hashes from the root.
+//
+// B > 1, beta_shared_kernel: a block takes one key, a tile of ET elements
+// and BT candidates (BT ET <= 512 pairs, 2 a thread).  Chain phase, lanes
+// over (chain, round): one task a (half, element, round) for the first
+// kRounds = 3 outer rounds, each deriving its round's key from the root
+// and writing U, log U and the inner normals up to the first that c =
+// 0.408 (alpha = 0, the largest c of any alpha >= 0) accepts, at most two,
+// to shared memory.  Candidate phase, lanes over (candidate, element),
+// after one barrier: each thread runs its four gammas' rounds with its own
+// d and c from there; past the cached normals, or past the cached rounds
+// (a candidate rejected three times, about 1e-4 of them), a candidate
+// walks its chain's keys on itself, as beta_kernel does, so the result is
+// exact at any depth.  No round is computed on demand: a block-wide vote
+// a round (measured: 12.5 us at Path A's shape) cost more barriers than
+// the rounds it saves.  Every candidate runs the float operations of
+// beta_kernel in the same order (logf(U) taken once a chain, logf(d) and
+// 1 / alpha once a candidate in both, the same values), so the two give
+// the same bits.  What bounds it now is a block's latency: clock64() stamps
+// (utils/kernel_ab.py --diagnose) put about half of a block's cycles in
+// the chain phase's dependent hashes (a round-2 task hashes 7 deep before
+// its normal), a fifth in the candidates' rounds, and the rest in the
+// candidates' constants (sqrt, two divisions, logf) and the output.
+//
+// B = 1 (the validator's chunks), beta_kernel: nothing to share; one
+// thread an element derives the keys and runs both gammas' loops.
 //
 // Built without fast-math.  XLA contracts three multiply-adds into one
 // rounding (the uniform's affine map, the erfinv polynomial's steps and the
@@ -158,45 +181,84 @@ __global__ void draws_kernel(const long long* __restrict__ keys, long long K,
   }
 }
 
-// _gamma_one's loop condition: both acceptance tests fail
-__device__ __forceinline__ bool rejected(float X, float V, float U, float d) {
+// _gamma_one's loop condition: both acceptance tests fail (given the logs
+// of V and U)
+__device__ __forceinline__ bool rejected_logs(float X, float V, float log_V, float U,
+                                              float log_U, float d) {
   const bool squeeze = U >= __fsub_rn(1.0f, __fmul_rn(kSqueeze, __fmul_rn(X, X)));
   const float rhs = __fadd_rn(__fmul_rn(X, 0.5f),
-                              __fmul_rn(d, __fadd_rn(__fsub_rn(1.0f, V), logf(V))));
-  return squeeze && logf(U) >= rhs;
+                              __fmul_rn(d, __fadd_rn(__fsub_rn(1.0f, V), log_V)));
+  return squeeze && log_U >= rhs;
+}
+
+__device__ __forceinline__ bool rejected(float X, float V, float U, float d) {
+  return rejected_logs(X, V, logf(V), U, logf(U), d);
+}
+
+// a candidate's Marsaglia-Tsang constants: alpha < 1 boosted to alpha + 1;
+// logf(d) and 1 / alpha for the result
+struct GammaParams {
+  float d, c, log_d, inv_alpha;
+  bool boost;
+};
+
+__device__ __forceinline__ GammaParams gamma_params(float alpha) {
+  GammaParams g;
+  g.boost = alpha >= 1.0f;
+  const float a = g.boost ? alpha : __fadd_rn(alpha, 1.0f);
+  g.d = __fsub_rn(a, kOneThird);
+  g.c = __fdiv_rn(kOneThird, __fsqrt_rn(g.d));
+  g.log_d = logf(g.d);
+  g.inv_alpha = __fdiv_rn(1.0f, alpha);
+  return g;
+}
+
+// the log of the draw once the loop has left logf(V), with the boost
+// log(u) / alpha
+__device__ __forceinline__ float gamma_finish(const GammaParams& g, float log_V,
+                                              float log_u) {
+  const float log_boost = (g.boost || log_u == 0.0f) ? 0.0f
+                                                     : __fmul_rn(log_u, g.inv_alpha);
+  return __fadd_rn(__fadd_rn(g.log_d, log_V), log_boost);
+}
+
+// the inner loop from key xk: the first normal x with v = 1 + x c > 0
+__device__ __forceinline__ void inner_walk(uint2 xk, float c, float& x, float& v) {
+  while (v <= 0.0f) {
+    const uint2 s = hash_index(xk, 1);
+    xk = hash_index(xk, 0);
+    x = normal_of(bits_at(s, 0));
+    v = __fmaf_rn(x, c, 1.0f);
+  }
 }
 
 // log of a Gamma(alpha) draw from the element key k (jax.random.loggamma)
 __device__ float gamma_log(uint2 k, float alpha) {
-  const bool boost = alpha >= 1.0f;
-  const float a = boost ? alpha : __fadd_rn(alpha, 1.0f);
-  const float d = __fsub_rn(a, kOneThird);
-  const float c = __fdiv_rn(kOneThird, __fsqrt_rn(d));
+  const GammaParams g = gamma_params(alpha);
   const uint2 sub = hash_index(k, 1);
   k = hash_index(k, 0);
   float X = 0.0f, V = 1.0f, U = 2.0f;
-  while (rejected(X, V, U, d)) {
-    uint2 xk = hash_index(k, 1);
+  while (rejected(X, V, U, g.d)) {
+    const uint2 xk = hash_index(k, 1);
     const uint2 uk = hash_index(k, 2);
     k = hash_index(k, 0);
     float x = 0.0f, v = -1.0f;
-    while (v <= 0.0f) {
-      const uint2 s = hash_index(xk, 1);
-      xk = hash_index(xk, 0);
-      x = normal_of(bits_at(s, 0));
-      v = __fmaf_rn(x, c, 1.0f);
-    }
+    inner_walk(xk, g.c, x, v);
     X = __fmul_rn(x, x);
     V = __fmul_rn(__fmul_rn(v, v), v);
     U = unit(bits_at(uk, 0));
   }
-  const float log_u = log1pf(-unit(bits_at(sub, 0)));
-  const float log_boost = (boost || log_u == 0.0f)
-                              ? 0.0f
-                              : __fmul_rn(log_u, __fdiv_rn(1.0f, alpha));
-  return __fadd_rn(__fadd_rn(logf(d), logf(V)), log_boost);
+  return gamma_finish(g, logf(V), log1pf(-unit(bits_at(sub, 0))));
 }
 
+__device__ __forceinline__ float beta_ratio(float lga, float lgb) {
+  const float log_max = (isnan(lga) || isnan(lgb)) ? NAN : fmaxf(lga, lgb);
+  const float ga = expf(__fsub_rn(lga, log_max));
+  const float gb = expf(__fsub_rn(lgb, log_max));
+  return __fdiv_rn(ga, __fadd_rn(ga, gb));
+}
+
+// B = 1 (the validator's chunks): one thread an element, nothing to share.
 // out (K, B, n): row (k, b), element e from keys[k] with parameters
 // alpha, beta (K, B, P) at (k, b, e mod P)
 __global__ void beta_kernel(const long long* __restrict__ keys,
@@ -212,12 +274,195 @@ __global__ void beta_kernel(const long long* __restrict__ keys,
     const long long p = row * P + e % P;
     const uint2 root = load_key(keys, row / B);
     const unsigned long long ue = static_cast<unsigned long long>(e);
-    const float lga = gamma_log(hash_index(hash_index(root, 0), ue), alpha[p]);
-    const float lgb = gamma_log(hash_index(hash_index(root, 1), ue), beta[p]);
-    const float log_max = (isnan(lga) || isnan(lgb)) ? NAN : fmaxf(lga, lgb);
-    const float ga = expf(__fsub_rn(lga, log_max));
-    const float gb = expf(__fsub_rn(lgb, log_max));
-    out[idx] = __fdiv_rn(ga, __fadd_rn(ga, gb));
+    out[idx] = beta_ratio(gamma_log(hash_index(hash_index(root, 0), ue), alpha[p]),
+                          gamma_log(hash_index(hash_index(root, 1), ue), beta[p]));
+  }
+}
+
+// B > 1: a block is a tile of one key's elements e0 .. e0 + ET - 1 and
+// candidates b0 .. b0 + BT - 1 (BT * ET <= kTilePairs).  A chain is
+// (half, element): its keys, each round's uniform U and the round's inner
+// normals depend on nothing else.  Chain phase: one task a (chain, round)
+// for the first kRounds rounds, spread over the block's threads, each
+// deriving its round's key from the root and writing the round to shared
+// memory.  Candidate phase: each thread runs its pairs' rounds from there.
+constexpr int kBetaThreads = 256;
+constexpr int kPairs = 2;            // (candidate, element) pairs a thread
+constexpr int kRounds = 3;           // outer rounds a chain caches
+constexpr int kCachedNormals = 2;    // inner normals a chain caches a round
+constexpr int kMaxElements = 32;     // ET
+constexpr int kMaxChains = 2 * kMaxElements;
+constexpr int kTilePairs = kPairs * kBetaThreads;
+// c = 1/3 / sqrt(d) of alpha = 0 (d = 2/3), the largest of any alpha >= 0:
+// a round caches inner normals up to the first this c accepts, so every
+// candidate with alpha >= 0 finds its normal in the cache
+constexpr float kMaxC = 0.4082483f;
+
+// a round of a chain, as the candidates read it
+struct ChainRound {
+  float U, log_U;
+  float x[kCachedNormals];
+  int nx;
+  uint2 xk;                          // the inner key past the cached normals
+};
+
+__global__ void __launch_bounds__(kBetaThreads)
+beta_shared_kernel(const long long* __restrict__ keys,
+                   const float* __restrict__ alpha, const float* __restrict__ beta,
+                   int B, int n, int P, int ET, int BT, unsigned tiles_e,
+                   unsigned tiles_b, float* __restrict__ out) {
+  __shared__ ChainRound s_round[kRounds][kMaxChains];
+  __shared__ uint2 s_key_end[kMaxChains];   // the outer key past the cached rounds
+  __shared__ float s_log_u[kMaxChains];     // the final uniform's log1p(-u)
+
+  const unsigned tb = blockIdx.x % tiles_b;
+  const unsigned te = (blockIdx.x / tiles_b) % tiles_e;
+  const long long k = blockIdx.x / (tiles_b * tiles_e);
+  const int e0 = te * ET, b0 = tb * BT;
+  const int ne = n - e0 < ET ? n - e0 : ET;
+  const int nb = B - b0 < BT ? B - b0 : BT;
+  const int tid = threadIdx.x;
+
+  // the pairs: pair p = (candidate b0 + p / ET, element e0 + el[j]), both
+  // halves; row (k, b) of the output
+  float par[kPairs][2];
+  int el[kPairs];
+  long long row[kPairs];
+  bool valid[kPairs];
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    const int p = tid + j * kBetaThreads;
+    el[j] = p % ET;
+    valid[j] = p < nb * ET && el[j] < ne;
+    row[j] = k * B + b0 + p / ET;
+    const long long at = row[j] * P + (e0 + el[j]) % P;
+    par[j][0] = valid[j] ? alpha[at] : 1.0f;
+    par[j][1] = valid[j] ? beta[at] : 1.0f;
+  }
+
+  // chain phase: task t is round t / (2 ET) of chain t % (2 ET)
+  const uint2 root = load_key(keys, k);
+  for (int t = tid; t < 2 * ET * kRounds; t += kBetaThreads) {
+    const int c = t % (2 * ET), r = t / (2 * ET);
+    if (c % ET >= ne) continue;
+    const uint2 ke = hash_index(hash_index(root, c / ET),
+                                static_cast<unsigned long long>(e0 + c % ET));
+    if (r == 0) s_log_u[c] = log1pf(-unit(bits_at(hash_index(ke, 1), 0)));
+    uint2 kr = hash_index(ke, 0);
+    for (int i = 0; i < r; ++i) kr = hash_index(kr, 0);
+    ChainRound& cr = s_round[r][c];
+    uint2 xk = hash_index(kr, 1);
+    const uint2 uk = hash_index(kr, 2);
+    if (r == kRounds - 1) s_key_end[c] = hash_index(kr, 0);
+    cr.U = unit(bits_at(uk, 0));
+    cr.log_U = logf(cr.U);
+    int nx = 0;
+    float x;
+    do {
+      const uint2 s = hash_index(xk, 1);
+      xk = hash_index(xk, 0);
+      x = normal_of(bits_at(s, 0));
+      cr.x[nx++] = x;
+    } while (nx < kCachedNormals && __fmaf_rn(x, kMaxC, 1.0f) <= 0.0f);
+    cr.nx = nx;
+    cr.xk = xk;
+  }
+
+  // the candidates' constants
+  GammaParams g[kPairs][2];
+  float lg[kPairs][2];
+  bool live[kPairs][2];
+  bool mine = false;
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      g[j][h] = gamma_params(par[j][h]);
+      live[j][h] = valid[j] && rejected(0.0f, 1.0f, 2.0f, g[j][h].d);
+      mine |= live[j][h];
+    }
+  }
+  __syncthreads();
+
+  // candidate phase: the cached rounds, each candidate with its own d and
+  // c, logf(U) taken once a chain; past the cached normals a candidate
+  // walks its chain's inner keys on itself.  A candidate that never enters
+  // the loop (d NaN or infinite) keeps V = 1.
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lg[j][h] = gamma_finish(g[j][h], 0.0f, s_log_u[h * ET + el[j]]);   // logf(1)
+    }
+  }
+  for (int r = 0; r < kRounds && mine; ++r) {
+    float x[kPairs][2], v[kPairs][2];
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const ChainRound& cr = s_round[r][h * ET + el[j]];
+        x[j][h] = cr.x[0];
+        v[j][h] = __fmaf_rn(x[j][h], g[j][h].c, 1.0f);
+        if (v[j][h] <= 0.0f && cr.nx > 1) {
+          x[j][h] = cr.x[1];
+          v[j][h] = __fmaf_rn(x[j][h], g[j][h].c, 1.0f);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (live[j][h] && v[j][h] <= 0.0f) {
+          inner_walk(s_round[r][h * ET + el[j]].xk, g[j][h].c, x[j][h], v[j][h]);
+        }
+      }
+    }
+    mine = false;
+#pragma unroll
+    for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const ChainRound& cr = s_round[r][h * ET + el[j]];
+        const float X = __fmul_rn(x[j][h], x[j][h]);
+        const float V = __fmul_rn(__fmul_rn(v[j][h], v[j][h]), v[j][h]);
+        const float log_V = logf(V);
+        const bool again = rejected_logs(X, V, log_V, cr.U, cr.log_U, g[j][h].d);
+        if (live[j][h] && !again) {
+          lg[j][h] = gamma_finish(g[j][h], log_V, s_log_u[h * ET + el[j]]);
+        }
+        live[j][h] = live[j][h] && again;
+        mine |= live[j][h];
+      }
+    }
+  }
+  // past the cached rounds (a candidate rejected kRounds times), the
+  // chain's outer keys on from the last cached round, as beta_kernel
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (!live[j][h]) continue;
+      uint2 kr = s_key_end[h * ET + el[j]];
+      float X, V, U;
+      do {
+        const uint2 xk = hash_index(kr, 1);
+        const uint2 uk = hash_index(kr, 2);
+        kr = hash_index(kr, 0);
+        float x = 0.0f, v = -1.0f;
+        inner_walk(xk, g[j][h].c, x, v);
+        X = __fmul_rn(x, x);
+        V = __fmul_rn(__fmul_rn(v, v), v);
+        U = unit(bits_at(uk, 0));
+      } while (rejected(X, V, U, g[j][h].d));
+      lg[j][h] = gamma_finish(g[j][h], logf(V), s_log_u[h * ET + el[j]]);
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < kPairs; ++j) {
+    if (valid[j]) out[row[j] * n + e0 + el[j]] = beta_ratio(lg[j][0], lg[j][1]);
   }
 }
 
@@ -244,8 +489,25 @@ extern "C" int mmd_prng_beta(const long long* keys, const float* alpha,
                              void* stream) {
   if (K <= 0 || B <= 0 || n <= 0) return 0;
   if (P <= 0 || n % P != 0) return cudaErrorInvalidValue;
-  beta_kernel<<<blocks_for(K * B * n), kThreads, 0,
-                static_cast<cudaStream_t>(stream)>>>(keys, alpha, beta, K, B, n,
-                                                     P, out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B == 1) {
+    beta_kernel<<<blocks_for(K * n), kThreads, 0, s>>>(keys, alpha, beta, K, B, n,
+                                                        P, out);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // a tile: up to kTilePairs candidates, and as many elements as fit beside
+  // them (at most kMaxElements)
+  const long long bt = B < kTilePairs ? B : kTilePairs;
+  const long long per = kTilePairs / bt;
+  const long long et = per < kMaxElements ? per : kMaxElements;
+  const long long tiles_e = (n + et - 1) / et, tiles_b = (B + bt - 1) / bt;
+  const long long tiles = K * tiles_e * tiles_b;
+  if (tiles > 0x7FFFFFFFLL || n > 0x7FFFFFFFLL || B > 0x7FFFFFFFLL) {
+    return cudaErrorInvalidValue;
+  }
+  beta_shared_kernel<<<static_cast<unsigned>(tiles), kBetaThreads, 0, s>>>(
+      keys, alpha, beta, static_cast<int>(B), static_cast<int>(n), static_cast<int>(P),
+      static_cast<int>(et), static_cast<int>(bt), static_cast<unsigned>(tiles_e),
+      static_cast<unsigned>(tiles_b), out);
   return static_cast<int>(cudaGetLastError());
 }

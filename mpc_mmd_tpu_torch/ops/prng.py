@@ -9,9 +9,13 @@ and these replace that lowering for the port's noise
   normals, ``n`` per key, in one launch: every Gaussian family of a solve
   or a validation.  Bound by its integer operations (about 73 a hash, one
   hash an element); the note in the CUDA source has the numbers.
-* :func:`prng_beta`, kernel (b): Beta draws, one thread an element running
-  ``jax.random.gamma``'s Marsaglia-Tsang loops for both halves in log
-  space.  Bound by its integer operations (about 26 hashes an element).
+* :func:`prng_beta`, kernel (b): Beta draws, ``jax.random.gamma``'s
+  Marsaglia-Tsang loops for both halves in log space.  The candidates of a
+  key share each element's key chain, so a block hashes each chain once a
+  round into shared memory and its candidates run their own acceptance
+  tests on it (one thread an element where there is one candidate).  The
+  function is bound by the candidates' float operations; the kernel waits
+  on a chain's dependent hashes (the note in the CUDA source).
 
 Each takes its plain twin (``prng.draws``, ``prng.beta_draws``) for CPU
 tensors and launches its kernel for CUDA tensors, counting launches in

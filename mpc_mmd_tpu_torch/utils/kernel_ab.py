@@ -1,17 +1,23 @@
-"""K1, K2, K3 and K5 built from several sources, checked and timed in turns.
+"""K1, K2, K3, K5 and the Beta draw kernel (b) built from several sources,
+checked and timed in turns.
 
-    python -m mpc_mmd_tpu_torch.utils.kernel_ab --before DIR [--diagnose] [--out DIR]
+    python -m mpc_mmd_tpu_torch.utils.kernel_ab --before DIR [--diagnose] \
+        [--kernels k1 k2 k3 prng] [--out DIR]
 
 ``--before DIR`` names a directory that holds an earlier version's
-``topk.cu`` and ``eq_qp.cu`` (and, if it is there, ``topk_kernel.cu``),
-for example from ``git show <commit>:mpc_mmd_tpu_torch/csrc/topk.cu >
-DIR/topk.cu``.  Each build below
+``topk.cu`` and ``eq_qp.cu`` (and, if they are there, ``topk_kernel.cu``
+and ``prng.cu``), for example from ``git show
+<commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
+builds and runs only those sources (K5 is in ``topk.cu``).  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
 and loaded with ``ctypes``; their C symbols do not clash.
 
 Builds: ``now`` (the sources in ``csrc/``), ``before`` (DIR), and variants
-of the current sources, each one textual change:
+of the current sources, each one textual change: ``prng_rounds2`` /
+``prng_rounds5`` (kernel (b) caching two or five outer rounds of its
+chains, not three), ``prng_threads128`` (its tiles of 256, not 512,
+candidate elements, two a thread);
 ``k1_rows1`` / ``k1_rows2`` (K1 with one or two rows per warp whatever the
 row count), ``k2_threads32`` (K2 with one warp a block, which keeps a
 block's staging under 48 KB at every n), ``k3_global`` / ``k3_staged``
@@ -19,7 +25,9 @@ block's staging under 48 KB at every n), ``k3_global`` / ``k3_staged``
 memory wherever it fits), ``k3_bounds3`` (K3 at 3 blocks an SM, 85
 registers a thread, not 4 and 64); with
 ``--diagnose`` also ``k1_no_rounds`` (K1 loads, sorts and stores each
-lane's head, no round),
+lane's head, no round), ``prng_no_chain`` / ``prng_no_rounds`` (kernel
+(b) without its chain phase, or with no candidate entering a round),
+``prng_clock`` (kernel (b) stamping each block's phases with clock64()),
 ``k2_no_copies`` (K2 without its cp.async staging) and ``k2_no_math`` (K2
 without its factorisation), whose outputs are meaningless, and a
 microbenchmark of the latency of one ``redux.sync`` and one
@@ -33,10 +41,16 @@ float64 twin at K2's path sizes (``before`` only at the sizes it was
 built for), and whether ``now`` is bit-equal to ``before`` is recorded,
 also on a view at an odd system offset; every K3 build gives the twin's
 indices and K_red exactly at K3's shapes (M = N^2 for N = 5, 10 ... 16);
-K5 of ``now`` against ``before``.  Then the times: each build's device time per
+K5 of ``now`` against ``before``; kernel (b) of ``now`` bit-equal to
+``before`` (NaN to NaN) and within rtol 1e-5 + atol 1e-6 of the twin
+``prng.beta_draws`` at the paths' shapes (``PRNG_SHAPES``: Path A and B,
+a chunk of 4, the record's N = 5 and 15, a Beta validator chunk) and at
+candidates of mixed alpha (10^-8 to 10^2) at 31, 33, 100 and 400
+candidates.  Then the times: each build's device time per
 launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
-floor (``fill_`` of one float) and ``torch.topk``.  Writes
+floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
+``torch._standard_gamma`` of both halves' parameters.  Writes
 ``kernel_ab.json`` and ``kernel_ab.txt`` to ``--out`` (default
 ``build/kernel_ab/``).  Needs a CUDA card and ``nvcc``.
 """
@@ -53,6 +67,7 @@ from pathlib import Path
 
 import torch
 
+from .. import prng
 from ..linalg import eq_qp_solve as qp_plain
 from ..ops import _build
 from ..ops.topk import topk_indices_plain
@@ -76,6 +91,13 @@ K2_SIZES = ((3648, 10), (4096, 10), (8900, 10), (10000, 10), (8900, 5), (8900, 1
 K3_SHAPES = ((100, 100, 25, 5), (100, 100, 100, 10), (100, 100, 121, 11),
              (100, 100, 144, 12), (100, 100, 169, 13), (100, 100, 196, 14),
              (100, 100, 225, 15), (100, 100, 256, 16))
+
+# kernel (b)'s (keys, candidates, draws, P): Path A and B, a chunk of 4
+# scenarios (EA4, EB4), the record's N = 5 and 15 (F5, F15), a Beta
+# validator chunk; then candidates of mixed alpha
+PRNG_SHAPES = ((2, 100, 500, 50), (8, 100, 500, 50), (2, 100, 250, 50),
+               (2, 100, 750, 50), (512, 1, 50_000, 50))
+PRNG_MIXED = ((2, 31, 500, 50), (2, 33, 500, 50), (2, 100, 500, 50), (2, 400, 500, 50))
 
 MICRO = r"""
 #include <cuda_runtime.h>
@@ -113,15 +135,62 @@ def _between(src: str, start: str, end: str, name: str):
     return src[:a], src[a:b], src[b:]
 
 
+# kernel (b)'s phases, timed by clock64() in the prng_clock variant: the
+# anchor each stamp goes before, and its name
+CLOCK_STAMPS = (("  // chain phase: task", "parameters issued"),
+                ("  // the candidates' constants", "chain tasks done"),
+                ("  // candidate phase: the cached rounds", "barrier passed"),
+                ("  // past the cached rounds", "cached rounds done"),
+                ("  out_end_stamp", "output stored"))
+
+
+def clock_variant(src: str) -> str:
+    """Kernel (b) with each block's latest clock64() (cycles from the
+    block's start) at each of CLOCK_STAMPS, read by ``mmd_prng_clock``."""
+    src = _replace(src, "  const int tid = threadIdx.x;\n",
+                   "  const int tid = threadIdx.x;\n  const long long c0 = clock64();\n",
+                   "prng_clock")
+    src = _replace(src, "beta_ratio(lg[j][0], lg[j][1]);\n  }\n}",
+                   "beta_ratio(lg[j][0], lg[j][1]);\n  }\n  out_end_stamp\n}", "prng_clock")
+    for i, (anchor, _) in enumerate(CLOCK_STAMPS):
+        stamp = (f"  if (blockIdx.x < 4096) atomicMax(&g_clock[blockIdx.x * 8 + {i}], "
+                 f"static_cast<unsigned long long>(clock64() - c0));\n")
+        src = _replace(src, anchor, stamp + (anchor if i < 4 else ""), "prng_clock")
+    head = "__device__ unsigned long long g_clock[4096 * 8];\n"
+    tail = ("extern \"C\" int mmd_prng_clock(void* out, int reset) {\n"
+            "  if (reset) return static_cast<int>(cudaMemset(g_clock_ptr(), 0, sizeof(g_clock)));\n"
+            "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
+            "                                                cudaMemcpyDeviceToDevice));\n}\n")
+    helper = ("static void* g_clock_ptr() {\n  void* p = nullptr;\n"
+              "  cudaGetSymbolAddress(&p, g_clock);\n  return p;\n}\n")
+    return _replace(src, "namespace {\n", head + helper + "namespace {\n", "prng_clock") + tail
+
+
 def builds(before: Path, diagnose: bool = False) -> dict:
     """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
-    "k3" (topk_kernel.cu) or "micro"."""
+    "k3" (topk_kernel.cu), "prng" (prng.cu) or "micro"."""
     topk = (_build.CSRC / "topk.cu").read_text()
     qp = (_build.CSRC / "eq_qp.cu").read_text()
     fused = (_build.CSRC / "topk_kernel.cu").read_text()
     out = {"k1_now": ("k1", topk), "k1_before": ("k1", (before / "topk.cu").read_text()),
            "k2_now": ("k2", qp), "k2_before": ("k2", (before / "eq_qp.cu").read_text()),
-           "k3_now": ("k3", fused)}
+           "k3_now": ("k3", fused),
+           "prng_now": ("prng", (_build.CSRC / "prng.cu").read_text())}
+    if (before / "prng.cu").exists():
+        out["prng_before"] = ("prng", (before / "prng.cu").read_text())
+    beta = out["prng_now"][1]
+    for name, old, new in (
+            ("prng_rounds2", "kRounds = 3;", "kRounds = 2;"),
+            ("prng_rounds5", "kRounds = 3;", "kRounds = 5;"),
+            ("prng_threads128", "kBetaThreads = 256;", "kBetaThreads = 128;")):
+        out[name] = ("prng", _replace(beta, old, new, name))
+    if diagnose:
+        out["prng_no_chain"] = ("prng", _replace(
+            beta, "t < 2 * ET * kRounds;", "t < 0 * ET * kRounds;", "prng_no_chain"))
+        out["prng_no_rounds"] = ("prng", _replace(
+            beta, "live[j][h] = valid[j] && rejected(", "live[j][h] = false && rejected(",
+            "prng_no_rounds"))
+        out["prng_clock"] = ("prng", clock_variant(beta))
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
     staged_max = re.compile(r"constexpr int kStagedMaxM = \d+;")
@@ -195,6 +264,11 @@ def build_all(sources: dict, log) -> dict:
         elif kind == "k3":
             lib.mmd_topk_kernel_matrices.argtypes = [P, ctypes.c_longlong, P, P, P, P,
                                                      I, I, I, I, P]
+        elif kind == "prng":
+            L = ctypes.c_longlong
+            lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
+            if name == "prng_clock":
+                lib.mmd_prng_clock.argtypes = [P, I]
         else:
             lib.mmd_eq_qp_solve.argtypes = [P, P, P, P, I, I, P]
         libs[name] = lib
@@ -299,6 +373,35 @@ def _k2(lib, C, r, b, mu):
                               r.numel() // n, n, _stream()), "mmd_eq_qp_solve")
 
 
+def beta_inputs(gen, K, B, P, mixed=False):
+    """Keys (K, 2) and parameters (K, B, P): as a solve sets them (2 and 5
+    times a 1e-8-floored |u|, u = 0 at the first step, as chip_smoke.py
+    checks kernel (b)), or with ``mixed`` each 10^U(-8, 2), so that the
+    candidates of one element take other round counts, alpha < 1 among
+    them."""
+    dev = gen.device
+    keys = torch.randint(0, 2 ** 32, (K, 2), generator=gen, device=dev,
+                         dtype=torch.int64)
+    if mixed:
+        a, b = (10.0 ** (10.0 * torch.rand((K, B, P), generator=gen, device=dev) - 8.0)
+                for _ in range(2))
+        return keys, a, b
+    u = 0.6 * torch.rand((K, B, P), generator=gen, device=dev)
+    u[..., 0] = 0.0
+    return keys, 2.0 * (u + 1e-8), 5.0 * (u + 1e-8)
+
+
+def _beta(lib, keys, a, b, n, out):
+    K, B, P = a.shape
+    _call(lib.mmd_prng_beta(keys.data_ptr(), a.data_ptr(), b.data_ptr(), K, B, n, P,
+                            out.data_ptr(), _stream()), "mmd_prng_beta")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, NaN equal to NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
 def in_turns(fns: dict, match: str, windows: int = 3) -> dict:
     """name -> device ms of each window, the names timed in turns."""
     times = {name: [] for name in fns}
@@ -308,7 +411,88 @@ def in_turns(fns: dict, match: str, windows: int = 3) -> dict:
     return times
 
 
-def run(before: Path, out: Path, diagnose: bool = False) -> dict:
+def run_k5(libs: dict, gen, log) -> dict:
+    """K5 (``topk.cu``'s one-hot entry) of ``k1_now`` against ``k1_before``."""
+    x = torch.randn(64, 57, 101, device="cuda", generator=gen)
+    idx = torch.empty(64, 57, 10, dtype=torch.int32, device="cuda")
+    onehot = torch.empty(64, 57, 10, 100, device="cuda")
+
+    def k5(name):
+        _call(libs[name].mmd_topk_onehot(x.data_ptr(), idx.data_ptr(), onehot.data_ptr(),
+                                         64 * 57, 101, 100, 10, 1, _stream()),
+              "mmd_topk_onehot")
+
+    outs = []
+    for name in ("k1_now", "k1_before"):
+        k5(name)
+        torch.cuda.synchronize()
+        outs.append((idx.clone(), onehot.clone()))
+    times = in_turns({n: (lambda n=n: k5(n)) for n in ("k1_now", "k1_before")}, "topk")
+    rec = {"shape": [64, 57, 101], "k": 10, "device_ms": times,
+           "equal_to_before": all(torch.equal(a, c) for a, c in zip(*outs))}
+    log(f"K5 (64, 57, 101) k=10: now equal to before {rec['equal_to_before']}; "
+        "device us " + ", ".join(f"{n} {[round(1e3 * t, 3) for t in ts]}"
+                                 for n, ts in times.items()))
+    return rec
+
+
+def run_prng(libs: dict, names: list, gen, log) -> list:
+    """Kernel (b): each build against the twin and ``prng_now`` against
+    ``prng_before``, then their times in turns beside the library call."""
+    recs = []
+    for (K, B, n, P), mixed in [(s, False) for s in PRNG_SHAPES] + [
+            (s, True) for s in PRNG_MIXED]:
+        keys, a, b = beta_inputs(gen, K, B, P, mixed)
+        ref = prng.beta_draws(keys, a, b, n)
+        got = {}
+        for name in [m for m in names if "_no_" not in m]:
+            o = torch.full((K, B, n), -1.0, device="cuda")
+            _beta(libs[name], keys, a, b, n, o)
+            torch.cuda.synchronize()
+            gap = (o - ref).abs()
+            if not bool(((gap <= 1e-5 * ref.abs() + 1e-6) | (o.isnan() & ref.isnan())).all()):
+                raise RuntimeError(f"{name} outside rtol 1e-5 + atol 1e-6 of the twin at "
+                                   f"{(K, B, n, P)}, mixed {mixed}")
+            got[name] = (o, float(gap.nan_to_num(0.0).max()))
+        equal = (all(same_bits(o, got["prng_before"][0]) for o, _ in got.values())
+                 if "prng_before" in got else None)
+        if equal is False:
+            raise RuntimeError(f"a build is not bit-equal to prng_before at {(K, B, n, P)}")
+        o = torch.empty((K, B, n), device="cuda")
+        times = in_turns({m: (lambda m=m: _beta(libs[m], keys, a, b, n, o)) for m in names},
+                         "beta")
+        full = torch.stack((a, b))[:, :, :, None, :].expand(2, K, B, n // P, P).contiguous()
+        lib_ms = device_ms(lambda: torch._standard_gamma(full), "")
+        clock = None
+        if "prng_clock" in libs:
+            lib, stamps = libs["prng_clock"], torch.zeros(4096 * 8, dtype=torch.int64,
+                                                          device="cuda")
+            _call(lib.mmd_prng_clock(stamps.data_ptr(), 1), "mmd_prng_clock")
+            _beta(lib, keys, a, b, n, o)
+            torch.cuda.synchronize()
+            _call(lib.mmd_prng_clock(stamps.data_ptr(), 0), "mmd_prng_clock")
+            torch.cuda.synchronize()
+            st = stamps.view(4096, 8)
+            st = st[st[:, 4] > 0]
+            clock = {name: {"mean": float(st[:, i].double().mean()),
+                            "max": int(st[:, i].max())}
+                     for i, (_, name) in enumerate(CLOCK_STAMPS)} if len(st) else None
+            log(f"  clock64 cycles from a block's start (mean / max over blocks): "
+                + ", ".join(f"{k} {v['mean']:.0f} / {v['max']}" for k, v in clock.items())
+                if clock else "  clock64: no block stamped (B = 1 runs beta_kernel)")
+        recs.append({"shape": [K, B, n, P], "mixed": mixed, "bit_equal_to_before": equal,
+                     "clock_cycles": clock,
+                     "max_gap_to_twin": {m: g for m, (_, g) in got.items()},
+                     "device_ms": times, "standard_gamma_ms": lib_ms})
+        log(f"kernel (b) {K} keys x {B} x {n}, P = {P}{', mixed alpha' if mixed else ''}: "
+            f"every build bit-equal to before {equal}; largest gap to the twin "
+            f"{max(g for _, g in got.values()):.3e}; device us "
+            + ", ".join(f"{m} {[round(1e3 * t, 3) for t in ts]}" for m, ts in times.items())
+            + f"; torch._standard_gamma {1e3 * lib_ms:.3f}")
+    return recs
+
+
+def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     lines = []
 
@@ -320,12 +504,15 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
                           "--format=csv,noheader"], capture_output=True, text=True)
     log(f"card: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = builds(before, diagnose)
+    if kernels:
+        sources = {n: v for n, v in sources.items() if v[0] in kernels}
     t0 = time.perf_counter()
     libs = build_all(sources, log)
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
     k1s = [n for n, (kind, _) in sources.items() if kind == "k1"]
     k2s = [n for n, (kind, _) in sources.items() if kind == "k2"]
     k3s = [n for n, (kind, _) in sources.items() if kind == "k3"]
+    prngs = [n for n, (kind, _) in sources.items() if kind == "prng"]
     exact_k1 = [n for n in k1s if n != "k1_no_rounds"]
     exact_k2 = [n for n in k2s if n not in ("k2_no_copies", "k2_no_math")]
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -342,7 +529,7 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
         log(f"latency per dependent step, cycles: {rec['cycles_per_step']}")
 
     rec["k1"] = []
-    for shape, k, absolute, m in K1_SHAPES:
+    for shape, k, absolute, m in (K1_SHAPES if k1s else ()):
         x = k1_inputs(gen, shape, k, absolute)
         ref = topk_indices_plain(x, k, absolute, m if m < shape[-1] else None)
         idx = torch.empty(shape[:-1] + (k,), dtype=torch.int32, device="cuda")
@@ -365,7 +552,7 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
             + f"; torch.topk {1e3 * lib_ms:.3f}")
 
     rec["k2"] = []
-    for batch, n in K2_SIZES:
+    for batch, n in (K2_SIZES if k2s else ()):
         C, r = k2_inputs(gen, batch, n)
         b64, mu64 = qp_plain(C.double(), r.double())
         # the earlier build took n = 4 and 10 only
@@ -390,19 +577,20 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
                           "device_ms": times})
         log(f"K2 {batch} systems, n={n}: now bit-equal to before {equal}; device us "
             + ", ".join(f"{m} {[round(1e3 * t, 3) for t in ts]}" for m, ts in times.items()))
-    C, r = k2_inputs(gen, 101)
-    views = []
-    for name in ("k2_now", "k2_before"):
-        b, mu = torch.empty_like(r[1:]), torch.empty(100, device="cuda")
-        _k2(libs[name], C[1:], r[1:], b, mu)
-        views.append((b, mu))
-    torch.cuda.synchronize()
-    rec["k2_odd_offset_bit_equal"] = all(torch.equal(a, c) for a, c in zip(*views))
-    log(f"K2 on views one system in: now bit-equal to before "
-        f"{rec['k2_odd_offset_bit_equal']}")
+    if k2s:
+        C, r = k2_inputs(gen, 101)
+        views = []
+        for name in ("k2_now", "k2_before"):
+            b, mu = torch.empty_like(r[1:]), torch.empty(100, device="cuda")
+            _k2(libs[name], C[1:], r[1:], b, mu)
+            views.append((b, mu))
+        torch.cuda.synchronize()
+        rec["k2_odd_offset_bit_equal"] = all(torch.equal(a, c) for a, c in zip(*views))
+        log(f"K2 on views one system in: now bit-equal to before "
+            f"{rec['k2_odd_offset_bit_equal']}")
 
     rec["k3"] = []
-    for C, S, M, k in K3_SHAPES:
+    for C, S, M, k in (K3_SHAPES if k3s else ()):
         samples, D = k3_inputs(gen, C, S, M)
         ref = topk_kernel_matrices_plain(samples, D, k)
         outs = (torch.empty(C, S, k, device="cuda"), torch.empty(C, S, k, k, device="cuda"),
@@ -428,26 +616,10 @@ def run(before: Path, out: Path, diagnose: bool = False) -> dict:
             "device us " + ", ".join(f"{n} {[round(1e3 * t, 3) for t in ts]}"
                                      for n, ts in times.items()))
 
-    x = torch.randn(64, 57, 101, device="cuda", generator=gen)
-    idx = torch.empty(64, 57, 10, dtype=torch.int32, device="cuda")
-    onehot = torch.empty(64, 57, 10, 100, device="cuda")
-
-    def k5(name):
-        _call(libs[name].mmd_topk_onehot(x.data_ptr(), idx.data_ptr(), onehot.data_ptr(),
-                                         64 * 57, 101, 100, 10, 1, _stream()),
-              "mmd_topk_onehot")
-
-    outs = []
-    for name in ("k1_now", "k1_before"):
-        k5(name)
-        torch.cuda.synchronize()
-        outs.append((idx.clone(), onehot.clone()))
-    times = in_turns({n: (lambda n=n: k5(n)) for n in ("k1_now", "k1_before")}, "topk")
-    rec["k5"] = {"shape": [64, 57, 101], "k": 10, "device_ms": times,
-                 "equal_to_before": all(torch.equal(a, c) for a, c in zip(*outs))}
-    log(f"K5 (64, 57, 101) k=10: now equal to before {rec['k5']['equal_to_before']}; "
-        "device us " + ", ".join(f"{n} {[round(1e3 * t, 3) for t in ts]}"
-                                 for n, ts in times.items()))
+    if k1s:
+        rec["k5"] = run_k5(libs, gen, log)
+    if prngs:
+        rec["prng_beta"] = run_prng(libs, prngs, gen, log)
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
     return rec
@@ -459,11 +631,13 @@ def main(argv=None) -> None:
                    help="directory with an earlier topk.cu and eq_qp.cu")
     p.add_argument("--diagnose", action="store_true",
                    help="also the diagnostic builds and the latency microbenchmark")
+    p.add_argument("--kernels", nargs="*", choices=("k1", "k2", "k3", "prng", "micro"),
+                   default=None, help="build and run only these sources")
     p.add_argument("--out", type=Path, default=OUT_DIR)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
-    run(args.before, args.out, args.diagnose)
+    run(args.before, args.out, args.diagnose, args.kernels)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,17 @@ PORT_DATA is a record check's ``DIR/data``.  Prints JSON lines:
 runs only the port (the card's machine has no JAX): the ``mmd_opt``
 solves of those seeds' scenarios, each with its best cost per outer
 iteration and risk_obs, to find where a card's solve leaves the CPU's.
+
+    python tests/record_spot_check.py --port_seeds S [S ...] --dump DIR \
+        [--device cuda] [--iterations 20]
+
+dumps outer iterations 1-2 of each seed's solve stage by stage on the
+card and on the CPU (``record_check.stage_dump``), and the outer loop's
+own stages up to ``--iterations``, once on each side's own draws and once
+on the CPU's draws replayed on both: one JSON line per seed and draws
+(the first tensor apart, the first index apart, each side's cost trace
+and the iteration where they part), the whole dump in
+DIR/dump_<seed>_<draws>.json and its small tensors in .npz.
 """
 
 import argparse
@@ -116,13 +127,33 @@ def port_solves(seeds, device: str) -> None:
                           "res_beta": [float(x) for x in r.res_beta.cpu()]}), flush=True)
 
 
+def dump_seeds(seeds, device: str, out: str, iterations: int) -> None:
+    from mpc_mmd_tpu_torch.utils.record_check import stage_dump
+    Path(out).mkdir(parents=True, exist_ok=True)
+    for seed in seeds:
+        for draws in ("own", "cpu"):
+            t0 = time.perf_counter()
+            d = stage_dump(seed, (device, "cpu"), draws, iterations,
+                           npz=str(Path(out) / f"dump_{seed}_{draws}.npz"))
+            with open(Path(out) / f"dump_{seed}_{draws}.json", "w") as f:
+                json.dump(d, f)
+            print(json.dumps({k: v for k, v in d.items() if k != "stages"}
+                             | {"stages": len(d["stages"]),
+                                "s": round(time.perf_counter() - t0, 1)}), flush=True)
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("port_data", nargs="?")
     p.add_argument("--port_seeds", type=int, nargs="*")
     p.add_argument("--device", default="cpu")
+    p.add_argument("--dump", default=None)
+    p.add_argument("--iterations", type=int, default=20)
     args = p.parse_args()
+    if args.port_seeds and args.dump:
+        dump_seeds(args.port_seeds, args.device, args.dump, args.iterations)
+        return
     if args.port_seeds:
         port_solves(args.port_seeds, args.device)
         return

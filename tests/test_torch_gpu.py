@@ -22,7 +22,6 @@ import torch
 
 from mpc_mmd_tpu_torch import Solver, dynamic_workload, fastrt_workload
 from mpc_mmd_tpu_torch.dynamics import rollout as rollout_plain
-from mpc_mmd_tpu_torch.kernels import pairwise_l2sq
 from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
 from mpc_mmd_tpu_torch.linalg import scenario_mm
 from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
@@ -32,6 +31,7 @@ from mpc_mmd_tpu_torch.ops.qp import eq_qp_solve_t_plain
 from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
 from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
 from mpc_mmd_tpu_torch.sampling import _cholesky
+from mpc_mmd_tpu_torch.utils import chunk_bits
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -646,73 +646,53 @@ def test_exact_solve_on_the_card_makes_no_host_sync(cuda):
     assert bool(torch.isfinite(r.cx).all()) and bool(torch.isfinite(r.risk_obs))
 
 
-# The shared-weight products of the fastrt (64 candidates), dynamic and
-# on-road (100) solves, (rows of one scenario, K, N): the guess QP, the
-# projection and its KKT solves, and the refit of the mother rollouts.
-PRODUCT_SHAPES = [(R, K, N) for R in (64, 100) for K, N in (
-    (4, 11), (11, 100), (11, 198), (14, 14), (15, 15), (100, 11), (198, 11))] + [
-    (6400, 50, 11), (6400, 11, 11), (10000, 50, 11), (10000, 11, 11),
-    (1600, 50, 11), (1600, 11, 11)]
+# Chunk sizes held bit for bit: the counts the earlier checks held and,
+# past them, 16 to 64 scenarios (``utils/chunk_bits.py`` has the families
+# and their shapes, and tries every count on the card)
+CHUNKS = (16, 17, 24, 32, 33, 48, 64)
 
 
-@pytest.mark.parametrize("rows,K,N", PRODUCT_SHAPES)
+@pytest.mark.parametrize("rows,K,N", chunk_bits.SCENARIO_MM)
 def test_scenario_mm_gives_a_scenario_its_bits_in_any_chunk(cuda, rows, K, N):
-    """Each scenario's rows of ``scenario_mm`` over 2-16 scenarios equal
+    """Each scenario's rows of ``scenario_mm`` over 2-64 scenarios equal
     that scenario's product alone, bit for bit, and the product is a GEMM's
     to float32 round-off."""
+    assert chunk_bits.failing_counts("scenario_mm", (rows, K, N),
+                                     (2, 3, 4, 5, 8) + CHUNKS, cuda) == []
     w = torch.randn(K, N, device="cuda", generator=cuda)
-    x = torch.randn(16 * rows, K, device="cuda", generator=cuda)
-    alone = [scenario_mm(x[i * rows:(i + 1) * rows], w) for i in range(16)]
-    for n in (2, 3, 4, 5, 8, 16):
-        out = scenario_mm(x[:n * rows], w, n)
-        for i in range(n):
-            assert torch.equal(out[i * rows:(i + 1) * rows], alone[i]), (n, i)
-    torch.testing.assert_close(alone[0], x[:rows] @ w, rtol=1e-5, atol=1e-4)
+    x = torch.randn(rows, K, device="cuda", generator=cuda)
+    torch.testing.assert_close(scenario_mm(x, w), x @ w, rtol=1e-5, atol=1e-4)
 
 
 def test_outer_cem_cholesky_gives_a_scenario_its_bits_in_any_chunk(cuda):
-    """The outer CEM's factors of 1-8 covariances at once equal each
+    """The outer CEM's factors of 1-64 covariances at once equal each
     factored alone, bit for bit; a covariance that is not positive definite
     gives NaN."""
+    assert chunk_bits.failing_counts("cholesky", (8,), tuple(range(1, 9)) + CHUNKS,
+                                     cuda) == []
     L = torch.randn(8, 8, 8, device="cuda", generator=cuda)
     A = L @ L.mT + 0.1 * torch.eye(8, device="cuda")
-    alone = [_cholesky(A[i]) for i in range(8)]
-    torch.testing.assert_close(alone[0], torch.linalg.cholesky(A[0]), rtol=1e-5,
-                               atol=1e-5)
-    for n in range(1, 9):
-        out = _cholesky(A[:n])
-        for i in range(n):
-            assert torch.equal(out[i], alone[i]), (n, i)
+    torch.testing.assert_close(_cholesky(A[0]), torch.linalg.cholesky(A[0]),
+                               rtol=1e-5, atol=1e-5)
     bad = torch.stack((A[0], -torch.eye(8, device="cuda")))
     out = _cholesky(bad)
     assert bool(torch.isfinite(out[0]).all()) and bool(torch.isnan(out[1]).all())
 
 
-@pytest.mark.parametrize("S,n_el,M1,nb", [(57, 7, 101, 64), (89, 11, 101, 100),
-                                          (89, 11, 17, 100)])
+@pytest.mark.parametrize("S,n_el,M1,nb", chunk_bits.RESAMPLE)
 def test_inner_resample_gives_a_candidate_its_bits_in_any_chunk(cuda, S, n_el, M1, nb):
     """The inner CEM's resample ``A_t @ elites`` over the candidates of
-    1-8 scenarios: each scenario's candidates equal them alone."""
-    A = torch.randn(S, n_el, device="cuda", generator=cuda)
-    E = torch.randn(8 * nb, n_el, M1, device="cuda", generator=cuda)
-    alone = [A @ E[i * nb:(i + 1) * nb] for i in range(8)]
-    for n in (2, 3, 4, 8):
-        out = A @ E[:n * nb]
-        for i in range(n):
-            assert torch.equal(out[i * nb:(i + 1) * nb], alone[i]), (n, i)
+    1-64 scenarios: each scenario's candidates equal them alone."""
+    assert chunk_bits.failing_counts("resample", (S, n_el, M1, nb),
+                                     (2, 3, 4, 8) + CHUNKS, cuda) == []
 
 
-@pytest.mark.parametrize("M,nb", [(100, 64), (100, 100), (16, 100)])
+@pytest.mark.parametrize("M,nb", chunk_bits.PAIRWISE_L2SQ)
 def test_pairwise_l2sq_gives_a_candidate_its_bits_in_any_chunk(cuda, M, nb):
-    """``pairwise_l2sq`` of the refitted features (C, M, 22) of 1-8
+    """``pairwise_l2sq`` of the refitted features (C, M, 22) of 1-64
     scenarios' candidates: each scenario's block equals it alone."""
-    F = torch.randn(8 * nb, M, 22, device="cuda", generator=cuda)
-    alone = [pairwise_l2sq(F[i * nb:(i + 1) * nb], F[i * nb:(i + 1) * nb])
-             for i in range(8)]
-    for n in (2, 3, 4, 8):
-        out = pairwise_l2sq(F[:n * nb], F[:n * nb])
-        for i in range(n):
-            assert torch.equal(out[i * nb:(i + 1) * nb], alone[i]), (n, i)
+    assert chunk_bits.failing_counts("pairwise_l2sq", (M, nb),
+                                     (2, 3, 4, 8) + CHUNKS, cuda) == []
 
 
 def _keys(gen, K):
@@ -739,21 +719,48 @@ def test_prng_draws_kernel_matches_twin(cuda, K, n):
         assert _ulp_gap(prng_draws(keys, n, dist), prng.draws(keys, n, dist)) <= 1
 
 
-@pytest.mark.parametrize("K,B,n,P", [(2, 100, 500, 50), (8, 100, 500, 50),
-                                     (2, 100, 250, 50), (2, 100, 750, 50),
-                                     (40, 1, 50_000, 50), (3, 2, 7, 7)])
-def test_prng_beta_kernel_matches_twin(cuda, K, B, n, P):
+def _deep_inner_chain(gen, n):
+    """A key and an element whose first gamma's first round rejects both
+    inner normals that kernel (b) caches (``kCachedNormals``) at the
+    largest c of a solve (alpha = 1e-8: d = 2/3), so that its candidates
+    walk the inner chain on themselves."""
+    from mpc_mmd_tpu_torch import prng
+    keys = _keys(gen, -(-2_000_000 // n))                    # ~100 such chains
+    ke = prng.split(prng.split(keys)[:, 0], n)               # (tries, n, 2)
+    xk = prng.split(prng.split(ke)[..., 0, :], 3)[..., 1, :]  # round 1's inner key
+    d = np.float32(1.0) - np.float32(1.0 / 3.0)
+    c = float(np.float32(1.0 / 3.0) / np.sqrt(d))
+    rejected = torch.ones(ke.shape[:2], dtype=torch.bool, device="cuda")
+    for _ in range(2):
+        xk, s = prng.split(xk).unbind(-2)
+        rejected &= prng.fma(prng.normal(s), c, 1.0) <= 0.0
+    t, e = (int(i) for i in rejected.nonzero()[0])
+    return keys[t], e
+
+
+@pytest.mark.parametrize("K,B,n,P,mixed", [
+    (2, 100, 500, 50, False), (8, 100, 500, 50, False), (2, 100, 250, 50, False),
+    (2, 100, 750, 50, False), (40, 1, 50_000, 50, False), (3, 2, 7, 7, False),
+    (2, 1, 500, 50, True), (2, 31, 500, 50, True), (2, 33, 500, 50, True),
+    (2, 100, 500, 50, True), (2, 400, 500, 50, True)])
+def test_prng_beta_kernel_matches_twin(cuda, K, B, n, P, mixed):
     """Kernel (b) at the solves' parameters (1e-8-floored |u| times 2 and 5,
-    u = 0 at the first step) and at Beta(0, 0), which is NaN in both:
-    within rtol 1e-5 + atol 1e-6."""
+    u = 0 at the first step) or at candidates of mixed alpha (10^-8 to
+    10^2, so that the candidates of one element take other round counts),
+    with Beta(0, 0), which is NaN in both, and, beside several candidates,
+    an element whose chain rejects every cached inner normal: within rtol
+    1e-5 + atol 1e-6 of the twin (the largest gap printed)."""
     from mpc_mmd_tpu_torch import prng
     from mpc_mmd_tpu_torch.ops import prng_beta
-    keys = _keys(cuda, K)
-    u = 0.6 * torch.rand((K, B, P), generator=cuda, device="cuda")
-    u[..., 0] = 0.0
-    alpha, beta = 2.0 * (u + 1e-8), 5.0 * (u + 1e-8)
+    from mpc_mmd_tpu_torch.utils.kernel_ab import beta_inputs
+    keys, alpha, beta = beta_inputs(cuda, K, B, P, mixed)
     alpha[0, 0, -1] = beta[0, 0, -1] = 0.0
+    if B > 1:
+        keys[1], e = _deep_inner_chain(cuda, n)
+        alpha[1, 0, e % P] = 1e-8
     got, ref = prng_beta(keys, alpha, beta, n), prng.beta_draws(keys, alpha, beta, n)
+    print(f"kernel (b) at {(K, B, n, P)}, mixed alpha {mixed}: largest gap to the twin "
+          f"{float((got - ref).abs().nan_to_num(0.0).max()):.3e}")
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-6, equal_nan=True)
     assert bool(got[0, 0, P - 1::P].isnan().all())
 

@@ -267,6 +267,35 @@ def test_kernel_twins_give_the_jax_rows():
                                    rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("K,B,P,n", [(2, 7, 5, 20), (1, 33, 4, 8)])
+def test_a_candidates_beta_row_is_its_draw_alone(K, B, P, n):
+    """What kernel (b) rests on: the element keys of a row depend on the
+    key and the element only, so row b of a B-candidate ``beta_draws``
+    equals, bit for bit, a one-candidate call with b's parameters; at mixed
+    alpha and beta (10^-8 to 10^2, below 1 among them), a NaN parameter,
+    zeros and Beta(0, 0).  The rows are ``jax.vmap(jax.random.beta)`` over
+    the candidates with the key closed over, within rtol 1e-5 + atol 1e-6
+    (NaN where JAX gives NaN)."""
+    rng = np.random.default_rng(11 + B)
+    a, b = (np.float32(10.0) ** rng.uniform(-8, 2, (K, B, P)).astype(np.float32)
+            for _ in range(2))
+    a[0, 1, 2], b[0, 2, 3] = np.nan, np.nan
+    a[-1, 3, 0] = b[-1, 3, 0] = 0.0
+    a[-1, 4, 1] = 0.0
+    ks = jax.random.split(jax.random.PRNGKey(31), K)
+    keys, at, bt = _np(ks), torch.as_tensor(a), torch.as_tensor(b)
+    got = prng.beta_draws(keys, at, bt, n).numpy()
+    for c in range(B):
+        alone = prng.beta_draws(keys, at[:, c:c + 1], bt[:, c:c + 1], n).numpy()
+        assert np.array_equal(got[:, c], alone[:, 0], equal_nan=True), c
+    assert np.isnan(got[-1, 3, 0::P]).all()
+    for k in range(K):
+        ref = jax.vmap(lambda aa, bb: jax.random.beta(ks[k], aa, bb, (n // P, P)))(
+            jnp.asarray(a[k]), jnp.asarray(b[k]))
+        np.testing.assert_allclose(got[k], np.asarray(ref).reshape(B, n), rtol=1e-5,
+                                   atol=1e-6)
+
+
 def test_beta_tally_counts_each_shared_key_chain_once():
     """``beta_draws``' tally (the Beta kernel's bound in chip_smoke.py):
     a key's candidates share its element key chains, so the chains' rounds

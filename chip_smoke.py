@@ -3,6 +3,13 @@
 
     python3 chip_smoke.py
 
+Every solve below runs as the port's users run it: on the card a solver
+captures its outer loop as a CUDA graph at its first solve of a shape and
+replays it for every later solve of that shape (``mpc_mmd_tpu_torch/
+graph.py``); only the exact strategy and the two-rank candidate split (13d)
+run eagerly.  A replay adds to the kernel wrappers' launch counts what its
+capture counted, so every exact launch check below holds for replays too.
+
 Phases, each of which must pass:
 
 1. the card: name and power limit (nvidia-smi);
@@ -228,17 +235,43 @@ Phases, each of which must pass:
       JAX): bits and uniforms equal, normals within 4 ulp, Beta within
       rtol 1e-5 + atol 1e-6;
    d. the full-width fastrt ``mmd_opt`` solve of idx_mpc 5 on its default
-      noise against the JAX package's solve stored in that file: the
-      controls within 1e-3, both runs' costs per outer iteration printed;
+      noise against the JAX package's solve stored in that file: a first
+      solve captures the graph, the second, a replay bit-equal to it, is
+      held: the controls within 1e-3, both runs' costs per outer iteration
+      printed;
    e. both kernels' device time, bound and library call (``torch.randn``
       with a generator; ``torch._standard_gamma``), then the validator's
       time at 1200 x 1000 and the fastrt and Path A solve latencies on the
       new draws.
+16. the solve as one CUDA graph, each solver graphed by default against
+   one made with ``graph=False`` (eager) on the same inputs:
+   a. bit for bit, with equal launch counts per call and every kernel of
+      the path launched, every replay under CUDA's sync debug mode at
+      "error", and every result kept unchanged to the end: three
+      full-width fastrt solves (other seeds, scenarios, initial states and
+      v_des; the first captures), two ``solve_batch`` calls of 7 scenarios
+      at chunk 4 (a graph for the chunk of 4 and one for the short chunk of
+      3), three Path A fused solves with Beta noise, and three Path D
+      ``FrenetSolver`` steps of a moving plant (state, frame, obstacles,
+      mean and v_des all changed); each graph's nodes, capture and
+      instantiation seconds;
+   b. eager against graphed in turns, host time to ``torch.cuda.synchronize``:
+      p50 and p99 of 20 fastrt solves each and of 6 Path A fused solves
+      each, solves/s of ``solve_batch`` over 8 scenarios at chunks 4 and 8
+      (median of 4 each), and the Path D closed-loop step (``run_episode``
+      as the closed-loop CLI runs it, 2 episodes of 20 steps each), p50,
+      p99 and mean against the 150 ms control period;
+   c. one graphed fastrt, Path A fused and Path D solve each, a replay,
+      under ``torch.profiler``: device busy ms, idle share, device events;
+      and the busy time against the p50 of 5 untraced replays of the same
+      solve.
+   Its counts are set to 0 before each run of a and b and read after.
 
-Prints the kernels' JSON record and the card's nvidia-smi line, and as the
-last line ``{"ok": true, "device": {...}}``.  In the record, ``launches``
-counts the launches of the paths' runs (phases 4, 6, 7, 9 a-e, g, 10
-b-d, f, 11 a, c-f, 12, 13 and 14 b-c; K2's lane-major entry, its own
+Prints phase 16's JSON record (``{"graph": ...}``), the kernels' JSON
+record and the card's nvidia-smi line, and as the last line ``{"ok": true,
+"device": {...}}``.  In the kernels' record, ``launches`` counts the
+launches of the paths' runs (phases 4, 6, 7, 9 a-e, g, 10 b-d, f, 11 a,
+c-f, 12, 13, 14 b-c and 16 a-b; K2's lane-major entry, its own
 row, launches only under "xt" in 12 and 14b); K5
 is on no path of the package, and its count is that of its own phase.
 ``launches_per_solve`` splits them by path (per solve; per chunk on
@@ -958,16 +991,23 @@ def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
     if gap > 4 or not np.allclose(got, ref["beta"], rtol=1e-5, atol=1e-6):
         fail(f"15c: normals {gap} ulp (> 4) or Beta {beta_err} off the JAX package's")
 
-    # d. the full-width fastrt solve on default noise against the JAX solve
+    # d. the full-width fastrt solve on default noise against the JAX solve:
+    # the first solve captures the graph, the second replays it
     solver = Solver(cfg, device=dev)
     xo, yo = (torch.as_tensor(ref[k], device=dev) for k in ("solve_x_obs", "solve_y_obs"))
     idx = int(ref["solve_idx"])
+    first = solver.solve(idx, INIT, MEAN, COV, xo, yo, 15.0)
     r = solver.solve(idx, INIT, MEAN, COV, xo, yo, 15.0)
+    if [g["replays"] for g in solver.graph_stats()] != [1] or not all(
+            torch.equal(a, b) for a, b in zip(first, r)):
+        fail(f"15d: the second solve is not a replay of the first's graph with its "
+             f"bits ({solver.graph_stats()})")
     acc, steer = controls(solver.ws, cfg, r.cx, r.cy)
     ctrl = max(float(np.abs(acc.cpu().numpy() - ref["solve_acc"]).max()),
                float(np.abs(steer.cpu().numpy() - ref["solve_steer"]).max()))
-    log(f"15d: fastrt mmd_opt at full width, idx_mpc {idx}, default noise, against the "
-        f"JAX package's solve: controls max diff {ctrl:.3e}; cost per outer iteration "
+    log(f"15d: fastrt mmd_opt at full width, idx_mpc {idx}, default noise, a graph "
+        f"replay, against the JAX package's solve: controls max diff {ctrl:.3e}; cost "
+        f"per outer iteration "
         f"card {np.round(r.res.cpu().numpy(), 2).tolist()}, JAX "
         f"{np.round(ref['solve_res'], 2).tolist()}; risk_obs {float(r.risk_obs):.4f} vs "
         f"{float(ref['solve_risk_obs']):.4f}")
@@ -2011,6 +2051,224 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     return path_launches
 
 
+def graph_against_eager(torch, ops, label, make, calls, kernels):
+    """Phase 16a: each of ``calls`` (a function of a solver) on a graphed
+    solver, ``make(None)``, and on an eager one, ``make(False)``, in turn:
+    the results bit for bit equal and each call's launch counts equal (and
+    every kernel of ``kernels`` launched); every call after the first (a
+    replay) under CUDA's sync debug mode at "error"; every result kept
+    unchanged to the end.  Returns the graphed and the eager solver and
+    the counts of both runs."""
+    graphed, eager = make(None), make(False)
+    if not graphed.graph or eager.graph:
+        fail(f"16a {label}: graph={graphed.graph} by default, {eager.graph} with "
+             f"graph=False")
+    kept, total = [], {fn.__name__: 0 for fn in ops.KERNELS}
+    for i, call in enumerate(calls):
+        outs, counts = [], []
+        for solver in (graphed, eager):
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            if solver is graphed and i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs.append(call(solver))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            counts.append(ops.launch_counts())
+            total = {k: n + counts[-1][k] for k, n in total.items()}
+        missing = [fn.__name__ for fn in kernels if counts[0][fn.__name__] < 1]
+        if counts[0] != counts[1] or missing:
+            fail(f"16a {label}, call {i}: launches graphed {counts[0]}, eager "
+                 f"{counts[1]}; not launched {missing}")
+        apart = [f for f, a, b in zip(outs[0]._fields, *outs) if not torch.equal(a, b)]
+        if apart:
+            fail(f"16a {label}, call {i}: the graphed solve differs from the eager one "
+                 f"in {apart}")
+        kept.append((outs[0], [t.clone() for t in outs[0]]))
+    if not all(torch.equal(a, b) for got, copy in kept for a, b in zip(got, copy)):
+        fail(f"16a {label}: a later solve changed a result kept from an earlier one")
+    stats = graphed.graph_stats()
+    log(f"16a {label}: {len(calls)} solves (the first captures), graphed bit-equal "
+        f"to eager with equal launches, the replays with no host sync, the earlier "
+        f"results unchanged; graphs " + "; ".join(
+            f"{s['nodes']} nodes, capture {s['capture_s']:.3f} s, instantiate "
+            f"{s['instantiate_s']:.3f} s, {s['replays']} replays" for s in stats))
+    return graphed, eager, total
+
+
+def in_turns(torch, runs, n):
+    """The callables ``runs`` {label: fn} in turns, ``n`` calls each (a b,
+    b a, a b, ...): each call's host seconds to ``torch.cuda.synchronize``,
+    by label."""
+    times = {label: [] for label in runs}
+    for i in range(n):
+        for label in (list(runs) if i % 2 == 0 else list(runs)[::-1]):
+            t0 = time.perf_counter()
+            runs[label]()
+            torch.cuda.synchronize()
+            times[label].append(time.perf_counter() - t0)
+    return times
+
+
+def percentiles(secs):
+    """p50 and p99 milliseconds, unrounded."""
+    p50, p99 = np.percentile(1e3 * np.asarray(secs), [50, 99])
+    return float(p50), float(p99)
+
+
+def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
+    """Phase 16: the solve as one CUDA graph (see the module docstring).
+    Returns the launch counts of its runs and its record."""
+    from mpc_mmd_tpu_torch import FrenetSolver, Solver
+    from mpc_mmd_tpu_torch.closedloop import (SyntheticPlant, local_problem,
+                                              make_route, run_episode)
+    from mpc_mmd_tpu_torch.frenet import build_smoother
+    from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
+
+    t_phase = time.perf_counter()
+    K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
+                      ops.fused_rollout)
+    D, B = ops.prng_draws, ops.prng_beta
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    path_launches, record = [], {}
+
+    # a. graphed against eager, bit for bit
+    tot = torch.as_tensor(np.linspace(0, cfg.horizon.t_fin, cfg.horizon.num),
+                          dtype=torch.float32, device=dev)
+    xs, ys = stacked(torch, obstacle_scenarios(torch, 8, cfg.obstacles.num_obs, tot))
+    fastrt_calls = [lambda s, i=i: s.solve(
+        300 + i, [0.0, 1.75 - 0.1 * i, 5.0 + i, 0.0, 0.0, 0.0], MEAN, COV, xs[i], ys[i],
+        15.0 - i) for i in range(3)]
+    g_fastrt, e_fastrt, got = graph_against_eager(
+        torch, ops, "fastrt", lambda graph: Solver(cfg, device=dev, graph=graph),
+        fastrt_calls, (K1, K2, K4, D))
+    path_launches.append(got)
+    init, mean, cov = f32(INIT), f32(MEAN), f32(COV)
+    chunk_calls = [lambda s, lo=lo: s.solve_batch(list(range(lo, lo + 7)), init, mean,
+                                                  cov, xs[:7], ys[:7], 15.0)
+                   for lo in (400, 420)]
+    _, _, got = graph_against_eager(
+        torch, ops, "fastrt solve_batch of 7 at chunk 4",
+        lambda graph: Solver(cfg, device=dev, scenario_chunk=4, graph=graph),
+        chunk_calls, (K1, K2, K4, D))
+    path_launches.append(got)
+    init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
+    cut = dynamic_cutin(cfg_a, 3, device=dev)
+    os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    try:
+        a_calls = [lambda s, i=i: s.solve(500 + i, init_d, mean_d, cov_d, cut.x_traj[i],
+                                          cut.y_traj[i], v_des) for i in range(3)]
+        g_a, e_a, got = graph_against_eager(
+            torch, ops, "Path A fused, Beta noise",
+            lambda graph: Solver(cfg_a, device=dev, graph=graph), a_calls,
+            (K3, K2, K1, K4, D, B))
+    finally:
+        os.environ.pop("MPC_MMD_FUSED_CEM")
+    path_launches.append(got)
+    plant = SyntheticPlant(cfg_d, make_route("curved"), ONROAD_OBSTACLES,
+                           obstacle_speed=1.0)
+    smoother = build_smoother(cfg_d.frenet.num_path, device=dev)
+    steps = []
+    tot_d = torch.as_tensor(np.linspace(0, cfg_d.horizon.t_fin, cfg_d.horizon.num),
+                            dtype=torch.float32, device=dev)
+    for k in range(3):
+        frame, xo, yo, init_g = local_problem(cfg_d, plant, smoother, tot_d)
+        steps.append((600 + k, init_g, [10.0 + k] * 4 + [0.3 * k] * 4, COV, xo, yo,
+                      10.0 + 2 * k, frame))
+        plant.step(1.0, 0.02)
+    g_d, e_d, got = graph_against_eager(
+        torch, ops, "Path D FrenetSolver mmd_opt, 3 steps, every input changed",
+        lambda graph: FrenetSolver(cfg_d, device=dev, graph=graph),
+        [lambda s, a=a: s.solve(*a) for a in steps], (K1, K2, K4, D))
+    path_launches.append(got)
+
+    # b. eager against graphed, in turns
+    ops.reset_launch_counts()
+    lat = in_turns(torch, {"eager": lambda: e_fastrt.solve(
+        7, INIT, MEAN, COV, xs[7], ys[7], 15.0), "graphed": lambda: g_fastrt.solve(
+        7, INIT, MEAN, COV, xs[7], ys[7], 15.0)}, 20)
+    record["fastrt_ms"] = {k: percentiles(v) for k, v in lat.items()}
+    rates = {}
+    for n in (4, 8):
+        solvers = {k: Solver(cfg, device=dev, scenario_chunk=n, graph=g)
+                   for k, g in (("eager", False), ("graphed", None))}
+        runs = {k: (lambda s=s: s.solve_batch(list(range(700, 708)), init, mean, cov,
+                                             xs, ys, 15.0)) for k, s in solvers.items()}
+        for fn in runs.values():
+            fn()                                     # the graph's capture
+        secs = in_turns(torch, runs, 4)
+        rates[n] = {k: 8 / float(np.median(v)) for k, v in secs.items()}
+    record["chunk_solves_per_s"] = rates
+    os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    try:
+        lat_a = in_turns(torch, {k: (lambda s=s: s.solve(
+            9, init_d, mean_d, cov_d, cut.x_traj[0], cut.y_traj[0], v_des))
+            for k, s in (("eager", e_a), ("graphed", g_a))}, 6)
+    finally:
+        os.environ.pop("MPC_MMD_FUSED_CEM")
+    record["path_a_fused_ms"] = {k: percentiles(v) for k, v in lat_a.items()}
+    episodes = {"eager": [], "graphed": []}
+    for label in ("eager", "graphed", "graphed", "eager"):
+        solver = e_d if label == "eager" else g_d
+        r = run_episode(cfg_d, route_kind="curved", v_des=15.0, max_steps=20,
+                        goal_arc=300.0, seed=0, solver=solver)
+        episodes[label] += r.solve_times
+    record["closed_loop_step_ms"] = {k: percentiles(v) for k, v in episodes.items()}
+    record["closed_loop_step_mean_ms"] = {k: 1e3 * float(np.mean(v))
+                                          for k, v in episodes.items()}
+    got = ops.launch_counts()
+    missing = [fn.__name__ for fn in (K1, K2, K3, K4, D, B) if got[fn.__name__] < 1]
+    if missing:
+        fail(f"16b: kernels of the timed paths not launched: {missing}")
+    path_launches.append(got)
+    log(f"16b: eager against graphed in turns, host ms to synchronize (p50, p99): "
+        f"fastrt {record['fastrt_ms']} (20 each); Path A fused "
+        f"{record['path_a_fused_ms']} (6 each); solve_batch over 8 scenarios, solves/s "
+        f"(median of 4): {rates}; the Path D closed-loop step (2 episodes of 20 steps "
+        f"each) {record['closed_loop_step_ms']}, mean "
+        f"{record['closed_loop_step_mean_ms']}, against the 150 ms period: graphed p99 "
+        f"{'meets' if record['closed_loop_step_ms']['graphed'][1] <= 150 else 'misses'} it")
+
+    # c. graphed solves (replays) under torch.profiler, and the busy time
+    # against the p50 of 5 untraced replays of the same solve
+    traces = {}
+    for label, solver, fn in (
+            ("fastrt", g_fastrt, lambda: g_fastrt.solve(8, INIT, MEAN, COV, xs[0], ys[0],
+                                                        15.0)),
+            ("path_a_fused", g_a, lambda: g_a.solve(10, init_d, mean_d, cov_d,
+                                                    cut.x_traj[1], cut.y_traj[1], v_des)),
+            ("path_d", g_d, lambda: g_d.solve(*steps[0]))):
+        fused = label == "path_a_fused"
+        if fused:
+            os.environ["MPC_MMD_FUSED_CEM"] = "1"
+        try:
+            before = [g["replays"] for g in solver.graph_stats()]
+            p50 = percentiles(in_turns(torch, {label: fn}, 5)[label])[0]
+            _, summary, _ = traced(fn)
+            after = [g["replays"] for g in solver.graph_stats()]
+        finally:
+            if fused:
+                os.environ.pop("MPC_MMD_FUSED_CEM")
+        if len(after) != len(before) or sum(after) != sum(before) + 6:
+            fail(f"16c {label}: the timed and traced solves were not all replays "
+                 f"({before} -> {after})")
+        traces[label] = {k: summary[k] for k in ("wall_ms", "device_busy_ms",
+                                                 "idle_share", "device_events")}
+        traces[label].update(untraced_p50_ms=p50,
+                             idle_share_of_untraced=1.0 - summary["device_busy_ms"] / p50)
+    record["traced"] = traces
+    log(f"16c: one graphed solve each (a replay) under torch.profiler: {traces}")
+
+    # d. every graph of this phase
+    record["graphs"] = {label: [{k: s[k] for k in ("nodes", "capture_s", "instantiate_s",
+                                                   "replays")} for s in g.graph_stats()]
+                        for label, g in (("fastrt", g_fastrt), ("path_a_fused", g_a),
+                                         ("path_d", g_d))}
+    log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return path_launches, record
+
+
 RECORD_SIZES = (5, 15)         # the JAX record's N = 5 and N = 15 cells
 SELECTIONS_F = ("xla", "fused", "xt")
 
@@ -2472,6 +2730,10 @@ def main():
     # ---- 15. the JAX key chain's draws on the card ---------------------------
     kd, kb = path_draws(torch, ops, dev, cfg, draw_at, beta_at)
 
+    # ---- 16. the solve as one CUDA graph --------------------------------------
+    launches_g, graph_record = path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve)
+    path_launches += launches_g
+
     # ---- records ----------------------------------------------------------
     launches = {fn.__name__: sum(p[fn.__name__] for p in path_launches)
                 for fn in ops.KERNELS}
@@ -2479,6 +2741,7 @@ def main():
     check_launch_shapes(shape_tables, per_solve)
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
                            k2t, kd, kb)
+    log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

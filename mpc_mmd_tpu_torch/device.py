@@ -3,7 +3,8 @@
 The port's entry points (``Solver``, ``qp.build_workspace``,
 ``scenarios.static_grid``, ``scenarios.dynamic_cutin``) run on the CUDA card
 unless the caller asks for the CPU.  Asking for a card where there is none
-raises: nothing carries on on the CPU in its place.
+raises: nothing carries on on the CPU in its place.  :func:`to_device`
+moves a solve's inputs there without a host synchronisation.
 """
 
 from __future__ import annotations
@@ -22,3 +23,14 @@ def resolve_device(device, cpu_hint: str = 'device="cpu"') -> torch.device:
         raise RuntimeError(f"device {str(device)!r}: no CUDA card is available "
                            f"(pass {cpu_hint} to run on the CPU)")
     return dev
+
+
+def to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """``t`` on ``device``; host data goes to the card through pinned memory
+    without a host sync (PyTorch's caching host allocator keeps the pinned
+    block until the copy has run)."""
+    if t.device == device:
+        return t
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)

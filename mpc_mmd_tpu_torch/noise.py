@@ -39,12 +39,19 @@ them:
   - ``cem_z`` (nb - ellite_num, 8) for the resample of the outer CEM
     update (solver.py:299).
 
-A chunk of scenarios (``Solver.solve_batch`` above ``scenario_chunk``
-1) asks for the per-iteration families once per scenario, each keyed by
-that scenario's ``idx_mpc``, and stacks them on a leading scenario axis
-(:func:`chunk_rollout_eps`, :func:`chunk_rollout_beta`,
-:func:`chunk_cem_z`; :class:`JaxNoise` draws a chunk's keys in one
-launch), so a scenario meets the same draws in a chunk as alone; the
+The per-iteration families are asked for by a chunk of N scenarios at
+once (``Solver.solve`` is a chunk of one), through a key table: the
+solve's prologue asks the source for ``keys(seeds, iterations)``, a host
+tensor with a row per scenario and a column per outer iteration, and the
+solve hands column ``it`` (``table[:, it]``, on the solve's device) to
+``rollout_eps``, ``rollout_beta`` and ``cem_z``, which return the
+scenarios' draws stacked on a leading axis.  What a row holds is the
+source's own: :class:`JaxNoise` the iteration's three keys k_roll, k_steer
+and k_const of the scenario's ``idx_mpc`` (so a chunk's keys are drawn in
+one launch), :class:`FixedNoise` and :class:`TorchNoise` the pair
+(idx_mpc, it).  The table is an input of the solve, so a solve captured in
+a CUDA graph (``graph.py``) draws the keys of the scenarios it is replayed
+for.  A scenario meets the same draws in a chunk as alone; the
 solver-fixed draws stay shared by every scenario.
 
 Under the ``exact`` strategy the inner CEM asks for ``inner_exact``:
@@ -55,9 +62,10 @@ straight from its update key ``split(split(key)[0])[0]``
 (reduced_set.py:289-291,315-317).
 
 The Frenet solve (``solver_frenet.py``) asks first, once per solve, for
-``init_state_z`` (n, 4): the standard normals of ``split(PRNGKey(idx_mpc))[0]``
-behind its n noisy initial states (solver_frenet.py:52-64; the identity
-covariance makes the multivariate normal equal to z).  n is
+``init_state_z(init_key(idx_mpc), n)`` (n, 4): the standard normals of
+``split(PRNGKey(idx_mpc))[0]`` behind its n noisy initial states
+(solver_frenet.py:52-64; the identity covariance makes the multivariate
+normal equal to z); the key is an input of the solve, as the table is.  n is
 :func:`init_state_count`.  Its outer iterations draw from the keys above
 (solver_frenet.py:149,164,256), so they ask for the same families.
 
@@ -82,6 +90,7 @@ import numpy as np
 import torch
 
 from . import prng
+from .device import to_device
 from .ops import prng_beta, prng_draws
 
 
@@ -103,33 +112,11 @@ class ExactInnerDraws(NamedTuple):
     z: torch.Tensor             # (maxiter, S - n_el, M + 1)
 
 
-def chunk_rollout_eps(noise, seeds: Sequence[int], it: int, R: int, T: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """``rollout_eps`` of every scenario of a chunk, each (N, R, T): the
-    source's own ``chunk_rollout_eps`` where it has one, else its draws
-    per seed stacked."""
-    if hasattr(noise, "chunk_rollout_eps"):
-        return noise.chunk_rollout_eps(seeds, it, R, T)
-    eps = [noise.rollout_eps(int(s), it, R, T) for s in seeds]
-    return tuple(torch.stack(e) for e in zip(*eps))
-
-
-def chunk_rollout_beta(noise, seeds: Sequence[int], it: int, R: int,
-                       alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """``rollout_beta`` of every scenario of a chunk: parameters (2, N, C,
-    T), draws (2, N, C, R, T), scenario i's from its own seed."""
-    if hasattr(noise, "chunk_rollout_beta"):
-        return noise.chunk_rollout_beta(seeds, it, R, alpha, beta)
-    return torch.stack([noise.rollout_beta(int(s), it, R, alpha[:, i], beta[:, i])
-                        for i, s in enumerate(seeds)], dim=1)
-
-
-def chunk_cem_z(noise, seeds: Sequence[int], it: int, n: int, n_params: int
-                ) -> torch.Tensor:
-    """``cem_z`` of every scenario of a chunk, (N, n, n_params)."""
-    if hasattr(noise, "chunk_cem_z"):
-        return noise.chunk_cem_z(seeds, it, n, n_params)
-    return torch.stack([noise.cem_z(int(s), it, n, n_params) for s in seeds])
+def _seed_table(seeds: Sequence[int], iterations: int) -> torch.Tensor:
+    """(N, iterations, 2) int64: each scenario's (idx_mpc, it) pairs."""
+    s = torch.as_tensor([int(x) for x in seeds], dtype=torch.int64)
+    it = torch.arange(iterations, dtype=torch.int64)
+    return torch.stack(torch.broadcast_tensors(s[:, None], it[None]), dim=-1)
 
 
 def sample_beta(alpha: torch.Tensor, beta: torch.Tensor,
@@ -157,14 +144,19 @@ def sample_beta(alpha: torch.Tensor, beta: torch.Tensor,
 
 
 class TorchNoise:
-    """Draws on ``device`` from a re-seeded ``generator`` (for tests; not
-    the JAX package's numbers).
+    """Draws on ``device`` from a re-seeded ``generator`` (for tests that
+    need a second draw independent of the JAX package's numbers).
 
     Each family of draws re-seeds the generator from a fixed tuple, so a
     solve is a function of its ``idx_mpc`` (as in the JAX package, whose
     outer keys are ``PRNGKey(3*idx_mpc + 5*it + 7)``), and the draws made
-    once per solver come out the same for every solver.
+    once per solver come out the same for every solver.  Its key table
+    holds (idx_mpc, it) pairs, which the draws read on the host: a CUDA
+    graph cannot replay them, so a graphed solver refuses this source
+    (``capturable``).
     """
+
+    capturable = False
 
     def __init__(self, generator: torch.Generator, device):
         self.device = torch.device(device)
@@ -195,24 +187,38 @@ class TorchNoise:
         return ExactInnerDraws(self._randn((1,), (S, M + 1))[0],
                                self._randn((7,), (maxiter, S - n_el, M + 1))[0])
 
-    def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
+    def keys(self, seeds: Sequence[int], iterations: int) -> torch.Tensor:
+        """(N, iterations, 2) int64: each scenario's (idx_mpc, it)."""
+        return _seed_table(seeds, iterations)
+
+    def rollout_eps(self, keys: torch.Tensor, R: int, T: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return self._randn((2, idx_mpc, it), (R, T), (R, T), (R, T))
+        eps = [self._randn((2, s, it), (R, T), (R, T), (R, T))
+               for s, it in keys.tolist()]
+        return tuple(torch.stack(e) for e in zip(*eps))
 
-    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
+    def rollout_beta(self, keys: torch.Tensor, R: int, alpha: torch.Tensor,
                      beta: torch.Tensor) -> torch.Tensor:
-        """Beta draws (2, C, R, T) for parameters alpha, beta (2, C, T) of
-        the (acc, steer) channels; R draws per candidate and step."""
-        g = self._seed((4, idx_mpc, it))
-        shape = (alpha.shape[0], alpha.shape[1], R, alpha.shape[2])
-        return sample_beta(alpha[:, :, None].expand(shape),
-                           beta[:, :, None].expand(shape), g)
+        """Beta draws (2, N, C, R, T) for parameters alpha, beta (2, N, C,
+        T) of the (acc, steer) channels; R draws per candidate and step."""
+        out = []
+        for i, (s, it) in enumerate(keys.tolist()):
+            g = self._seed((4, s, it))
+            a, b = alpha[:, i], beta[:, i]
+            shape = (a.shape[0], a.shape[1], R, a.shape[2])
+            out.append(sample_beta(a[:, :, None].expand(shape),
+                                   b[:, :, None].expand(shape), g))
+        return torch.stack(out, dim=1)
 
-    def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
-        return self._randn((3, idx_mpc, it), (n, n_params))[0]
+    def cem_z(self, keys: torch.Tensor, n: int, n_params: int) -> torch.Tensor:
+        return torch.stack([self._randn((3, s, it), (n, n_params))[0]
+                            for s, it in keys.tolist()])
 
-    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
-        return self._randn((6, idx_mpc), (n, 4))[0]
+    def init_key(self, idx_mpc: int) -> torch.Tensor:
+        return torch.tensor([int(idx_mpc)], dtype=torch.int64)
+
+    def init_state_z(self, key: torch.Tensor, n: int) -> torch.Tensor:
+        return self._randn((6, int(key[0])), (n, 4))[0]
 
     def gmm_init_draws(self, idx_mpc: int, n: int, probs
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -261,8 +267,8 @@ class JaxNoise:
     """The JAX package's draws, from its own key chain (the default noise).
 
     Keys are derived on the host (``prng.threefry2x32`` on Python ints, or
-    on a CPU tensor for the validator's rows), copied to ``device`` without
-    a host sync, and each family is drawn in one call of
+    on int64 arrays for a key table or the validator's rows) and reach
+    ``device`` without a host sync; each family is drawn in one call of
     ``ops.prng_draws`` (standard normals, uniforms) or ``ops.prng_beta``
     (Beta): the CUDA kernels on the card, their plain twins on the CPU.
     Every draw is ``jax.random``'s for the same key and shape, normals and
@@ -272,28 +278,15 @@ class JaxNoise:
     def __init__(self, device):
         self.device = torch.device(device)
 
-    def _to_device(self, t: torch.Tensor) -> torch.Tensor:
-        if self.device.type != "cuda":
-            return t.to(self.device)
-        return t.pin_memory().to(self.device, non_blocking=True)
-
     def _keys(self, keys) -> torch.Tensor:
         if not torch.is_tensor(keys):
             keys = torch.tensor(keys, dtype=torch.int64)
-        return self._to_device(keys.reshape(-1, 2))
+        return to_device(keys.reshape(-1, 2), self.device)
 
     def _normal(self, keys, shape) -> torch.Tensor:
         """Standard normals (len(keys), *shape), each row one key's."""
         keys = self._keys(keys)
         return prng_draws(keys, math.prod(shape), "normal").view(-1, *shape)
-
-    @staticmethod
-    def _iteration_keys(idx_mpc: int, it: int) -> Tuple[Tuple[int, int], ...]:
-        """k_roll, k_steer = split(k_roll)[0] (also the outer CEM's key) and
-        k_const = split(k_steer)[0] of outer iteration ``it``."""
-        k_roll = _first(_seed_key(3 * int(idx_mpc) + 5 * it + 7))
-        k_steer = _first(k_roll)
-        return k_roll, k_steer, _first(k_steer)
 
     def initial_z(self, nb: int, n_params: int) -> torch.Tensor:
         return self._normal([_first(_seed_key(0))], (nb, n_params))[0]
@@ -321,42 +314,51 @@ class JaxNoise:
         return ExactInnerDraws(self._normal([init_key], (S, M + 1))[0],
                                self._normal(upd, (S - n_el, M + 1)))
 
-    def chunk_rollout_eps(self, seeds: Sequence[int], it: int, R: int, T: int
-                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        keys = [self._iteration_keys(s, it) for s in seeds]
-        eps = self._normal(keys, (R, T)).view(len(seeds), 3, R, T)
+    @staticmethod
+    def keys(seeds: Sequence[int], iterations: int) -> torch.Tensor:
+        """The key table (N, iterations, 3, 2) int64 of a chunk: per
+        scenario and outer iteration ``it``, k_roll = split(PRNGKey(3 *
+        idx_mpc + 5 * it + 7))[0], k_steer = split(k_roll)[0] (also the
+        outer CEM's key) and k_const = split(k_steer)[0], each two uint32
+        words (``prng.threefry2x32`` on int64 arrays)."""
+        s = np.array([int(x) for x in seeds], dtype=np.int64)[:, None]
+        it = np.arange(iterations, dtype=np.int64)[None]
+        k = (0, (3 * s + 5 * it + 7) & prng.M32)
+        chain = []
+        for _ in range(3):
+            k = prng.threefry2x32(k[0], k[1], 0, 0)
+            chain.append(np.stack(np.broadcast_arrays(*k), axis=-1))
+        return torch.from_numpy(np.stack(chain, axis=-2))
+
+    def rollout_eps(self, keys: torch.Tensor, R: int, T: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """eps_acc, eps_steer, eps_const (N, R, T) from the keys (N, 3, 2)
+        of an iteration."""
+        eps = self._normal(keys, (R, T)).view(keys.shape[0], 3, R, T)
         return eps[:, 0], eps[:, 1], eps[:, 2]
 
-    def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        return tuple(e[0] for e in self.chunk_rollout_eps([idx_mpc], it, R, T))
-
-    def chunk_rollout_beta(self, seeds: Sequence[int], it: int, R: int,
-                           alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-        """Parameters (2, N, C, T): acc draws from each seed's k_roll, steer
-        draws from its k_steer, every candidate from the same element keys
-        (2, N, C, R, T)."""
+    def rollout_beta(self, keys: torch.Tensor, R: int, alpha: torch.Tensor,
+                     beta: torch.Tensor) -> torch.Tensor:
+        """Parameters (2, N, C, T): acc draws from each scenario's k_roll,
+        steer draws from its k_steer, every candidate from the same element
+        keys (2, N, C, R, T)."""
         _, N, C, T = alpha.shape
-        keys = [[self._iteration_keys(s, it)[ch] for s in seeds] for ch in (0, 1)]
-        draws = prng_beta(self._keys(keys), alpha.reshape(2 * N, C, T).contiguous(),
+        draws = prng_beta(self._keys(keys[:, :2].transpose(0, 1)),
+                          alpha.reshape(2 * N, C, T).contiguous(),
                           beta.reshape(2 * N, C, T).contiguous(), R * T)
         return draws.view(2, N, C, R, T)
 
-    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
-                     beta: torch.Tensor) -> torch.Tensor:
-        return self.chunk_rollout_beta([idx_mpc], it, R, alpha[:, None],
-                                       beta[:, None])[:, 0]
+    def cem_z(self, keys: torch.Tensor, n: int, n_params: int) -> torch.Tensor:
+        """The outer CEM's resample (N, n, n_params), from k_steer."""
+        return self._normal(keys[:, 1], (n, n_params))
 
-    def chunk_cem_z(self, seeds: Sequence[int], it: int, n: int, n_params: int
-                    ) -> torch.Tensor:
-        return self._normal([self._iteration_keys(s, it)[1] for s in seeds],
-                            (n, n_params))
+    @staticmethod
+    def init_key(idx_mpc: int) -> torch.Tensor:
+        """split(PRNGKey(idx_mpc))[0], (2,) int64."""
+        return torch.tensor(_first(_seed_key(idx_mpc)), dtype=torch.int64)
 
-    def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
-        return self.chunk_cem_z([idx_mpc], it, n, n_params)[0]
-
-    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
-        return self._normal([_first(_seed_key(idx_mpc))], (n, 4))[0]
+    def init_state_z(self, key: torch.Tensor, n: int) -> torch.Tensor:
+        return self._normal(key, (n, 4))[0]
 
     def gmm_init_draws(self, idx_mpc: int, n: int, probs
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -365,7 +367,8 @@ class JaxNoise:
         key = _first(_seed_key(idx_mpc))
         z = self._normal([key], (n, 4))[0]
         u = prng_draws(self._keys([key]), n, "uniform")[0]
-        p_cuml = torch.cumsum(self._to_device(torch.tensor(probs, dtype=torch.float32)), 0)
+        p = torch.tensor(probs, dtype=torch.float32)
+        p_cuml = torch.cumsum(to_device(p, self.device), 0)
         return z, torch.searchsorted(p_cuml, p_cuml[-1] * (1.0 - u)) + 1
 
     def mc_draws(self, seed: int, rows, n_mc: int, T: int, params=None
@@ -400,12 +403,15 @@ class FixedNoise:
     ``eps_steer``, ``eps_const`` (maxiter_cem, R, T) and ``cem_z``
     (maxiter_cem, nb - ellite_num, 8), for a Frenet solve
     ``init_state_z`` (n, 4), and for ``sampling.gmm_noisy_init_state``
-    ``gmm_z`` (n, 4) and ``gmm_modes`` (n,).  ``idx_mpc`` is ignored, so
-    every scenario of a chunk meets the same draws.
+    ``gmm_z`` (n, 4) and ``gmm_modes`` (n,).  Its key table holds (idx_mpc,
+    it) pairs; the replay reads only ``it``, as an index tensor on the
+    device (a CUDA graph replays it), so every scenario of a chunk meets
+    the same draws.
 
     Beta draws come from ``arrays["beta"]`` (maxiter_cem, 2, C, R, T) if
     given, else from ``beta_fn(idx_mpc, it, R, alpha, beta)``, which gets
-    the parameters (2, C, T) as numpy arrays and returns (2, C, R, T).
+    the parameters (2, C, T) of a scenario as numpy arrays and returns
+    (2, C, R, T): a host round trip, which a CUDA graph cannot capture.
 
     The validator's draws come from ``mc_eps_acc``, ``mc_eps_steer``,
     ``mc_eps_const`` (N, n_mc, T) and, under Beta noise, ``mc_beta``
@@ -440,30 +446,44 @@ class FixedNoise:
         return ExactInnerDraws(self._get("samples0", (S, M + 1)),
                                self._get("z_exact", (maxiter, S - n_el, M + 1)))
 
-    def rollout_eps(self, idx_mpc: int, it: int, R: int, T: int
+    def keys(self, seeds: Sequence[int], iterations: int) -> torch.Tensor:
+        """(N, iterations, 2) int64: each scenario's (idx_mpc, it)."""
+        return _seed_table(seeds, iterations)
+
+    def rollout_eps(self, keys: torch.Tensor, R: int, T: int
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        it = keys[:, 1]
         return tuple(self.arrays[n][it] for n in
                      ("eps_acc", "eps_steer", "eps_const"))
 
-    def rollout_beta(self, idx_mpc: int, it: int, R: int, alpha: torch.Tensor,
+    def rollout_beta(self, keys: torch.Tensor, R: int, alpha: torch.Tensor,
                      beta: torch.Tensor) -> torch.Tensor:
-        shape = (alpha.shape[0], alpha.shape[1], R, alpha.shape[2])
+        """Beta draws (2, N, C, R, T) for the parameters (2, N, C, T)."""
+        _, N, C, T = alpha.shape
+        shape = (2, N, C, R, T)
         if "beta" in self.arrays:
-            draws = self.arrays["beta"][it]
+            draws = self.arrays["beta"][keys[:, 1]].transpose(0, 1)
         elif self.beta_fn is not None:
-            draws = torch.as_tensor(np.array(self.beta_fn(
-                idx_mpc, it, R, alpha.cpu().numpy(), beta.cpu().numpy()),
+            if self.device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise ValueError("FixedNoise's beta_fn draws on the host, which a "
+                                 "CUDA graph cannot capture: pass graph=False")
+            draws = torch.stack([torch.as_tensor(np.array(self.beta_fn(
+                idx, it, R, alpha[:, i].cpu().numpy(), beta[:, i].cpu().numpy()),
                 np.float32), device=self.device)
+                for i, (idx, it) in enumerate(keys.tolist())], dim=1)
         else:
             raise ValueError("Beta noise needs arrays['beta'] or a beta_fn")
         if tuple(draws.shape) != shape:
             raise ValueError(f"beta: have {tuple(draws.shape)}, need {shape}")
         return draws
 
-    def cem_z(self, idx_mpc: int, it: int, n: int, n_params: int) -> torch.Tensor:
-        return self.arrays["cem_z"][it]
+    def cem_z(self, keys: torch.Tensor, n: int, n_params: int) -> torch.Tensor:
+        return self.arrays["cem_z"][keys[:, 1]]
 
-    def init_state_z(self, idx_mpc: int, n: int) -> torch.Tensor:
+    def init_key(self, idx_mpc: int) -> torch.Tensor:
+        return torch.tensor([int(idx_mpc)], dtype=torch.int64)
+
+    def init_state_z(self, key: torch.Tensor, n: int) -> torch.Tensor:
         return self._get("init_state_z", (n, 4))
 
     def gmm_init_draws(self, idx_mpc: int, n: int, probs
@@ -504,26 +524,28 @@ def record_solve_draws(source, cfg, idx_mpc: int) -> Tuple[Dict[str, np.ndarray]
     inner_args = (bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite,
                   bc.maxiter)
     inner = source.inner_cem(*inner_args)
-    its = range(c.maxiter_cem)
-    eps = [source.rollout_eps(idx_mpc, it, R, T) for it in its]
+    table = source.keys([idx_mpc], c.maxiter_cem)
+    eps = [source.rollout_eps(table[:, it], R, T) for it in range(c.maxiter_cem)]
     arrays = {"initial_z": source.initial_z(c.num_batch, c.num_params),
-              "init_state_z": source.init_state_z(idx_mpc, init_state_count(cfg)),
+              "init_state_z": source.init_state_z(source.init_key(idx_mpc),
+                                                  init_state_count(cfg)),
               "samples0": inner.samples0, "u": inner.u, "z": inner.z,
-              "eps_acc": torch.stack([e[0] for e in eps]),
-              "eps_steer": torch.stack([e[1] for e in eps]),
-              "eps_const": torch.stack([e[2] for e in eps]),
-              "cem_z": torch.stack([source.cem_z(idx_mpc, it,
-                                                 c.num_batch - c.ellite_num,
-                                                 c.num_params) for it in its])}
+              "eps_acc": torch.cat([e[0] for e in eps]),
+              "eps_steer": torch.cat([e[1] for e in eps]),
+              "eps_const": torch.cat([e[2] for e in eps]),
+              "cem_z": torch.cat([source.cem_z(table[:, it],
+                                               c.num_batch - c.ellite_num,
+                                               c.num_params)
+                                  for it in range(c.maxiter_cem)])}
     if cfg.solve_strategy == "exact":
         arrays["z_exact"] = source.inner_exact(*inner_args).z
     arrays = {k: v.cpu().numpy() for k, v in arrays.items()}
     drawn = []
 
     def beta_fn(idx, it, R, alpha, beta):
-        d = source.rollout_beta(idx, it, R,
-                                torch.as_tensor(alpha, device=source.device),
-                                torch.as_tensor(beta, device=source.device))
+        as_t = lambda a: torch.as_tensor(a, device=source.device)[:, None]
+        d = source.rollout_beta(source.keys([idx], it + 1)[:, it], R, as_t(alpha),
+                                as_t(beta))[:, 0]
         drawn.append(d.cpu().numpy())
         arrays["beta"] = np.stack(drawn)
         return drawn[-1]

@@ -6,7 +6,15 @@ K5 ``topk_onehot``; and the JAX key chain's draws, ``prng_draws`` (keys to
 bits, uniforms or normals) and ``prng_beta`` (Beta draws).  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
 tensors, counting launches in ``<wrapper>.launches``.
+
+A CUDA graph (``graph.py``) replays kernels without calling their
+wrappers: it reads the counts its capture added (:func:`launch_counts`
+before and after), takes them back (:func:`set_launch_counts`, since a
+capture runs nothing) and adds them again at every replay
+(:func:`add_launches`).
 """
+
+from typing import Dict
 
 from .prng import prng_beta, prng_draws
 from .qp import eq_qp_solve, eq_qp_solve_t
@@ -23,6 +31,23 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def launch_counts() -> Dict[str, int]:
+    """Every wrapper's launch count, by the wrapper's name."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    for fn in KERNELS:
+        fn.launches = counts[fn.__name__]
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Adds ``counts`` (by wrapper name) to the wrappers' counts."""
+    for fn in KERNELS:
+        fn.launches += counts.get(fn.__name__, 0)
+
+
 __all__ = ["eq_qp_solve", "eq_qp_solve_t", "fused_rollout", "prng_beta",
            "prng_draws", "topk_indices", "topk_onehot", "topk_kernel_matrices",
-           "KERNELS", "reset_launch_counts"]
+           "KERNELS", "add_launches", "launch_counts", "reset_launch_counts",
+           "set_launch_counts"]

@@ -195,8 +195,8 @@ def sharded_sweep(cfg: ProblemConfig, ws: Optional[Workspace] = None,
         seeds = [int(s) for s in seeds]
         lo, hi, sizes = _my_block(len(seeds), mesh, "scenarios")
         r = solver.solve_batch(seeds[lo:hi], init_state, mean, cov,
-                               solver._tensor(x_obs)[lo:hi],
-                               solver._tensor(y_obs)[lo:hi], v_des)
+                               solver._input(x_obs)[lo:hi],
+                               solver._input(y_obs)[lo:hi], v_des)
         return SolveResult(*(gather_blocks(f, mesh, sizes) for f in r))
 
     return sweep
@@ -219,7 +219,7 @@ def sharded_frenet_sweep(cfg: ProblemConfig, ws: Optional[Workspace] = None,
               v_des, frame) -> FrenetSolveResult:
         idxs = [int(i) for i in idxs]
         lo, hi, sizes = _my_block(len(idxs), mesh, "scenarios")
-        xs, ys = solver._tensor(x_obs_traj), solver._tensor(y_obs_traj)
+        xs, ys = solver._input(x_obs_traj), solver._input(y_obs_traj)
         outs = [solver.solve(idxs[i], init_state_global, mean, cov, xs[i], ys[i],
                              v_des, frame) for i in range(lo, hi)]
         return FrenetSolveResult(*(gather_blocks(torch.stack(f), mesh, sizes)

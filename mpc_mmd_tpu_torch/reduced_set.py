@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -138,6 +138,16 @@ def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> st
     return selection
 
 
+def selection_key(cfg: ProblemConfig, selection: Optional[str] = None
+                  ) -> Tuple[str, bool]:
+    """(selection, elite-carry) of a call now (:func:`resolve_selection`;
+    elite-carry unless "fused" or ``MPC_MMD_ELITE_CARRY=0``): what a solve
+    captured in a CUDA graph keeps, so a graph is keyed by it."""
+    selection = resolve_selection(cfg, selection)
+    return selection, (selection != "fused"
+                       and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
+
+
 def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                                cy: torch.Tensor, x_roll: torch.Tensor,
                                y_roll: torch.Tensor, draws: InnerDraws,
@@ -149,9 +159,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     normals of :class:`mpc_mmd_tpu_torch.noise.InnerDraws`, shared by every
     candidate.  ``selection``: see :func:`resolve_selection`.
     """
-    selection = resolve_selection(cfg, selection)
-    elite_carry = (selection != "fused"
-                   and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
+    selection, elite_carry = selection_key(cfg, selection)
     b = cfg.beta_cem
     M = cfg.risk.num_mother
     k = cfg.risk.num_reduced

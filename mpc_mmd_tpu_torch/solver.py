@@ -15,15 +15,24 @@ roll R rollouts per candidate: ``mmd_random`` scores them by MMD with
 uniform weights 1/R and bandwidth 0.01 and no lane risk, ``cvar`` and
 ``saa`` by CVaR and by the violation fraction.
 
-The JAX package runs the loop as one ``lax.scan``; here it is a Python loop
-that leaves every value on the device (no host synchronisation inside a
-solve).  Every sort is stable, as ``jnp.argsort`` is.  The loop
-(``SolverSetup._outer_cem``) carries a leading scenario axis: ``solve`` is
-a chunk of one, and ``solve_batch`` runs ``scenario_chunk`` scenarios
-through it at once, as the JAX package's ``lax.map(..., batch_size=)``
-vmaps the solve over a chunk, so each kernel launch serves the chunk.  It
-is shared with the on-road solve (``solver_frenet.py``, always a chunk of
-one); each solver supplies the hooks that differ.
+The JAX package runs the loop as one ``lax.scan`` inside one jitted
+program.  Here a solve is a host prologue, which turns the arguments into
+named input tensors (the noise source's key table of the chunk's draws,
+the initial state, the CEM moments, the obstacles, ``v_des``), and a device
+body, which reads only those and the solver's fixed tensors: the workspace
+and the solver-fixed draws.  The body is a Python loop over the outer
+iterations that leaves every value on the device (no host synchronisation
+inside a solve).  On the card it runs as a CUDA graph (``graph.py``,
+``graph`` below): captured at a solver's first solve of a shape and
+replayed for every later one, the counterpart of ``jax.jit``; on the CPU,
+and with ``graph=False``, eagerly.  Every sort is stable, as
+``jnp.argsort`` is.  The loop (``SolverSetup._outer_cem``) carries a
+leading scenario axis: ``solve`` is a chunk of one, and ``solve_batch``
+runs ``scenario_chunk`` scenarios through it at once, as the JAX package's
+``lax.map(..., batch_size=)`` vmaps the solve over a chunk, so each kernel
+launch serves the chunk.  It is shared with the on-road solve
+(``solver_frenet.py``, always a chunk of one); each solver supplies the
+hooks that differ.
 
 The "exact" strategy (``cfg.solve_strategy``) is the JAX package's
 reference-parity path: KKT systems solved by LU, and the per-candidate
@@ -34,21 +43,23 @@ from __future__ import annotations
 
 import functools
 import os
-from typing import NamedTuple, Optional
+from typing import Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from . import risk as risk_mod
 from .config import ProblemConfig
-from .device import resolve_device
+from .device import resolve_device, to_device
 from .dynamics import beta_parameters, controls_from_trajectory, perturb_controls
-from .noise import JaxNoise, chunk_cem_z, chunk_rollout_beta, chunk_rollout_eps
+from .graph import GraphCache
+from .noise import JaxNoise
 from .ops import fused_rollout
 from .projection import project
 from .qp import (Workspace, boundary_vectors, build_workspace, compute_guess,
                  refit_coefficients)
-from .reduced_set import ReducedSet, select_reduced_set, select_reduced_set_batched
+from .reduced_set import (ReducedSet, select_reduced_set, select_reduced_set_batched,
+                          selection_key)
 from .sampling import cem_update, initial_params, scalar_cost
 
 
@@ -68,17 +79,17 @@ class SolveResult(NamedTuple):
     cov_param: torch.Tensor   # (8, 8)
 
 
-def noisy_controls(cfg: ProblemConfig, noise, seeds, it: int,
+def noisy_controls(cfg: ProblemConfig, noise, keys: torch.Tensor,
                    acc_T: torch.Tensor, steer_T: torch.Tensor):
     """R noisy variants (N, C, R, T) of the controls (N, C, T) of a chunk's
-    candidates, each scenario from its seed's draws of the iteration (see
+    candidates, each scenario from its row of the iteration's column
+    ``keys`` of the noise source's key table (see
     :mod:`mpc_mmd_tpu_torch.noise`)."""
     R, T = cfg.risk.num_reduced, acc_T.shape[-1]
-    d_acc, d_steer, eps_const = (e[:, None] for e in
-                                 chunk_rollout_eps(noise, seeds, it, R, T))
+    d_acc, d_steer, eps_const = (e[:, None] for e in noise.rollout_eps(keys, R, T))
     if cfg.noise.kind == "beta":
-        d_acc, d_steer = chunk_rollout_beta(
-            noise, seeds, it, R, *beta_parameters(acc_T, steer_T, cfg.noise))
+        d_acc, d_steer = noise.rollout_beta(
+            keys, R, *beta_parameters(acc_T, steer_T, cfg.noise))
     return perturb_controls(acc_T, steer_T, d_acc, d_steer, eps_const,
                             cfg.noise)
 
@@ -135,14 +146,26 @@ _CANDIDATE = (("y", "y"), ("xdot", "xdot"), ("ydot", "ydot"), ("xddot", "xddot")
 class SolverSetup:
     """What a solver builds once: the checked configuration, its device,
     the workspace, the noise source and the solver-fixed draws (the initial
-    parameter batch and, in ``mmd_opt``, the inner CEM's); and the outer
-    CEM loop (``_outer_cem``) that both solvers run through their hooks."""
+    parameter batch and, in ``mmd_opt``, the inner CEM's), and on the card
+    the cache of its CUDA graphs; the outer CEM loop (``_outer_cem``) that
+    both solvers run through their hooks; and :meth:`_run`, which runs a
+    solve's body eagerly or as a graph.
+
+    ``graph``: None (the default) runs the body as a CUDA graph wherever
+    the port can, on the card, and eagerly on the CPU, under the "exact"
+    strategy (an LU and a per-candidate inner CEM, kept eager) and with a
+    candidate mesh of several ranks (collectives inside the solve); True
+    asks for the graph and raises where there is none; False runs eagerly
+    (the counterpart of ``jax.disable_jit``).  A graph replays the noise
+    source's draws from the key table it is given, so a source that draws
+    on the host (``TorchNoise``) is refused with a graph.
+    """
 
     # the names of the kept candidates' values a solve returns of its best
     BEST: tuple = ()
 
     def __init__(self, cfg: ProblemConfig, device, noise, ws: Optional[Workspace],
-                 modes):
+                 modes, graph: Optional[bool] = None):
         if cfg.risk.mode not in modes:
             raise NotImplementedError(
                 f"{type(self).__name__} has the modes {modes}, got "
@@ -161,6 +184,27 @@ class SolverSetup:
         if noise is None:
             noise = JaxNoise(self.device)
         self.noise = noise
+        eager = self._eager_reason()
+        self.graph = eager is None if graph is None else bool(graph)
+        if self.graph and not getattr(noise, "capturable", True):
+            raise ValueError(f"{type(noise).__name__} draws on the host, which a "
+                             f"CUDA graph cannot replay: pass graph=False")
+        if self.graph and eager:
+            raise ValueError(f"graph=True, but {eager}: pass graph=None or False")
+        self._graphs = GraphCache(self.device) if self.graph else None
+
+    def _eager_reason(self) -> Optional[str]:
+        """Why a solve of this solver runs eagerly, or None."""
+        if self.device.type != "cuda":
+            return "a CUDA graph needs the card"
+        if self.cfg.solve_strategy == "exact":
+            return 'the "exact" strategy runs eagerly'
+        return None
+
+    def graph_stats(self):
+        """Per captured graph: its key, nodes, capture and instantiation
+        seconds, replays and launches per replay (``GraphCache.stats``)."""
+        return [] if self._graphs is None else self._graphs.stats()
 
     # the solver-fixed draws, made at the first solve that needs them (a
     # solver that only resumes finished work draws nothing)
@@ -177,19 +221,40 @@ class SolverSetup:
         return draw(bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite,
                     bc.maxiter)
 
-    def _tensor(self, a) -> torch.Tensor:
-        if not torch.is_tensor(a):
-            a = np.array(a, dtype=np.float32)   # a copy: inputs stay untouched
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+    @staticmethod
+    def _input(a) -> torch.Tensor:
+        """A float argument as a float32 tensor where it lies (host data
+        that is not a tensor copied, so the caller's arrays stay
+        untouched)."""
+        if torch.is_tensor(a):
+            return a.to(torch.float32)
+        return torch.from_numpy(np.array(a, dtype=np.float32))
 
-    def _outer_cem(self, seeds, ctx, b_eq_x, b_eq_y, mean, cov, x_obs,
+    def _run(self, body: Callable[..., Dict[str, torch.Tensor]],
+             **inputs: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """A solve's body on its named inputs (tensors on any device): as
+        the CUDA graph of their shapes (and of the inner CEM's selection,
+        which the body fixes), or eagerly on the inputs moved to the
+        device.  The solver-fixed draws are made first, outside any graph."""
+        self._z0
+        if self.cfg.risk.mode == "mmd_opt":
+            self._inner
+        if self._graphs is None:
+            return body(**{k: to_device(t, self.device) for k, t in inputs.items()})
+        key = tuple((k, tuple(t.shape), t.dtype) for k, t in inputs.items())
+        if self.cfg.risk.mode == "mmd_opt":
+            key += (selection_key(self.cfg),)
+        return self._graphs.run(key, inputs, body)
+
+    def _outer_cem(self, keys, ctx, b_eq_x, b_eq_y, mean, cov, x_obs,
                    y_obs, v_des):
         """The outer CEM loop over a chunk of N scenarios, one iteration as
         the module docstring lists it, every step on all N at once.
 
-        ``seeds`` the N scenarios' ``idx_mpc``; b_eq_x, b_eq_y (nb, .), mean
-        (8,) and cov (8, 8) shared by the chunk; x_obs, y_obs (N, num_obs,
-        num); ``ctx`` is what the hooks read of the solve (the rollouts'
+        ``keys`` the noise source's key table of the N scenarios (N,
+        maxiter_cem, ...), on the device; v_des a 0-d tensor; b_eq_x,
+        b_eq_y (nb, .), mean (8,) and cov (8, 8) shared by the chunk;
+        x_obs, y_obs (N, num_obs, num); ``ctx`` is what the hooks read of the solve (the rollouts'
         initial state, the path).  The projection runs on the chunk's N nb
         candidates as rows, scenario after scenario; everything after it
         on (N, nb, ...), every sort a stable argsort along the candidate
@@ -205,14 +270,15 @@ class SolverSetup:
           depend on the path, "steer" (N, nb, num) among them, from the
           projection ``pr`` (rows), ``take`` (a row tensor in residual
           order, (N, nb, ...)) and the controls' steer;
-        * ``_risks(ctx, it, seeds, acc_T, steer_T, x_obs_T, y_obs_T)``: the
-          obstacle risk (N, nb) and {name: (N, nb, ...)} the cost reads;
+        * ``_risks(ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T)``: the
+          obstacle risk (N, nb) and {name: (N, nb, ...)} the cost reads,
+          from the iteration's column ``keys`` of the key table;
         * ``_cost(kept, v_des)``: the scalar cost (N, n_cost) of the
           candidates kept by risk, from the dict of their values, to which
           it adds the lane risks it computes.
         """
         cfg, ws, noise = self.cfg, self.ws, self.noise
-        N = len(seeds)
+        N = keys.shape[0]
         nb, nvar, T = cfg.cem.num_batch, cfg.horizon.nvar, cfg.horizon.num_prime
         n_cost, n_el = cfg.cem.ellite_num_cost, cfg.cem.ellite_num
         rows = N * nb
@@ -251,7 +317,7 @@ class SolverSetup:
             acc_T = acc[..., :T].contiguous()
             steer_T = cand["steer"][..., :T].contiguous()
 
-            risk_obs, per_cand = self._risks(ctx, it, seeds, acc_T, steer_T,
+            risk_obs, per_cand = self._risks(ctx, keys[:, it], acc_T, steer_T,
                                              x_obs_T, y_obs_T)
 
             order2 = torch.argsort(risk_obs, dim=1, stable=True)[:, :n_cost]
@@ -261,7 +327,7 @@ class SolverSetup:
 
             elite_idx = torch.argsort(cost_batch, dim=1, stable=True)[:, :n_el]
             cost_elite = torch.gather(cost_batch, 1, elite_idx)
-            cem_z = chunk_cem_z(noise, seeds, it, nb - n_el, cfg.cem.num_params)
+            cem_z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
             mean, cov, params = cem_update(cfg, cem_z, take(kept["params"], elite_idx),
                                            cost_elite, mean, cov)
 
@@ -287,6 +353,9 @@ class Solver(SolverSetup):
 
     ``device`` defaults to ``"cuda"``; without a card that raises a
     ``RuntimeError`` naming ``device="cpu"``, the only way onto the CPU.
+    On the card a solve or a chunk is one CUDA graph replay (``graph``:
+    see :class:`SolverSetup`), captured at the first solve of its shape;
+    ``graph=False`` runs it eagerly.
     ``noise`` defaults to :class:`JaxNoise` on ``device``: the JAX
     package's draws for the same ``idx_mpc``.  On a CUDA
     device the rollouts, top-k selections, fused selections and weight QPs
@@ -305,7 +374,8 @@ class Solver(SolverSetup):
 
     def __init__(self, cfg: ProblemConfig, device="cuda", noise=None,
                  ws: Optional[Workspace] = None,
-                 scenario_chunk: Optional[int] = None, candidate_mesh=None):
+                 scenario_chunk: Optional[int] = None, candidate_mesh=None,
+                 graph: Optional[bool] = None):
         if scenario_chunk is None:
             scenario_chunk = int(os.environ.get("MPC_MMD_SCENARIO_CHUNK", "1"))
         self.scenario_chunk = max(1, scenario_chunk)
@@ -313,7 +383,12 @@ class Solver(SolverSetup):
             raise ValueError(f"{cfg.cem.num_batch} candidates for "
                              f"{candidate_mesh.world} ranks")
         self.candidate_mesh = candidate_mesh
-        super().__init__(cfg, device, noise, ws, MODES)
+        super().__init__(cfg, device, noise, ws, MODES, graph)
+
+    def _eager_reason(self) -> Optional[str]:
+        if self.candidate_mesh is not None and self.candidate_mesh.world > 1:
+            return "a candidate mesh of several ranks has collectives inside the solve"
+        return super()._eager_reason()
 
     BEST = ("cx", "cy", "risk_lane", "risk_obs", "beta", "sigma", "res_beta")
 
@@ -323,7 +398,7 @@ class Solver(SolverSetup):
     def _steering(self, state0, pr, in_order, steer):
         return {"steer": steer}
 
-    def _risks(self, state0, it, seeds, acc_T, steer_T, x_obs_T, y_obs_T):
+    def _risks(self, state0, keys, acc_T, steer_T, x_obs_T, y_obs_T):
         """Obstacle risk (N, C) and, per candidate, the rollouts the lane
         risk reads (N, C, R, T), beta (N, C, R), sigma (N, C) and the inner
         residuals (N, C, maxiter).
@@ -337,7 +412,7 @@ class Solver(SolverSetup):
         cfg = self.cfg
         mode = cfg.risk.mode
         lead = acc_T.shape[:-1]
-        a_n, s_n = noisy_controls(cfg, self.noise, seeds, it, acc_T, steer_T)
+        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
         mesh = self.candidate_mesh
         mine, gather = slice(None), lambda t: t
         if mesh is not None and mesh.world > 1:
@@ -388,20 +463,25 @@ class Solver(SolverSetup):
                            k["y"], k["res_norm"], k["xdot"], k["ydot"],
                            k["xddot"], k["yddot"], k["steer"], v_des)
 
-    def _solve_chunk(self, seeds, init_state, mean_param, cov_param,
-                     x_obs_trajs, y_obs_trajs, v_des) -> SolveResult:
-        """The scenarios ``seeds`` in one outer loop; every field (N, ...)."""
-        init_state = self._tensor(init_state)
+    def _body(self, keys, init_state, mean, cov, x_obs, y_obs, v_des):
+        """The device body of a chunk's solve: the boundary rows and the
+        rollouts' initial state, then the outer loop; {field: (N, ...)}."""
         b_eq_x, b_eq_y = boundary_vectors(self.cfg, init_state)
         state0 = torch.stack((init_state[0], init_state[1], init_state[2],
                               init_state[3],
                               torch.atan2(init_state[3], init_state[2])))
         best, res, res_2, mean, cov = self._outer_cem(
-            [int(s) for s in seeds], state0, b_eq_x, b_eq_y,
-            self._tensor(mean_param), self._tensor(cov_param),
-            self._tensor(x_obs_trajs), self._tensor(y_obs_trajs), v_des)
-        return SolveResult(**best, res=res, res_2=res_2, mean_param=mean,
-                           cov_param=cov)
+            keys, state0, b_eq_x, b_eq_y, mean, cov, x_obs, y_obs, v_des)
+        return dict(best, res=res, res_2=res_2, mean_param=mean, cov_param=cov)
+
+    def _solve_chunk(self, seeds, init_state, mean_param, cov_param,
+                     x_obs_trajs, y_obs_trajs, v_des) -> SolveResult:
+        """The scenarios ``seeds`` in one outer loop; every field (N, ...)."""
+        return SolveResult(**self._run(
+            self._body, keys=self.noise.keys(seeds, self.cfg.cem.maxiter_cem),
+            init_state=self._input(init_state), mean=self._input(mean_param),
+            cov=self._input(cov_param), x_obs=x_obs_trajs, y_obs=y_obs_trajs,
+            v_des=self._input(v_des)))
 
     @torch.no_grad()
     def solve(self, idx_mpc: int, init_state, mean_param, cov_param,
@@ -414,8 +494,8 @@ class Solver(SolverSetup):
         float.  Arrays may be numpy, tensors or sequences.
         """
         r = self._solve_chunk([idx_mpc], init_state, mean_param, cov_param,
-                              self._tensor(x_obs_traj)[None],
-                              self._tensor(y_obs_traj)[None], v_des)
+                              self._input(x_obs_traj)[None],
+                              self._input(y_obs_traj)[None], v_des)
         return SolveResult(*(f[0] for f in r))
 
     @torch.no_grad()
@@ -431,7 +511,7 @@ class Solver(SolverSetup):
         every scenario.
         """
         seeds = [int(s) for s in seeds]
-        xs, ys = self._tensor(x_obs_trajs), self._tensor(y_obs_trajs)
+        xs, ys = self._input(x_obs_trajs), self._input(y_obs_trajs)
         c = self.scenario_chunk
         parts = [self._solve_chunk(seeds[lo:lo + c], init_state, mean_param,
                                    cov_param, xs[lo:lo + c], ys[lo:lo + c], v_des)

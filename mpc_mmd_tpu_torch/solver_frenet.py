@@ -19,10 +19,12 @@ straight-road solve (``solver.py``):
 
 The outer loop is ``solver.py``'s (``SolverSetup._outer_cem``): Python
 over outer iterations, with no host synchronisation inside a solve and
-every sort stable; this module supplies its hooks, which take the loop's
-leading scenario axis and run at N = 1 (the JAX ``FrenetSolver`` has no
-``solve_batch``).  The "exact" strategy runs the reference-parity inner
-CEM and KKT solves, as in ``solver.py``.
+every sort stable, and on the card captured with the noisy initial states
+in one CUDA graph whose inputs include the frame's tensors (``graph.py``);
+this module supplies its hooks, which take the loop's leading scenario
+axis and run at N = 1 (the JAX ``FrenetSolver`` has no ``solve_batch``).
+The "exact" strategy runs the reference-parity inner CEM and KKT solves,
+as in ``solver.py``.
 """
 
 from __future__ import annotations
@@ -88,26 +90,29 @@ class FrenetSolver(SolverSetup):
     "prefactored" and "exact" strategies, and the selections of
     :class:`mpc_mmd_tpu_torch.solver.Solver`.  ``device`` defaults to
     ``"cuda"`` and raises without a card; pass ``device="cpu"`` for the CPU.
+    On the card a solve is one CUDA graph replay per frame shape
+    (``graph``: see :class:`~mpc_mmd_tpu_torch.solver.SolverSetup`);
+    ``graph=False`` runs it eagerly.
     """
 
     def __init__(self, cfg: ProblemConfig, device="cuda", noise=None,
-                 ws: Optional[Workspace] = None):
+                 ws: Optional[Workspace] = None, graph: Optional[bool] = None):
         if cfg.risk.mode == "det" and not cfg.projection.with_obstacle_terms:
             cfg = cfg.replace(projection=dataclasses.replace(
                 cfg.projection, with_obstacle_terms=True))
-        super().__init__(cfg, device, noise, ws, FRENET_MODES)
+        super().__init__(cfg, device, noise, ws, FRENET_MODES, graph)
 
-    def _initial_states(self, frame: FrenetFrame, idx_mpc: int,
+    def _initial_states(self, frame: FrenetFrame, init_key: torch.Tensor,
                         init_state_global: torch.Tensor):
-        """The noisy initial states (n, 5) [x, y, vx, vy, psi] and the
-        Frenet boundary rows (b_eq_x, b_eq_y) from the mean of their
-        Frenet states."""
+        """The noisy initial states (n, 5) [x, y, vx, vy, psi], drawn from
+        the noise source's ``init_key``, and the Frenet boundary rows
+        (b_eq_x, b_eq_y) from the mean of their Frenet states."""
         cfg = self.cfg
         x_g, y_g, v_g, vdot_g, psi_g, psidot_g = init_state_global.unbind(0)
         vx_g = v_g * torch.cos(psi_g)
         vy_g = v_g * torch.sin(psi_g)
         n = init_state_count(cfg)
-        z = self.noise.init_state_z(idx_mpc, n)
+        z = self.noise.init_state_z(init_key, n)
         mu, sig = cfg.frenet.init_mu, cfg.frenet.init_sigma
         xs = x_g + z[:, 0] * sig[0] + mu[0]
         ys = y_g + z[:, 1] * sig[1] + mu[1]
@@ -135,7 +140,7 @@ class FrenetSolver(SolverSetup):
         curvature under each candidate, in residual order."""
         return {"steer": in_order(pr.steering), "kappa": in_order(pr.kappa_interp)}
 
-    def _risks(self, ctx, it, seeds, acc_T, steer_T, x_obs_T, y_obs_T):
+    def _risks(self, ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T):
         """Obstacle risk (N, C) and, per candidate, the Frenet lateral
         offsets of the rollouts the lane risks read (N, C, R, T), beta
         (N, C, R) and sigma (N, C)."""
@@ -149,7 +154,7 @@ class FrenetSolver(SolverSetup):
             return torch.zeros(lead, device=self.device), dict(
                 roll=torch.zeros(lead + (R, T), device=self.device), beta=beta,
                 sigma=sigma)
-        a_n, s_n = noisy_controls(cfg, self.noise, seeds, it, acc_T, steer_T)
+        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
         xg, yg = batched_rollouts(cfg, a_n, s_n, states0,
                                   mother=mode == "mmd_opt")
         if mode == "mmd_opt":
@@ -211,18 +216,26 @@ class FrenetSolver(SolverSetup):
         trajectories (s, l); v_des a float; ``frame`` the path's
         :class:`~mpc_mmd_tpu_torch.frenet.FrenetFrame`.
         """
-        frame = FrenetFrame(*(self._tensor(t) for t in frame))
-        states0, b_eq_x, b_eq_y = self._initial_states(
-            frame, idx_mpc, self._tensor(init_state_global))
+        return FrenetSolveResult(**self._run(
+            self._body, keys=self.noise.keys([idx_mpc], self.cfg.cem.maxiter_cem),
+            init_key=self.noise.init_key(idx_mpc),
+            init_state=self._input(init_state_global), mean=self._input(mean_param),
+            cov=self._input(cov_param), x_obs=self._input(x_obs_traj)[None],
+            y_obs=self._input(y_obs_traj)[None], v_des=self._input(v_des),
+            **{name: self._input(t) for name, t in zip(FrenetFrame._fields, frame)}))
+
+    def _body(self, keys, init_key, init_state, mean, cov, x_obs, y_obs, v_des,
+              **frame):
+        """The device body of a solve: the noisy initial states, the outer
+        loop, the best candidate's speed profile; the frame's tensors come
+        by their ``FrenetFrame`` names."""
+        frame = FrenetFrame(**frame)
+        states0, b_eq_x, b_eq_y = self._initial_states(frame, init_key, init_state)
         best, res, _, mean, cov = self._outer_cem(
-            [int(idx_mpc)], (frame, states0), b_eq_x, b_eq_y,
-            self._tensor(mean_param), self._tensor(cov_param),
-            self._tensor(x_obs_traj)[None], self._tensor(y_obs_traj)[None], v_des)
+            keys, (frame, states0), b_eq_x, b_eq_y, mean, cov, x_obs, y_obs, v_des)
         best = {name: t[0] for name, t in best.items()}
-        res, mean, cov = res[0], mean[0], cov[0]
         Pdot = self.ws.Pdot
         v_best = torch.sqrt((Pdot @ best["cx"]) ** 2 + (Pdot @ best["cy"]) ** 2)
-        return FrenetSolveResult(cx=best["cx"], cy=best["cy"], v_best=v_best,
-                                 steering_best=best["steer"], mean_param=mean,
-                                 cov_param=cov, res=res,
-                                 risk_obs=best["risk_obs"])
+        return dict(cx=best["cx"], cy=best["cy"], v_best=v_best,
+                    steering_best=best["steer"], mean_param=mean[0],
+                    cov_param=cov[0], res=res[0], risk_obs=best["risk_obs"])

@@ -169,17 +169,18 @@ def record_check(out: str, device="cuda", n_mc: int = 1000, workers: int = 1,
 
 # The stages of an outer iteration in ``solver.py``'s order, each a name
 # that ``solver.py`` (or ``reduced_set.py``, ``risk.py``) calls through its
-# module: the guess QP, the projection, the controls, the draws and the
-# noisy controls, the K4 rollouts, the refit, the inner CEM (the top-k
-# selections and elite picks, the K2 weight QPs; a selection's input is
-# the resample of the iteration before), the risks,
-# the scalar cost, the outer CEM's draws and update; and the solver's
-# argsorts and argmins.  Stages in ``_INPUTS`` record their arguments too.
+# module, or a method of the noise sources ("module:Class"): the guess QP,
+# the projection, the controls, the draws and the noisy controls, the K4
+# rollouts, the refit, the inner CEM (the top-k selections and elite
+# picks, the K2 weight QPs; a selection's input is the resample of the
+# iteration before), the risks, the scalar cost, the outer CEM's draws and
+# update; and the solver's argsorts and argmins.  Stages in ``_INPUTS`` record their arguments too.
 _STAGES = (("solver", ("initial_params", "compute_guess", "project",
-                       "controls_from_trajectory", "chunk_rollout_eps",
-                       "noisy_controls", "batched_rollouts", "refit_coefficients",
-                       "select_reduced", "scalar_cost", "chunk_cem_z",
-                       "cem_update")),
+                       "controls_from_trajectory", "noisy_controls",
+                       "batched_rollouts", "refit_coefficients", "select_reduced",
+                       "scalar_cost", "cem_update")),
+           ("noise:JaxNoise", ("rollout_eps", "cem_z")),
+           ("noise:FixedNoise", ("rollout_eps", "cem_z")),
            ("reduced_set", ("topk_indices", "eq_qp_solve")),
            ("risk", ("mmd_obs", "mmd_lane")))
 _INPUTS = ("eq_qp_solve", "topk_indices")
@@ -242,8 +243,10 @@ class _Tap:
 
     def __enter__(self):
         import importlib
-        for mod, names in _STAGES:
+        for where, names in _STAGES:
+            mod, _, cls = where.partition(":")
             m = importlib.import_module(f"mpc_mmd_tpu_torch.{mod}")
+            m = getattr(m, cls) if cls else m
             for name in names:
                 self.patch(m, name, self.wrap(name, getattr(m, name)))
         tap = self
@@ -381,7 +384,7 @@ def stage_dump(seed: int, devices=("cuda", "cpu"), draws: str = "own",
     runs = []
     for dev in devices:
         noise = FixedNoise(fixed, dev) if fixed is not None else JaxNoise(dev)
-        solver = Solver(cfg, device=dev, noise=noise)
+        solver = Solver(cfg, device=dev, noise=noise, graph=False)
         with _Tap(2) as tap:
             r = solver.solve(seed, init, mean, cov, batch.x_traj[k], batch.y_traj[k],
                              v_des)

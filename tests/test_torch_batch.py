@@ -2,8 +2,9 @@
 through one outer CEM loop over a leading scenario axis.
 
 A chunk must equal its scenarios solved one at a time on the same draws:
-``TorchNoise`` re-seeds every family per scenario, so a scenario meets the
-same draws in a chunk and alone.  Every field of the result is held within
+every noise source draws a scenario's per-iteration families from its own
+row of the chunk's key table, so a scenario meets the same draws in a
+chunk and alone.  Every field of the result is held within
 1e-5 of its scale (on the CPU they come out bit-equal at these sizes).
 Against the JAX package, ``Solver(cfg, scenario_chunk=2).solve_batch`` of
 both packages on each seed's JAX draws (``test_torch_noise.JaxKeyChain``):
@@ -23,8 +24,7 @@ from conftest import blocking_scenarios
 from mpc_mmd_tpu import Solver as JSolver
 from mpc_mmd_tpu import config as jc
 from mpc_mmd_tpu_torch import Solver as TSolver
-from mpc_mmd_tpu_torch.noise import (FixedNoise, TorchNoise, chunk_cem_z,
-                                     chunk_rollout_beta, chunk_rollout_eps)
+from mpc_mmd_tpu_torch.noise import FixedNoise, JaxNoise, TorchNoise
 from mpc_mmd_tpu_torch.qp import workspace_from_numpy
 from test_torch_noise import JaxKeyChain, jax_draws, to_torch_cfg
 from test_torch_solver import COV, INIT, MEAN
@@ -94,26 +94,31 @@ def test_short_last_chunk(monkeypatch):
     assert batch.res.shape == (5, 2)
 
 
-def test_chunk_draws_stack_each_scenarios_own():
-    """The chunk's per-iteration draws are each scenario's own, stacked on
-    a leading axis; FixedNoise gives every scenario its one set."""
-    noise = TorchNoise(torch.Generator(), "cpu")
+@pytest.mark.parametrize("source", ["torch", "jax"])
+def test_chunk_draws_stack_each_scenarios_own(source):
+    """The chunk's per-iteration draws, from its key table's column of an
+    iteration, are each scenario's own, stacked on a leading axis; FixedNoise
+    gives every scenario its one set."""
+    noise = (TorchNoise(torch.Generator(), "cpu") if source == "torch"
+             else JaxNoise("cpu"))
     seeds = [4, 9, 4]
-    eps = chunk_rollout_eps(noise, seeds, 1, 3, 6)
-    z = chunk_cem_z(noise, seeds, 1, 5, 8)
+    keys = noise.keys(seeds, 2)[:, 1]
+    alone = lambda s: noise.keys([s], 2)[:, 1]
+    eps = noise.rollout_eps(keys, 3, 6)
+    z = noise.cem_z(keys, 5, 8)
     alpha = torch.rand(2, 3, 2, 6) + 1e-8
-    beta = chunk_rollout_beta(noise, seeds, 1, 3, alpha, 2.5 * alpha)
+    beta = noise.rollout_beta(keys, 3, alpha, 2.5 * alpha)
     assert [e.shape for e in eps] == [(3, 3, 6)] * 3 and z.shape == (3, 5, 8)
     assert beta.shape == (2, 3, 2, 3, 6)
     for i, s in enumerate(seeds):
-        for got, ref in zip(eps, noise.rollout_eps(s, 1, 3, 6)):
-            assert torch.equal(got[i], ref)
-        assert torch.equal(z[i], noise.cem_z(s, 1, 5, 8))
-        assert torch.equal(beta[:, i], noise.rollout_beta(s, 1, 3, alpha[:, i],
-                                                           2.5 * alpha[:, i]))
+        for got, ref in zip(eps, noise.rollout_eps(alone(s), 3, 6)):
+            assert torch.equal(got[i], ref[0])
+        assert torch.equal(z[i], noise.cem_z(alone(s), 5, 8)[0])
+        assert torch.equal(beta[:, i], noise.rollout_beta(
+            alone(s), 3, alpha[:, i:i + 1], 2.5 * alpha[:, i:i + 1])[:, 0])
     assert not torch.equal(z[0], z[1]) and torch.equal(z[0], z[2])
     fixed = FixedNoise(jax_draws(_cfg(), 0), "cpu")
-    z = chunk_cem_z(fixed, [1, 2], 0, 19, 8)
+    z = fixed.cem_z(fixed.keys([1, 2], 2)[:, 0], 19, 8)
     assert torch.equal(z[0], z[1])
 
 

@@ -43,7 +43,9 @@ def tiny(mode, **kw):
 class JaxKeyedNoise:
     """The JAX package's draws of each MPC step, computed when the solve
     asks for them (``jax_draws`` of the step plus the noisy initial states'
-    ``split(PRNGKey(idx_mpc))[0]``)."""
+    ``split(PRNGKey(idx_mpc))[0]``), by a key table of (idx_mpc, it)."""
+
+    capturable = False
 
     def __init__(self, cfg):
         self.cfg, self._steps = cfg, {}
@@ -64,15 +66,25 @@ class JaxKeyedNoise:
         d = self._draws(0)
         return InnerDraws(d["samples0"], d["u"], d["z"])
 
-    def init_state_z(self, idx_mpc, n):
-        return self._draws(idx_mpc)["init_state_z"]
+    def keys(self, seeds, iterations):
+        """(1, iterations, 2): the step's (idx_mpc, it) pairs."""
+        (s,) = seeds
+        return torch.tensor([[[s, it] for it in range(iterations)]])
 
-    def rollout_eps(self, idx_mpc, it, R, T):
-        d = self._draws(idx_mpc)
-        return d["eps_acc"][it], d["eps_steer"][it], d["eps_const"][it]
+    def init_key(self, idx_mpc):
+        return torch.tensor([idx_mpc])
 
-    def cem_z(self, idx_mpc, it, n, n_params):
-        return self._draws(idx_mpc)["cem_z"][it]
+    def init_state_z(self, key, n):
+        return self._draws(int(key[0]))["init_state_z"]
+
+    def rollout_eps(self, keys, R, T):
+        (s, it), = keys.tolist()
+        d = self._draws(s)
+        return d["eps_acc"][it][None], d["eps_steer"][it][None], d["eps_const"][it][None]
+
+    def cem_z(self, keys, n, n_params):
+        (s, it), = keys.tolist()
+        return self._draws(s)["cem_z"][it][None]
 
 
 def test_plant_actuator_and_perception_equal_jax():

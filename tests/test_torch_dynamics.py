@@ -132,9 +132,10 @@ def test_perturb_controls_rejects_beta_noise():
     noise = FixedNoise({"eps_acc": eps, "eps_steer": eps, "eps_const": eps}, "cpu")
     z = torch.zeros(1, 4, 3)            # a chunk of one scenario's 4 candidates
     with pytest.raises(ValueError):
-        noisy_controls(cfg, noise, [0], 0, z, z)
+        noisy_controls(cfg, noise, noise.keys([0], 1)[:, 0], z, z)
     gaussian = to_torch_cfg(jc.static_workload(num_reduced=2, num_prime=3))
-    assert noisy_controls(gaussian, noise, [0], 0, z, z)[0].shape == (1, 4, 2, 3)
+    assert noisy_controls(gaussian, noise, noise.keys([0], 1)[:, 0], z, z)[0].shape == (
+        1, 4, 2, 3)
 
 
 def test_controls_from_trajectory_matches_jax(rng):

@@ -783,3 +783,117 @@ def test_prng_kernels_give_the_jax_reference_draws(cuda):
                       for k in ("beta_keys", "beta_alpha", "beta_beta")),
                     ref["beta"].shape[-1])
     np.testing.assert_allclose(got.cpu().numpy(), ref["beta"], rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The solve as a CUDA graph (graph.py): every replay against the eager card
+# solve (graph=False) of the same inputs
+# ---------------------------------------------------------------------------
+
+def graph_against_eager(make, calls):
+    """Each of ``calls`` (a function of a solver) on a graphed solver,
+    ``make(None)``, and on an eager one, ``make(False)``: the results bit
+    for bit equal and the launch counts equal; every call after the first
+    (a replay) under CUDA's sync debug mode at "error"; every result kept
+    unchanged to the end.  Returns the graphed solver."""
+    from mpc_mmd_tpu_torch.ops import launch_counts
+    graphed, eager = make(None), make(False)
+    assert graphed.graph and not eager.graph
+    kept = []
+    for i, call in enumerate(calls):
+        outs, counts = [], []
+        for solver in (graphed, eager):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            if solver is graphed and i:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                outs.append(call(solver))
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            counts.append({k: n - before[k] for k, n in launch_counts().items()})
+        got, ref = outs
+        assert counts[0] == counts[1] and sum(counts[0].values()) > 0, counts
+        for name, a, b in zip(got._fields, got, ref):
+            assert torch.equal(a, b), (i, name)
+        kept.append((got, [t.clone() for t in got]))
+    for got, copy in kept:
+        assert all(torch.equal(a, b) for a, b in zip(got, copy))
+    stats = graphed.graph_stats()
+    assert stats and all(s["nodes"] > 0 and s["launches"] for s in stats)
+    return graphed
+
+
+def _static(n, num_obs=6):
+    t = torch.linspace(0.0, 15.0, 100, device="cuda")
+    return (torch.stack([torch.stack([30.0 + 5.0 * i + j + 0 * t for j in range(num_obs)])
+                         for i in range(n)]),
+            torch.stack([torch.stack([(-1.75 if (i + j) % 2 else 1.75) + 0 * t
+                                      for j in range(num_obs)]) for i in range(n)]))
+
+
+def test_graphed_fastrt_solve_equals_the_eager_card_solve(cuda):
+    """The full-width fastrt solve, three solves of other seeds, scenarios,
+    initial states and v_des on one solver (the first captures)."""
+    cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50)
+    xs, ys = _static(3)
+    mean, cov = [15.0] * 4 + [0.0] * 4, np.diag([20.0] * 4 + [100.0] * 4)
+    calls = [lambda s, i=i: s.solve(i, [0.0, 1.75 - 0.1 * i, 5.0 + i, 0.0, 0.0, 0.0],
+                                    mean, cov, xs[i], ys[i], 15.0 - i)
+             for i in range(3)]
+    g = graph_against_eager(lambda graph: Solver(cfg, device="cuda", graph=graph), calls)
+    assert [s["replays"] for s in g.graph_stats()] == [2]
+
+
+def test_graphed_chunks_with_a_short_last_one_equal_the_eager_ones(cuda):
+    """``solve_batch`` of 7 scenarios at chunk 4 (a chunk of 4 and a short
+    one of 3, a graph each), twice with other seeds."""
+    cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50)
+    xs, ys = _static(7)
+    args = ([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], [15.0] * 4 + [0.0] * 4,
+            np.diag([20.0] * 4 + [100.0] * 4), xs, ys, 15.0)
+    calls = [lambda s, lo=lo: s.solve_batch(list(range(lo, lo + 7)), *args)
+             for lo in (0, 20)]
+    g = graph_against_eager(lambda graph: Solver(cfg, device="cuda", scenario_chunk=4,
+                                                 graph=graph), calls)
+    chunks = [next(shape for name, shape, _ in s["key"][:-1] if name == "keys")[0]
+              for s in g.graph_stats()]
+    assert chunks == [4, 3] and [s["replays"] for s in g.graph_stats()] == [1, 1]
+
+
+def test_graphed_path_a_fused_beta_solve_equals_the_eager_one(cuda, monkeypatch):
+    """Path A: the dynamic cut-in workload at full width, Beta noise 0.2,
+    the fused selection (K3), three cut-in scenarios."""
+    from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
+    monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
+    cfg = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
+                           num_prime=50, mode="mmd_opt")
+    init, mean, cov, v_des = ego_initial_state("dynamic")
+    cut = dynamic_cutin(cfg, 3, device="cuda")
+    calls = [lambda s, i=i: s.solve(i, init, mean, cov, cut.x_traj[i], cut.y_traj[i],
+                                    v_des) for i in range(3)]
+    g = graph_against_eager(lambda graph: Solver(cfg, device="cuda", graph=graph), calls)
+    assert g.graph_stats()[0]["launches"]["topk_kernel_matrices"] == 400
+
+
+def test_graphed_frenet_episode_steps_equal_the_eager_ones(cuda):
+    """Path D's on-road mmd_opt solve over 3 steps of a plant whose state,
+    frame, obstacles, mean and v_des all change between steps."""
+    from mpc_mmd_tpu_torch import FrenetSolver, onroad_workload
+    from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
+    from mpc_mmd_tpu_torch.frenet import build_smoother
+    cfg = onroad_workload(num_reduced=4, num_obs=4, num_prime=50)
+    plant = SyntheticPlant(cfg, make_route("curved"),
+                           ((12.0, 0.5), (18.0, 3.0), (40.0, 0.0), (60.0, 3.5)),
+                           obstacle_speed=1.0)
+    smoother = build_smoother(cfg.frenet.num_path, device="cuda")
+    tot_time = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device="cuda")
+    steps = []
+    for k in range(3):
+        frame, xo, yo, init = local_problem(cfg, plant, smoother, tot_time)
+        mean = [10.0 + k] * 4 + [0.3 * k] * 4
+        steps.append((k, init, mean, np.diag([20.0] * 4 + [100.0] * 4), xo, yo,
+                      10.0 + 2 * k, frame))
+        plant.step(1.0, 0.02)
+    calls = [lambda s, a=a: s.solve(*a) for a in steps]
+    graph_against_eager(lambda graph: FrenetSolver(cfg, device="cuda", graph=graph), calls)

@@ -108,7 +108,10 @@ class JaxKeyChain:
     """The JAX key chain's draws of every solve of a sweep or a chunk: the
     initial batch and inner-CEM draws every solve shares, and each solve's
     own per-iteration draws (Beta ones too), keyed by its seed
-    (``idx_mpc``)."""
+    (``idx_mpc``): a key table of (idx_mpc, it) rows, each row's draws
+    those of the seed's ``FixedNoise``, stacked."""
+
+    capturable = False
 
     def __init__(self, cfg):
         self.cfg, self.by_seed = cfg, {}
@@ -128,14 +131,22 @@ class JaxKeyChain:
     def inner_exact(self, *a):
         return self._of(0).inner_exact(*a)
 
-    def rollout_eps(self, idx_mpc, *a):
-        return self._of(idx_mpc).rollout_eps(idx_mpc, *a)
+    def keys(self, seeds, iterations):
+        return self._of(0).keys(seeds, iterations)
 
-    def rollout_beta(self, idx_mpc, *a):
-        return self._of(idx_mpc).rollout_beta(idx_mpc, *a)
+    def _rows(self, keys):
+        return [(self._of(s), torch.tensor([[s, it]])) for s, it in keys.tolist()]
 
-    def cem_z(self, idx_mpc, *a):
-        return self._of(idx_mpc).cem_z(idx_mpc, *a)
+    def rollout_eps(self, keys, R, T):
+        eps = [n.rollout_eps(row, R, T) for n, row in self._rows(keys)]
+        return tuple(torch.cat(e) for e in zip(*eps))
+
+    def rollout_beta(self, keys, R, alpha, beta):
+        return torch.cat([n.rollout_beta(row, R, alpha[:, i:i + 1], beta[:, i:i + 1])
+                          for i, (n, row) in enumerate(self._rows(keys))], dim=1)
+
+    def cem_z(self, keys, n, n_params):
+        return torch.cat([src.cem_z(row, n, n_params) for src, row in self._rows(keys)])
 
 
 def _cfg():
@@ -156,9 +167,10 @@ def test_fixed_noise_replays_shapes_and_values():
     np.testing.assert_array_equal(inner.u.numpy(), d["u"])
     np.testing.assert_array_equal(n.initial_z(c.num_batch, 8).numpy(),
                                   d["initial_z"])
-    ea, es, ec = n.rollout_eps(5, 1, 3, 12)
-    np.testing.assert_array_equal(es.numpy(), d["eps_steer"][1])
-    assert n.cem_z(5, 1, c.num_batch - c.ellite_num, 8).shape == (7, 8)
+    keys = n.keys([5], 2)[:, 1]
+    ea, es, ec = n.rollout_eps(keys, 3, 12)
+    np.testing.assert_array_equal(es[0].numpy(), d["eps_steer"][1])
+    assert n.cem_z(keys, c.num_batch - c.ellite_num, 8).shape == (1, 7, 8)
     with pytest.raises(ValueError):
         n.initial_z(c.num_batch + 1, 8)
 
@@ -168,12 +180,13 @@ def test_torch_noise_is_a_function_of_the_solve():
     draws in any order, and different iterations differ."""
     a = TorchNoise(torch.Generator(), "cpu")
     b = TorchNoise(torch.Generator(), "cpu")
-    e1 = a.rollout_eps(3, 1, 4, 10)
-    a.cem_z(3, 0, 7, 8)
-    e2 = a.rollout_eps(3, 1, 4, 10)
+    keys = a.keys([3], 3)
+    e1 = a.rollout_eps(keys[:, 1], 4, 10)
+    a.cem_z(keys[:, 0], 7, 8)
+    e2 = a.rollout_eps(keys[:, 1], 4, 10)
     for x, y in zip(e1, e2):
         assert torch.equal(x, y)
-    assert not torch.equal(e1[0], a.rollout_eps(3, 2, 4, 10)[0])
+    assert not torch.equal(e1[0], a.rollout_eps(keys[:, 2], 4, 10)[0])
     assert not torch.equal(e1[0], e1[1])
     i1, i2 = a.inner_cem(12, 9, 3, 2), b.inner_cem(12, 9, 3, 2)
     assert isinstance(i1, InnerDraws)
@@ -238,21 +251,23 @@ def test_rollout_beta_draws():
     """TorchNoise draws (2, C, R, T) as a function of the solve; FixedNoise
     replays arrays or asks its function, and checks the shape."""
     noise = TorchNoise(torch.Generator(), "cpu")
-    alpha = torch.rand(2, 5, 7) + 1e-8
-    d1 = noise.rollout_beta(3, 1, 4, alpha, 2.5 * alpha)
-    assert d1.shape == (2, 5, 4, 7)
-    assert torch.equal(d1, noise.rollout_beta(3, 1, 4, alpha, 2.5 * alpha))
-    assert not torch.equal(d1, noise.rollout_beta(3, 2, 4, alpha, 2.5 * alpha))
-    replay = FixedNoise({"beta": d1[None].numpy()}, "cpu")
-    assert torch.equal(replay.rollout_beta(0, 0, 4, alpha, alpha), d1)
+    alpha = torch.rand(2, 1, 5, 7) + 1e-8
+    keys = noise.keys([3], 3)
+    d1 = noise.rollout_beta(keys[:, 1], 4, alpha, 2.5 * alpha)
+    assert d1.shape == (2, 1, 5, 4, 7)
+    assert torch.equal(d1, noise.rollout_beta(keys[:, 1], 4, alpha, 2.5 * alpha))
+    assert not torch.equal(d1, noise.rollout_beta(keys[:, 2], 4, alpha, 2.5 * alpha))
+    replay = FixedNoise({"beta": d1.transpose(0, 1).numpy()}, "cpu")
+    first = replay.keys([0], 1)[:, 0]
+    assert torch.equal(replay.rollout_beta(first, 4, alpha, alpha), d1)
     with pytest.raises(ValueError):
-        replay.rollout_beta(0, 0, 3, alpha, alpha)
+        replay.rollout_beta(first, 3, alpha, alpha)
     asked = FixedNoise({}, "cpu", jax_beta)
-    got = asked.rollout_beta(3, 1, 4, alpha, 2.5 * alpha)
-    np.testing.assert_array_equal(
-        got.numpy(), jax_beta(3, 1, 4, alpha.numpy(), 2.5 * alpha.numpy()))
+    got = asked.rollout_beta(asked.keys([3], 2)[:, 1], 4, alpha, 2.5 * alpha)
+    a0 = alpha[:, 0].numpy()
+    np.testing.assert_array_equal(got[:, 0].numpy(), jax_beta(3, 1, 4, a0, 2.5 * a0))
     with pytest.raises(ValueError):
-        FixedNoise({}, "cpu").rollout_beta(0, 0, 4, alpha, alpha)
+        FixedNoise({}, "cpu").rollout_beta(first, 4, alpha, alpha)
 
 
 def test_recorded_draws_replay_a_solve():

@@ -164,6 +164,21 @@ def test_sweep_store_layout_matches_jax(tmp_path):
             assert a[name].dtype == b[name].dtype, name
 
 
+def test_prewarm_cli_runs_each_scenario_chunk(capsys):
+    """``--scenario_chunks 1 2``: a line per chunk size, its first solve's
+    and its second solve's seconds (on the CPU no graph, so no capture
+    fields), and the build and load times in the summary (0 on the CPU)."""
+    from mpc_mmd_tpu_torch.cli import prewarm
+    prewarm.main(["--presets", "fastrt", "--modes", "cvar", "--num_reduced", "3",
+                  "--num_obs", "2", "--num_prime", "15", "--scenario_chunks", "1", "2",
+                  "--device", "cpu"])
+    recs = [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.strip()]
+    assert [r["chunk"] for r in recs[:-1]] == [1, 2]
+    assert all(r["second_solve_s"] >= 0 and "capture_s" not in r for r in recs[:-1])
+    assert recs[-1]["prewarmed"] == 2 and recs[-1]["build_s"] == recs[-1]["load_s"] == 0
+
+
 @pytest.mark.parametrize("mode", ["mmd_opt", "cvar"])
 def test_sweep_accepts_as_jax_on_jax_draws(tmp_path, monkeypatch, mode):
     """Fed the JAX key chain's draws, the port's sweep accepts exactly the

@@ -51,8 +51,7 @@ from mpc_mmd_tpu_torch import Solver as TSolver
 from mpc_mmd_tpu_torch import ops, prng
 from mpc_mmd_tpu_torch.cli import sweep
 from mpc_mmd_tpu_torch.config import static_workload
-from mpc_mmd_tpu_torch.noise import (JaxNoise, chunk_cem_z, chunk_rollout_beta,
-                                     chunk_rollout_eps, init_state_count,
+from mpc_mmd_tpu_torch.noise import (JaxNoise, init_state_count,
                                      record_solve_draws)
 from mpc_mmd_tpu_torch.qp import build_workspace, workspace_from_numpy
 from mpc_mmd_tpu_torch.validate import make_validator_core
@@ -356,23 +355,26 @@ def test_jax_noise_draws_the_jax_key_chain(strategy):
         assert _ulps(arr, ref[name]).max() <= ULP, name
     alpha, beta = (np.float32(s) * np.abs(np.random.default_rng(1).normal(
         size=(2, 6, 12))).astype(np.float32) + np.float32(1e-8) for s in (2, 5))
-    got = noise.rollout_beta(7, 1, 3, torch.as_tensor(alpha), torch.as_tensor(beta))
+    got = noise.rollout_beta(noise.keys([7], 2)[:, 1], 3, torch.as_tensor(alpha)[:, None],
+                             torch.as_tensor(beta)[:, None])[:, 0]
     np.testing.assert_allclose(got.numpy(), jax_beta(7, 1, 3, alpha, beta),
                                rtol=1e-5, atol=1e-6)
 
 
 def test_jax_noise_chunks_equal_per_seed_draws_and_the_gmm_draws_equal_jax():
     noise, seeds = JaxNoise("cpu"), [3, 11, 40]
-    eps = chunk_rollout_eps(noise, seeds, 2, 3, 7)
+    keys = noise.keys(seeds, 3)[:, 2]
+    alone = lambda s: noise.keys([s], 3)[:, 2]
+    eps = noise.rollout_eps(keys, 3, 7)
     for i, s in enumerate(seeds):
-        for a, b in zip(eps, noise.rollout_eps(s, 2, 3, 7)):
-            assert torch.equal(a[i], b)
-        assert torch.equal(chunk_cem_z(noise, seeds, 2, 5, 8)[i], noise.cem_z(s, 2, 5, 8))
+        for a, b in zip(eps, noise.rollout_eps(alone(s), 3, 7)):
+            assert torch.equal(a[i], b[0])
+        assert torch.equal(noise.cem_z(keys, 5, 8)[i], noise.cem_z(alone(s), 5, 8)[0])
     alpha = torch.rand(2, 3, 4, 7) * 0.5 + 1e-8
-    chunk = chunk_rollout_beta(noise, seeds, 2, 3, alpha, 2.5 * alpha)
+    chunk = noise.rollout_beta(keys, 3, alpha, 2.5 * alpha)
     for i, s in enumerate(seeds):
-        assert torch.equal(chunk[:, i], noise.rollout_beta(s, 2, 3, alpha[:, i],
-                                                           2.5 * alpha[:, i]))
+        assert torch.equal(chunk[:, i], noise.rollout_beta(
+            alone(s), 3, alpha[:, i:i + 1], 2.5 * alpha[:, i:i + 1])[:, 0])
     key = jax.random.split(jax.random.PRNGKey(9))[0]
     z, modes = noise.gmm_init_draws(9, 40, jsampling.GMM_INIT_PROBS)
     assert _ulps(z.numpy(), jax.random.normal(key, (40, 4))).max() <= ULP

@@ -17,19 +17,20 @@ Phases, each of which must pass:
 3. each kernel against its plain PyTorch twin on the card, with CUDA-event
    times of both:
    K1 top-k indices equal exactly at every shape a solve path launches it
-   with (``launch_shapes``: the fastrt selection (64, 57, 101), k = 10, its
-   iteration-0 batch (1, 64, 101) and elite pick (64, 64), k = 7; Path A's
-   "xla" selection (100, 89, 101) and (1, 100, 101), and its elite pick
-   (100, 100), k = 11; Path D's (100, 89, 17) and (1, 100, 17), k = 4, and
-   the same elite pick; Path E's chunks of 4 and 8 fastrt scenarios,
-   (256, 57, 101) and (512, 57, 101), k = 10, their elite picks (256, 64)
-   and (512, 64), k = 7, and Path A's chunk of 4, (400, 100), k = 11),
-   each with an all-NaN row, NaN lanes, ties, -0.0 against +0.0, +-inf
-   and fewer finite lanes than k;
+   with (``launch_shapes``; the "xla" selection launches kernel (c)
+   instead: the "xt" and "g" selections' fastrt (64, 57, 101), k = 10,
+   "xt"'s iteration-0 batch (1, 64, 101), "g"'s (64, 64, 101), and the
+   elite pick (64, 64), k = 7; the same on Path A, (100, 89, 101), (1,
+   100, 101) and (100, 100, 101), and Path D, (100, 89, 17), (1, 100, 17)
+   and (100, 100, 17), k = 4; the fused selection's elite pick (100, 100),
+   k = 11, and at Path A's chunk of 4, (400, 100); Path F's), each with an
+   all-NaN row, NaN lanes, ties, -0.0 against +0.0, +-inf and fewer finite
+   lanes than k;
    K2 QP within rtol 1e-4 + atol 1e-5 of the twin run in float64 at every
-   path's number and size of systems (3,648, 4,096, 8,900, 10,000 of
-   n = 10; Path D's 8,900 and 10,000 of n = 4; Path E's 14,592, 16,384,
-   29,184, 32,768 and 40,000 of n = 10);
+   path's number and size of systems (the "g" and "fused" selections'
+   3,648, 4,096, 8,900, 10,000 of n = 10; Path D's 8,900 and 10,000 of n =
+   4; Path F's 10,000 of n = 5 and 15; Path E's fused chunk, 40,000 of n =
+   10);
    K2's lane-major entry (the "xt" selection's) the same way at 3,648,
    4,096, 8,900 and 10,000 systems of n = 10 and 8,900 and 10,000 of
    n = 4, and against K2's row-major kernel on the same systems (one
@@ -46,6 +47,20 @@ Phases, each of which must pass:
    equal exactly, row sums and K_red within rtol 1e-5 + atol 1e-6;
    K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
    equal exactly;
+   kernel (c), the whole inner beta-CEM of the "xla" selection
+   (``ops.inner_cem``), against its plain version (``inner_cem_plain``: K1,
+   K2 and PyTorch's operations, on the card) from the same inputs at every
+   shape a path launches it with (``launch_shapes``: fastrt's 64
+   candidates, 64 samples, M = 100, k = 10, 12 iterations; Path E's chunks
+   of 4 and 8 (256 and 512 candidates); Path A's 100 x 100, M = 100, 20
+   iterations; Path D's 100 x 100, M = 16, k = 4; Path F's M = 25 and
+   225), at fastrt's with the gaussian and matern52 kernels, and at 11a's
+   chunk of 32 (2,048 candidates), a NaN lane and tied |beta| in the first
+   batch: at one iteration the winners' indices equal exactly and their
+   weights, bandwidths and costs within rtol 1e-5 + atol 1e-6; at the
+   path's iterations every candidate's costs within rtol 1e-4 + atol 1e-6,
+   at most 2 % of a shape's candidates apart (each logged with the first
+   iteration apart); how many candidates are bit-equal is logged;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
@@ -53,11 +68,12 @@ Phases, each of which must pass:
    bound, and the device time of the one PyTorch call that computes the
    same function, where there is one (``torch.topk`` for K1,
    ``torch.linalg.solve`` of the bordered KKT system for K2; the port
-   never calls either);
+   never calls either; none for K3, K4, K5 and kernel (c));
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
-   sum(beta) = 1 within 1e-3, with K1, K2 and K4 launched;
+   sum(beta) = 1 within 1e-3, with kernel (c) (one launch an outer
+   iteration) and K4 launched;
 5. one outer iteration on the card against the same on the CPU with
    identical draws: the controls of the returned coefficients within 1e-3
    (the JAX package's parity bar) and the coefficients within 1e-3 of
@@ -70,8 +86,8 @@ Phases, each of which must pass:
    exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
    and maxiter_cem of K4 per solve; one more fused solve under
    ``torch.profiler`` (device busy ms, idle share, K3's device ms per
-   solve); then 2 solves with the default "xla" selection at the same
-   width;
+   solve); then 2 solves with the default "xla" selection (kernel (c)) at
+   the same width;
 7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
    solve each of ``mmd_random`` and ``saa``: finite, with K4 launched;
 8. one outer iteration of Path A on the card against the CPU with
@@ -94,7 +110,7 @@ Phases, each of which must pass:
       identical draws: counts within +-1 per solve, mean collision % within
       0.1 pp;
    g. one fastrt ``mmd_opt`` solve with the gaussian and one with the
-      matern52 MMD kernel: finite, with K1, K2 and K4 launched.
+      matern52 MMD kernel: finite, with kernel (c) and K4 launched.
    Each of a-e and g runs with the launch counts set to 0 just before it
    and read just after; a, c, d, e and g fail unless their kernels were
    launched, b if any kernel was;
@@ -104,10 +120,11 @@ Phases, each of which must pass:
    100 x 20; the frame of step 0 of a curved-route episode built on the
    card as ``run_episode`` builds it (waypoint window, smoothing, path
    parameters, obstacles in Frenet):
-   a. (in phase 3) K1, K2, K3 and K4 at its shapes;
+   a. (in phase 3) K1, K2, K3, K4 and kernel (c) at its shapes;
    b. ``FrenetSolver`` in ``mmd_opt`` with the "xla" selection: one
       warm-up solve, then 2 solves with finite cx, cy, v_best and
-      steering_best and exactly 800 K1, 400 K2 and 20 K4 launches each,
+      steering_best and exactly 20 launches of kernel (c) and 20 of K4
+      each (no K1, no K2),
       and one more under ``torch.profiler`` (device busy, idle share);
    c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 400 each of K3, K2
       and K1 and 20 of K4;
@@ -176,7 +193,7 @@ Phases, each of which must pass:
       plain solve on the blocking scenario: res within 1e-5 and cx, cy
       within 1e-4 of their scale; each rank makes one solve's launches;
    e. ``python -m mpc_mmd_tpu_torch.cli.prewarm --presets fastrt --modes
-      mmd_opt cvar`` in this process: its JSON lines, K1, K2 and K4
+      mmd_opt cvar`` in this process: its JSON lines, kernel (c) and K4
       launched.
    Each of 12's solves and 13 a, e runs with the launch counts set to 0
    just before it and read just after; b-d read each rank's counts.
@@ -251,17 +268,20 @@ Phases, each of which must pass:
       full-width fastrt solves (other seeds, scenarios, initial states and
       v_des; the first captures), two ``solve_batch`` calls of 7 scenarios
       at chunk 4 (a graph for the chunk of 4 and one for the short chunk of
-      3), three Path A fused solves with Beta noise, and three Path D
+      3), three Path A fused solves with Beta noise, two Path A "xla"
+      solves with Beta noise, and three Path D
       ``FrenetSolver`` steps of a moving plant (state, frame, obstacles,
       mean and v_des all changed); each graph's nodes, capture and
       instantiation seconds;
    b. eager against graphed in turns, host time to ``torch.cuda.synchronize``:
-      p50 and p99 of 20 fastrt solves each and of 6 Path A fused solves
-      each, solves/s of ``solve_batch`` over 8 scenarios at chunks 4 and 8
+      p50 and p99 of 20 fastrt solves each and of 6 Path A fused and 6
+      Path A "xla" solves each, solves/s of ``solve_batch`` over 8
+      scenarios at chunks 4 and 8
       (median of 4 each), and the Path D closed-loop step (``run_episode``
       as the closed-loop CLI runs it, 2 episodes of 20 steps each), p50,
       p99 and mean against the 150 ms control period;
-   c. one graphed fastrt, Path A fused and Path D solve each, a replay,
+   c. one graphed fastrt, Path A fused, Path A "xla" and Path D solve
+      each, a replay,
       under ``torch.profiler``: device busy ms, idle share, device events;
       and the busy time against the p50 of 5 untraced replays of the same
       solve.
@@ -272,7 +292,9 @@ record and the card's nvidia-smi line, and as the last line ``{"ok": true,
 "device": {...}}``.  In the kernels' record, ``launches`` counts the
 launches of the paths' runs (phases 4, 6, 7, 9 a-e, g, 10 b-d, f, 11 a,
 c-f, 12, 13, 14 b-c and 16 a-b; K2's lane-major entry, its own
-row, launches only under "xt" in 12 and 14b); K5
+row, launches only under "xt" in 12 and 14b; kernel (c) on every path
+of the "xla" selection, one launch an outer iteration, where K1 and K2
+launch only under "fused", "xt" and "g"); K5
 is on no path of the package, and its count is that of its own phase.
 ``launches_per_solve`` splits them by path (per solve; per chunk on
 Path E's chunked runs; the validator's per 1200 validations).  The
@@ -426,28 +448,34 @@ def f32_bytes(*tensors):
 
 
 def launch_shapes(paths):
-    """K1's and K2's launch shapes on each path, from its configuration.
+    """K1's, K2's and kernel (c)'s launch shapes on each path, from its
+    configuration.
 
     ``paths`` maps a path's name to (config, selection) or, for a path
     that solves scenario chunks, (config, selection, scenarios per chunk):
     a chunk of N scenarios runs one outer loop over its N x num_batch
-    candidates.  Returns (k1, k2, k2t): k1 maps (shape, k, kwargs), k2 and
-    k2t (K2's lane-major entry) (number of systems, n) to {path: launches
-    per solve (per chunk)}.  The "xla" and "xt" selections run with
+    candidates.  Returns (k1, k2, k2t, kc): k1 maps (shape, k, kwargs), k2
+    and k2t (K2's lane-major entry) (number of systems, n), kc (C, S, M, k,
+    maxiter, kernel kind) to {path: launches per solve (per chunk)}.  The
+    "xla" selection runs with elite-carry as kernel (c), one launch an
+    outer iteration, and launches neither K1 nor K2.  "xt" runs with
     elite-carry: the top-k of the shared iteration-0 batch (1, S, M+1) and
     the QP of all C x S rows once per outer iteration, then the S - n_el
-    fresh rows of every candidate ("xt" through the lane-major entry); "g"
-    the same, but its iteration 0 takes the top-k of the broadcast (C, S,
-    M+1) batch; the "fused" one recomputes every row with K3 and solves
-    C x S systems.  All pick the n_el elites of every candidate's S costs
-    in every inner iteration.
+    fresh rows of every candidate through K2's lane-major entry; "g" the
+    same with K2, but its iteration 0 takes the top-k of the broadcast (C,
+    S, M+1) batch; the "fused" one recomputes every row with K3 and solves
+    C x S systems.  These three pick the n_el elites of every candidate's S
+    costs with K1 in every inner iteration.
     """
-    k1, k2, k2t = {}, {}, {}
+    k1, k2, k2t, kc = {}, {}, {}, {}
     for path, (cfg, selection, *chunk) in paths.items():
         b, C = cfg.beta_cem, cfg.cem.num_batch * (chunk[0] if chunk else 1)
         S, n_el, it, outer = (b.num_samples_cem, b.num_ellite, b.maxiter,
                               cfg.cem.maxiter_cem)
         M, k = cfg.risk.num_mother, cfg.risk.num_reduced
+        if selection == "xla":
+            kc.setdefault((C, S, M, k, it, cfg.risk.kernel), {})[path] = outer
+            continue
         sel = (("absolute", True), ("slice_to", M))
         # K2 is keyed by (systems, n): two paths may solve as many systems
         # of another size
@@ -462,7 +490,7 @@ def launch_shapes(paths):
         for table, add in ((k1, t1), (k2t if selection == "xt" else k2, t2)):
             for key, n in add.items():
                 table.setdefault(key, {})[path] = n
-    return k1, k2, k2t
+    return k1, k2, k2t, kc
 
 
 def check_launch_shapes(tables, per_solve):
@@ -751,6 +779,81 @@ def check_topk_onehot(torch, ops, plain, dev, gen):
                 ops=idx.numel() * 100, library=("no single call", None))
 
 
+def check_inner_cem(torch, ops, gen, shapes):
+    """Kernel (c) against its plain version (``inner_cem_plain``: K1, K2
+    and PyTorch's operations) on the card at every path shape
+    (``launch_shapes``' (C, S, M, k, maxiter, kind), and the shapes it
+    maps to no launch), from the same inputs (``kernel_ab.kc_inputs``: a
+    NaN lane and tied |beta| in the first batch): at one iteration the
+    winners' indices equal exactly, their weights and bandwidths and the
+    costs within rtol 1e-5 + atol 1e-6; at the path's maxiter each
+    candidate's costs within rtol 1e-4 + atol 1e-6 at every iteration, for
+    all but at most 2 % of a shape's candidates (two costs within
+    round-off may swap elites where the resample's products round apart:
+    each such candidate is logged with its first iteration apart).
+    Returns the first shape's record, the others under ``cases``."""
+    from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
+    cases, err = [], 0.0
+    for (C, S, M, k, maxiter, kind), at in shapes.items():
+        label = f"C={C}, S={S}, M={M}, k={k}, maxiter={maxiter}, {kind}"
+        for iters in (1, maxiter):
+            inp, n_el, rho, reg = kc_inputs(gen, C, S, k, iters, kind)
+            args = (*inp, k, n_el, rho, reg, kind)
+            got = ops.inner_cem(*args)
+            ref = inner_cem_plain(*args)
+            torch.cuda.synchronize()
+            if not all(bool(torch.isfinite(g).all()) for g in (got[0], got[1], got[3])):
+                fail(f"kernel (c) inner_cem: non-finite output at {label}")
+            same = torch.ones(C, dtype=torch.bool, device=got[0].device)
+            for g, r in zip(got, ref):
+                same &= (g == r).reshape(C, -1).all(dim=1)
+            if iters == 1:
+                for name, g, r in (("beta_w", got[0], ref[0]), ("sigma_w", got[1], ref[1]),
+                                   ("res", got[3], ref[3])):
+                    bad = (g - r).abs() > 1e-5 * r.abs() + 1e-6
+                    if bool(bad.any()):
+                        fail(f"kernel (c) inner_cem: {name} outside rtol 1e-5 + atol "
+                             f"1e-6 of the plain version at {int(bad.sum())} entries, "
+                             f"{label} at one iteration")
+                if not torch.equal(got[2], ref[2]):
+                    fail(f"kernel (c) inner_cem: idx_best differs from the plain "
+                         f"version at one iteration, {label}")
+            else:
+                res_bad = (got[3] - ref[3]).abs() > 1e-4 * ref[3].abs() + 1e-6
+                apart = res_bad.any(dim=1).nonzero()[:, 0].tolist()
+                for c in apart:
+                    log(f"kernel (c) at {label}: candidate {c} parts from the plain "
+                        f"version at iteration {int(res_bad[c].int().argmax())} "
+                        f"(res {got[3][c].tolist()[:4]}... against "
+                        f"{ref[3][c].tolist()[:4]}...)")
+                if len(apart) > 0.02 * C:
+                    fail(f"kernel (c) inner_cem: {len(apart)} of {C} candidates' costs "
+                         f"outside rtol 1e-4 + atol 1e-6 of the plain version, more "
+                         f"than 2 %, at {label}")
+            err = max(err, float((got[3] - ref[3]).abs().max()))
+            each = {name: int((g == r).reshape(C, -1).all(dim=1).sum()) for name, g, r in
+                    zip(("beta_w", "sigma_w", "idx_best", "res"), got, ref)}
+            log(f"kernel (c) at {label}, {iters} iteration(s): {int(same.sum())} of "
+                f"{C} candidates bit-equal to the plain version in every output "
+                f"({each}); max |res gap| {float((got[3] - ref[3]).abs().max()):.3e}")
+        if not at:
+            continue
+        rows = S + (maxiter - 1) * (S - n_el)
+        cases.append(dict(
+            shape=label, call=(lambda a=args: ops.inner_cem(*a)),
+            match="inner_cem_kernel", launches_per_solve=at,
+            nbytes=f32_bytes(*(t for t in inp if t is not None), got[0], got[1], got[3])
+            + 8 * got[2].numel(),
+            # a division, an exp and an add per (row, selected row, column), as K3
+            ops=3 * C * rows * k * M, library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=args: inner_cem_plain(*a), reps=3,
+                             warmup=1)))
+    main = dict(cases[0], max_abs_err=err, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
 def measure(torch, name, rec):
     """Adds to a kernel's check result its device time per launch, its bound
     and its library call's device time, and logs them; the same for each of
@@ -779,7 +882,7 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb):
+                  kd, kb, kc):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape).  The draw kernels replace no
     TPU kernel: ``replaces`` names the JAX package's draw site and the
@@ -803,7 +906,10 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
              (kd, None)),
             (ops.prng_beta, "prng.cu", "mpc_mmd_tpu/dynamics.py:110 (jax.random.beta "
              "through XLA, jax/_src/random.py:1133,1398; no Pallas kernel)",
-             (kb, None))):
+             (kb, None)),
+            (ops.inner_cem, "inner_cem.cu", "mpc_mmd_tpu/reduced_set.py:700 (the inner "
+             "beta-CEM's lax.scan, compiled by XLA: _selection_qp :487, "
+             "_update_samples :575, _winner :595; no Pallas kernel)", (kc, None))):
         name = fn.__name__
         row = {"name": name, "route": "cuda",
                "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
@@ -1210,7 +1316,7 @@ def path_c(torch, ops, dev, work, per_solve):
     from mpc_mmd_tpu_torch.utils.observability import device_trace
     from mpc_mmd_tpu_torch.validate import CHUNK, make_validator
 
-    K1, K2, K4 = ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout
+    KC, K4 = ops.inner_cem, ops.fused_rollout
     D, B = ops.prng_draws, ops.prng_beta
     data = os.path.join(work, "data")
     path_launches, roots, sweeps = [], {}, {}
@@ -1219,7 +1325,7 @@ def path_c(torch, ops, dev, work, per_solve):
     for mode in ("mmd_opt", "cvar"):
         _, secs, got = counted(
             torch, ops, f"Path C sweep {mode}",
-            (K1, K2, K4, D) if mode == "mmd_opt" else (K4, D),
+            (KC, K4, D) if mode == "mmd_opt" else (K4, D),
             lambda: sweep_cli.main(["--costs", mode, "--out", data, *SWEEP_FLAGS]))
         found = glob.glob(os.path.join(data, "static", "*", "*", "*", f"{mode}_*"))
         if len(found) != 1:
@@ -1352,7 +1458,7 @@ def path_c(torch, ops, dev, work, per_solve):
         cfg_k = cfg_k.replace(risk=dataclasses.replace(cfg_k.risk, kernel=kind))
         solver = Solver(cfg_k, device=dev)
         scen = obstacle_scenarios(torch, 1, 6, solver.ws.tot_time)[0]
-        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (K1, K2, K4, D),
+        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (KC, K4, D),
                                lambda: solver.solve(0, INIT, MEAN, COV, *scen, 15.0))
         check_solve(r, cfg_k)
         log(f"Path C fastrt mmd_opt, {kind} kernel: {1e3 * secs:.1f} ms (first "
@@ -1416,7 +1522,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.fused_rollout)
-    D = ops.prng_draws
+    KC, D = ops.inner_cem, ops.prng_draws
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
     draws = draw_launches(cfg, frenet=True)
@@ -1443,8 +1549,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
         lat.append(time.perf_counter() - ts)
         check_frenet_solve(r, cfg, "Path D mmd_opt")
     got = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    expect(got, {"topk_indices": 2 * n_inner, "eq_qp_solve": n_inner,
-                 "fused_rollout": outer, **draws}, 2, "Path D mmd_opt xla")
+    expect(got, {"inner_cem": outer, "fused_rollout": outer, **draws}, 2,
+           "Path D mmd_opt xla")
     path_launches.append(got)
     per_solve["path_d_xla"] = {k: v / 2 for k, v in got.items()}
     log(f"Path D (on-road, gaussian 0.1, mmd_opt, xla selection): "
@@ -1502,7 +1608,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
     # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (K1, K2, K4, D)), ("cvar", (K4, D)),
+    for mode, kernels in (("mmd_opt", (KC, K4, D)), ("cvar", (K4, D)),
                           ("det", (D,))):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1558,7 +1664,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.fused_rollout)
-    D, B = ops.prng_draws, ops.prng_beta
+    KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(v) for k, v in per_solve["fastrt"].items()}
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -1581,7 +1687,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
                                       xs[:n], ys[:n], 15.0), cfg)        # warm-up
         held = torch.cuda.memory_allocated()
         r, secs, got = counted(
-            torch, ops, f"Path E chunk {n}", (K1, K2, K4, D),
+            torch, ops, f"Path E chunk {n}", (KC, K4, D),
             lambda: solver.solve_batch(list(range(1, 9)), init, mean, cov, xs, ys,
                                        15.0))
         peak = torch.cuda.max_memory_allocated() - held
@@ -1694,7 +1800,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     n_chunks = sum(-(-min(8, n_cfg - lo) // 4) for lo in range(0, n_cfg, 8))
     data_b = os.path.join(work, "data_batch")
     _, secs_b, got = counted(
-        torch, ops, "Path E batch sweep", (K1, K2, K4, D),
+        torch, ops, "Path E batch sweep", (KC, K4, D),
         lambda: sweep_cli.main(["--costs", "mmd_opt", "--out", data_b, *flags,
                                 "--scenario_chunk", "4"]))
     want = {k: n_chunks * v for k, v in one_solve.items()}
@@ -1901,7 +2007,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     from mpc_mmd_tpu_torch.utils.debug import hosts_alive
     from mpc_mmd_tpu_torch.utils.io_store import ResultStore
 
-    K1, K2, K4 = ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout
+    KC, K4 = ops.inner_cem, ops.fused_rollout
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(per_solve["fastrt"].get(k, 0)) for k in names}
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -1927,7 +2033,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
                                                    solver.ws.tot_time))
         seeds, init, mean, cov = list(range(1, 9)), f32(INIT), f32(MEAN), f32(COV)
         sweep = sharded_sweep(cfg, solver.ws, make_mesh(1))
-        r, secs, got = counted(torch, ops, "distribution a", (K1, K2, K4, ops.prng_draws),
+        r, secs, got = counted(torch, ops, "distribution a", (KC, K4, ops.prng_draws),
                                lambda: sweep(seeds, init, mean, cov, xs, ys, 15.0))
         expect(got, 8, "distribution a, sharded_sweep of 8 scenarios", fresh=1)
         per_solve["dist_nccl"] = {k: v / 8 for k, v in got.items()}
@@ -2039,7 +2145,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     # e. prewarm: the build (found), then one solve per (preset, mode)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        _, secs, got = counted(torch, ops, "prewarm", (K1, K2, K4), lambda: prewarm_cli.main(
+        _, secs, got = counted(torch, ops, "prewarm", (KC, K4), lambda: prewarm_cli.main(
             ["--presets", "fastrt", "--modes", "mmd_opt", "cvar"]))
     lines = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
     if [(l.get("preset"), l.get("mode")) for l in lines[:-1]] != [
@@ -2129,7 +2235,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     t_phase = time.perf_counter()
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.fused_rollout)
-    D, B = ops.prng_draws, ops.prng_beta
+    KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches, record = [], {}
 
@@ -2142,7 +2248,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         15.0 - i) for i in range(3)]
     g_fastrt, e_fastrt, got = graph_against_eager(
         torch, ops, "fastrt", lambda graph: Solver(cfg, device=dev, graph=graph),
-        fastrt_calls, (K1, K2, K4, D))
+        fastrt_calls, (KC, K4, D))
     path_launches.append(got)
     init, mean, cov = f32(INIT), f32(MEAN), f32(COV)
     chunk_calls = [lambda s, lo=lo: s.solve_batch(list(range(lo, lo + 7)), init, mean,
@@ -2151,7 +2257,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     _, _, got = graph_against_eager(
         torch, ops, "fastrt solve_batch of 7 at chunk 4",
         lambda graph: Solver(cfg, device=dev, scenario_chunk=4, graph=graph),
-        chunk_calls, (K1, K2, K4, D))
+        chunk_calls, (KC, K4, D))
     path_launches.append(got)
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
     cut = dynamic_cutin(cfg_a, 3, device=dev)
@@ -2165,6 +2271,11 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
             (K3, K2, K1, K4, D, B))
     finally:
         os.environ.pop("MPC_MMD_FUSED_CEM")
+    path_launches.append(got)
+    g_ax, e_ax, got = graph_against_eager(
+        torch, ops, "Path A xla, Beta noise",
+        lambda graph: Solver(cfg_a, device=dev, graph=graph), a_calls[:2],
+        (KC, K4, D, B))
     path_launches.append(got)
     plant = SyntheticPlant(cfg_d, make_route("curved"), ONROAD_OBSTACLES,
                            obstacle_speed=1.0)
@@ -2180,7 +2291,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     g_d, e_d, got = graph_against_eager(
         torch, ops, "Path D FrenetSolver mmd_opt, 3 steps, every input changed",
         lambda graph: FrenetSolver(cfg_d, device=dev, graph=graph),
-        [lambda s, a=a: s.solve(*a) for a in steps], (K1, K2, K4, D))
+        [lambda s, a=a: s.solve(*a) for a in steps], (KC, K4, D))
     path_launches.append(got)
 
     # b. eager against graphed, in turns
@@ -2208,6 +2319,10 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     finally:
         os.environ.pop("MPC_MMD_FUSED_CEM")
     record["path_a_fused_ms"] = {k: percentiles(v) for k, v in lat_a.items()}
+    lat_ax = in_turns(torch, {k: (lambda s=s: s.solve(
+        9, init_d, mean_d, cov_d, cut.x_traj[0], cut.y_traj[0], v_des))
+        for k, s in (("eager", e_ax), ("graphed", g_ax))}, 6)
+    record["path_a_xla_ms"] = {k: percentiles(v) for k, v in lat_ax.items()}
     episodes = {"eager": [], "graphed": []}
     for label in ("eager", "graphed", "graphed", "eager"):
         solver = e_d if label == "eager" else g_d
@@ -2218,13 +2333,14 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     record["closed_loop_step_mean_ms"] = {k: 1e3 * float(np.mean(v))
                                           for k, v in episodes.items()}
     got = ops.launch_counts()
-    missing = [fn.__name__ for fn in (K1, K2, K3, K4, D, B) if got[fn.__name__] < 1]
+    missing = [fn.__name__ for fn in (K1, K2, K3, K4, KC, D, B) if got[fn.__name__] < 1]
     if missing:
         fail(f"16b: kernels of the timed paths not launched: {missing}")
     path_launches.append(got)
     log(f"16b: eager against graphed in turns, host ms to synchronize (p50, p99): "
         f"fastrt {record['fastrt_ms']} (20 each); Path A fused "
-        f"{record['path_a_fused_ms']} (6 each); solve_batch over 8 scenarios, solves/s "
+        f"{record['path_a_fused_ms']} (6 each); Path A xla {record['path_a_xla_ms']} "
+        f"(6 each); solve_batch over 8 scenarios, solves/s "
         f"(median of 4): {rates}; the Path D closed-loop step (2 episodes of 20 steps "
         f"each) {record['closed_loop_step_ms']}, mean "
         f"{record['closed_loop_step_mean_ms']}, against the 150 ms period: graphed p99 "
@@ -2237,6 +2353,8 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
             ("fastrt", g_fastrt, lambda: g_fastrt.solve(8, INIT, MEAN, COV, xs[0], ys[0],
                                                         15.0)),
             ("path_a_fused", g_a, lambda: g_a.solve(10, init_d, mean_d, cov_d,
+                                                    cut.x_traj[1], cut.y_traj[1], v_des)),
+            ("path_a_xla", g_ax, lambda: g_ax.solve(10, init_d, mean_d, cov_d,
                                                     cut.x_traj[1], cut.y_traj[1], v_des)),
             ("path_d", g_d, lambda: g_d.solve(*steps[0]))):
         fused = label == "path_a_fused"
@@ -2264,7 +2382,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     record["graphs"] = {label: [{k: s[k] for k in ("nodes", "capture_s", "instantiate_s",
                                                    "replays")} for s in g.graph_stats()]
                         for label, g in (("fastrt", g_fastrt), ("path_a_fused", g_a),
-                                         ("path_d", g_d))}
+                                         ("path_a_xla", g_ax), ("path_d", g_d))}
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return path_launches, record
 
@@ -2416,9 +2534,8 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
             "--noise_levels", "0.3", "--num_reduced_sets", *map(str, RECORD_SIZES),
             "--num_obs", "6", "--num_prime", "50", "--num_configs", "4", "--out", data,
             "--device", "cuda"]
-    _, secs, got = counted(torch, ops, "14c sweep", (ops.topk_indices, ops.eq_qp_solve,
-                                                     ops.fused_rollout, ops.prng_draws,
-                                                     ops.prng_beta),
+    _, secs, got = counted(torch, ops, "14c sweep", (ops.inner_cem, ops.fused_rollout,
+                                                     ops.prng_draws, ops.prng_beta),
                            lambda: sweep_cli.main(argv))
     path_launches.append(got)
     log(f"14c: python -m mpc_mmd_tpu_torch.cli.sweep {' '.join(argv)}: {secs:.1f} s; "
@@ -2515,7 +2632,7 @@ def main():
     # Path F: the JAX record's static beta 0.3 cells at N = 5 and 15
     paths_f = {f"path_f{N}_{sel}": (record_config(N), sel)
                for N in RECORD_SIZES for sel in SELECTIONS_F}
-    k1_at, k2_at, k2t_at = launch_shapes({**paths_f, "fastrt": (cfg, "xla"),
+    k1_at, k2_at, k2t_at, kc_at = launch_shapes({**paths_f, "fastrt": (cfg, "xla"),
                                   "sweep_mmd_opt": (cfg, "xla"),
                                   "path_a_fused": (cfg_a, "fused"),
                                   "path_a_xla": (cfg_a, "xla"),
@@ -2610,13 +2727,23 @@ def main():
     k5 = check_topk_onehot(torch, ops, topk_onehot_plain, dev, gen)
     k5_launches = ops.topk_onehot.launches
     log(f"K5 topk_onehot: exact; {k5['ms']:.4f} ms vs plain {k5['plain_ms']:.4f} ms")
+    # kernel (c) at every "xla" path shape, the gaussian and matern52 solves of
+    # 9g and 11a's chunk of 32 scenarios (no counted launches there)
+    main_kc = (cfg.cem.num_batch, cfg.beta_cem.num_samples_cem, cfg.risk.num_mother,
+               cfg.risk.num_reduced, cfg.beta_cem.maxiter)     # fastrt's, first
+    kc = check_inner_cem(torch, ops, gen, {
+        main_kc + ("laplace",): kc_at[main_kc + ("laplace",)], **kc_at,
+        **{main_kc + (kind,): {} for kind in ("gaussian", "matern52")},
+        (32 * main_kc[0],) + main_kc[1:] + ("laplace",): {}})
+    log(f"kernel (c) inner_cem: at {len(kc_at) + 3} shapes within the tolerances; "
+        f"{kc['ms']:.4f} ms vs plain {kc['plain_ms']:.4f} ms at {kc['shape']}")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
     one = torch.zeros(1, device=dev)
     floor_ms = profiled_ms(torch, lambda: one.fill_(1.0), match="")[0]
     log(f"launch floor: fill_ of one float, {floor_ms:.4f} ms device time")
     for name, rec in (("K1", k1), ("K2", k2), ("K2 lane-major", k2t), ("K3", k3),
-                      ("K4", k4), ("K4", k4v), ("K5", k5)):
+                      ("K4", k4), ("K4", k4v), ("K5", k5), ("kernel (c)", kc)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
@@ -2631,7 +2758,7 @@ def main():
         torch, ops, solver, cfg,
         [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
         "fastrt (static, gaussian 0.1, xla selection)",
-        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout, ops.prng_draws))]
+        (ops.inner_cem, ops.fused_rollout, ops.prng_draws))]
     per_solve = {"fastrt": {k: v / 3 for k, v in path_launches[-1].items()}}
 
     # ---- 5. one outer iteration, card against CPU -------------------------
@@ -2671,8 +2798,7 @@ def main():
     path_launches.append(timed_solves(
         torch, ops, solver_a, cfg_a, calls_a,
         "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
-        (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout, ops.prng_draws,
-         ops.prng_beta)))
+        (ops.inner_cem, ops.fused_rollout, ops.prng_draws, ops.prng_beta)))
     per_solve["path_a_xla"] = {k: v / len(calls_a)
                                for k, v in path_launches[-1].items()}
 
@@ -2720,7 +2846,7 @@ def main():
 
         # ---- 14. every reduced-set size, the record's N = 5 and 15 cells ----
         shape_tables = {"topk_indices": k1_at, "eq_qp_solve": k2_at,
-                        "eq_qp_solve_t": k2t_at,
+                        "eq_qp_solve_t": k2t_at, "inner_cem": kc_at,
                         "topk_kernel_matrices": checked(k3),
                         "fused_rollout": checked(k4),
                         "prng_draws": draw_at,
@@ -2739,8 +2865,12 @@ def main():
                 for fn in ops.KERNELS}
     launches["topk_onehot"] = k5_launches
     check_launch_shapes(shape_tables, per_solve)
+    for path in sorted({p for at in kc_at.values() for p in at}):
+        if any(per_solve[path].get(fn.__name__) for fn in (ops.topk_indices,
+                                                          ops.eq_qp_solve)):
+            fail(f"{path}: the xla selection launched K1 or K2 ({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t, kd, kb)
+                           k2t, kd, kb, kc)
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)

@@ -63,21 +63,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "topk_rounds.cuh"
+
 namespace {
+
+using mmd_topk::kPadKey;
 
 constexpr int kWarp = 32;
 constexpr int kWarps = 4;                    // warps per block
 constexpr int kMaxSlots = 8;                 // columns a lane holds: m <= 256
-constexpr unsigned kFull = 0xffffffffu;
-constexpr unsigned kNegInfKey = 0x007fffffu;  // order_key(-inf)
-constexpr unsigned kPadKey = 0u;              // columns at or past m
-
-// A non-NaN float mapped to an unsigned key in the same order (+0 and -0
-// map alike, as they compare equal); as in topk_kernel.cu.
-__device__ __forceinline__ unsigned order_key(float v) {
-  const unsigned u = __float_as_uint(v == 0.0f ? 0.0f : v);
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
 
 // Warp w of block b holds rows b * kWarps * kRows + w + r * kWarps.
 template <int kSlots, int kRows, bool kOneHot>
@@ -104,22 +98,12 @@ topk_rounds_kernel(const float* __restrict__ x, int* __restrict__ out,
       if (live[r] && c < m) {
         float v = xr[c];
         if (absolute) v = fabsf(v);
-        kk = isnan(v) ? kNegInfKey : order_key(v);
+        kk = mmd_topk::rank_key(v);
       }
       key[r][t] = kk;
       col[r][t] = c;
     }
-#pragma unroll
-    for (int i = 0; i < kSlots; ++i)
-#pragma unroll
-      for (int j = 0; j + 1 < kSlots - i; ++j) {
-        const bool swap = key[r][j + 1] > key[r][j];
-        const unsigned k0 = key[r][j], c0 = col[r][j];
-        key[r][j] = swap ? key[r][j + 1] : k0;
-        col[r][j] = swap ? col[r][j + 1] : c0;
-        key[r][j + 1] = swap ? k0 : key[r][j + 1];
-        col[r][j + 1] = swap ? c0 : col[r][j + 1];
-      }
+    mmd_topk::sort_slots<kSlots>(key[r], col[r]);
   }
 
   // Rounds in runs of 32: lane i keeps the winner of round base + i, and
@@ -133,20 +117,7 @@ topk_rounds_kernel(const float* __restrict__ x, int* __restrict__ out,
     for (int i = 0; i < run; ++i) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const unsigned top = __reduce_max_sync(kFull, key[r][0]);
-        const unsigned win =
-            __reduce_min_sync(kFull, key[r][0] == top ? col[r][0] : 0xffffffffu);
-        // the winner leaves its lane's list (the Pallas kernel masks it to
-        // -inf); once only -inf lanes are left, masked winners among them,
-        // the lowest of them is column 0, in every later round
-        const bool pop = col[r][0] == win;
-#pragma unroll
-        for (int t = 0; t + 1 < kSlots; ++t) {
-          key[r][t] = pop ? key[r][t + 1] : key[r][t];
-          col[r][t] = pop ? col[r][t + 1] : col[r][t];
-        }
-        key[r][kSlots - 1] = pop ? kPadKey : key[r][kSlots - 1];
-        const int w = top > kNegInfKey ? static_cast<int>(win) : 0;
+        const int w = mmd_topk::round_winner<kSlots>(key[r], col[r]);
         if (lane == i) sel[r] = w;
         if (kOneHot && live[r]) {
           float* oh = onehot + ((row0 + r * kWarps) * k + base + i) * m;

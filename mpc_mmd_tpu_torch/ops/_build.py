@@ -9,7 +9,9 @@ source rebuilds and an unchanged one is loaded as it is.  No fast-math: the
 rollout kernel chains ``tanf``/``sinf``/``cosf`` over 50 steps, and its
 tolerance assumes the IEEE-accurate functions; the random-number kernels
 (``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
-own kernels to give their twins' bits.
+own kernels to give their twins' bits, and kernel (c) (``inner_cem.cu``)
+the quotients, ``expf`` and sums of PyTorch's kernels to give its plain
+version's.
 
 Each exported function returns its ``cudaError_t``; :func:`check` raises if
 it is not 0.  Kernels launch on PyTorch's current stream and allocate
@@ -48,6 +50,8 @@ _SIGNATURES = {
     "mmd_fused_rollout": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
+    "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
+    "mmd_inner_cem_scratch": [_I] * 5,
 }
 
 _lock = threading.Lock()

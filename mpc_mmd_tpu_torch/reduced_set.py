@@ -9,11 +9,15 @@ Per candidate, the (M, M) L1 distance matrix of the mother rollouts'
 coefficients is computed once; each inner iteration then runs the
 selection stage on every sample and solves the k x k weight QP (K2).  The
 "xla" selection picks the top-k |beta| lanes (K1), gathers those rows of D
-and takes exp(-rows/sigma); the "fused" one does all of that in one kernel
-(K3).  "xt" is "xla" in the lane-major layout (reduced_set.py:513-533):
-the rows are gathered as (k, C, S', M), K_red straight into (k, k, C S')
-and row_sum into (k, C S'), the layout of K2's lane-major entry
-(``eq_qp_solve_t``), and beta stays (k, C, S') through the iteration.  "g"
+and takes exp(-rows/sigma); with elite-carry its whole loop is kernel (c)
+(``ops.inner_cem``: every iteration of every candidate in one launch,
+K1's rounds, the kernel values and K2's solve inside), and its plain
+version is that chain.  The "fused" selection does the selection stage in
+one kernel (K3).  "xt" is "xla" in the lane-major layout
+(reduced_set.py:513-533): the rows are gathered as (k, C, S', M), K_red
+straight into (k, k, C S') and row_sum into (k, C S'), the layout of K2's
+lane-major entry (``eq_qp_solve_t``), and beta stays (k, C, S') through
+the iteration.  "g"
 is the reduce-before-gather form (reduced_set.py:497-512): every mother
 row's kernel sum for the sample's bandwidth, then the k selected ones
 gathered, and K_red from the selected rows' features by pairwise L1; its
@@ -53,7 +57,8 @@ import torch
 from .config import ProblemConfig
 from .kernels import kernel_of, pairwise_l1, pairwise_l2sq
 from .noise import ExactInnerDraws, InnerDraws
-from .ops import eq_qp_solve, eq_qp_solve_t, topk_indices, topk_kernel_matrices
+from .ops import eq_qp_solve_t, inner_cem, topk_indices, topk_kernel_matrices
+from .ops.inner_cem import beta_qp, finish, resample, selection_qp_xla, take_rows
 
 SELECTIONS = ("xla", "xt", "fused", "g")
 
@@ -72,31 +77,11 @@ class ReducedSet(NamedTuple):
     res: torch.Tensor       # (C, maxiter) best MMD residual per iteration
 
 
-def _beta_qp(K_red: torch.Tensor, row_sum: torch.Tensor, M: int,
-             cfg: ProblemConfig):
-    """Weight QP  min rho b'K_red b - 2 rho/M row_sum.b  s.t. sum(b) = 1.
-
-    K_red (..., k, k), row_sum (..., k).  Returns (beta (..., k), mmd (...)),
-    with the mmd cost in closed form from the KKT identity
-    (rho K_red + reg I) b = r - mu 1:  mmd = (-b.r - mu - reg |b|^2) / rho.
-    """
-    b = cfg.beta_cem
-    k = K_red.shape[-1]
-    eye = torch.eye(k, dtype=K_red.dtype, device=K_red.device)
-    cost = b.rho_beta * K_red + b.qp_reg * eye
-    lincost = -b.rho_beta * (1.0 / M) * row_sum
-    r = -lincost
-    beta, mu = eq_qp_solve(cost.contiguous(), r.contiguous())
-    br = torch.sum(beta * r, dim=-1)
-    mmd = (-br - mu - b.qp_reg * torch.sum(beta * beta, dim=-1)) / b.rho_beta
-    return beta, mmd
-
-
 def _beta_qp_t(K_red_t: torch.Tensor, row_sum_t: torch.Tensor, M: int,
                cfg: ProblemConfig):
-    """:func:`_beta_qp` in the lane-major layout (reduced_set.py:108-139):
-    K_red_t (k, k, B), row_sum_t (k, B); returns (beta_t (k, B), mmd (B,)),
-    the QP through K2's lane-major entry."""
+    """``ops.inner_cem.beta_qp`` in the lane-major layout
+    (reduced_set.py:108-139): K_red_t (k, k, B), row_sum_t (k, B); returns
+    (beta_t (k, B), mmd (B,)), the QP through K2's lane-major entry."""
     b = cfg.beta_cem
     k, B = K_red_t.shape[0], K_red_t.shape[-1]
     eye_flat = torch.eye(k, dtype=K_red_t.dtype, device=K_red_t.device).reshape(k * k, 1)
@@ -108,12 +93,6 @@ def _beta_qp_t(K_red_t: torch.Tensor, row_sum_t: torch.Tensor, M: int,
     return beta_t, mmd
 
 
-def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """t (C, S, ...) indexed along axis 1 by idx (C, n) -> (C, n, ...)."""
-    view = idx.reshape(idx.shape + (1,) * (t.dim() - 2))
-    return torch.gather(t, 1, view.expand(idx.shape + t.shape[2:]))
-
-
 def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> str:
     """The selection a call runs: the argument, else ``MPC_MMD_SELECTION``,
     else "fused" if ``MPC_MMD_FUSED_CEM=1`` (never under the exact
@@ -122,7 +101,7 @@ def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> st
     Under a kernel other than laplace, "fused" and "g" become "xla": both
     hard-code the Laplace exp, and the JAX package applies the same rule
     (reduced_set.py:402-406).  The gaussian and matern52 selections run
-    K1 and K2 as the laplace "xla" one does ("xt": K1 and the lane-major
+    as the laplace ones do ("xla": kernel (c); "xt": K1 and the lane-major
     K2).
     """
     if selection is None:
@@ -148,6 +127,49 @@ def selection_key(cfg: ProblemConfig, selection: Optional[str] = None
                        and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
 
 
+class InnerInputs(NamedTuple):
+    """What the batched inner CEM's loop starts from (see
+    :func:`inner_inputs`)."""
+    D: torch.Tensor               # (C, M, M) L1 distances of the mother rollouts
+    D2: Optional[torch.Tensor]    # (C, M, M) squared L2 ones, or None (laplace)
+    samples0_row: torch.Tensor    # (S, M+1) the first batch, sigma clipped
+    A_all: torch.Tensor           # (maxiter, S - n_el, n_el)
+    Zf_all: torch.Tensor          # (maxiter, S - n_el, M+1)
+    lane_floor: torch.Tensor      # (M+1,) -inf, then sigma_clip
+
+
+def inner_inputs(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
+                 draws: InnerDraws) -> InnerInputs:
+    """The step before the inner CEM's loop: the distance matrices of the
+    mother rollouts' coefficients cx, cy (C, M, nvar), the first batch and
+    the affine resample's coefficients from the draws."""
+    b = cfg.beta_cem
+    M, n_el = cfg.risk.num_mother, b.num_ellite
+    dev, dt = cx.device, cx.dtype
+    feats = torch.cat((cx, cy), dim=2)                       # (C, M, 2 nvar)
+    D = pairwise_l1(feats, feats)                            # (C, M, M)
+    # squared L2 distances only for the kernels that read them
+    D2 = pairwise_l2sq(feats, feats) if cfg.risk.kernel != "laplace" else None
+
+    samples0_row = math.sqrt(b.init_cov_scale) * draws.samples0
+    samples0_row = torch.cat(
+        (samples0_row[:, :M], torch.clamp(samples0_row[:, M:], min=b.sigma_clip)),
+        dim=1)
+
+    # affine update coefficients for every iteration (see module docstring),
+    # with the JAX package's float32 constants as Python floats (a tensor
+    # made on the card from the host would be a blocking copy)
+    inv_sqrt = float(np.float32(1.0) / np.sqrt(np.float32(n_el - 1.0)))
+    sqrt_jit = float(np.sqrt(np.float32(b.cov_jitter)))
+    s_u = torch.sum(draws.u, dim=2)                          # (maxiter, S-n_el)
+    A_all = inv_sqrt * draws.u + ((1.0 - inv_sqrt * s_u) / n_el)[..., None]
+    Zf_all = sqrt_jit * draws.z                              # (maxiter, S-n_el, M+1)
+    # (built on the card: an indexed store of a host scalar synchronises)
+    lane_floor = torch.cat((torch.full((M,), -torch.inf, dtype=dt, device=dev),
+                            torch.full((1,), b.sigma_clip, dtype=dt, device=dev)))
+    return InnerInputs(D, D2, samples0_row, A_all, Zf_all, lane_floor)
+
+
 def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                                cy: torch.Tensor, x_roll: torch.Tensor,
                                y_roll: torch.Tensor, draws: InnerDraws,
@@ -167,37 +189,17 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     n_el = b.num_ellite
     kind = cfg.risk.kernel
     C = cx.shape[0]
-    dev, dt = cx.device, cx.dtype
+    dev = cx.device
 
-    feats = torch.cat((cx, cy), dim=2)                       # (C, M, 2 nvar)
-    D = pairwise_l1(feats, feats)                            # (C, M, M)
-    # squared L2 distances only for the kernels that read them
-    D2 = pairwise_l2sq(feats, feats) if kind != "laplace" else None
+    D, D2, samples0_row, A_all, Zf_all, lane_floor = inner_inputs(cfg, cx, cy, draws)
     c_ix = torch.arange(C, device=dev)[:, None, None]
 
-    samples0_row = math.sqrt(b.init_cov_scale) * draws.samples0
-    samples0_row = torch.cat(
-        (samples0_row[:, :M], torch.clamp(samples0_row[:, M:], min=b.sigma_clip)),
-        dim=1)
-
-    # affine update coefficients for every iteration (see module docstring),
-    # with the JAX package's float32 constants as Python floats (a tensor
-    # made on the card from the host would be a blocking copy)
-    inv_sqrt = float(np.float32(1.0) / np.sqrt(np.float32(n_el - 1.0)))
-    sqrt_jit = float(np.sqrt(np.float32(b.cov_jitter)))
-    s_u = torch.sum(draws.u, dim=2)                          # (maxiter, S-n_el)
-    A_all = inv_sqrt * draws.u + ((1.0 - inv_sqrt * s_u) / n_el)[..., None]
-    Zf_all = sqrt_jit * draws.z                              # (maxiter, S-n_el, M+1)
-    # (built on the card: an indexed store of a host scalar synchronises)
-    lane_floor = torch.cat((torch.full((M,), -torch.inf, dtype=dt, device=dev),
-                            torch.full((1,), b.sigma_clip, dtype=dt, device=dev)))
-
-    def finish(beta, cost):
-        # NaN cost -> +inf keeps poisoned samples out of the elites; NaN
-        # beta -> 0 as in the JAX package (where a one-hot product needs it)
-        cost = torch.where(torch.isnan(cost), torch.full_like(cost, torch.inf), cost)
-        beta = torch.where(torch.isnan(beta), torch.zeros_like(beta), beta)
-        return beta, cost
+    if (selection, elite_carry) == ("xla", True):
+        beta_w, sigma_w, idx_best, res = inner_cem(
+            D, D2, samples0_row, A_all, Zf_all, lane_floor, k, n_el, b.rho_beta,
+            b.qp_reg, kind)
+        return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=take_rows(x_roll, idx_best),
+                          y_red=take_rows(y_roll, idx_best), res=res)
 
     # "xt" keeps beta lane-major, (k, C, rows): its row axis is the last
     lane_major = selection == "xt"
@@ -207,7 +209,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         """beta's rows idx (C, n), in beta's layout."""
         if lane_major:
             return torch.gather(beta, 2, idx[None].expand(k, -1, -1))
-        return _take_rows(beta, idx)
+        return take_rows(beta, idx)
 
     def lane_major_qp(idx_t, sigma):
         """The "xt" stage from the top-k lanes idx_t (k, C', S') and the
@@ -236,6 +238,8 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
 
     def selection_qp(samples_sub):
         """Selection and weight QP of the rows (C, S', M+1)."""
+        if selection == "xla":
+            return selection_qp_xla(samples_sub, D, D2, k, kind, b.rho_beta, b.qp_reg)
         if selection == "fused":
             row_sum, K_red, idx = topk_kernel_matrices(samples_sub, D, k)
             idx = idx.long()
@@ -245,29 +249,14 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                                slice_to=M).long()            # (C, S', k)
             if selection == "xt":
                 return (idx,) + finish(*lane_major_qp(idx.permute(2, 0, 1), sigma))
-            if selection == "g":
-                row_sum = torch.gather(row_kernel_sums(sigma), 2, idx)
-                fsel = feats[c_ix, idx]                      # (C, S', k, F)
-                d_sub = torch.sum(torch.abs(fsel[:, :, :, None, :]
-                                            - fsel[:, :, None, :, :]), dim=-1)
-                K_red = torch.exp(-d_sub / sigma[..., None, None])
-            else:
-                rows = D[c_ix, idx]                          # (C, S', k, M)
-                rows2 = None if D2 is None else D2[c_ix, idx]
-                K_mixed = kernel_of(kind, sigma[..., None, None], rows, rows2)
-                K_red = torch.gather(K_mixed, 3, idx[:, :, None, :].expand(
-                    idx.shape[:2] + (k, k)))
-                row_sum = K_mixed.sum(dim=-1)
-        beta, cost = _beta_qp(K_red, row_sum, M, cfg)
+            row_sum = torch.gather(row_kernel_sums(sigma), 2, idx)   # "g"
+            feats = torch.cat((cx, cy), dim=2)
+            fsel = feats[c_ix, idx]                          # (C, S', k, F)
+            d_sub = torch.sum(torch.abs(fsel[:, :, :, None, :]
+                                        - fsel[:, :, None, :, :]), dim=-1)
+            K_red = torch.exp(-d_sub / sigma[..., None, None])
+        beta, cost = beta_qp(K_red, row_sum, M, b.rho_beta, b.qp_reg)
         return (idx,) + finish(beta, cost)
-
-    def update(samples, cost, t):
-        """Elites by the top n_el of -cost, then the affine resample."""
-        idx_el = topk_indices(-cost, n_el).long()            # (C, n_el)
-        elites = _take_rows(samples, idx_el)                 # (C, n_el, M+1)
-        fresh = torch.maximum(A_all[t] @ elites + Zf_all[t], lane_floor)
-        return (torch.cat((elites, fresh), dim=1), idx_el,
-                torch.gather(cost, 1, idx_el))
 
     samples = samples0_row[None].expand(C, S, M + 1)
     mins = []
@@ -275,24 +264,14 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         if selection == "g":
             idx_all, beta_all, cost = selection_qp(samples)
         else:
-            # iteration 0 of "xla" and "xt": every candidate starts from the
-            # same sample rows, so the top-k is computed once and gathered
+            # iteration 0 of "xt": every candidate starts from the same
+            # sample rows, so the top-k is computed once and gathered
             # against each candidate's D
             sigma0 = samples0_row[:, M]                      # (S,)
             idx0 = topk_indices(samples0_row[None].contiguous(), k, absolute=True,
                                 slice_to=M)[0].long()        # (S, k)
-            if lane_major:
-                beta_all, cost = finish(*lane_major_qp(
-                    idx0.T[:, None].expand(k, C, S), sigma0.expand(C, S)))
-            else:
-                rows0 = D[:, idx0]                           # (C, S, k, M)
-                rows0_2 = None if D2 is None else D2[:, idx0]
-                K_mixed0 = kernel_of(kind, sigma0[None, :, None, None], rows0,
-                                     rows0_2)
-                K_red0 = torch.gather(K_mixed0, 3,
-                                      idx0[None, :, None, :].expand(C, S, k, k))
-                beta_all, cost = finish(*_beta_qp(K_red0, K_mixed0.sum(dim=-1),
-                                                  M, cfg))
+            beta_all, cost = finish(*lane_major_qp(
+                idx0.T[:, None].expand(k, C, S), sigma0.expand(C, S)))
             idx_all = idx0[None].expand(C, S, k)
         for t in range(b.maxiter):
             if t > 0:
@@ -300,8 +279,9 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                 idx_all = torch.cat((el_idx, idx_f), dim=1)
                 beta_all = torch.cat((el_beta, beta_f), dim=b_axis)
                 cost = torch.cat((el_cost, cost_f), dim=1)
-            samples, idx_el, el_cost = update(samples, cost, t)
-            el_idx = _take_rows(idx_all, idx_el)
+            samples, idx_el, el_cost = resample(samples, cost, A_all[t], Zf_all[t],
+                                                lane_floor, n_el)
+            el_idx = take_rows(idx_all, idx_el)
             el_beta = take_beta(beta_all, idx_el)
             mins.append(cost.min(dim=1).values)
     else:
@@ -309,7 +289,7 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
         # its candidate stride of 0, the top-k a copy)
         for t in range(b.maxiter):
             idx_all, beta_all, cost = selection_qp(samples)
-            samples = update(samples, cost, t)[0]
+            samples = resample(samples, cost, A_all[t], Zf_all[t], lane_floor, n_el)[0]
             mins.append(cost.min(dim=1).values)
 
     # winner of the last iteration; sigma from the post-update batch (the
@@ -318,16 +298,16 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     beta_w = take_beta(beta_all, i_min)
     beta_w = beta_w[..., 0].T.contiguous() if lane_major else beta_w[:, 0]
     sigma_w = torch.gather(samples[..., M], 1, i_min)[:, 0]
-    idx_best = _take_rows(idx_all, i_min)[:, 0]              # (C, k)
-    x_red = _take_rows(x_roll, idx_best)
-    y_red = _take_rows(y_roll, idx_best)
+    idx_best = take_rows(idx_all, i_min)[:, 0]              # (C, k)
+    x_red = take_rows(x_roll, idx_best)
+    y_red = take_rows(y_roll, idx_best)
     return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=x_red, y_red=y_red,
                       res=torch.stack(mins, dim=1))
 
 
 def _beta_qp_exact(K_red: torch.Tensor, row_sum: torch.Tensor, M: int,
                    cfg: ProblemConfig):
-    """The weight QP of :func:`_beta_qp` as the reference solves it: the
+    """The weight QP of ``ops.inner_cem.beta_qp`` as the reference solves it: the
     bordered KKT system [[rho K_red + reg I, 1], [1^T, 0]] densely by LU
     (``solve_ex``: no device synchronisation; a singular system gives inf
     or NaN), and the mmd cost b'K_red b + q.b with q = -2/M row_sum."""
@@ -406,7 +386,7 @@ def select_reduced_set(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
             K_red = torch.take_along_dim(K_mixed, cols, dim=3)
         beta, cost = _beta_qp_exact(K_red, K_mixed.sum(dim=-1), M, cfg)
 
-        elites = _take_rows(samples, torch.argsort(cost, dim=1, stable=True)[:, :n_el])
+        elites = take_rows(samples, torch.argsort(cost, dim=1, stable=True)[:, :n_el])
         mean = torch.mean(elites, dim=1)                     # (C, M+1)
         factor, info = torch.linalg.cholesky_ex(_cov_ddof1(elites) + b.cov_jitter * eye)
         factor = torch.where((info == 0)[:, None, None], factor,
@@ -421,5 +401,5 @@ def select_reduced_set(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
         beta_w, sigma_w = beta[c_ix, i_min], samples[c_ix, i_min, M]
         idx_w = idx_top[c_ix, i_min]                         # (C, k)
         mins.append(cost.min(dim=1).values)
-    return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=_take_rows(x_roll, idx_w),
-                      y_red=_take_rows(y_roll, idx_w), res=torch.stack(mins, dim=1))
+    return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=take_rows(x_roll, idx_w),
+                      y_red=take_rows(y_roll, idx_w), res=torch.stack(mins, dim=1))

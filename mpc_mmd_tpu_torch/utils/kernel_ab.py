@@ -223,13 +223,19 @@ def builds(before: Path, diagnose: bool = False) -> dict:
         head, copies, tail = _between(qp, "  const float* Cg = C + s0 * L::kC;",
                                       "  mmd_async::commit();", "k2_no_copies")
         out["k2_no_copies"] = ("k2", head + "  if (batch < 0) {\n" + copies + "  }\n" + tail)
-        head, _, tail = _between(qp, "  float inv_diag[N];",
-                                 "#pragma unroll\n  for (int i = 0; i < N; ++i) bv[i]",
-                                 "k2_no_math")
-        out["k2_no_math"] = ("k2", head + (
-            "  float z[N], w[N];\n#pragma unroll\n"
-            "  for (int i = 0; i < N; ++i) { z[i] = rv[i] + a[i][i]; w[i] = 0.0f; }\n"
-            "  const float m = 0.0f;\n") + tail)
+        # solve_system (qp_system.cuh) replaced in both entries
+        no_math = ("template <int N>\n__device__ __forceinline__ float no_math("
+                   "float (&a)[N][N], const float (&rv)[N], float (&bv)[N]) {\n"
+                   "#pragma unroll\n  for (int i = 0; i < N; ++i) bv[i] = rv[i] + a[i][i];\n"
+                   "  return 0.0f;\n}\n\n")
+        call = "const float m = solve_system<N>(a, rv, bv);"
+        if qp.count(call) != 2:
+            raise ValueError("variant k2_no_math: its anchors are not in the source")
+        out["k2_no_math"] = ("k2", _replace(
+            qp, "template <int N>\n__global__ void __launch_bounds__(Layout<N>::kSystems)",
+            no_math + "template <int N>\n__global__ void __launch_bounds__("
+            "Layout<N>::kSystems)", "k2_no_math").replace(
+                call, "const float m = no_math<N>(a, rv, bv);"))
         out["micro"] = ("micro", MICRO)
     return out
 
@@ -350,6 +356,34 @@ def k3_inputs(gen, C, S, M):
     samples[0, 2, :M] = torch.round(samples[0, 2, :M])
     f = torch.randn(C, M, 22, device=gen.device, generator=gen)
     return samples, (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
+
+
+def kc_inputs(gen, C, S, k, maxiter, kind="laplace"):
+    """Kernel (c)'s inputs at C candidates, S samples, k = num_reduced (M =
+    k^2 mother rollouts) and maxiter iterations, as chip_smoke.py checks
+    it: ``reduced_set.inner_inputs`` of mother rollouts with random
+    coefficients and of random draws, the first batch's row 1 with a NaN
+    lane and its row 2 with tied |beta|.  Returns (inputs, n_el, rho,
+    reg)."""
+    import dataclasses
+    from ..config import static_workload
+    from ..noise import InnerDraws
+    from ..reduced_set import inner_inputs
+    cfg = static_workload(num_reduced=k)
+    cfg = cfg.replace(risk=dataclasses.replace(cfg.risk, kernel=kind),
+                      beta_cem=dataclasses.replace(cfg.beta_cem, num_samples_cem=S,
+                                                   maxiter=maxiter))
+    b, M = cfg.beta_cem, k * k
+    n_el = b.num_ellite
+    draws = InnerDraws(*(torch.randn(shape, device=gen.device, generator=gen)
+                         for shape in ((S, M + 1), (maxiter, S - n_el, n_el),
+                                       (maxiter, S - n_el, M + 1))))
+    draws.samples0[1, 7 % M] = float("nan")
+    draws.samples0[2, :M] = torch.round(draws.samples0[2, :M])
+    # coefficients at a spread whose kernel values lie between 0 and 1
+    cx, cy = (0.3 * torch.randn(C, M, 11, device=gen.device, generator=gen)
+              for _ in range(2))
+    return inner_inputs(cfg, cx, cy, draws), n_el, b.rho_beta, b.qp_reg
 
 
 def _k3(lib, samples, D, k, outs):

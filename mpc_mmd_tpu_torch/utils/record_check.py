@@ -168,20 +168,25 @@ def record_check(out: str, device="cuda", n_mc: int = 1000, workers: int = 1,
 
 
 # The stages of an outer iteration in ``solver.py``'s order, each a name
-# that ``solver.py`` (or ``reduced_set.py``, ``risk.py``) calls through its
-# module, or a method of the noise sources ("module:Class"): the guess QP,
-# the projection, the controls, the draws and the noisy controls, the K4
-# rollouts, the refit, the inner CEM (the top-k selections and elite
-# picks, the K2 weight QPs; a selection's input is the resample of the
-# iteration before), the risks, the scalar cost, the outer CEM's draws and
-# update; and the solver's argsorts and argmins.  Stages in ``_INPUTS`` record their arguments too.
+# that ``solver.py`` (or ``reduced_set.py``, ``ops/inner_cem.py``,
+# ``risk.py``) calls through its module, or a method of the noise sources
+# ("module:Class"): the guess QP, the projection, the controls, the draws
+# and the noisy controls, the K4 rollouts, the refit, the inner CEM (the
+# top-k selections and elite picks, the K2 weight QPs; a selection's input
+# is the resample of the iteration before), the risks, the scalar cost, the
+# outer CEM's draws and update; and the solver's argsorts and argmins.
+# Stages in ``_INPUTS`` record their arguments too.  While the taps are in,
+# the "xla" selection's inner CEM runs its plain chain on every device
+# (``inner_cem_plain``, K1 and K2 on the card): kernel (c) would run those
+# stages inside one launch, where no tap sees them.
 _STAGES = (("solver", ("initial_params", "compute_guess", "project",
                        "controls_from_trajectory", "noisy_controls",
                        "batched_rollouts", "refit_coefficients", "select_reduced",
                        "scalar_cost", "cem_update")),
            ("noise:JaxNoise", ("rollout_eps", "cem_z")),
            ("noise:FixedNoise", ("rollout_eps", "cem_z")),
-           ("reduced_set", ("topk_indices", "eq_qp_solve")),
+           ("reduced_set", ("topk_indices",)),
+           ("ops.inner_cem", ("topk_indices", "eq_qp_solve")),
            ("risk", ("mmd_obs", "mmd_lane")))
 _INPUTS = ("eq_qp_solve", "topk_indices")
 
@@ -267,8 +272,10 @@ class _Tap:
                 tap.record("argmin", out)
                 return out
 
-        from .. import solver
+        from .. import reduced_set, solver
         self.patch(solver, "torch", _Torch())
+        inner = importlib.import_module("mpc_mmd_tpu_torch.ops.inner_cem")
+        self.patch(reduced_set, "inner_cem", inner.inner_cem_plain)
         return self
 
     def __exit__(self, *exc):

@@ -6,10 +6,12 @@
 ``--before DIR`` names the root of another checkout of this repository,
 for example ``git archive <commit>`` unpacked under ``build/``.  Each turn
 runs, in a fresh process and from one root's package, ``chip_smoke.py``'s
-full-width fastrt ``mmd_opt`` solve, Path A's fused solve and Path D's
-"xla" ``FrenetSolver`` solve: one warm-up solve, ``--solves`` timed ones
-(wall ms to ``torch.cuda.synchronize``) and one under ``torch.profiler``
-(device busy ms, idle share, device events).  The turns take the roots in
+full-width fastrt ``mmd_opt`` solve, Path A's fused and "xla" solves and
+Path D's "xla" ``FrenetSolver`` solve: one warm-up solve, ``--solves``
+timed ones (wall ms to ``torch.cuda.synchronize``; their median and 99th
+percentile over a root's turns) and one under ``torch.profiler`` (device
+busy ms, idle share, device events); on the card each is a CUDA graph,
+whose node count is recorded.  The turns take the roots in
 the order ``--turns`` gives (``A`` the checkout this module is in, ``B``
 the other), so a host that drifts during the call weighs on both.  Prints
 one JSON line per turn and the medians per root, and writes
@@ -50,7 +52,7 @@ _build.build()
 _build.library()
 
 
-def run(solve):
+def run(solve, solver):
     solve(0)
     torch.cuda.synchronize()
     ms = []
@@ -65,7 +67,8 @@ def run(solve):
         with open(glob.glob(os.path.join(d, "summary_*.json"))[0]) as f:
             s = json.load(f)
     return {"ms": ms, "device_busy_ms": s["device_busy_ms"],
-            "idle_share": s["idle_share"], "device_events": s["device_events"]}
+            "idle_share": s["idle_share"], "device_events": s["device_events"],
+            "graph_nodes": sum(g["nodes"] for g in solver.graph_stats())}
 
 
 out = {}
@@ -73,7 +76,7 @@ cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50, mode="mmd_opt",
                       noise="gaussian", noise_level=0.1)
 s = Solver(cfg, device=dev)
 scen = cs.obstacle_scenarios(torch, 4, 6, s.ws.tot_time)
-out["fastrt"] = run(lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0))
+out["fastrt"] = run(lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0), s)
 
 cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
                          num_prime=50, mode="mmd_opt")
@@ -82,14 +85,17 @@ cut = dynamic_cutin(cfg_a, 3, device=dev)
 os.environ["MPC_MMD_FUSED_CEM"] = "1"
 sa = Solver(cfg_a, device=dev)
 out["path_a_fused"] = run(lambda i: sa.solve(i, init, mean, cov, cut.x_traj[i % 3],
-                                             cut.y_traj[i % 3], v_des))
+                                             cut.y_traj[i % 3], v_des), sa)
 os.environ.pop("MPC_MMD_FUSED_CEM")
+sx = Solver(cfg_a, device=dev)
+out["path_a_xla"] = run(lambda i: sx.solve(i, init, mean, cov, cut.x_traj[i % 3],
+                                           cut.y_traj[i % 3], v_des), sx)
 
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
 args = cs.onroad_problem(torch, cfg_d, dev)
 fs = FrenetSolver(cfg_d, device=dev)
-out["path_d_xla"] = run(lambda i: fs.solve(i, *args))
+out["path_d_xla"] = run(lambda i: fs.solve(i, *args), fs)
 print(json.dumps(out))
 """
 
@@ -127,8 +133,13 @@ def main(argv=None):
         if mine:
             medians[t] = {path: {k: statistics.median(
                 [x for r in mine for x in (r[path][k] if k == "ms" else [r[path][k]])])
-                for k in ("ms", "device_busy_ms", "idle_share", "device_events")}
+                for k in ("ms", "device_busy_ms", "idle_share", "device_events",
+                          "graph_nodes")}
                 for path in mine[0] if path != "root"}
+            for path, m in medians[t].items():       # and the tail of the times
+                m["p99_ms"] = statistics.quantiles(
+                    [x for r in mine for x in r[path]["ms"]], n=100,
+                    method="inclusive")[98]
     print(json.dumps({"roots": {k: str(v) for k, v in roots.items()},
                       "medians": medians}), flush=True)
     out = Path(a.out)

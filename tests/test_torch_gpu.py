@@ -11,7 +11,12 @@ within rtol 1e-4 + atol 1e-5 of the twin in float64; rollout within atol
 1e-4 of the twin on the card (accurate tanf/sinf/cosf, FMA contraction);
 the fused selection's indices and K_red exact (the kernel and the twin on
 the card take the same IEEE quotient and expf), its row sums within rtol
-1e-5 + atol 1e-6 (sums taken in another order).
+1e-5 + atol 1e-6 (sums taken in another order); kernel (c) at one
+iteration: the winner's indices exact, its weights, bandwidth and costs
+within rtol 1e-5 + atol 1e-6; over every iteration the costs within rtol
+1e-4 + atol 1e-6 for all but 2 % of the candidates (near-ties that the
+resample's round-off may decide; on the H100 every output has been
+bit-equal).
 """
 
 import dataclasses
@@ -26,7 +31,9 @@ from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
 from mpc_mmd_tpu_torch.linalg import scenario_mm
 from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
 from mpc_mmd_tpu_torch.ops import (eq_qp_solve, eq_qp_solve_t, fused_rollout,
-                                   topk_indices, topk_kernel_matrices, topk_onehot)
+                                   inner_cem, topk_indices, topk_kernel_matrices,
+                                   topk_onehot)
+from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain
 from mpc_mmd_tpu_torch.ops.qp import eq_qp_solve_t_plain
 from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
 from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
@@ -222,6 +229,60 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):
         eq_qp_solve_t(torch.ones(16, 3, device="cuda").T.contiguous().T,
                       torch.ones(4, 3, device="cuda"))     # not contiguous
+
+
+# kernel (c)'s path shapes (C, S, k, maxiter, kernel kind): fastrt, its
+# chunks of 4, 8 and 32 scenarios, Path A "xla", Path D, Path F at N = 5
+# and 15, fastrt with the gaussian and matern52 kernels
+INNER_CEM_SHAPES = [(64, 64, 10, 12, "laplace"), (256, 64, 10, 12, "laplace"),
+                    (512, 64, 10, 12, "laplace"), (2048, 64, 10, 12, "laplace"),
+                    (100, 100, 10, 20, "laplace"), (100, 100, 4, 20, "laplace"),
+                    (100, 100, 5, 20, "laplace"), (100, 100, 15, 20, "laplace"),
+                    (64, 64, 10, 12, "gaussian"), (64, 64, 10, 12, "matern52")]
+
+
+@pytest.mark.parametrize("C,S,k,maxiter,kind", INNER_CEM_SHAPES)
+def test_inner_cem_kernel_matches_its_plain_version(cuda, C, S, k, maxiter, kind):
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
+    for iters in (1, maxiter):
+        inp, n_el, rho, reg = kc_inputs(cuda, C, S, k, iters, kind)
+        args = (*inp, k, n_el, rho, reg, kind)
+        before = inner_cem.launches
+        got = inner_cem(*args)
+        assert inner_cem.launches == before + 1
+        ref = inner_cem_plain(*args)
+        torch.cuda.synchronize()
+        for g in (got[0], got[1], got[3]):
+            assert bool(torch.isfinite(g).all())
+        if iters == 1:
+            assert torch.equal(got[2], ref[2])
+            for g, r in ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3])):
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+        else:
+            apart = ((got[3] - ref[3]).abs() > 1e-4 * ref[3].abs() + 1e-6).any(dim=1)
+            assert int(apart.sum()) <= 0.02 * C
+
+
+def test_inner_cem_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
+    inp, n_el, rho, reg = kc_inputs(cuda, 2, 16, 4, 2)
+    D, D2, s0, A, Z, floor = inp
+    good = dict(D=D, D2=D2, samples0_row=s0, A_all=A, Zf_all=Z, lane_floor=floor,
+                k=4, n_el=n_el, rho=rho, reg=reg, kind="laplace")
+    with pytest.raises(ValueError, match="2 ... 16"):
+        inner_cem(**dict(good, k=1))                       # k below 2
+    with pytest.raises(TypeError):
+        inner_cem(**dict(good, D=D.double()))
+    with pytest.raises(ValueError):
+        inner_cem(**dict(good, D=D.transpose(1, 2)))       # not contiguous
+    with pytest.raises(ValueError):
+        inner_cem(**dict(good, lane_floor=floor.cpu()))    # mixed devices
+    big, n_big, _, _ = kc_inputs(cuda, 1, 272, 4, 1)       # S past 256
+    with pytest.raises(ValueError, match="S <= 256"):
+        inner_cem(*big, 4, n_big, rho, reg, "laplace")
+    wide, n_w, _, _ = kc_inputs(cuda, 1, 16, 17, 1)        # k past 16, M past 256
+    with pytest.raises(ValueError, match="2 ... 16"):
+        inner_cem(*wide, 17, n_w, rho, reg, "laplace")
 
 
 def _selection_inputs(gen, C, S, M):
@@ -457,10 +518,13 @@ def test_record_cell_outer_iteration_cuda_matches_cpu(cuda, monkeypatch, N, sele
     monkeypatch.setattr(solver_mod, "select_reduced_set_batched",
                         lambda c, *a, **kw: seen.append(a) or inner(c, *a, **kw))
     h = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(0, *args)
-    qp = eq_qp_solve_t if selection == "xt" else eq_qp_solve
+    # the "xla" selection's inner CEM is kernel (c), once an outer iteration
+    qp, n = ({"xt": (eq_qp_solve_t, cfg.beta_cem.maxiter),
+              "fused": (eq_qp_solve, cfg.beta_cem.maxiter)}.get(selection)
+             or (inner_cem, cfg.cem.maxiter_cem))
     before = qp.launches
     g = Solver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
-    assert qp.launches == before + cfg.beta_cem.maxiter
+    assert qp.launches == before + n
     torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
     cpu_in = seen[0]
@@ -609,14 +673,18 @@ def test_chunk_on_the_card_equals_its_scenarios_one_at_a_time(cuda):
     and the chunk launches each kernel as often as one solve does."""
     cfg, xs, ys, (init, mean, cov) = _chunk_case()
     solver = Solver(cfg, device="cuda", scenario_chunk=3)
-    counts = lambda: [f.launches for f in (topk_indices, eq_qp_solve, fused_rollout)]
+    # the "xla" selection's inner CEM is kernel (c), one launch an outer
+    # iteration; K1 and K2 launch only under the other selections
+    counts = lambda: [f.launches for f in (inner_cem, topk_indices, eq_qp_solve,
+                                           fused_rollout)]
     before = counts()
     one = solver.solve(5, init, mean, cov, xs[0], ys[0], 15.0)
     per_solve = [b - a for a, b in zip(before, counts())]
     before = counts()
     batch = solver.solve_batch([5, 6, 7], init, mean, cov, xs, ys, 15.0)
     assert [b - a for a, b in zip(before, counts())] == per_solve
-    assert per_solve[0] > 0 and per_solve[2] == cfg.cem.maxiter_cem
+    outer = cfg.cem.maxiter_cem
+    assert per_solve == [outer, 0, 0, outer]
     for i, seed in enumerate((5, 6, 7)):
         ref = one if i == 0 else solver.solve(seed, init, mean, cov, xs[i], ys[i], 15.0)
         for name in ("cx", "cy", "risk_obs", "res", "mean_param"):

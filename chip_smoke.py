@@ -792,7 +792,7 @@ def check_inner_cem(torch, ops, gen, shapes):
     round-off may swap elites where the resample's products round apart:
     each such candidate is logged with its first iteration apart).
     Returns the first shape's record, the others under ``cases``."""
-    from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain
+    from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain, last_cluster_size
     from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
     cases, err = [], 0.0
     for (C, S, M, k, maxiter, kind), at in shapes.items():
@@ -801,6 +801,7 @@ def check_inner_cem(torch, ops, gen, shapes):
             inp, n_el, rho, reg = kc_inputs(gen, C, S, k, iters, kind)
             args = (*inp, k, n_el, rho, reg, kind)
             got = ops.inner_cem(*args)
+            cluster = last_cluster_size() if got[0].is_cuda else None
             ref = inner_cem_plain(*args)
             torch.cuda.synchronize()
             if not all(bool(torch.isfinite(g).all()) for g in (got[0], got[1], got[3])):
@@ -834,7 +835,8 @@ def check_inner_cem(torch, ops, gen, shapes):
             err = max(err, float((got[3] - ref[3]).abs().max()))
             each = {name: int((g == r).reshape(C, -1).all(dim=1).sum()) for name, g, r in
                     zip(("beta_w", "sigma_w", "idx_best", "res"), got, ref)}
-            log(f"kernel (c) at {label}, {iters} iteration(s): {int(same.sum())} of "
+            log(f"kernel (c) at {label}, {iters} iteration(s), clusters of {cluster} "
+                f"CTA(s) a candidate: {int(same.sum())} of "
                 f"{C} candidates bit-equal to the plain version in every output "
                 f"({each}); max |res gap| {float((got[3] - ref[3]).abs().max()):.3e}")
         if not at:
@@ -847,11 +849,23 @@ def check_inner_cem(torch, ops, gen, shapes):
             + 8 * got[2].numel(),
             # a division, an exp and an add per (row, selected row, column), as K3
             ops=3 * C * rows * k * M, library=("no single call", None),
+            was_device_ms=KC_WAS_MS.get((C, S, M, k, maxiter, kind)),
             plain_ms=cuda_ms(torch, lambda a=args: inner_cem_plain(*a), reps=3,
                              warmup=1)))
     main = dict(cases[0], max_abs_err=err, cases=cases)
     main["ms"] = cuda_ms(torch, main["call"], reps=20)
     return main
+
+
+# Kernel (c)'s device ms a launch before its cluster redesign (one block of
+# 8 warps a candidate, commit e0e38dc; kernel_ab's kc_before at these
+# shapes, NVIDIA H100 80GB HBM3 at 700 W): constants from an earlier run,
+# logged in 3b as "was" beside this run's time and kept out of the kernels
+# record, which holds only this run's measurements
+KC_WAS_MS = {(64, 64, 100, 10, 12, "laplace"): 0.9056, (100, 100, 100, 10, 20, "laplace"): 2.2894,
+             (100, 100, 16, 4, 20, "laplace"): 0.6548, (100, 100, 25, 5, 20, "laplace"): 0.8305,
+             (100, 100, 225, 15, 20, "laplace"): 5.9785, (256, 64, 100, 10, 12, "laplace"): 1.8006,
+             (512, 64, 100, 10, 12, "laplace"): 3.5956}
 
 
 def measure(torch, name, rec):
@@ -876,7 +890,9 @@ def measure(torch, name, rec):
             + "), "
             f"{100 * case['bound_ms'] / case['device_ms']:.1f} % of it; library "
             f"{what}: {case['library_ms']}"
-            + (f"; launches per solve {per_solve}" if per_solve else ""))
+            + (f"; launches per solve {per_solve}" if per_solve else "")
+            + (f"; was {case['was_device_ms']:.4f} ms (KC_WAS_MS, an earlier run's)"
+               if case.get("was_device_ms") else ""))
     for key in ("device_ms", "bound_ms", "bound_by", "library_ms"):
         rec[key] = rec.get("cases", [rec])[0][key]
 
@@ -925,7 +941,8 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
         if "cases" in rec:
             row["shapes"] = [{k: c[k] for k in (
                 "shape", "device_ms", "bound_ms", "bound_by", "plain_ms",
-                "library_ms", "launches_per_solve")} for c in rec["cases"]]
+                "library_ms", "launches_per_solve") if k in c}
+                for c in rec["cases"]]
         if "row_major_gap" in rec:
             row["row_major_gap"] = rec["row_major_gap"]
         if largest:

@@ -52,6 +52,7 @@ _SIGNATURES = {
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
     "mmd_inner_cem_scratch": [_I] * 5,
+    "mmd_inner_cem_last_cluster": [],
 }
 
 _lock = threading.Lock()

@@ -7,8 +7,10 @@ compiles into one loop on the device.  :func:`inner_cem_plain` is the
 port's chain of PyTorch operations for it (K1 for the top-k, gathers, the
 kernel values, K2 for the weight QP, K1 for the elite pick and a batched
 product for the resample: about 45-50 launches an iteration);
-:func:`inner_cem` runs all of it in one kernel launch on the card, one
-block a candidate.  ``select_reduced_set_batched`` calls :func:`inner_cem`
+:func:`inner_cem` runs all of it in one kernel launch on the card, a
+thread-block cluster of 1, 2 or 4 CTAs a candidate (the kernel picks the
+size from the candidate count and the card's occupancy; a candidate's bits
+do not depend on it).  ``select_reduced_set_batched`` calls :func:`inner_cem`
 for the "xla" selection with elite-carry; the other selections keep their
 chains, built from the pieces here (:func:`beta_qp`, :func:`finish`,
 :func:`selection_qp_xla`, :func:`resample`).
@@ -242,3 +244,8 @@ def inner_cem(D: torch.Tensor, D2: Optional[torch.Tensor],
 
 
 inner_cem.launches = 0
+
+
+def last_cluster_size() -> int:
+    """CTAs a candidate (1, 2 or 4) in the last launch of kernel (c)."""
+    return _build.library().mmd_inner_cem_last_cluster()

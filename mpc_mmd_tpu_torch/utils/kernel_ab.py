@@ -1,14 +1,17 @@
-"""K1, K2, K3, K5 and the Beta draw kernel (b) built from several sources,
-checked and timed in turns.
+"""K1, K2, K3, K5, the Beta draw kernel (b) and kernel (c), the inner CEM,
+built from several sources, checked and timed in turns.
 
     python -m mpc_mmd_tpu_torch.utils.kernel_ab --before DIR [--diagnose] \
-        [--kernels k1 k2 k3 prng] [--out DIR]
+        [--kernels KIND_OR_BUILD ...] [--out DIR]
 
 ``--before DIR`` names a directory that holds an earlier version's
-``topk.cu`` and ``eq_qp.cu`` (and, if they are there, ``topk_kernel.cu``
-and ``prng.cu``), for example from ``git show
+``topk.cu`` and ``eq_qp.cu`` (and, if they are there, ``topk_kernel.cu``,
+``prng.cu`` and ``inner_cem.cu`` with the headers it includes, which its
+build takes from DIR first), for example from ``git show
 <commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
-builds and runs only those sources (K5 is in ``topk.cu``).  Each build below
+builds and runs only the builds of those kinds (``k1 k2 k3 prng kc
+micro``; K5 is in ``topk.cu``) and those named (``kc_now kc_before``).
+Each build's CPU seconds are logged.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
 and loaded with ``ctypes``; their C symbols do not clash.
@@ -23,11 +26,18 @@ row count), ``k2_threads32`` (K2 with one warp a block, which keeps a
 block's staging under 48 KB at every n), ``k3_global`` / ``k3_staged``
 (K3 reading D from device memory at every M, or staging it in shared
 memory wherever it fits), ``k3_bounds3`` (K3 at 3 blocks an SM, 85
-registers a thread, not 4 and 64); with
+registers a thread, not 4 and 64), ``kc_cluster1`` / ``kc_cluster2`` /
+``kc_cluster4`` (kernel (c) at a forced cluster size), ``kc_warps8``
+(its CTAs of 8 warps at every k), ``kc_rows2`` (two selected rows at once
+in its phase B at every width), ``kc_dfirst`` (D placed first in shared
+memory at every width), ``kc_runkind`` (the kernel kind a run-time value
+in its phase B, one body of kernel values an instantiation); with
 ``--diagnose`` also ``k1_no_rounds`` (K1 loads, sorts and stores each
 lane's head, no round), ``prng_no_chain`` / ``prng_no_rounds`` (kernel
 (b) without its chain phase, or with no candidate entering a round),
 ``prng_clock`` (kernel (b) stamping each block's phases with clock64()),
+``kc_clock`` / ``kc_clock_before`` (kernel (c) now and in DIR stamping
+the cycles of each phase of a block with clock64()),
 ``k2_no_copies`` (K2 without its cp.async staging) and ``k2_no_math`` (K2
 without its factorisation), whose outputs are meaningless, and a
 microbenchmark of the latency of one ``redux.sync`` and one
@@ -46,7 +56,10 @@ K5 of ``now`` against ``before``; kernel (b) of ``now`` bit-equal to
 ``prng.beta_draws`` at the paths' shapes (``PRNG_SHAPES``: Path A and B,
 a chunk of 4, the record's N = 5 and 15, a Beta validator chunk) and at
 candidates of mixed alpha (10^-8 to 10^2) at 31, 33, 100 and 400
-candidates.  Then the times: each build's device time per
+candidates; every kernel (c) build but the clock ones bit-equal to
+``kc_before`` (NaN to NaN) in all four outputs at ``KC_SHAPES`` (the seven
+path shapes, gaussian and matern52, 2,048 candidates), with the cluster
+size each launch took.  Then the times: each build's device time per
 launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
 floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
@@ -60,6 +73,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import os
 import re
 import subprocess
 import time
@@ -98,6 +112,16 @@ K3_SHAPES = ((100, 100, 25, 5), (100, 100, 100, 10), (100, 100, 121, 11),
 PRNG_SHAPES = ((2, 100, 500, 50), (8, 100, 500, 50), (2, 100, 250, 50),
                (2, 100, 750, 50), (512, 1, 50_000, 50))
 PRNG_MIXED = ((2, 31, 500, 50), (2, 33, 500, 50), (2, 100, 500, 50), (2, 400, 500, 50))
+
+# kernel (c)'s (C, S, k, maxiter, kernel kind), M = k^2: the seven path shapes
+# chip_smoke.py times (fastrt, Path A "xla", Path D, Path F at N = 5 and 15,
+# fastrt's chunks of 4 and 8 scenarios), fastrt's with the gaussian and
+# matern52 kernels and 11a's chunk of 32 scenarios (2,048 candidates)
+KC_SHAPES = ((64, 64, 10, 12, "laplace"), (100, 100, 10, 20, "laplace"),
+             (100, 100, 4, 20, "laplace"), (100, 100, 5, 20, "laplace"),
+             (100, 100, 15, 20, "laplace"), (256, 64, 10, 12, "laplace"),
+             (512, 64, 10, 12, "laplace"), (64, 64, 10, 12, "gaussian"),
+             (64, 64, 10, 12, "matern52"), (2048, 64, 10, 12, "laplace"))
 
 MICRO = r"""
 #include <cuda_runtime.h>
@@ -166,6 +190,81 @@ def clock_variant(src: str) -> str:
     return _replace(src, "namespace {\n", head + helper + "namespace {\n", "prng_clock") + tail
 
 
+# kernel (c)'s phases, timed by clock64() in the kc_clock variants: the
+# anchor each region starts at, and its name; the sub-phases of E where the
+# source has their anchors
+KC_PHASES = (("// ---- A:", "A top-k rounds"), ("// ---- B:", "B kernel values, row sums"),
+             ("// ---- C:", "C weight QP"), ("// ---- D:", "D elite pick"),
+             ("// ---- E:", "E elites out, resample"))
+KC_SUBPHASES = (("// ---- E1:", "E1 arrival, least cost"), ("// ---- E2:", "E2 resample"),
+                ("// ---- E3:", "E3 restage"))
+KC_END = "// the winner's sigma from the post-update batch"
+KC_CLOCK_SLOTS = 16       # a block's stamps: its regions, and at the last the whole block
+CLOCK_REGIONS = {}        # a clock build's name -> its regions, in slot order
+
+
+def kc_clock_variant(src: str, name: str = "kc_clock") -> str:
+    """Kernel (c) with the cycles its block's thread 0 spends in each region
+    between the phase anchors of KC_PHASES (and of KC_SUBPHASES, where the
+    source has them), summed over the iterations: slot 0 the staging before
+    the first anchor, then one a phase, then the tail; the last slot the
+    whole block.  Read by ``mmd_inner_cem_clock``; the regions' names go to
+    CLOCK_REGIONS[name]."""
+    anchors = list(KC_PHASES) + [a for a in KC_SUBPHASES if a[0] in src]
+    n = len(anchors) + 2
+    stamp = ("{{ if (threadIdx.x == 0) {{ const long long n_ = clock64(); "
+             "kc_acc[kc_cur] += n_ - kc_t; kc_t = n_; kc_cur = {}; }} }} ")
+    src = _replace(src, "extern __shared__ __align__(16) float smem[];\n",
+                   "extern __shared__ __align__(16) float smem[];\n"
+                   f"  long long kc_acc[{n}] = {{}};\n"
+                   "  const long long kc_t0 = clock64();\n  long long kc_t = kc_t0;\n"
+                   "  int kc_cur = 0;\n", name)
+    for i, (anchor, _) in enumerate(anchors):
+        src = _replace(src, anchor, stamp.format(i + 1) + anchor, name)
+    src = _replace(src, KC_END, stamp.format(n - 1) + (
+        "if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+        "    kc_acc[kc_cur] += clock64() - kc_t;\n"
+        f"    for (int i_ = 0; i_ < {n}; ++i_) g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + i_] = "
+        "kc_acc[i_];\n"
+        f"    g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + {KC_CLOCK_SLOTS - 1}] = "
+        "clock64() - kc_t0;\n  }\n  ") + KC_END, name)
+    head = f"__device__ long long g_clock[4096 * {KC_CLOCK_SLOTS}];\n"
+    helper = ("static void* g_clock_ptr() {\n  void* p = nullptr;\n"
+              "  cudaGetSymbolAddress(&p, g_clock);\n  return p;\n}\n")
+    tail = ("extern \"C\" int mmd_inner_cem_clock(void* out, int reset) {\n"
+            "  if (reset) return static_cast<int>(cudaMemset(g_clock_ptr(), 0, sizeof(g_clock)));\n"
+            "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
+            "                                                cudaMemcpyDeviceToDevice));\n}\n")
+    CLOCK_REGIONS[name] = ["staging"] + [r for _, r in anchors] + ["tail"]
+    return _replace(src, "namespace {\n", head + helper + "namespace {\n", name) + tail
+
+
+def kc_runkind_variant(src: str, name: str = "kc_runkind") -> str:
+    """Kernel (c) with the kernel kind a run-time value in phase B: one body
+    of kernel values an instantiation, each group of selected rows in two
+    halves whatever the kind, its fast division still one branch a group."""
+    for old, new in (
+            ("template <int kKind, bool kFast>\n__device__ __forceinline__ float kernel_value(",
+             "template <bool kFast>\n__device__ __forceinline__ float kernel_value(int kKind, "),
+            ("template <int kKind>\n__device__ __forceinline__ bool numerators_in_range(",
+             "__device__ __forceinline__ bool numerators_in_range(int kKind, "),
+            ("template <int kKind, int I0, int N, int J, int kSlots, class LoadD, class LoadD2>\n"
+             "__device__ __forceinline__ void kernel_rows(",
+             "template <int I0, int N, int J, int kSlots, class LoadD, class LoadD2>\n"
+             "__device__ __forceinline__ void kernel_rows(int kKind, "),
+            ("numerators_in_range<kKind>(", "numerators_in_range(kKind, "),
+            ("kernel_value<kKind, true>(", "kernel_value<true>(kKind, "),
+            ("kernel_value<kKind, false>(", "kernel_value<false>(kKind, ")):
+        src = _replace(src, old, new, name)
+    head, _, tail = _between(src, "            if (a.kind == kLaplace) {\n",
+                             "          };\n", name)
+    return head + (
+        "            kernel_rows<0, H>(a.kind, e, ld, ld2, M, lane, dsig, dden, div_ok);\n"
+        "            if constexpr (H < J)\n"
+        "              kernel_rows<H, J - H>(a.kind, e, ld, ld2, M, lane, dsig, dden, div_ok);\n"
+    ) + tail
+
+
 def builds(before: Path, diagnose: bool = False) -> dict:
     """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
     "k3" (topk_kernel.cu), "prng" (prng.cu) or "micro"."""
@@ -193,6 +292,28 @@ def builds(before: Path, diagnose: bool = False) -> dict:
         out["prng_clock"] = ("prng", clock_variant(beta))
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
+    cem = (_build.CSRC / "inner_cem.cu").read_text()
+    out["kc_now"] = ("kc", cem)
+    if (before / "inner_cem.cu").exists():
+        out["kc_before"] = ("kc", (before / "inner_cem.cu").read_text())
+        if diagnose:
+            out["kc_clock_before"] = ("kc", kc_clock_variant(out["kc_before"][1],
+                                                             "kc_clock_before"))
+    size = re.compile(r"(int cluster_size\(.*?\) \{\n).*?\n\}", re.S)
+    if not size.search(cem):
+        raise ValueError("variant kc_cluster: cluster_size is not in inner_cem.cu")
+    for n in (1, 2, 4):
+        out[f"kc_cluster{n}"] = ("kc", size.sub(
+            lambda m: m.group(1) + f"  return {n};\n}}", cem))
+    rows = "return slots <= 2 ? k : slots <= 4 ? (k + 1) / 2 : 2;"
+    for name, old, new in (
+            ("kc_warps8", "return k <= 10 ? 16 : 8;", "return 8;"),
+            ("kc_rows2", rows, "return 2;"),
+            ("kc_dfirst", "const bool d_first = slots_of(M) <= 4;", "const bool d_first = true;")):
+        out[name] = ("kc", _replace(cem, old, new, name))
+    out["kc_runkind"] = ("kc", kc_runkind_variant(cem))
+    if diagnose:
+        out["kc_clock"] = ("kc", kc_clock_variant(cem))
     staged_max = re.compile(r"constexpr int kStagedMaxM = \d+;")
     if not staged_max.search(fused):
         raise ValueError("variant k3: kStagedMaxM is not in topk_kernel.cu")
@@ -240,26 +361,33 @@ def builds(before: Path, diagnose: bool = False) -> dict:
     return out
 
 
-def build_all(sources: dict, log) -> dict:
-    """Compiles every source at once; name -> loaded library."""
+def build_all(sources: dict, log, before: Path = None) -> dict:
+    """Compiles every source at once; name -> loaded library.  Kernel (c)'s
+    builds of ``before`` take their headers from that directory first."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for name, (_, src) in sources.items():
+    for name, (kind, src) in sources.items():
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
         cu.write_text(src)
-        cmd = [nvcc, *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared", "-o", str(so),
-               str(cu)]
+        own = ["-I", str(before)] if kind == "kc" and name.endswith("_before") else []
+        cmd = [nvcc, *_build.NVCC_FLAGS, *own, "-I", str(_build.CSRC), "-shared", "-o",
+               str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True))
     P, I = ctypes.c_void_p, ctypes.c_int
     libs = {}
     for name, (so, proc) in procs.items():
-        text = proc.communicate()[0]
+        text = proc.stdout.read()
+        # the resources of nvcc and of the compilers it waited for
+        _, status, use = os.wait4(proc.pid, 0)
+        proc.returncode = os.waitstatus_to_exitcode(status)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
-        log(f"built {name}: registers {re.findall(r'Used (\d+) registers', text)}, stack "
-            f"frames {re.findall(r'(\d+) bytes stack frame', text)}")
+        log(f"built {name} in {use.ru_utime + use.ru_stime:.1f} CPU s: registers "
+            f"{re.findall(r'Used (\d+) registers', text)}, stack "
+            f"frames {re.findall(r'(\d+) bytes stack frame', text)}, spill stores "
+            f"{re.findall(r'(\d+) bytes spill stores', text)}")
         lib = ctypes.CDLL(str(so))
         kind = sources[name][0]
         if kind == "micro":
@@ -270,6 +398,11 @@ def build_all(sources: dict, log) -> dict:
         elif kind == "k3":
             lib.mmd_topk_kernel_matrices.argtypes = [P, ctypes.c_longlong, P, P, P, P,
                                                      I, I, I, I, P]
+        elif kind == "kc":
+            lib.mmd_inner_cem.argtypes = _build._SIGNATURES["mmd_inner_cem"]
+            lib.mmd_inner_cem_scratch.argtypes = _build._SIGNATURES["mmd_inner_cem_scratch"]
+            if name.startswith("kc_clock"):
+                lib.mmd_inner_cem_clock.argtypes = [P, I]
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -526,6 +659,96 @@ def run_prng(libs: dict, names: list, gen, log) -> list:
     return recs
 
 
+def _kc(lib, inp, k, n_el, rho, reg, kind, outs=None):
+    """Kernel (c) of one build on ``inp`` (``kc_inputs``), as
+    ``ops.inner_cem`` calls it; returns (beta_w, sigma_w, idx_best, res)."""
+    import numpy as np
+    from ..ops.inner_cem import KINDS
+    D, D2, s0, A, Z, floor = inp
+    C, M, S, maxiter = D.shape[0], D.shape[-1], s0.shape[0], A.shape[0]
+    kind_i = KINDS.index(kind)
+    if outs is None:
+        outs = (torch.full((C, k), float("nan"), device="cuda"),
+                torch.full((C,), float("nan"), device="cuda"),
+                torch.full((C, k), -1, dtype=torch.int64, device="cuda"),
+                torch.full((C, maxiter), float("nan"), device="cuda"))
+    beta_w, sigma_w, idx_best, res = outs
+    per = lib.mmd_inner_cem_scratch(S, M, k, n_el, kind_i)
+    scratch = torch.empty(max(1, C * per), device="cuda")
+    _call(lib.mmd_inner_cem(
+        D.data_ptr(), None if D2 is None else D2.data_ptr(), s0.data_ptr(), A.data_ptr(),
+        Z.data_ptr(), floor.data_ptr(), beta_w.data_ptr(), sigma_w.data_ptr(),
+        idx_best.data_ptr(), res.data_ptr(), scratch.data_ptr(), C, S, M, k, n_el, maxiter,
+        kind_i, rho, reg, float(np.float32(-rho * (1.0 / M))),
+        float(np.float32(1.0) / np.float32(rho)), _stream()), "mmd_inner_cem")
+    return outs
+
+
+def sm_clock_mhz() -> str:
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    return smi.stdout.strip()
+
+
+def run_kc(libs: dict, names: list, gen, log, shapes=KC_SHAPES) -> list:
+    """Kernel (c): every build but the clock ones bit-equal to ``kc_before``
+    (NaN to NaN) in all four outputs, for every candidate, at ``shapes``;
+    then their device times in turns and, for each clock build, the cycles
+    a block's thread 0 spends in each phase an iteration (mean and max over
+    blocks)."""
+    recs = []
+    exact = [n for n in names if not n.startswith("kc_clock")]
+    for C, S, k, maxiter, kind in shapes:
+        inp, n_el, rho, reg = kc_inputs(gen, C, S, k, maxiter, kind)
+        got = {}
+        sizes = {}
+        for name in exact:
+            got[name] = _kc(libs[name], inp, k, n_el, rho, reg, kind)
+            torch.cuda.synchronize()
+            if hasattr(libs[name], "mmd_inner_cem_last_cluster"):
+                sizes[name] = libs[name].mmd_inner_cem_last_cluster()
+        ref = got.get("kc_before")
+        equal = None
+        if ref is not None:
+            equal = {n: all(same_bits(a, b) for a, b in zip(o, ref)) for n, o in got.items()}
+            if not all(equal.values()):
+                raise RuntimeError(f"kernel (c) builds not bit-equal to kc_before at "
+                                   f"{(C, S, k, maxiter, kind)}: {equal}")
+        outs = tuple(torch.empty_like(t) for t in next(iter(got.values())))
+        times = in_turns({n: (lambda n=n: _kc(libs[n], inp, k, n_el, rho, reg, kind, outs))
+                          for n in exact}, "inner_cem_kernel")
+        clock = {}
+        for name in [n for n in names if n.startswith("kc_clock")]:
+            lib = libs[name]
+            stamps = torch.zeros(4096 * KC_CLOCK_SLOTS, dtype=torch.int64, device="cuda")
+            _call(lib.mmd_inner_cem_clock(stamps.data_ptr(), 1), "mmd_inner_cem_clock")
+            torch.cuda.synchronize()
+            _kc(lib, inp, k, n_el, rho, reg, kind, outs)
+            torch.cuda.synchronize()
+            _call(lib.mmd_inner_cem_clock(stamps.data_ptr(), 0), "mmd_inner_cem_clock")
+            torch.cuda.synchronize()
+            st = stamps.view(4096, KC_CLOCK_SLOTS)
+            st = st[st[:, -1] > 0].double()
+            regions = CLOCK_REGIONS[name]
+            once = ("staging", "tail")
+            per_it = {r: {"mean": float(st[:, i].mean() / (1 if r in once else maxiter)),
+                          "max": float(st[:, i].max() / (1 if r in once else maxiter))}
+                      for i, r in enumerate(regions)}
+            per_it["block"] = {"mean": float(st[:, -1].mean()), "max": float(st[:, -1].max())}
+            clock[name] = {"blocks": len(st), "cycles": per_it, "sm_clock": sm_clock_mhz()}
+            log(f"  {name}: clock64 cycles of thread 0 a block ({len(st)} blocks; phases "
+                f"an iteration, staging, tail and block a launch; mean / max): "
+                + ", ".join(f"{r} {v['mean']:.0f} / {v['max']:.0f}" for r, v in per_it.items())
+                + f"; SM clock, max MHz: {clock[name]['sm_clock']}")
+        recs.append({"shape": [C, S, k * k, k, maxiter, kind], "bit_equal_to_before": equal,
+                     "cluster_size": sizes,
+                     "device_ms": times, "clock": clock})
+        log(f"kernel (c) C={C}, S={S}, M={k * k}, k={k}, {maxiter} it., {kind}: bit-equal "
+            f"to kc_before {equal}; cluster sizes {sizes}; device us "
+            + ", ".join(f"{n} {[round(1e3 * t, 1) for t in ts]}" for n, ts in times.items()))
+    return recs
+
+
 def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     lines = []
@@ -539,9 +762,12 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
     log(f"card: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = builds(before, diagnose)
     if kernels:
-        sources = {n: v for n, v in sources.items() if v[0] in kernels}
+        unknown = set(kernels) - {v[0] for v in sources.values()} - set(sources)
+        if unknown:
+            raise SystemExit(f"kernel_ab: no kind or build named {sorted(unknown)}")
+        sources = {n: v for n, v in sources.items() if v[0] in kernels or n in kernels}
     t0 = time.perf_counter()
-    libs = build_all(sources, log)
+    libs = build_all(sources, log, before)
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
     k1s = [n for n, (kind, _) in sources.items() if kind == "k1"]
     k2s = [n for n, (kind, _) in sources.items() if kind == "k2"]
@@ -654,6 +880,9 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
         rec["k5"] = run_k5(libs, gen, log)
     if prngs:
         rec["prng_beta"] = run_prng(libs, prngs, gen, log)
+    kcs = [n for n, (kind, _) in sources.items() if kind == "kc"]
+    if kcs:
+        rec["kc"] = run_kc(libs, kcs, gen, log)
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
     return rec
@@ -665,8 +894,8 @@ def main(argv=None) -> None:
                    help="directory with an earlier topk.cu and eq_qp.cu")
     p.add_argument("--diagnose", action="store_true",
                    help="also the diagnostic builds and the latency microbenchmark")
-    p.add_argument("--kernels", nargs="*", choices=("k1", "k2", "k3", "prng", "micro"),
-                   default=None, help="build and run only these sources")
+    p.add_argument("--kernels", nargs="*", default=None,
+                   help="build and run only these kinds (k1 k2 k3 prng kc micro) or builds")
     p.add_argument("--out", type=Path, default=OUT_DIR)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

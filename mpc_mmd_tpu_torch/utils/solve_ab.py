@@ -11,7 +11,9 @@ Path D's "xla" ``FrenetSolver`` solve: one warm-up solve, ``--solves``
 timed ones (wall ms to ``torch.cuda.synchronize``; their median and 99th
 percentile over a root's turns) and one under ``torch.profiler`` (device
 busy ms, idle share, device events); on the card each is a CUDA graph,
-whose node count is recorded.  The turns take the roots in
+whose node count is recorded.  Then the Path D closed-loop step
+(``path_d_step``): the solve times of two 20-step ``run_episode`` episodes
+on that solver, as ``chip_smoke.py`` 16b runs them.  The turns take the roots in
 the order ``--turns`` gives (``A`` the checkout this module is in, ``B``
 the other), so a host that drifts during the call weighs on both.  Prints
 one JSON line per turn and the medians per root, and writes
@@ -96,6 +98,14 @@ cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian"
 args = cs.onroad_problem(torch, cfg_d, dev)
 fs = FrenetSolver(cfg_d, device=dev)
 out["path_d_xla"] = run(lambda i: fs.solve(i, *args), fs)
+# the closed-loop step: two episodes of 20 steps on that solver
+from mpc_mmd_tpu_torch.closedloop import run_episode
+steps = []
+for _ in range(2):
+    r = run_episode(cfg_d, route_kind="curved", v_des=15.0, max_steps=20, goal_arc=300.0,
+                    seed=0, solver=fs)
+    steps += [1e3 * t for t in r.solve_times]
+out["path_d_step"] = {"ms": steps}
 print(json.dumps(out))
 """
 
@@ -134,7 +144,7 @@ def main(argv=None):
             medians[t] = {path: {k: statistics.median(
                 [x for r in mine for x in (r[path][k] if k == "ms" else [r[path][k]])])
                 for k in ("ms", "device_busy_ms", "idle_share", "device_events",
-                          "graph_nodes")}
+                          "graph_nodes") if k in mine[0][path]}
                 for path in mine[0] if path != "root"}
             for path, m in medians[t].items():       # and the tail of the times
                 m["p99_ms"] = statistics.quantiles(

@@ -263,6 +263,39 @@ def test_inner_cem_kernel_matches_its_plain_version(cuda, C, S, k, maxiter, kind
             assert int(apart.sum()) <= 0.02 * C
 
 
+# the edges of kernel (c)'s split of a candidate over a cluster (C, S, k,
+# kind): one candidate, candidate counts past a wave of 64 and of 132
+# clusters, M = 144 (the vectorised row sum) and M = 256 at S = 256, the
+# gaussian kernel, and S = 33 (S' = 29 fresh rows: not a multiple of a
+# cluster's CTAs times 8 warps)
+INNER_CEM_EDGES = [(1, 64, 10, "laplace"), (65, 64, 10, "laplace"),
+                   (133, 64, 10, "laplace"), (100, 100, 12, "laplace"),
+                   (64, 256, 16, "laplace"), (64, 64, 10, "gaussian"),
+                   (64, 33, 10, "laplace")]
+
+
+@pytest.mark.parametrize("C,S,k,kind", INNER_CEM_EDGES)
+def test_inner_cem_kernel_at_the_edges_of_its_split(cuda, C, S, k, kind):
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
+    for iters in (1, 4):
+        inp, n_el, rho, reg = kc_inputs(cuda, C, S, k, iters, kind)
+        args = (*inp, k, n_el, rho, reg, kind)
+        before = inner_cem.launches
+        got = inner_cem(*args)
+        assert inner_cem.launches == before + 1
+        ref = inner_cem_plain(*args)
+        torch.cuda.synchronize()
+        for g in (got[0], got[1], got[3]):
+            assert bool(torch.isfinite(g).all())
+        if iters == 1:
+            assert torch.equal(got[2], ref[2])
+            for g, r in ((got[0], ref[0]), (got[1], ref[1]), (got[3], ref[3])):
+                torch.testing.assert_close(g, r, rtol=1e-5, atol=1e-6)
+        else:
+            apart = ((got[3] - ref[3]).abs() > 1e-4 * ref[3].abs() + 1e-6).any(dim=1)
+            assert int(apart.sum()) <= 0.02 * C
+
+
 def test_inner_cem_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
     inp, n_el, rho, reg = kc_inputs(cuda, 2, 16, 4, 2)

@@ -290,21 +290,47 @@ def test_onehot_topk_twin_matches_pallas(rng, shape, k, absolute):
         assert torch.equal(idx, topk_indices(torch.from_numpy(xt), k, **kw))
 
 
-def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path):
-    """The A/B tool's variants are textual changes of csrc/topk.cu,
-    csrc/eq_qp.cu and csrc/topk_kernel.cu: each must find its anchor and
-    change the source."""
+def _kernel_ab_variants():
+    """Every variant build of the A/B tool, with the sources in csrc/ as its
+    earlier version: all but each kind's ``now`` and ``before`` builds and
+    the microbenchmark."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
-    for name in ("topk.cu", "eq_qp.cu"):
+    try:
+        srcs = kernel_ab.builds(_build.CSRC, diagnose=True)
+    except ValueError as err:          # an anchor is missing: the test fails on it
+        return [f"unbuilt ({err})"]
+    return sorted(n for n, (kind, _) in srcs.items()
+                  if kind != "micro" and n not in (f"{kind}_now", f"{kind}_before"))
+
+
+@pytest.mark.parametrize("variant", _kernel_ab_variants())
+def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
+    """The A/B tool's variants are textual changes of csrc/topk.cu,
+    csrc/eq_qp.cu, csrc/topk_kernel.cu, csrc/prng.cu and csrc/inner_cem.cu
+    (kernel (c)'s cluster sizes and clock stamps; kc_clock_before stamps the
+    earlier inner_cem.cu): each must find its anchor and change the
+    source."""
+    from mpc_mmd_tpu_torch.ops import _build
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]
+    assert srcs["kc_before"][1] == srcs["kc_now"][1]
     assert srcs["k3_now"][1] == (_build.CSRC / "topk_kernel.cu").read_text()
     assert "k3_global" in srcs or "k3_staged" in srcs
-    for name, (kind, src) in srcs.items():
-        if not name.endswith(("_now", "_before")) and name != "micro":
-            assert src != srcs[f"{kind}_now"][1], name
+    kind, src = srcs[variant]
+    assert src != srcs[f"{kind}_now"][1], variant
+    if variant.startswith("kc_clock"):
+        # a stamp before every phase anchor, and the clock's C entry
+        assert src.count("kc_cur = ") >= len(kernel_ab.KC_PHASES) + 2
+        assert 'extern "C" int mmd_inner_cem_clock' in src
+    elif variant.startswith("kc_cluster"):
+        assert f"  return {variant[-1]};\n}}" in src
+    elif variant == "kc_runkind":
+        # one body of kernel values: no instantiation names a kind
+        assert "kernel_rows<kLaplace" not in src and "kernel_rows<0, H>(a.kind" in src
 
 
 def test_solve_ab_checks_its_arguments_and_needs_a_card(tmp_path, monkeypatch):

@@ -61,6 +61,22 @@ Phases, each of which must pass:
    path's iterations every candidate's costs within rtol 1e-4 + atol 1e-6,
    at most 2 % of a shape's candidates apart (each logged with the first
    iteration apart); how many candidates are bit-equal is logged;
+   kernel (d), the outer iteration's guess QP, AM projection and controls
+   (``ops.outer_project``, ``csrc/outer_project.cu``), against its plain
+   version (``outer_project_plain``) from the same inputs
+   (``kernel_ab.kd_inputs``: a row past v_max, the carried state of an
+   iteration before, on the road a path) at every shape a path launches
+   it with (``outer_shapes``: fastrt, E4, E8, Path A and Path B's modes,
+   Path D and its other modes, F5, F15) and at 11a's chunk of 32: every
+   output within rtol 1e-5 + atol 1e-6, how many entries are bit-equal
+   logged; kernel (e), the ``mmd_opt`` tail (risk, sorts, lane risks,
+   cost, CEM update; ``ops.outer_tail``, ``csrc/outer_tail.cu``), against
+   ``outer_tail_plain`` from ``kernel_ab.ke_inputs`` (a tie in risk and in
+   cost) at its path shapes, 11a's chunk of 32 and once with a covariance
+   that is not positive definite: the kept, the elites and the pick equal
+   (or each difference a near-tie of the plain version's risks within
+   1e-6), the moments, parameters, risks and res within rtol 1e-5 + atol
+   1e-6, bit-equal entries logged;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
@@ -68,7 +84,7 @@ Phases, each of which must pass:
    bound, and the device time of the one PyTorch call that computes the
    same function, where there is one (``torch.topk`` for K1,
    ``torch.linalg.solve`` of the bordered KKT system for K2; the port
-   never calls either; none for K3, K4, K5 and kernel (c));
+   never calls either; none for K3, K4, K5 and kernels (c), (d), (e));
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
@@ -233,10 +249,13 @@ Phases, each of which must pass:
    every path above, draws through kernel (a) ``ops.prng_draws`` (keys to
    bits, uniforms or normals) and kernel (b) ``ops.prng_beta`` (Beta),
    CUDA source ``csrc/prng.cu``.  Every exact launch check above counts
-   them too (``draw_launches``: per outer iteration one draw for the
+   them too (``loop_launches``: per outer iteration one draw for the
    rollout noise, one for the CEM resample, one Beta launch under Beta
    noise; one more draw a Frenet solve; a fresh solver's first solve adds
-   the solver-fixed draws), and ``draw_shapes`` gives their shapes:
+   the solver-fixed draws; and kernels (d) and (e): one (d) an outer
+   iteration on every path but "exact" and ``det``, one (e) in
+   ``mmd_opt`` but under "exact" and the two-rank candidate split), and
+   ``draw_shapes`` gives their shapes:
    a. kernel (a) against its twin at every path shape (a solve's rollout
       noise, 3 keys a scenario of R x T normals; its resample, a key a
       scenario; a Frenet solve's initial states) and at the validator's
@@ -296,6 +315,9 @@ row, launches only under "xt" in 12 and 14b; kernel (c) on every path
 of the "xla" selection, one launch an outer iteration, where K1 and K2
 launch only under "fused", "xt" and "g"); K5
 is on no path of the package, and its count is that of its own phase.
+Kernels (d) and (e) launch once an outer iteration wherever
+``loop_launches`` routes them, and the shapes of ``outer_shapes`` add
+up to every path's count (``check_launch_shapes``).
 ``launches_per_solve`` splits them by path (per solve; per chunk on
 Path E's chunked runs; the validator's per 1200 validations).  The
 times, all in milliseconds at ``shape``:
@@ -505,22 +527,31 @@ def check_launch_shapes(tables, per_solve):
                      f"solve, but its shapes add up to {want}")
 
 
-def draw_launches(cfg, n=1, frenet=False, fresh=False):
-    """The draw kernels' launches in ``n`` solves (or chunks) of ``cfg`` on
-    its default noise (``noise.JaxNoise``): per outer iteration one
-    ``prng_draws`` for the rollout noise (``det`` rolls nothing out) and
-    one for the outer CEM's resample, and under Beta noise one
-    ``prng_beta``; a Frenet solve one ``prng_draws`` more for its noisy
-    initial states.  A fresh solver's first solve also makes the
-    solver-fixed draws: the initial batch and, in ``mmd_opt``, the inner
-    CEM's samples0, u and z (samples0 and z under "exact")."""
+def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
+    """The launches in ``n`` solves (or chunks) of ``cfg`` on its default
+    noise (``noise.JaxNoise``) that every selection makes: the draw
+    kernels, per outer iteration one ``prng_draws`` for the rollout noise
+    (``det`` rolls nothing out) and one for the outer CEM's resample, and
+    under Beta noise one ``prng_beta``; a Frenet solve one ``prng_draws``
+    more for its noisy initial states; a fresh solver's first solve also
+    the solver-fixed draws: the initial batch and, in ``mmd_opt``, the
+    inner CEM's samples0, u and z (samples0 and z under "exact").  Then
+    the outer iteration's kernels (``SolverSetup._routes``): kernel (d) an
+    outer iteration except under "exact" and in ``det``, kernel (e) an
+    outer iteration in ``mmd_opt`` except under "exact" and with the
+    candidates ``split`` over several ranks."""
     outer, det = cfg.cem.maxiter_cem, cfg.risk.mode == "det"
     draws = n * (outer * (1 if det else 2) + (1 if frenet else 0))
     if fresh:
         draws += 1 + ((2 if cfg.solve_strategy == "exact" else 3)
                       if cfg.risk.mode == "mmd_opt" else 0)
     beta = 0 if det or cfg.noise.kind != "beta" else n * outer
-    return {"prng_draws": draws, "prng_beta": beta}
+    prefactored = cfg.solve_strategy == "prefactored"
+    project = prefactored and not det and not cfg.projection.with_obstacle_terms
+    tail = prefactored and cfg.risk.mode == "mmd_opt" and not split
+    return {"prng_draws": draws, "prng_beta": beta,
+            "outer_project": n * outer if project else 0,
+            "outer_tail": n * outer if tail else 0}
 
 
 def draw_shapes(paths):
@@ -857,6 +888,170 @@ def check_inner_cem(torch, ops, gen, shapes):
     return main
 
 
+def outer_shapes(paths):
+    """Kernel (d)'s and (e)'s launch shapes on each path: ``paths`` maps a
+    path's name to (workload, config, on the road, scenarios a chunk).
+    Returns (kd, ke): {(workload, scenarios): {path: launches per solve
+    (per chunk)}}, from ``loop_launches``' routes."""
+    kd, ke = {}, {}
+    for path, (name, cfg, frenet, chunk) in paths.items():
+        n = loop_launches(cfg, frenet=frenet)
+        for table, kernel in ((kd, "outer_project"), (ke, "outer_tail")):
+            if n[kernel]:
+                table.setdefault((name, chunk), {})[path] = n[kernel]
+    return kd, ke
+
+
+def _within(torch, got, ref, rtol=1e-5, atol=1e-6):
+    """Entries of got outside rtol + atol of ref (NaN only against NaN),
+    and how many are bit-equal (NaN to NaN)."""
+    both_nan = got.isnan() & ref.isnan()
+    ok = ((got - ref).abs() <= rtol * ref.abs() + atol) | both_nan
+    return int((~ok).sum()), int(((got == ref) | both_nan).sum())
+
+
+def check_outer_project(torch, ops, gen, shapes, workloads):
+    """Kernel (d) (``ops.outer_project``, ``csrc/outer_project.cu``)
+    against its plain version (``outer_project_plain``: ``qp.compute_guess``,
+    ``projection.project``, ``dynamics.controls_from_trajectory`` on the
+    card) from the same inputs (``kernel_ab.kd_inputs``: row 1's speeds
+    saturate the polar clip; the multipliers and lane slack of an
+    iteration before; on the road a curved path) at every shape a path
+    launches it with: every output within rtol 1e-5 + atol 1e-6 (NaN only
+    against NaN); how many entries of each output are bit-equal is logged.
+    ``shapes`` maps (workload, scenarios) to {path: launches per solve};
+    ``workloads`` a workload's name to (config, on the road).  Returns the
+    first shape's record, the others under ``cases``."""
+    from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
+    cases, err = [], 0.0
+    for (name, N), at in shapes.items():
+        cfg, frenet = workloads[name]
+        args, kw = kd_inputs(gen, cfg, N, frenet)
+        got = ops.outer_project(*args, **kw)
+        ref = outer_project_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rows, num, nvar = N * cfg.cem.num_batch, cfg.horizon.num, cfg.horizon.nvar
+        label = f"{name} x {N}: {rows} rows, num {num}"
+        equal = {}
+        for field, g, r in zip(got._fields, got, ref):
+            bad, same = _within(torch, g, r)
+            if bad:
+                fail(f"kernel (d) outer_project: {field} outside rtol 1e-5 + atol 1e-6 "
+                     f"of the plain version at {bad} entries, {label}")
+            equal[field] = f"{same}/{r.numel()}"
+            err = max(err, float((g - r).abs().nan_to_num(0.0).max()))
+        log(f"kernel (d) at {label}: bit-equal entries {equal}")
+        nl, it = 2 * (num - 1), cfg.projection.maxiter
+        nx, ny = nvar + 3, nvar + 4
+        mats = (2 * cfg.guess.num_segments * nvar + 2 * (nx * nx + ny * ny)
+                + 3 * num * nvar + nl * nvar)
+        # a product's multiply-add counts two operations; about 60 elementwise
+        # operations a step and round (each trigonometric call as one)
+        ops_row = (2 * nvar * (8 * num + it * (14 * num + 3 * nl))
+                   + 2 * (nx * nx + ny * ny) * (it + 1) + 60 * num * (it + 1))
+        cases.append(dict(
+            shape=label, call=(lambda a=args, k=kw: ops.outer_project(*a, **k)),
+            match="outer_project_kernel", launches_per_solve=at,
+            nbytes=4 * (rows * (8 + 7 + 2 * nvar + nl) + mats
+                        + sum(kw[k].numel() for k in ("arc_vec", "kappa") if k in kw)
+                        + rows * (4 * nvar + 10 * num + 1 + nl)),
+            ops=rows * ops_row, library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=args, k=kw: outer_project_plain(*a, **k),
+                             reps=3, warmup=1)))
+    main = dict(cases[0], max_abs_err=err, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
+def check_outer_tail(torch, ops, gen, shapes, workloads):
+    """Kernel (e) (``ops.outer_tail``, ``csrc/outer_tail.cu``) against its
+    plain version (``outer_tail_plain``: ``risk.mmd_obs`` and
+    ``sampling.cem_tail`` on the card) from the same inputs
+    (``kernel_ab.ke_inputs``: the best elite copied to the last candidate,
+    a tie in risk and in cost) at every shape a path launches it with, and
+    at the first shape once more with a covariance that is not positive
+    definite: the kept candidates, the elites and the pick equal exactly,
+    or each difference a near-tie (the plain version's risks or costs
+    within 1e-6 relative), and the moments, parameters, risks and res
+    within rtol 1e-5 + atol 1e-6 (NaN only against NaN); how many entries
+    are bit-equal is logged.  Arguments as :func:`check_outer_project`."""
+    from mpc_mmd_tpu_torch import risk, sampling
+    from mpc_mmd_tpu_torch.ops.outer_tail import last_cluster_size, outer_tail_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
+    cases, err = [], 0.0
+    first = next(iter(shapes))
+    for (name, N), at, nonpd in [(k, v, False) for k, v in shapes.items()] + [
+            (first, {}, True)]:
+        cfg, frenet = workloads[name]
+        args = ke_inputs(gen, cfg, N, frenet, nonpd)
+        res_k, res_p = args[15].clone(), args[15].clone()
+        got = ops.outer_tail(*args[:15], res_k, args[16].clone(), args[17])
+        cluster = last_cluster_size() if got.mean.is_cuda else None
+        ref = outer_tail_plain(*args[:15], res_p, args[16].clone(), args[17])
+        torch.cuda.synchronize()
+        nb, c = cfg.cem.num_batch, cfg.cem
+        label = (f"{name} x {N}: {N * nb} candidates, R {cfg.risk.num_reduced}"
+                 + (", a covariance not positive definite" if nonpd else ""))
+        for field in ("kept", "elites", "best"):
+            g, r = getattr(got, field), getattr(ref, field)
+            if torch.equal(g, r):
+                continue
+            # near-ties: the plain version's risks (kept) of the two picks
+            x_obs, y_obs, T = args[9], args[10], args[7].shape[-1]
+            rk = risk.mmd_obs(cfg, args[5], args[6], args[7], args[8],
+                              x_obs[:, None, :, :T], y_obs[:, None, :, :T])
+            n_ix = torch.arange(N, device=rk.device)[:, None]
+            a_v = rk[n_ix, got.kept if field != "best" else got.best[:, None]]
+            b_v = rk[n_ix, ref.kept if field != "best" else ref.best[:, None]]
+            if field == "elites" or not bool(
+                    ((a_v - b_v).abs() <= 1e-6 * b_v.abs()).all()):
+                fail(f"kernel (e) outer_tail: {field} differ from the plain version at "
+                     f"{label}: {g.tolist()} against {r.tolist()}")
+            log(f"kernel (e) at {label}: {field} differ only at near-ties of risk")
+        equal = {}
+        for field, g, r in (("mean", got.mean, ref.mean), ("cov", got.cov, ref.cov),
+                            ("params", got.params, ref.params),
+                            ("risk_obs", got.risk_obs, ref.risk_obs),
+                            ("risk_lane", got.risk_lane, ref.risk_lane),
+                            ("res", res_k, res_p)):
+            bad, same = _within(torch, g, r)
+            if bad:
+                fail(f"kernel (e) outer_tail: {field} outside rtol 1e-5 + atol 1e-6 of "
+                     f"the plain version at {bad} entries, {label}")
+            equal[field] = f"{same}/{r.numel()}"
+            err = max(err, float((g - r).abs().nan_to_num(0.0).max()))
+        if nonpd and not bool(got.params[0, c.ellite_num:].isnan().all()):
+            fail(f"kernel (e) outer_tail: the resample of a covariance that is not "
+                 f"positive definite is not NaN, {label}")
+        log(f"kernel (e) at {label}, clusters of {cluster} CTA(s) a scenario: kept, "
+            f"elites and pick equal; bit-equal entries {equal}")
+        if nonpd:
+            continue
+        R, T, num = cfg.risk.num_reduced, cfg.horizon.num_prime, cfg.horizon.num
+        n_cost = min(c.ellite_num_cost, nb)
+        nobs = args[9].shape[1]
+        cases.append(dict(
+            shape=label, call=(lambda a=args: ops.outer_tail(*a)),
+            match="outer_tail_kernel", launches_per_solve=at,
+            # the rollouts, weights and bandwidths, the kept rows (7 of num),
+            # the parameters, normals, moments and obstacles once; the outputs
+            nbytes=4 * N * (2 * nb * R * T + nb * R + nb + n_cost * 7 * num
+                            + 2 * nb * 8 + 8 + 64 + 2 * nobs * T + 2 * nb + 2)
+            + 4 * N * (8 + 64 + nb * 8 + 5),
+            # 8 operations a violation, 8 a kernel value and its sums, 30 a
+            # step of a kept candidate's cost, and the update's products
+            ops=N * (8 * nb * R * nobs * T + 8 * (nb + 2 * n_cost) * R * R
+                     + 6 * n_cost * R * T + 30 * n_cost * num
+                     + 2 * (nb - c.ellite_num) * 64 + 4 * c.ellite_num * 64),
+            library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=args: outer_tail_plain(*a), reps=3,
+                             warmup=1)))
+    main = dict(cases[0], max_abs_err=err, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
 # Kernel (c)'s device ms a launch before its cluster redesign (one block of
 # 8 warps a candidate, commit e0e38dc; kernel_ab's kc_before at these
 # shapes, NVIDIA H100 80GB HBM3 at 700 W): constants from an earlier run,
@@ -898,9 +1093,10 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc):
+                  kd, kb, kc, kd_, ke_):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
-    pair (main path shape, validator shape).  The draw kernels replace no
+    pair (main path shape, validator shape), ``kd`` kernel (a)'s record and
+    ``kd_``, ``ke_`` kernel (d)'s and (e)'s.  The draw kernels replace no
     TPU kernel: ``replaces`` names the JAX package's draw site and the
     XLA lowering they stand for."""
     record = []
@@ -925,7 +1121,15 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
              (kb, None)),
             (ops.inner_cem, "inner_cem.cu", "mpc_mmd_tpu/reduced_set.py:700 (the inner "
              "beta-CEM's lax.scan, compiled by XLA: _selection_qp :487, "
-             "_update_samples :575, _winner :595; no Pallas kernel)", (kc, None))):
+             "_update_samples :575, _winner :595; no Pallas kernel)", (kc, None)),
+            (ops.outer_project, "outer_project.cu", "mpc_mmd_tpu/solver.py:190 (the "
+             "outer iteration's compute_guess qp.py:164, project projection.py:104, "
+             "controls_from_trajectory dynamics.py:142, compiled by XLA; no Pallas "
+             "kernel)", (kd_, None)),
+            (ops.outer_tail, "outer_tail.cu", "mpc_mmd_tpu/solver.py:235 (the outer "
+             "iteration's mmd_obs, sorts, mmd_lane, scalar_cost and cem_update "
+             "sampling.py:74 in mmd_opt, solver_frenet.py:201; compiled by XLA; no "
+             "Pallas kernel)", (ke_, None))):
         name = fn.__name__
         row = {"name": name, "route": "cuda",
                "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
@@ -1542,7 +1746,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
     KC, D = ops.inner_cem, ops.prng_draws
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
-    draws = draw_launches(cfg, frenet=True)
+    draws = loop_launches(cfg, frenet=True)
     args = onroad_problem(torch, cfg, dev)
     path_launches = []
 
@@ -1603,7 +1807,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
                                (D,) if mode == "det" else (K4, D),
                                lambda: s.solve(5, *args))
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
-        fresh = draw_launches(cfg_m, frenet=True, fresh=True)
+        fresh = loop_launches(cfg_m, frenet=True, fresh=True)
         expect(got, fresh if mode == "det" else {"fused_rollout": outer, **fresh}, 1,
                f"Path D {mode}")
         path_launches.append(got)
@@ -1786,7 +1990,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     check_rows(r, cfg_a)
     expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
                  "topk_indices": n_inner, "fused_rollout": outer_a,
-                 **draw_launches(cfg_a)}, "Path E c, one chunk of 4")
+                 **loop_launches(cfg_a)}, "Path E c, one chunk of 4")
     per_solve["path_e_fused4"] = dict(got)
     path_launches.append(got)
     log(f"Path E c, Path A fused at scenario_chunk 4 (4 cut-in scenarios): "
@@ -1802,7 +2006,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         lambda: sb.solve_batch([1, 2, 3, 4], init_d, mean_d, cov_d, cut.x_traj[:4],
                                cut.y_traj[:4], v_des))
     check_rows(r, cfg_a)
-    expect(got, {"fused_rollout": outer_a, **draw_launches(cfg_a.with_risk_mode("cvar"))},
+    expect(got, {"fused_rollout": outer_a, **loop_launches(cfg_a.with_risk_mode("cvar"))},
            "Path E d, one chunk of 4")
     per_solve["path_e_cvar4"] = dict(got)
     path_launches.append(got)
@@ -1821,7 +2025,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         lambda: sweep_cli.main(["--costs", "mmd_opt", "--out", data_b, *flags,
                                 "--scenario_chunk", "4"]))
     want = {k: n_chunks * v for k, v in one_solve.items()}
-    want[D.__name__] += draw_launches(cfg, 0, fresh=True)[D.__name__]   # its solver's
+    want[D.__name__] += loop_launches(cfg, 0, fresh=True)[D.__name__]   # its solver's
     expect(got, want, f"Path E e, {n_chunks} chunks of 4 scenarios")
     per_solve["sweep_batch_mmd_opt"] = {k: v / n_chunks for k, v in got.items()}
     path_launches.append(got)
@@ -1849,7 +2053,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     r, secs, got = counted(torch, ops, "Path E exact", (K4, D), lambda: without_sync(
         torch, lambda: sx.solve(1, init, mean, cov, xs[1], ys[1], 15.0)))
     check_solve(r, cfg_x)
-    expect(got, {"fused_rollout": cfg.cem.maxiter_cem, **draw_launches(cfg_x)},
+    expect(got, {"fused_rollout": cfg.cem.maxiter_cem, **loop_launches(cfg_x)},
            "Path E f, fastrt exact")
     per_solve["path_e_exact"] = dict(got)
     path_launches.append(got)
@@ -1864,7 +2068,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
                            lambda: without_sync(torch, lambda: fx.solve(1, *args)))
     check_frenet_solve(r, cfg_dx, "Path E exact on-road")
     expect(got, {"fused_rollout": cfg_d.cem.maxiter_cem,
-                 **draw_launches(cfg_dx, frenet=True)}, "Path E f, on-road exact")
+                 **loop_launches(cfg_dx, frenet=True)}, "Path E f, on-road exact")
     per_solve["path_d_exact"] = dict(got)
     path_launches.append(got)
     log(f"Path E f, Path D mmd_opt exact FrenetSolver: {1e3 * secs:.1f} ms a solve "
@@ -1920,7 +2124,7 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
                 n_inner = c.cem.maxiter_cem * c.beta_cem.maxiter
                 want = {K1.__name__: 2 * n_inner, qp.__name__: n_inner,
                         K4.__name__: c.cem.maxiter_cem,
-                        **draw_launches(c, frenet=name == "path_d")}
+                        **loop_launches(c, frenet=name == "path_d")}
                 want = {k: want.get(k, 0) for k in names}
                 if got != want:
                     fail(f"{name} with the {sel!r} selection: launches {got}, "
@@ -2030,12 +2234,15 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches = []
 
-    def expect(got, n, label, fresh=0):
+    def expect(got, n, label, fresh=0, split=False):
         """n solves' launches, and the solver-fixed draws of ``fresh``
-        solvers' first solves."""
+        solvers' first solves; with the candidates ``split`` over the ranks
+        no kernel (e) (each rank scores its own block)."""
         want = {k: n * v for k, v in one_solve.items()}
-        want[ops.prng_draws.__name__] += fresh * draw_launches(
+        want[ops.prng_draws.__name__] += fresh * loop_launches(
             cfg, 0, fresh=True)[ops.prng_draws.__name__]
+        if split:
+            want[ops.outer_tail.__name__] = 0
         if got != want:
             fail(f"{label}: launches {got}, expected {want} ({n} solves' worth)")
 
@@ -2148,7 +2355,9 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     # d. the candidate split of one fastrt solve over the 2 ranks
     gaps = [o["split_gap"] for o in ranks]
     # each rank runs every stage of the solve on its half of the candidates
-    expect(summed["split"], 2, "distribution d, one solve's candidates over 2 ranks")
+    # (kernel (d) on all of them, the tail as its chain)
+    expect(summed["split"], 2, "distribution d, one solve's candidates over 2 ranks",
+           split=True)
     per_solve["dist_split"] = dict(summed["split"])
     log(f"distribution d, one fastrt solve's 64 candidates over 2 gloo ranks: "
         f"{1e3 * max(o['split']['s'] for o in ranks):.1f} ms; against the plain "
@@ -2533,7 +2742,7 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     expect.update({ops.topk_indices.__name__: 2 * n_inner,
                    ops.eq_qp_solve.__name__: n_inner,
                    ops.fused_rollout.__name__: cfg.cem.maxiter_cem,
-                   **draw_launches(cfg)})
+                   **loop_launches(cfg)})
     if got != expect:
         fail(f"14b N = 15 g: launches {got}, expected {expect}")
     path_launches.append(got)
@@ -2754,13 +2963,46 @@ def main():
         (32 * main_kc[0],) + main_kc[1:] + ("laplace",): {}})
     log(f"kernel (c) inner_cem: at {len(kc_at) + 3} shapes within the tolerances; "
         f"{kc['ms']:.4f} ms vs plain {kc['plain_ms']:.4f} ms at {kc['shape']}")
+    # kernels (d) and (e) at every shape a path launches them with (Path B's
+    # modes and Path D's take (d) only) and at 11a's chunk of 32 scenarios
+    workloads = {"fastrt": (cfg, False), "path_a": (cfg_a, False),
+                 "path_d": (cfg_d, True),
+                 **{f"f{N}": (record_config(N), False) for N in RECORD_SIZES}}
+    on = lambda name, chunk=1: (name, workloads[name][0], workloads[name][1], chunk)
+    kd_at, ke_at = outer_shapes({
+        **{p: on("fastrt") for p in ("fastrt", "sweep_mmd_opt", "path_e_chunk1",
+                                     "fastrt_xt", "fastrt_g", "dist_nccl")},
+        **{p: on(f"f{c.risk.num_reduced}") for p, (c, _) in paths_f.items()},
+        **{p: on("fastrt", 4) for p in ("path_e_chunk4", "sweep_batch_mmd_opt",
+                                        "dist_mesh_sweep")},
+        "path_e_chunk8": on("fastrt", 8),
+        **{p: on("path_a") for p in ("path_a_fused", "path_a_xla", "path_a_xt",
+                                     "path_a_g")},
+        **{f"path_b_{m}": ("path_a", cfg_a.with_risk_mode(m), False, 1)
+           for m in ("cvar", "mmd_random", "saa")},
+        "path_e_fused4": on("path_a", 4),
+        "path_e_cvar4": ("path_a", cfg_a.with_risk_mode("cvar"), False, 4),
+        **{p: on("path_d") for p in ("path_d_xla", "path_d_fused", "closedloop_mmd_opt",
+                                     "path_d_xt", "path_d_g")},
+        **{p: ("path_d", cfg_d.with_risk_mode(m), True, 1)
+           for p, m in (("path_d_cvar", "cvar"), ("path_d_saa", "saa"),
+                        ("path_d_mmd_random", "mmd_random"), ("closedloop_cvar", "cvar"))}})
+    kd_rec = check_outer_project(torch, ops, gen, {**kd_at, ("fastrt", 32): {}}, workloads)
+    log(f"kernel (d) outer_project: at {len(kd_at) + 1} shapes within rtol 1e-5 + atol "
+        f"1e-6; {kd_rec['ms']:.4f} ms vs plain {kd_rec['plain_ms']:.4f} ms at "
+        f"{kd_rec['shape']}")
+    ke_rec = check_outer_tail(torch, ops, gen, {**ke_at, ("fastrt", 32): {}}, workloads)
+    log(f"kernel (e) outer_tail: at {len(ke_at) + 1} shapes, indices equal, within rtol "
+        f"1e-5 + atol 1e-6; {ke_rec['ms']:.4f} ms vs plain {ke_rec['plain_ms']:.4f} ms "
+        f"at {ke_rec['shape']}")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
     one = torch.zeros(1, device=dev)
     floor_ms = profiled_ms(torch, lambda: one.fill_(1.0), match="")[0]
     log(f"launch floor: fill_ of one float, {floor_ms:.4f} ms device time")
     for name, rec in (("K1", k1), ("K2", k2), ("K2 lane-major", k2t), ("K3", k3),
-                      ("K4", k4), ("K4", k4v), ("K5", k5), ("kernel (c)", kc)):
+                      ("K4", k4), ("K4", k4v), ("K5", k5), ("kernel (c)", kc),
+                      ("kernel (d)", kd_rec), ("kernel (e)", ke_rec)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
@@ -2803,7 +3045,7 @@ def main():
     n_inner = cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
     want = {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
             "topk_indices": n_inner, "fused_rollout": cfg_a.cem.maxiter_cem,
-            **draw_launches(cfg_a)}
+            **loop_launches(cfg_a)}
     want = {fn.__name__: want.get(fn.__name__, 0) * len(calls_a) for fn in ops.KERNELS}
     if got != want:
         fail(f"Path A launches {got}, expected {want} ({len(calls_a)} solves)")
@@ -2866,7 +3108,8 @@ def main():
                         "eq_qp_solve_t": k2t_at, "inner_cem": kc_at,
                         "topk_kernel_matrices": checked(k3),
                         "fused_rollout": checked(k4),
-                        "prng_draws": draw_at,
+                        "prng_draws": draw_at, "outer_project": kd_at,
+                        "outer_tail": ke_at,
                         "prng_beta": {k: v for k, v in beta_at.items() if v}}
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
 
@@ -2887,7 +3130,7 @@ def main():
                                                           ops.eq_qp_solve)):
             fail(f"{path}: the xla selection launched K1 or K2 ({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t, kd, kb, kc)
+                           k2t, kd, kb, kc, kd_rec, ke_rec)
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)

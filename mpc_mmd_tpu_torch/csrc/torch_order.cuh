@@ -1,0 +1,132 @@
+// PyTorch's orders of summation on the card (ATen's Reduce.cuh), for the
+// kernels whose outputs must carry the bits of a plain chain of PyTorch
+// operations: kernel (d) (outer_project.cu: its norms) and kernel (e)
+// (outer_tail.cu).  Every sum here adds terms that the chain rounds on
+// their own (a product is an elementwise kernel before the sum), each
+// accumulator starting from +0, with the IEEE add and no contraction; a
+// 2-norm's terms are the fused squares of NormTwoOps.
+//
+// Which form a sum takes follows the memory layout TensorIterator gives
+// the tensor it reduces: an axis of stride 1 is reduced as a row, any
+// other axis one thread an output.
+//
+// A reduction along the contiguous axis of a row of n < 128 floats takes
+// W = 2^floor(log2 n) (at most 32) threads, thread x putting terms x, x + W,
+// x + 2W, x + 3W each into an accumulator of its own (four, vt0), added in
+// order, then shuffles down at offsets W/2, W/4, ... 1.  From n = 128 on the
+// row is read in 4-float vectors from its first 16-byte aligned element:
+// the elements before it one a thread (threads shift ... 3) into the first
+// accumulator, the vectors v = x, x + W, ... of thread x (W =
+// 2^floor(log2(n / 4)), at most 32) element i into accumulator i, the
+// elements after the last whole vector one a thread into the first, the
+// four accumulators added in order, then the same shuffles.  A reduction
+// along a strided axis (the output's axis is the fastest) takes one thread
+// an output, term k into accumulator k % 4, the four added in order.
+// kernel (c) (inner_cem.cu) checked the first two forms bit for bit
+// against PyTorch on the H100, kernel (e) the third.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace mmd_order {
+
+constexpr unsigned kFull = 0xffffffffu;
+
+// 2^floor(log2 n), at most 32 (a warp)
+__host__ __device__ constexpr int last_pow2(int n) {
+  return n >= 32 ? 32 : n >= 16 ? 16 : n >= 8 ? 8 : n >= 4 ? 4 : n >= 2 ? 2 : 1;
+}
+
+// a sum's reduce step, and a 2-norm's (NormTwoOps: acc + v * v, contracted)
+struct Add {
+  __device__ float operator()(float acc, float v) const { return __fadd_rn(acc, v); }
+};
+struct Square {
+  __device__ float operator()(float acc, float v) const { return __fmaf_rn(v, v, acc); }
+};
+
+// The reduction of the n floats t(0) ... t(n-1) of one row along the
+// contiguous axis, by one warp, for a row whose first element lies `shift`
+// floats past a 16-byte boundary in the plain chain's tensor.  Every lane
+// gets the result.
+template <class Op, class Get>
+__device__ __forceinline__ float row_reduce(Get t, int n, int shift, Op op, int lane) {
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  int W;
+  if (n >= 128) {
+    int h = 0;
+    if (shift > 0) {
+      h = 4 - shift;
+      if (lane >= shift && lane < 4) a[0] = op(0.0f, t(lane - shift));
+    }
+    const int L = n - h, nvec = L / 4;
+    W = last_pow2(n / 4);
+    if (lane < W)
+      for (int v = lane; v < nvec; v += W)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = op(a[i], t(h + 4 * v + i));
+    if (lane < L % 4) a[0] = op(a[0], t(h + 4 * nvec + lane));
+  } else {
+    W = last_pow2(n);
+    if (lane < W)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (lane + i * W < n) a[i] = op(0.0f, t(lane + i * W));
+  }
+  float p = __fadd_rn(__fadd_rn(__fadd_rn(a[0], a[1]), a[2]), a[3]);
+  for (int off = W / 2; off > 0; off >>= 1) p = __fadd_rn(p, __shfl_down_sync(kFull, p, off));
+  return __shfl_sync(kFull, p, 0);
+}
+
+// The same reduction of n < 32 terms t(0) ... t(n-1) in one thread.
+template <class Op, class Get>
+__device__ __forceinline__ float small_reduce(Get t, int n, Op op) {
+  const int W = last_pow2(n);
+  float p[16];
+#pragma unroll
+  for (int x = 0; x < 16; ++x) {
+    if (x >= W) break;
+    float a0 = op(0.0f, t(x));
+    if (x + W < n) a0 = __fadd_rn(a0, op(0.0f, t(x + W)));
+    p[x] = a0;
+  }
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+#pragma unroll
+    for (int x = 0; x < off; ++x)
+      if (off < W) p[x] = __fadd_rn(p[x], p[x + off]);
+  return p[0];
+}
+
+// The reduction of K terms t(0) ... t(K-1) along a strided axis: term k
+// into accumulator k % 4, the four added in order.
+template <class Get>
+__device__ __forceinline__ float strided_sum(Get t, int K) {
+  float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
+  int k = 0;
+  for (; k + 3 < K; k += 4) {
+    a0 = __fadd_rn(a0, t(k));
+    a1 = __fadd_rn(a1, t(k + 1));
+    a2 = __fadd_rn(a2, t(k + 2));
+    a3 = __fadd_rn(a3, t(k + 3));
+  }
+  if (k < K) a0 = __fadd_rn(a0, t(k));
+  if (k + 1 < K) a1 = __fadd_rn(a1, t(k + 1));
+  if (k + 2 < K) a2 = __fadd_rn(a2, t(k + 2));
+  return __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3);
+}
+
+// PyTorch's clamp on the card: NaN stays NaN, else min(max(v, lo), hi)
+__device__ __forceinline__ float clamp(float v, float lo, float hi) {
+  return v != v ? v : fminf(fmaxf(v, lo), hi);
+}
+__device__ __forceinline__ float clamp_min(float v, float lo) {
+  return v != v ? v : fmaxf(v, lo);
+}
+// torch.minimum: a NaN operand wins
+__device__ __forceinline__ float minimum(float a, float b) {
+  return a != a ? a : b != b ? b : fminf(a, b);
+}
+
+}  // namespace mmd_order

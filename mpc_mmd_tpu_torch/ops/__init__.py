@@ -3,8 +3,10 @@
 K1 ``topk_indices``, K2 ``eq_qp_solve`` (and its lane-major entry
 ``eq_qp_solve_t``), K3 ``topk_kernel_matrices``, K4 ``fused_rollout`` and
 K5 ``topk_onehot``; the JAX key chain's draws, ``prng_draws`` (keys to
-bits, uniforms or normals) and ``prng_beta`` (Beta draws); and kernel (c)
-``inner_cem``, the whole inner beta-CEM of the "xla" selection.  Each wrapper
+bits, uniforms or normals) and ``prng_beta`` (Beta draws); kernel (c)
+``inner_cem``, the whole inner beta-CEM of the "xla" selection; and the outer
+iteration's kernel (d) ``outer_project`` (guess QP, projection, controls)
+and kernel (e) ``outer_tail`` (risk, cost and CEM update in ``mmd_opt``).  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
 tensors, counting launches in ``<wrapper>.launches``.
 
@@ -18,6 +20,8 @@ capture runs nothing) and adds them again at every replay
 from typing import Dict
 
 from .inner_cem import inner_cem
+from .outer_project import outer_project
+from .outer_tail import outer_tail
 from .prng import prng_beta, prng_draws
 from .qp import eq_qp_solve, eq_qp_solve_t
 from .rollout import fused_rollout
@@ -25,7 +29,8 @@ from .topk import topk_indices, topk_onehot
 from .topk_kernel import topk_kernel_matrices
 
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
-           topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem)
+           topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
+           outer_tail)
 
 
 def reset_launch_counts() -> None:
@@ -49,7 +54,8 @@ def add_launches(counts: Dict[str, int]) -> None:
         fn.launches += counts.get(fn.__name__, 0)
 
 
-__all__ = ["eq_qp_solve", "eq_qp_solve_t", "fused_rollout", "inner_cem", "prng_beta",
+__all__ = ["eq_qp_solve", "eq_qp_solve_t", "fused_rollout", "inner_cem", "outer_project",
+           "outer_tail", "prng_beta",
            "prng_draws", "topk_indices", "topk_onehot", "topk_kernel_matrices",
            "KERNELS", "add_launches", "launch_counts", "reset_launch_counts",
            "set_launch_counts"]

@@ -9,9 +9,10 @@ source rebuilds and an unchanged one is loaded as it is.  No fast-math: the
 rollout kernel chains ``tanf``/``sinf``/``cosf`` over 50 steps, and its
 tolerance assumes the IEEE-accurate functions; the random-number kernels
 (``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
-own kernels to give their twins' bits, and kernel (c) (``inner_cem.cu``)
-the quotients, ``expf`` and sums of PyTorch's kernels to give its plain
-version's.
+own kernels to give their twins' bits, and kernels (c), (d) and (e)
+(``inner_cem.cu``, ``outer_project.cu``, ``outer_tail.cu``) the quotients,
+transcendental functions and sums of PyTorch's kernels to give their plain
+versions'.
 
 Each exported function returns its ``cudaError_t``; :func:`check` raises if
 it is not 0.  Kernels launch on PyTorch's current stream and allocate
@@ -53,6 +54,10 @@ _SIGNATURES = {
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
     "mmd_inner_cem_scratch": [_I] * 5,
     "mmd_inner_cem_last_cluster": [],
+    "mmd_outer_project": [_P] * 34 + [_I] * 6 + [_F] * 10 + [_P],
+    "mmd_outer_tail": [_P] * 31 + [_I] * 15 + [_F] * 23 + [_P],
+    "mmd_outer_tail_cluster": [_I],
+    "mmd_outer_tail_last_cluster": [],
 }
 
 _lock = threading.Lock()

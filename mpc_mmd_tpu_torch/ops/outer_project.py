@@ -1,0 +1,179 @@
+"""Kernel (d): the guess QP, the AM projection and the controls of every
+candidate row in one launch (CUDA source ``csrc/outer_project.cu``), and
+its plain version.
+
+The JAX package runs this part of an outer iteration inside its jitted
+``lax.scan`` (``mpc_mmd_tpu/solver.py:190-200``: ``compute_guess``,
+``project`` and ``controls_from_trajectory``), which XLA fuses into a few
+loops.  :func:`outer_project_plain` is the port's chain of PyTorch
+operations for it (``qp.compute_guess``, ``projection.project``,
+``dynamics.controls_from_trajectory``: about 240 launches an outer
+iteration on the card); :func:`outer_project` runs all of it in one
+launch, a warp a row.  The rows are independent: the controls of a row
+computed before the outer loop's sort by residual are the ones it has
+after it.
+
+On the card the kernel takes the "prefactored" strategy without obstacle
+terms (every risk-aware mode); the "exact" strategy and the ``det``
+baseline's obstacle-active projection keep the plain chain
+(``solver.SolverSetup._routes``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from . import _build
+from .. import dynamics, projection, qp
+from ..config import ProblemConfig
+from ..qp import Workspace
+
+MAX_NUM = 128     # time steps: 4 a lane
+MAX_NVAR = 16     # Bernstein coefficients
+MAX_SEGMENTS = 8  # guess segments (the parameters are 2 x segments wide)
+
+
+class OuterProjection(NamedTuple):
+    """The projection's fields (``projection.ProjectionResult``) and the
+    controls of each row."""
+
+    c_x: torch.Tensor        # (rows, nvar)
+    c_y: torch.Tensor
+    x: torch.Tensor          # (rows, num)
+    y: torch.Tensor
+    xdot: torch.Tensor
+    ydot: torch.Tensor
+    xddot: torch.Tensor
+    yddot: torch.Tensor
+    res_norm: torch.Tensor   # (rows,)
+    lamda_x: torch.Tensor    # (rows, nvar)
+    lamda_y: torch.Tensor
+    s_lane: torch.Tensor     # (rows, 2 (num - 1))
+    steering: torch.Tensor   # (rows, num) Frenet steering (zeros off the path)
+    kappa_interp: torch.Tensor  # (rows, num)
+    acc: torch.Tensor        # (rows, num) controls_from_trajectory's
+    steer: torch.Tensor
+
+
+def outer_project_plain(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
+                        b_eq_x: torch.Tensor, b_eq_y: torch.Tensor,
+                        lamda_x: torch.Tensor, lamda_y: torch.Tensor,
+                        s_lane: torch.Tensor, x_obs: Optional[torch.Tensor] = None,
+                        y_obs: Optional[torch.Tensor] = None,
+                        arc_vec: Optional[torch.Tensor] = None,
+                        kappa: Optional[torch.Tensor] = None) -> OuterProjection:
+    """Plain version: the guess QP, the projection and the controls as
+    PyTorch operations, in any strategy and with the obstacle terms.
+    Arguments and result as :func:`outer_project`."""
+    scenarios = 1 if x_obs is None or x_obs.dim() == 2 else x_obs.shape[0]
+    cx_bar, cy_bar = qp.compute_guess(cfg, ws, params, b_eq_x, b_eq_y, scenarios)
+    pr = projection.project(cfg, ws, cx_bar, cy_bar, b_eq_x, b_eq_y, lamda_x,
+                            lamda_y, s_lane, x_obs, y_obs, arc_vec, kappa)
+    acc, steer = dynamics.controls_from_trajectory(
+        pr.xdot, pr.ydot, pr.xddot, pr.yddot, cfg.horizon.dt, cfg.vehicle.wheel_base)
+    return OuterProjection(*pr, acc, steer)
+
+
+def constants(cfg: ProblemConfig):
+    """The kernel's float32 constants, rounded as the plain chain rounds
+    them on the card: a Python float times a tensor is the float's float32;
+    a tensor over a Python float is a product with the float32 reciprocal;
+    the lane bounds are products of Python floats."""
+    pj, veh, lane = cfg.projection, cfg.vehicle, cfg.lane
+    f32 = lambda v: float(np.float32(v))
+    return [f32(pj.rho_ineq), f32(pj.rho_projection), f32(pj.rho_lane),
+            f32(pj.gamma * lane.y_ub), f32(-pj.gamma * lane.y_lb),
+            f32(veh.v_min), f32(veh.v_max), f32(veh.a_max),
+            float(np.float32(1.0) / np.float32(cfg.horizon.dt)),
+            f32(veh.wheel_base)]
+
+
+def _check(cfg: ProblemConfig, ws: Workspace, params, b_eq_x, b_eq_y, lamda_x,
+           lamda_y, s_lane, arc_vec, kappa) -> int:
+    """The number of rows; raises on arguments neither version takes."""
+    h = cfg.horizon
+    rows, nvar, num = params.shape[0], h.nvar, h.num
+    want = {"params": (params, (rows, 2 * cfg.guess.num_segments)),
+            "b_eq_x": (b_eq_x, (rows, 3)), "b_eq_y": (b_eq_y, (rows, 4)),
+            "lamda_x": (lamda_x, (rows, nvar)), "lamda_y": (lamda_y, (rows, nvar)),
+            "s_lane": (s_lane, (rows, 2 * (num - 1)))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"outer_project: {name} {tuple(t.shape)} must be {shape}")
+    if (arc_vec is None) != (kappa is None) or (
+            arc_vec is not None and (arc_vec.dim() != 1 or kappa.shape != arc_vec.shape
+                                     or arc_vec.shape[0] < 2)):
+        raise ValueError("outer_project: the path is arc_vec and kappa of one "
+                         "length (at least 2), or neither")
+    if ws.P.shape != (num, nvar):
+        raise ValueError(f"outer_project: the workspace's P {tuple(ws.P.shape)} "
+                         f"is not ({num}, {nvar})")
+    return rows
+
+
+def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
+                  b_eq_x: torch.Tensor, b_eq_y: torch.Tensor,
+                  lamda_x: torch.Tensor, lamda_y: torch.Tensor, s_lane: torch.Tensor,
+                  x_obs: Optional[torch.Tensor] = None, y_obs: Optional[torch.Tensor] = None,
+                  arc_vec: Optional[torch.Tensor] = None,
+                  kappa: Optional[torch.Tensor] = None, *, lib=None) -> OuterProjection:
+    """The guess QP, the AM projection (``projection.maxiter`` rounds) and
+    the controls of every row.
+
+    params (rows, 8) the behavioural parameters; b_eq_x (rows, 3), b_eq_y
+    (rows, 4) the boundary rows; lamda_x, lamda_y (rows, nvar) and s_lane
+    (rows, 2 (num - 1)) the multipliers and the lane slack carried from the
+    outer iteration before; x_obs, y_obs (N, num_obs, num) the obstacles
+    of the N scenarios whose candidates the rows are, one scenario after
+    another (read by the plain version: the scenario count of its products,
+    and the obstacle terms), or None for one scenario; arc_vec and kappa
+    (n_path,) the path of the Frenet solve, or None.  Returns
+    :class:`OuterProjection`.
+
+    CPU tensors take :func:`outer_project_plain`; CUDA tensors launch
+    kernel (d) (float32, one device; the "prefactored" strategy without
+    obstacle terms, num <= 128, nvar <= 16) or raise.  ``lib``: another
+    build of the kernels' library (``utils/kernel_ab.py``), else the
+    package's.
+    """
+    rows = _check(cfg, ws, params, b_eq_x, b_eq_y, lamda_x, lamda_y, s_lane,
+                  arc_vec, kappa)
+    inputs = [params, b_eq_x, b_eq_y, lamda_x, lamda_y, s_lane]
+    path = [] if arc_vec is None else [arc_vec, kappa]
+    if all(t.device.type == "cpu" for t in inputs + path):
+        return outer_project_plain(cfg, ws, params, b_eq_x, b_eq_y, lamda_x,
+                                   lamda_y, s_lane, x_obs, y_obs, arc_vec, kappa)
+    h, pj = cfg.horizon, cfg.projection
+    if cfg.solve_strategy != "prefactored" or pj.with_obstacle_terms:
+        raise ValueError("outer_project: the kernel takes the prefactored strategy "
+                         "without obstacle terms (outer_project_plain takes the rest)")
+    if not (h.num <= MAX_NUM and h.nvar <= MAX_NVAR
+            and cfg.guess.num_segments <= MAX_SEGMENTS and pj.maxiter >= 1):
+        raise ValueError(f"outer_project: the kernel takes num <= {MAX_NUM}, nvar <= "
+                         f"{MAX_NVAR}, num_segments <= {MAX_SEGMENTS} and "
+                         f"maxiter >= 1")
+    inputs = [t.contiguous() for t in inputs]
+    mats = [ws.G_vx, ws.G_py, ws.guess_kkt_x_inv, ws.guess_kkt_y_inv, ws.P, ws.Pdot,
+            ws.Pddot, ws.A_lane, ws.proj_kkt_x_inv, ws.proj_kkt_y_inv]
+    _build.require_cuda_f32("outer_project", *inputs, *mats, *path)
+    dev, nvar, num = params.device, h.nvar, h.num
+    out = OuterProjection(*(torch.empty(rows, n, dtype=torch.float32, device=dev)
+                            for n in (nvar, nvar, num, num, num, num, num, num, 1,
+                                      nvar, nvar, 2 * (num - 1), num, num, num, num)))
+    out = out._replace(res_norm=out.res_norm.reshape(rows))
+    lib = lib or _build.library()
+    err = lib.mmd_outer_project(
+        *(t.data_ptr() for t in inputs), *(m.data_ptr() for m in mats),
+        *((t.data_ptr() for t in path) if path else (None, None)),
+        *(t.data_ptr() for t in out),
+        rows, nvar, num, cfg.guess.num_segments, pj.maxiter,
+        arc_vec.shape[0] if path else 0, *constants(cfg), _build.stream())
+    _build.check(err, "outer_project")
+    outer_project.launches += 1
+    return out
+
+
+outer_project.launches = 0

@@ -120,3 +120,37 @@ def cvar_lane_des(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
 
 def saa_lane_des(cfg: ProblemConfig, y_roll: torch.Tensor) -> torch.Tensor:
     return saa_reduce(lane_des_bar(cfg, y_roll), cfg.risk.num_reduced)
+
+
+def lane_risks(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
+               roll: torch.Tensor, frenet: bool):
+    """(lane risk, weighted desired-lane risk) of candidates (..., ) from
+    their rollouts' lateral positions ``roll`` (..., R, T), beta (..., R)
+    and sigma (...), in the mode of ``cfg``.
+
+    The straight-road solve zeroes the lane risk of ``mmd_random`` (the
+    reference's), and has no desired-lane risk; the on-road one keeps
+    ``mmd_random``'s lane risk, scores nothing in ``det``, and adds the
+    desired-lane risk where ``weight_lane_des`` is not 0.
+    """
+    mode = cfg.risk.mode
+    zeros = torch.zeros(sigma.shape, device=sigma.device)
+    if mode == "det" or (mode == "mmd_random" and not frenet):
+        return zeros, zeros
+    mmd = mode in ("mmd_opt", "mmd_random")
+    if mmd:
+        lane = mmd_lane(cfg, beta, sigma, roll)
+    elif mode == "cvar":
+        lane = cvar_lane(cfg, roll)
+    else:
+        lane = saa_lane(cfg, roll)
+    w_des = cfg.risk.weight_lane_des
+    if not frenet or w_des == 0.0:
+        return lane, zeros
+    if mmd:
+        des = mmd_lane_des(cfg, beta, sigma, roll)
+    elif mode == "cvar":
+        des = cvar_lane_des(cfg, roll)
+    else:
+        des = saa_lane_des(cfg, roll)
+    return lane, w_des * des

@@ -3,10 +3,10 @@
 
 Counterpart of ``mpc_mmd_tpu/solver.py``.  One outer iteration:
 
-  guess QP -> AM projection -> stable sort by projection residual ->
-  controls -> noisy rollouts (K4) -> obstacle risk -> keep the
+  guess QP -> AM projection -> controls (kernel (d)) -> stable sort by
+  projection residual -> noisy rollouts (K4) -> obstacle risk -> keep the
   ellite_num_cost lowest risks -> lane risk -> scalar cost -> elites ->
-  CEM update.
+  CEM update (kernel (e) in ``mmd_opt``).
 
 ``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them, and
 picks a weighted reduced set of R with the inner beta-CEM (K1, K2, or K3
@@ -51,16 +51,16 @@ import torch
 from . import risk as risk_mod
 from .config import ProblemConfig
 from .device import resolve_device, to_device
-from .dynamics import beta_parameters, controls_from_trajectory, perturb_controls
+from .dynamics import beta_parameters, perturb_controls
 from .graph import GraphCache
 from .noise import JaxNoise
-from .ops import fused_rollout
-from .projection import project
-from .qp import (Workspace, boundary_vectors, build_workspace, compute_guess,
-                 refit_coefficients)
+from .ops import fused_rollout, outer_project, outer_tail
+from .ops.outer_project import outer_project_plain
+from .ops.outer_tail import candidates, chain_tail
+from .qp import Workspace, boundary_vectors, build_workspace, refit_coefficients
 from .reduced_set import (ReducedSet, select_reduced_set, select_reduced_set_batched,
                           selection_key)
-from .sampling import cem_update, initial_params, scalar_cost
+from .sampling import initial_params
 
 
 class SolveResult(NamedTuple):
@@ -136,13 +136,6 @@ def select_reduced(cfg: ProblemConfig, ws: Workspace, xr: torch.Tensor,
 MODES = ("mmd_opt", "mmd_random", "cvar", "saa")
 STRATEGIES = ("prefactored", "exact")
 
-# the projection's values of every candidate that the outer loop sorts, by
-# the names the loop's dicts give them
-_CANDIDATE = (("y", "y"), ("xdot", "xdot"), ("ydot", "ydot"), ("xddot", "xddot"),
-              ("yddot", "yddot"), ("cx", "c_x"), ("cy", "c_y"),
-              ("res_norm", "res_norm"))
-
-
 class SolverSetup:
     """What a solver builds once: the checked configuration, its device,
     the workspace, the noise source and the solver-fixed draws (the initial
@@ -163,6 +156,8 @@ class SolverSetup:
 
     # the names of the kept candidates' values a solve returns of its best
     BEST: tuple = ()
+    # the on-road cost (sampling.candidate_cost) and the projection's steering
+    FRENET = False
 
     def __init__(self, cfg: ProblemConfig, device, noise, ws: Optional[Workspace],
                  modes, graph: Optional[bool] = None):
@@ -200,6 +195,26 @@ class SolverSetup:
         if self.cfg.solve_strategy == "exact":
             return 'the "exact" strategy runs eagerly'
         return None
+
+    def _routes(self):
+        """(kernel (d), kernel (e)): whether an outer iteration runs its
+        guess QP, projection and controls as ``ops.outer_project``, and its
+        ``mmd_opt`` tail (risk, sort, cost, CEM update) as ``ops.outer_tail``.
+        Each wrapper launches its kernel on the card and runs its plain
+        version on the CPU.  These keep their chains of PyTorch operations
+        on every device: the "exact" strategy (LU solves, the reference's
+        inner CEM) both; the ``det`` baseline's obstacle-active projection
+        (``with_obstacle_terms``) the projection; the tails of ``cvar``,
+        ``saa`` and ``mmd_random`` (their own risks) and a candidate mesh of
+        several ranks (each rank scores its block) the tail."""
+        cfg = self.cfg
+        prefactored = cfg.solve_strategy == "prefactored"
+        return (prefactored and not cfg.projection.with_obstacle_terms,
+                prefactored and cfg.risk.mode == "mmd_opt" and not self._split())
+
+    def _split(self) -> bool:
+        """Whether a candidate mesh splits the solve over several ranks."""
+        return False
 
     def graph_stats(self):
         """Per captured graph: its key, nodes, capture and instantiation
@@ -254,36 +269,38 @@ class SolverSetup:
         ``keys`` the noise source's key table of the N scenarios (N,
         maxiter_cem, ...), on the device; v_des a 0-d tensor; b_eq_x,
         b_eq_y (nb, .), mean (8,) and cov (8, 8) shared by the chunk;
-        x_obs, y_obs (N, num_obs, num); ``ctx`` is what the hooks read of the solve (the rollouts'
-        initial state, the path).  The projection runs on the chunk's N nb
-        candidates as rows, scenario after scenario; everything after it
-        on (N, nb, ...), every sort a stable argsort along the candidate
-        axis and every gather per scenario.  Returns the last iteration's
-        best candidate {name: (N, ...)} for the names in ``BEST``, the best
-        cost and its projection residual of every iteration (N,
-        maxiter_cem), and the final CEM moments (N, 8), (N, 8, 8).
+        x_obs, y_obs (N, num_obs, num); ``ctx`` is what the hooks read of
+        the solve (the rollouts' initial state, the path).  The projection
+        and the controls run on the chunk's N nb candidates as rows,
+        scenario after scenario; everything after them on (N, nb, ...), in
+        the order of a stable argsort by projection residual, every later
+        sort a stable argsort along the candidate axis and every gather per
+        scenario.  ``_routes`` says which stages run as kernels (d) and
+        (e).  Returns the last iteration's best candidate {name: (N, ...)}
+        for the names in ``BEST``, the best cost and its projection residual
+        of every iteration (N, maxiter_cem), and the final CEM moments (N,
+        8), (N, 8, 8).
 
         The subclass's hooks:
 
-        * ``_project_kwargs(ctx)``: the projection's keyword arguments;
-        * ``_steering(ctx, pr, take, steer)``: the candidates' values that
-          depend on the path, "steer" (N, nb, num) among them, from the
-          projection ``pr`` (rows), ``take`` (a row tensor in residual
-          order, (N, nb, ...)) and the controls' steer;
+        * ``_path(ctx)``: the path's arc_vec and kappa as keyword
+          arguments of the projection, or none;
+        * ``_ensemble(ctx, keys, acc_T, steer_T)``: the candidates' reduced
+          rollouts {"x", "roll": (N, nb, R, T), "beta": (N, nb, R), "sigma":
+          (N, nb), ...} from the iteration's column ``keys`` of the key
+          table, which kernel (e) scores;
         * ``_risks(ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T)``: the
           obstacle risk (N, nb) and {name: (N, nb, ...)} the cost reads,
-          from the iteration's column ``keys`` of the key table;
-        * ``_cost(kept, v_des)``: the scalar cost (N, n_cost) of the
-          candidates kept by risk, from the dict of their values, to which
-          it adds the lane risks it computes.
+          on the chain's path.
         """
         cfg, ws, noise = self.cfg, self.ws, self.noise
         N = keys.shape[0]
         nb, nvar, T = cfg.cem.num_batch, cfg.horizon.nvar, cfg.horizon.num_prime
-        n_cost, n_el = cfg.cem.ellite_num_cost, cfg.cem.ellite_num
+        n_el = cfg.cem.ellite_num
         rows = N * nb
         x_obs_T, y_obs_T = x_obs[:, None, :, :T], y_obs[:, None, :, :T]
-        project_kw = self._project_kwargs(ctx)
+        kernel_d, kernel_e = self._routes()
+        path = self._path(ctx)
         b_eq_x, b_eq_y = b_eq_x.repeat(N, 1), b_eq_y.repeat(N, 1)
         params = initial_params(cfg, mean, cov, self._z0).expand(N, nb, -1)
         mean, cov = mean.expand(N, -1), cov.expand(N, -1, -1)
@@ -291,54 +308,46 @@ class SolverSetup:
         n_ix = torch.arange(N, device=self.device)
         per = n_ix[:, None]
 
-        def take(t, idx):
-            """t (N, n, ...) at the per-scenario indices idx (N, m)."""
-            return t[per, idx]
-
         zeros = lambda *s: torch.zeros(s, device=self.device)
         lamda_x, lamda_y = zeros(rows, nvar), zeros(rows, nvar)
         s_lane = zeros(rows, 2 * (cfg.horizon.num - 1))
         res, res_2 = zeros(N, cfg.cem.maxiter_cem), zeros(N, cfg.cem.maxiter_cem)
 
         for it in range(cfg.cem.maxiter_cem):
-            cx_bar, cy_bar = compute_guess(cfg, ws, params.reshape(rows, -1),
-                                           b_eq_x, b_eq_y, N)
-            pr = project(cfg, ws, cx_bar, cy_bar, b_eq_x, b_eq_y, lamda_x,
-                         lamda_y, s_lane, x_obs, y_obs, **project_kw)
+            project = outer_project if kernel_d else outer_project_plain
+            pj = project(cfg, ws, params.reshape(rows, -1), b_eq_x, b_eq_y, lamda_x,
+                         lamda_y, s_lane, x_obs, y_obs, **path)
+            order = torch.argsort(pj.res_norm.reshape(N, nb), dim=1, stable=True)
+            in_order = lambda t: t.reshape(N, nb, *t.shape[1:])[per, order]
+            steer = pj.steering if self.FRENET else pj.steer
+            acc_T, steer_T = in_order(pj.acc[:, :T]), in_order(steer[:, :T])
 
-            order = torch.argsort(pr.res_norm.reshape(N, nb), dim=1, stable=True)
-            in_order = lambda t: take(t.reshape(N, nb, *t.shape[1:]), order)
-            cand = {name: in_order(getattr(pr, field)) for name, field in _CANDIDATE}
-            cand["params"] = take(params, order)
-            acc, steer = controls_from_trajectory(
-                cand["xdot"], cand["ydot"], cand["xddot"], cand["yddot"],
-                cfg.horizon.dt, cfg.vehicle.wheel_base)
-            cand.update(self._steering(ctx, pr, in_order, steer))
-            acc_T = acc[..., :T].contiguous()
-            steer_T = cand["steer"][..., :T].contiguous()
+            if kernel_e:
+                ens = self._ensemble(ctx, keys[:, it], acc_T, steer_T)
+                z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
+                tail = outer_tail(cfg, self.FRENET, pj, order, params, ens["beta"],
+                                  ens["sigma"], ens["x"], ens["roll"], x_obs, y_obs, z,
+                                  mean, cov, v_des, res, res_2, it)
+            else:
+                risk_obs, ens = self._risks(ctx, keys[:, it], acc_T, steer_T, x_obs_T,
+                                            y_obs_T)
+                cand = candidates(pj, order, params, self.FRENET)
+                cand.update(ens)
+                z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
+                tail = chain_tail(cfg, self.FRENET, risk_obs, cand, z, mean, cov, v_des,
+                                  res, res_2, it)
+            mean, cov, params = tail.mean, tail.cov, tail.params
+            lamda_x, lamda_y, s_lane = pj.lamda_x, pj.lamda_y, pj.s_lane
 
-            risk_obs, per_cand = self._risks(ctx, keys[:, it], acc_T, steer_T,
-                                             x_obs_T, y_obs_T)
-
-            order2 = torch.argsort(risk_obs, dim=1, stable=True)[:, :n_cost]
-            kept = {name: take(t, order2) for name, t in (
-                ("risk_obs", risk_obs), *cand.items(), *per_cand.items())}
-            cost_batch = self._cost(kept, v_des)
-
-            elite_idx = torch.argsort(cost_batch, dim=1, stable=True)[:, :n_el]
-            cost_elite = torch.gather(cost_batch, 1, elite_idx)
-            cem_z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
-            mean, cov, params = cem_update(cfg, cem_z, take(kept["params"], elite_idx),
-                                           cost_elite, mean, cov)
-
-            # The reference's final-selection quirk: the argmin over the
-            # SORTED elite costs (so 0) indexes the risk-sorted arrays.
-            idx_min = torch.argmin(cost_elite, dim=1)
-            res[:, it] = torch.amin(cost_elite, dim=1)
-            res_2[:, it] = kept["res_norm"][n_ix, idx_min]
-            best = {name: kept[name][n_ix, idx_min] for name in self.BEST}
-            lamda_x, lamda_y, s_lane = pr.lamda_x, pr.lamda_y, pr.s_lane
-        return best, res, res_2, mean, cov
+        # the last iteration's pick: its projection row and its ensemble
+        pos = tail.best
+        row = order[n_ix, pos]
+        at_row = lambda t: t.reshape(N, nb, *t.shape[1:])[n_ix, row]
+        best = dict(cx=at_row(pj.c_x), cy=at_row(pj.c_y), steer=at_row(steer),
+                    risk_obs=tail.risk_obs, risk_lane=tail.risk_lane,
+                    **{name: t[n_ix, pos] for name, t in ens.items()
+                       if name in ("beta", "sigma", "res_beta")})
+        return {name: best[name] for name in self.BEST}, res, res_2, mean, cov
 
 
 class Solver(SolverSetup):
@@ -386,17 +395,43 @@ class Solver(SolverSetup):
         super().__init__(cfg, device, noise, ws, MODES, graph)
 
     def _eager_reason(self) -> Optional[str]:
-        if self.candidate_mesh is not None and self.candidate_mesh.world > 1:
+        if self._split():
             return "a candidate mesh of several ranks has collectives inside the solve"
         return super()._eager_reason()
 
     BEST = ("cx", "cy", "risk_lane", "risk_obs", "beta", "sigma", "res_beta")
 
-    def _project_kwargs(self, state0):
+    def _split(self) -> bool:
+        return self.candidate_mesh is not None and self.candidate_mesh.world > 1
+
+    def _path(self, state0):
         return {}
 
-    def _steering(self, state0, pr, in_order, steer):
-        return {"steer": steer}
+    def _ensemble(self, state0, keys, acc_T, steer_T, mine=slice(None)):
+        """The noisy controls of all C candidates (N, C, T) and the
+        rollouts of the candidates ``mine``: in ``mmd_opt`` R^2 mother
+        rollouts reduced to R ({"x", "roll": (N, c, R, T), "beta": (N, c,
+        R), "sigma": (N, c), "res_beta": the inner residuals (N, c,
+        maxiter)}), else R rollouts with uniform weights 1/R and bandwidth
+        0.01."""
+        cfg = self.cfg
+        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
+        xr, yr = batched_rollouts(cfg, a_n[:, mine], s_n[:, mine], state0,
+                                  mother=cfg.risk.mode == "mmd_opt")
+        if cfg.risk.mode == "mmd_opt":
+            rs = select_reduced(cfg, self.ws, xr, yr, self._inner)
+            return dict(x=rs.x_red, roll=rs.y_red, beta=rs.beta, sigma=rs.sigma,
+                        res_beta=rs.res)
+        return dict(x=xr, roll=yr, **self._uniform(xr.shape[:-2]))
+
+    def _uniform(self, lead):
+        """The weights, bandwidths and inner residuals of candidates (lead)
+        that are not reduced."""
+        R = self.cfg.risk.num_reduced
+        return dict(beta=torch.full(lead + (R,), 1.0 / R, device=self.device),
+                    sigma=torch.full(lead, 0.01, device=self.device),
+                    res_beta=torch.zeros(lead + (self.cfg.beta_cem.maxiter,),
+                                         device=self.device))
 
     def _risks(self, state0, keys, acc_T, steer_T, x_obs_T, y_obs_T):
         """Obstacle risk (N, C) and, per candidate, the rollouts the lane
@@ -411,57 +446,27 @@ class Solver(SolverSetup):
         after it run on every rank alike."""
         cfg = self.cfg
         mode = cfg.risk.mode
-        lead = acc_T.shape[:-1]
-        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
         mesh = self.candidate_mesh
         mine, gather = slice(None), lambda t: t
-        if mesh is not None and mesh.world > 1:
+        if self._split():
             from .parallel.mesh import blocks, gather_blocks
-            spans = blocks(lead[-1], mesh.world)
+            spans = blocks(acc_T.shape[1], mesh.world)
             mine = slice(*spans[mesh.rank])
             sizes = [hi - lo for lo, hi in spans]
             gather = lambda t: gather_blocks(t, mesh, sizes, dim=1)
-        xr, yr = batched_rollouts(cfg, a_n[:, mine], s_n[:, mine], state0,
-                                  mother=mode == "mmd_opt")
-        if mode == "mmd_opt":
-            rs = select_reduced(cfg, self.ws, xr, yr, self._inner)
-            risk_obs = risk_mod.mmd_obs(cfg, rs.beta, rs.sigma, rs.x_red,
-                                        rs.y_red, x_obs_T, y_obs_T)
-            return gather(risk_obs), dict(roll=gather(rs.y_red), beta=gather(rs.beta),
-                                          sigma=gather(rs.sigma),
-                                          res_beta=gather(rs.res))
-        R = cfg.risk.num_reduced
-        beta = torch.full(lead + (R,), 1.0 / R, device=self.device)
-        sigma = torch.full(lead, 0.01, device=self.device)
-        res_beta = torch.zeros(lead + (cfg.beta_cem.maxiter,), device=self.device)
-        if mode == "mmd_random":
-            risk_obs = risk_mod.mmd_obs(cfg, beta[:, mine], sigma[:, mine], xr, yr,
+        e = self._ensemble(state0, keys, acc_T, steer_T, mine)
+        if mode in ("mmd_opt", "mmd_random"):
+            risk_obs = risk_mod.mmd_obs(cfg, e["beta"], e["sigma"], e["x"], e["roll"],
                                         x_obs_T, y_obs_T)
         elif mode == "cvar":
-            risk_obs = risk_mod.cvar_obs(cfg, xr, yr, x_obs_T, y_obs_T)
+            risk_obs = risk_mod.cvar_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
         else:
-            risk_obs = risk_mod.saa_obs(cfg, xr, yr, x_obs_T, y_obs_T)
-        return gather(risk_obs), dict(roll=gather(yr), beta=beta, sigma=sigma,
-                                      res_beta=res_beta)
-
-    def _lane_risk(self, beta_e, sigma_e, y_roll_e):
-        cfg = self.cfg
-        mode = cfg.risk.mode
+            risk_obs = risk_mod.saa_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
         if mode == "mmd_opt":
-            return risk_mod.mmd_lane(cfg, beta_e, sigma_e, y_roll_e)
-        if mode == "mmd_random":
-            # the reference zeroes the lane risk on the random path
-            return torch.zeros(sigma_e.shape, device=self.device)
-        if mode == "cvar":
-            return risk_mod.cvar_lane(cfg, y_roll_e)
-        return risk_mod.saa_lane(cfg, y_roll_e)
-
-    def _cost(self, k, v_des):
-        w_lane, w_obs = self.cfg.risk.weights()
-        k["risk_lane"] = self._lane_risk(k["beta"], k["sigma"], k["roll"])
-        return scalar_cost(self.cfg, w_obs * k["risk_obs"], w_lane * k["risk_lane"],
-                           k["y"], k["res_norm"], k["xdot"], k["ydot"],
-                           k["xddot"], k["yddot"], k["steer"], v_des)
+            return gather(risk_obs), {name: gather(e[name])
+                                      for name in ("roll", "beta", "sigma", "res_beta")}
+        return gather(risk_obs), dict(roll=gather(e["roll"]),
+                                      **self._uniform(acc_T.shape[:-1]))
 
     def _body(self, keys, init_state, mean, cov, x_obs, y_obs, v_des):
         """The device body of a chunk's solve: the boundary rows and the

@@ -7,11 +7,12 @@ straight-road solve (``solver.py``):
   :mod:`mpc_mmd_tpu_torch.noise`; n is ``init_state_count``);
 * the equality boundary conditions from the mean of their Frenet states;
 * the projection in the Frenet frame, with the curvature-coupled steering
-  as the candidates' steer;
+  as the candidates' steer (kernel (d) computes both);
 * rollouts in the GLOBAL frame, lane m of every candidate from state m
   (K4 with a state per lane), converted pointwise to Frenet for the risks;
 * the scalar cost gains the centripetal-acceleration and desired-lane
-  terms, and ``mmd_random`` keeps its lane risk;
+  terms (``sampling.frenet_scalar_cost``, in ``mmd_opt`` kernel (e)), and
+  ``mmd_random`` keeps its lane risk;
 * ``det`` runs the obstacle-active projection (``with_obstacle_terms`` is
   forced on), one initial state and no rollout, with every risk zero;
 * the result carries the best candidate's speed and steering profiles
@@ -39,7 +40,6 @@ from .config import ProblemConfig
 from .frenet import FrenetFrame, global_to_frenet_points, global_to_frenet_state
 from .noise import init_state_count
 from .qp import Workspace
-from .sampling import scalar_cost
 from .solver import (MODES, SolverSetup, batched_rollouts, noisy_controls,
                      select_reduced)
 
@@ -55,25 +55,6 @@ class FrenetSolveResult(NamedTuple):
     cov_param: torch.Tensor      # (8, 8)
     res: torch.Tensor            # (maxiter_cem,) best scalar cost per iteration
     risk_obs: torch.Tensor       # ()
-
-
-def frenet_scalar_cost(cfg: ProblemConfig, risk_des_lane, risk_obs, risk_lane,
-                       y, res_norm, xdot, ydot, xddot, yddot, steering,
-                       kappa_interp, v_des):
-    """The straight-road trajectory cost with its risks zeroed, plus the
-    weighted product of the distances to the two lane centres and the
-    centripetal penalty, plus the (pre-weighted) risks."""
-    zeros = torch.zeros_like(risk_obs)
-    base = scalar_cost(cfg, zeros, zeros, y, res_norm, xdot, ydot, xddot,
-                       yddot, steering, v_des)
-    norm = torch.linalg.vector_norm
-    c1 = norm(y - cfg.lane.y_des_1, dim=-1)
-    c2 = norm(y - cfg.lane.y_des_2, dim=-1)
-    centr = torch.abs((xdot ** 2) * kappa_interp)
-    centr_cost = norm(torch.clamp(centr - cfg.vehicle.a_centr, min=0.0), dim=-1)
-    return (base + cfg.frenet.weight_des_lane * c1 * c2
-            + cfg.frenet.weight_centr * centr_cost
-            + risk_obs + risk_lane + risk_des_lane)
 
 
 class FrenetSolver(SolverSetup):
@@ -130,20 +111,17 @@ class FrenetSolver(SolverSetup):
         return torch.stack((xs, ys, vxs, vys, psis), dim=1), b_eq_x, b_eq_y
 
     BEST = ("cx", "cy", "steer", "risk_obs")
+    FRENET = True
 
-    def _project_kwargs(self, ctx):
+    def _path(self, ctx):
         frame, _ = ctx
         return dict(arc_vec=frame.arc_vec, kappa=frame.kappa)
 
-    def _steering(self, ctx, pr, in_order, steer):
-        """The projection's curvature-coupled steering and the path
-        curvature under each candidate, in residual order."""
-        return {"steer": in_order(pr.steering), "kappa": in_order(pr.kappa_interp)}
-
-    def _risks(self, ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T):
-        """Obstacle risk (N, C) and, per candidate, the Frenet lateral
-        offsets of the rollouts the lane risks read (N, C, R, T), beta
-        (N, C, R) and sigma (N, C)."""
+    def _ensemble(self, ctx, keys, acc_T, steer_T):
+        """The Frenet points of the candidates' rollouts {"x": s, "roll": l
+        (N, C, R, T)}, beta (N, C, R) and sigma (N, C): in ``mmd_opt`` the
+        reduced sets of R^2 mother rollouts, else R rollouts with uniform
+        weights; in ``det`` no rollout (zeros)."""
         frame, states0 = ctx
         cfg = self.cfg
         lead, R, T = acc_T.shape[:-1], cfg.risk.num_reduced, acc_T.shape[-1]
@@ -151,9 +129,8 @@ class FrenetSolver(SolverSetup):
         beta = torch.full(lead + (R,), 1.0 / R, device=self.device)
         sigma = torch.full(lead, 0.01, device=self.device)
         if mode == "det":
-            return torch.zeros(lead, device=self.device), dict(
-                roll=torch.zeros(lead + (R, T), device=self.device), beta=beta,
-                sigma=sigma)
+            zeros = torch.zeros(lead + (R, T), device=self.device)
+            return dict(x=zeros, roll=zeros, beta=beta, sigma=sigma)
         a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
         xg, yg = batched_rollouts(cfg, a_n, s_n, states0,
                                   mother=mode == "mmd_opt")
@@ -161,48 +138,25 @@ class FrenetSolver(SolverSetup):
             rs = select_reduced(cfg, self.ws, xg, yg, self._inner)
             xg, yg, beta, sigma = rs.x_red, rs.y_red, rs.beta, rs.sigma
         s_roll, l_roll = global_to_frenet_points(frame, xg, yg)
-        if mode in ("mmd_opt", "mmd_random"):
-            risk_obs = risk_mod.mmd_obs(cfg, beta, sigma, s_roll, l_roll,
-                                        x_obs_T, y_obs_T)
-        elif mode == "cvar":
-            risk_obs = risk_mod.cvar_obs(cfg, s_roll, l_roll, x_obs_T, y_obs_T)
-        else:
-            risk_obs = risk_mod.saa_obs(cfg, s_roll, l_roll, x_obs_T, y_obs_T)
-        return risk_obs, dict(roll=l_roll, beta=beta, sigma=sigma)
+        return dict(x=s_roll, roll=l_roll, beta=beta, sigma=sigma)
 
-    def _lane_risks(self, beta_e, sigma_e, l_roll_e):
-        """(lane risk, weighted desired-lane risk) of the kept candidates."""
+    def _risks(self, ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T):
+        """Obstacle risk (N, C) and, per candidate, the Frenet lateral
+        offsets of the rollouts the lane risks read (N, C, R, T), beta
+        (N, C, R) and sigma (N, C)."""
         cfg = self.cfg
         mode = cfg.risk.mode
-        zeros = torch.zeros(sigma_e.shape, device=self.device)
+        e = self._ensemble(ctx, keys, acc_T, steer_T)
         if mode == "det":
-            return zeros, zeros
-        mmd = mode in ("mmd_opt", "mmd_random")
-        if mmd:
-            lane = risk_mod.mmd_lane(cfg, beta_e, sigma_e, l_roll_e)
+            risk_obs = torch.zeros(acc_T.shape[:-1], device=self.device)
+        elif mode in ("mmd_opt", "mmd_random"):
+            risk_obs = risk_mod.mmd_obs(cfg, e["beta"], e["sigma"], e["x"], e["roll"],
+                                        x_obs_T, y_obs_T)
         elif mode == "cvar":
-            lane = risk_mod.cvar_lane(cfg, l_roll_e)
+            risk_obs = risk_mod.cvar_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
         else:
-            lane = risk_mod.saa_lane(cfg, l_roll_e)
-        w_des = cfg.risk.weight_lane_des
-        if w_des == 0.0:
-            return lane, zeros
-        if mmd:
-            des = risk_mod.mmd_lane_des(cfg, beta_e, sigma_e, l_roll_e)
-        elif mode == "cvar":
-            des = risk_mod.cvar_lane_des(cfg, l_roll_e)
-        else:
-            des = risk_mod.saa_lane_des(cfg, l_roll_e)
-        return lane, w_des * des
-
-    def _cost(self, k, v_des):
-        w_lane, w_obs = self.cfg.risk.weights()
-        k["risk_lane"], k["risk_des"] = self._lane_risks(k["beta"], k["sigma"],
-                                                         k["roll"])
-        return frenet_scalar_cost(
-            self.cfg, k["risk_des"], w_obs * k["risk_obs"], w_lane * k["risk_lane"],
-            k["y"], k["res_norm"], k["xdot"], k["ydot"], k["xddot"], k["yddot"],
-            k["steer"], k["kappa"], v_des)
+            risk_obs = risk_mod.saa_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
+        return risk_obs, dict(roll=e["roll"], beta=e["beta"], sigma=e["sigma"])
 
     @torch.no_grad()
     def solve(self, idx_mpc: int, init_state_global, mean_param, cov_param,

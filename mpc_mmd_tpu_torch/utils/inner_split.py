@@ -1,26 +1,32 @@
-"""The inner beta-CEM's share of a solve's device time, device events and
-CUDA graph nodes, on the card.
+"""The stages of an outer iteration: their launches and device time on
+the card, eagerly and in the CUDA graph's replay.
 
     python -m mpc_mmd_tpu_torch.utils.inner_split [--root DIR] [--out DIR]
 
 Runs, in a fresh process and from the package under ``--root`` (default:
 this checkout; another one is, for example, ``git archive <commit>``
 unpacked under ``build/``), ``chip_smoke.py``'s full-width fastrt
-``mmd_opt`` solve and Path D's "xla" ``FrenetSolver`` solve:
+``mmd_opt`` solve, Path A's "xla" solve, Path D's "xla" ``FrenetSolver``
+solve and the fastrt solve at a scenario chunk of 4 (E4):
 
 - eagerly (``graph=False``): one warm-up solve, then one under
-  ``torch.profiler`` with every call of ``select_reduced_set_batched``
-  inside a ``record_function`` range that opens and closes with
-  ``torch.cuda.synchronize()``, so that the device events that start in a
-  range are that call's and no other's.  Reports the device busy ms and
-  device events of the solve and of the ranges, and their shares;
+  ``torch.profiler`` with every call of each stage function (``STAGES``:
+  the guess QP, the projection, the controls, the noisy controls, the
+  rollouts, the refit, the inner CEM's prologue with kernel (c) inside,
+  the risks, the costs, the CEM update, the argsorts; and kernels (d) and
+  (e) where the checkout has them) inside a ``record_function`` range
+  that opens and closes with ``torch.cuda.synchronize()``, so that the
+  device events that start in a range are that call's and no other's (an
+  event belongs to the innermost range it starts in; those in none are
+  the gathers and the rest of the loop's glue).  Reports each stage's
+  device events and busy ms, and their shares;
 - graphed (the default on the card): the first solve captures, the
   graph's node count is read from ``graph_stats()``, and one replay runs
-  under ``torch.profiler``: its device busy ms, and the replay time of the
-  inner calls' kernels, each kernel's mean time in the replay times its
-  count in the eager inner calls.
+  under ``torch.profiler``: its device busy ms, and each stage's replay
+  time, each kernel's mean time in the replay times its count in the
+  stage's eager calls.
 
-Prints one JSON line per path and writes ``inner_split.json`` to
+Prints one JSON line with every path and writes ``inner_split.json`` to
 ``--out`` (default ``build/inner_split/``).  Needs a CUDA card.
 """
 
@@ -36,29 +42,69 @@ ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "inner_split"
 
 WORKER = r"""
-import json, sys
+import importlib, json, sys
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 import chip_smoke as cs
-from mpc_mmd_tpu_torch import FrenetSolver, Solver, fastrt_workload, onroad_workload
-from mpc_mmd_tpu_torch import solver as solver_mod
+from mpc_mmd_tpu_torch import (FrenetSolver, Solver, dynamic_workload,
+                               fastrt_workload, onroad_workload)
 from mpc_mmd_tpu_torch.ops import _build
+from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
-RANGE = "select_reduced_set_batched"
+# (module, function) of each stage, as the checkout calls it; a stage the
+# checkout does not have is left out.  Nested: the inner CEM's kernel (c)
+# inside select_reduced_set_batched, the refit inside select_reduced.
+STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
+          ("solver", "project"), ("projection", "project"),
+          ("solver", "controls_from_trajectory"), ("dynamics", "controls_from_trajectory"),
+          ("solver", "outer_project"), ("solver", "outer_tail"),
+          ("solver", "noisy_controls"), ("solver_frenet", "noisy_controls"),
+          ("solver", "batched_rollouts"), ("solver_frenet", "batched_rollouts"),
+          ("solver", "refit_coefficients"), ("solver", "select_reduced_set_batched"),
+          ("reduced_set", "inner_cem"), ("solver_frenet", "global_to_frenet_points"),
+          ("risk", "mmd_obs"), ("risk", "mmd_lane"), ("risk", "mmd_lane_des"),
+          ("solver", "scalar_cost"), ("sampling", "scalar_cost"),
+          ("solver_frenet", "frenet_scalar_cost"), ("sampling", "frenet_scalar_cost"),
+          ("solver", "cem_update"), ("sampling", "cem_update")]
 dev = torch.device("cuda", 0)
 _build.build()
 _build.library()
-inner = solver_mod.select_reduced_set_batched
 
 
-def ranged(*args, **kw):
-    torch.cuda.synchronize()
-    with record_function(RANGE):
-        out = inner(*args, **kw)
+def ranged(name, fn):
+    def call(*args, **kw):
         torch.cuda.synchronize()
-    return out
+        with record_function(name):
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+        return out
+    return call
+
+
+class Sorts:
+    # torch for the modules that sort, their argsorts in a range
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def argsort(self, *a, **kw):
+        return ranged("argsort", torch.argsort)(*a, **kw)
+
+
+def install():
+    undo = []
+    for mod, name in STAGES:
+        m = importlib.import_module(f"mpc_mmd_tpu_torch.{mod}")
+        fn = getattr(m, name, None)
+        if callable(fn):
+            undo.append((m, name, fn))
+            setattr(m, name, ranged(name, fn))
+    for mod in ("solver", "sampling"):
+        m = importlib.import_module(f"mpc_mmd_tpu_torch.{mod}")
+        undo.append((m, "torch", m.torch))
+        m.torch = Sorts()
+    return undo
 
 
 def union_ms(spans):
@@ -79,32 +125,32 @@ def by_name(events):
     return out
 
 
-def top(table, n=10):
-    return [[name[:80], round(ms, 3), cnt] for name, (ms, cnt) in
-            sorted(table.items(), key=lambda kv: -kv[1][0])[:n]]
-
-
 def split(make, solve):
     eager = make(False)
     solve(eager, 0)
     torch.cuda.synchronize()
-    solver_mod.select_reduced_set_batched = ranged
+    undo = install()
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             solve(eager, 1)
             torch.cuda.synchronize()
     finally:
-        solver_mod.select_reduced_set_batched = inner
+        for m, name, fn in reversed(undo):
+            setattr(m, name, fn)
     events = prof.events()
-    ranges = [(e.time_range.start, e.time_range.end) for e in events
-              if e.name == RANGE and e.device_type == torch.autograd.DeviceType.CPU]
-    # the range itself is also recorded on the device's timeline: left out
+    names = {name for _, name in STAGES} | {"argsort"}
+    ranges = [(e.time_range.start, e.time_range.end, e.name) for e in events
+              if e.name in names and e.device_type == torch.autograd.DeviceType.CPU]
     dev_ev = [(e.time_range.start, e.time_range.end, e.name) for e in events
-              if e.device_type == torch.autograd.DeviceType.CUDA and e.name != RANGE]
-    inside = [(lo, hi) for lo, hi, _ in dev_ev
-              if any(a <= lo <= b for a, b in ranges)]
-    inner_by_name = by_name([e for e in dev_ev
-                             if any(a <= e[0] <= b for a, b in ranges)])
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in names]
+
+    def stage_of(t):
+        inside = [(b - a, n) for a, b, n in ranges if a <= t <= b]
+        return min(inside)[1] if inside else "gathers and glue"
+
+    per = {}
+    for ev in dev_ev:
+        per.setdefault(stage_of(ev[0]), []).append(ev)
     graphed = make(True)
     solve(graphed, 0)
     solve(graphed, 1)
@@ -115,32 +161,45 @@ def split(make, solve):
     replay = [(e.time_range.start, e.time_range.end, e.name) for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     replay_by_name = by_name(replay)
-    # the replay's time of the inner calls' kernels: each kernel's mean time
-    # in the replay times its count in the eager inner calls
-    inner_replay = sum(n * replay_by_name[name][0] / replay_by_name[name][1]
-                       for name, (_, n) in inner_by_name.items()
-                       if name in replay_by_name)
-    stats = graphed.graph_stats()
-    busy, busy_in = union_ms([(lo, hi) for lo, hi, _ in dev_ev]), union_ms(inside)
+    busy = union_ms([(lo, hi) for lo, hi, _ in dev_ev])
     replay_busy = union_ms([(lo, hi) for lo, hi, _ in replay])
-    return {"inner_calls": len(ranges), "device_busy_ms": busy,
-            "inner_busy_ms": busy_in, "inner_busy_share": busy_in / busy,
-            "device_events": len(dev_ev), "inner_events": len(inside),
-            "inner_event_share": len(inside) / len(dev_ev),
-            "graph_nodes": [g["nodes"] for g in stats],
-            "replay_busy_ms": replay_busy, "replay_events": len(replay),
-            "replay_inner_kernel_ms": inner_replay,
-            "replay_inner_share": inner_replay / replay_busy,
-            "top_inner_eager": top(inner_by_name), "top_replay": top(replay_by_name)}
+    stages = {}
+    for stage, evs in per.items():
+        # the replay's time of the stage's kernels: each kernel's mean time
+        # in the replay times its count in the stage's eager calls
+        rep = sum(n * replay_by_name[name][0] / replay_by_name[name][1]
+                  for name, (_, n) in by_name(evs).items() if name in replay_by_name)
+        stages[stage] = {"calls": sum(1 for r in ranges if r[2] == stage),
+                         "events": len(evs),
+                         "busy_ms": union_ms([(lo, hi) for lo, hi, _ in evs]),
+                         "replay_ms": rep}
+    stats = graphed.graph_stats()
+    return {"device_busy_ms": busy, "device_events": len(dev_ev),
+            "graph_nodes": [g["nodes"] for g in stats], "replay_busy_ms": replay_busy,
+            "replay_events": len(replay),
+            "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
 
 
 out = {"device": torch.cuda.get_device_name(0)}
 cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50, mode="mmd_opt",
                       noise="gaussian", noise_level=0.1)
 probe = Solver(cfg, device=dev, graph=False)
-scen = cs.obstacle_scenarios(torch, 2, 6, probe.ws.tot_time)
+scen = cs.obstacle_scenarios(torch, 8, 6, probe.ws.tot_time)
 out["fastrt"] = split(lambda g: Solver(cfg, device=dev, graph=g),
                       lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i], 15.0))
+xs = torch.stack([x for x, _ in scen])
+ys = torch.stack([y for _, y in scen])
+out["e4"] = split(lambda g: Solver(cfg, device=dev, graph=g, scenario_chunk=4),
+                  lambda s, i: s.solve_batch([4 * i + j for j in range(4)], cs.INIT,
+                                             cs.MEAN, cs.COV, xs[4 * i:4 * i + 4],
+                                             ys[4 * i:4 * i + 4], 15.0))
+cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
+                         num_prime=50, mode="mmd_opt")
+init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
+cut = dynamic_cutin(cfg_a, 2, device=dev)
+out["path_a_xla"] = split(lambda g: Solver(cfg_a, device=dev, graph=g),
+                          lambda s, i: s.solve(i, init_d, mean_d, cov_d, cut.x_traj[i],
+                                               cut.y_traj[i], v_des))
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
 args = cs.onroad_problem(torch, cfg_d, dev)

@@ -1,5 +1,6 @@
-"""K1, K2, K3, K5, the Beta draw kernel (b) and kernel (c), the inner CEM,
-built from several sources, checked and timed in turns.
+"""K1, K2, K3, K5, the Beta draw kernel (b), kernel (c), the inner CEM,
+and kernels (d) and (e), the outer iteration's, built from several sources,
+checked and timed in turns.
 
     python -m mpc_mmd_tpu_torch.utils.kernel_ab --before DIR [--diagnose] \
         [--kernels KIND_OR_BUILD ...] [--out DIR]
@@ -9,8 +10,8 @@ built from several sources, checked and timed in turns.
 ``prng.cu`` and ``inner_cem.cu`` with the headers it includes, which its
 build takes from DIR first), for example from ``git show
 <commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
-builds and runs only the builds of those kinds (``k1 k2 k3 prng kc
-micro``; K5 is in ``topk.cu``) and those named (``kc_now kc_before``).
+builds and runs only the builds of those kinds (``k1 k2 k3 prng kc kd
+ke micro``; K5 is in ``topk.cu``) and those named (``kc_now kc_before``).
 Each build's CPU seconds are logged.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
@@ -63,7 +64,17 @@ size each launch took.  Then the times: each build's device time per
 launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
 floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
-``torch._standard_gamma`` of both halves' parameters.  Writes
+``torch._standard_gamma`` of both halves' parameters.  Kernel (d)
+(``kd_now``, ``csrc/outer_project.cu``) against its plain version at
+``KD_SHAPES`` (fastrt at chunks 1, 4 and 8, Path A, Path D; inputs from
+``kd_inputs``): how many entries of each output are bit-equal, the largest
+gap and the device time.  Kernel (e) (``ke_now``) at every forced cluster
+size (1, 2, 4, 8 CTAs a scenario) against its plain version at
+``KE_SHAPES`` (inputs from ``ke_inputs``): indices equal, the moments'
+largest gap, each size's device time in turns, the size the kernel picks
+and the clock64 cycles of rank 0's thread 0 in each of its phases (1 risk
+of its share, 2 the others' risks and the sort, 3 lane risks, 4 costs, 5
+elites, moments and the Cholesky factor, 6 resample and outputs).  Writes
 ``kernel_ab.json`` and ``kernel_ab.txt`` to ``--out`` (default
 ``build/kernel_ab/``).  Needs a CUDA card and ``nvcc``.
 """
@@ -122,6 +133,11 @@ KC_SHAPES = ((64, 64, 10, 12, "laplace"), (100, 100, 10, 20, "laplace"),
              (100, 100, 15, 20, "laplace"), (256, 64, 10, 12, "laplace"),
              (512, 64, 10, 12, "laplace"), (64, 64, 10, 12, "gaussian"),
              (64, 64, 10, 12, "matern52"), (2048, 64, 10, 12, "laplace"))
+
+# kernel (d)'s and (e)'s shapes: (workload, scenarios a chunk, on the road)
+KD_SHAPES = (("fastrt", 1, False), ("fastrt", 4, False), ("fastrt", 8, False),
+             ("path_a", 1, False), ("path_d", 1, True))
+KE_SHAPES = KD_SHAPES
 
 MICRO = r"""
 #include <cuda_runtime.h>
@@ -267,7 +283,8 @@ def kc_runkind_variant(src: str, name: str = "kc_runkind") -> str:
 
 def builds(before: Path, diagnose: bool = False) -> dict:
     """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
-    "k3" (topk_kernel.cu), "prng" (prng.cu) or "micro"."""
+    "k3" (topk_kernel.cu), "prng" (prng.cu), "kc" (inner_cem.cu), "kd"
+    (outer_project.cu), "ke" (outer_tail.cu) or "micro"."""
     topk = (_build.CSRC / "topk.cu").read_text()
     qp = (_build.CSRC / "eq_qp.cu").read_text()
     fused = (_build.CSRC / "topk_kernel.cu").read_text()
@@ -292,6 +309,8 @@ def builds(before: Path, diagnose: bool = False) -> dict:
         out["prng_clock"] = ("prng", clock_variant(beta))
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
+    out["kd_now"] = ("kd", (_build.CSRC / "outer_project.cu").read_text())
+    out["ke_now"] = ("ke", (_build.CSRC / "outer_tail.cu").read_text())
     cem = (_build.CSRC / "inner_cem.cu").read_text()
     out["kc_now"] = ("kc", cem)
     if (before / "inner_cem.cu").exists():
@@ -403,6 +422,10 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             lib.mmd_inner_cem_scratch.argtypes = _build._SIGNATURES["mmd_inner_cem_scratch"]
             if name.startswith("kc_clock"):
                 lib.mmd_inner_cem_clock.argtypes = [P, I]
+        elif kind in ("kd", "ke"):
+            entry = "mmd_outer_project" if kind == "kd" else "mmd_outer_tail"
+            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+            getattr(lib, entry).restype = ctypes.c_int
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -517,6 +540,170 @@ def kc_inputs(gen, C, S, k, maxiter, kind="laplace"):
     cx, cy = (0.3 * torch.randn(C, M, 11, device=gen.device, generator=gen)
               for _ in range(2))
     return inner_inputs(cfg, cx, cy, draws), n_el, b.rho_beta, b.qp_reg
+
+
+def kd_inputs(gen, cfg, N: int, path: bool = False):
+    """Kernel (d)'s inputs for a chunk of N scenarios of ``cfg``'s
+    candidates, on the generator's device: the initial batch of chip_smoke's
+    mean and covariance from normal draws, row 1's desired speeds at 100
+    m/s (past v_max: the polar clip saturates), the boundary rows of
+    chip_smoke's initial state, the multipliers and lane slack that the
+    plain version leaves after one iteration from zero (the state a second
+    outer iteration carries) and N scenarios' obstacles (which set the
+    plain version's scenario count); with ``path`` a curved path of 600
+    points.  Returns (args, kwargs) of ``ops.outer_project``."""
+    from ..ops.outer_project import outer_project_plain
+    from ..qp import boundary_vectors, build_workspace
+    from ..sampling import initial_params
+    dev = gen.device
+    ws = build_workspace(cfg, dev)
+    rows = N * cfg.cem.num_batch
+    mean = torch.tensor([15.0] * 4 + [0.0] * 4, device=dev)
+    cov = torch.diag(torch.tensor([20.0] * 4 + [100.0] * 4, device=dev))
+
+    def batch():
+        p = initial_params(cfg, mean, cov, torch.randn(rows, 8, device=dev, generator=gen))
+        p[1, :4] = 100.0
+        return p
+
+    bx, by = boundary_vectors(cfg, torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], device=dev))
+    bx, by = bx.repeat(N, 1), by.repeat(N, 1)
+    t = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device=dev)
+    kw = dict(x_obs=torch.stack([30.0 + 8.0 * t + 5.0 * o for o in range(2 * N)]).reshape(
+                  N, 2, -1),
+              y_obs=torch.full((N, 2, cfg.horizon.num), 1.75, device=dev))
+    if path:
+        s = torch.linspace(0.0, 300.0, 600, device=dev)
+        kw.update(arc_vec=s, kappa=0.01 * torch.sin(s / 30.0))
+    nvar, nl = cfg.horizon.nvar, 2 * (cfg.horizon.num - 1)
+    zero = lambda n: torch.zeros(rows, n, device=dev)
+    first = outer_project_plain(cfg, ws, batch(), bx, by, zero(nvar), zero(nvar), zero(nl),
+                                **kw)
+    return (cfg, ws, batch(), bx, by, first.lamda_x, first.lamda_y, first.s_lane), kw
+
+
+def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
+    """Kernel (e)'s inputs for a chunk of N scenarios of ``cfg`` (mmd_opt),
+    on the generator's device: a projection of ``kd_inputs``' rows by the
+    plain version, its residual order, reduced rollouts around the
+    candidates' trajectories, weights and bandwidths, six obstacles along
+    the candidates' mean path, normal resample draws, chip_smoke's moments
+    (with ``nonpd`` a covariance that is not positive definite, whose
+    resample is NaN).  The plain tail's best elite of scenario 0 is copied
+    to its last position, so that the kept and the elites hold a tie in
+    risk and in cost.  Returns the arguments of ``ops.outer_tail``."""
+    from ..ops.outer_project import outer_project_plain
+    from ..ops.outer_tail import outer_tail_plain
+    dev = gen.device
+    args, kw = kd_inputs(gen, cfg, N, frenet)
+    pj = outer_project_plain(*args, **kw)
+    nb, num = cfg.cem.num_batch, cfg.horizon.num
+    R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
+    order = torch.argsort(pj.res_norm.reshape(N, nb), dim=1, stable=True)
+    per = torch.arange(N, device=dev)[:, None]
+    traj = lambda t: t.reshape(N, nb, num)[per, order][..., None, :T]
+    noise = lambda s: s * torch.randn(N, nb, R, T, device=dev, generator=gen)
+    x_roll, y_roll = traj(pj.x) + noise(1.0), traj(pj.y) + noise(0.5)
+    beta = torch.rand(N, nb, R, device=dev, generator=gen) + 0.1
+    beta = beta / beta.sum(dim=-1, keepdim=True)
+    sigma = 0.5 + torch.rand(N, nb, device=dev, generator=gen)
+    mid = pj.x.reshape(N, nb, num).mean(dim=1)                       # (N, num)
+    x_obs = torch.stack([mid + 4.0 * o - 10.0 for o in range(6)], dim=1)
+    y_obs = torch.tensor([-1.75, 1.75, 0.0, -1.75, 1.75, 0.0], device=dev)[None, :, None]
+    y_obs = y_obs.expand(N, 6, num).contiguous()
+    z = torch.randn(N, nb - cfg.cem.ellite_num, 8, device=dev, generator=gen)
+    mean = torch.tensor([15.0] * 4 + [0.0] * 4, device=dev).expand(N, 8).contiguous()
+    cov = torch.diag(torch.tensor([20.0] * 4 + [100.0] * 4, device=dev)).expand(N, 8, 8)
+    cov = (-cov if nonpd else cov).contiguous()
+    v_des = torch.tensor(15.0, device=dev)
+    res = torch.zeros(N, cfg.cem.maxiter_cem, device=dev)
+    out = [cfg, frenet, pj, order, args[2].reshape(N, nb, 8), beta, sigma, x_roll, y_roll,
+           x_obs, y_obs, z, mean, cov, v_des, res, res.clone(), 1]
+    tail = outer_tail_plain(*out[:15], res.clone(), res.clone(), 1)
+    best, last = int(tail.kept[0, int(tail.elites[0, 0])]), nb - 1
+    rows = pj._asdict()
+    for name in ("y", "xdot", "ydot", "xddot", "yddot", "res_norm", "steer",
+                 "steering", "kappa_interp"):
+        t = rows[name].clone()
+        t[int(order[0, last])] = t[int(order[0, best])]
+        rows[name] = t
+    out[2] = type(pj)(**rows)
+    out[4] = out[4].clone()
+    out[4][0, int(order[0, last])] = out[4][0, int(order[0, best])]
+    for i in (5, 6, 7, 8):
+        out[i][0, last] = out[i][0, best]
+    return out
+
+
+def run_kd(lib, gen, log) -> list:
+    """Kernel (d) of this build against its plain version at the paths'
+    shapes (``KD_SHAPES``): how many of each output's entries are
+    bit-equal, the largest gap, and the device time per launch."""
+    from ..config import dynamic_workload, fastrt_workload, onroad_workload
+    from ..ops.outer_project import outer_project, outer_project_plain
+    recs = []
+    cfgs = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+            "path_d": onroad_workload()}
+    for name, N, frenet in KD_SHAPES:
+        args, kw = kd_inputs(gen, cfgs[name], N, frenet)
+        got = outer_project(*args, **kw, lib=lib)
+        ref = outer_project_plain(*args, **kw)
+        torch.cuda.synchronize()
+        equal = {f: f"{int((g == r).sum())}/{r.numel()}"
+                 for f, g, r in zip(got._fields, got, ref)}
+        gap = max(float((g - r).abs().nan_to_num(0.0).max()) for g, r in zip(got, ref))
+        ms = device_ms(lambda: outer_project(*args, **kw, lib=lib), "outer_project")
+        recs.append({"shape": [name, N], "bit_equal": equal, "max_gap": gap,
+                     "device_ms": ms})
+        log(f"kernel (d) {name} x {N}: bit-equal entries {equal}; max gap {gap:.3e}; "
+            f"device {1e3 * ms:.2f} us")
+    return recs
+
+
+def run_ke(lib, gen, log) -> list:
+    """Kernel (e) of this build at each forced cluster size against its
+    plain version at the paths' shapes (``KE_SHAPES``): the kept and elite
+    indices and the pick equal, the moments and parameters' largest gap;
+    each size's device time per launch in turns; and at each shape the
+    clock64 cycles of rank 0's thread 0 in each phase (1 risk of its
+    share, 2 the others' risks and the sort, 3 lane risks, 4 costs, 5
+    elites, moments, Cholesky, 6 resample and outputs)."""
+    from ..config import dynamic_workload, fastrt_workload, onroad_workload
+    from ..ops.outer_tail import outer_tail, outer_tail_plain
+    recs = []
+    cfgs = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+            "path_d": onroad_workload()}
+    for name, N, frenet in KE_SHAPES:
+        args = ke_inputs(gen, cfgs[name], N, frenet)
+        ref = outer_tail_plain(*args)
+        rec = {"shape": [name, N], "clusters": {}}
+        for cs in (1, 2, 4, 8):
+            got = outer_tail(*args, cluster=cs, lib=lib)
+            torch.cuda.synchronize()
+            same = all(torch.equal(g, r) for g, r in zip(got[3:], ref[3:]) if
+                       g.dtype == torch.int64)
+            gap = max(float((g - r).abs().nan_to_num(0.0).max())
+                      for g, r in zip(got[:3], ref[:3]))
+            rec["clusters"][cs] = {"indices_equal": same, "moments_gap": gap}
+        times = in_turns({f"cluster{cs}": (lambda cs=cs: outer_tail(*args, cluster=cs,
+                                                                    lib=lib))
+                          for cs in (1, 2, 4, 8)}, "outer_tail")
+        for cs in (1, 2, 4, 8):
+            rec["clusters"][cs]["device_ms"] = times[f"cluster{cs}"]
+        auto = lib.mmd_outer_tail_cluster(N)
+        clock = torch.zeros(N * auto * 8, dtype=torch.int64, device="cuda")
+        outer_tail(*args, cluster=auto, lib=lib, clock=clock)
+        torch.cuda.synchronize()
+        st = clock.reshape(N, auto, 8)[:, 0].double()
+        rec["clock_cycles"] = (st[:, 1:7] - st[:, 0:6]).mean(dim=0).tolist()
+        rec["auto_cluster"] = auto
+        recs.append(rec)
+        log(f"kernel (e) {name} x {N}: " + "; ".join(
+            f"cluster {cs} indices equal {v['indices_equal']}, gap {v['moments_gap']:.2e}, "
+            f"us {[round(1e3 * t, 2) for t in v['device_ms']]}"
+            for cs, v in rec["clusters"].items())
+            + f"; auto {auto}; clock cycles a phase {[round(c) for c in rec['clock_cycles']]}")
+    return recs
 
 
 def _k3(lib, samples, D, k, outs):
@@ -883,6 +1070,10 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
     kcs = [n for n, (kind, _) in sources.items() if kind == "kc"]
     if kcs:
         rec["kc"] = run_kc(libs, kcs, gen, log)
+    if "kd_now" in libs:
+        rec["kd"] = run_kd(libs["kd_now"], gen, log)
+    if "ke_now" in libs:
+        rec["ke"] = run_ke(libs["ke_now"], gen, log)
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
     return rec
@@ -895,7 +1086,8 @@ def main(argv=None) -> None:
     p.add_argument("--diagnose", action="store_true",
                    help="also the diagnostic builds and the latency microbenchmark")
     p.add_argument("--kernels", nargs="*", default=None,
-                   help="build and run only these kinds (k1 k2 k3 prng kc micro) or builds")
+                   help="build and run only these kinds (k1 k2 k3 prng kc kd ke micro) "
+                   "or builds")
     p.add_argument("--out", type=Path, default=OUT_DIR)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():

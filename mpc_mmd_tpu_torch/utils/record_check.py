@@ -174,15 +174,19 @@ def record_check(out: str, device="cuda", n_mc: int = 1000, workers: int = 1,
 # and the noisy controls, the K4 rollouts, the refit, the inner CEM (the
 # top-k selections and elite picks, the K2 weight QPs; a selection's input
 # is the resample of the iteration before), the risks, the scalar cost, the
-# outer CEM's draws and update; and the solver's argsorts and argmins.
-# Stages in ``_INPUTS`` record their arguments too.  While the taps are in,
-# the "xla" selection's inner CEM runs its plain chain on every device
-# (``inner_cem_plain``, K1 and K2 on the card): kernel (c) would run those
-# stages inside one launch, where no tap sees them.
-_STAGES = (("solver", ("initial_params", "compute_guess", "project",
-                       "controls_from_trajectory", "noisy_controls",
-                       "batched_rollouts", "refit_coefficients", "select_reduced",
-                       "scalar_cost", "cem_update")),
+# outer CEM's draws and update; and the argsorts and argmins of the solver
+# and of ``sampling.cem_tail``.  Stages in ``_INPUTS`` record their
+# arguments too.  While the taps are in, the "xla" selection's inner CEM and
+# the outer iteration run their plain chains on every device
+# (``inner_cem_plain``, K1 and K2 on the card; ``outer_project_plain``,
+# ``outer_tail_plain``): kernels (c), (d) and (e) would run those stages
+# inside one launch each, where no tap sees them.
+_STAGES = (("solver", ("initial_params", "noisy_controls", "batched_rollouts",
+                       "refit_coefficients", "select_reduced")),
+           ("qp", ("compute_guess",)),
+           ("projection", ("project",)),
+           ("dynamics", ("controls_from_trajectory",)),
+           ("sampling", ("scalar_cost", "cem_update")),
            ("noise:JaxNoise", ("rollout_eps", "cem_z")),
            ("noise:FixedNoise", ("rollout_eps", "cem_z")),
            ("reduced_set", ("topk_indices",)),
@@ -272,10 +276,14 @@ class _Tap:
                 tap.record("argmin", out)
                 return out
 
-        from .. import reduced_set, solver
+        from .. import reduced_set, sampling, solver
         self.patch(solver, "torch", _Torch())
-        inner = importlib.import_module("mpc_mmd_tpu_torch.ops.inner_cem")
-        self.patch(reduced_set, "inner_cem", inner.inner_cem_plain)
+        self.patch(sampling, "torch", _Torch())
+        plain = lambda mod, name: getattr(
+            importlib.import_module(f"mpc_mmd_tpu_torch.ops.{mod}"), f"{name}_plain")
+        self.patch(reduced_set, "inner_cem", plain("inner_cem", "inner_cem"))
+        self.patch(solver, "outer_project", plain("outer_project", "outer_project"))
+        self.patch(solver, "outer_tail", plain("outer_tail", "outer_tail"))
         return self
 
     def __exit__(self, *exc):
@@ -318,7 +326,7 @@ def _compare(a: torch.Tensor, b: torch.Tensor) -> dict:
 # the axis along which a stage's tensors hold an outer iteration's
 # candidates, in the order of its first argsort (the projection residual);
 # the refit's rows are the candidates' mother rollouts, candidate-major
-_CANDIDATE_AXIS = {"controls_from_trajectory": 1, "noisy_controls": 1,
+_CANDIDATE_AXIS = {"noisy_controls": 1,
                    "batched_rollouts": 1, "refit_coefficients": 0, "topk_indices": 0,
                    "eq_qp_solve": 0, "select_reduced": 1, "mmd_obs": 1}
 

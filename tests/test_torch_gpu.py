@@ -16,7 +16,8 @@ iteration: the winner's indices exact, its weights, bandwidth and costs
 within rtol 1e-5 + atol 1e-6; over every iteration the costs within rtol
 1e-4 + atol 1e-6 for all but 2 % of the candidates (near-ties that the
 resample's round-off may decide; on the H100 every output has been
-bit-equal).
+bit-equal); kernels (d) and (e): every output within rtol 1e-5 + atol 1e-6
+of the plain version on the card, (e)'s kept, elites and pick exact.
 """
 
 import dataclasses
@@ -998,3 +999,62 @@ def test_graphed_frenet_episode_steps_equal_the_eager_ones(cuda):
         plant.step(1.0, 0.02)
     calls = [lambda s, a=a: s.solve(*a) for a in steps]
     graph_against_eager(lambda graph: FrenetSolver(cfg, device="cuda", graph=graph), calls)
+
+
+@pytest.mark.parametrize("name,N,frenet", [
+    ("fastrt", 1, False), ("fastrt", 4, False), ("fastrt", 32, False),
+    ("path_a", 1, False), ("path_d", 1, True)])
+def test_outer_project_kernel_matches_its_plain_version(cuda, name, N, frenet):
+    """Kernel (d) against its plain version on the card from
+    ``kernel_ab.kd_inputs`` (row 1 past v_max, the carried state of an
+    iteration before, on the road a path): every output within rtol 1e-5 +
+    atol 1e-6, NaN only against NaN."""
+    from mpc_mmd_tpu_torch import onroad_workload
+    from mpc_mmd_tpu_torch.ops import outer_project
+    from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
+    cfg = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+           "path_d": onroad_workload()}[name]
+    args, kw = kd_inputs(cuda, cfg, N, frenet)
+    before = outer_project.launches
+    got = outer_project(*args, **kw)
+    assert outer_project.launches == before + 1
+    ref = outer_project_plain(*args, **kw)
+    for field, g, r in zip(got._fields, got, ref):
+        both_nan = g.isnan() & r.isnan()
+        ok = ((g - r).abs() <= 1e-5 * r.abs() + 1e-6) | both_nan
+        assert bool(ok.all()), field
+
+
+@pytest.mark.parametrize("name,N,frenet,nonpd", [
+    ("fastrt", 1, False, False), ("fastrt", 1, False, True), ("fastrt", 4, False, False),
+    ("fastrt", 32, False, False), ("path_a", 1, False, False),
+    ("path_d", 1, True, False)])
+def test_outer_tail_kernel_matches_its_plain_version(cuda, name, N, frenet, nonpd):
+    """Kernel (e) against its plain version on the card from
+    ``kernel_ab.ke_inputs`` (the best elite copied: a tie in risk and in
+    cost; with ``nonpd`` a covariance that is not positive definite), at
+    every cluster size: the kept, the elites and the pick exact, the
+    moments, parameters, risks and res within rtol 1e-5 + atol 1e-6."""
+    from mpc_mmd_tpu_torch import onroad_workload
+    from mpc_mmd_tpu_torch.ops import outer_tail
+    from mpc_mmd_tpu_torch.ops.outer_tail import outer_tail_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
+    cfg = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+           "path_d": onroad_workload()}[name]
+    args = ke_inputs(cuda, cfg, N, frenet, nonpd)
+    res_p = args[15].clone()
+    ref = outer_tail_plain(*args[:15], res_p, args[16].clone(), args[17])
+    for cluster in (0, 1, 2, 4, 8):
+        res_k = args[15].clone()
+        got = outer_tail(*args[:15], res_k, args[16].clone(), args[17], cluster=cluster)
+        for field in ("kept", "elites", "best"):
+            assert torch.equal(getattr(got, field), getattr(ref, field)), (field, cluster)
+        for field, g, r in (("mean", got.mean, ref.mean), ("cov", got.cov, ref.cov),
+                            ("params", got.params, ref.params),
+                            ("risk_obs", got.risk_obs, ref.risk_obs),
+                            ("risk_lane", got.risk_lane, ref.risk_lane),
+                            ("res", res_k, res_p)):
+            both_nan = g.isnan() & r.isnan()
+            ok = ((g - r).abs() <= 1e-5 * r.abs() + 1e-6) | both_nan
+            assert bool(ok.all()), (field, cluster)

@@ -68,19 +68,24 @@ Phases, each of which must pass:
    iteration before, on the road a path) at every shape a path launches
    it with (``outer_shapes``: fastrt, E4, E8, Path A and Path B's modes,
    Path D and its other modes, F5, F15) and at 11a's chunk of 32: every
-   output within rtol 1e-5 + atol 1e-6, how many entries are bit-equal
-   logged; kernel (e), the ``mmd_opt`` tail (risk, sorts, lane risks,
-   cost, CEM update; ``ops.outer_tail``, ``csrc/outer_tail.cu``), against
+   output bit-equal; at the first shape and the chunk of 32 one and two
+   rows a CTA and the run-time-shape instantiation bit-equal to the launch
+   the wrapper picks; the run-time-shape instantiation at num 60 within
+   rtol 1e-5 + atol 1e-6, its bit-equal entries logged; kernel (e), the
+   ``mmd_opt`` tail (risk, sorts, lane risks, cost, CEM update;
+   ``ops.outer_tail``, ``csrc/outer_tail.cu``), against
    ``outer_tail_plain`` from ``kernel_ab.ke_inputs`` (a tie in risk and in
    cost) at its path shapes, 11a's chunk of 32 and once with a covariance
    that is not positive definite: the kept, the elites and the pick equal
    (or each difference a near-tie of the plain version's risks within
-   1e-6), the moments, parameters, risks and res within rtol 1e-5 + atol
-   1e-6, bit-equal entries logged;
+   1e-6), the moments, parameters, risks, res and res_2 bit-equal at the
+   path shapes; at the first shape every cluster size bit-equal to the
+   picked one, with every CTA of a cluster keeping the same candidates;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
-   ``torch.profiler``, its
+   ``torch.profiler`` (kernels (d) and (e) also L2-cold: a 64 MB buffer
+   written before each launch), its
    bound, and the device time of the one PyTorch call that computes the
    same function, where there is one (``torch.topk`` for K1,
    ``torch.linalg.solve`` of the bordered KKT system for K2; the port
@@ -917,16 +922,23 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
     card) from the same inputs (``kernel_ab.kd_inputs``: row 1's speeds
     saturate the polar clip; the multipliers and lane slack of an
     iteration before; on the road a curved path) at every shape a path
-    launches it with: every output within rtol 1e-5 + atol 1e-6 (NaN only
-    against NaN); how many entries of each output are bit-equal is logged.
-    ``shapes`` maps (workload, scenarios) to {path: launches per solve};
-    ``workloads`` a workload's name to (config, on the road).  Returns the
-    first shape's record, the others under ``cases``."""
+    launches it with: every output bit-equal (NaN to NaN), and within rtol
+    1e-5 + atol 1e-6 at the run-time-shape instantiation's num 60, whose
+    bit-equal entries are logged.  At the first shape and at the last one
+    (11a's chunk of 32) each forced launch choice (one or two rows a CTA,
+    the run-time-shape instantiation) is bit-equal to the launch the
+    wrapper picks.  ``shapes`` maps (workload, scenarios) to {path:
+    launches per solve}; ``workloads`` a workload's name to (config, on the
+    road).  Returns the first shape's record, the others under ``cases``."""
+    import dataclasses
     from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
     from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
     cases, err = [], 0.0
-    for (name, N), at in shapes.items():
-        cfg, frenet = workloads[name]
+    first, last = next(iter(shapes)), list(shapes)[-1]
+    fastrt60 = workloads["fastrt"][0]
+    fastrt60 = fastrt60.replace(horizon=dataclasses.replace(fastrt60.horizon, num=60))
+    for (name, N), at in list(shapes.items()) + [(("fastrt60", 1), None)]:
+        cfg, frenet = workloads[name] if name in workloads else (fastrt60, False)
         args, kw = kd_inputs(gen, cfg, N, frenet)
         got = ops.outer_project(*args, **kw)
         ref = outer_project_plain(*args, **kw)
@@ -939,9 +951,25 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
             if bad:
                 fail(f"kernel (d) outer_project: {field} outside rtol 1e-5 + atol 1e-6 "
                      f"of the plain version at {bad} entries, {label}")
+            if at is not None and same != r.numel():
+                fail(f"kernel (d) outer_project: {field} not bit-equal to the plain "
+                     f"version at {r.numel() - same} entries, {label}")
             equal[field] = f"{same}/{r.numel()}"
             err = max(err, float((g - r).abs().nan_to_num(0.0).max()))
         log(f"kernel (d) at {label}: bit-equal entries {equal}")
+        if (name, N) in (first, last):
+            for forced in ({"rows_per_cta": 1}, {"rows_per_cta": 2}, {"runtime_shape": True},
+                           {"rows_per_cta": 2, "runtime_shape": True}):
+                other = ops.outer_project(*args, **kw, **forced)
+                torch.cuda.synchronize()
+                for field, g, r in zip(got._fields, other, got):
+                    if not bool(((g == r) | (g.isnan() & r.isnan())).all()):
+                        fail(f"kernel (d) outer_project: {field} at {forced} not bit-equal "
+                             f"to the picked launch, {label}")
+            log(f"kernel (d) at {label}: one and two rows a CTA, compile-time and run-time "
+                "shape bit-equal")
+        if at is None:
+            continue
         nl, it = 2 * (num - 1), cfg.projection.maxiter
         nx, ny = nvar + 3, nvar + 4
         mats = (2 * cfg.guess.num_segments * nvar + 2 * (nx * nx + ny * ny)
@@ -956,7 +984,7 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
             nbytes=4 * (rows * (8 + 7 + 2 * nvar + nl) + mats
                         + sum(kw[k].numel() for k in ("arc_vec", "kappa") if k in kw)
                         + rows * (4 * nvar + 10 * num + 1 + nl)),
-            ops=rows * ops_row, library=("no single call", None),
+            ops=rows * ops_row, library=("no single call", None), cold=True,
             plain_ms=cuda_ms(torch, lambda a=args, k=kw: outer_project_plain(*a, **k),
                              reps=3, warmup=1)))
     main = dict(cases[0], max_abs_err=err, cases=cases)
@@ -975,7 +1003,11 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
     or each difference a near-tie (the plain version's risks or costs
     within 1e-6 relative), and the moments, parameters, risks and res
     within rtol 1e-5 + atol 1e-6 (NaN only against NaN); how many entries
-    are bit-equal is logged.  Arguments as :func:`check_outer_project`."""
+    are bit-equal is logged; at the path shapes every output is bit-equal
+    (NaN to NaN), res_2 too.  At the first shape, each cluster size (1, 2, 4,
+    8 CTAs a scenario) is bit-equal to the picked one, and every CTA of a
+    cluster keeps the same candidates.  Arguments as
+    :func:`check_outer_project`."""
     from mpc_mmd_tpu_torch import risk, sampling
     from mpc_mmd_tpu_torch.ops.outer_tail import last_cluster_size, outer_tail_plain
     from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
@@ -986,10 +1018,31 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
         cfg, frenet = workloads[name]
         args = ke_inputs(gen, cfg, N, frenet, nonpd)
         res_k, res_p = args[15].clone(), args[15].clone()
-        got = ops.outer_tail(*args[:15], res_k, args[16].clone(), args[17])
+        res2_k, res2_p = args[16].clone(), args[16].clone()
+        got = ops.outer_tail(*args[:15], res_k, res2_k, args[17])
         cluster = last_cluster_size() if got.mean.is_cuda else None
-        ref = outer_tail_plain(*args[:15], res_p, args[16].clone(), args[17])
+        ref = outer_tail_plain(*args[:15], res_p, res2_p, args[17])
         torch.cuda.synchronize()
+        if (name, N) == first and not nonpd:
+            n_cost = got.kept.shape[1]
+            for cs in (1, 2, 4, 8):
+                per_cta = torch.full((N * cs, n_cost), -1, dtype=torch.int64,
+                                     device=got.kept.device)
+                r1, r2 = args[15].clone(), args[16].clone()
+                other = ops.outer_tail(*args[:15], r1, r2, args[17], cluster=cs,
+                                       kept_cta=per_cta)
+                torch.cuda.synchronize()
+                for g, r in zip(tuple(other) + (r1, r2), tuple(got) + (res_k, res2_k)):
+                    if not bool(((g == r) | (g.isnan() & r.isnan())).all()):
+                        fail(f"kernel (e) outer_tail: a cluster of {cs} not bit-equal to "
+                             f"the picked one at {name} x {N}")
+                if got.mean.is_cuda and not torch.equal(
+                        per_cta.reshape(N, cs, n_cost), other.kept[:, None].expand(
+                            N, cs, n_cost)):
+                    fail(f"kernel (e) outer_tail: the CTAs of a cluster of {cs} keep other "
+                         f"candidates at {name} x {N}")
+            log(f"kernel (e) at {name} x {N}: clusters of 1, 2, 4, 8 bit-equal, every "
+                "CTA keeps the same candidates")
         nb, c = cfg.cem.num_batch, cfg.cem
         label = (f"{name} x {N}: {N * nb} candidates, R {cfg.risk.num_reduced}"
                  + (", a covariance not positive definite" if nonpd else ""))
@@ -1014,11 +1067,14 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
                             ("params", got.params, ref.params),
                             ("risk_obs", got.risk_obs, ref.risk_obs),
                             ("risk_lane", got.risk_lane, ref.risk_lane),
-                            ("res", res_k, res_p)):
+                            ("res", res_k, res_p), ("res_2", res2_k, res2_p)):
             bad, same = _within(torch, g, r)
             if bad:
                 fail(f"kernel (e) outer_tail: {field} outside rtol 1e-5 + atol 1e-6 of "
                      f"the plain version at {bad} entries, {label}")
+            if same != r.numel():
+                fail(f"kernel (e) outer_tail: {field} not bit-equal to the plain version "
+                     f"at {r.numel() - same} entries, {label}")
             equal[field] = f"{same}/{r.numel()}"
             err = max(err, float((g - r).abs().nan_to_num(0.0).max()))
         if nonpd and not bool(got.params[0, c.ellite_num:].isnan().all()):
@@ -1044,7 +1100,7 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
             ops=N * (8 * nb * R * nobs * T + 8 * (nb + 2 * n_cost) * R * R
                      + 6 * n_cost * R * T + 30 * n_cost * num
                      + 2 * (nb - c.ellite_num) * 64 + 4 * c.ellite_num * 64),
-            library=("no single call", None),
+            library=("no single call", None), cold=True,
             plain_ms=cuda_ms(torch, lambda a=args: outer_tail_plain(*a), reps=3,
                              warmup=1)))
     main = dict(cases[0], max_abs_err=err, cases=cases)
@@ -1069,6 +1125,12 @@ def measure(torch, name, rec):
     its ``cases`` (K1's and K2's other path shapes)."""
     for case in rec.get("cases", [rec]):
         case["device_ms"], names = profiled_ms(torch, case["call"], match=case["match"])
+        if case.get("cold"):
+            # the same launches with a 64 MB buffer (past the 50 MB L2) written
+            # before each
+            flush = torch.empty(16 * 2 ** 20, device="cuda")
+            case["l2_cold_ms"] = profiled_ms(
+                torch, lambda c=case: (flush.fill_(1.0), c["call"]()), match=case["match"])[0]
         case["bound_ms"], case["bound_by"] = bound(case["nbytes"], case["ops"],
                                                    case.get("int_ops", 0))
         what, lib = case["library"]
@@ -1086,6 +1148,7 @@ def measure(torch, name, rec):
             f"{100 * case['bound_ms'] / case['device_ms']:.1f} % of it; library "
             f"{what}: {case['library_ms']}"
             + (f"; launches per solve {per_solve}" if per_solve else "")
+            + (f"; L2-cold {case['l2_cold_ms']:.4f} ms" if "l2_cold_ms" in case else "")
             + (f"; was {case['was_device_ms']:.4f} ms (KC_WAS_MS, an earlier run's)"
                if case.get("was_device_ms") else ""))
     for key in ("device_ms", "bound_ms", "bound_by", "library_ms"):
@@ -1144,7 +1207,7 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
                "library": rec["library"][0], "launch_floor_ms": floor_ms}
         if "cases" in rec:
             row["shapes"] = [{k: c[k] for k in (
-                "shape", "device_ms", "bound_ms", "bound_by", "plain_ms",
+                "shape", "device_ms", "l2_cold_ms", "bound_ms", "bound_by", "plain_ms",
                 "library_ms", "launches_per_solve") if k in c}
                 for c in rec["cases"]]
         if "row_major_gap" in rec:

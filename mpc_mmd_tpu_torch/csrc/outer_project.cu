@@ -33,24 +33,38 @@
 // the three norms in PyTorch's vectorised order (torch_order.cuh); every
 // elementwise step with its own rounding (the __f*_rn intrinsics: no
 // contraction into fused multiply-adds); atan2f, cosf, sinf, atanf, powf
-// and fmodf as PyTorch's kernels call them (no fast-math); a tensor over a
-// Python float as a product with the float32 reciprocal.  The one sum
-// whose order is not PyTorch's is unwrap's cumulative sum of the 2 pi
-// corrections, taken left to right: it gives PyTorch's bits wherever a
-// row's partial sums of corrections are exact (fewer than three
-// corrections, or alternating ones), since every order then rounds the
-// same exact value once.
+// and fmodf as PyTorch's kernels call them (no fast-math), each angle's
+// cosine and sine taken once and used wherever the chain takes them of the
+// same angle; a tensor over a Python float as a product with the float32
+// reciprocal.  The one sum whose order is not PyTorch's is unwrap's
+// cumulative sum of the 2 pi corrections, taken left to right over the
+// corrections that are not zero (adding a zero leaves the sum's bits): it
+// gives PyTorch's bits wherever a row's partial sums of corrections are
+// exact (fewer than three corrections, or alternating ones), since every
+// order then rounds the same exact value once.
 //
 // What bounds it on the card: per launch it reads the rows' inputs and
 // about 26 KB of shared matrices and writes 13 rows of num floats a row
 // (0.34 MB at fastrt's 64 rows): 0.1 us of memory.  Its work is about 25
 // products of 100 x 11 a row and round 10 transcendental calls a step:
 // 2e7 float operations at 64 rows, 0.3 us.  What bounds it instead is the
-// latency of a row's chain of dependent phases (guess, polar step, the AM
-// round's two KKT products, the norms, the multiplier chains of 100 and
-// 198 fused multiply-adds a coefficient), which one warp runs with four
-// rows to a block of 128 threads; the rows' matrices are staged in shared
-// memory once a block.
+// latency of a row's chain of dependent phases (guess, polar step, the
+// KKT products, the norms, the multiplier chains of num and 2 (num - 1)
+// fused multiply-adds a coefficient).  The design shortens that chain:
+//   - a row is a warpgroup (128 threads): a time step a thread, two lane
+//     rows a thread, one multiplier or right-hand-side chain a thread, the
+//     three norms one warp each; one or two rows a CTA (named barriers a
+//     row), so that 64 rows run on 64 or 32 SMs;
+//   - the multipliers' update of a round and the next round's right-hand
+//     sides read the same polar estimate, so their 10 nvar chains run in
+//     one pass (maxiter + 1 passes a launch, not 2 maxiter + 1);
+//   - the path shapes (nvar 11, num 100, 4 segments) are compile-time: the
+//     chains unroll, their loads from shared memory issue ahead of the
+//     fused multiply-adds, the trajectory's coefficients sit in registers;
+//     other shapes take the run-time-shape instantiation of the same code;
+//   - one thread stages the shared matrices (and the path) with TMA bulk
+//     copies onto two mbarriers, the guess's four first, while the row's
+//     threads read their inputs.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -67,13 +81,15 @@ using mmd_order::minimum;
 using mmd_order::Square;
 
 constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 4;  // a warp a row
-constexpr int kSlots = 4;         // time steps a lane: num <= 128
-constexpr int kLaneSlots = 8;     // lane rows a lane: 2 (num - 1) <= 254
+constexpr int kRowThreads = 128;  // a row's warpgroup: a time step a thread
+constexpr int kMaxNum = kRowThreads;
 constexpr int kMaxNvar = 16;
 constexpr int kMaxSeg = 8;
 constexpr int kCo = kMaxNvar + 4;  // a coefficient buffer (a KKT right-hand side)
-constexpr int kMaxSmem = 232448;
+constexpr int kMaxSmem = 232448 - 1024;  // dynamic: the card's 227 KB less the static
+constexpr int kMaxPathStaged = 8192;  // path points staged in shared memory
+// the compile-time shape: nvar, num, segments
+constexpr int kNvar = 11, kNum = 100, kSeg = 4;
 // np.float32(2 pi) and its half, unwrap's period and interval
 constexpr float kPeriod = 6.2831854820251464844f;
 constexpr float kInterval = 3.1415927410125732422f;
@@ -86,35 +102,47 @@ struct Args {
   const float *arc, *kap;
   float *c_x, *c_y, *x, *y, *xdot, *ydot, *xddot, *yddot, *res_norm, *lamda_x, *lamda_y,
       *s_lane, *steering, *kappa_interp, *acc, *steer;
-  int rows, nvar, num, nseg, maxiter, npath;
+  int rows, nvar, num, nseg, maxiter, npath, path_staged;
   float rho_ineq, rho_proj, rho_lane, lane_ub, lane_lb, v_min, v_max, a_max, inv_dt,
       wheel_base;
 };
 
-// shared floats: the matrices, then per warp 4 num (a contraction's
-// vectors, the cat of two residuals in one run), a lane vector and the
-// coefficient buffers
+__host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
+
+// shared floats, every block 16-byte aligned: the ten matrices and the
+// staged path, then per row the residual vectors rv (ax | ay | vx | vy,
+// each numv), the b vectors bv, unwrap's scratch uw (4 numv), the lane
+// residual rl and lane b vector bl, the coefficient buffers and the norms
 struct Smem {
-  int gvx, gpy, gix, giy, p, pd, pdd, al, kix, kiy, mats, per_warp, total;
+  int mat[10], arc, kap, mats, numv, nlv, rv, bv, uw, rl, bl, co, nrm, per_row, total;
 };
 
-__host__ __device__ inline Smem smem_layout(int nvar, int num, int nseg) {
+__host__ __device__ inline Smem smem_layout(int nvar, int num, int nseg, int npath_staged,
+                                            int rows) {
   Smem s{};
   const int nl = 2 * (num - 1), nx = nvar + 3, ny = nvar + 4;
+  const int n[10] = {nseg * nvar, nseg * nvar, nx * nx, ny * ny, num * nvar,
+                     num * nvar,  num * nvar,  nl * nvar, nx * nx, ny * ny};
   int o = 0;
-  s.gvx = o; o += nseg * nvar;
-  s.gpy = o; o += nseg * nvar;
-  s.gix = o; o += nx * nx;
-  s.giy = o; o += ny * ny;
-  s.p = o; o += num * nvar;
-  s.pd = o; o += num * nvar;
-  s.pdd = o; o += num * nvar;
-  s.al = o; o += nl * nvar;
-  s.kix = o; o += nx * nx;
-  s.kiy = o; o += ny * ny;
+  for (int m = 0; m < 10; ++m) {
+    s.mat[m] = o;
+    o += pad4(n[m]);
+  }
+  s.arc = o; o += pad4(npath_staged);
+  s.kap = o; o += pad4(npath_staged);
   s.mats = o;
-  s.per_warp = 4 * num + nl + 13 * kCo;
-  s.total = o + kRowsPerBlock * s.per_warp;
+  s.numv = pad4(num);
+  s.nlv = pad4(nl);
+  int q = 0;
+  s.rv = q; q += 4 * s.numv;
+  s.bv = q; q += 4 * s.numv;
+  s.uw = q; q += 4 * s.numv;
+  s.rl = q; q += s.nlv;
+  s.bl = q; q += s.nlv;
+  s.co = q; q += 18 * kCo;
+  s.nrm = q; q += 4;
+  s.per_row = q;
+  s.total = o + rows * q;
   return s;
 }
 
@@ -122,22 +150,87 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
-// One output of a product as cuBLAS's FFMA kernels take it: sum_k c[k]
-// m[k stride] as fused multiply-adds from 0, k ascending.
-__device__ __forceinline__ float dot(const float* c, const float* m, int K, int stride) {
+// ---- TMA bulk copies onto an mbarrier ----
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar))
+      : "memory");
+}
+// the floats of a copy that TMA takes: whole 16-byte blocks of an aligned source
+__device__ __forceinline__ int bulk_floats(const float* src, int n) {
+  return (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? (n & ~3) : 0;
+}
+
+// the barrier of a row's warpgroup (named barrier 1 + row)
+__device__ __forceinline__ void row_sync(int row) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(row + 1) : "memory");
+}
+
+// sum_k v[k] m[k stride] as fused multiply-adds from 0, k ascending: one
+// output of a product as cuBLAS's FFMA kernels take it.  K, S > 0: the
+// compile-time chain, v 16-byte aligned and read four floats at a time;
+// else K and S at run time.
+template <int K, int S>
+__device__ __forceinline__ float chain(const float* v, const float* m, int k_rt, int s_rt) {
   float acc = 0.0f;
-  for (int k = 0; k < K; ++k) acc = __fmaf_rn(c[k], m[k * stride], acc);
+  if constexpr (K > 0) {
+    const float4* v4 = reinterpret_cast<const float4*>(v);
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const float4 x = v4[q];
+      acc = __fmaf_rn(x.x, m[(4 * q) * S], acc);
+      acc = __fmaf_rn(x.y, m[(4 * q + 1) * S], acc);
+      acc = __fmaf_rn(x.z, m[(4 * q + 2) * S], acc);
+      acc = __fmaf_rn(x.w, m[(4 * q + 3) * S], acc);
+    }
+#pragma unroll
+    for (int k = K / 4 * 4; k < K; ++k) acc = __fmaf_rn(v[k], m[k * S], acc);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < k_rt; ++k) acc = __fmaf_rn(v[k], m[k * s_rt], acc);
+  }
   return acc;
 }
 
-// c @ W.T of one output: W (nout, K) row-major, its row o
-__device__ __forceinline__ float dot_t(const float* c, const float* m, int K) {
-  return dot(c, m, K, 1);
-}
-
-// v @ M of one output j of nout: M (K, nout) row-major
-__device__ __forceinline__ float dot_s(const float* v, const float* M, int K, int nout, int j) {
-  return dot(v, M + j, K, nout);
+// the same chain with v read a float at a time (v in registers, or short)
+template <int K, int S>
+__device__ __forceinline__ float chain_s(const float* v, const float* m, int k_rt, int s_rt) {
+  float acc = 0.0f;
+  if constexpr (K > 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) acc = __fmaf_rn(v[k], m[k * S], acc);
+  } else {
+#pragma unroll 4
+    for (int k = 0; k < k_rt; ++k) acc = __fmaf_rn(v[k], m[k * s_rt], acc);
+  }
+  return acc;
 }
 
 // torch.remainder of a by b > 0 on the card
@@ -147,54 +240,40 @@ __device__ __forceinline__ float remainder(float a, float b) {
   return m;
 }
 
-// The polar step of (wx, wy) at alpha: the clipped radius
-__device__ __forceinline__ float radius(float wx, float wy, float alpha, float rho, float lo,
+// The polar step of (wx, wy) at an angle of cosine c and sine s: the
+// clipped radius
+__device__ __forceinline__ float radius(float wx, float wy, float c, float s, float rho, float lo,
                                         float hi) {
-  const float c = cosf(alpha), s = sinf(alpha);
   const float c1 = mul(rho, add(mul(c, c), mul(s, s)));
   const float c2 = mul(rho, add(mul(wx, c), mul(wy, s)));
   return clamp(__fdiv_rn(c2, c1), lo, hi);
 }
 
-// unwrap along time of the warp's angles a[s] (step lane + 32 s), in place;
-// buf: num floats of the warp's shared memory
-__device__ __forceinline__ void unwrap(float (&a)[kSlots], int num, int lane, float* buf, float* cum) {
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    if (t < num) buf[t] = a[s];
-  }
-  __syncwarp();
-  bool any = false;
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    if (t < num - 1) {
-      const float dd = sub(buf[t + 1], buf[t]);
-      float ddmod = sub(remainder(add(dd, kInterval), kPeriod), kInterval);
-      if (ddmod == -kInterval && dd > 0.0f) ddmod = kInterval;
-      const float ph = fabsf(dd) < kInterval ? 0.0f : sub(ddmod, dd);
-      cum[t] = ph;
-      any = any || ph != 0.0f;
+// unwrap's correction between the angles a0 and a1 of two steps
+__device__ __forceinline__ float unwrap_step(float a0, float a1) {
+  const float dd = sub(a1, a0);
+  float ddmod = sub(remainder(add(dd, kInterval), kPeriod), kInterval);
+  if (ddmod == -kInterval && dd > 0.0f) ddmod = kInterval;
+  return fabsf(dd) < kInterval ? 0.0f : sub(ddmod, dd);
+}
+
+// cum[0 .. n): the corrections, in place their cumulative sum left to
+// right, by one warp; only the corrections that are not zero are added
+// (an added +-0 leaves the sum's bits: the sum starts at +0 and is never
+// -0)
+__device__ __forceinline__ void warp_cumsum(float* cum, int n, int lane) {
+  float run = 0.0f;
+  for (int c0 = 0; c0 < n; c0 += kWarp) {
+    const int t = c0 + lane;
+    const float v = t < n ? cum[t] : 0.0f;
+    float mine = run;
+    for (unsigned m = __ballot_sync(kFull, v != 0.0f); m != 0u; m &= m - 1u) {
+      const int b = __ffs(m) - 1;
+      run = add(run, __shfl_sync(kFull, v, b));
+      if (lane >= b) mine = run;
     }
+    if (t < n) cum[t] = mine;
   }
-  __syncwarp();
-  if (__any_sync(kFull, any)) {
-    if (lane == 0) {
-      float run = 0.0f;
-      for (int t = 0; t < num - 1; ++t) {
-        run = add(run, cum[t]);
-        cum[t] = run;
-      }
-    }
-    __syncwarp();
-  }
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    if (t >= 1 && t < num) a[s] = add(a[s], cum[t - 1]);
-  }
-  __syncwarp();
 }
 
 // jnp.interp / frenet.interp of x in the increasing xp with values fp (n)
@@ -216,266 +295,339 @@ __device__ float interp(float x, const float* xp, const float* fp, int n) {
   return f;
 }
 
-__global__ void __launch_bounds__(kRowsPerBlock* kWarp)
-    outer_project_kernel(const Args a) {
-  extern __shared__ float sm[];
-  const int nvar = a.nvar, num = a.num, nseg = a.nseg, nl = 2 * (num - 1);
-  const int nx = nvar + 3, ny = nvar + 4;
-  const Smem L = smem_layout(nvar, num, nseg);
-  {  // stage the shared matrices
-    const float* src[10] = {a.G_vx, a.G_py, a.Gix, a.Giy, a.P, a.Pd, a.Pdd, a.Al, a.Kix, a.Kiy};
-    const int off[10] = {L.gvx, L.gpy, L.gix, L.giy, L.p, L.pd, L.pdd, L.al, L.kix, L.kiy};
-    const int n[10] = {nseg * nvar, nseg * nvar, nx * nx, ny * ny, num * nvar, num * nvar,
-                       num * nvar, nl * nvar, nx * nx, ny * ny};
-    for (int m = 0; m < 10; ++m)
-      for (int i = threadIdx.x; i < n[m]; i += blockDim.x) sm[off[m] + i] = src[m][i];
-  }
-  __syncthreads();
-  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  const int r = blockIdx.x * kRowsPerBlock + warp;
-  if (r >= a.rows) return;
+// NV, NUM, NSEG: the compile-time shape, or all 0 for the run-time shape;
+// ROWS rows a CTA, a warpgroup each
+template <int NV, int NUM, int NSEG, int ROWS>
+__global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const Args a) {
+  extern __shared__ __align__(128) float sm[];
+  __shared__ __align__(8) uint64_t bars[2];
+  const int nvar = NV ? NV : a.nvar, num = NUM ? NUM : a.num, nseg = NSEG ? NSEG : a.nseg;
+  const int nl = 2 * (num - 1), nx = nvar + 3, ny = nvar + 4;
+  constexpr int NL = NUM ? 2 * (NUM - 1) : 0;
+  const int npath = a.npath, staged = a.path_staged ? npath : 0;
+  const Smem L = smem_layout(nvar, num, nseg, staged, ROWS);
+  const int row = threadIdx.x / kRowThreads, tid = threadIdx.x % kRowThreads;
+  const int warp = tid / kWarp, lane = tid % kWarp;
+  const int r = blockIdx.x * ROWS + row;
+  const bool live = r < a.rows;
 
-  const float *Gvx = sm + L.gvx, *Gpy = sm + L.gpy, *Gix = sm + L.gix, *Giy = sm + L.giy;
-  const float *P = sm + L.p, *Pd = sm + L.pd, *Pdd = sm + L.pdd, *Al = sm + L.al;
-  const float *Kix = sm + L.kix, *Kiy = sm + L.kiy;
-  float* wb = sm + L.mats + warp * L.per_warp;
-  float* vb = wb;               // 4 num: ax | ay | vx | vy (or b_ax | b_ay | b_vx | b_vy)
-  float* lb = vb + 4 * num;     // nl: the lane vector of a contraction
-  float* co = lb + nl;          // 13 coefficient buffers of kCo
-  float *cxb = co, *cyb = co + kCo, *lx = co + 2 * kCo, *ly = co + 3 * kCo;
-  float *cx = co + 4 * kCo, *cy = co + 5 * kCo, *rx = co + 6 * kCo, *ry = co + 7 * kCo;
-  float* tmp = co + 8 * kCo;    // 5 x kCo: contraction results
+  // ---- staging: TMA bulk copies of the matrices (the guess's four on
+  // bars[0], the rest and the path on bars[1]); their tails and any
+  // unaligned source by the threads ----
+  const float* src[12] = {a.G_vx, a.G_py, a.Gix, a.Giy, a.P,  a.Pd,
+                          a.Pdd,  a.Al,   a.Kix, a.Kiy, a.arc, a.kap};
+  const int n[12] = {nseg * nvar, nseg * nvar, nx * nx, ny * ny, num * nvar, num * nvar,
+                     num * nvar,  nl * nvar,   nx * nx, ny * ny, staged,     staged};
+  int off[12];
+  for (int m = 0; m < 10; ++m) off[m] = L.mat[m];
+  off[10] = L.arc;
+  off[11] = L.kap;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0]);
+    mbar_init(&bars[1]);
+    mbar_fence_init();
+    for (int g = 0; g < 2; ++g) {
+      const int m0 = g == 0 ? 0 : 4, m1 = g == 0 ? 4 : 12;
+      unsigned bytes = 0;
+      for (int m = m0; m < m1; ++m) bytes += 4u * bulk_floats(src[m], n[m]);
+      mbar_expect(&bars[g], bytes);
+      for (int m = m0; m < m1; ++m) {
+        const int k = bulk_floats(src[m], n[m]);
+        if (k > 0) bulk_copy(sm + off[m], src[m], 4u * k, &bars[g]);
+      }
+    }
+  }
+  for (int m = 0; m < 12; ++m)
+    for (int i = bulk_floats(src[m], n[m]) + threadIdx.x; i < n[m]; i += ROWS * kRowThreads)
+      sm[off[m] + i] = src[m][i];
+
+  // the row's inputs, read while the copies fly
+  float* rb_ = sm + L.mats + row * L.per_row;
+  float *rv = rb_ + L.rv, *bv = rb_ + L.bv, *uw = rb_ + L.uw, *rl = rb_ + L.rl, *bl = rb_ + L.bl;
+  float* co = rb_ + L.co;
+  float *cxb = co, *cyb = co + kCo, *cx = co + 2 * kCo, *cy = co + 3 * kCo;
+  float *rx = co + 4 * kCo, *ry = co + 5 * kCo;
+  float* mres = co + 6 * kCo;   // 5 x kCo: the multiplier contractions
+  float* bres = co + 11 * kCo;  // 5 x kCo: the right-hand sides' contractions
+  float* flags = co + 16 * kCo;  // unwrap's: a correction in av, in aa
+  float* nrm = rb_ + L.nrm;
+  const int numv = L.numv;
+  const int lrow0 = tid, lrow1 = tid + kRowThreads;  // this thread's lane rows
+  const float b_lane0 = lrow0 < num - 1 ? a.lane_ub : a.lane_lb;
+  const float b_lane1 = lrow1 < num - 1 ? a.lane_ub : a.lane_lb;
+  float prm[2 * kMaxSeg];
+  float lxy = 0.0f, sl0 = 0.0f, sl1 = 0.0f, beq = 0.0f;
+  if (live) {
+    const float* p = a.params + static_cast<size_t>(r) * 2 * nseg;
+    const int half = tid < kWarp ? 0 : nseg;  // warp 0 the x half, warp 1 the y half
+    if (tid < 2 * kWarp)
+#pragma unroll
+      for (int k = 0; k < (NSEG ? NSEG : kMaxSeg); ++k)
+        if (NSEG || k < nseg) prm[k] = p[half + k];
+    if (tid < nvar) lxy = a.lamda_x0[r * nvar + tid];
+    if (tid >= kWarp && tid < kWarp + nvar) lxy = a.lamda_y0[r * nvar + tid - kWarp];
+    if (tid >= 64 && tid < 67) beq = a.b_eq_x[r * 3 + tid - 64];
+    if (tid >= 96 && tid < 100) beq = a.b_eq_y[r * 4 + tid - 96];
+    if (lrow0 < nl) sl0 = a.s_lane0[static_cast<size_t>(r) * nl + lrow0];
+    if (lrow1 < nl) sl1 = a.s_lane0[static_cast<size_t>(r) * nl + lrow1];
+    if (tid == 0) flags[0] = flags[1] = 0.0f;
+  }
+  __syncthreads();  // the barriers' initialisation and the tails
+  if (!live) return;
+  const float *Gvx = sm + L.mat[0], *Gpy = sm + L.mat[1], *Gix = sm + L.mat[2];
+  const float *Giy = sm + L.mat[3], *P = sm + L.mat[4], *Pd = sm + L.mat[5];
+  const float *Pdd = sm + L.mat[6], *Al = sm + L.mat[7], *Kix = sm + L.mat[8];
+  const float* Kiy = sm + L.mat[9];
+  const float* arc = staged ? sm + L.arc : a.arc;
+  const float* kap = staged ? sm + L.kap : a.kap;
   const float rho_i = a.rho_ineq, rho_p = a.rho_proj, rho_l = a.rho_lane;
 
   // ---- the guess QP ----
-  {
-    const float* prm = a.params + static_cast<size_t>(r) * 2 * nseg;
-    if (lane < nvar) {
-      const int j = lane;
-      const float lcx = dot_s(prm, Gvx, nseg, nvar, j);
-      const float lcy = dot_s(prm + nseg, Gpy, nseg, nvar, j);
-      rx[j] = -lcx;
-      ry[j] = -lcy;
-    }
-    if (lane < 3) rx[nvar + lane] = a.b_eq_x[r * 3 + lane];
-    if (lane < 4) ry[nvar + lane] = a.b_eq_y[r * 4 + lane];
-    __syncwarp();
-    if (lane < nvar) cxb[lane] = dot_t(rx, Gix + lane * nx, nx);
-    else if (lane >= 16 && lane < 16 + nvar) cyb[lane - 16] = dot_t(ry, Giy + (lane - 16) * ny, ny);
-    if (lane < nvar) {
-      lx[lane] = a.lamda_x0[r * nvar + lane];
-      ly[lane] = a.lamda_y0[r * nvar + lane];
-    }
-    __syncwarp();
-  }
+  // thread j < nvar: lincost_x[j] and c_bar_x[j]; thread 32 + j: the y side
+  const bool xs = tid < nvar, ys = tid >= kWarp && tid < kWarp + nvar;
+  const int j = xs ? tid : tid - kWarp;
+  float cbar = 0.0f;
+  mbar_wait(&bars[0]);
+  if (xs) rx[j] = -chain_s<NSEG, NV>(prm, Gvx + j, nseg, nvar);
+  if (ys) ry[j] = -chain_s<NSEG, NV>(prm, Gpy + j, nseg, nvar);
+  if (tid >= 64 && tid < 67) rx[nvar + tid - 64] = beq;
+  if (tid >= 96 && tid < 100) ry[nvar + tid - 96] = beq;
+  row_sync(row);
+  if (xs) cxb[j] = cbar = chain_s<NV ? NV + 3 : 0, 1>(rx, Gix + j * nx, nx, 1);
+  if (ys) cyb[j] = cbar = chain_s<NV ? NV + 4 : 0, 1>(ry, Giy + j * ny, ny, 1);
+  row_sync(row);
 
   // ---- the polar initialisation ----
-  float xd[kSlots], yd[kSlots], xdd[kSlots], ydd[kSlots], xx[kSlots], yy[kSlots];
-  float av[kSlots], dv[kSlots], aa[kSlots], da[kSlots];
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    xd[s] = yd[s] = xdd[s] = ydd[s] = xx[s] = yy[s] = 0.0f;
-    if (t < num) {
-      xd[s] = dot_t(cxb, Pd + t * nvar, nvar);
-      yd[s] = dot_t(cyb, Pd + t * nvar, nvar);
-      xdd[s] = dot_t(cxb, Pdd + t * nvar, nvar);
-      ydd[s] = dot_t(cyb, Pdd + t * nvar, nvar);
-    }
-    av[s] = atan2f(yd[s], xd[s]);
-    aa[s] = atan2f(ydd[s], xdd[s]);
+  const int t = tid;
+  const bool step = t < num;
+  float xd = 0.0f, yd = 0.0f, xdd = 0.0f, ydd = 0.0f, xx = 0.0f, yy = 0.0f;
+  mbar_wait(&bars[1]);
+  if (step) {
+    xd = chain_s<NV, 1>(cxb, Pd + t * nvar, nvar, 1);
+    yd = chain_s<NV, 1>(cyb, Pd + t * nvar, nvar, 1);
+    xdd = chain_s<NV, 1>(cxb, Pdd + t * nvar, nvar, 1);
+    ydd = chain_s<NV, 1>(cyb, Pdd + t * nvar, nvar, 1);
   }
-  unwrap(av, num, lane, vb, vb + num);
-  unwrap(aa, num, lane, vb, vb + num);
-
-  // residuals into vb (ax | ay | vx | vy) from the polar estimate
-  auto residuals = [&]() {
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int t = lane + s * kWarp;
-      if (t < num) {
-        vb[t] = sub(xdd[s], mul(da[s], cosf(aa[s])));
-        vb[num + t] = sub(ydd[s], mul(da[s], sinf(aa[s])));
-        vb[2 * num + t] = sub(xd[s], mul(dv[s], cosf(av[s])));
-        vb[3 * num + t] = sub(yd[s], mul(dv[s], sinf(av[s])));
+  float av = atan2f(yd, xd), aa = atan2f(ydd, xdd);
+  {  // unwrap both angles along time: uw = av | aa | av's cum | aa's cum
+    float *ua = uw, *ub = uw + numv, *ca = uw + 2 * numv, *cb = uw + 3 * numv;
+    if (step) {
+      ua[t] = av;
+      ub[t] = aa;
+    }
+    row_sync(row);
+    if (t < num - 1) {
+      const float pa = unwrap_step(ua[t], ua[t + 1]), pb = unwrap_step(ub[t], ub[t + 1]);
+      ca[t] = pa;
+      cb[t] = pb;
+      if (pa != 0.0f) flags[0] = 1.0f;
+      if (pb != 0.0f) flags[1] = 1.0f;
+    }
+    row_sync(row);
+    if (warp == 0 && flags[0] != 0.0f) warp_cumsum(ca, num - 1, lane);
+    if (warp == 1 && flags[1] != 0.0f) warp_cumsum(cb, num - 1, lane);
+    row_sync(row);
+    if (t >= 1 && step) {
+      av = add(av, ca[t - 1]);
+      aa = add(aa, cb[t - 1]);
+    }
+  }
+  float cav = cosf(av), sav = sinf(av), caa = cosf(aa), saa = sinf(aa);
+  float dv = radius(xd, yd, cav, sav, rho_i, a.v_min, a.v_max);
+  float da = radius(xdd, ydd, caa, saa, rho_i, 0.0f, a.a_max);
+  // the residuals and the first round's b vectors
+  auto polar_vectors = [&](bool with_b) {
+    if (step) {
+      const float bax = mul(da, caa), bay = mul(da, saa), bvx = mul(dv, cav),
+                  bvy = mul(dv, sav);
+      rv[t] = sub(xdd, bax);
+      rv[numv + t] = sub(ydd, bay);
+      rv[2 * numv + t] = sub(xd, bvx);
+      rv[3 * numv + t] = sub(yd, bvy);
+      if (with_b) {
+        bv[t] = bax;
+        bv[numv + t] = bay;
+        bv[2 * numv + t] = bvx;
+        bv[3 * numv + t] = bvy;
       }
     }
-    __syncwarp();
   };
-  // the multiplier step: lamda_x -= rho_i (ax @ Pdd) + rho_i (vx @ Pd),
-  // lamda_y -= rho_i (ay @ Pdd) + rho_i (vy @ Pd) [+ rho_l (lane @ Al)]
-  auto multipliers = [&](bool with_lane) {
-    for (int idx = lane; idx < 5 * nvar; idx += kWarp) {
-      const int p = idx / nvar, j = idx % nvar;
-      float v;
-      if (p == 4) {
-        if (!with_lane) continue;
-        v = dot_s(lb, Al, nl, nvar, j);
-      } else {
-        v = dot_s(vb + p * num, p < 2 ? Pdd : Pd, num, nvar, j);
-      }
-      tmp[p * kCo + j] = v;
-    }
-    __syncwarp();
-    if (lane < nvar) {
-      const int j = lane;
-      lx[j] = sub(sub(lx[j], mul(rho_i, tmp[0 * kCo + j])), mul(rho_i, tmp[2 * kCo + j]));
-      float l = sub(sub(ly[j], mul(rho_i, tmp[1 * kCo + j])), mul(rho_i, tmp[3 * kCo + j]));
-      if (with_lane) l = sub(l, mul(rho_l, tmp[4 * kCo + j]));
-      ly[j] = l;
-    }
-    __syncwarp();
-  };
+  polar_vectors(true);
+  if (lrow0 < nl) bl[lrow0] = sub(b_lane0, sl0);
+  if (lrow1 < nl) bl[lrow1] = sub(b_lane1, sl1);
+  row_sync(row);
 
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    dv[s] = radius(xd[s], yd[s], av[s], rho_i, a.v_min, a.v_max);
-    da[s] = radius(xdd[s], ydd[s], aa[s], rho_i, 0.0f, a.a_max);
-  }
-  residuals();
-  multipliers(false);
-
-  float sl[kLaneSlots], lv[kLaneSlots];
-#pragma unroll
-  for (int s = 0; s < kLaneSlots; ++s) {
-    const int l = lane + s * kWarp;
-    sl[s] = l < nl ? a.s_lane0[static_cast<size_t>(r) * nl + l] : 0.0f;
-  }
-  auto b_lane = [&](int l) { return l < num - 1 ? a.lane_ub : a.lane_lb; };
-
-  float rn = 0.0f;
-  for (int it = 0; it < a.maxiter; ++it) {
-    // the right-hand sides: b vectors into vb and lb, then the lincosts
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int t = lane + s * kWarp;
-      if (t < num) {
-        vb[t] = mul(da[s], cosf(aa[s]));
-        vb[num + t] = mul(da[s], sinf(aa[s]));
-        vb[2 * num + t] = mul(dv[s], cosf(av[s]));
-        vb[3 * num + t] = mul(dv[s], sinf(av[s]));
+  // the pass's chains: slot o < 4 nvar the multipliers' (residual p = o /
+  // nvar against Pdd or Pd), then 4 nvar right-hand sides' (b vector p);
+  // from lane_base the lane chains (the residual, then b, against A_lane),
+  // in a warp of their own where 8 nvar <= 96
+  const int lane_base = 8 * nvar <= 96 && 2 * nvar <= kWarp ? 96 : 8 * nvar;
+  const int slots = lane_base + 2 * nvar;
+  float rn = 0.0f, cxy = 0.0f;
+  for (int it = 0; it <= a.maxiter; ++it) {
+    const bool m_lane = it > 0, with_b = it < a.maxiter;
+    // ---- a pass: multipliers and right-hand sides ----
+    for (int o = tid; o < slots; o += kRowThreads) {
+      if (o < 8 * nvar) {
+        const int b = o >= 4 * nvar, p = (o - b * 4 * nvar) / nvar, jj = o % nvar;
+        if (b && !with_b) continue;
+        const float* v = (b ? bv : rv) + p * numv;
+        const float v0 = chain<NUM, NV>(v, (p < 2 ? Pdd : Pd) + jj, num, nvar);
+        (b ? bres : mres)[p * kCo + jj] = v0;
+      } else if (o >= lane_base) {
+        const int b = o - lane_base >= nvar, jj = (o - lane_base) % nvar;
+        if (b ? !with_b : !m_lane) continue;
+        const float v0 = chain<NL, NV>(b ? bl : rl, Al + jj, nl, nvar);
+        (b ? bres : mres)[4 * kCo + jj] = v0;
       }
     }
-#pragma unroll
-    for (int s = 0; s < kLaneSlots; ++s) {
-      const int l = lane + s * kWarp;
-      if (l < nl) lb[l] = sub(b_lane(l), sl[s]);
+    row_sync(row);
+    if (xs) {
+      lxy = sub(sub(lxy, mul(rho_i, mres[0 * kCo + j])), mul(rho_i, mres[2 * kCo + j]));
+      if (with_b) {
+        const float lcx = sub(sub(sub(-lxy, mul(rho_p, cbar)), mul(rho_i, bres[0 * kCo + j])),
+                              mul(rho_i, bres[2 * kCo + j]));
+        rx[j] = -lcx;
+      }
     }
-    __syncwarp();
-    for (int idx = lane; idx < 5 * nvar; idx += kWarp) {
-      const int p = idx / nvar, j = idx % nvar;
-      tmp[p * kCo + j] = p == 4 ? dot_s(lb, Al, nl, nvar, j)
-                                : dot_s(vb + p * num, p < 2 ? Pdd : Pd, num, nvar, j);
+    if (ys) {
+      float l = sub(sub(lxy, mul(rho_i, mres[1 * kCo + j])), mul(rho_i, mres[3 * kCo + j]));
+      if (m_lane) l = sub(l, mul(rho_l, mres[4 * kCo + j]));
+      lxy = l;
+      if (with_b) {
+        const float lcy =
+            sub(sub(sub(sub(-lxy, mul(rho_p, cbar)), mul(rho_i, bres[1 * kCo + j])),
+                    mul(rho_i, bres[3 * kCo + j])),
+                mul(rho_l, bres[4 * kCo + j]));
+        ry[j] = -lcy;
+      }
     }
-    __syncwarp();
-    if (lane < nvar) {
-      const int j = lane;
-      const float lcx = sub(sub(sub(-lx[j], mul(rho_p, cxb[j])), mul(rho_i, tmp[0 * kCo + j])),
-                            mul(rho_i, tmp[2 * kCo + j]));
-      const float lcy =
-          sub(sub(sub(sub(-ly[j], mul(rho_p, cyb[j])), mul(rho_i, tmp[1 * kCo + j])),
-                  mul(rho_i, tmp[3 * kCo + j])),
-              mul(rho_l, tmp[4 * kCo + j]));
-      rx[j] = -lcx;
-      ry[j] = -lcy;
-    }
-    // rx, ry keep b_eq from the guess past nvar
-    __syncwarp();
-    if (lane < nvar) cx[lane] = dot_t(rx, Kix + lane * nx, nx);
-    else if (lane >= 16 && lane < 16 + nvar) cy[lane - 16] = dot_t(ry, Kiy + (lane - 16) * ny, ny);
-    __syncwarp();
+    if (it > 0 && tid == 0) rn = add(add(nrm[0], nrm[1]), nrm[2]);
+    if (!with_b) break;
+    row_sync(row);
 
-    // the trajectory and its derivatives
-#pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      const int t = lane + s * kWarp;
-      if (t < num) {
-        xx[s] = dot_t(cx, P + t * nvar, nvar);
-        yy[s] = dot_t(cy, P + t * nvar, nvar);
-        xd[s] = dot_t(cx, Pd + t * nvar, nvar);
-        yd[s] = dot_t(cy, Pd + t * nvar, nvar);
-        xdd[s] = dot_t(cx, Pdd + t * nvar, nvar);
-        ydd[s] = dot_t(cy, Pdd + t * nvar, nvar);
+    // ---- the KKT solves ----
+    if (xs) cx[j] = cxy = chain_s<NV ? NV + 3 : 0, 1>(rx, Kix + j * nx, nx, 1);
+    if (ys) cy[j] = cxy = chain_s<NV ? NV + 4 : 0, 1>(ry, Kiy + j * ny, ny, 1);
+    row_sync(row);
+
+    // ---- the trajectory and the lane rows ----
+    // from the coefficients c_x, c_y (at the compile-time shape a copy in
+    // registers)
+    auto trajectory = [&](const float* px, const float* py) {
+      if (step) {
+        xx = chain_s<NV, 1>(px, P + t * nvar, nvar, 1);
+        yy = chain_s<NV, 1>(py, P + t * nvar, nvar, 1);
+        xd = chain_s<NV, 1>(px, Pd + t * nvar, nvar, 1);
+        yd = chain_s<NV, 1>(py, Pd + t * nvar, nvar, 1);
+        xdd = chain_s<NV, 1>(px, Pdd + t * nvar, nvar, 1);
+        ydd = chain_s<NV, 1>(py, Pdd + t * nvar, nvar, 1);
       }
-    }
-    // the lane rows: slack and residual
-#pragma unroll
-    for (int s = 0; s < kLaneSlots; ++s) {
-      const int l = lane + s * kWarp;
-      if (l < nl) {
-        lv[s] = dot_t(cy, Al + l * nvar, nvar);
-        sl[s] = clamp_min(add(-lv[s], b_lane(l)), 0.0f);
-        lb[l] = add(sub(lv[s], b_lane(l)), sl[s]);
+      if (lrow0 < nl) {
+        const float lv = chain_s<NV, 1>(py, Al + lrow0 * nvar, nvar, 1);
+        sl0 = clamp_min(add(-lv, b_lane0), 0.0f);
+        rl[lrow0] = add(sub(lv, b_lane0), sl0);
       }
-    }
-    // the polar re-estimate
+      if (lrow1 < nl) {
+        const float lv = chain_s<NV, 1>(py, Al + lrow1 * nvar, nvar, 1);
+        sl1 = clamp_min(add(-lv, b_lane1), 0.0f);
+        rl[lrow1] = add(sub(lv, b_lane1), sl1);
+      }
+    };
+    if constexpr (NV > 0) {
+      float cxr[NV], cyr[NV];
 #pragma unroll
-    for (int s = 0; s < kSlots; ++s) {
-      av[s] = atan2f(yd[s], xd[s]);
-      aa[s] = atan2f(ydd[s], xdd[s]);
-      dv[s] = radius(xd[s], yd[s], av[s], rho_i, a.v_min, a.v_max);
-      da[s] = radius(xdd[s], ydd[s], aa[s], rho_i, 0.0f, a.a_max);
+      for (int k = 0; k < NV; ++k) {
+        cxr[k] = cx[k];
+        cyr[k] = cy[k];
+      }
+      trajectory(cxr, cyr);
+    } else {
+      trajectory(cx, cy);
     }
-    residuals();  // also orders lb's writes before the reads below
-    const int shift_a = static_cast<int>((static_cast<long long>(r) * 2 * num) % 4);
-    const int shift_l = static_cast<int>((static_cast<long long>(r) * nl) % 4);
-    const float n_a = sqrtf(mmd_order::row_reduce([&](int i) { return vb[i]; }, 2 * num,
-                                                  shift_a, Square(), lane));
-    const float n_v = sqrtf(mmd_order::row_reduce([&](int i) { return vb[2 * num + i]; },
-                                                  2 * num, shift_a, Square(), lane));
-    const float n_l =
-        sqrtf(mmd_order::row_reduce([&](int i) { return lb[i]; }, nl, shift_l, Square(), lane));
-    rn = add(add(n_a, n_v), n_l);
-    multipliers(true);
+
+    // ---- the polar re-estimate ----
+    av = atan2f(yd, xd);
+    aa = atan2f(ydd, xdd);
+    cav = cosf(av);
+    sav = sinf(av);
+    caa = cosf(aa);
+    saa = sinf(aa);
+    dv = radius(xd, yd, cav, sav, rho_i, a.v_min, a.v_max);
+    da = radius(xdd, ydd, caa, saa, rho_i, 0.0f, a.a_max);
+    const bool next = it + 1 < a.maxiter;
+    polar_vectors(next);
+    if (next) {
+      if (lrow0 < nl) bl[lrow0] = sub(b_lane0, sl0);
+      if (lrow1 < nl) bl[lrow1] = sub(b_lane1, sl1);
+    }
+    row_sync(row);
+
+    // ---- the norms ----
+    // one warp each, in the order of the plain chain's (rows, 2 num) and
+    // (rows, 2 (num - 1)) tensors
+    if (warp < 3) {
+      const int len = warp < 2 ? 2 * num : nl;
+      const int shift = static_cast<int>((static_cast<long long>(r) * len) % 4);
+      const float* base = warp == 0 ? rv : warp == 1 ? rv + 2 * numv : rl;
+      const int second = warp < 2 ? numv : 0;  // the second vector of a pair
+      const float s = mmd_order::row_reduce(
+          [&](int i) { return warp < 2 && i >= num ? base[second + i - num] : base[i]; }, len,
+          shift, Square(), lane);
+      if (lane == 0) nrm[warp] = sqrtf(s);
+    }
   }
 
   // ---- the path, the controls, the outputs ----
-  const size_t rb = static_cast<size_t>(r) * num;
-  float* vbuf = vb;  // the speed, for the forward difference
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    if (t < num) vbuf[t] = sqrtf(add(mul(xd[s], xd[s]), mul(yd[s], yd[s])));
-  }
-  __syncwarp();
-#pragma unroll
-  for (int s = 0; s < kSlots; ++s) {
-    const int t = lane + s * kWarp;
-    if (t >= num) continue;
+  const size_t rbase = static_cast<size_t>(r) * num;
+  float* spd = bv;  // the speed, for the forward difference
+  if (step) spd[t] = sqrtf(add(mul(xd, xd), mul(yd, yd)));
+  row_sync(row);
+  if (step) {
     float ki = 0.0f, st = 0.0f;
-    if (a.npath > 0) {
-      const float xon = minimum(clamp_min(xx[s], 0.0f), a.arc[a.npath - 1]);
-      ki = interp(xon, a.arc, a.kap, a.npath);
-      const float kf = __fdiv_rn(mul(da[s], sinf(sub(aa[s], av[s]))), mul(dv[s], dv[s]));
-      st = atanf(mul(add(kf, __fdiv_rn(mul(ki, cosf(av[s])), sub(1.0f, mul(yy[s], ki)))),
-                     a.wheel_base));
+    if (npath > 0) {
+      const float xon = minimum(clamp_min(xx, 0.0f), arc[npath - 1]);
+      ki = interp(xon, arc, kap, npath);
+      const float kf = __fdiv_rn(mul(da, sinf(sub(aa, av))), mul(dv, dv));
+      st = atanf(mul(add(kf, __fdiv_rn(mul(ki, cav), sub(1.0f, mul(yy, ki)))), a.wheel_base));
     }
-    const float v = vbuf[t], vn = t + 1 < num ? vbuf[t + 1] : v;
-    const float sq = add(mul(xd[s], xd[s]), mul(yd[s], yd[s]));
-    const float curv = __fdiv_rn(sub(mul(ydd[s], xd[s]), mul(yd[s], xdd[s])), powf(sq, 1.5f));
-    a.x[rb + t] = xx[s];
-    a.y[rb + t] = yy[s];
-    a.xdot[rb + t] = xd[s];
-    a.ydot[rb + t] = yd[s];
-    a.xddot[rb + t] = xdd[s];
-    a.yddot[rb + t] = ydd[s];
-    a.steering[rb + t] = st;
-    a.kappa_interp[rb + t] = ki;
-    a.acc[rb + t] = mul(sub(vn, v), a.inv_dt);
-    a.steer[rb + t] = atanf(mul(curv, a.wheel_base));
+    const float v = spd[t], vn = t + 1 < num ? spd[t + 1] : v;
+    const float sq = add(mul(xd, xd), mul(yd, yd));
+    const float curv = __fdiv_rn(sub(mul(ydd, xd), mul(yd, xdd)), powf(sq, 1.5f));
+    a.x[rbase + t] = xx;
+    a.y[rbase + t] = yy;
+    a.xdot[rbase + t] = xd;
+    a.ydot[rbase + t] = yd;
+    a.xddot[rbase + t] = xdd;
+    a.yddot[rbase + t] = ydd;
+    a.steering[rbase + t] = st;
+    a.kappa_interp[rbase + t] = ki;
+    a.acc[rbase + t] = mul(sub(vn, v), a.inv_dt);
+    a.steer[rbase + t] = atanf(mul(curv, a.wheel_base));
   }
-#pragma unroll
-  for (int s = 0; s < kLaneSlots; ++s) {
-    const int l = lane + s * kWarp;
-    if (l < nl) a.s_lane[static_cast<size_t>(r) * nl + l] = sl[s];
+  if (lrow0 < nl) a.s_lane[static_cast<size_t>(r) * nl + lrow0] = sl0;
+  if (lrow1 < nl) a.s_lane[static_cast<size_t>(r) * nl + lrow1] = sl1;
+  if (xs) {
+    a.c_x[r * nvar + j] = cxy;
+    a.lamda_x[r * nvar + j] = lxy;
   }
-  if (lane < nvar) {
-    a.c_x[r * nvar + lane] = cx[lane];
-    a.c_y[r * nvar + lane] = cy[lane];
-    a.lamda_x[r * nvar + lane] = lx[lane];
-    a.lamda_y[r * nvar + lane] = ly[lane];
+  if (ys) {
+    a.c_y[r * nvar + j] = cxy;
+    a.lamda_y[r * nvar + j] = lxy;
   }
-  if (lane == 0) a.res_norm[r] = rn;
+  if (tid == 0) a.res_norm[r] = rn;
+  // ---- the end of the row ----
+}
+
+template <int NV, int NUM, int NSEG, int ROWS>
+int launch(const Args& a, int bytes, cudaStream_t stream) {
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      outer_project_kernel<NV, NUM, NSEG, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem);
+  if (opted != cudaSuccess) return static_cast<int>(opted);
+  const int blocks = (a.rows + ROWS - 1) / ROWS;
+  outer_project_kernel<NV, NUM, NSEG, ROWS><<<blocks, ROWS * kRowThreads, bytes, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -486,7 +638,10 @@ __global__ void __launch_bounds__(kRowsPerBlock* kWarp)
 // (nvar + 4)^2, P, Pdot, Pddot (num, nvar), A_lane (2 (num - 1), nvar),
 // projection KKT inverses; arc, kappa (npath) or null with npath 0.
 // Outputs as ops/outer_project.OuterProjection.  The constants as
-// ops/outer_project.constants gives them.
+// ops/outer_project.constants gives them.  rows_per_cta 1 or 2 rows a CTA;
+// compiled 1 for the compile-time instantiation (nvar 11, num 100, 4
+// segments: refused at another shape), 0 for the run-time one
+// (ops/outer_project.launch_choice picks both).
 extern "C" int mmd_outer_project(
     const float* params, const float* b_eq_x, const float* b_eq_y, const float* lamda_x0,
     const float* lamda_y0, const float* s_lane0, const float* G_vx, const float* G_py,
@@ -497,23 +652,28 @@ extern "C" int mmd_outer_project(
     float* steering, float* kappa_interp, float* acc, float* steer, int rows, int nvar, int num,
     int nseg, int maxiter, int npath, float rho_ineq, float rho_proj, float rho_lane,
     float lane_ub, float lane_lb, float v_min, float v_max, float a_max, float inv_dt,
-    float wheel_base, void* stream) {
+    float wheel_base, int rows_per_cta, int compiled, void* stream) {
   if (rows <= 0) return 0;
-  if (nvar < 1 || nvar > kMaxNvar || num < 2 || num > kSlots * kWarp || nseg < 1 ||
-      nseg > kMaxSeg || maxiter < 1 || (npath > 0 && (arc == nullptr || kap == nullptr)))
+  if (nvar < 1 || nvar > kMaxNvar || num < 2 || num > kMaxNum || nseg < 1 || nseg > kMaxSeg ||
+      maxiter < 1 || (npath > 0 && (arc == nullptr || kap == nullptr)) ||
+      (rows_per_cta != 1 && rows_per_cta != 2) ||
+      (compiled && (nvar != kNvar || num != kNum || nseg != kSeg)))
     return static_cast<int>(cudaErrorInvalidValue);
+  int staged = npath > 0 && npath <= kMaxPathStaged ? npath : 0;
+  int bytes = smem_layout(nvar, num, nseg, staged, rows_per_cta).total * 4;
+  if (bytes > kMaxSmem) {  // the path from device memory
+    staged = 0;
+    bytes = smem_layout(nvar, num, nseg, 0, rows_per_cta).total * 4;
+  }
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{params, b_eq_x, b_eq_y, lamda_x0, lamda_y0, s_lane0, G_vx, G_py, Gix, Giy, P,
                Pd, Pdd, Al, Kix, Kiy, arc, kap, c_x, c_y, x, y, xdot, ydot, xddot, yddot,
                res_norm, lamda_x, lamda_y, s_lane, steering, kappa_interp, acc, steer, rows,
-               nvar, num, nseg, maxiter, npath, rho_ineq, rho_proj, rho_lane, lane_ub, lane_lb,
-               v_min, v_max, a_max, inv_dt, wheel_base};
-  const int bytes = smem_layout(nvar, num, nseg).total * static_cast<int>(sizeof(float));
-  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      outer_project_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (opted != cudaSuccess) return static_cast<int>(opted);
-  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
-  outer_project_kernel<<<blocks, kRowsPerBlock * kWarp, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+               nvar, num, nseg, maxiter, npath, staged > 0, rho_ineq, rho_proj, rho_lane,
+               lane_ub, lane_lb, v_min, v_max, a_max, inv_dt, wheel_base};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compiled)
+    return rows_per_cta == 1 ? launch<kNvar, kNum, kSeg, 1>(a, bytes, s)
+                             : launch<kNvar, kNum, kSeg, 2>(a, bytes, s);
+  return rows_per_cta == 1 ? launch<0, 0, 0, 1>(a, bytes, s) : launch<0, 0, 0, 2>(a, bytes, s);
 }

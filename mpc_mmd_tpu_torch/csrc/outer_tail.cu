@@ -44,10 +44,18 @@
 // and evaluates nb R num_obs T violations (3.2e5 at fastrt) and nb R^2
 // kernel values: microseconds of either over the card, but the steps
 // after the risk are a chain of small dependent phases.  A scenario is a
-// thread-block cluster of cs CTAs (1, 2, 4 or 8; the wrapper picks the
-// size, utils/kernel_ab.py times them): each CTA scores its share of the
-// candidates' risks (phase 1), rank 0 reads the others' risks through
-// distributed shared memory and runs phases 2-7 alone.
+// thread-block cluster of cs CTAs (1, 2, 4 or 8; the kernel picks the
+// size, utils/kernel_ab.py times them), and the chain is spread over it:
+// each CTA scores its share of the candidates' risks (phase 1); every CTA
+// reads all the risks through distributed shared memory and ranks them
+// itself (a rank is a function of the risks alone, so every CTA keeps the
+// same candidates); kept candidate k goes to CTA k mod cs, where one warp
+// a rollout takes its lane violations, one warp a norm its cost's norms
+// and desired-lane norms, then one warp an MMD its lane risks (phases 3
+// and 4); each CTA writes its candidates' lane risks and costs into rank
+// 0's shared memory, and after one cluster barrier rank 0 runs phases 5-7,
+// the Cholesky factor by one warp (a lane a row, each entry's chain of
+// fused multiply-adds in cuSOLVER's order).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -72,8 +80,10 @@ constexpr int kWarps = kThreads / kWarp;
 constexpr int kMaxNb = 256;
 constexpr int kMaxCost = 32;
 constexpr int kMaxR = 16;
-constexpr int kMaxT = 64;
+constexpr int kMaxT = 64;   // two steps a lane
+constexpr int kBatch = 4;   // rollouts a warp loads at once in phase 1
 constexpr int kP = 8;  // behavioural parameters
+constexpr int kNorms = 11;  // a kept candidate's cost norms (8, and 3 on the road)
 // float(math.sqrt(5.0)), kernels.py's matern52 scalar
 constexpr float kSqrt5 = 2.2360679774997896964f;
 
@@ -86,7 +96,8 @@ struct Args {
       *v_des;
   float *mean_out, *cov_out, *params_out, *res, *res_2, *risk_obs_best, *risk_lane_best;
   long long *best, *kept_out, *elites_out;
-  long long* clock;  // phase stamps of each CTA's thread 0 (null: none)
+  long long* clock;     // phase stamps of each CTA's thread 0 (null: none)
+  long long* kept_cta;  // each CTA's kept candidates (null: none)
   int nb, n_cost, n_el, R, T, num, nobs, obs_len, maxiter, it, kind, frenet, with_des;
   float inv_a2, inv_b2, y_lb, y_ub, ker_wt, w_obs, w_lane, w_des, y_des1, y_des2,
       gamma_lane_des, steer_max, w_des_lane, w_centr, a_centr, inv_lamda, a_m1, a_m, a_c1,
@@ -164,11 +175,18 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   __shared__ float viol[kMaxNb * kMaxR];  // this CTA's candidates' violations
   extern __shared__ float obs[];              // x_obs | y_obs, nobs x T each
   __shared__ int kept[kMaxCost];
-  __shared__ float lane_r[kMaxCost], des_r[kMaxCost], cost[kMaxCost];
+  __shared__ float lane_r[kMaxCost], cost[kMaxCost];
   __shared__ int elite[kMaxCost];
   __shared__ float w[kMaxCost], mean[kP], cov[kP * kP], L[kP * kP];
-  __shared__ float lb_ub[kWarps][2 * kMaxR];
   __shared__ int pick;
+  __shared__ float elite_p[kMaxCost * kP];
+  // this CTA's kept candidates (k = rank + q cs): per rollout the lower and
+  // upper lane violations, the cost's norms (kNorms), the desired-lane
+  // norms and the three MMDs (lower, upper, desired lane)
+  __shared__ float lb_ub[kMaxCost][2 * kMaxR];
+  __shared__ float norms[kMaxCost][kNorms + 2];
+  __shared__ float mmds[kMaxCost][3];
+  __shared__ float bar_des[kWarps][kMaxR];
 
   stamp(a, 0);
   for (int q = threadIdx.x; q < nobs * T; q += kThreads) {
@@ -182,21 +200,42 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   __syncthreads();
 
   // ---- 1. the obstacle risk of this CTA's candidates ----
-  for (int q = warp; q < (i1 - i0) * R; q += kWarps) {
-    const int i = i0 + q / R, r = q % R;
-    const size_t base = ((static_cast<size_t>(n) * nb + i) * R + r) * T;
-    float m = 0.0f;
-    for (int t = lane; t < T; t += kWarp) {
-      const float xr = a.x_roll[base + t], yr = a.y_roll[base + t];
-      for (int o = 0; o < nobs; ++o) {
-        const float dx = sub(xr, obs[o * T + t]), dy = sub(yr, obs[nobs * T + o * T + t]);
-        const float c = clamp_min(
-            sub(sub(1.0f, mul(mul(dx, dx), a.inv_a2)), mul(mul(dy, dy), a.inv_b2)), 0.0f);
-        m = c != c ? c : m != m ? m : fmaxf(m, c);
+  // rollout q of the CTA's (i1 - i0) R; a warp loads kBatch of its
+  // rollouts (T <= 64: two steps a lane) before it scores them
+  const int nq = (i1 - i0) * R;
+  const float* xs = a.x_roll + (static_cast<size_t>(n) * nb + i0) * R * T;
+  const float* ys = a.y_roll + (static_cast<size_t>(n) * nb + i0) * R * T;
+  for (int q0 = warp; q0 < nq; q0 += kWarps * kBatch) {
+    float xr[kBatch][2], yr[kBatch][2];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q0 + u * kWarps, t = lane + h * kWarp;
+        const bool in = q < nq && t < T;
+        xr[u][h] = in ? xs[static_cast<size_t>(q) * T + t] : 0.0f;
+        yr[u][h] = in ? ys[static_cast<size_t>(q) * T + t] : 0.0f;
       }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int q = q0 + u * kWarps;
+      if (q >= nq) break;
+      float m = 0.0f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int t = lane + h * kWarp;
+        if (t >= T) continue;
+        for (int o = 0; o < nobs; ++o) {
+          const float dx = sub(xr[u][h], obs[o * T + t]);
+          const float dy = sub(yr[u][h], obs[nobs * T + o * T + t]);
+          const float c = clamp_min(
+              sub(sub(1.0f, mul(mul(dx, dx), a.inv_a2)), mul(mul(dy, dy), a.inv_b2)), 0.0f);
+          m = c != c ? c : m != m ? m : fmaxf(m, c);
+        }
+      }
+      const float v = warp_amax(m);
+      if (lane == 0) viol[q] = v;
     }
-    const float v = warp_amax(m);
-    if (lane == 0) viol[q] = v;
   }
   __syncthreads();
   for (int i = i0 + warp; i < i1; i += kWarps) {
@@ -207,34 +246,39 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   }
   stamp(a, 1);
   cluster.sync();
-  if (rank == 0) {
-    for (int i = threadIdx.x; i < nb; i += kThreads) {
-      const int owner = i / per;
-      if (owner != 0) risk[i] = *cluster.map_shared_rank(&risk[i], owner);
-    }
-  }
-  cluster.sync();  // no CTA leaves while rank 0 may read its risks
-  if (rank != 0) return;
-  __syncthreads();
 
-  // ---- 2. the n_cost least risks ----
+  // ---- 2. every CTA: all the risks, the n_cost least ----
+  for (int i = threadIdx.x; i < nb; i += kThreads) {
+    const int owner = i / per;
+    if (owner != rank) risk[i] = *cluster.map_shared_rank(&risk[i], owner);
+  }
+  __syncthreads();
   for (int i = threadIdx.x; i < nb; i += kThreads) {
     const int rk = stable_rank(risk, nb, i);
     if (rk < n_cost) kept[rk] = i;
   }
   __syncthreads();
+  if (a.kept_cta != nullptr && threadIdx.x < n_cost)
+    a.kept_cta[static_cast<size_t>(blockIdx.x) * n_cost + threadIdx.x] = kept[threadIdx.x];
   stamp(a, 2);
 
   // a kept candidate's projection row
   const long long* ord = a.order + static_cast<size_t>(n) * nb;
   auto row_of = [&](int i) { return static_cast<size_t>(n) * nb + ord[i]; };
 
-  // ---- 3. the lane risks of the kept ----
-  for (int k = warp; k < n_cost; k += kWarps) {
+  // ---- 3. and 4. the lane risks and the costs of this CTA's kept ----
+  const int nk = (n_cost - rank + cs - 1) / cs;  // k = rank + q cs, q < nk
+  const int num = a.num;
+  const int n_norms = a.frenet ? kNorms : 8, n_des = a.with_des ? 2 : 0;
+  const int tasks = R + n_des + n_norms;  // a kept candidate's warps before its MMDs
+  for (int task = warp; task < nk * tasks; task += kWarps) {
+    const int q = task / tasks, sub_task = task % tasks, k = rank + q * cs;
     const int i = kept[k];
     const size_t ci = static_cast<size_t>(n) * nb + i;
     const float* yroll = a.y_roll + ci * R * T;
-    for (int r = 0; r < R; ++r) {
+    const long long flat = static_cast<long long>(n) * n_cost + k;
+    if (sub_task < R) {  // the lane violations of rollout sub_task
+      const int r = sub_task;
       float ml = 0.0f, mu = 0.0f;
       for (int t = lane; t < T; t += kWarp) {
         const float yv = yroll[r * T + t];
@@ -245,90 +289,100 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
       ml = warp_amax(ml);
       mu = warp_amax(mu);
       if (lane == 0) {
-        lb_ub[warp][r] = ml;
-        lb_ub[warp][kMaxR + r] = mu;
+        lb_ub[q][r] = ml;
+        lb_ub[q][kMaxR + r] = mu;
       }
-    }
-    __syncwarp();
-    const long long flat = static_cast<long long>(n) * n_cost + k;
-    const float sg = a.sigma[ci];
-    const float lane_k = add(mmd_vs_zero(a.beta + ci * R, lb_ub[warp], sg, R, a.kind, a.ker_wt,
-                                         flat, lane),
-                             mmd_vs_zero(a.beta + ci * R, lb_ub[warp] + kMaxR, sg, R, a.kind,
-                                         a.ker_wt, flat, lane));
-    float des = 0.0f;
-    if (a.with_des) {
+    } else if (sub_task < R + n_des) {  // a desired-lane norm over the R T points
       const int RT = R * T, shift = static_cast<int>((flat * RT) % 4);
-      const float n1 = sqrtf(mmd_order::row_reduce(
-          [&](int q) { return sub(yroll[q], a.y_des1); }, RT, shift, Square(), lane));
-      const float n2 = sqrtf(mmd_order::row_reduce(
-          [&](int q) { return sub(yroll[q], a.y_des2); }, RT, shift, Square(), lane));
-      const float bar = clamp_min(sub(mul(n1, n2), a.gamma_lane_des), 0.0f);
-      __syncwarp();
-      if (lane < R) lb_ub[warp][lane] = bar;
-      __syncwarp();
-      des = mul(a.w_des,
-                mmd_vs_zero(a.beta + ci * R, lb_ub[warp], sg, R, a.kind, a.ker_wt, flat, lane));
-    }
-    __syncwarp();
-    if (lane == 0) {
-      lane_r[k] = lane_k;
-      des_r[k] = des;
+      const float yd = sub_task == R ? a.y_des1 : a.y_des2;
+      const float v = sqrtf(mmd_order::row_reduce(
+          [&](int p) { return sub(yroll[p], yd); }, RT, shift, Square(), lane));
+      if (lane == 0) norms[q][kNorms + sub_task - R] = v;
+    } else {  // a norm of the scalar cost
+      const int c = sub_task - R - n_des;
+      const size_t rb = row_of(i) * num;
+      const float *s = a.steer + rb, *yv = a.y + rb, *xd = a.xdot + rb, *yd = a.ydot + rb;
+      const float *xdd = a.xddot + rb, *ydd = a.yddot + rb;
+      const float* kp = a.frenet ? a.kappa + rb : nullptr;
+      auto norm = [&](auto f, int len) {
+        return sqrtf(mmd_order::row_reduce(f, len, static_cast<int>((flat * len) % 4),
+                                           Square(), lane));
+      };
+      auto sv = [&](int p) { return sub(s[p + 1], s[p]); };
+      float v = 0.0f;
+      switch (c) {
+        case 0: {
+          const float vdes = a.v_des[0];
+          v = norm([&](int p) { return sub(sqrtf(add(mul(xd[p], xd[p]), mul(yd[p], yd[p]))), vdes); },
+                   num);
+          break;
+        }
+        case 1: v = norm([&](int p) { return s[p]; }, num); break;
+        case 2: v = norm(sv, num - 1); break;
+        case 3: v = norm([&](int p) { return sub(sv(p + 1), sv(p)); }, num - 2); break;
+        case 4:
+          v = norm([&](int p) { return clamp_min(sub(fabsf(s[p]), a.steer_max), 0.0f); }, num);
+          break;
+        case 5:
+          v = norm([&](int p) { return clamp_min(sub(fabsf(sv(p)), 0.05f), 0.0f); }, num - 1);
+          break;
+        case 6: v = norm([&](int p) { return ydd[p]; }, num); break;
+        case 7: v = norm([&](int p) { return xdd[p]; }, num); break;
+        case 8: v = norm([&](int p) { return sub(yv[p], a.y_des1); }, num); break;
+        case 9: v = norm([&](int p) { return sub(yv[p], a.y_des2); }, num); break;
+        default:
+          v = norm([&](int p) {
+            return clamp_min(sub(fabsf(mul(mul(xd[p], xd[p]), kp[p])), a.a_centr), 0.0f);
+          }, num);
+      }
+      if (lane == 0) norms[q][c] = v;
     }
   }
   __syncthreads();
   stamp(a, 3);
-
-  // ---- 4. the scalar cost of the kept ----
-  const int num = a.num;
-  for (int k = warp; k < n_cost; k += kWarps) {
-    const int i = kept[k];
-    const size_t rb = row_of(i) * num;
-    const float *s = a.steer + rb, *yv = a.y + rb, *xd = a.xdot + rb, *yd = a.ydot + rb;
-    const float *xdd = a.xddot + rb, *ydd = a.yddot + rb;
+  const int n_mmd = a.with_des ? 3 : 2;
+  for (int task = warp; task < nk * n_mmd; task += kWarps) {
+    const int q = task / n_mmd, m = task % n_mmd, k = rank + q * cs;
+    const size_t ci = static_cast<size_t>(n) * nb + kept[k];
     const long long flat = static_cast<long long>(n) * n_cost + k;
-    auto norm = [&](auto t, int len) {
-      return sqrtf(mmd_order::row_reduce(t, len, static_cast<int>((flat * len) % 4), Square(),
-                                         lane));
-    };
-    auto sv = [&](int q) { return sub(s[q + 1], s[q]); };
-    const float vdes = a.v_des[0];
-    const float c_vel = norm([&](int q) {
-      return sub(sqrtf(add(mul(xd[q], xd[q]), mul(yd[q], yd[q]))), vdes);
-    }, num);
-    const float c_s = norm([&](int q) { return s[q]; }, num);
-    const float c_sv = norm(sv, num - 1);
-    const float c_sa = norm([&](int q) { return sub(sv(q + 1), sv(q)); }, num - 2);
-    const float c_pen = norm([&](int q) { return clamp_min(sub(fabsf(s[q]), a.steer_max), 0.0f); },
-                             num);
-    const float c_vpen = norm([&](int q) { return clamp_min(sub(fabsf(sv(q)), 0.05f), 0.0f); },
-                              num - 1);
-    const float c_ydd = norm([&](int q) { return ydd[q]; }, num);
-    const float c_xdd = norm([&](int q) { return xdd[q]; }, num);
-    const float risk_w = mul(a.w_obs, risk[i]), lane_w = mul(a.w_lane, lane_r[k]);
-    float base = add(a.res_norm[row_of(i)], mul(0.1f, c_vel));
-    base = add(base, mul(0.1f, add(add(c_s, c_sv), c_sa)));
-    base = add(base, mul(0.1f, add(c_pen, c_vpen)));
-    base = add(base, mul(0.02f, c_ydd));
-    base = add(base, mul(0.02f, c_xdd));
-    float c;
-    if (!a.frenet) {
-      c = add(add(base, risk_w), mul(0.0f, lane_w));
-    } else {
-      const float* kp = a.kappa + rb;
-      base = add(add(base, 0.0f), mul(0.0f, 0.0f));
-      const float c1 = norm([&](int q) { return sub(yv[q], a.y_des1); }, num);
-      const float c2 = norm([&](int q) { return sub(yv[q], a.y_des2); }, num);
-      const float cc = norm([&](int q) {
-        return clamp_min(sub(fabsf(mul(mul(xd[q], xd[q]), kp[q])), a.a_centr), 0.0f);
-      }, num);
-      c = add(base, mul(mul(a.w_des_lane, c1), c2));
-      c = add(c, mul(a.w_centr, cc));
-      c = add(add(add(c, risk_w), lane_w), des_r[k]);
+    const float* samples = lb_ub[q] + (m == 1 ? kMaxR : 0);
+    if (m == 2) {  // the desired-lane barrier, the same at every rollout
+      const float bar = clamp_min(sub(mul(norms[q][kNorms], norms[q][kNorms + 1]),
+                                      a.gamma_lane_des), 0.0f);
+      if (lane < R) bar_des[warp][lane] = bar;
+      __syncwarp();
+      samples = bar_des[warp];
     }
-    if (lane == 0) cost[k] = c;
+    const float v = mmd_vs_zero(a.beta + ci * R, samples, a.sigma[ci], R, a.kind, a.ker_wt,
+                                flat, lane);
+    if (lane == 0) mmds[q][m] = v;
   }
   __syncthreads();
+  for (int q = threadIdx.x; q < nk; q += kThreads) {  // the costs, into rank 0's memory
+    const int k = rank + q * cs, i = kept[k];
+    const float* c = norms[q];
+    const float lane_k = add(mmds[q][0], mmds[q][1]);
+    const float des = a.with_des ? mul(a.w_des, mmds[q][2]) : 0.0f;
+    const float risk_w = mul(a.w_obs, risk[i]), lane_w = mul(a.w_lane, lane_k);
+    float base = add(a.res_norm[row_of(i)], mul(0.1f, c[0]));
+    base = add(base, mul(0.1f, add(add(c[1], c[2]), c[3])));
+    base = add(base, mul(0.1f, add(c[4], c[5])));
+    base = add(base, mul(0.02f, c[6]));
+    base = add(base, mul(0.02f, c[7]));
+    float cst;
+    if (!a.frenet) {
+      cst = add(add(base, risk_w), mul(0.0f, lane_w));
+    } else {
+      base = add(add(base, 0.0f), mul(0.0f, 0.0f));
+      cst = add(base, mul(mul(a.w_des_lane, c[8]), c[9]));
+      cst = add(cst, mul(a.w_centr, c[10]));
+      cst = add(add(add(cst, risk_w), lane_w), des);
+    }
+    *cluster.map_shared_rank(&lane_r[k], 0) = lane_k;
+    *cluster.map_shared_rank(&cost[k], 0) = cst;
+  }
+  cluster.sync();  // the costs in rank 0; no CTA leaves while another reads its risks
+  if (rank != 0) return;
   stamp(a, 4);
 
   // ---- 5. the elites; 6. cem_update; 7. the pick ----
@@ -337,10 +391,6 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
     if (rk < n_el) elite[rk] = threadIdx.x;
   }
   __syncthreads();
-  // the elites' parameters: kept candidate elite[e], projection row
-  auto pe = [&](int e, int j) {
-    return a.params[(static_cast<size_t>(n) * nb + ord[kept[elite[e]]]) * kP + j];
-  };
   if (threadIdx.x == 0) {
     float cmin = cost[elite[0]];
     int at = -1;
@@ -357,6 +407,12 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
     for (int e = 0; e < n_el; ++e) w[e] = expf(mul(-sub(cost[elite[e]], cmin), a.inv_lamda));
     a.res[static_cast<size_t>(n) * a.maxiter + a.it] = cmin;
   }
+  // the elites' parameters (kept candidate elite[e], projection row), read
+  // once, the other threads while thread 0 finds the least cost
+  for (int q = threadIdx.x; q < n_el * kP; q += kThreads)
+    elite_p[q] = a.params[(static_cast<size_t>(n) * nb + ord[kept[elite[q / kP]]]) * kP +
+                          q % kP];
+  auto pe = [&](int e, int j) { return elite_p[e * kP + j]; };
   __syncthreads();
   const float sum_w = mmd_order::small_reduce([&](int e) { return w[e]; }, n_el, Add());
   if (threadIdx.x < kP) {
@@ -375,25 +431,32 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
     const float cw = dvd(s, sum_w);
     cov[threadIdx.x] = add(add(mul(a.a_c1, a.cov[n * kP * kP + threadIdx.x]), mul(a.a_c, cw)),
                            mul(a.jitter, i == j ? 1.0f : 0.0f));
-    L[threadIdx.x] = 0.0f;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {  // cuSOLVER's batched potrf, all NaN past a pivot <= 0
+  if (warp == 0) {  // cuSOLVER's batched potrf, all NaN past a pivot <= 0: lane i row i
+    float Lr[kP] = {};
     bool ok = true;
+#pragma unroll
     for (int j = 0; j < kP; ++j) {
+      float Lj[kP];
+#pragma unroll
+      for (int p = 0; p < j; ++p) Lj[p] = __shfl_sync(kFull, Lr[p], j);
       float piv = cov[j * kP + j];
-      for (int p = 0; p < j; ++p) piv = __fmaf_rn(-L[j * kP + p], L[j * kP + p], piv);
+#pragma unroll
+      for (int p = 0; p < j; ++p) piv = __fmaf_rn(-Lj[p], Lj[p], piv);
       ok = ok && piv > 0.0f;
       const float d = __fsqrt_rn(piv), r = dvd(1.0f, d);
-      L[j * kP + j] = d;
-      for (int i = j + 1; i < kP; ++i) {
-        float t = cov[i * kP + j];
-        for (int p = 0; p < j; ++p) t = __fmaf_rn(-L[i * kP + p], L[j * kP + p], t);
-        L[i * kP + j] = mul(t, r);
+      if (lane == j) Lr[j] = d;
+      if (lane > j && lane < kP) {
+        float t = cov[lane * kP + j];
+#pragma unroll
+        for (int p = 0; p < j; ++p) t = __fmaf_rn(-Lr[p], Lj[p], t);
+        Lr[j] = mul(t, r);
       }
     }
-    if (!ok)
-      for (int q = 0; q < kP * kP; ++q) L[q] = __int_as_float(0x7fffffff);
+    if (lane < kP)
+#pragma unroll
+      for (int p = 0; p < kP; ++p) L[lane * kP + p] = ok ? Lr[p] : __int_as_float(0x7fffffff);
   }
   __syncthreads();
   stamp(a, 5);
@@ -456,7 +519,8 @@ extern "C" int mmd_outer_tail_last_cluster() { return last_cluster; }
 
 // Inputs as ops/outer_tail.py passes them; cs the cluster size (0: the
 // size mmd_outer_tail_cluster picks); clock null, or N cs x 8 int64 for
-// clock64 stamps of each CTA's thread 0 at its phases.
+// clock64 stamps of each CTA's thread 0 at its phases; kept_cta null, or
+// N cs x n_cost int64 for the kept candidates each CTA ranked.
 extern "C" int mmd_outer_tail(
     const long long* order, const float* y, const float* xdot, const float* ydot,
     const float* xddot, const float* yddot, const float* res_norm, const float* steer,
@@ -465,7 +529,7 @@ extern "C" int mmd_outer_tail(
     const float* z, const float* mean, const float* cov, const float* v_des, float* mean_out,
     float* cov_out, float* params_out, float* res, float* res_2, float* risk_obs_best,
     float* risk_lane_best, long long* best, long long* kept_out, long long* elites_out,
-    long long* clock, int N, int nb, int n_cost,
+    long long* clock, long long* kept_cta, int N, int nb, int n_cost,
     int n_el, int R, int T, int num, int nobs, int obs_len, int maxiter, int it, int kind,
     int frenet, int with_des, int cs, float inv_a2, float inv_b2, float y_lb, float y_ub,
     float ker_wt, float w_obs, float w_lane, float w_des, float y_des1, float y_des2,
@@ -483,7 +547,7 @@ extern "C" int mmd_outer_tail(
   const Args a{order, y, xdot, ydot, xddot, yddot, res_norm, steer, kappa, params, beta, sigma,
                x_roll, y_roll, x_obs, y_obs, z, mean, cov, v_des, mean_out, cov_out, params_out,
                res, res_2, risk_obs_best, risk_lane_best, best, kept_out, elites_out, clock,
-               nb, n_cost, n_el, R, T,
+               kept_cta, nb, n_cost, n_el, R, T,
                num, nobs, obs_len, maxiter, it, kind, frenet, with_des, inv_a2, inv_b2, y_lb,
                y_ub, ker_wt, w_obs, w_lane, w_des, y_des1, y_des2, gamma_lane_des, steer_max,
                w_des_lane, w_centr, a_centr, inv_lamda, a_m1, a_m, a_c1, a_c, jitter, v_min,

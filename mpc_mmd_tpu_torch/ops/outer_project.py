@@ -9,7 +9,9 @@ loops.  :func:`outer_project_plain` is the port's chain of PyTorch
 operations for it (``qp.compute_guess``, ``projection.project``,
 ``dynamics.controls_from_trajectory``: about 240 launches an outer
 iteration on the card); :func:`outer_project` runs all of it in one
-launch, a warp a row.  The rows are independent: the controls of a row
+launch, a warpgroup a row, one or two rows a CTA, at the path shapes'
+compile-time instantiation or at the run-time-shape one
+(:func:`launch_choice`).  The rows are independent: the controls of a row
 computed before the outer loop's sort by residual are the ones it has
 after it.
 
@@ -31,9 +33,28 @@ from .. import dynamics, projection, qp
 from ..config import ProblemConfig
 from ..qp import Workspace
 
-MAX_NUM = 128     # time steps: 4 a lane
+MAX_NUM = 128     # time steps: one a thread of a row's warpgroup
 MAX_NVAR = 16     # Bernstein coefficients
 MAX_SEGMENTS = 8  # guess segments (the parameters are 2 x segments wide)
+# (nvar, num, segments) of the kernel's compile-time instantiation: every
+# path's shape
+COMPILED_SHAPE = (11, 100, 4)
+# from this many rows on, two rows a CTA: one row a CTA is the faster at
+# 64 and 100 rows, two at 256 and 512 (utils/kernel_ab.py on the H100)
+TWO_ROWS_FROM = 200
+
+
+def launch_choice(nvar: int, num: int, segments: int, rows: int, rows_per_cta: int = 0,
+                  runtime_shape: bool = False):
+    """(rows a CTA, compiled) of a launch of kernel (d): one row a CTA up
+    to TWO_ROWS_FROM rows, else two, unless ``rows_per_cta`` (1 or 2; 0 the
+    default) forces it; the compile-time instantiation at COMPILED_SHAPE
+    unless ``runtime_shape`` asks for the run-time-shape one, which takes
+    every shape within the limits."""
+    if rows_per_cta not in (0, 1, 2):
+        raise ValueError(f"outer_project: rows_per_cta is 0, 1 or 2, got {rows_per_cta}")
+    compiled = not runtime_shape and (nvar, num, segments) == COMPILED_SHAPE
+    return rows_per_cta or (1 if rows < TWO_ROWS_FROM else 2), compiled
 
 
 class OuterProjection(NamedTuple):
@@ -119,7 +140,8 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
                   lamda_x: torch.Tensor, lamda_y: torch.Tensor, s_lane: torch.Tensor,
                   x_obs: Optional[torch.Tensor] = None, y_obs: Optional[torch.Tensor] = None,
                   arc_vec: Optional[torch.Tensor] = None,
-                  kappa: Optional[torch.Tensor] = None, *, lib=None) -> OuterProjection:
+                  kappa: Optional[torch.Tensor] = None, *, rows_per_cta: int = 0,
+                  runtime_shape: bool = False, lib=None) -> OuterProjection:
     """The guess QP, the AM projection (``projection.maxiter`` rounds) and
     the controls of every row.
 
@@ -135,18 +157,22 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
 
     CPU tensors take :func:`outer_project_plain`; CUDA tensors launch
     kernel (d) (float32, one device; the "prefactored" strategy without
-    obstacle terms, num <= 128, nvar <= 16) or raise.  ``lib``: another
-    build of the kernels' library (``utils/kernel_ab.py``), else the
-    package's.
+    obstacle terms, num <= 128, nvar <= 16) or raise.  ``rows_per_cta`` (1
+    or 2) and ``runtime_shape`` force the launch's choices
+    (:func:`launch_choice`); ``lib``: another build of the kernels'
+    library (``utils/kernel_ab.py``), else the package's.
     """
     rows = _check(cfg, ws, params, b_eq_x, b_eq_y, lamda_x, lamda_y, s_lane,
                   arc_vec, kappa)
+    h = cfg.horizon
+    per_cta, compiled = launch_choice(h.nvar, h.num, cfg.guess.num_segments, rows,
+                                      rows_per_cta, runtime_shape)
     inputs = [params, b_eq_x, b_eq_y, lamda_x, lamda_y, s_lane]
     path = [] if arc_vec is None else [arc_vec, kappa]
     if all(t.device.type == "cpu" for t in inputs + path):
         return outer_project_plain(cfg, ws, params, b_eq_x, b_eq_y, lamda_x,
                                    lamda_y, s_lane, x_obs, y_obs, arc_vec, kappa)
-    h, pj = cfg.horizon, cfg.projection
+    pj = cfg.projection
     if cfg.solve_strategy != "prefactored" or pj.with_obstacle_terms:
         raise ValueError("outer_project: the kernel takes the prefactored strategy "
                          "without obstacle terms (outer_project_plain takes the rest)")
@@ -170,7 +196,8 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
         *((t.data_ptr() for t in path) if path else (None, None)),
         *(t.data_ptr() for t in out),
         rows, nvar, num, cfg.guess.num_segments, pj.maxiter,
-        arc_vec.shape[0] if path else 0, *constants(cfg), _build.stream())
+        arc_vec.shape[0] if path else 0, *constants(cfg), per_cta, int(compiled),
+        _build.stream())
     _build.check(err, "outer_project")
     outer_project.launches += 1
     return out

@@ -162,7 +162,8 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
                x_obs: torch.Tensor, y_obs: torch.Tensor, z: torch.Tensor,
                mean: torch.Tensor, cov: torch.Tensor, v_des: torch.Tensor,
                res: torch.Tensor, res_2: torch.Tensor, it: int, *, cluster: int = 0,
-               lib=None, clock: Optional[torch.Tensor] = None) -> TailResult:
+               lib=None, clock: Optional[torch.Tensor] = None,
+               kept_cta: Optional[torch.Tensor] = None) -> TailResult:
     """The ``mmd_opt`` step of outer iteration ``it`` of a chunk of N
     scenarios, from the projection's rows and the reduced sets to the next
     CEM moments and parameters.
@@ -183,10 +184,14 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
     <= 32, R <= 16, T <= 64) or raise.  ``cluster`` forces the cluster
     size (1, 2, 4, 8; 0 lets the kernel pick); ``lib`` another build of the
     kernels' library (``utils/kernel_ab.py``); ``clock`` an int64 tensor of
-    N cluster x 8 for the clock64 stamps of each CTA's phases.
+    N cluster x 8 for the clock64 stamps of each CTA's phases; ``kept_cta``
+    an int64 tensor of N cluster x ellite_num_cost for the kept candidates
+    each CTA ranked (every CTA of a scenario ranks the risks itself).
     """
     N, nb, R, T = _check(cfg, pj, order, params, beta, sigma, x_roll, y_roll, x_obs,
                          y_obs, z, mean, cov, v_des, res, res_2, it)
+    if cluster not in (0, 1, 2, 4, 8):
+        raise ValueError(f"outer_tail: a cluster of 0, 1, 2, 4 or 8 CTAs, got {cluster}")
     rows = [getattr(pj, name) for name in _ROWS] + [
         pj.steering if frenet else pj.steer] + ([pj.kappa_interp] if frenet else [])
     floats = [params, beta, sigma, x_roll, y_roll, x_obs, y_obs, z, mean, cov, v_des]
@@ -195,11 +200,10 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
                                 y_roll, x_obs, y_obs, z, mean, cov, v_des, res, res_2, it)
     c = cfg.cem
     n_cost = min(c.ellite_num_cost, nb)   # the kept: argsort(...)[:, :n_cost]
-    if not (nb <= 256 and n_cost <= 32 and R <= 16 and T <= 64
-            and cluster in (0, 1, 2, 4, 8)):
+    if not (nb <= 256 and n_cost <= 32 and R <= 16 and T <= 64):
         raise ValueError(f"outer_tail: the kernel takes num_batch <= 256, "
-                         f"ellite_num_cost <= 32, R <= 16, T <= 64 and a cluster of "
-                         f"0, 1, 2, 4 or 8, got {nb}, {n_cost}, {R}, {T}, {cluster}")
+                         f"ellite_num_cost <= 32, R <= 16 and T <= 64, got {nb}, "
+                         f"{n_cost}, {R}, {T}")
     floats = [t.contiguous() for t in floats]
     _build.require_cuda_f32("outer_tail", *rows, *floats, res, res_2)
     if order.dtype != torch.int64 or order.device != res.device:
@@ -221,6 +225,7 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
         *(t.data_ptr() for t in out_f), res.data_ptr(), res_2.data_ptr(),
         risk_obs.data_ptr(), risk_lane.data_ptr(), best.data_ptr(), kept.data_ptr(),
         elites.data_ptr(), None if clock is None else clock.data_ptr(),
+        None if kept_cta is None else kept_cta.data_ptr(),
         N, nb, n_cost, c.ellite_num, R, T, cfg.horizon.num, x_obs.shape[1],
         x_obs.shape[2], c.maxiter_cem, it, KINDS.index(cfg.risk.kernel), int(frenet),
         int(frenet and cfg.risk.weight_lane_des != 0.0), cluster, *constants(cfg),

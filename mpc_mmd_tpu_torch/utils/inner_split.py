@@ -22,9 +22,10 @@ solve and the fastrt solve at a scenario chunk of 4 (E4):
   device events and busy ms, and their shares;
 - graphed (the default on the card): the first solve captures, the
   graph's node count is read from ``graph_stats()``, and one replay runs
-  under ``torch.profiler``: its device busy ms, and each stage's replay
-  time, each kernel's mean time in the replay times its count in the
-  stage's eager calls.
+  under ``torch.profiler``: its device busy ms, each stage's replay
+  time (each kernel's mean time in the replay times its count in the
+  stage's eager calls), and kernels (c), (d) and (e)'s device ms and
+  launches in the replay (``replay_kernels``).
 
 Prints one JSON line with every path and writes ``inner_split.json`` to
 ``--out`` (default ``build/inner_split/``).  Needs a CUDA card.
@@ -177,6 +178,10 @@ def split(make, solve):
     return {"device_busy_ms": busy, "device_events": len(dev_ev),
             "graph_nodes": [g["nodes"] for g in stats], "replay_busy_ms": replay_busy,
             "replay_events": len(replay),
+            # kernels (c), (d) and (e) in the replay: device ms and launches
+            "replay_kernels": {name: [ms, n] for name, (ms, n) in replay_by_name.items()
+                               if any(k in name for k in ("inner_cem", "outer_project",
+                                                          "outer_tail"))},
             "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
 
 

@@ -65,16 +65,32 @@ launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
 floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
 ``torch._standard_gamma`` of both halves' parameters.  Kernel (d)
-(``kd_now``, ``csrc/outer_project.cu``) against its plain version at
-``KD_SHAPES`` (fastrt at chunks 1, 4 and 8, Path A, Path D; inputs from
-``kd_inputs``): how many entries of each output are bit-equal, the largest
-gap and the device time.  Kernel (e) (``ke_now``) at every forced cluster
-size (1, 2, 4, 8 CTAs a scenario) against its plain version at
-``KE_SHAPES`` (inputs from ``ke_inputs``): indices equal, the moments'
-largest gap, each size's device time in turns, the size the kernel picks
-and the clock64 cycles of rank 0's thread 0 in each of its phases (1 risk
-of its share, 2 the others' risks and the sort, 3 lane risks, 4 costs, 5
-elites, moments and the Cholesky factor, 6 resample and outputs).  Writes
+(``kd_now``, ``csrc/outer_project.cu``; ``kd_before`` DIR's
+``outer_project.cu``, built with DIR's headers first) at ``KD_SHAPES``
+(fastrt at chunks 1, 4 and 8, Path A, Path D; inputs from ``kd_inputs``):
+each build and each forced launch choice of ``kd_now`` (``KD_CHOICES``:
+one or two rows a CTA, the run-time-shape instantiation) against the plain
+version (how many entries of each output are bit-equal) and bit-equal to
+``kd_before`` in every output; their device times in turns three ways:
+warm (back-to-back launches), L2-cold (a 64 MB buffer written between
+launches) and evicted (kernel (c) at the path's shape launched between
+them, as the solve's graph runs it before (d)); and ``kd_clock`` /
+``kd_clock_before``: the clock64 cycles thread 0 of a block spends in each
+phase of its row (``KD_PHASES``: staging, guess, polar initialisation and
+unwrap, the multiplier and right-hand-side contractions, the KKT solves,
+trajectory and lane rows, the polar re-estimate, the norms, the path and
+the outputs).  Kernel (e) (``ke_now``, ``ke_before``) at every forced
+cluster size (1, 2, 4, 8 CTAs a scenario) against its plain version and
+bit-equal to ``ke_before`` at ``KE_SHAPES`` (inputs from ``ke_inputs``):
+every output, the kept and elite indices and the pick included; each
+size's warm device time in turns, the picked size's L2-cold and evicted
+times, the size the kernel picks and the clock64 cycles of rank 0's
+thread 0 between its stamps (1 risk of its share, 2 the others' risks and
+the sort, 3 and 4 the lane risks and the costs as the source's
+``stamp`` calls mark them, 5 elites, moments and the Cholesky factor, 6
+resample and outputs).  Each build's registers,
+spills and SASS instructions per kernel (``cuobjdump -sass``) are logged.
+Writes
 ``kernel_ab.json`` and ``kernel_ab.txt`` to ``--out`` (default
 ``build/kernel_ab/``).  Needs a CUDA card and ``nvcc``.
 """
@@ -87,6 +103,7 @@ import json
 import os
 import re
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -159,10 +176,10 @@ extern "C" int micro(long long* out, unsigned seed, void* stream) {
 """
 
 
-def _replace(src: str, old: str, new: str, name: str) -> str:
+def _replace(src: str, old: str, new: str, name: str, count: int = -1) -> str:
     if old not in src:
         raise ValueError(f"variant {name}: its anchor is not in the source")
-    return src.replace(old, new)
+    return src.replace(old, new, count)
 
 
 def _between(src: str, start: str, end: str, name: str):
@@ -219,6 +236,43 @@ KC_CLOCK_SLOTS = 16       # a block's stamps: its regions, and at the last the w
 CLOCK_REGIONS = {}        # a clock build's name -> its regions, in slot order
 
 
+def regions_variant(src: str, name: str, anchors, head: str, end: str, entry: str,
+                    prefix: str = "kc") -> str:
+    """A kernel whose block's thread 0 sums the cycles it spends in each
+    region between the ``anchors`` (each (anchor, region name), a stamp
+    inserted before every occurrence): slot 0 the time from ``head`` (the
+    line after which the counters are declared) to the first anchor, then
+    one slot an anchor, then the tail up to ``end``; the last slot the
+    whole block.  The C entry ``entry(out, reset)`` copies or zeroes the
+    stamps; the regions' names go to CLOCK_REGIONS[name]."""
+    n = len(anchors) + 2
+    acc, cur, t, t0 = (f"{prefix}_{v}" for v in ("acc", "cur", "t", "t0"))
+    stamp = (f"{{{{ if (threadIdx.x == 0) {{{{ const long long n_ = clock64(); "
+             f"{acc}[{cur}] += n_ - {t}; {t} = n_; {cur} = {{}}; }}}} }}}} ")
+    src = _replace(src, head, head + f"  long long {acc}[{n}] = {{}};\n"
+                   f"  const long long {t0} = clock64();\n  long long {t} = {t0};\n"
+                   f"  int {cur} = 0;\n", name)
+    for i, (anchor, _) in enumerate(anchors):
+        src = _replace(src, anchor, stamp.format(i + 1) + anchor, name)
+    src = _replace(src, end, stamp.format(n - 1) + (
+        f"if (threadIdx.x == 0 && blockIdx.x < 4096) {{\n"
+        f"    {acc}[{cur}] += clock64() - {t};\n"
+        f"    for (int i_ = 0; i_ < {n}; ++i_) g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + i_] = "
+        f"{acc}[i_];\n"
+        f"    g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + {KC_CLOCK_SLOTS - 1}] = "
+        f"clock64() - {t0};\n  }}\n  ") + end, name)
+    head_decl = f"__device__ long long g_clock[4096 * {KC_CLOCK_SLOTS}];\n"
+    helper = ("static void* g_clock_ptr() {\n  void* p = nullptr;\n"
+              "  cudaGetSymbolAddress(&p, g_clock);\n  return p;\n}\n")
+    tail = (f"extern \"C\" int {entry}(void* out, int reset) {{\n"
+            "  if (reset) return static_cast<int>(cudaMemset(g_clock_ptr(), 0, sizeof(g_clock)));\n"
+            "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
+            "                                                cudaMemcpyDeviceToDevice));\n}\n")
+    CLOCK_REGIONS[name] = ["staging"] + [r for _, r in anchors] + ["tail"]
+    return _replace(src, "namespace {\n", head_decl + helper + "namespace {\n", name,
+                    count=1) + tail
+
+
 def kc_clock_variant(src: str, name: str = "kc_clock") -> str:
     """Kernel (c) with the cycles its block's thread 0 spends in each region
     between the phase anchors of KC_PHASES (and of KC_SUBPHASES, where the
@@ -227,32 +281,41 @@ def kc_clock_variant(src: str, name: str = "kc_clock") -> str:
     whole block.  Read by ``mmd_inner_cem_clock``; the regions' names go to
     CLOCK_REGIONS[name]."""
     anchors = list(KC_PHASES) + [a for a in KC_SUBPHASES if a[0] in src]
-    n = len(anchors) + 2
-    stamp = ("{{ if (threadIdx.x == 0) {{ const long long n_ = clock64(); "
-             "kc_acc[kc_cur] += n_ - kc_t; kc_t = n_; kc_cur = {}; }} }} ")
-    src = _replace(src, "extern __shared__ __align__(16) float smem[];\n",
-                   "extern __shared__ __align__(16) float smem[];\n"
-                   f"  long long kc_acc[{n}] = {{}};\n"
-                   "  const long long kc_t0 = clock64();\n  long long kc_t = kc_t0;\n"
-                   "  int kc_cur = 0;\n", name)
-    for i, (anchor, _) in enumerate(anchors):
-        src = _replace(src, anchor, stamp.format(i + 1) + anchor, name)
-    src = _replace(src, KC_END, stamp.format(n - 1) + (
-        "if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
-        "    kc_acc[kc_cur] += clock64() - kc_t;\n"
-        f"    for (int i_ = 0; i_ < {n}; ++i_) g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + i_] = "
-        "kc_acc[i_];\n"
-        f"    g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + {KC_CLOCK_SLOTS - 1}] = "
-        "clock64() - kc_t0;\n  }\n  ") + KC_END, name)
-    head = f"__device__ long long g_clock[4096 * {KC_CLOCK_SLOTS}];\n"
-    helper = ("static void* g_clock_ptr() {\n  void* p = nullptr;\n"
-              "  cudaGetSymbolAddress(&p, g_clock);\n  return p;\n}\n")
-    tail = ("extern \"C\" int mmd_inner_cem_clock(void* out, int reset) {\n"
-            "  if (reset) return static_cast<int>(cudaMemset(g_clock_ptr(), 0, sizeof(g_clock)));\n"
-            "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
-            "                                                cudaMemcpyDeviceToDevice));\n}\n")
-    CLOCK_REGIONS[name] = ["staging"] + [r for _, r in anchors] + ["tail"]
-    return _replace(src, "namespace {\n", head + helper + "namespace {\n", name) + tail
+    return regions_variant(src, name, anchors,
+                           "extern __shared__ __align__(16) float smem[];\n", KC_END,
+                           "mmd_inner_cem_clock")
+
+
+# kernel (d)'s phases, timed by clock64() in the kd_clock variants: the
+# anchors of a source's phases (each source has one of the alternatives),
+# in the order its row runs them
+KD_PHASES = (("// ---- the guess QP", "guess"),
+             ("// ---- the polar initialisation", "polar init + unwrap"),
+             ("  residuals();\n  multipliers(false);", "pre-update"),
+             ("// the right-hand sides: b vectors", "right-hand sides"),
+             ("// ---- a pass: multipliers and right-hand sides", "multipliers + right-hand sides"),
+             ("// rx, ry keep b_eq from the guess", "KKT"),
+             ("// ---- the KKT solves", "KKT"),
+             ("// the trajectory and its derivatives", "trajectory + lane rows"),
+             ("// ---- the trajectory and the lane rows", "trajectory + lane rows"),
+             ("    // the polar re-estimate", "polar re-estimate"),
+             ("// ---- the polar re-estimate", "polar re-estimate"),
+             ("    const int shift_a = ", "norms"),
+             ("// ---- the norms", "norms"),
+             ("    multipliers(true);", "multipliers"),
+             ("// ---- the path, the controls, the outputs", "path and outputs"))
+KD_HEADS = ("  extern __shared__ float sm[];\n", "  extern __shared__ __align__(128) float sm[];\n")
+KD_ENDS = ("  if (lane == 0) a.res_norm[r] = rn;\n", "  // ---- the end of the row ----\n")
+
+
+def kd_clock_variant(src: str, name: str = "kd_clock") -> str:
+    """Kernel (d) with the cycles its block's thread 0 spends in each phase
+    of its row (the KD_PHASES the source has), read by
+    ``mmd_outer_project_clock``."""
+    anchors = [a for a in KD_PHASES if a[0] in src]
+    head = next((h for h in KD_HEADS if h in src), KD_HEADS[0])
+    end = next((e for e in KD_ENDS if e in src), KD_ENDS[0])
+    return regions_variant(src, name, anchors, head, end, "mmd_outer_project_clock", "kd")
 
 
 def kc_runkind_variant(src: str, name: str = "kc_runkind") -> str:
@@ -310,7 +373,14 @@ def builds(before: Path, diagnose: bool = False) -> dict:
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
     out["kd_now"] = ("kd", (_build.CSRC / "outer_project.cu").read_text())
+    out["kd_clock"] = ("kd", kd_clock_variant(out["kd_now"][1]))
     out["ke_now"] = ("ke", (_build.CSRC / "outer_tail.cu").read_text())
+    if (before / "outer_project.cu").exists():
+        out["kd_before"] = ("kd", (before / "outer_project.cu").read_text())
+        out["kd_clock_before"] = ("kd", kd_clock_variant(out["kd_before"][1],
+                                                         "kd_clock_before"))
+    if (before / "outer_tail.cu").exists():
+        out["ke_before"] = ("ke", (before / "outer_tail.cu").read_text())
     cem = (_build.CSRC / "inner_cem.cu").read_text()
     out["kc_now"] = ("kc", cem)
     if (before / "inner_cem.cu").exists():
@@ -387,9 +457,11 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
     nvcc = _build._nvcc()
     procs = {}
     for name, (kind, src) in sources.items():
+        SOURCES[name] = src
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
         cu.write_text(src)
-        own = ["-I", str(before)] if kind == "kc" and name.endswith("_before") else []
+        own = (["-I", str(before)] if kind in ("kc", "kd", "ke") and name.endswith("_before")
+               else [])
         cmd = [nvcc, *_build.NVCC_FLAGS, *own, "-I", str(_build.CSRC), "-shared", "-o",
                str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -407,8 +479,12 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             f"{re.findall(r'Used (\d+) registers', text)}, stack "
             f"frames {re.findall(r'(\d+) bytes stack frame', text)}, spill stores "
             f"{re.findall(r'(\d+) bytes spill stores', text)}")
-        lib = ctypes.CDLL(str(so))
         kind = sources[name][0]
+        if kind in ("kd", "ke"):
+            RESOURCES[name] = resources(text, so)
+            for fn, r in RESOURCES[name].items():
+                log(f"  {name} {fn}: {r}")
+        lib = ctypes.CDLL(str(so))
         if kind == "micro":
             lib.micro.argtypes = [P, ctypes.c_uint, P]
         elif kind == "k1":
@@ -424,8 +500,20 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
                 lib.mmd_inner_cem_clock.argtypes = [P, I]
         elif kind in ("kd", "ke"):
             entry = "mmd_outer_project" if kind == "kd" else "mmd_outer_tail"
-            getattr(lib, entry).argtypes = _build._SIGNATURES[entry]
+            sig = list(_build._SIGNATURES[entry])
+            marker, current, drop = LATER_ARGS[kind]
+            earlier = marker not in sources[name][1] and (
+                marker in (_build.CSRC / current).read_text())
+            if earlier:
+                sig = [t for i, t in enumerate(sig) if i not in {d % len(sig) for d in drop}]
+            getattr(lib, entry).argtypes = sig
             getattr(lib, entry).restype = ctypes.c_int
+            if kind == "ke":
+                lib.mmd_outer_tail_cluster.argtypes = [I]
+            if name.startswith("kd_clock"):
+                lib.mmd_outer_project_clock.argtypes = [P, I]
+            if earlier:
+                lib = EarlierEntry(lib, entry, drop)
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -435,6 +523,63 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             lib.mmd_eq_qp_solve.argtypes = [P, P, P, P, I, I, P]
         libs[name] = lib
     return libs
+
+
+RESOURCES = {}     # a kd / ke build's name -> its kernels' registers, spills, SASS size
+SOURCES = {}       # a build's name -> its CUDA source
+
+
+class EarlierEntry:
+    """An earlier build whose C entry lacks arguments that the current
+    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta):
+    its calls drop the arguments at the positions ``drop`` (negative from
+    the end)."""
+
+    def __init__(self, lib, entry: str, drop):
+        self._lib, self._entry, self._drop = lib, entry, drop
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != self._entry:
+            return fn
+        return lambda *args: fn(*(a for i, a in enumerate(args)
+                                  if i not in {d % len(args) for d in self._drop}))
+
+
+# per kind: the argument an earlier entry may lack, the current source that
+# has it, and its positions in the current entry
+LATER_ARGS = {"kd": ("rows_per_cta", "outer_project.cu", (-3, -2)),
+              "ke": ("kept_cta", "outer_tail.cu", (31,))}
+
+
+def resources(ptxas: str, so: Path) -> dict:
+    """Per kernel of a build: registers, stack frame and spill stores from
+    ``-Xptxas -v``'s output, and its SASS instructions from ``cuobjdump
+    -sass`` where the toolkit has it."""
+    out, cur = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = out.setdefault(m.group(1), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if tool.exists():
+        sass = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                              text=True).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.match(r"\s*Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn in out and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                out[fn]["sass_instructions"] = out[fn].get("sass_instructions", 0) + 1
+    return out
 
 
 def device_ms(fn, match: str, reps: int = 20) -> float:
@@ -635,74 +780,204 @@ def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
     return out
 
 
-def run_kd(lib, gen, log) -> list:
-    """Kernel (d) of this build against its plain version at the paths'
-    shapes (``KD_SHAPES``): how many of each output's entries are
-    bit-equal, the largest gap, and the device time per launch."""
+# kernel (d)'s forced launch choices (``ops.outer_project``'s keywords)
+KD_CHOICES = {"rows1": {"rows_per_cta": 1}, "rows2": {"rows_per_cta": 2},
+              "runtime": {"runtime_shape": True}}
+FLUSH_FLOATS = 16 * 2 ** 20   # 64 MB, written between launches: past the 50 MB L2
+
+
+def _workloads():
     from ..config import dynamic_workload, fastrt_workload, onroad_workload
-    from ..ops.outer_project import outer_project, outer_project_plain
-    recs = []
-    cfgs = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+    return {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
             "path_d": onroad_workload()}
+
+
+def evictor(lib, gen, name: str, N: int):
+    """A launch of kernel (c) (``lib``'s) at the inner CEM's shape on the
+    path of a KD / KE shape, as the solve's graph runs it before (d); None
+    without ``lib``."""
+    if lib is None:
+        return None
+    C, S, k, maxiter = {"fastrt": (64 * N, 64, 10, 12), "path_a": (100, 100, 10, 20),
+                        "path_d": (100, 100, 4, 20)}[name]
+    inp, n_el, rho, reg = kc_inputs(gen, C, S, k, maxiter)
+    outs = _kc(lib, inp, k, n_el, rho, reg, "laplace")
+    return lambda: _kc(lib, inp, k, n_el, rho, reg, "laplace", outs)
+
+
+def three_ways(calls: dict, match: str, evict=None, cold=None, warm_only=False) -> dict:
+    """Device ms of each window of each call, in turns: warm (back to back),
+    L2-cold (a 64 MB buffer written before each launch) and evicted
+    (``evict`` before each launch), for the names in ``cold`` (default
+    all); with ``warm_only`` only the first."""
+    out = {"warm": in_turns(calls, match)}
+    if warm_only:
+        return out
+    flush = torch.empty(FLUSH_FLOATS, device="cuda")
+    some = {n: f for n, f in calls.items() if cold is None or n in cold}
+    out["l2_cold"] = in_turns({n: (lambda f=f: (flush.fill_(1.0), f()))
+                               for n, f in some.items()}, match)
+    if evict is not None:
+        out["evicted"] = in_turns({n: (lambda f=f: (evict(), f())) for n, f in some.items()},
+                                  match)
+    return out
+
+
+def _equal_counts(got, ref) -> list:
+    """Bit-equal entries (NaN to NaN) of each output, as "equal/total"."""
+    return [f"{int(((g == r) | (g.isnan() & r.isnan())).sum())}/{r.numel()}"
+            for g, r in zip(got, ref)]
+
+
+def _clock_regions(lib, name: str, call, per: int = 1) -> dict:
+    """The cycles thread 0 of each block spends in each region of a clock
+    build (mean and max over the blocks that stamped), divided by ``per``."""
+    stamps = torch.zeros(4096 * KC_CLOCK_SLOTS, dtype=torch.int64, device="cuda")
+    entry = getattr(lib, "mmd_outer_project_clock")
+    _call(entry(stamps.data_ptr(), 1), name)
+    torch.cuda.synchronize()
+    call()
+    torch.cuda.synchronize()
+    _call(entry(stamps.data_ptr(), 0), name)
+    torch.cuda.synchronize()
+    st = stamps.view(4096, KC_CLOCK_SLOTS)
+    st = st[st[:, -1] > 0].double()
+    regions = CLOCK_REGIONS[name]
+    out = {r: {"mean": float(st[:, i].mean() / per), "max": float(st[:, i].max() / per)}
+           for i, r in enumerate(regions)}
+    out["block"] = {"mean": float(st[:, -1].mean()), "max": float(st[:, -1].max())}
+    return {"blocks": len(st), "cycles": out, "sm_clock": sm_clock_mhz()}
+
+
+def _fmt_times(times: dict) -> str:
+    return "; ".join(f"{way}: " + ", ".join(
+        f"{n} {[round(1e3 * t, 2) for t in ts]}" for n, ts in by.items())
+        for way, by in times.items())
+
+
+def run_kd(libs: dict, names: list, gen, log, evict_lib=None, warm_only=False) -> list:
+    """Kernel (d): every build and ``kd_now``'s forced launch choices
+    against the plain version (bit-equal entries of each output) and
+    bit-equal to ``kd_before`` in every output (else it raises), at the
+    paths' shapes (``KD_SHAPES``); their device times per launch in turns,
+    warm, L2-cold and evicted (kernel (c) at the path's shape before each
+    launch); and each clock build's cycles a phase of its block's row."""
+    import inspect
+    from ..ops.outer_project import OuterProjection, outer_project, outer_project_plain
+    choices = (KD_CHOICES if "rows_per_cta" in inspect.signature(outer_project).parameters
+               else {})
+    exact = [n for n in names if "_clock" not in n]
+    cfgs = _workloads()
+    recs = []
     for name, N, frenet in KD_SHAPES:
         args, kw = kd_inputs(gen, cfgs[name], N, frenet)
-        got = outer_project(*args, **kw, lib=lib)
         ref = outer_project_plain(*args, **kw)
+        calls = {}
+        for b in exact:
+            calls[b] = (lambda b=b: outer_project(*args, **kw, lib=libs[b]))
+            if b == "kd_now":
+                for c, ch in choices.items():
+                    calls[f"kd_now {c}"] = (lambda ch=ch: outer_project(
+                        *args, **kw, lib=libs["kd_now"], **ch))
+        outs = {label: fn() for label, fn in calls.items()}
         torch.cuda.synchronize()
-        equal = {f: f"{int((g == r).sum())}/{r.numel()}"
-                 for f, g, r in zip(got._fields, got, ref)}
-        gap = max(float((g - r).abs().nan_to_num(0.0).max()) for g, r in zip(got, ref))
-        ms = device_ms(lambda: outer_project(*args, **kw, lib=lib), "outer_project")
-        recs.append({"shape": [name, N], "bit_equal": equal, "max_gap": gap,
-                     "device_ms": ms})
-        log(f"kernel (d) {name} x {N}: bit-equal entries {equal}; max gap {gap:.3e}; "
-            f"device {1e3 * ms:.2f} us")
+        plain = {label: dict(zip(OuterProjection._fields, _equal_counts(o, ref)))
+                 for label, o in outs.items()}
+        before = None
+        if "kd_before" in outs:
+            before = {label: all(same_bits(g, r) for g, r in zip(o, outs["kd_before"]))
+                      for label, o in outs.items()}
+            if not all(before.values()):
+                raise RuntimeError(f"kernel (d) builds not bit-equal to kd_before at "
+                                   f"{name} x {N}: {before}")
+        times = three_ways(calls, "outer_project", evictor(evict_lib, gen, name, N),
+                           warm_only=warm_only)
+        clock = {b: _clock_regions(libs[b], b, lambda b=b: outer_project(*args, **kw,
+                                                                           lib=libs[b]))
+                 for b in names if "_clock" in b}
+        recs.append({"shape": [name, N], "bit_equal_to_plain": plain,
+                     "bit_equal_to_before": before, "device_ms": times, "clock": clock})
+        log(f"kernel (d) {name} x {N}: bit-equal to kd_before {before}; bit-equal entries "
+            f"to the plain version {plain}; device us {_fmt_times(times)}")
+        for b, c in clock.items():
+            log(f"  {b}: clock64 cycles of thread 0 a block ({c['blocks']} blocks; mean / "
+                "max): " + ", ".join(f"{r} {v['mean']:.0f} / {v['max']:.0f}"
+                                     for r, v in c["cycles"].items())
+                + f"; SM clock, max MHz: {c['sm_clock']}")
     return recs
 
 
-def run_ke(lib, gen, log) -> list:
-    """Kernel (e) of this build at each forced cluster size against its
+def run_ke(libs: dict, names: list, gen, log, evict_lib=None, warm_only=False) -> list:
+    """Kernel (e) of each build at each forced cluster size against its
     plain version at the paths' shapes (``KE_SHAPES``): the kept and elite
-    indices and the pick equal, the moments and parameters' largest gap;
-    each size's device time per launch in turns; and at each shape the
-    clock64 cycles of rank 0's thread 0 in each phase (1 risk of its
-    share, 2 the others' risks and the sort, 3 lane risks, 4 costs, 5
-    elites, moments, Cholesky, 6 resample and outputs)."""
-    from ..config import dynamic_workload, fastrt_workload, onroad_workload
-    from ..ops.outer_tail import outer_tail, outer_tail_plain
+    indices and the pick equal, the moments and parameters' largest gap,
+    bit-equal entries; every output (res and res_2 too) bit-equal to
+    ``ke_before`` at the same size (else it raises); each build and size's
+    warm device time in turns, the picked size's L2-cold and evicted times;
+    and the clock64 cycles of rank 0's thread 0 between its stamps."""
+    from ..ops.outer_tail import TailResult, outer_tail, outer_tail_plain
+    cfgs = _workloads()
+    fields = TailResult._fields + ("res", "res_2")
     recs = []
-    cfgs = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
-            "path_d": onroad_workload()}
     for name, N, frenet in KE_SHAPES:
         args = ke_inputs(gen, cfgs[name], N, frenet)
-        ref = outer_tail_plain(*args)
-        rec = {"shape": [name, N], "clusters": {}}
-        for cs in (1, 2, 4, 8):
-            got = outer_tail(*args, cluster=cs, lib=lib)
-            torch.cuda.synchronize()
-            same = all(torch.equal(g, r) for g, r in zip(got[3:], ref[3:]) if
-                       g.dtype == torch.int64)
-            gap = max(float((g - r).abs().nan_to_num(0.0).max())
-                      for g, r in zip(got[:3], ref[:3]))
-            rec["clusters"][cs] = {"indices_equal": same, "moments_gap": gap}
-        times = in_turns({f"cluster{cs}": (lambda cs=cs: outer_tail(*args, cluster=cs,
-                                                                    lib=lib))
-                          for cs in (1, 2, 4, 8)}, "outer_tail")
-        for cs in (1, 2, 4, 8):
-            rec["clusters"][cs]["device_ms"] = times[f"cluster{cs}"]
-        auto = lib.mmd_outer_tail_cluster(N)
-        clock = torch.zeros(N * auto * 8, dtype=torch.int64, device="cuda")
-        outer_tail(*args, cluster=auto, lib=lib, clock=clock)
+        r1, r2 = args[15].clone(), args[16].clone()
+        ref = tuple(outer_tail_plain(*args[:15], r1, r2, args[17])) + (r1, r2)
+        outs = {}
+        for b in names:
+            for cs in (0, 1, 2, 4, 8):
+                r1, r2 = args[15].clone(), args[16].clone()
+                got = outer_tail(*args[:15], r1, r2, args[17], cluster=cs, lib=libs[b])
+                outs[(b, cs)] = tuple(got) + (r1, r2)
         torch.cuda.synchronize()
-        st = clock.reshape(N, auto, 8)[:, 0].double()
-        rec["clock_cycles"] = (st[:, 1:7] - st[:, 0:6]).mean(dim=0).tolist()
+        rec = {"shape": [name, N], "builds": {}}
+        for (b, cs), o in outs.items():
+            same = all(torch.equal(g, r) for g, r in zip(o, ref) if g.dtype == torch.int64)
+            gap = max(float((g - r).abs().nan_to_num(0.0).max()) for g, r in zip(o[:3], ref[:3]))
+            eq_before = (all(same_bits(g, r) for g, r in zip(o, outs[("ke_before", cs)]))
+                         if ("ke_before", cs) in outs else None)
+            if eq_before is False:
+                raise RuntimeError(f"kernel (e) {b} at cluster {cs} not bit-equal to "
+                                   f"ke_before at {name} x {N}")
+            rec["builds"][f"{b} cluster{cs}"] = {
+                "indices_equal": same, "moments_gap": gap, "bit_equal_to_before": eq_before,
+                "bit_equal_to_plain": dict(zip(fields, _equal_counts(o, ref)))}
+        calls = {f"{b} cluster{cs}": (lambda b=b, cs=cs: outer_tail(*args, cluster=cs,
+                                                                    lib=libs[b]))
+                 for b in names for cs in (0, 1, 2, 4, 8)}
+        rec["device_ms"] = three_ways(calls, "outer_tail", evictor(evict_lib, gen, name, N),
+                                      cold=[f"{b} cluster0" for b in names],
+                                      warm_only=warm_only)
+        auto = libs[names[0]].mmd_outer_tail_cluster(N)
         rec["auto_cluster"] = auto
+        rec["kept_every_cta"] = {}
+        for b in [m for m in names if "kept_cta" in SOURCES.get(m, "")]:
+            for cs in (1, 2, 4, 8):
+                n_cost = outs[(b, cs)][6].shape[1]
+                per_cta = torch.full((N * cs, n_cost), -1, dtype=torch.int64, device="cuda")
+                got = outer_tail(*args, cluster=cs, lib=libs[b], kept_cta=per_cta)
+                torch.cuda.synchronize()
+                same = torch.equal(per_cta.reshape(N, cs, n_cost),
+                                   got.kept[:, None, :].expand(N, cs, n_cost))
+                rec["kept_every_cta"][f"{b} cluster{cs}"] = same
+                if not same:
+                    raise RuntimeError(f"kernel (e) {b}: the CTAs of a cluster of {cs} keep "
+                                       f"other candidates at {name} x {N}")
+        rec["clock_cycles"] = {}
+        for b in names:
+            clock = torch.zeros(N * auto * 8, dtype=torch.int64, device="cuda")
+            outer_tail(*args, cluster=auto, lib=libs[b], clock=clock)
+            torch.cuda.synchronize()
+            st = clock.reshape(N, auto, 8)[:, 0].double()
+            rec["clock_cycles"][b] = (st[:, 1:7] - st[:, 0:6]).mean(dim=0).tolist()
         recs.append(rec)
         log(f"kernel (e) {name} x {N}: " + "; ".join(
-            f"cluster {cs} indices equal {v['indices_equal']}, gap {v['moments_gap']:.2e}, "
-            f"us {[round(1e3 * t, 2) for t in v['device_ms']]}"
-            for cs, v in rec["clusters"].items())
-            + f"; auto {auto}; clock cycles a phase {[round(c) for c in rec['clock_cycles']]}")
+            f"{k} indices equal {v['indices_equal']}, gap {v['moments_gap']:.2e}, bit-equal "
+            f"to ke_before {v['bit_equal_to_before']}" for k, v in rec["builds"].items())
+            + f"; kept equal on every CTA {rec['kept_every_cta']}"
+            + f"; device us {_fmt_times(rec['device_ms'])}; auto {auto}; clock cycles a "
+            "phase " + ", ".join(f"{b} {[round(c) for c in v]}"
+                                 for b, v in rec["clock_cycles"].items()))
     return recs
 
 
@@ -936,7 +1211,8 @@ def run_kc(libs: dict, names: list, gen, log, shapes=KC_SHAPES) -> list:
     return recs
 
 
-def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
+def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
+        warm_only: bool = False) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     lines = []
 
@@ -954,6 +1230,11 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
             raise SystemExit(f"kernel_ab: no kind or build named {sorted(unknown)}")
         sources = {n: v for n, v in sources.items() if v[0] in kernels or n in kernels}
     t0 = time.perf_counter()
+    # the package's library (kernel (c) between the outer kernels' launches)
+    # compiles beside the builds
+    package = threading.Thread(target=_build.build, daemon=True)
+    if not warm_only and any(kind in ("kd", "ke") for kind, _ in sources.values()):
+        package.start()
     libs = build_all(sources, log, before)
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
     k1s = [n for n, (kind, _) in sources.items() if kind == "k1"]
@@ -1070,10 +1351,17 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None) -> dict:
     kcs = [n for n, (kind, _) in sources.items() if kind == "kc"]
     if kcs:
         rec["kc"] = run_kc(libs, kcs, gen, log)
-    if "kd_now" in libs:
-        rec["kd"] = run_kd(libs["kd_now"], gen, log)
-    if "ke_now" in libs:
-        rec["ke"] = run_ke(libs["ke_now"], gen, log)
+    kds = [n for n, (kind, _) in sources.items() if kind == "kd"]
+    kes = [n for n, (kind, _) in sources.items() if kind == "ke"]
+    # kernel (c), launched between (d)'s or (e)'s: the package's build
+    if package.is_alive():
+        package.join()
+    evict_lib = _build.library() if (kds or kes) and not warm_only else None
+    if kds:
+        rec["kd"] = run_kd(libs, kds, gen, log, evict_lib, warm_only)
+    if kes:
+        rec["ke"] = run_ke(libs, kes, gen, log, evict_lib, warm_only)
+    rec["resources"] = RESOURCES
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
     return rec
@@ -1089,10 +1377,13 @@ def main(argv=None) -> None:
                    help="build and run only these kinds (k1 k2 k3 prng kc kd ke micro) "
                    "or builds")
     p.add_argument("--out", type=Path, default=OUT_DIR)
+    p.add_argument("--warm_only", action="store_true",
+                   help="kernels (d) and (e): warm times only (no L2-cold or evicted "
+                   "launches, no build of the package's library)")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab needs a CUDA card")
-    run(args.before, args.out, args.diagnose, args.kernels)
+    run(args.before, args.out, args.diagnose, args.kernels, args.warm_only)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,11 @@ within rtol 1e-5 + atol 1e-6; over every iteration the costs within rtol
 1e-4 + atol 1e-6 for all but 2 % of the candidates (near-ties that the
 resample's round-off may decide; on the H100 every output has been
 bit-equal); kernels (d) and (e): every output within rtol 1e-5 + atol 1e-6
-of the plain version on the card, (e)'s kept, elites and pick exact.
+of the plain version on the card, (e)'s kept, elites and pick exact; at
+the path shapes every output bit-equal to the plain version, (d) at each
+launch choice (rows a CTA, compile-time or run-time shape) and (e) at
+every cluster size, whose CTAs keep the same candidates; (d)'s run-time
+shape at num 60 within rtol 1e-5 + atol 1e-6.
 """
 
 import dataclasses
@@ -1058,3 +1062,74 @@ def test_outer_tail_kernel_matches_its_plain_version(cuda, name, N, frenet, nonp
             both_nan = g.isnan() & r.isnan()
             ok = ((g - r).abs() <= 1e-5 * r.abs() + 1e-6) | both_nan
             assert bool(ok.all()), (field, cluster)
+
+
+def _bits(a, b):
+    """Bit for bit, NaN equal to NaN."""
+    return bool(((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("forced", [
+    {}, {"rows_per_cta": 1}, {"rows_per_cta": 2}, {"runtime_shape": True},
+    {"rows_per_cta": 2, "runtime_shape": True}])
+@pytest.mark.parametrize("name,N,frenet", [
+    ("fastrt", 1, False), ("fastrt", 32, False), ("path_d", 1, True)])
+def test_outer_project_launch_choices_give_the_plain_chain_bits(cuda, name, N, frenet,
+                                                                forced):
+    """Kernel (d) at the path shapes, at its compile-time and run-time-shape
+    instantiations and at one and two rows a CTA: every output bit-equal to
+    the plain chain on the card (NaN to NaN)."""
+    from mpc_mmd_tpu_torch import onroad_workload
+    from mpc_mmd_tpu_torch.ops import outer_project
+    from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
+    cfg = {"fastrt": fastrt_workload(), "path_d": onroad_workload()}[name]
+    args, kw = kd_inputs(cuda, cfg, N, frenet)
+    got = outer_project(*args, **kw, **forced)
+    ref = outer_project_plain(*args, **kw)
+    for field, g, r in zip(got._fields, got, ref):
+        assert _bits(g, r), field
+
+
+@pytest.mark.parametrize("rows_per_cta", [1, 2])
+def test_outer_project_runtime_shape_at_another_num(cuda, rows_per_cta):
+    """The run-time-shape instantiation at num 60 (no compile-time one):
+    every output within rtol 1e-5 + atol 1e-6 of the plain chain."""
+    from mpc_mmd_tpu_torch.ops import outer_project
+    from mpc_mmd_tpu_torch.ops.outer_project import launch_choice, outer_project_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
+    cfg = fastrt_workload()
+    cfg = cfg.replace(horizon=dataclasses.replace(cfg.horizon, num=60))
+    assert not launch_choice(11, 60, 4, 64)[1]
+    args, kw = kd_inputs(cuda, cfg, 1)
+    got = outer_project(*args, **kw, rows_per_cta=rows_per_cta)
+    ref = outer_project_plain(*args, **kw)
+    for field, g, r in zip(got._fields, got, ref):
+        both_nan = g.isnan() & r.isnan()
+        assert bool((((g - r).abs() <= 1e-5 * r.abs() + 1e-6) | both_nan).all()), field
+
+
+@pytest.mark.parametrize("name,N,frenet", [
+    ("fastrt", 1, False), ("fastrt", 4, False), ("path_a", 1, False), ("path_d", 1, True)])
+def test_outer_tail_every_cta_keeps_the_same_candidates(cuda, name, N, frenet):
+    """Kernel (e) at every cluster size: each CTA ranks the risks itself and
+    keeps the candidates that rank 0 returns, and every output (res and
+    res_2 too) is bit-equal to the plain chain on the card."""
+    from mpc_mmd_tpu_torch import onroad_workload
+    from mpc_mmd_tpu_torch.ops import outer_tail
+    from mpc_mmd_tpu_torch.ops.outer_tail import outer_tail_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
+    cfg = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+           "path_d": onroad_workload()}[name]
+    args = ke_inputs(cuda, cfg, N, frenet)
+    r1, r2 = args[15].clone(), args[16].clone()
+    ref = tuple(outer_tail_plain(*args[:15], r1, r2, args[17])) + (r1, r2)
+    n_cost = ref[6].shape[1]
+    for cluster in (1, 2, 4, 8):
+        per_cta = torch.full((N * cluster, n_cost), -1, dtype=torch.int64, device="cuda")
+        k1, k2 = args[15].clone(), args[16].clone()
+        got = outer_tail(*args[:15], k1, k2, args[17], cluster=cluster, kept_cta=per_cta)
+        assert torch.equal(per_cta.reshape(N, cluster, n_cost),
+                           got.kept[:, None].expand(N, cluster, n_cost)), cluster
+        for i, (g, r) in enumerate(zip(tuple(got) + (k1, k2), ref)):
+            assert _bits(g, r), (i, cluster)

@@ -307,17 +307,20 @@ def _kernel_ab_variants():
 @pytest.mark.parametrize("variant", _kernel_ab_variants())
 def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
     """The A/B tool's variants are textual changes of csrc/topk.cu,
-    csrc/eq_qp.cu, csrc/topk_kernel.cu, csrc/prng.cu and csrc/inner_cem.cu
-    (kernel (c)'s cluster sizes and clock stamps; kc_clock_before stamps the
-    earlier inner_cem.cu): each must find its anchor and change the
-    source."""
+    csrc/eq_qp.cu, csrc/topk_kernel.cu, csrc/prng.cu, csrc/inner_cem.cu
+    and csrc/outer_project.cu (kernel (c)'s cluster sizes and clock stamps;
+    kc_clock_before stamps the earlier inner_cem.cu; kernel (d)'s clock
+    stamps, kd_clock_before the earlier outer_project.cu's): each must find
+    its anchor and change the source."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
-    for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu"):
+    for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu", "outer_project.cu", "outer_tail.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]
     assert srcs["kc_before"][1] == srcs["kc_now"][1]
+    assert srcs["kd_before"][1] == srcs["kd_now"][1]
+    assert srcs["ke_before"][1] == srcs["ke_now"][1]
     assert srcs["k3_now"][1] == (_build.CSRC / "topk_kernel.cu").read_text()
     assert "k3_global" in srcs or "k3_staged" in srcs
     kind, src = srcs[variant]
@@ -328,6 +331,13 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
         assert 'extern "C" int mmd_inner_cem_clock' in src
     elif variant.startswith("kc_cluster"):
         assert f"  return {variant[-1]};\n}}" in src
+    elif variant.startswith("kd_clock"):
+        # a stamp before every phase the source marks, one a region at least
+        # from the guess to the path, and the clock's C entry
+        regions = kernel_ab.CLOCK_REGIONS[variant]
+        assert src.count("kd_cur = ") >= len(regions) - 1 >= 8
+        assert {"guess", "KKT", "norms", "path and outputs"} <= set(regions)
+        assert 'extern "C" int mmd_outer_project_clock' in src
     elif variant == "kc_runkind":
         # one body of kernel values: no instantiation names a kind
         assert "kernel_rows<kLaplace" not in src and "kernel_rows<0, H>(a.kind" in src

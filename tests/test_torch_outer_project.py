@@ -129,6 +129,57 @@ def test_outer_project_refuses_what_neither_version_takes():
                           kappa=path["kappa"][:-1])
 
 
+@pytest.mark.parametrize("shape,rows,forced,runtime,want", [
+    ((11, 100, 4), 64, 0, False, (1, True)),      # fastrt: compile-time, a row a CTA
+    ((11, 100, 4), 199, 0, False, (1, True)),
+    ((11, 100, 4), 200, 0, False, (2, True)),     # from TWO_ROWS_FROM rows, two a CTA
+    ((11, 100, 4), 2048, 0, False, (2, True)),    # a chunk of 32 scenarios
+    ((11, 100, 4), 2048, 1, False, (1, True)),    # forced rows a CTA
+    ((11, 100, 4), 64, 2, True, (2, False)),      # forced run-time shape
+    ((11, 60, 4), 64, 0, False, (1, False)),      # another num: the run-time shape
+    ((12, 100, 4), 64, 0, False, (1, False)),
+    ((11, 100, 5), 400, 0, False, (2, False)),
+    ((16, 128, 8), 100, 2, False, (2, False))])
+def test_launch_choice_picks_the_instantiation_and_the_rows_a_cta(shape, rows, forced,
+                                                                  runtime, want):
+    from mpc_mmd_tpu_torch.ops.outer_project import launch_choice
+    assert launch_choice(*shape, rows, forced, runtime) == want
+
+
+def test_every_path_shape_takes_the_compile_time_instantiation():
+    """fastrt, the dynamic and static workloads (every reduced-set size the
+    record's cells take) and the on-road one share kernel (d)'s
+    compile-time shape: nvar 11, num 100, 4 guess segments."""
+    from mpc_mmd_tpu_torch import (dynamic_workload, fastrt_workload, onroad_workload,
+                                   static_workload)
+    from mpc_mmd_tpu_torch.ops.outer_project import COMPILED_SHAPE
+    cfgs = [fastrt_workload(), dynamic_workload(noise_level=0.2), onroad_workload()] + [
+        static_workload(num_reduced=n) for n in (5, 10, 15)]
+    for cfg in cfgs:
+        h = cfg.horizon
+        assert (h.nvar, h.num, cfg.guess.num_segments) == COMPILED_SHAPE
+
+
+@pytest.mark.parametrize("forced", [-1, 3, 4])
+def test_outer_project_refuses_rows_a_cta_outside_the_limits(forced):
+    cfg, _, tws, inputs, kw = _case(1, False)
+    args = [torch.from_numpy(np.array(a)) for a in inputs]
+    with pytest.raises(ValueError, match="rows_per_cta"):
+        ops.outer_project(to_torch_cfg(cfg), tws, *args, rows_per_cta=forced)
+
+
+@pytest.mark.parametrize("forced,runtime", [(1, False), (2, False), (0, True), (2, True)])
+def test_outer_project_on_the_cpu_ignores_the_launch_choices(forced, runtime):
+    cfg, _, tws, inputs, kw = _case(2, True, seed=2)
+    tcfg = to_torch_cfg(cfg)
+    args = [torch.from_numpy(np.array(a)) for a in inputs]
+    path = {k: torch.from_numpy(v) for k, v in kw.items()}
+    got = ops.outer_project(tcfg, tws, *args, **path, rows_per_cta=forced,
+                            runtime_shape=runtime)
+    ref = outer_project_plain(tcfg, tws, *args, **path)
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
 def test_inner_split_worker_compiles_and_finds_the_outer_kernels():
     """The stage split's worker (``utils/inner_split.py``) is valid Python,
     and the stages it wraps include kernels (d) and (e) where the solver

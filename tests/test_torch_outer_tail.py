@@ -208,6 +208,31 @@ def test_outer_tail_refuses_what_neither_version_takes():
         _port(cfg, False, *inputs, 15.0)
 
 
+@pytest.mark.parametrize("cluster", [3, 16, -1])
+def test_outer_tail_refuses_a_cluster_outside_its_sizes(cluster):
+    """The forced cluster size is 0 (the kernel picks), 1, 2, 4 or 8 CTAs a
+    scenario; the wrapper refuses any other before it looks at the device."""
+    cfg = _cfg(False)
+    inputs = _inputs(cfg, False, False)
+    with pytest.raises(ValueError, match="cluster"):
+        _port(cfg, False, *inputs, 15.0,
+              call=lambda *a: ops.outer_tail(*a, cluster=cluster))
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8])
+def test_outer_tail_on_the_cpu_ignores_the_launch_options(cluster):
+    """A forced cluster size and a kept_cta buffer (the card's per-CTA
+    ranks) leave the CPU's plain version as it is: the buffer untouched."""
+    cfg = _cfg(True)
+    inputs = _inputs(cfg, True, False, seed=3)
+    per_cta = torch.full((8, cfg.cem.ellite_num_cost), -1, dtype=torch.int64)
+    got = _port(cfg, True, *inputs, 12.0, call=lambda *a: ops.outer_tail(
+        *a, cluster=cluster, kept_cta=per_cta))
+    ref = _port(cfg, True, *inputs, 12.0, call=outer_tail_plain)
+    assert all(torch.equal(g, r) for g, r in zip(got[0], ref[0]))
+    assert bool((per_cta == -1).all())
+
+
 class _Mesh:
     world, rank = 2, 0
 

@@ -81,6 +81,17 @@ Phases, each of which must pass:
    1e-6), the moments, parameters, risks, res and res_2 bit-equal at the
    path shapes; at the first shape every cluster size bit-equal to the
    picked one, with every CTA of a cluster keeping the same candidates;
+   K4n, K4's noisy-controls entry (``ops.noisy_rollout``), kernel (f), the
+   refit and distance matrices before the inner CEM
+   (``ops.inner_prologue``, ``csrc/inner_prologue.cu``), and kernel (g),
+   the on-road rollouts' Frenet points (``ops.frenet_points``,
+   ``csrc/frenet_points.cu``), against their plain versions
+   (``noisy_rollout_plain``: perturb_controls, the pairing and K4;
+   ``inner_prologue_plain``: the refit's cuBLAS products, pairwise_l1 and
+   pairwise_l2sq; ``global_to_frenet_points``) at every shape a path
+   launches them with (``glue_shapes``), K4n also with const noise, (f)
+   also with the gaussian and matern52 kernels, (g) also at a chunk of 4
+   and with edge points and a NaN: every output bit-equal;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
@@ -88,13 +99,15 @@ Phases, each of which must pass:
    written before each launch), its
    bound, and the device time of the one PyTorch call that computes the
    same function, where there is one (``torch.topk`` for K1,
-   ``torch.linalg.solve`` of the bordered KKT system for K2; the port
-   never calls either; none for K3, K4, K5 and kernels (c), (d), (e));
+   ``torch.linalg.solve`` of the bordered KKT system for K2,
+   ``torch.cdist(p=1)`` of the features for kernel (f)'s D; the port
+   never calls any; none for K3, K4, K4n, K5 and kernels (c), (d), (e),
+   (g)); K4n and kernels (f) and (g) also L2-cold;
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
    sum(beta) = 1 within 1e-3, with kernel (c) (one launch an outer
-   iteration) and K4 launched;
+   iteration), kernel (f) and K4n launched;
 5. one outer iteration on the card against the same on the CPU with
    identical draws: the controls of the returned coefficients within 1e-3
    (the JAX package's parity bar) and the coefficients within 1e-3 of
@@ -105,12 +118,12 @@ Phases, each of which must pass:
    Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios of
    ``scenarios.dynamic_cutin``, each checked as in 4, with
    exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
-   and maxiter_cem of K4 per solve; one more fused solve under
+   and maxiter_cem each of K4n and kernel (f) per solve; one more fused solve under
    ``torch.profiler`` (device busy ms, idle share, K3's device ms per
    solve); then 2 solves with the default "xla" selection (kernel (c)) at
    the same width;
 7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
-   solve each of ``mmd_random`` and ``saa``: finite, with K4 launched;
+   solve each of ``mmd_random`` and ``saa``: finite, with K4n launched;
 8. one outer iteration of Path A on the card against the CPU with
    identical draws (the CPU run records its Beta draws, the card replays
    them), held as in 5;
@@ -131,7 +144,8 @@ Phases, each of which must pass:
       identical draws: counts within +-1 per solve, mean collision % within
       0.1 pp;
    g. one fastrt ``mmd_opt`` solve with the gaussian and one with the
-      matern52 MMD kernel: finite, with kernel (c) and K4 launched.
+      matern52 MMD kernel: finite, with kernels (c) and (f) and K4n
+      launched.
    Each of a-e and g runs with the launch counts set to 0 just before it
    and read just after; a, c, d, e and g fail unless their kernels were
    launched, b if any kernel was;
@@ -144,13 +158,13 @@ Phases, each of which must pass:
    a. (in phase 3) K1, K2, K3, K4 and kernel (c) at its shapes;
    b. ``FrenetSolver`` in ``mmd_opt`` with the "xla" selection: one
       warm-up solve, then 2 solves with finite cx, cy, v_best and
-      steering_best and exactly 20 launches of kernel (c) and 20 of K4
-      each (no K1, no K2),
+      steering_best and exactly 20 launches each of kernel (c), K4n and
+      kernels (f) and (g) (no K1, no K2, no K4),
       and one more under ``torch.profiler`` (device busy, idle share);
    c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 400 each of K3, K2
-      and K1 and 20 of K4;
-   d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 K4
-      launches, nothing else) and ``det`` (no launch);
+      and K1 and 20 each of K4n and kernels (f) and (g);
+   d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 launches
+      each of K4n, kernel (g) and (d), no K4) and ``det`` (no rollout);
    e. one outer iteration of ``mmd_opt`` on the card against the CPU with
       identical draws: seed 1's, v_best and steering_best within 1e-3;
       and seed 5's, whose inner CEM meets a near-tie that round-off
@@ -176,8 +190,8 @@ Phases, each of which must pass:
       solved alone on the card, on the same draws: cx, cy and risk_obs
       within 1e-4 of their scale;
    c. Path A fused at chunk 4 over 4 cut-in scenarios: exactly 400 each
-      of K3, K2 and K1 and 20 of K4 per chunk;
-   d. Path B ``cvar`` at chunk 4: exactly 20 K4 launches per chunk;
+      of K3, K2 and K1 and 20 each of K4n and kernel (f) per chunk;
+   d. Path B ``cvar`` at chunk 4: exactly 20 K4n launches per chunk;
    e. the sweep CLI over Path C's 40 static scenarios in ``mmd_opt`` with
       ``--dispatch batch --chunk 8 --scenario_chunk 4``, against Path C's
       ``--dispatch pipeline`` store: the same seeds accepted, cx and cy
@@ -214,7 +228,7 @@ Phases, each of which must pass:
       plain solve on the blocking scenario: res within 1e-5 and cx, cy
       within 1e-4 of their scale; each rank makes one solve's launches;
    e. ``python -m mpc_mmd_tpu_torch.cli.prewarm --presets fastrt --modes
-      mmd_opt cvar`` in this process: its JSON lines, kernel (c) and K4
+      mmd_opt cvar`` in this process: its JSON lines, kernel (c) and K4n
       launched.
    Each of 12's solves and 13 a, e runs with the launch counts set to 0
    just before it and read just after; b-d read each rank's counts.
@@ -322,7 +336,10 @@ launch only under "fused", "xt" and "g"); K5
 is on no path of the package, and its count is that of its own phase.
 Kernels (d) and (e) launch once an outer iteration wherever
 ``loop_launches`` routes them, and the shapes of ``outer_shapes`` add
-up to every path's count (``check_launch_shapes``).
+up to every path's count (``check_launch_shapes``); so do K4n and
+kernels (f) and (g) (``glue_shapes``), which replace K4 on every path
+but the exact strategy's and the candidate split's (and the validator's,
+which is K4's own).
 ``launches_per_solve`` splits them by path (per solve; per chunk on
 Path E's chunked runs; the validator's per 1200 validations).  The
 times, all in milliseconds at ``shape``:
@@ -544,7 +561,11 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     the outer iteration's kernels (``SolverSetup._routes``): kernel (d) an
     outer iteration except under "exact" and in ``det``, kernel (e) an
     outer iteration in ``mmd_opt`` except under "exact" and with the
-    candidates ``split`` over several ranks."""
+    candidates ``split`` over several ranks; and the rollouts
+    (``SolverSetup._glue_routes``): K4n an outer iteration, kernel (f) in
+    ``mmd_opt`` and kernel (g) on the road, except under "exact", with the
+    candidates split and in ``det``, where the chain launches K4 (``det``
+    rolls nothing out)."""
     outer, det = cfg.cem.maxiter_cem, cfg.risk.mode == "det"
     draws = n * (outer * (1 if det else 2) + (1 if frenet else 0))
     if fresh:
@@ -554,9 +575,14 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     prefactored = cfg.solve_strategy == "prefactored"
     project = prefactored and not det and not cfg.projection.with_obstacle_terms
     tail = prefactored and cfg.risk.mode == "mmd_opt" and not split
+    glue = prefactored and not det and not split
     return {"prng_draws": draws, "prng_beta": beta,
             "outer_project": n * outer if project else 0,
-            "outer_tail": n * outer if tail else 0}
+            "outer_tail": n * outer if tail else 0,
+            "fused_rollout": n * outer if not det and not glue else 0,
+            "noisy_rollout": n * outer if glue else 0,
+            "inner_prologue": n * outer if glue and cfg.risk.mode == "mmd_opt" else 0,
+            "frenet_points": n * outer if glue and frenet else 0}
 
 
 def draw_shapes(paths):
@@ -1108,6 +1134,182 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
     return main
 
 
+def glue_shapes(paths):
+    """K4n's, kernel (f)'s and kernel (g)'s launch shapes on each path, as
+    ``outer_shapes`` gives kernel (d)'s: ``paths`` maps a path's name to
+    (workload, config, on the road, scenarios a chunk).  Returns (k4n, kf,
+    kg): {(workload, scenarios, mother rollouts?)}, {(workload, scenarios,
+    MMD kernel)} and {(workload, scenarios)}, each to {path: launches per
+    solve (per chunk)}, from ``loop_launches``' routes."""
+    k4n, kf, kg = {}, {}, {}
+    for path, (name, cfg, frenet, chunk) in paths.items():
+        n = loop_launches(cfg, frenet=frenet)
+        for table, kernel, key in (
+                (k4n, "noisy_rollout", (name, chunk, cfg.risk.mode == "mmd_opt")),
+                (kf, "inner_prologue", (name, chunk, cfg.risk.kernel)),
+                (kg, "frenet_points", (name, chunk))):
+            if n[kernel]:
+                table.setdefault(key, {})[path] = n[kernel]
+    return k4n, kf, kg
+
+
+def _bits_apart(got, ref):
+    """Entries of got that are not ref's bits (NaN to NaN)."""
+    return int((~((got == ref) | (got.isnan() & ref.isnan()))).sum())
+
+
+def check_noisy_rollout(torch, ops, gen, shapes, workloads):
+    """K4n (``ops.noisy_rollout``, ``csrc/rollout.cu``'s noisy-controls
+    entry) against its plain version (``noisy_rollout_plain``:
+    ``perturb_controls``, the mother pairing and K4 on the card) from the
+    same inputs (``kernel_ab.k4n_inputs``: exact zeros in the controls as
+    every solve has) at every shape a path launches it with (fastrt x 1, 4,
+    8, Path A's mother rollouts and Path B's R under Beta noise, Path D's
+    from a state per lane, F5, F15) and once with const noise: x and y
+    bit-equal.  ``shapes`` maps (workload, scenarios, mother?) to {path:
+    launches per solve}.  Returns the first shape's record, the others
+    under ``cases``."""
+    from mpc_mmd_tpu_torch.ops.rollout import noisy_rollout_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k4n_inputs
+    cases = []
+    for (name, N, mother), at, const in ([(key, at, 0.0) for key, at in shapes.items()]
+                                         + [(next(iter(shapes)), None, 0.02)]):
+        cfg, frenet = workloads[name]
+        cfg = cfg if mother else cfg.with_risk_mode("cvar")
+        args = k4n_inputs(gen, cfg, N, frenet, const)
+        got = ops.noisy_rollout(*args)
+        ref = noisy_rollout_plain(*args)
+        torch.cuda.synchronize()
+        lanes, T = got[0].numel() // got[0].shape[-1], got[0].shape[-1]
+        label = (f"{name} x {N}: {lanes:,} lanes x {T}, {cfg.noise.kind} noise"
+                 + (", a state per lane" if frenet else "")
+                 + (f", const noise {const}" if const else ""))
+        for field, g, r in zip("xy", got, ref):
+            bad = _bits_apart(g, r)
+            if bad:
+                fail(f"K4n noisy_rollout: {field} not bit-equal to the plain version at "
+                     f"{bad} entries, {label}")
+        log(f"K4n at {label}: x and y bit-equal to the plain version")
+        if at is None:
+            continue
+        cases.append(dict(
+            shape=label, call=(lambda a=args: ops.noisy_rollout(*a)),
+            match="noisy_rollout_kernel", launches_per_solve=at, cold=True,
+            # the controls and the draws read once, the positions written;
+            # K4's 16 operations a lane-step and 5 of the noise
+            nbytes=f32_bytes(*args[:6], *got), ops=21 * lanes * T,
+            library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=args: noisy_rollout_plain(*a), reps=5,
+                             warmup=1)))
+    main = dict(cases[0], max_abs_err=0.0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
+def check_inner_prologue(torch, ops, gen, shapes, workloads):
+    """Kernel (f) (``ops.inner_prologue``, ``csrc/inner_prologue.cu``)
+    against its plain version (``inner_prologue_plain``:
+    ``qp.refit_coefficients``' cuBLAS products and
+    ``kernels.distance_matrices`` on the card) from the same rollouts
+    (``kernel_ab.kf_inputs``) at every shape a path launches it with
+    (fastrt x 1, 4, 8, Path A, Path D's M = 16, F5's M = 25, F15's M = 225),
+    at fastrt with the gaussian and matern52 kernels (D2), and at fastrt
+    with Bernstein order 7 (nvar 8: the run-time feature count, every path
+    taking the compile-time one) under matern52: cx, cy, D and D2
+    bit-equal.  ``shapes`` maps (workload, scenarios, MMD kernel) to
+    {path: launches per solve}.  Returns the first shape's record, the
+    others under ``cases``."""
+    import dataclasses
+    from mpc_mmd_tpu_torch.ops.inner_prologue import inner_prologue_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kf_inputs
+    fastrt = workloads["fastrt"][0]
+    workloads = dict(workloads, fastrt_order7=(fastrt.replace(
+        horizon=dataclasses.replace(fastrt.horizon, order=7)), False))
+    cases = []
+    for (name, N, kind), at in list(shapes.items()) + [(("fastrt_order7", 1, "matern52"),
+                                                        {})]:
+        cfg = workloads[name][0]
+        args = kf_inputs(gen, cfg, N, kind)
+        got = ops.inner_prologue(*args)
+        ref = inner_prologue_plain(*args)
+        torch.cuda.synchronize()
+        B, M, nvar = got.cx.shape
+        T = args[1].shape[-1]
+        label = f"{name} x {N}: {B} candidates x {M} rollouts x {T}, nvar {nvar}, {kind}"
+        for field, g, r in zip(got._fields, got, ref):
+            if (g is None) != (r is None):
+                fail(f"kernel (f) inner_prologue: {field} given by one version only, {label}")
+            bad = 0 if g is None else _bits_apart(g, r)
+            if bad:
+                fail(f"kernel (f) inner_prologue: {field} not bit-equal to the plain "
+                     f"version at {bad} of {r.numel()} entries, {label}")
+        log(f"kernel (f) at {label}: cx, cy, D" + (", D2" if got.D2 is not None else "")
+            + " bit-equal to the plain version")
+        if not at:
+            continue
+        F = 2 * nvar
+        feats = torch.cat((got.cx, got.cy), dim=-1)
+        cases.append(dict(
+            shape=label, call=(lambda a=args: ops.inner_prologue(*a)),
+            match="inner_prologue_kernel", launches_per_solve=at, cold=True,
+            nbytes=f32_bytes(args[1], args[2], args[0].P_prime, args[0].refit_inv,
+                             *(t for t in got if t is not None)),
+            # the two products' multiply-adds count two; a difference, an
+            # absolute value and an add a feature of every entry of D
+            ops=2 * 2 * B * M * (T * nvar + nvar * nvar) + 3 * F * B * M * M
+            + (5 * F * B * M * M if got.D2 is not None else 0),
+            library=("torch.cdist(f, f, p=1) of the features, D alone",
+                     lambda f=feats: torch.cdist(f, f, p=1)),
+            plain_ms=cuda_ms(torch, lambda a=args: inner_prologue_plain(*a), reps=5,
+                             warmup=1)))
+    main = dict(cases[0], max_abs_err=0.0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
+def check_frenet_points(torch, ops, gen, shapes, workloads):
+    """Kernel (g) (``ops.frenet_points``, ``csrc/frenet_points.cu``)
+    against its plain version (``frenet.global_to_frenet_points`` on the
+    card) from the same points (``kernel_ab.kg_inputs``: rollouts around a
+    curved path of 600 points, with a point equidistant from two path
+    points, points before the path's start and past its end, one on the
+    last path point and a NaN) at every shape a path launches it with
+    (Path D's 100 candidates x 4 rollouts x 50 in every mode that rolls
+    out) and at a chunk of 4 of them: s and l bit-equal.  ``shapes`` maps
+    (workload, scenarios) to {path: launches per solve}.  Returns the first
+    shape's record, the others under ``cases``."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_points
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_inputs
+    cases = []
+    for (name, N), at in list(shapes.items()) + [((next(iter(shapes))[0], 4), None)]:
+        frame, x, y = kg_inputs(gen, workloads[name][0], N)
+        got = ops.frenet_points(frame, x, y)
+        ref = global_to_frenet_points(frame, x, y)
+        torch.cuda.synchronize()
+        n = frame.x_path.shape[0]
+        label = f"{name} x {N}: {x.numel():,} points, a path of {n}"
+        for field, g, r in zip("sl", got, ref):
+            bad = _bits_apart(g, r)
+            if bad:
+                fail(f"kernel (g) frenet_points: {field} not bit-equal to the plain "
+                     f"version at {bad} entries, {label}")
+        log(f"kernel (g) at {label}: s and l bit-equal to the plain version, edge "
+            f"points included")
+        if at is None:
+            continue
+        cases.append(dict(
+            shape=label, call=(lambda a=(frame, x, y): ops.frenet_points(*a)),
+            match="frenet_points_kernel", launches_per_solve=at, cold=True,
+            nbytes=f32_bytes(x, y, *got, *frame[:5]),
+            # two differences, two squares and an add a (point, path point)
+            ops=5 * x.numel() * n, library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=(frame, x, y): global_to_frenet_points(*a),
+                             reps=5, warmup=1)))
+    main = dict(cases[0], max_abs_err=0.0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
 # Kernel (c)'s device ms a launch before its cluster redesign (one block of
 # 8 warps a candidate, commit e0e38dc; kernel_ab's kc_before at these
 # shapes, NVIDIA H100 80GB HBM3 at 700 W): constants from an earlier run,
@@ -1156,10 +1358,11 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc, kd_, ke_):
+                  kd, kb, kc, kd_, ke_, k4n, kf, kg):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
-    pair (main path shape, validator shape), ``kd`` kernel (a)'s record and
-    ``kd_``, ``ke_`` kernel (d)'s and (e)'s.  The draw kernels replace no
+    pair (main path shape, validator shape), ``kd`` kernel (a)'s record,
+    ``kd_``, ``ke_`` kernel (d)'s and (e)'s and ``k4n``, ``kf``, ``kg``
+    K4n's and kernel (f)'s and (g)'s.  The draw kernels replace no
     TPU kernel: ``replaces`` names the JAX package's draw site and the
     XLA lowering they stand for."""
     record = []
@@ -1192,7 +1395,17 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
             (ops.outer_tail, "outer_tail.cu", "mpc_mmd_tpu/solver.py:235 (the outer "
              "iteration's mmd_obs, sorts, mmd_lane, scalar_cost and cem_update "
              "sampling.py:74 in mmd_opt, solver_frenet.py:201; compiled by XLA; no "
-             "Pallas kernel)", (ke_, None))):
+             "Pallas kernel)", (ke_, None)),
+            (ops.noisy_rollout, "rollout.cu", "mpc_mmd_tpu/ops/rollout_pallas.py:101 "
+             "(fused_rollout's lanes, with the noisy controls of batched_rollouts, "
+             "mpc_mmd_tpu/solver.py:113-121: perturb_controls dynamics.py:78 and the "
+             "mother pairing, compiled by XLA)", (k4n, None)),
+            (ops.inner_prologue, "inner_prologue.cu", "mpc_mmd_tpu/solver.py:218 (the "
+             "refit qp.py:202 and the distance matrices reduced_set.py:425-430 before "
+             "the inner CEM, compiled by XLA; no Pallas kernel)", (kf, None)),
+            (ops.frenet_points, "frenet_points.cu", "mpc_mmd_tpu/solver_frenet.py:197 "
+             "(global_to_frenet_points frenet.py:229 through _nearest :168, compiled by "
+             "XLA; no Pallas kernel)", (kg, None))):
         name = fn.__name__
         row = {"name": name, "route": "cuda",
                "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
@@ -1600,7 +1813,7 @@ def path_c(torch, ops, dev, work, per_solve):
     from mpc_mmd_tpu_torch.utils.observability import device_trace
     from mpc_mmd_tpu_torch.validate import CHUNK, make_validator
 
-    KC, K4 = ops.inner_cem, ops.fused_rollout
+    KC, K4, KF = ops.inner_cem, ops.noisy_rollout, ops.inner_prologue
     D, B = ops.prng_draws, ops.prng_beta
     data = os.path.join(work, "data")
     path_launches, roots, sweeps = [], {}, {}
@@ -1609,7 +1822,7 @@ def path_c(torch, ops, dev, work, per_solve):
     for mode in ("mmd_opt", "cvar"):
         _, secs, got = counted(
             torch, ops, f"Path C sweep {mode}",
-            (KC, K4, D) if mode == "mmd_opt" else (K4, D),
+            (KC, KF, K4, D) if mode == "mmd_opt" else (K4, D),
             lambda: sweep_cli.main(["--costs", mode, "--out", data, *SWEEP_FLAGS]))
         found = glob.glob(os.path.join(data, "static", "*", "*", "*", f"{mode}_*"))
         if len(found) != 1:
@@ -1643,7 +1856,7 @@ def path_c(torch, ops, dev, work, per_solve):
 
     # c. paired validation of the two modes
     res, secs, got = counted(
-        torch, ops, "Path C validate_compare", (K4, D),
+        torch, ops, "Path C validate_compare", (ops.fused_rollout, D),
         lambda: validate_cli.validate_compare(
             [roots["mmd_opt"], roots["cvar"]], n_mc=1000, seed=0,
             out_root=os.path.join(work, "stats"), device=dev))
@@ -1665,7 +1878,7 @@ def path_c(torch, ops, dev, work, per_solve):
     risk = dyn.concatenated()["risk_obs"]
     path_launches.append(got)
     stats, vsecs, got = counted(
-        torch, ops, "Path C dynamic validation", (K4, D, B),
+        torch, ops, "Path C dynamic validation", (ops.fused_rollout, D, B),
         lambda: validate_cli.validate_store(dyn.root, n_mc=1000, seed=0,
                                             out_root=os.path.join(work, "dyn"),
                                             device=dev))
@@ -1688,7 +1901,7 @@ def path_c(torch, ops, dev, work, per_solve):
     validator = make_validator(cfg, build_workspace(cfg, dev), n_mc=1000)
     validator(*(a[:8] if a.ndim > 1 else a for a in args))        # warm-up
     out, secs, got = counted(
-        torch, ops, "Path C validator", (K4, D),
+        torch, ops, "Path C validator", (ops.fused_rollout, D),
         lambda: [t.cpu().numpy() for t in validator(*args)])
     n_k4 = -(-1200 // CHUNK)
     if got["fused_rollout"] != n_k4 or got["prng_draws"] != n_k4 or \
@@ -1742,7 +1955,7 @@ def path_c(torch, ops, dev, work, per_solve):
         cfg_k = cfg_k.replace(risk=dataclasses.replace(cfg_k.risk, kernel=kind))
         solver = Solver(cfg_k, device=dev)
         scen = obstacle_scenarios(torch, 1, 6, solver.ws.tot_time)[0]
-        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (KC, K4, D),
+        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (KC, KF, K4, D),
                                lambda: solver.solve(0, INIT, MEAN, COV, *scen, 15.0))
         check_solve(r, cfg_k)
         log(f"Path C fastrt mmd_opt, {kind} kernel: {1e3 * secs:.1f} ms (first "
@@ -1805,8 +2018,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
     from mpc_mmd_tpu_torch.cli import closedloop as closedloop_cli
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
-                      ops.fused_rollout)
-    KC, D = ops.inner_cem, ops.prng_draws
+                      ops.noisy_rollout)
+    KC, D, KG = ops.inner_cem, ops.prng_draws, ops.frenet_points
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
     draws = loop_launches(cfg, frenet=True)
@@ -1833,7 +2046,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
         lat.append(time.perf_counter() - ts)
         check_frenet_solve(r, cfg, "Path D mmd_opt")
     got = {fn.__name__: fn.launches for fn in ops.KERNELS}
-    expect(got, {"inner_cem": outer, "fused_rollout": outer, **draws}, 2,
+    expect(got, {"inner_cem": outer, **draws}, 2,
            "Path D mmd_opt xla")
     path_launches.append(got)
     per_solve["path_d_xla"] = {k: v / 2 for k, v in got.items()}
@@ -1850,12 +2063,12 @@ def path_d(torch, ops, dev, cfg, per_solve):
 
     # c. the fused selection
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
-    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4, D),
+    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4, KG, D),
                            lambda: solver.solve(4, *args))
     os.environ.pop("MPC_MMD_FUSED_CEM")
     check_frenet_solve(r, cfg, "Path D fused")
     expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner, "fused_rollout": outer, **draws}, 1,
+                 "topk_indices": n_inner, **draws}, 1,
            "Path D fused")
     path_launches.append(got)
     per_solve["path_d_fused"] = dict(got)
@@ -1867,11 +2080,11 @@ def path_d(torch, ops, dev, cfg, per_solve):
         cfg_m = cfg.with_risk_mode(mode)
         s = FrenetSolver(cfg_m, device=dev)
         r, secs, got = counted(torch, ops, f"Path D {mode}",
-                               (D,) if mode == "det" else (K4, D),
+                               (D,) if mode == "det" else (K4, KG, D),
                                lambda: s.solve(5, *args))
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
         fresh = loop_launches(cfg_m, frenet=True, fresh=True)
-        expect(got, fresh if mode == "det" else {"fused_rollout": outer, **fresh}, 1,
+        expect(got, fresh, 1,
                f"Path D {mode}")
         path_launches.append(got)
         per_solve[f"path_d_{mode}"] = dict(got)
@@ -1892,7 +2105,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
     # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (KC, K4, D)), ("cvar", (K4, D)),
+    for mode, kernels in (("mmd_opt", (KC, K4, KG, D)), ("cvar", (K4, KG, D)),
                           ("det", (D,))):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
@@ -1947,7 +2160,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     from mpc_mmd_tpu_torch.utils.io_store import ResultStore
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
-                      ops.fused_rollout)
+                      ops.noisy_rollout)
     KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(v) for k, v in per_solve["fastrt"].items()}
@@ -2052,7 +2265,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         os.environ.pop("MPC_MMD_FUSED_CEM")
     check_rows(r, cfg_a)
     expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner, "fused_rollout": outer_a,
+                 "topk_indices": n_inner,
                  **loop_launches(cfg_a)}, "Path E c, one chunk of 4")
     per_solve["path_e_fused4"] = dict(got)
     path_launches.append(got)
@@ -2069,7 +2282,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         lambda: sb.solve_batch([1, 2, 3, 4], init_d, mean_d, cov_d, cut.x_traj[:4],
                                cut.y_traj[:4], v_des))
     check_rows(r, cfg_a)
-    expect(got, {"fused_rollout": outer_a, **loop_launches(cfg_a.with_risk_mode("cvar"))},
+    expect(got, loop_launches(cfg_a.with_risk_mode("cvar")),
            "Path E d, one chunk of 4")
     per_solve["path_e_cvar4"] = dict(got)
     path_launches.append(got)
@@ -2113,10 +2326,11 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     cfg_x = cfg.replace(solve_strategy="exact")
     sx = Solver(cfg_x, device=dev)
     check_solve(sx.solve(0, init, mean, cov, xs[0], ys[0], 15.0), cfg_x)   # warm-up
-    r, secs, got = counted(torch, ops, "Path E exact", (K4, D), lambda: without_sync(
+    r, secs, got = counted(torch, ops, "Path E exact", (ops.fused_rollout, D),
+                           lambda: without_sync(
         torch, lambda: sx.solve(1, init, mean, cov, xs[1], ys[1], 15.0)))
     check_solve(r, cfg_x)
-    expect(got, {"fused_rollout": cfg.cem.maxiter_cem, **loop_launches(cfg_x)},
+    expect(got, loop_launches(cfg_x),
            "Path E f, fastrt exact")
     per_solve["path_e_exact"] = dict(got)
     path_launches.append(got)
@@ -2127,11 +2341,10 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     args = (init_o, f32(mean_o), f32(cov_o), *rest)
     fx = FrenetSolver(cfg_dx, device=dev)
     check_frenet_solve(fx.solve(0, *args), cfg_dx, "Path E exact on-road warm-up")
-    r, secs, got = counted(torch, ops, "Path E exact on-road", (K4, D),
+    r, secs, got = counted(torch, ops, "Path E exact on-road", (ops.fused_rollout, D),
                            lambda: without_sync(torch, lambda: fx.solve(1, *args)))
     check_frenet_solve(r, cfg_dx, "Path E exact on-road")
-    expect(got, {"fused_rollout": cfg_d.cem.maxiter_cem,
-                 **loop_launches(cfg_dx, frenet=True)}, "Path E f, on-road exact")
+    expect(got, loop_launches(cfg_dx, frenet=True), "Path E f, on-road exact")
     per_solve["path_d_exact"] = dict(got)
     path_launches.append(got)
     log(f"Path E f, Path D mmd_opt exact FrenetSolver: {1e3 * secs:.1f} ms a solve "
@@ -2155,7 +2368,7 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
     K1, K2, K2t, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.eq_qp_solve_t,
-                       ops.fused_rollout)
+                       ops.noisy_rollout)
     names = [fn.__name__ for fn in ops.KERNELS]
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
     cut = dynamic_cutin(cfg_a, 2, device=dev)
@@ -2186,7 +2399,6 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
                 check(r, c)
                 n_inner = c.cem.maxiter_cem * c.beta_cem.maxiter
                 want = {K1.__name__: 2 * n_inner, qp.__name__: n_inner,
-                        K4.__name__: c.cem.maxiter_cem,
                         **loop_launches(c, frenet=name == "path_d")}
                 want = {k: want.get(k, 0) for k in names}
                 if got != want:
@@ -2291,7 +2503,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     from mpc_mmd_tpu_torch.utils.debug import hosts_alive
     from mpc_mmd_tpu_torch.utils.io_store import ResultStore
 
-    KC, K4 = ops.inner_cem, ops.fused_rollout
+    KC, K4 = ops.inner_cem, ops.noisy_rollout
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(per_solve["fastrt"].get(k, 0)) for k in names}
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -2300,12 +2512,15 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
     def expect(got, n, label, fresh=0, split=False):
         """n solves' launches, and the solver-fixed draws of ``fresh``
         solvers' first solves; with the candidates ``split`` over the ranks
-        no kernel (e) (each rank scores its own block)."""
+        no kernel (e) (each rank scores its own block) and the chains around
+        the rollouts (K4 on each rank's block)."""
         want = {k: n * v for k, v in one_solve.items()}
         want[ops.prng_draws.__name__] += fresh * loop_launches(
             cfg, 0, fresh=True)[ops.prng_draws.__name__]
         if split:
-            want[ops.outer_tail.__name__] = 0
+            chain = loop_launches(cfg, n, split=True)
+            for k in ("outer_tail", "fused_rollout", "noisy_rollout", "inner_prologue"):
+                want[k] = chain[k]
         if got != want:
             fail(f"{label}: launches {got}, expected {want} ({n} solves' worth)")
 
@@ -2523,7 +2738,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
 
     t_phase = time.perf_counter()
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
-                      ops.fused_rollout)
+                      ops.noisy_rollout)
     KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches, record = [], {}
@@ -2794,8 +3009,8 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     try:
         cfg, solver, calls = solvers[15]
         r, secs, got = counted(torch, ops, "14b N = 15 g",
-                               (ops.topk_indices, ops.eq_qp_solve, ops.fused_rollout,
-                                ops.prng_draws, ops.prng_beta),
+                               (ops.topk_indices, ops.eq_qp_solve, ops.noisy_rollout,
+                                ops.inner_prologue, ops.prng_draws, ops.prng_beta),
                                lambda: solver.solve(calls[0][0], *calls[0][1]))
     finally:
         os.environ.pop("MPC_MMD_SELECTION")
@@ -2804,7 +3019,6 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     expect = {k: 0 for k in names}
     expect.update({ops.topk_indices.__name__: 2 * n_inner,
                    ops.eq_qp_solve.__name__: n_inner,
-                   ops.fused_rollout.__name__: cfg.cem.maxiter_cem,
                    **loop_launches(cfg)})
     if got != expect:
         fail(f"14b N = 15 g: launches {got}, expected {expect}")
@@ -2823,8 +3037,9 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
             "--noise_levels", "0.3", "--num_reduced_sets", *map(str, RECORD_SIZES),
             "--num_obs", "6", "--num_prime", "50", "--num_configs", "4", "--out", data,
             "--device", "cuda"]
-    _, secs, got = counted(torch, ops, "14c sweep", (ops.inner_cem, ops.fused_rollout,
-                                                     ops.prng_draws, ops.prng_beta),
+    _, secs, got = counted(torch, ops, "14c sweep", (ops.inner_cem, ops.noisy_rollout,
+                                                     ops.inner_prologue, ops.prng_draws,
+                                                     ops.prng_beta),
                            lambda: sweep_cli.main(argv))
     path_launches.append(got)
     log(f"14c: python -m mpc_mmd_tpu_torch.cli.sweep {' '.join(argv)}: {secs:.1f} s; "
@@ -2969,33 +3184,25 @@ def main():
     log(f"K2 lane-major eq_qp_solve_t: max abs err {k2t['max_abs_err']:.3e} vs "
         f"float64 at {sorted(k2t_at)} systems; {k2t['ms']:.4f} ms vs plain "
         f"{k2t['plain_ms']:.4f} ms")
+    # K4 rolls out the validator, the exact strategy and the candidate split
+    # (the solve paths' rollouts are K4n's, checked below)
     k4 = check_rollout(torch, ops, rollout_plain, dev, gen,
-                       launches_per_solve={"fastrt": 10, "path_e_chunk1": 10,
-                                           "path_e_exact": 10, "fastrt_xt": 10,
-                                           "fastrt_g": 10, "dist_nccl": 10})
+                       launches_per_solve={"path_e_exact": 10})
     # the on-road shapes: 100 candidates x 16 mother rollouts in mmd_opt, x 4
     # rollouts in cvar / saa / mmd_random (400 lanes end in a partial block)
     k4_onroad = []
-    for lanes, paths in ((1600, ("path_d_xla", "path_d_fused", "closedloop_mmd_opt",
-                                 "path_d_exact", "path_d_xt", "path_d_g")),
-                         (400, ("path_d_cvar", "path_d_saa", "path_d_mmd_random",
-                                "closedloop_cvar"))):
+    for lanes, paths in ((1600, ("path_d_exact",)), (400, ())):
         k4_onroad.append(check_rollout(
             torch, ops, rollout_plain, dev, gen, lanes=lanes, per_lane=True,
-            launches_per_solve={p: cfg_d.cem.maxiter_cem for p in paths}))
+            launches_per_solve={p: cfg_d.cem.maxiter_cem for p in paths} or None))
         log(f"K4 fused_rollout at the on-road shape ({lanes:,} x 50, a state per "
             f"lane): max abs err {k4_onroad[-1]['max_abs_err']:.3e}; "
             f"{k4_onroad[-1]['ms']:.4f} ms vs plain {k4_onroad[-1]['plain_ms']:.4f} ms")
     # Path E's chunks: fastrt's 4 and 8 scenarios x 64 candidates x 100
     # mother rollouts, Path A's 4 x 100 x 100, Path B cvar's 4 x 100 x 10
     # and Path F's: 100 candidates x N^2 mother rollouts at N = 5 and 15
-    for lanes, paths in ((25_600, {"path_e_chunk4": 10, "sweep_batch_mmd_opt": 10,
-                                   "dist_mesh_sweep": 10}),
-                         (51_200, {"path_e_chunk8": 10}),
-                         (40_000, {"path_e_fused4": 20}),
-                         (4_000, {"path_e_cvar4": 20}),
-                         *((100 * N * N, {p: 20 for p in paths_f if p.startswith(
-                             f"path_f{N}_")}) for N in RECORD_SIZES)):
+    for lanes, paths in ((25_600, None), (51_200, None), (40_000, None), (4_000, None),
+                         *((100 * N * N, None) for N in RECORD_SIZES)):
         k4_onroad.append(check_rollout(torch, ops, rollout_plain, dev, gen,
                                        lanes=lanes, launches_per_solve=paths))
         log(f"K4 fused_rollout at a chunk's or Path F's shape ({lanes:,} x 50): max abs err "
@@ -3032,7 +3239,7 @@ def main():
                  "path_d": (cfg_d, True),
                  **{f"f{N}": (record_config(N), False) for N in RECORD_SIZES}}
     on = lambda name, chunk=1: (name, workloads[name][0], workloads[name][1], chunk)
-    kd_at, ke_at = outer_shapes({
+    outer_paths = {
         **{p: on("fastrt") for p in ("fastrt", "sweep_mmd_opt", "path_e_chunk1",
                                      "fastrt_xt", "fastrt_g", "dist_nccl")},
         **{p: on(f"f{c.risk.num_reduced}") for p, (c, _) in paths_f.items()},
@@ -3049,7 +3256,8 @@ def main():
                                      "path_d_xt", "path_d_g")},
         **{p: ("path_d", cfg_d.with_risk_mode(m), True, 1)
            for p, m in (("path_d_cvar", "cvar"), ("path_d_saa", "saa"),
-                        ("path_d_mmd_random", "mmd_random"), ("closedloop_cvar", "cvar"))}})
+                        ("path_d_mmd_random", "mmd_random"), ("closedloop_cvar", "cvar"))}}
+    kd_at, ke_at = outer_shapes(outer_paths)
     kd_rec = check_outer_project(torch, ops, gen, {**kd_at, ("fastrt", 32): {}}, workloads)
     log(f"kernel (d) outer_project: at {len(kd_at) + 1} shapes within rtol 1e-5 + atol "
         f"1e-6; {kd_rec['ms']:.4f} ms vs plain {kd_rec['plain_ms']:.4f} ms at "
@@ -3058,6 +3266,19 @@ def main():
     log(f"kernel (e) outer_tail: at {len(ke_at) + 1} shapes, indices equal, within rtol "
         f"1e-5 + atol 1e-6; {ke_rec['ms']:.4f} ms vs plain {ke_rec['plain_ms']:.4f} ms "
         f"at {ke_rec['shape']}")
+    # K4n, kernels (f) and (g) at every shape a path launches them with; (f)
+    # also with the gaussian and matern52 kernels of 9g
+    k4n_at, kf_at, kg_at = glue_shapes(outer_paths)
+    k4n_rec = check_noisy_rollout(torch, ops, gen, k4n_at, workloads)
+    log(f"K4n noisy_rollout: at {len(k4n_at) + 1} shapes bit-equal; {k4n_rec['ms']:.4f} "
+        f"ms vs plain {k4n_rec['plain_ms']:.4f} ms at {k4n_rec['shape']}")
+    kf_rec = check_inner_prologue(torch, ops, gen, {
+        **kf_at, ("fastrt", 1, "gaussian"): {}, ("fastrt", 1, "matern52"): {}}, workloads)
+    log(f"kernel (f) inner_prologue: at {len(kf_at) + 3} shapes bit-equal; "
+        f"{kf_rec['ms']:.4f} ms vs plain {kf_rec['plain_ms']:.4f} ms at {kf_rec['shape']}")
+    kg_rec = check_frenet_points(torch, ops, gen, kg_at, workloads)
+    log(f"kernel (g) frenet_points: at {len(kg_at) + 1} shapes bit-equal; "
+        f"{kg_rec['ms']:.4f} ms vs plain {kg_rec['plain_ms']:.4f} ms at {kg_rec['shape']}")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
     one = torch.zeros(1, device=dev)
@@ -3065,7 +3286,8 @@ def main():
     log(f"launch floor: fill_ of one float, {floor_ms:.4f} ms device time")
     for name, rec in (("K1", k1), ("K2", k2), ("K2 lane-major", k2t), ("K3", k3),
                       ("K4", k4), ("K4", k4v), ("K5", k5), ("kernel (c)", kc),
-                      ("kernel (d)", kd_rec), ("kernel (e)", ke_rec)):
+                      ("kernel (d)", kd_rec), ("kernel (e)", ke_rec), ("K4n", k4n_rec),
+                      ("kernel (f)", kf_rec), ("kernel (g)", kg_rec)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
@@ -3080,7 +3302,7 @@ def main():
         torch, ops, solver, cfg,
         [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
         "fastrt (static, gaussian 0.1, xla selection)",
-        (ops.inner_cem, ops.fused_rollout, ops.prng_draws))]
+        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_draws))]
     per_solve = {"fastrt": {k: v / 3 for k, v in path_launches[-1].items()}}
 
     # ---- 5. one outer iteration, card against CPU -------------------------
@@ -3103,11 +3325,11 @@ def main():
     got = timed_solves(torch, ops, solver_a, cfg_a, calls_a,
                        "Path A (dynamic cut-in, beta 0.2, mmd_opt, fused selection)",
                        (ops.topk_kernel_matrices, ops.eq_qp_solve,
-                        ops.topk_indices, ops.fused_rollout, ops.prng_draws,
-                        ops.prng_beta))
+                        ops.topk_indices, ops.noisy_rollout, ops.inner_prologue,
+                        ops.prng_draws, ops.prng_beta))
     n_inner = cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
     want = {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-            "topk_indices": n_inner, "fused_rollout": cfg_a.cem.maxiter_cem,
+            "topk_indices": n_inner,
             **loop_launches(cfg_a)}
     want = {fn.__name__: want.get(fn.__name__, 0) * len(calls_a) for fn in ops.KERNELS}
     if got != want:
@@ -3120,7 +3342,8 @@ def main():
     path_launches.append(timed_solves(
         torch, ops, solver_a, cfg_a, calls_a,
         "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
-        (ops.inner_cem, ops.fused_rollout, ops.prng_draws, ops.prng_beta)))
+        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_draws,
+         ops.prng_beta)))
     per_solve["path_a_xla"] = {k: v / len(calls_a)
                                for k, v in path_launches[-1].items()}
 
@@ -3135,7 +3358,7 @@ def main():
         path_launches.append(timed_solves(
             torch, ops, solver_b, cfg_b, calls_a[:n],
             f"Path B (dynamic cut-in, beta 0.2, {mode})",
-            (ops.fused_rollout, ops.prng_draws, ops.prng_beta)))
+            (ops.noisy_rollout, ops.prng_draws, ops.prng_beta)))
         per_solve[f"path_b_{mode}"] = {k: v / n for k, v in path_launches[-1].items()}
 
     # ---- 8. Path A, one outer iteration, card against CPU -----------------
@@ -3172,7 +3395,8 @@ def main():
                         "topk_kernel_matrices": checked(k3),
                         "fused_rollout": checked(k4),
                         "prng_draws": draw_at, "outer_project": kd_at,
-                        "outer_tail": ke_at,
+                        "outer_tail": ke_at, "noisy_rollout": k4n_at,
+                        "inner_prologue": kf_at, "frenet_points": kg_at,
                         "prng_beta": {k: v for k, v in beta_at.items() if v}}
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
 
@@ -3193,7 +3417,7 @@ def main():
                                                           ops.eq_qp_solve)):
             fail(f"{path}: the xla selection launched K1 or K2 ({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t, kd, kb, kc, kd_rec, ke_rec)
+                           k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec)
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)

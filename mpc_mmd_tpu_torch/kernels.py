@@ -16,7 +16,8 @@ import torch
 
 from .config import KERNEL_KINDS
 
-__all__ = ["KERNEL_KINDS", "blockwise_mmd_vs_zero", "gaussian_kernel",
+__all__ = ["KERNEL_KINDS", "blockwise_mmd_vs_zero", "distance_matrices",
+           "gaussian_kernel",
            "kernel_of", "laplace_kernel", "matern52_kernel", "mmd_vs_zero",
            "pairwise_l1", "pairwise_l2sq"]
 
@@ -36,6 +37,15 @@ def pairwise_l2sq(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     bb = torch.sum(B * B, dim=-1)
     ab = torch.matmul(A, B.transpose(-1, -2))
     return torch.clamp(aa[..., :, None] + bb[..., None, :] - 2.0 * ab, min=0.0)
+
+
+def distance_matrices(cx: torch.Tensor, cy: torch.Tensor, kind: str):
+    """(D, D2) of the features [cx | cy] (..., m, 2 nvar): the L1 distances
+    and, for the gaussian and matern52 kernels, the squared L2 ones (None
+    under laplace, which reads only D)."""
+    feats = torch.cat((cx, cy), dim=-1)
+    D = pairwise_l1(feats, feats)
+    return D, (pairwise_l2sq(feats, feats) if kind != "laplace" else None)
 
 
 def laplace_kernel(dists_l1: torch.Tensor, sigma) -> torch.Tensor:

@@ -4,9 +4,13 @@ K1 ``topk_indices``, K2 ``eq_qp_solve`` (and its lane-major entry
 ``eq_qp_solve_t``), K3 ``topk_kernel_matrices``, K4 ``fused_rollout`` and
 K5 ``topk_onehot``; the JAX key chain's draws, ``prng_draws`` (keys to
 bits, uniforms or normals) and ``prng_beta`` (Beta draws); kernel (c)
-``inner_cem``, the whole inner beta-CEM of the "xla" selection; and the outer
+``inner_cem``, the whole inner beta-CEM of the "xla" selection; the outer
 iteration's kernel (d) ``outer_project`` (guess QP, projection, controls)
-and kernel (e) ``outer_tail`` (risk, cost and CEM update in ``mmd_opt``).  Each wrapper
+and kernel (e) ``outer_tail`` (risk, cost and CEM update in ``mmd_opt``);
+and the glue around the rollouts: K4n ``noisy_rollout`` (K4's entry that
+forms the noisy controls as it loads them), kernel (f) ``inner_prologue``
+(the refit and distance matrices before the inner CEM) and kernel (g)
+``frenet_points`` (the on-road rollouts' Frenet coordinates).  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
 tensors, counting launches in ``<wrapper>.launches``.
 
@@ -19,18 +23,20 @@ capture runs nothing) and adds them again at every replay
 
 from typing import Dict
 
+from .frenet_points import frenet_points
 from .inner_cem import inner_cem
+from .inner_prologue import inner_prologue
 from .outer_project import outer_project
 from .outer_tail import outer_tail
 from .prng import prng_beta, prng_draws
 from .qp import eq_qp_solve, eq_qp_solve_t
-from .rollout import fused_rollout
+from .rollout import fused_rollout, noisy_rollout
 from .topk import topk_indices, topk_onehot
 from .topk_kernel import topk_kernel_matrices
 
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
            topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
-           outer_tail)
+           outer_tail, noisy_rollout, inner_prologue, frenet_points)
 
 
 def reset_launch_counts() -> None:
@@ -54,8 +60,8 @@ def add_launches(counts: Dict[str, int]) -> None:
         fn.launches += counts.get(fn.__name__, 0)
 
 
-__all__ = ["eq_qp_solve", "eq_qp_solve_t", "fused_rollout", "inner_cem", "outer_project",
-           "outer_tail", "prng_beta",
+__all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_points", "fused_rollout", "inner_cem",
+           "inner_prologue", "noisy_rollout", "outer_project", "outer_tail", "prng_beta",
            "prng_draws", "topk_indices", "topk_onehot", "topk_kernel_matrices",
            "KERNELS", "add_launches", "launch_counts", "reset_launch_counts",
            "set_launch_counts"]

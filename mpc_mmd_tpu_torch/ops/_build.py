@@ -9,8 +9,9 @@ source rebuilds and an unchanged one is loaded as it is.  No fast-math: the
 rollout kernel chains ``tanf``/``sinf``/``cosf`` over 50 steps, and its
 tolerance assumes the IEEE-accurate functions; the random-number kernels
 (``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
-own kernels to give their twins' bits, and kernels (c), (d) and (e)
-(``inner_cem.cu``, ``outer_project.cu``, ``outer_tail.cu``) the quotients,
+own kernels to give their twins' bits, and kernels (c) to (g)
+(``inner_cem.cu``, ``outer_project.cu``, ``outer_tail.cu``,
+``inner_prologue.cu``, ``frenet_points.cu``) the quotients,
 transcendental functions and sums of PyTorch's kernels to give their plain
 versions'.
 
@@ -49,6 +50,9 @@ _SIGNATURES = {
     "mmd_eq_qp_solve": [_P, _P, _P, _P, _I, _I, _P],
     "mmd_eq_qp_solve_t": [_P, _P, _P, _P, _I, _I, _P],
     "mmd_fused_rollout": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _P],
+    "mmd_noisy_rollout": [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_F] * 4 + [_I, _F, _F, _P],
+    "mmd_inner_prologue": [_P] * 8 + [_I] * 5 + [_P],
+    "mmd_frenet_points": [_P] * 9 + [_I, _I, _F, _P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],

@@ -1,0 +1,106 @@
+"""Kernel (f): the inner CEM's prologue, the refit of every candidate's
+mother rollouts and their distance matrices, in one launch (CUDA source
+``csrc/inner_prologue.cu``), and its plain version.
+
+The JAX package refits the mother rollouts and takes their distance
+matrices inside its jitted outer ``lax.scan`` (``mpc_mmd_tpu/solver.py:218``,
+``reduced_set.py:425-450``), which XLA fuses.  :func:`inner_prologue_plain`
+is the port's chain of PyTorch operations for it (``qp.refit_coefficients``:
+two ``linalg.scenario_mm`` products a channel; ``kernels.distance_matrices``:
+``pairwise_l1`` and, for the gaussian and matern52 kernels,
+``pairwise_l2sq``); :func:`inner_prologue` runs all of it in one launch, a
+candidate's rows of D split over a few CTAs (:func:`splits_for`), with
+every output carrying the plain chain's bits.  Every
+prefactored selection of the inner CEM reads its D (and D2) on the card
+(``reduced_set.select_reduced_set_batched``'s ``distances``); the "exact"
+strategy and the candidate split keep the chain
+(``solver.SolverSetup._routes``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from . import _build
+from ..kernels import distance_matrices
+from ..qp import Workspace, refit_coefficients
+
+MAX_NVAR = 16                 # F = 2 nvar features a rollout
+MAX_SMEM = 227 * 1024         # the shared memory a CTA may take
+
+
+class InnerPrologue(NamedTuple):
+    cx: torch.Tensor            # (B, M, nvar) refitted coefficients
+    cy: torch.Tensor
+    D: torch.Tensor             # (B, M, M) L1 distances of [cx | cy]
+    D2: Optional[torch.Tensor]  # (B, M, M) squared L2 ones, or None (laplace)
+
+
+def inner_prologue_plain(ws: Workspace, xr: torch.Tensor, yr: torch.Tensor,
+                         kind: str) -> InnerPrologue:
+    """Plain version of :func:`inner_prologue`: ``qp.refit_coefficients``
+    of the N scenarios' rows, then ``kernels.distance_matrices``."""
+    N, C, M, T = xr.shape
+    cx, cy = refit_coefficients(ws, xr.reshape(-1, T), yr.reshape(-1, T), N)
+    cx, cy = cx.reshape(N * C, M, -1), cy.reshape(N * C, M, -1)
+    return InnerPrologue(cx, cy, *distance_matrices(cx, cy, kind))
+
+
+def splits_for(B: int, M: int, sms: int) -> int:
+    """CTAs a candidate's rows of D go to: enough for two CTAs on each of
+    the card's ``sms`` multiprocessors, at least 16 rows each."""
+    return max(1, min(-(-2 * sms // B), -(-M // 16)))
+
+
+def smem_bytes(M: int, T: int, nvar: int) -> int:
+    """Shared memory of a CTA (csrc/inner_prologue.cu's smem_bytes)."""
+    return 4 * (2 * M * (T | 1) + T * nvar + nvar * nvar + M * (2 * nvar + 1) + M)
+
+
+def inner_prologue(ws: Workspace, xr: torch.Tensor, yr: torch.Tensor, kind: str,
+                   *, lib=None) -> InnerPrologue:
+    """The refitted coefficients and distance matrices of the mother
+    rollouts xr, yr (N, C, M, T) of N scenarios' C candidates: cx, cy (N C,
+    M, nvar), D (N C, M, M) and, for ``kind`` gaussian and matern52, D2.
+
+    CPU tensors take :func:`inner_prologue_plain`; CUDA tensors launch
+    kernel (f) (float32, one device, nvar <= 16, a candidate's rollouts
+    within a CTA's shared memory) or raise.  ``lib``: another build of the
+    kernels' library (``utils/kernel_ab.py``), else the package's.
+    """
+    if xr.dim() != 4 or yr.shape != xr.shape:
+        raise ValueError(f"inner_prologue: xr {tuple(xr.shape)} and yr "
+                         f"{tuple(yr.shape)} must be the same (N, C, M, T)")
+    N, C, M, T = xr.shape
+    nvar = ws.P_prime.shape[1]
+    if ws.P_prime.shape[0] != T:
+        raise ValueError(f"inner_prologue: P_prime {tuple(ws.P_prime.shape)} does "
+                         f"not take {T} steps")
+    if xr.device.type == "cpu" and yr.device.type == "cpu":
+        return inner_prologue_plain(ws, xr, yr, kind)
+    xr, yr = xr.contiguous(), yr.contiguous()
+    _build.require_cuda_f32("inner_prologue", xr, yr, ws.P_prime, ws.refit_inv)
+    B = N * C
+    splits = splits_for(B, M, torch.cuda.get_device_properties(xr.device)
+                        .multi_processor_count)
+    if nvar > MAX_NVAR or smem_bytes(M, T, nvar) > MAX_SMEM:
+        raise ValueError(f"inner_prologue: the kernel takes nvar <= {MAX_NVAR} and "
+                         f"a candidate's {M} x {T} rollouts within {MAX_SMEM} bytes "
+                         f"of shared memory")
+    new = lambda *s: torch.empty(s, dtype=torch.float32, device=xr.device)
+    out = InnerPrologue(new(B, M, nvar), new(B, M, nvar), new(B, M, M),
+                        None if kind == "laplace" else new(B, M, M))
+    lib = lib or _build.library()
+    err = lib.mmd_inner_prologue(
+        xr.data_ptr(), yr.data_ptr(), ws.P_prime.data_ptr(), ws.refit_inv.data_ptr(),
+        out.cx.data_ptr(), out.cy.data_ptr(), out.D.data_ptr(),
+        None if out.D2 is None else out.D2.data_ptr(), B, M, T, nvar, splits,
+        _build.stream())
+    _build.check(err, "inner_prologue")
+    inner_prologue.launches += 1
+    return out
+
+
+inner_prologue.launches = 0

@@ -55,7 +55,7 @@ import numpy as np
 import torch
 
 from .config import ProblemConfig
-from .kernels import kernel_of, pairwise_l1, pairwise_l2sq
+from .kernels import distance_matrices, kernel_of
 from .noise import ExactInnerDraws, InnerDraws
 from .ops import eq_qp_solve_t, inner_cem, topk_indices, topk_kernel_matrices
 from .ops.inner_cem import beta_qp, finish, resample, selection_qp_xla, take_rows
@@ -127,31 +127,34 @@ def selection_key(cfg: ProblemConfig, selection: Optional[str] = None
                        and os.environ.get("MPC_MMD_ELITE_CARRY", "1") != "0")
 
 
-class InnerInputs(NamedTuple):
-    """What the batched inner CEM's loop starts from (see
-    :func:`inner_inputs`)."""
-    D: torch.Tensor               # (C, M, M) L1 distances of the mother rollouts
-    D2: Optional[torch.Tensor]    # (C, M, M) squared L2 ones, or None (laplace)
+class InnerFixed(NamedTuple):
+    """What the batched inner CEM's loop takes from the solver-fixed draws
+    alone (see :func:`inner_fixed`)."""
     samples0_row: torch.Tensor    # (S, M+1) the first batch, sigma clipped
     A_all: torch.Tensor           # (maxiter, S - n_el, n_el)
     Zf_all: torch.Tensor          # (maxiter, S - n_el, M+1)
     lane_floor: torch.Tensor      # (M+1,) -inf, then sigma_clip
 
 
-def inner_inputs(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
-                 draws: InnerDraws) -> InnerInputs:
-    """The step before the inner CEM's loop: the distance matrices of the
-    mother rollouts' coefficients cx, cy (C, M, nvar), the first batch and
-    the affine resample's coefficients from the draws."""
+class InnerInputs(NamedTuple):
+    """What the batched inner CEM's loop starts from (see
+    :func:`inner_inputs`)."""
+    D: torch.Tensor               # (C, M, M) L1 distances of the mother rollouts
+    D2: Optional[torch.Tensor]    # (C, M, M) squared L2 ones, or None (laplace)
+    samples0_row: torch.Tensor
+    A_all: torch.Tensor
+    Zf_all: torch.Tensor
+    lane_floor: torch.Tensor
+
+
+def inner_fixed(cfg: ProblemConfig, draws: InnerDraws) -> InnerFixed:
+    """The first batch and the affine resample's coefficients from the
+    draws: the same in every outer iteration, so a solver computes them
+    once beside its solver-fixed draws (``SolverSetup._inner_fixed``)."""
     b = cfg.beta_cem
     M, n_el = cfg.risk.num_mother, b.num_ellite
-    dev, dt = cx.device, cx.dtype
-    feats = torch.cat((cx, cy), dim=2)                       # (C, M, 2 nvar)
-    D = pairwise_l1(feats, feats)                            # (C, M, M)
-    # squared L2 distances only for the kernels that read them
-    D2 = pairwise_l2sq(feats, feats) if cfg.risk.kernel != "laplace" else None
-
     samples0_row = math.sqrt(b.init_cov_scale) * draws.samples0
+    dev, dt = samples0_row.device, samples0_row.dtype
     samples0_row = torch.cat(
         (samples0_row[:, :M], torch.clamp(samples0_row[:, M:], min=b.sigma_clip)),
         dim=1)
@@ -167,19 +170,33 @@ def inner_inputs(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
     # (built on the card: an indexed store of a host scalar synchronises)
     lane_floor = torch.cat((torch.full((M,), -torch.inf, dtype=dt, device=dev),
                             torch.full((1,), b.sigma_clip, dtype=dt, device=dev)))
-    return InnerInputs(D, D2, samples0_row, A_all, Zf_all, lane_floor)
+    return InnerFixed(samples0_row, A_all, Zf_all, lane_floor)
+
+
+def inner_inputs(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
+                 draws: InnerDraws) -> InnerInputs:
+    """The step before the inner CEM's loop: the distance matrices of the
+    mother rollouts' coefficients cx, cy (C, M, nvar) and
+    :func:`inner_fixed` of the draws."""
+    return InnerInputs(*distance_matrices(cx, cy, cfg.risk.kernel),
+                       *inner_fixed(cfg, draws))
 
 
 def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
                                cy: torch.Tensor, x_roll: torch.Tensor,
                                y_roll: torch.Tensor, draws: InnerDraws,
-                               selection: Optional[str] = None) -> ReducedSet:
+                               selection: Optional[str] = None,
+                               distances: Optional[Tuple] = None,
+                               fixed: Optional[InnerFixed] = None) -> ReducedSet:
     """Inner CEM over all candidates.
 
     cx, cy: (C, M, nvar) coefficients of the mother rollouts (the kernel's
     feature space); x_roll, y_roll: (C, M, T).  ``draws`` are the standard
     normals of :class:`mpc_mmd_tpu_torch.noise.InnerDraws`, shared by every
     candidate.  ``selection``: see :func:`resolve_selection`.
+    ``distances``: (D, D2) of cx, cy as ``kernels.distance_matrices``
+    gives them (kernel (f)'s, ``ops.inner_prologue``), else computed here;
+    ``fixed``: :func:`inner_fixed` of the draws, else computed here.
     """
     selection, elite_carry = selection_key(cfg, selection)
     b = cfg.beta_cem
@@ -191,7 +208,9 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     C = cx.shape[0]
     dev = cx.device
 
-    D, D2, samples0_row, A_all, Zf_all, lane_floor = inner_inputs(cfg, cx, cy, draws)
+    D, D2 = distances if distances is not None else distance_matrices(cx, cy, kind)
+    samples0_row, A_all, Zf_all, lane_floor = (fixed if fixed is not None
+                                               else inner_fixed(cfg, draws))
     c_ix = torch.arange(C, device=dev)[:, None, None]
 
     if (selection, elite_carry) == ("xla", True):
@@ -361,9 +380,7 @@ def select_reduced_set(cfg: ProblemConfig, cx: torch.Tensor, cy: torch.Tensor,
     C = cx.shape[0]
     dev, dt = cx.device, cx.dtype
 
-    feats = torch.cat((cx, cy), dim=2)
-    D = pairwise_l1(feats, feats)                            # (C, M, M)
-    D2 = pairwise_l2sq(feats, feats) if kind != "laplace" else None
+    D, D2 = distance_matrices(cx, cy, kind)                 # (C, M, M)
     c_ix = torch.arange(C, device=dev)
     eye = torch.eye(M + 1, dtype=dt, device=dev)
 

@@ -4,13 +4,14 @@
 Counterpart of ``mpc_mmd_tpu/solver.py``.  One outer iteration:
 
   guess QP -> AM projection -> controls (kernel (d)) -> stable sort by
-  projection residual -> noisy rollouts (K4) -> obstacle risk -> keep the
+  projection residual -> noisy rollouts (K4n) -> obstacle risk -> keep the
   ellite_num_cost lowest risks -> lane risk -> scalar cost -> elites ->
   CEM update (kernel (e) in ``mmd_opt``).
 
-``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them, and
-picks a weighted reduced set of R with the inner beta-CEM (K1, K2, or K3
-and K2 under the fused selection) before the MMD risks.  The other modes
+``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them and
+takes their distance matrices (kernel (f)), and picks a weighted reduced
+set of R with the inner beta-CEM (kernel (c), or K1, K2, or K3 and K2
+under the other selections) before the MMD risks.  The other modes
 roll R rollouts per candidate: ``mmd_random`` scores them by MMD with
 uniform weights 1/R and bandwidth 0.01 and no lane risk, ``cvar`` and
 ``saa`` by CVaR and by the violation fraction.
@@ -54,12 +55,13 @@ from .device import resolve_device, to_device
 from .dynamics import beta_parameters, perturb_controls
 from .graph import GraphCache
 from .noise import JaxNoise
-from .ops import fused_rollout, outer_project, outer_tail
+from .ops import inner_prologue, noisy_rollout, outer_project, outer_tail
 from .ops.outer_project import outer_project_plain
 from .ops.outer_tail import candidates, chain_tail
+from .ops.rollout import paired_rollouts
 from .qp import Workspace, boundary_vectors, build_workspace, refit_coefficients
-from .reduced_set import (ReducedSet, select_reduced_set, select_reduced_set_batched,
-                          selection_key)
+from .reduced_set import (ReducedSet, inner_fixed, select_reduced_set,
+                          select_reduced_set_batched, selection_key)
 from .sampling import initial_params
 
 
@@ -79,62 +81,74 @@ class SolveResult(NamedTuple):
     cov_param: torch.Tensor   # (8, 8)
 
 
-def noisy_controls(cfg: ProblemConfig, noise, keys: torch.Tensor,
-                   acc_T: torch.Tensor, steer_T: torch.Tensor):
-    """R noisy variants (N, C, R, T) of the controls (N, C, T) of a chunk's
-    candidates, each scenario from its row of the iteration's column
-    ``keys`` of the noise source's key table (see
-    :mod:`mpc_mmd_tpu_torch.noise`)."""
+def rollout_draws(cfg: ProblemConfig, noise, keys: torch.Tensor,
+                  acc_T: torch.Tensor, steer_T: torch.Tensor):
+    """The draws of the noisy controls of a chunk's candidates (N, C, T),
+    each scenario from its row of the iteration's column ``keys`` of the
+    noise source's key table (see :mod:`mpc_mmd_tpu_torch.noise`): d_acc,
+    d_steer, (N, 1, R, T) standard normals under gaussian noise, (N, C, R,
+    T) Beta draws under Beta noise, and eps_const (N, 1, R, T)."""
     R, T = cfg.risk.num_reduced, acc_T.shape[-1]
     d_acc, d_steer, eps_const = (e[:, None] for e in noise.rollout_eps(keys, R, T))
     if cfg.noise.kind == "beta":
         d_acc, d_steer = noise.rollout_beta(
             keys, R, *beta_parameters(acc_T, steer_T, cfg.noise))
-    return perturb_controls(acc_T, steer_T, d_acc, d_steer, eps_const,
-                            cfg.noise)
+    return d_acc, d_steer, eps_const
+
+
+def noisy_controls(cfg: ProblemConfig, noise, keys: torch.Tensor,
+                   acc_T: torch.Tensor, steer_T: torch.Tensor):
+    """R noisy variants (N, C, R, T) of the controls (N, C, T) of a chunk's
+    candidates, from :func:`rollout_draws`."""
+    return perturb_controls(acc_T, steer_T,
+                            *rollout_draws(cfg, noise, keys, acc_T, steer_T), cfg.noise)
 
 
 def batched_rollouts(cfg: ProblemConfig, a_n: torch.Tensor, s_n: torch.Tensor,
                      state0: torch.Tensor, mother: bool):
-    """Rollouts of every candidate as one flat-lane rollout call (K4).
-
-    a_n, s_n: the (..., C, R, T) noisy controls.  With ``mother``, row m
-    pairs acc draw m // R with steer draw m % R, giving n = R^2 rollouts
-    per candidate; else n = R.  state0 is (5,), shared by every rollout,
-    or (n, 5): rollout m of every candidate starts from state m (the
-    Frenet solve's noisy initial states), and K4 takes a state per lane.
-    Returns x, y of shape (..., C, n, T).
-    """
-    R, T = a_n.shape[-2:]
-    if mother:
-        a_n = torch.repeat_interleave(a_n, R, dim=-2)
-        s_n = s_n.repeat(*(1,) * (s_n.dim() - 2), R, 1)
-    lead, n = a_n.shape[:-2], a_n.shape[-2]
-    if state0.dim() == 2:
-        state0 = state0.expand(*lead, n, 5).reshape(-1, 5)
-    x, y = fused_rollout(a_n.reshape(-1, T), s_n.reshape(-1, T), state0,
-                         cfg.horizon.dt, cfg.vehicle.wheel_base)
-    return x.reshape(*lead, n, T), y.reshape(*lead, n, T)
+    """Rollouts of every candidate's noisy controls (..., C, R, T) as one
+    flat-lane K4 call (``ops.rollout.paired_rollouts``): x, y (..., C, n,
+    T), n = R^2 mother rollouts with ``mother``, else R."""
+    return paired_rollouts(a_n, s_n, state0, cfg.horizon.dt, cfg.vehicle.wheel_base,
+                           mother)
 
 
 def select_reduced(cfg: ProblemConfig, ws: Workspace, xr: torch.Tensor,
-                   yr: torch.Tensor, inner) -> ReducedSet:
+                   yr: torch.Tensor, inner, fixed=None,
+                   prologue: bool = False) -> ReducedSet:
     """The mother rollouts (N, C, M, T) of a chunk refitted and reduced,
     every candidate of every scenario in one inner CEM; the reduced set's
-    fields come back as (N, C, ...)."""
+    fields come back as (N, C, ...).  With ``prologue``, the refit and the
+    distance matrices are kernel (f)'s (``ops.inner_prologue``), else the
+    chain's; ``fixed``: the hoisted ``reduced_set.inner_fixed`` of the
+    draws ``inner`` (prefactored strategy)."""
     lead, (M, T) = xr.shape[:-2], xr.shape[-2:]
     nvar = cfg.horizon.nvar
-    cxr, cyr = refit_coefficients(ws, xr.reshape(-1, T), yr.reshape(-1, T),
-                                  xr.shape[0])
-    flat = (cxr.reshape(-1, M, nvar), cyr.reshape(-1, M, nvar),
-            xr.reshape(-1, M, T), yr.reshape(-1, M, T), inner)
-    rs = (select_reduced_set(cfg, *flat) if cfg.solve_strategy == "exact"
-          else select_reduced_set_batched(cfg, *flat))
+    rolls = (xr.reshape(-1, M, T), yr.reshape(-1, M, T), inner)
+    if prologue:
+        pro = inner_prologue(ws, xr, yr, cfg.risk.kernel)
+        rs = select_reduced_set_batched(cfg, pro.cx, pro.cy, *rolls,
+                                        distances=(pro.D, pro.D2), fixed=fixed)
+    else:
+        cxr, cyr = refit_coefficients(ws, xr.reshape(-1, T), yr.reshape(-1, T),
+                                      xr.shape[0])
+        flat = (cxr.reshape(-1, M, nvar), cyr.reshape(-1, M, nvar), *rolls)
+        rs = (select_reduced_set(cfg, *flat) if cfg.solve_strategy == "exact"
+              else select_reduced_set_batched(cfg, *flat, fixed=fixed))
     return ReducedSet(*(f.reshape(*lead, *f.shape[1:]) for f in rs))
 
 
 MODES = ("mmd_opt", "mmd_random", "cvar", "saa")
 STRATEGIES = ("prefactored", "exact")
+
+
+class GlueRoutes(NamedTuple):
+    """Which of the outer iteration's steps around the rollouts run as
+    kernels (``SolverSetup._glue_routes``)."""
+    noisy_rollout: bool    # K4n: the noisy controls formed inside the rollout
+    inner_prologue: bool   # kernel (f): the refit and distance matrices
+    frenet_points: bool    # kernel (g): the on-road rollouts' Frenet points
+
 
 class SolverSetup:
     """What a solver builds once: the checked configuration, its device,
@@ -212,6 +226,22 @@ class SolverSetup:
         return (prefactored and not cfg.projection.with_obstacle_terms,
                 prefactored and cfg.risk.mode == "mmd_opt" and not self._split())
 
+    def _glue_routes(self) -> GlueRoutes:
+        """Whether an outer iteration forms its noisy controls inside the
+        rollout (``ops.noisy_rollout``, K4n), refits the mother rollouts and
+        takes their distance matrices as ``ops.inner_prologue`` (kernel
+        (f), ``mmd_opt``) and converts the on-road rollouts to Frenet as
+        ``ops.frenet_points`` (kernel (g)).  Each wrapper launches its
+        kernel on the card and runs its plain version on the CPU.  These
+        keep their chains on every device: the "exact" strategy, a
+        candidate mesh of several ranks (each rank rolls out its block of
+        the candidates) and the ``det`` baseline, which rolls nothing out."""
+        cfg = self.cfg
+        glue = (cfg.solve_strategy == "prefactored" and not self._split()
+                and cfg.risk.mode != "det")
+        return GlueRoutes(glue, glue and cfg.risk.mode == "mmd_opt",
+                          glue and self.FRENET)
+
     def _split(self) -> bool:
         """Whether a candidate mesh splits the solve over several ranks."""
         return False
@@ -236,6 +266,30 @@ class SolverSetup:
         return draw(bc.num_samples_cem, cfg.risk.num_mother, bc.num_ellite,
                     bc.maxiter)
 
+    @functools.cached_property
+    def _inner_fixed(self):
+        """The inner CEM's first batch and affine resample coefficients
+        (``reduced_set.inner_fixed``) of the solver-fixed draws, made once
+        beside them (prefactored strategy; None under "exact")."""
+        if self.cfg.solve_strategy == "exact":
+            return None
+        return inner_fixed(self.cfg, self._inner)
+
+    def _rollouts(self, keys, acc_T, steer_T, state0, mother: bool, mine=slice(None)):
+        """The noisy rollouts x, y (N, c, n, T) of the candidates ``mine`` of
+        the controls (N, C, T), from the iteration's column ``keys`` of the
+        key table and the initial state(s) ``state0``: K4n where
+        ``_glue_routes`` sends them (every candidate), else the chain of
+        :func:`noisy_controls` and :func:`batched_rollouts` (K4)."""
+        cfg = self.cfg
+        if self._glue_routes().noisy_rollout:
+            return noisy_rollout(acc_T, steer_T,
+                                 *rollout_draws(cfg, self.noise, keys, acc_T, steer_T),
+                                 state0, cfg.noise, cfg.horizon.dt, cfg.vehicle.wheel_base,
+                                 mother)
+        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
+        return batched_rollouts(cfg, a_n[:, mine], s_n[:, mine], state0, mother)
+
     @staticmethod
     def _input(a) -> torch.Tensor:
         """A float argument as a float32 tensor where it lies (host data
@@ -250,10 +304,12 @@ class SolverSetup:
         """A solve's body on its named inputs (tensors on any device): as
         the CUDA graph of their shapes (and of the inner CEM's selection,
         which the body fixes), or eagerly on the inputs moved to the
-        device.  The solver-fixed draws are made first, outside any graph."""
+        device.  The solver-fixed draws (and what the inner CEM takes of
+        them alone) are made first, outside any graph."""
         self._z0
         if self.cfg.risk.mode == "mmd_opt":
             self._inner
+            self._inner_fixed
         if self._graphs is None:
             return body(**{k: to_device(t, self.device) for k, t in inputs.items()})
         key = tuple((k, tuple(t.shape), t.dtype) for k, t in inputs.items())
@@ -415,11 +471,11 @@ class Solver(SolverSetup):
         maxiter)}), else R rollouts with uniform weights 1/R and bandwidth
         0.01."""
         cfg = self.cfg
-        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
-        xr, yr = batched_rollouts(cfg, a_n[:, mine], s_n[:, mine], state0,
-                                  mother=cfg.risk.mode == "mmd_opt")
-        if cfg.risk.mode == "mmd_opt":
-            rs = select_reduced(cfg, self.ws, xr, yr, self._inner)
+        mother = cfg.risk.mode == "mmd_opt"
+        xr, yr = self._rollouts(keys, acc_T, steer_T, state0, mother, mine)
+        if mother:
+            rs = select_reduced(cfg, self.ws, xr, yr, self._inner, self._inner_fixed,
+                                self._glue_routes().inner_prologue)
             return dict(x=rs.x_red, roll=rs.y_red, beta=rs.beta, sigma=rs.sigma,
                         res_beta=rs.res)
         return dict(x=xr, roll=yr, **self._uniform(xr.shape[:-2]))

@@ -9,7 +9,8 @@ straight-road solve (``solver.py``):
 * the projection in the Frenet frame, with the curvature-coupled steering
   as the candidates' steer (kernel (d) computes both);
 * rollouts in the GLOBAL frame, lane m of every candidate from state m
-  (K4 with a state per lane), converted pointwise to Frenet for the risks;
+  (K4n with a state per lane), converted pointwise to Frenet for the risks
+  (kernel (g));
 * the scalar cost gains the centripetal-acceleration and desired-lane
   terms (``sampling.frenet_scalar_cost``, in ``mmd_opt`` kernel (e)), and
   ``mmd_random`` keeps its lane risk;
@@ -39,9 +40,9 @@ from . import risk as risk_mod
 from .config import ProblemConfig
 from .frenet import FrenetFrame, global_to_frenet_points, global_to_frenet_state
 from .noise import init_state_count
+from .ops import frenet_points
 from .qp import Workspace
-from .solver import (MODES, SolverSetup, batched_rollouts, noisy_controls,
-                     select_reduced)
+from .solver import MODES, SolverSetup, select_reduced
 
 FRENET_MODES = MODES + ("det",)
 
@@ -131,13 +132,15 @@ class FrenetSolver(SolverSetup):
         if mode == "det":
             zeros = torch.zeros(lead + (R, T), device=self.device)
             return dict(x=zeros, roll=zeros, beta=beta, sigma=sigma)
-        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
-        xg, yg = batched_rollouts(cfg, a_n, s_n, states0,
-                                  mother=mode == "mmd_opt")
-        if mode == "mmd_opt":
-            rs = select_reduced(cfg, self.ws, xg, yg, self._inner)
+        mother = mode == "mmd_opt"
+        routes = self._glue_routes()
+        xg, yg = self._rollouts(keys, acc_T, steer_T, states0, mother)
+        if mother:
+            rs = select_reduced(cfg, self.ws, xg, yg, self._inner, self._inner_fixed,
+                                routes.inner_prologue)
             xg, yg, beta, sigma = rs.x_red, rs.y_red, rs.beta, rs.sigma
-        s_roll, l_roll = global_to_frenet_points(frame, xg, yg)
+        convert = frenet_points if routes.frenet_points else global_to_frenet_points
+        s_roll, l_roll = convert(frame, xg, yg)
         return dict(x=s_roll, roll=l_roll, beta=beta, sigma=sigma)
 
     def _risks(self, ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T):

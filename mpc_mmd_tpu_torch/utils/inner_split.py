@@ -13,8 +13,10 @@ solve and the fastrt solve at a scenario chunk of 4 (E4):
   ``torch.profiler`` with every call of each stage function (``STAGES``:
   the guess QP, the projection, the controls, the noisy controls, the
   rollouts, the refit, the inner CEM's prologue with kernel (c) inside,
-  the risks, the costs, the CEM update, the argsorts; and kernels (d) and
-  (e) where the checkout has them) inside a ``record_function`` range
+  the reduced rollouts' gathers after it (``take_rows``), the Frenet
+  conversion, the risks, the costs, the CEM update, the argsorts; and
+  where the checkout has them kernels (d) and (e), the rollout draws with
+  K4n and kernels (f) and (g)) inside a ``record_function`` range
   that opens and closes with ``torch.cuda.synchronize()``, so that the
   device events that start in a range are that call's and no other's (an
   event belongs to the innermost range it starts in; those in none are
@@ -24,7 +26,7 @@ solve and the fastrt solve at a scenario chunk of 4 (E4):
   graph's node count is read from ``graph_stats()``, and one replay runs
   under ``torch.profiler``: its device busy ms, each stage's replay
   time (each kernel's mean time in the replay times its count in the
-  stage's eager calls), and kernels (c), (d) and (e)'s device ms and
+  stage's eager calls), and kernels (c) to (g) and K4n's device ms and
   launches in the replay (``replay_kernels``).
 
 Prints one JSON line with every path and writes ``inner_split.json`` to
@@ -56,15 +58,19 @@ from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
 # (module, function) of each stage, as the checkout calls it; a stage the
 # checkout does not have is left out.  Nested: the inner CEM's kernel (c)
-# inside select_reduced_set_batched, the refit inside select_reduced.
+# and the gathers of its winners' rollouts inside select_reduced_set_batched,
+# the refit inside select_reduced.
 STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
           ("solver", "project"), ("projection", "project"),
           ("solver", "controls_from_trajectory"), ("dynamics", "controls_from_trajectory"),
           ("solver", "outer_project"), ("solver", "outer_tail"),
           ("solver", "noisy_controls"), ("solver_frenet", "noisy_controls"),
           ("solver", "batched_rollouts"), ("solver_frenet", "batched_rollouts"),
-          ("solver", "refit_coefficients"), ("solver", "select_reduced_set_batched"),
-          ("reduced_set", "inner_cem"), ("solver_frenet", "global_to_frenet_points"),
+          ("solver", "rollout_draws"), ("solver", "noisy_rollout"),
+          ("solver", "refit_coefficients"), ("solver", "inner_prologue"),
+          ("solver", "select_reduced_set_batched"),
+          ("reduced_set", "inner_cem"), ("reduced_set", "take_rows"),
+          ("solver_frenet", "global_to_frenet_points"), ("solver_frenet", "frenet_points"),
           ("risk", "mmd_obs"), ("risk", "mmd_lane"), ("risk", "mmd_lane_des"),
           ("solver", "scalar_cost"), ("sampling", "scalar_cost"),
           ("solver_frenet", "frenet_scalar_cost"), ("sampling", "frenet_scalar_cost"),
@@ -178,10 +184,11 @@ def split(make, solve):
     return {"device_busy_ms": busy, "device_events": len(dev_ev),
             "graph_nodes": [g["nodes"] for g in stats], "replay_busy_ms": replay_busy,
             "replay_events": len(replay),
-            # kernels (c), (d) and (e) in the replay: device ms and launches
+            # kernels (c) to (g) and K4n in the replay: device ms and launches
             "replay_kernels": {name: [ms, n] for name, (ms, n) in replay_by_name.items()
-                               if any(k in name for k in ("inner_cem", "outer_project",
-                                                          "outer_tail"))},
+                               if any(k in name for k in (
+                                   "inner_cem", "outer_project", "outer_tail",
+                                   "noisy_rollout", "inner_prologue", "frenet_points"))},
             "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
 
 

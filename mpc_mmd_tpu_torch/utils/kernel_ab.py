@@ -11,7 +11,8 @@ checked and timed in turns.
 build takes from DIR first), for example from ``git show
 <commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
 builds and runs only the builds of those kinds (``k1 k2 k3 prng kc kd
-ke micro``; K5 is in ``topk.cu``) and those named (``kc_now kc_before``).
+ke kf k4n kg micro``; K5 is in ``topk.cu``) and those named (``kc_now
+kc_before``).
 Each build's CPU seconds are logged.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
@@ -88,7 +89,15 @@ times, the size the kernel picks and the clock64 cycles of rank 0's
 thread 0 between its stamps (1 risk of its share, 2 the others' risks and
 the sort, 3 and 4 the lane risks and the costs as the source's
 ``stamp`` calls mark them, 5 elites, moments and the Cholesky factor, 6
-resample and outputs).  Each build's registers,
+resample and outputs).  The glue around the rollouts: kernel (f)
+(``kf_now``, ``csrc/inner_prologue.cu``) at ``KF_SHAPES``, K4n
+(``k4n_now``, ``csrc/rollout.cu``'s noisy-controls entry) at
+``K4N_SHAPES`` and kernel (g) (``kg_now``, ``csrc/frenet_points.cu``) at
+``KG_SHAPES`` (inputs from ``kf_inputs``, ``k4n_inputs``, ``kg_inputs``),
+and DIR's builds of them where DIR has their sources (``kf_before``,
+``k4n_before``, ``kg_before``): each bit-equal to its plain version in
+every output (else it raises), and their warm and L2-cold device times
+in turns.  Each build's registers,
 spills and SASS instructions per kernel (``cuobjdump -sass``) are logged.
 Writes
 ``kernel_ab.json`` and ``kernel_ab.txt`` to ``--out`` (default
@@ -347,7 +356,8 @@ def kc_runkind_variant(src: str, name: str = "kc_runkind") -> str:
 def builds(before: Path, diagnose: bool = False) -> dict:
     """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
     "k3" (topk_kernel.cu), "prng" (prng.cu), "kc" (inner_cem.cu), "kd"
-    (outer_project.cu), "ke" (outer_tail.cu) or "micro"."""
+    (outer_project.cu), "ke" (outer_tail.cu), "kf" (inner_prologue.cu),
+    "k4n" (rollout.cu), "kg" (frenet_points.cu) or "micro"."""
     topk = (_build.CSRC / "topk.cu").read_text()
     qp = (_build.CSRC / "eq_qp.cu").read_text()
     fused = (_build.CSRC / "topk_kernel.cu").read_text()
@@ -372,6 +382,10 @@ def builds(before: Path, diagnose: bool = False) -> dict:
         out["prng_clock"] = ("prng", clock_variant(beta))
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
+    for kind, src, entry in GLUE_SOURCES:
+        out[f"{kind}_now"] = (kind, (_build.CSRC / src).read_text())
+        if (before / src).exists() and entry in (before / src).read_text():
+            out[f"{kind}_before"] = (kind, (before / src).read_text())
     out["kd_now"] = ("kd", (_build.CSRC / "outer_project.cu").read_text())
     out["kd_clock"] = ("kd", kd_clock_variant(out["kd_now"][1]))
     out["ke_now"] = ("ke", (_build.CSRC / "outer_tail.cu").read_text())
@@ -460,8 +474,8 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
         SOURCES[name] = src
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
         cu.write_text(src)
-        own = (["-I", str(before)] if kind in ("kc", "kd", "ke") and name.endswith("_before")
-               else [])
+        own = (["-I", str(before)] if kind in ("kc", "kd", "ke", "kf", "k4n", "kg")
+               and name.endswith("_before") else [])
         cmd = [nvcc, *_build.NVCC_FLAGS, *own, "-I", str(_build.CSRC), "-shared", "-o",
                str(so), str(cu)]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -498,8 +512,9 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             lib.mmd_inner_cem_scratch.argtypes = _build._SIGNATURES["mmd_inner_cem_scratch"]
             if name.startswith("kc_clock"):
                 lib.mmd_inner_cem_clock.argtypes = [P, I]
-        elif kind in ("kd", "ke"):
-            entry = "mmd_outer_project" if kind == "kd" else "mmd_outer_tail"
+        elif kind in ("kd", "ke", "kf"):
+            entry = {"kd": "mmd_outer_project", "ke": "mmd_outer_tail",
+                     "kf": "mmd_inner_prologue"}[kind]
             sig = list(_build._SIGNATURES[entry])
             marker, current, drop = LATER_ARGS[kind]
             earlier = marker not in sources[name][1] and (
@@ -514,6 +529,10 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
                 lib.mmd_outer_project_clock.argtypes = [P, I]
             if earlier:
                 lib = EarlierEntry(lib, entry, drop)
+        elif kind in GLUE_ENTRIES:
+            fn = getattr(lib, GLUE_ENTRIES[kind])
+            fn.argtypes = _build._SIGNATURES[GLUE_ENTRIES[kind]]
+            fn.restype = ctypes.c_int
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -531,7 +550,8 @@ SOURCES = {}       # a build's name -> its CUDA source
 
 class EarlierEntry:
     """An earlier build whose C entry lacks arguments that the current
-    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta):
+    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta,
+    kernel (f)'s splits):
     its calls drop the arguments at the positions ``drop`` (negative from
     the end)."""
 
@@ -549,7 +569,8 @@ class EarlierEntry:
 # per kind: the argument an earlier entry may lack, the current source that
 # has it, and its positions in the current entry
 LATER_ARGS = {"kd": ("rows_per_cta", "outer_project.cu", (-3, -2)),
-              "ke": ("kept_cta", "outer_tail.cu", (31,))}
+              "ke": ("kept_cta", "outer_tail.cu", (31,)),
+              "kf": ("splits", "inner_prologue.cu", (-2,))}
 
 
 def resources(ptxas: str, so: Path) -> dict:
@@ -778,6 +799,149 @@ def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
     for i in (5, 6, 7, 8):
         out[i][0, last] = out[i][0, best]
     return out
+
+
+def _trajectories(gen, lead, T: int, dt: float):
+    """Positions x, y (*lead, T) of rollouts at a speed of 5 to 15 m/s with
+    a random walk in acceleration and lateral drift, on the generator's
+    device."""
+    dev = gen.device
+    v = 5.0 + 10.0 * torch.rand(*lead, 1, device=dev, generator=gen)
+    a = torch.cumsum(0.3 * torch.randn(*lead, T, device=dev, generator=gen), dim=-1)
+    t = dt * torch.arange(T, device=dev)
+    x = v * t + torch.cumsum(a * dt * dt, dim=-1)
+    y = 1.75 * torch.randn(*lead, 1, device=dev, generator=gen) + torch.cumsum(
+        0.05 * torch.randn(*lead, T, device=dev, generator=gen), dim=-1)
+    return x, y
+
+
+def kf_inputs(gen, cfg, N: int, kind: str = "laplace"):
+    """Kernel (f)'s inputs for a chunk of N scenarios of ``cfg`` (mmd_opt),
+    on the generator's device: the workspace and N x num_batch candidates'
+    num_mother rollouts of num_prime steps (``_trajectories``).  Returns
+    the arguments of ``ops.inner_prologue``."""
+    from ..qp import build_workspace
+    ws = build_workspace(cfg, gen.device)
+    lead = (N, cfg.cem.num_batch, cfg.risk.num_mother)
+    xr, yr = _trajectories(gen, lead, cfg.horizon.num_prime, cfg.horizon.dt)
+    return ws, xr, yr, kind
+
+
+def k4n_inputs(gen, cfg, N: int, frenet: bool = False, const: float = 0.0):
+    """K4n's inputs for a chunk of N scenarios of ``cfg``, on the
+    generator's device: controls (N, num_batch, T) with exact zeros (steer
+    at t = 0, acc at the last step, as every solve has), the iteration's
+    draws (standard normals shared by a scenario's candidates, or Beta
+    draws in (0, 1) a candidate), eps_const, and one initial state or, with
+    ``frenet``, a state per rollout of a candidate; ``const`` the acc and
+    steer const noise.  Returns the arguments of ``ops.noisy_rollout``."""
+    import dataclasses
+    dev = gen.device
+    C, R, T = cfg.cem.num_batch, cfg.risk.num_reduced, cfg.horizon.num_prime
+    mother = cfg.risk.mode == "mmd_opt"
+    acc = 1.0 + 0.5 * torch.randn(N, C, T, device=dev, generator=gen)
+    steer = 0.1 * torch.randn(N, C, T, device=dev, generator=gen)
+    acc[..., -1] = 0.0
+    steer[..., 0] = 0.0
+    if cfg.noise.kind == "gaussian":
+        d_acc, d_steer = (torch.randn(N, 1, R, T, device=dev, generator=gen)
+                          for _ in range(2))
+    else:
+        d_acc, d_steer = (torch.rand(N, C, R, T, device=dev, generator=gen)
+                          for _ in range(2))
+    eps = torch.randn(N, 1, R, T, device=dev, generator=gen)
+    s0 = torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0], device=dev)
+    if frenet:
+        per = R * R if mother else R
+        s0 = s0 + torch.tensor([0.5, 0.3, 0.5, 0.1, 0.02], device=dev) * torch.randn(
+            per, 5, device=dev, generator=gen)
+    noise = dataclasses.replace(cfg.noise, acc_const=const, steer_const=const)
+    return (acc, steer, d_acc, d_steer, eps, s0, noise, cfg.horizon.dt,
+            cfg.vehicle.wheel_base, mother)
+
+
+def kg_frame(dev, n: int = 600):
+    """The Frenet frame of a curved path of n points over 300 m (a left
+    bend and a right one), on ``dev``."""
+    from ..frenet import path_parameters
+    s = torch.linspace(0.0, 300.0, n, device=dev)
+    return path_parameters(s, 20.0 * torch.sin(s / 60.0))
+
+
+def kg_inputs(gen, cfg, N: int = 1):
+    """Kernel (g)'s inputs for ``cfg``'s N x num_batch candidates' R
+    rollouts of num_prime steps around ``kg_frame``'s path, on the
+    generator's device, with edge points in scenario 0's first candidate:
+    a point equidistant from two path points, points before the path's
+    start and past its end, a point on the last path point and a NaN.
+    Returns (frame, x, y), the arguments of ``ops.frenet_points``."""
+    dev = gen.device
+    frame = kg_frame(dev)
+    lead = (N, cfg.cem.num_batch, cfg.risk.num_reduced)
+    x, y = _trajectories(gen, lead, cfg.horizon.num_prime, cfg.horizon.dt)
+    y = y + 20.0 * torch.sin(x / 60.0)
+    xp, yp = frame.x_path, frame.y_path
+    edge = [((xp[10] + xp[11]) / 2, (yp[10] + yp[11]) / 2), (xp[0] - 5.0, yp[0]),
+            (xp[-1] + 5.0, yp[-1] + 1.0), (xp[-1], yp[-1]),
+            (torch.tensor(float("nan"), device=dev), yp[3])]
+    for i, (ex, ey) in enumerate(edge):
+        x[0, 0, 0, i], y[0, 0, 0, i] = ex, ey
+    return frame, x, y
+
+
+# the glue around the rollouts: (kind, source, C entry) of kernel (f), K4n
+# and kernel (g), and their shapes: (workload, scenarios, MMD kernel),
+# (workload, scenarios, mode) and (workload, scenarios)
+GLUE_SOURCES = (("kf", "inner_prologue.cu", "mmd_inner_prologue"),
+                ("k4n", "rollout.cu", "mmd_noisy_rollout"),
+                ("kg", "frenet_points.cu", "mmd_frenet_points"))
+GLUE_ENTRIES = {kind: entry for kind, _, entry in GLUE_SOURCES}
+KF_SHAPES = (("fastrt", 1, "laplace"), ("fastrt", 4, "laplace"), ("path_a", 1, "laplace"),
+             ("path_d", 1, "laplace"), ("fastrt", 1, "matern52"))
+K4N_SHAPES = (("fastrt", 1, "mmd_opt"), ("fastrt", 4, "mmd_opt"), ("path_a", 1, "mmd_opt"),
+              ("path_a", 1, "cvar"), ("path_d", 1, "mmd_opt"))
+KG_SHAPES = (("path_d", 1), ("path_d", 4))
+
+
+def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
+    """Kernel (f), K4n and kernel (g): every build bit-equal to its plain
+    version in every output at its shapes (else it raises), and the builds
+    of a kind timed in turns, warm and L2-cold."""
+    from ..frenet import global_to_frenet_points
+    from ..ops.frenet_points import frenet_points
+    from ..ops.inner_prologue import inner_prologue, inner_prologue_plain
+    from ..ops.rollout import noisy_rollout, noisy_rollout_plain
+    cfgs = _workloads()
+    cases = []
+    for name, N, kind in KF_SHAPES:
+        args = kf_inputs(gen, cfgs[name], N, kind)
+        cases.append(("kf", f"{name} x {N} {kind}", args, inner_prologue,
+                      inner_prologue_plain, "inner_prologue_kernel"))
+    for name, N, mode in K4N_SHAPES:
+        args = k4n_inputs(gen, cfgs[name].with_risk_mode(mode), N, name == "path_d")
+        cases.append(("k4n", f"{name} x {N} {mode}", args, noisy_rollout,
+                      noisy_rollout_plain, "noisy_rollout_kernel"))
+    for name, N in KG_SHAPES:
+        args = kg_inputs(gen, cfgs[name], N)
+        cases.append(("kg", f"{name} x {N}", args, frenet_points, global_to_frenet_points,
+                      "frenet_points_kernel"))
+    recs = []
+    for kind, label, args, wrapper, plain, match in cases:
+        builds = [n for n in names if n.startswith(f"{kind}_")]
+        if not builds:
+            continue
+        ref = plain(*args)
+        calls = {b: (lambda b=b: wrapper(*args, lib=libs[b])) for b in builds}
+        for b, fn in calls.items():
+            got = fn()
+            torch.cuda.synchronize()
+            if not all(same_bits(g, r) for g, r in zip(got, ref) if r is not None):
+                raise RuntimeError(f"{b} is not bit-equal to its plain version at {label}")
+        times = three_ways(calls, match, warm_only=warm_only)
+        recs.append({"kind": kind, "shape": label, "device_ms": times})
+        log(f"{kind} {label}: {builds} bit-equal to the plain version; device us "
+            f"{_fmt_times(times)}")
+    return recs
 
 
 # kernel (d)'s forced launch choices (``ops.outer_project``'s keywords)
@@ -1361,6 +1525,9 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
         rec["kd"] = run_kd(libs, kds, gen, log, evict_lib, warm_only)
     if kes:
         rec["ke"] = run_ke(libs, kes, gen, log, evict_lib, warm_only)
+    glue = [n for n, (kind, _) in sources.items() if kind in GLUE_ENTRIES]
+    if glue:
+        rec["glue"] = run_glue(libs, glue, gen, log, warm_only)
     rec["resources"] = RESOURCES
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
@@ -1374,7 +1541,8 @@ def main(argv=None) -> None:
     p.add_argument("--diagnose", action="store_true",
                    help="also the diagnostic builds and the latency microbenchmark")
     p.add_argument("--kernels", nargs="*", default=None,
-                   help="build and run only these kinds (k1 k2 k3 prng kc kd ke micro) "
+                   help="build and run only these kinds (k1 k2 k3 prng kc kd ke kf k4n kg "
+                   "micro) "
                    "or builds")
     p.add_argument("--out", type=Path, default=OUT_DIR)
     p.add_argument("--warm_only", action="store_true",

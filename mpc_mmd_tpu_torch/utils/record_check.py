@@ -176,11 +176,13 @@ def record_check(out: str, device="cuda", n_mc: int = 1000, workers: int = 1,
 # is the resample of the iteration before), the risks, the scalar cost, the
 # outer CEM's draws and update; and the argsorts and argmins of the solver
 # and of ``sampling.cem_tail``.  Stages in ``_INPUTS`` record their
-# arguments too.  While the taps are in, the "xla" selection's inner CEM and
-# the outer iteration run their plain chains on every device
-# (``inner_cem_plain``, K1 and K2 on the card; ``outer_project_plain``,
-# ``outer_tail_plain``): kernels (c), (d) and (e) would run those stages
-# inside one launch each, where no tap sees them.
+# arguments too.  While the taps are in, the "xla" selection's inner CEM,
+# the outer iteration and the steps around the rollouts run their plain
+# chains on every device (``inner_cem_plain``, K1 and K2 on the card;
+# ``outer_project_plain``, ``outer_tail_plain``; no glue route of
+# ``SolverSetup._glue_routes``: noisy_controls and K4, the refit):
+# kernels (c) to (f) and K4n would run those stages inside one launch
+# each, where no tap sees them.
 _STAGES = (("solver", ("initial_params", "noisy_controls", "batched_rollouts",
                        "refit_coefficients", "select_reduced")),
            ("qp", ("compute_guess",)),
@@ -284,6 +286,8 @@ class _Tap:
         self.patch(reduced_set, "inner_cem", plain("inner_cem", "inner_cem"))
         self.patch(solver, "outer_project", plain("outer_project", "outer_project"))
         self.patch(solver, "outer_tail", plain("outer_tail", "outer_tail"))
+        self.patch(solver.SolverSetup, "_glue_routes",
+                   lambda _self: solver.GlueRoutes(False, False, False))
         return self
 
     def __exit__(self, *exc):

@@ -6,7 +6,12 @@ draws (``test_torch_noise.jax_draws`` and ``jax_beta``).
 Tolerance: atol 1e-5 on rollout positions, the bound tests/test_ops.py
 holds the Pallas rollout to against the scan, plus rtol 1e-6: torch's and
 XLA's CPU sin/cos/tan differ in the last ulp, and after 50 steps positions
-of 30 m (where one float32 ulp is 2e-6) differ by a few ulps.
+of 30 m (where one float32 ulp is 2e-6) differ by a few ulps.  K4n's
+noisy rollouts (``ops.noisy_rollout``, on the CPU its plain version) are
+held to rtol 1e-5 + atol 1e-4 of the JAX package's batched_rollouts, the
+bar chip_smoke.py holds K4 to its plain loop: the noisy controls agree
+within 1e-6 (the perturb tests below) and XLA contracts the steps'
+multiply-adds, which the port's loop rounds apart.
 """
 
 import jax
@@ -17,14 +22,29 @@ import torch
 
 from mpc_mmd_tpu import config as jc
 from mpc_mmd_tpu import dynamics as jdyn
+from mpc_mmd_tpu import solver as jsolver
 from mpc_mmd_tpu.ops import fused_rollout as j_fused_rollout
 from mpc_mmd_tpu_torch import dynamics as tdyn
 from mpc_mmd_tpu_torch.noise import FixedNoise
-from mpc_mmd_tpu_torch.ops import fused_rollout
-from mpc_mmd_tpu_torch.solver import noisy_controls
+from mpc_mmd_tpu_torch.ops import fused_rollout, noisy_rollout
+from mpc_mmd_tpu_torch.ops.rollout import noisy_rollout_plain
+from mpc_mmd_tpu_torch.solver import batched_rollouts, noisy_controls, rollout_draws
 from test_torch_noise import jax_beta, jax_draws, to_torch_cfg
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def rng():
+    """This file's own generator, seeded as tests/conftest.py's session one.
+
+    The session generator is shared by every file a test worker runs, so
+    under ``--dist loadfile`` its state here depended on the files the
+    worker ran before: the rollouts of test_rollout_matches_scan_and_pallas_kernel
+    then drew other controls than when the file runs alone (at some states
+    one float32 y position parts from the scan's by more than its atol).
+    """
+    return np.random.default_rng(0)
 
 
 def _controls(rng, L, T):
@@ -160,3 +180,64 @@ def test_constant_velocity_obstacles_matches_jax(rng):
     got = tdyn.constant_velocity_obstacles(*map(torch.from_numpy, (x0, y0, vx, vy, psi, t)))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["gaussian", "beta"])
+@pytest.mark.parametrize("mother", [True, False])
+@pytest.mark.parametrize("per_lane", [False, True])
+def test_noisy_rollout_matches_jax_batched_rollouts(kind, mother, per_lane):
+    """K4n's plain entry on the JAX key chain's draws (``FixedNoise`` through
+    ``solver.rollout_draws``) against the JAX package's batched_rollouts with
+    the closed-over key of the same outer iteration (solver.py:101-135):
+    gaussian and Beta noise, R^2 mother rollouts and R, one initial state
+    and a state per rollout (the on-road solve's)."""
+    rng = np.random.default_rng(11)
+    make = jc.fastrt_workload if kind == "gaussian" else jc.dynamic_workload
+    cfg = make(num_reduced=4, num_obs=2, num_prime=20, noise=kind, noise_level=0.2,
+               mode="mmd_opt" if mother else "cvar", acc_const_noise=0.02,
+               steer_const_noise=0.01)
+    tcfg = to_torch_cfg(cfg)
+    C, R, T, it, idx_mpc = 5, 4, 20, 1, 42
+    acc, steer = _controls(rng, C, T)
+    steer[:, 0] = 0.0
+    acc[:, -1] = 0.0
+    n = R * R if mother else R
+    state0 = np.asarray([0.0, 1.75, 5.0, 0.0, 0.0], np.float32)
+    if per_lane:
+        state0 = (state0 + rng.normal(0, 0.3, (n, 5))).astype(np.float32)
+    key, _ = jax.random.split(jax.random.PRNGKey(3 * idx_mpc + 5 * it + 7))
+    jx, jy = jsolver.batched_rollouts(cfg, "xla", key, jnp.asarray(acc), jnp.asarray(steer),
+                                      jnp.asarray(state0), mother)
+    noise = FixedNoise(jax_draws(cfg, idx_mpc), "cpu", jax_beta)
+    keys = noise.keys([idx_mpc], it + 1)[:, it]
+    a_t, s_t = torch.from_numpy(acc)[None], torch.from_numpy(steer)[None]
+    draws = rollout_draws(tcfg, noise, keys, a_t, s_t)
+    before = noisy_rollout.launches
+    tx, ty = noisy_rollout(a_t, s_t, *draws, torch.from_numpy(state0), tcfg.noise,
+                           cfg.horizon.dt, cfg.vehicle.wheel_base, mother)
+    assert noisy_rollout.launches == before     # CPU tensors take the plain version
+    assert tx.shape == (1, C, n, T)
+    for t, r in ((tx, jx), (ty, jy)):
+        np.testing.assert_allclose(t[0].numpy(), np.asarray(r), rtol=1e-5, atol=1e-4)
+    # the plain version is the solver's chain, bit for bit
+    cx, cy = batched_rollouts(tcfg, *noisy_controls(tcfg, noise, keys, a_t, s_t),
+                              torch.from_numpy(state0), mother)
+    assert torch.equal(tx, cx) and torch.equal(ty, cy)
+
+
+def test_noisy_rollout_rejects_bad_shapes():
+    cfg = to_torch_cfg(jc.fastrt_workload(num_reduced=2, num_prime=3))
+    acc = torch.zeros(1, 4, 3)
+    d, eps, s0 = torch.zeros(1, 1, 2, 3), torch.zeros(1, 1, 2, 3), torch.zeros(5)
+    args = (cfg.noise, 0.15, 2.5, True)
+    with pytest.raises(ValueError):          # controls not (N, C, T)
+        noisy_rollout(acc[0], acc[0], d, d, eps, s0, *args)
+    with pytest.raises(ValueError):          # draws of another R
+        noisy_rollout(acc, acc, d, d, torch.zeros(1, 1, 3, 3), s0, *args)
+    with pytest.raises(ValueError):          # gaussian draws a candidate
+        noisy_rollout(acc, acc, torch.zeros(1, 4, 2, 3), torch.zeros(1, 4, 2, 3), eps,
+                      s0, *args)
+    with pytest.raises(ValueError):          # a state per lane of another count
+        noisy_rollout(acc, acc, d, d, eps, torch.zeros(2, 5), *args)
+    x, _ = noisy_rollout_plain(acc, acc, d, d, eps, torch.zeros(4, 5), *args)
+    assert x.shape == (1, 4, 4, 3)

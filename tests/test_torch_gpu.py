@@ -21,7 +21,8 @@ of the plain version on the card, (e)'s kept, elites and pick exact; at
 the path shapes every output bit-equal to the plain version, (d) at each
 launch choice (rows a CTA, compile-time or run-time shape) and (e) at
 every cluster size, whose CTAs keep the same candidates; (d)'s run-time
-shape at num 60 within rtol 1e-5 + atol 1e-6.
+shape at num 60 within rtol 1e-5 + atol 1e-6; K4n and kernels (f) and (g)
+bit-equal to their plain versions on the card at two path shapes each.
 """
 
 import dataclasses
@@ -36,8 +37,8 @@ from mpc_mmd_tpu_torch.linalg import eq_qp_solve as qp_plain
 from mpc_mmd_tpu_torch.linalg import scenario_mm
 from mpc_mmd_tpu_torch.noise import FixedNoise, TorchNoise, record_solve_draws
 from mpc_mmd_tpu_torch.ops import (eq_qp_solve, eq_qp_solve_t, fused_rollout,
-                                   inner_cem, topk_indices, topk_kernel_matrices,
-                                   topk_onehot)
+                                   inner_cem, noisy_rollout, topk_indices,
+                                   topk_kernel_matrices, topk_onehot)
 from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain
 from mpc_mmd_tpu_torch.ops.qp import eq_qp_solve_t_plain
 from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
@@ -661,10 +662,10 @@ def test_validator_cuda_matches_cpu(cuda, noise):
 
 
 def test_frenet_outer_iteration_cuda_matches_cpu(cuda):
-    """One outer iteration of the on-road mmd_opt solve (K1, K2 and K4 with
-    a state per lane, 16 mother rollouts from 16 noisy initial states) on
-    the card against the CPU with identical draws and the same frame: the
-    controls within 1e-3."""
+    """One outer iteration of the on-road mmd_opt solve (kernel (c), K4n
+    with a state per lane, 16 mother rollouts from 16 noisy initial states,
+    kernels (f) and (g)) on the card against the CPU with identical draws
+    and the same frame: the controls within 1e-3."""
     from mpc_mmd_tpu_torch import FrenetSolver, onroad_workload
     from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
     from mpc_mmd_tpu_torch.frenet import build_smoother
@@ -679,9 +680,9 @@ def test_frenet_outer_iteration_cuda_matches_cpu(cuda):
     arrays, _ = record_solve_draws(TorchNoise(torch.Generator(), "cpu"), cfg, 0)
     args = (init, [10.0] * 4 + [0.0] * 4, np.diag([20.0] * 4 + [100.0] * 4),
             xo, yo, 10.0, frame)
-    before = fused_rollout.launches
+    before = noisy_rollout.launches
     g = FrenetSolver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
-    assert fused_rollout.launches == before + 1
+    assert noisy_rollout.launches == before + 1
     h = FrenetSolver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu")).solve(0, *args)
     for name in ("v_best", "steering_best"):
         torch.testing.assert_close(getattr(g, name).cpu(), getattr(h, name),
@@ -712,9 +713,10 @@ def test_chunk_on_the_card_equals_its_scenarios_one_at_a_time(cuda):
     cfg, xs, ys, (init, mean, cov) = _chunk_case()
     solver = Solver(cfg, device="cuda", scenario_chunk=3)
     # the "xla" selection's inner CEM is kernel (c), one launch an outer
-    # iteration; K1 and K2 launch only under the other selections
+    # iteration; K1 and K2 launch only under the other selections; the
+    # rollouts are K4n's
     counts = lambda: [f.launches for f in (inner_cem, topk_indices, eq_qp_solve,
-                                           fused_rollout)]
+                                           noisy_rollout)]
     before = counts()
     one = solver.solve(5, init, mean, cov, xs[0], ys[0], 15.0)
     per_solve = [b - a for a, b in zip(before, counts())]
@@ -1133,3 +1135,71 @@ def test_outer_tail_every_cta_keeps_the_same_candidates(cuda, name, N, frenet):
                            got.kept[:, None].expand(N, cluster, n_cost)), cluster
         for i, (g, r) in enumerate(zip(tuple(got) + (k1, k2), ref)):
             assert _bits(g, r), (i, cluster)
+
+
+def _workload(name, mode="mmd_opt"):
+    from mpc_mmd_tpu_torch import onroad_workload
+    cfg = {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
+           "path_d": onroad_workload()}[name]
+    return cfg.with_risk_mode(mode)
+
+
+def _same_bits(got, ref):
+    return bool(((got == ref) | (got.isnan() & ref.isnan())).all())
+
+
+@pytest.mark.parametrize("name,N,mode", [
+    ("fastrt", 1, "mmd_opt"), ("fastrt", 4, "mmd_opt"), ("path_a", 1, "cvar"),
+    ("path_d", 1, "mmd_opt")])
+def test_noisy_rollout_kernel_equals_its_plain_version(cuda, name, N, mode):
+    """K4n against its plain version on the card (perturb_controls, the
+    mother pairing and K4) from ``kernel_ab.k4n_inputs``: gaussian mother
+    rollouts, Beta noise's R rollouts, the on-road solve's state per lane;
+    x and y bit-equal."""
+    from mpc_mmd_tpu_torch.ops import noisy_rollout
+    from mpc_mmd_tpu_torch.ops.rollout import noisy_rollout_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k4n_inputs
+    args = k4n_inputs(cuda, _workload(name, mode), N, frenet=name == "path_d")
+    before = noisy_rollout.launches
+    got = noisy_rollout(*args)
+    assert noisy_rollout.launches == before + 1
+    ref = noisy_rollout_plain(*args)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("name,N,kind,order", [
+    ("fastrt", 1, "laplace", 10), ("path_d", 1, "laplace", 10),
+    ("fastrt", 4, "matern52", 10), ("fastrt", 1, "gaussian", 7)])
+def test_inner_prologue_kernel_equals_its_plain_version(cuda, name, N, kind, order):
+    """Kernel (f) against its plain version on the card (the refit's cuBLAS
+    products, pairwise_l1 and pairwise_l2sq) from ``kernel_ab.kf_inputs``:
+    cx, cy, D and D2 bit-equal, at the paths' nvar 11 (the compile-time
+    feature count) and at nvar 8 (the run-time one)."""
+    from mpc_mmd_tpu_torch.ops import inner_prologue
+    from mpc_mmd_tpu_torch.ops.inner_prologue import inner_prologue_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kf_inputs
+    cfg = _workload(name)
+    cfg = cfg.replace(horizon=dataclasses.replace(cfg.horizon, order=order))
+    args = kf_inputs(cuda, cfg, N, kind)
+    before = inner_prologue.launches
+    got = inner_prologue(*args)
+    assert inner_prologue.launches == before + 1
+    ref = inner_prologue_plain(*args)
+    assert (got.D2 is None) == (kind == "laplace")
+    assert all(_same_bits(g, r) for g, r in zip(got, ref) if r is not None)
+
+
+@pytest.mark.parametrize("N", [1, 4])
+def test_frenet_points_kernel_equals_its_plain_version(cuda, N):
+    """Kernel (g) against global_to_frenet_points on the card from
+    ``kernel_ab.kg_inputs`` (edge points and a NaN included): s and l
+    bit-equal."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_points
+    from mpc_mmd_tpu_torch.ops import frenet_points
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_inputs
+    frame, x, y = kg_inputs(cuda, _workload("path_d"), N)
+    before = frenet_points.launches
+    got = frenet_points(frame, x, y)
+    assert frenet_points.launches == before + 1
+    ref = global_to_frenet_points(frame, x, y)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))

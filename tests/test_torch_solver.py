@@ -114,7 +114,10 @@ def test_one_outer_iteration_of_the_matern52_kernel_matches_jax(
         jax.debug.callback(lambda d: seen.update(d2=d), d2)
         return d2
 
-    def t_select_on_jax_inputs(cfg, cx, cy, xr, yr, draws, selection=None):
+    t_distances = t_rs.distance_matrices
+
+    def t_select_on_jax_inputs(cfg, cx, cy, xr, yr, draws, selection=None,
+                               distances=None, fixed=None):
         jax.effects_barrier()
         j_cx = np.asarray(seen["inputs"][0])
         gap = np.abs(cx.numpy()[:, None] - j_cx[None]).max(axis=(2, 3))
@@ -122,9 +125,11 @@ def test_one_outer_iteration_of_the_matern52_kernel_matches_jax(
         assert sorted(perm) == list(range(len(perm)))
         assert gap.min(axis=1).max() <= 1e-2
         d2 = torch.from_numpy(np.asarray(seen["d2"])[perm])
-        monkeypatch.setattr(t_rs, "pairwise_l2sq", lambda A, B: d2)
+        # the port's D from the JAX inputs, its D2 the JAX solve's
+        monkeypatch.setattr(t_rs, "distance_matrices",
+                            lambda cx, cy, kind: (t_distances(cx, cy, kind)[0], d2))
         return t_select(cfg, *(torch.from_numpy(np.asarray(v)[perm])
-                               for v in seen["inputs"]), draws, selection)
+                               for v in seen["inputs"]), draws, selection, fixed=fixed)
 
     monkeypatch.setattr(j_solver, "select_reduced_set_batched", j_select_seen)
     monkeypatch.setattr(j_rs, "pairwise_l2sq", j_l2sq_seen)

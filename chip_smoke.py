@@ -65,22 +65,28 @@ Phases, each of which must pass:
    (``ops.outer_project``, ``csrc/outer_project.cu``), against its plain
    version (``outer_project_plain``) from the same inputs
    (``kernel_ab.kd_inputs``: a row past v_max, the carried state of an
-   iteration before, on the road a path) at every shape a path launches
-   it with (``outer_shapes``: fastrt, E4, E8, Path A and Path B's modes,
-   Path D and its other modes, F5, F15) and at 11a's chunk of 32: every
-   output bit-equal; at the first shape and the chunk of 32 one and two
+   iteration before, on the road a path) at every shape and form a path
+   launches it with (``outer_shapes``: fastrt, E4, E8, Path A and Path B's
+   modes, Path D and its other modes, F5, F15; the obstacle-active form at
+   Path D ``det``), at 11a's chunk of 32 and the obstacle-active form at a
+   straight 64-row solve with 6 obstacles: every output bit-equal; at the
+   first shape, the chunk of 32 and each obstacle-active shape one and two
    rows a CTA and the run-time-shape instantiation bit-equal to the launch
    the wrapper picks; the run-time-shape instantiation at num 60 within
    rtol 1e-5 + atol 1e-6, its bit-equal entries logged; kernel (e), the
-   ``mmd_opt`` tail (risk, sorts, lane risks, cost, CEM update;
-   ``ops.outer_tail``, ``csrc/outer_tail.cu``), against
+   outer iteration's tail in each risk form (risk, sorts, lane risks,
+   cost, CEM update; ``ops.outer_tail``, ``csrc/outer_tail.cu``), against
    ``outer_tail_plain`` from ``kernel_ab.ke_inputs`` (a tie in risk and in
-   cost) at its path shapes, 11a's chunk of 32 and once with a covariance
-   that is not positive definite: the kept, the elites and the pick equal
-   (or each difference a near-tie of the plain version's risks within
-   1e-6), the moments, parameters, risks, res and res_2 bit-equal at the
-   path shapes; at the first shape every cluster size bit-equal to the
-   picked one, with every CTA of a cluster keeping the same candidates;
+   cost, a rollout with a NaN, a candidate without a violation) at its
+   path shapes and forms (``mmd_opt`` at fastrt, E4, E8, Path A, Path D,
+   F5, F15; Path B's ``cvar``, ``saa``, ``mmd_random``; EB4's ``cvar``;
+   Path D's ``cvar``, ``saa``, ``mmd_random``, ``det``), 11a's chunk of 32
+   and once with a covariance that is not positive definite: the kept,
+   the elites and the pick equal (or each difference a near-tie of the
+   plain version's risks within 1e-6), the moments, parameters, risks, res
+   and res_2 bit-equal at the path shapes; at the first shape of each form
+   every cluster size bit-equal to the picked one, with every CTA of a
+   cluster keeping the same candidates;
    K4n, K4's noisy-controls entry (``ops.noisy_rollout``), kernel (f), the
    refit and distance matrices before the inner CEM
    (``ops.inner_prologue``, ``csrc/inner_prologue.cu``), and kernel (g),
@@ -123,7 +129,9 @@ Phases, each of which must pass:
    solve); then 2 solves with the default "xla" selection (kernel (c)) at
    the same width;
 7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
-   solve each of ``mmd_random`` and ``saa``: finite, with K4n launched;
+   solve each of ``mmd_random`` and ``saa``: finite, with exactly one
+   launch each of kernels (d) and (e) and K4n an outer iteration and the
+   draws (``loop_launches``);
 8. one outer iteration of Path A on the card against the CPU with
    identical draws (the CPU run records its Beta draws, the card replays
    them), held as in 5;
@@ -158,21 +166,24 @@ Phases, each of which must pass:
    a. (in phase 3) K1, K2, K3, K4 and kernel (c) at its shapes;
    b. ``FrenetSolver`` in ``mmd_opt`` with the "xla" selection: one
       warm-up solve, then 2 solves with finite cx, cy, v_best and
-      steering_best and exactly 20 launches each of kernel (c), K4n and
-      kernels (f) and (g) (no K1, no K2, no K4),
+      steering_best and exactly 20 launches each of kernels (c), (d), (e),
+      K4n and kernels (f) and (g) (no K1, no K2, no K4),
       and one more under ``torch.profiler`` (device busy, idle share);
    c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 400 each of K3, K2
       and K1 and 20 each of K4n and kernels (f) and (g);
    d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 launches
-      each of K4n, kernel (g) and (d), no K4) and ``det`` (no rollout);
+      each of K4n, kernels (g), (d) and (e), no K4) and ``det`` (no
+      rollout: 20 each of (d)'s obstacle-active form and (e)'s ``det``
+      form);
    e. one outer iteration of ``mmd_opt`` on the card against the CPU with
       identical draws: seed 1's, v_best and steering_best within 1e-3;
       and seed 5's, whose inner CEM meets a near-tie that round-off
       decides (ROADMAP Queue 3), logged and not held;
    f. the closed-loop CLI, ``python -m mpc_mmd_tpu_torch.cli.closedloop
       --route curved --episodes 1 --max_steps 20``, in ``mmd_opt``, ``cvar``
-      and ``det``, run in this process: each prints its episode line, the
-      first two launch their kernels and ``det`` none.
+      and ``det``, run in this process: each prints its episode line and
+      launches one (d) and one (e) an outer iteration of every step, the
+      first two their other kernels, ``det`` nothing else but the draws.
    Each of b-d and f runs with the launch counts set to 0 just before it
    and read just after.
 11. Path E, scenario chunks (``Solver(cfg, scenario_chunk=N).solve_batch``:
@@ -191,7 +202,8 @@ Phases, each of which must pass:
       within 1e-4 of their scale;
    c. Path A fused at chunk 4 over 4 cut-in scenarios: exactly 400 each
       of K3, K2 and K1 and 20 each of K4n and kernel (f) per chunk;
-   d. Path B ``cvar`` at chunk 4: exactly 20 K4n launches per chunk;
+   d. Path B ``cvar`` at chunk 4: exactly 20 launches each of K4n and
+      kernels (d) and (e) per chunk;
    e. the sweep CLI over Path C's 40 static scenarios in ``mmd_opt`` with
       ``--dispatch batch --chunk 8 --scenario_chunk 4``, against Path C's
       ``--dispatch pipeline`` store: the same seeds accepted, cx and cy
@@ -307,10 +319,10 @@ Phases, each of which must pass:
       v_des; the first captures), two ``solve_batch`` calls of 7 scenarios
       at chunk 4 (a graph for the chunk of 4 and one for the short chunk of
       3), three Path A fused solves with Beta noise, two Path A "xla"
-      solves with Beta noise, and three Path D
+      and two Path B ``cvar`` solves with Beta noise, and three Path D
       ``FrenetSolver`` steps of a moving plant (state, frame, obstacles,
-      mean and v_des all changed); each graph's nodes, capture and
-      instantiation seconds;
+      mean and v_des all changed) in ``mmd_opt`` and in ``det``; each
+      graph's nodes, capture and instantiation seconds;
    b. eager against graphed in turns, host time to ``torch.cuda.synchronize``:
       p50 and p99 of 20 fastrt solves each and of 6 Path A fused and 6
       Path A "xla" solves each, solves/s of ``solve_batch`` over 8
@@ -559,10 +571,10 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     the solver-fixed draws: the initial batch and, in ``mmd_opt``, the
     inner CEM's samples0, u and z (samples0 and z under "exact").  Then
     the outer iteration's kernels (``SolverSetup._routes``): kernel (d) an
-    outer iteration except under "exact" and in ``det``, kernel (e) an
-    outer iteration in ``mmd_opt`` except under "exact" and with the
-    candidates ``split`` over several ranks; and the rollouts
-    (``SolverSetup._glue_routes``): K4n an outer iteration, kernel (f) in
+    outer iteration except under "exact" (its obstacle-active form in
+    ``det``), kernel (e) an outer iteration in every mode except under
+    "exact" and with the candidates ``split`` over several ranks; and the
+    rollouts (``SolverSetup._glue_routes``): K4n an outer iteration, kernel (f) in
     ``mmd_opt`` and kernel (g) on the road, except under "exact", with the
     candidates split and in ``det``, where the chain launches K4 (``det``
     rolls nothing out)."""
@@ -573,8 +585,7 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
                       if cfg.risk.mode == "mmd_opt" else 0)
     beta = 0 if det or cfg.noise.kind != "beta" else n * outer
     prefactored = cfg.solve_strategy == "prefactored"
-    project = prefactored and not det and not cfg.projection.with_obstacle_terms
-    tail = prefactored and cfg.risk.mode == "mmd_opt" and not split
+    project, tail = prefactored, prefactored and not split
     glue = prefactored and not det and not split
     return {"prng_draws": draws, "prng_beta": beta,
             "outer_project": n * outer if project else 0,
@@ -919,17 +930,28 @@ def check_inner_cem(torch, ops, gen, shapes):
     return main
 
 
+def obstacle_terms(cfg):
+    """``cfg`` with the obstacle-active projection (``det``'s)."""
+    return cfg.replace(projection=dataclasses.replace(cfg.projection,
+                                                      with_obstacle_terms=True))
+
+
 def outer_shapes(paths):
     """Kernel (d)'s and (e)'s launch shapes on each path: ``paths`` maps a
     path's name to (workload, config, on the road, scenarios a chunk).
-    Returns (kd, ke): {(workload, scenarios): {path: launches per solve
-    (per chunk)}}, from ``loop_launches``' routes."""
+    Returns (kd, ke): {(workload, scenarios, obstacle-active form?)} and
+    {(workload, scenarios, risk mode)}, each to {path: launches per solve
+    (per chunk)}, from ``loop_launches``' routes (``det`` takes (d)'s
+    obstacle-active form: ``FrenetSolver`` turns the obstacle terms on)."""
     kd, ke = {}, {}
     for path, (name, cfg, frenet, chunk) in paths.items():
         n = loop_launches(cfg, frenet=frenet)
-        for table, kernel in ((kd, "outer_project"), (ke, "outer_tail")):
+        mode = cfg.risk.mode
+        obs = cfg.projection.with_obstacle_terms or mode == "det"
+        for table, kernel, key in ((kd, "outer_project", (name, chunk, obs)),
+                                   (ke, "outer_tail", (name, chunk, mode))):
             if n[kernel]:
-                table.setdefault((name, chunk), {})[path] = n[kernel]
+                table.setdefault(key, {})[path] = n[kernel]
     return kd, ke
 
 
@@ -947,15 +969,17 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
     ``projection.project``, ``dynamics.controls_from_trajectory`` on the
     card) from the same inputs (``kernel_ab.kd_inputs``: row 1's speeds
     saturate the polar clip; the multipliers and lane slack of an
-    iteration before; on the road a curved path) at every shape a path
-    launches it with: every output bit-equal (NaN to NaN), and within rtol
-    1e-5 + atol 1e-6 at the run-time-shape instantiation's num 60, whose
-    bit-equal entries are logged.  At the first shape and at the last one
-    (11a's chunk of 32) each forced launch choice (one or two rows a CTA,
-    the run-time-shape instantiation) is bit-equal to the launch the
-    wrapper picks.  ``shapes`` maps (workload, scenarios) to {path:
-    launches per solve}; ``workloads`` a workload's name to (config, on the
-    road).  Returns the first shape's record, the others under ``cases``."""
+    iteration before; on the road a curved path; the obstacle-active form
+    with obstacles on the candidates' way) at every shape a path launches
+    it with: every output bit-equal (NaN to NaN), and within rtol 1e-5 +
+    atol 1e-6 at the run-time-shape instantiation's num 60, whose bit-equal
+    entries are logged.  At the first shape, at the last one (11a's chunk
+    of 32) and at every obstacle-active shape each forced launch choice
+    (one or two rows a CTA, the run-time-shape instantiation) is bit-equal
+    to the launch the wrapper picks.  ``shapes`` maps (workload, scenarios,
+    obstacle-active form?) to {path: launches per solve}; ``workloads`` a
+    workload's name to (config, on the road).  Returns the first shape's
+    record, the others under ``cases``."""
     import dataclasses
     from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
     from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
@@ -963,14 +987,16 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
     first, last = next(iter(shapes)), list(shapes)[-1]
     fastrt60 = workloads["fastrt"][0]
     fastrt60 = fastrt60.replace(horizon=dataclasses.replace(fastrt60.horizon, num=60))
-    for (name, N), at in list(shapes.items()) + [(("fastrt60", 1), None)]:
+    for (name, N, obs), at in list(shapes.items()) + [(("fastrt60", 1, False), None)]:
         cfg, frenet = workloads[name] if name in workloads else (fastrt60, False)
+        if obs:
+            cfg = obstacle_terms(cfg)
         args, kw = kd_inputs(gen, cfg, N, frenet)
         got = ops.outer_project(*args, **kw)
         ref = outer_project_plain(*args, **kw)
         torch.cuda.synchronize()
         rows, num, nvar = N * cfg.cem.num_batch, cfg.horizon.num, cfg.horizon.nvar
-        label = f"{name} x {N}: {rows} rows, num {num}"
+        label = f"{name} x {N}: {rows} rows, num {num}" + (", obstacle terms" if obs else "")
         equal = {}
         for field, g, r in zip(got._fields, got, ref):
             bad, same = _within(torch, g, r)
@@ -983,7 +1009,7 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
             equal[field] = f"{same}/{r.numel()}"
             err = max(err, float((g - r).abs().nan_to_num(0.0).max()))
         log(f"kernel (d) at {label}: bit-equal entries {equal}")
-        if (name, N) in (first, last):
+        if (name, N, obs) in (first, last) or obs:
             for forced in ({"rows_per_cta": 1}, {"rows_per_cta": 2}, {"runtime_shape": True},
                            {"rows_per_cta": 2, "runtime_shape": True}):
                 other = ops.outer_project(*args, **kw, **forced)
@@ -1004,12 +1030,17 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
         # operations a step and round (each trigonometric call as one)
         ops_row = (2 * nvar * (8 * num + it * (14 * num + 3 * nl))
                    + 2 * (nx * nx + ny * ny) * (it + 1) + 60 * num * (it + 1))
+        obs_floats = 0
+        if obs:     # the obstacles once; a round's polar steps and 4 chains of P
+            nblk = cfg.obstacles.num_obs * cfg.obstacles.num_circles
+            obs_floats = 2 * kw["x_obs"].numel()
+            ops_row += (it + 1) * (40 * nblk * num + 8 * nvar * num)
         cases.append(dict(
             shape=label, call=(lambda a=args, k=kw: ops.outer_project(*a, **k)),
             match="outer_project_kernel", launches_per_solve=at,
             nbytes=4 * (rows * (8 + 7 + 2 * nvar + nl) + mats
                         + sum(kw[k].numel() for k in ("arc_vec", "kappa") if k in kw)
-                        + rows * (4 * nvar + 10 * num + 1 + nl)),
+                        + rows * (4 * nvar + 10 * num + 1 + nl) + obs_floats),
             ops=rows * ops_row, library=("no single call", None), cold=True,
             plain_ms=cuda_ms(torch, lambda a=args, k=kw: outer_project_plain(*a, **k),
                              reps=3, warmup=1)))
@@ -1020,28 +1051,31 @@ def check_outer_project(torch, ops, gen, shapes, workloads):
 
 def check_outer_tail(torch, ops, gen, shapes, workloads):
     """Kernel (e) (``ops.outer_tail``, ``csrc/outer_tail.cu``) against its
-    plain version (``outer_tail_plain``: ``risk.mmd_obs`` and
+    plain version (``outer_tail_plain``: the mode's risk and
     ``sampling.cem_tail`` on the card) from the same inputs
     (``kernel_ab.ke_inputs``: the best elite copied to the last candidate,
-    a tie in risk and in cost) at every shape a path launches it with, and
-    at the first shape once more with a covariance that is not positive
-    definite: the kept candidates, the elites and the pick equal exactly,
+    a tie in risk and in cost; a rollout with a NaN and a candidate whose
+    rollouts violate nothing) at every shape and risk form a path launches
+    it with, and at the first shape once more with a covariance that is not
+    positive definite: the kept candidates, the elites and the pick equal exactly,
     or each difference a near-tie (the plain version's risks or costs
     within 1e-6 relative), and the moments, parameters, risks and res
     within rtol 1e-5 + atol 1e-6 (NaN only against NaN); how many entries
     are bit-equal is logged; at the path shapes every output is bit-equal
-    (NaN to NaN), res_2 too.  At the first shape, each cluster size (1, 2, 4,
-    8 CTAs a scenario) is bit-equal to the picked one, and every CTA of a
-    cluster keeps the same candidates.  Arguments as
-    :func:`check_outer_project`."""
-    from mpc_mmd_tpu_torch import risk, sampling
+    (NaN to NaN), res_2 too.  At the first shape of each risk form, each
+    cluster size (1, 2, 4, 8 CTAs a scenario) is bit-equal to the picked
+    one, and every CTA of a cluster keeps the same candidates.  ``shapes``
+    maps (workload, scenarios, risk mode) to {path: launches per solve};
+    ``workloads`` as :func:`check_outer_project`'s."""
     from mpc_mmd_tpu_torch.ops.outer_tail import last_cluster_size, outer_tail_plain
+    from mpc_mmd_tpu_torch.risk import obstacle_risk
     from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
-    cases, err = [], 0.0
+    cases, err, forms = [], 0.0, set()
     first = next(iter(shapes))
-    for (name, N), at, nonpd in [(k, v, False) for k, v in shapes.items()] + [
+    for (name, N, mode), at, nonpd in [(k, v, False) for k, v in shapes.items()] + [
             (first, {}, True)]:
         cfg, frenet = workloads[name]
+        cfg = cfg.with_risk_mode(mode)
         args = ke_inputs(gen, cfg, N, frenet, nonpd)
         res_k, res_p = args[15].clone(), args[15].clone()
         res2_k, res2_p = args[16].clone(), args[16].clone()
@@ -1049,7 +1083,8 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
         cluster = last_cluster_size() if got.mean.is_cuda else None
         ref = outer_tail_plain(*args[:15], res_p, res2_p, args[17])
         torch.cuda.synchronize()
-        if (name, N) == first and not nonpd:
+        if mode not in forms and not nonpd:
+            forms.add(mode)
             n_cost = got.kept.shape[1]
             for cs in (1, 2, 4, 8):
                 per_cta = torch.full((N * cs, n_cost), -1, dtype=torch.int64,
@@ -1061,25 +1096,26 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
                 for g, r in zip(tuple(other) + (r1, r2), tuple(got) + (res_k, res2_k)):
                     if not bool(((g == r) | (g.isnan() & r.isnan())).all()):
                         fail(f"kernel (e) outer_tail: a cluster of {cs} not bit-equal to "
-                             f"the picked one at {name} x {N}")
+                             f"the picked one at {name} x {N} {mode}")
                 if got.mean.is_cuda and not torch.equal(
                         per_cta.reshape(N, cs, n_cost), other.kept[:, None].expand(
                             N, cs, n_cost)):
                     fail(f"kernel (e) outer_tail: the CTAs of a cluster of {cs} keep other "
-                         f"candidates at {name} x {N}")
-            log(f"kernel (e) at {name} x {N}: clusters of 1, 2, 4, 8 bit-equal, every "
-                "CTA keeps the same candidates")
+                         f"candidates at {name} x {N} {mode}")
+            log(f"kernel (e) at {name} x {N} {mode}: clusters of 1, 2, 4, 8 bit-equal, "
+                "every CTA keeps the same candidates")
         nb, c = cfg.cem.num_batch, cfg.cem
-        label = (f"{name} x {N}: {N * nb} candidates, R {cfg.risk.num_reduced}"
+        label = (f"{name} x {N} {mode}: {N * nb} candidates, R {cfg.risk.num_reduced}"
                  + (", a covariance not positive definite" if nonpd else ""))
         for field in ("kept", "elites", "best"):
             g, r = getattr(got, field), getattr(ref, field)
             if torch.equal(g, r):
                 continue
+            if args[7] is None:
+                fail(f"kernel (e) outer_tail: {field} differ from the plain version at "
+                     f"{label}: {g.tolist()} against {r.tolist()}")
             # near-ties: the plain version's risks (kept) of the two picks
-            x_obs, y_obs, T = args[9], args[10], args[7].shape[-1]
-            rk = risk.mmd_obs(cfg, args[5], args[6], args[7], args[8],
-                              x_obs[:, None, :, :T], y_obs[:, None, :, :T])
+            rk = obstacle_risk(cfg, *args[5:11])
             n_ix = torch.arange(N, device=rk.device)[:, None]
             a_v = rk[n_ix, got.kept if field != "best" else got.best[:, None]]
             b_v = rk[n_ix, ref.kept if field != "best" else ref.best[:, None]]
@@ -1113,18 +1149,27 @@ def check_outer_tail(torch, ops, gen, shapes, workloads):
         R, T, num = cfg.risk.num_reduced, cfg.horizon.num_prime, cfg.horizon.num
         n_cost = min(c.ellite_num_cost, nb)
         nobs = args[9].shape[1]
+        # what the form reads: the rollouts and obstacles (all but det), the
+        # weights and bandwidths (the MMD forms); the lane risks it scores
+        rolls = mode != "det"
+        mmd = mode in ("mmd_opt", "mmd_random")
+        lanes = rolls and (frenet or mode != "mmd_random")
+        # per candidate's reduction of R samples: an MMD's R^2 kernel values
+        # (8 operations each), CVaR's R^2 comparisons of its sort (3 each),
+        # SAA's R comparisons
+        red = 8 * R * R if mmd else 3 * R * R if mode == "cvar" else R if rolls else 0
         cases.append(dict(
             shape=label, call=(lambda a=args: ops.outer_tail(*a)),
             match="outer_tail_kernel", launches_per_solve=at,
             # the rollouts, weights and bandwidths, the kept rows (7 of num),
             # the parameters, normals, moments and obstacles once; the outputs
-            nbytes=4 * N * (2 * nb * R * T + nb * R + nb + n_cost * 7 * num
-                            + 2 * nb * 8 + 8 + 64 + 2 * nobs * T + 2 * nb + 2)
+            nbytes=4 * N * (rolls * 2 * nb * R * T + mmd * (nb * R + nb) + n_cost * 7 * num
+                            + 2 * nb * 8 + 8 + 64 + rolls * 2 * nobs * T + 2 * nb + 2)
             + 4 * N * (8 + 64 + nb * 8 + 5),
-            # 8 operations a violation, 8 a kernel value and its sums, 30 a
-            # step of a kept candidate's cost, and the update's products
-            ops=N * (8 * nb * R * nobs * T + 8 * (nb + 2 * n_cost) * R * R
-                     + 6 * n_cost * R * T + 30 * n_cost * num
+            # 8 operations a violation, the reductions, 6 a lane violation,
+            # 30 a step of a kept candidate's cost, and the update's products
+            ops=N * (rolls * 8 * nb * R * nobs * T + red * (nb + lanes * 2 * n_cost)
+                     + lanes * 6 * n_cost * R * T + 30 * n_cost * num
                      + 2 * (nb - c.ellite_num) * 64 + 4 * c.ellite_num * 64),
             library=("no single call", None), cold=True,
             plain_ms=cuda_ms(torch, lambda a=args: outer_tail_plain(*a), reps=3,
@@ -1393,9 +1438,9 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
              "controls_from_trajectory dynamics.py:142, compiled by XLA; no Pallas "
              "kernel)", (kd_, None)),
             (ops.outer_tail, "outer_tail.cu", "mpc_mmd_tpu/solver.py:235 (the outer "
-             "iteration's mmd_obs, sorts, mmd_lane, scalar_cost and cem_update "
-             "sampling.py:74 in mmd_opt, solver_frenet.py:201; compiled by XLA; no "
-             "Pallas kernel)", (ke_, None)),
+             "iteration's risk (mmd_obs, cvar_obs, saa_obs), sorts, lane risks, "
+             "scalar_cost and cem_update sampling.py:74 in every mode, "
+             "solver_frenet.py:199; compiled by XLA; no Pallas kernel)", (ke_, None)),
             (ops.noisy_rollout, "rollout.cu", "mpc_mmd_tpu/ops/rollout_pallas.py:101 "
              "(fused_rollout's lanes, with the noisy controls of batched_rollouts, "
              "mpc_mmd_tpu/solver.py:113-121: perturb_controls dynamics.py:78 and the "
@@ -2020,6 +2065,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.noisy_rollout)
     KC, D, KG = ops.inner_cem, ops.prng_draws, ops.frenet_points
+    KD, KE = ops.outer_project, ops.outer_tail
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
     draws = loop_launches(cfg, frenet=True)
@@ -2080,7 +2126,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
         cfg_m = cfg.with_risk_mode(mode)
         s = FrenetSolver(cfg_m, device=dev)
         r, secs, got = counted(torch, ops, f"Path D {mode}",
-                               (D,) if mode == "det" else (K4, KG, D),
+                               (KD, KE, D) if mode == "det" else (KD, KE, K4, KG, D),
                                lambda: s.solve(5, *args))
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
         fresh = loop_launches(cfg_m, frenet=True, fresh=True)
@@ -2105,8 +2151,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
     # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (KC, K4, KG, D)), ("cvar", (K4, KG, D)),
-                          ("det", (D,))):
+    for mode, kernels in (("mmd_opt", (KC, KD, KE, K4, KG, D)),
+                          ("cvar", (KD, KE, K4, KG, D)), ("det", (KD, KE, D))):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             results, secs, got = counted(
@@ -2116,8 +2162,14 @@ def path_d(torch, ops, dev, cfg, per_solve):
         episode = json.loads(buf.getvalue().splitlines()[0])
         if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
             fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
-        if mode == "det" and {k for k, v in got.items() if v} != {D.__name__}:
-            fail(f"Path D closed loop det launched kernels but the draws: {got}")
+        if mode == "det" and {k for k, v in got.items() if v} != {
+                D.__name__, KD.__name__, KE.__name__}:
+            fail(f"Path D closed loop det launched other kernels than (d), (e) and the "
+                 f"draws: {got}")
+        if got[KD.__name__] != got[KE.__name__] or got[KE.__name__] != (
+                results[0].steps * cfg.cem.maxiter_cem):
+            fail(f"Path D closed loop {mode}: not one (d) and one (e) an outer iteration "
+                 f"of each of {results[0].steps} steps: {got}")
         steps = results[0].steps
         path_launches.append(got)
         per_solve[f"closedloop_{mode}"] = {k: v / steps for k, v in got.items()}
@@ -2781,6 +2833,13 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         lambda graph: Solver(cfg_a, device=dev, graph=graph), a_calls[:2],
         (KC, K4, D, B))
     path_launches.append(got)
+    # Path B cvar and Path D det: their tails and det's projection on (d), (e)
+    KD, KE = ops.outer_project, ops.outer_tail
+    _, _, got = graph_against_eager(
+        torch, ops, "Path B cvar, Beta noise",
+        lambda graph: Solver(cfg_a.with_risk_mode("cvar"), device=dev, graph=graph),
+        a_calls[:2], (KD, KE, K4, D, B))
+    path_launches.append(got)
     plant = SyntheticPlant(cfg_d, make_route("curved"), ONROAD_OBSTACLES,
                            obstacle_speed=1.0)
     smoother = build_smoother(cfg_d.frenet.num_path, device=dev)
@@ -2796,6 +2855,11 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         torch, ops, "Path D FrenetSolver mmd_opt, 3 steps, every input changed",
         lambda graph: FrenetSolver(cfg_d, device=dev, graph=graph),
         [lambda s, a=a: s.solve(*a) for a in steps], (KC, K4, D))
+    path_launches.append(got)
+    _, _, got = graph_against_eager(
+        torch, ops, "Path D FrenetSolver det, 3 steps, every input changed",
+        lambda graph: FrenetSolver(cfg_d.with_risk_mode("det"), device=dev, graph=graph),
+        [lambda s, a=a: s.solve(*a) for a in steps], (KD, KE, D))
     path_launches.append(got)
 
     # b. eager against graphed, in turns
@@ -3233,8 +3297,10 @@ def main():
         (32 * main_kc[0],) + main_kc[1:] + ("laplace",): {}})
     log(f"kernel (c) inner_cem: at {len(kc_at) + 3} shapes within the tolerances; "
         f"{kc['ms']:.4f} ms vs plain {kc['plain_ms']:.4f} ms at {kc['shape']}")
-    # kernels (d) and (e) at every shape a path launches them with (Path B's
-    # modes and Path D's take (d) only) and at 11a's chunk of 32 scenarios
+    # kernels (d) and (e) at every shape and form a path launches them with
+    # (each risk mode a form of (e), det's obstacle terms a form of (d)), at
+    # 11a's chunk of 32 scenarios and (d)'s obstacle form at a straight
+    # 64-row solve with 6 obstacles
     workloads = {"fastrt": (cfg, False), "path_a": (cfg_a, False),
                  "path_d": (cfg_d, True),
                  **{f"f{N}": (record_config(N), False) for N in RECORD_SIZES}}
@@ -3256,15 +3322,18 @@ def main():
                                      "path_d_xt", "path_d_g")},
         **{p: ("path_d", cfg_d.with_risk_mode(m), True, 1)
            for p, m in (("path_d_cvar", "cvar"), ("path_d_saa", "saa"),
-                        ("path_d_mmd_random", "mmd_random"), ("closedloop_cvar", "cvar"))}}
+                        ("path_d_mmd_random", "mmd_random"), ("path_d_det", "det"),
+                        ("closedloop_cvar", "cvar"), ("closedloop_det", "det"))}}
     kd_at, ke_at = outer_shapes(outer_paths)
-    kd_rec = check_outer_project(torch, ops, gen, {**kd_at, ("fastrt", 32): {}}, workloads)
-    log(f"kernel (d) outer_project: at {len(kd_at) + 1} shapes within rtol 1e-5 + atol "
-        f"1e-6; {kd_rec['ms']:.4f} ms vs plain {kd_rec['plain_ms']:.4f} ms at "
-        f"{kd_rec['shape']}")
-    ke_rec = check_outer_tail(torch, ops, gen, {**ke_at, ("fastrt", 32): {}}, workloads)
-    log(f"kernel (e) outer_tail: at {len(ke_at) + 1} shapes, indices equal, within rtol "
-        f"1e-5 + atol 1e-6; {ke_rec['ms']:.4f} ms vs plain {ke_rec['plain_ms']:.4f} ms "
+    kd_rec = check_outer_project(torch, ops, gen, {
+        **kd_at, ("fastrt", 32, False): {}, ("fastrt", 1, True): {}}, workloads)
+    log(f"kernel (d) outer_project: at {len(kd_at) + 3} shapes bit-equal (num 60 within "
+        f"rtol 1e-5 + atol 1e-6); {kd_rec['ms']:.4f} ms vs plain "
+        f"{kd_rec['plain_ms']:.4f} ms at {kd_rec['shape']}")
+    ke_rec = check_outer_tail(torch, ops, gen, {**ke_at, ("fastrt", 32, "mmd_opt"): {}},
+                              workloads)
+    log(f"kernel (e) outer_tail: at {len(ke_at) + 2} shapes and forms bit-equal, indices "
+        f"equal; {ke_rec['ms']:.4f} ms vs plain {ke_rec['plain_ms']:.4f} ms "
         f"at {ke_rec['shape']}")
     # K4n, kernels (f) and (g) at every shape a path launches them with; (f)
     # also with the gaussian and matern52 kernels of 9g
@@ -3355,11 +3424,16 @@ def main():
         if warm:
             check_solve(solver_b.solve(0, init_d, mean_d, cov_d, xs[0], ys[0],
                                        v_des), cfg_b)
-        path_launches.append(timed_solves(
-            torch, ops, solver_b, cfg_b, calls_a[:n],
-            f"Path B (dynamic cut-in, beta 0.2, {mode})",
-            (ops.noisy_rollout, ops.prng_draws, ops.prng_beta)))
-        per_solve[f"path_b_{mode}"] = {k: v / n for k, v in path_launches[-1].items()}
+        got = timed_solves(torch, ops, solver_b, cfg_b, calls_a[:n],
+                           f"Path B (dynamic cut-in, beta 0.2, {mode})",
+                           (ops.outer_project, ops.outer_tail, ops.noisy_rollout,
+                            ops.prng_draws, ops.prng_beta))
+        want = loop_launches(cfg_b, n, fresh=not warm)
+        want = {fn.__name__: want.get(fn.__name__, 0) for fn in ops.KERNELS}
+        if got != want:
+            fail(f"Path B {mode} launches {got}, expected {want} ({n} solves)")
+        path_launches.append(got)
+        per_solve[f"path_b_{mode}"] = {k: v / n for k, v in got.items()}
 
     # ---- 8. Path A, one outer iteration, card against CPU -----------------
     os.environ["MPC_MMD_FUSED_CEM"] = "1"

@@ -23,6 +23,19 @@
 //   the controls: acc the forward difference of the speed over dt (0 at
 //   the end), steer = atan(curvature L).
 //
+// The obstacle-active form (the OBS template argument: the JAX package's
+// with_obstacle_terms projection, projection.py:150-260, which the det
+// baseline runs) adds, per step and obstacle block, the displacement of
+// the trajectory from the obstacle, its polar step (the angle atan2(wy a,
+// wx b), the radius clamped below by 1 for the guess and by d_floor, the
+// radius one step earlier scaled by 1 - gamma_obs, in each round), the
+// residuals and the blocks' sums through P^T: into the multipliers'
+// pre-update and each round's update, the obstacle rows of each round's
+// linear cost, and the norm of the concatenated residuals added to
+// res_norm.  A row stages its scenario's obstacles, keeps its radii (two
+// buffers, for the shift across the steps) and residuals in shared
+// memory, and its block sums join the pass's chains.
+//
 // The arithmetic follows the plain chain on the card operation for
 // operation, so that the kernel gives its bits: every product
 // (linalg.scenario_mm, a batched cuBLAS GEMM at half a scenario's rows) is
@@ -36,12 +49,10 @@
 // and fmodf as PyTorch's kernels call them (no fast-math), each angle's
 // cosine and sine taken once and used wherever the chain takes them of the
 // same angle; a tensor over a Python float as a product with the float32
-// reciprocal.  The one sum whose order is not PyTorch's is unwrap's
-// cumulative sum of the 2 pi corrections, taken left to right over the
-// corrections that are not zero (adding a zero leaves the sum's bits): it
-// gives PyTorch's bits wherever a row's partial sums of corrections are
-// exact (fewer than three corrections, or alternating ones), since every
-// order then rounds the same exact value once.
+// reciprocal; unwrap's cumulative sum of the 2 pi corrections as
+// torch.cumsum's scan_innermost_dim adds them (blocks of 2 X columns, X set
+// by the launch's rows and the row length, each block's first element
+// plus the blocks before it, then Sklansky's levels within the block).
 //
 // What bounds it on the card: per launch it reads the rows' inputs and
 // about 26 KB of shared matrices and writes 13 rows of num floats a row
@@ -103,8 +114,14 @@ struct Args {
   float *c_x, *c_y, *x, *y, *xdot, *ydot, *xddot, *yddot, *res_norm, *lamda_x, *lamda_y,
       *s_lane, *steering, *kappa_interp, *acc, *steer;
   int rows, nvar, num, nseg, maxiter, npath, path_staged;
+  int scan_block;  // torch.cumsum's block of columns at these rows (cumsum_block)
   float rho_ineq, rho_proj, rho_lane, lane_ub, lane_lb, v_min, v_max, a_max, inv_dt,
       wheel_base;
+  // the obstacle-active form: the scenarios' obstacles (rows / per_scen,
+  // nblk, num), and rho_obs, a_obs, b_obs, a_obs^2, b_obs^2, 1 - gamma_obs
+  const float *x_obs, *y_obs;
+  int nblk, per_scen;
+  float rho_obs, a_obs, b_obs, a2_obs, b2_obs, g_obs;
 };
 
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
@@ -112,13 +129,18 @@ __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
 // shared floats, every block 16-byte aligned: the ten matrices and the
 // staged path, then per row the residual vectors rv (ax | ay | vx | vy,
 // each numv), the b vectors bv, unwrap's scratch uw (4 numv), the lane
-// residual rl and lane b vector bl, the coefficient buffers and the norms
+// residual rl and lane b vector bl, the coefficient buffers and the norms;
+// in the obstacle-active form (nblk blocks) also the row's obstacles xo,
+// yo (nblk num each), its radii in two buffers d, the residuals ro (x
+// blocks | y blocks) and the block sums of the residuals rvo and of the b
+// vectors bvo (x | y, numv each)
 struct Smem {
-  int mat[10], arc, kap, mats, numv, nlv, rv, bv, uw, rl, bl, co, nrm, per_row, total;
+  int mat[10], arc, kap, mats, numv, nlv, rv, bv, uw, rl, bl, co, nrm, xo, yo, d, ro, rvo, bvo,
+      per_row, total;
 };
 
 __host__ __device__ inline Smem smem_layout(int nvar, int num, int nseg, int npath_staged,
-                                            int rows) {
+                                            int rows, int nblk = 0) {
   Smem s{};
   const int nl = 2 * (num - 1), nx = nvar + 3, ny = nvar + 4;
   const int n[10] = {nseg * nvar, nseg * nvar, nx * nx, ny * ny, num * nvar,
@@ -139,8 +161,17 @@ __host__ __device__ inline Smem smem_layout(int nvar, int num, int nseg, int npa
   s.uw = q; q += 4 * s.numv;
   s.rl = q; q += s.nlv;
   s.bl = q; q += s.nlv;
-  s.co = q; q += 18 * kCo;
+  s.co = q; q += (nblk > 0 ? 22 : 18) * kCo;
   s.nrm = q; q += 4;
+  if (nblk > 0) {
+    const int bn = pad4(nblk * num);
+    s.xo = q; q += bn;
+    s.yo = q; q += bn;
+    s.d = q; q += 2 * bn;
+    s.ro = q; q += pad4(2 * nblk * num);
+    s.rvo = q; q += 2 * s.numv;
+    s.bvo = q; q += 2 * s.numv;
+  }
   s.per_row = q;
   s.total = o + rows * q;
   return s;
@@ -257,22 +288,95 @@ __device__ __forceinline__ float unwrap_step(float a0, float a1) {
   return fabsf(dd) < kInterval ? 0.0f : sub(ddmod, dd);
 }
 
-// cum[0 .. n): the corrections, in place their cumulative sum left to
-// right, by one warp; only the corrections that are not zero are added
-// (an added +-0 leaves the sum's bits: the sum starts at +0 and is never
-// -0)
-__device__ __forceinline__ void warp_cumsum(float* cum, int n, int lane) {
-  float run = 0.0f;
-  for (int c0 = 0; c0 < n; c0 += kWarp) {
-    const int t = c0 + lane;
-    const float v = t < n ? cum[t] : 0.0f;
-    float mine = run;
-    for (unsigned m = __ballot_sync(kFull, v != 0.0f); m != 0u; m &= m - 1u) {
-      const int b = __ffs(m) - 1;
-      run = add(run, __shfl_sync(kFull, v, b));
-      if (lane >= b) mine = run;
+// torch.cumsum's block of columns for a (rows, n) tensor along its rows:
+// 2 X, log2 X as ATen's get_log_num_threads_x_inner_scan takes it (in
+// unsigned arithmetic, as ATen does)
+__host__ __device__ inline int cumsum_block(unsigned rows, unsigned n) {
+  unsigned lx = 0, ly = 0;
+  while ((1u << lx) < n) ++lx;
+  while ((1u << ly) < rows) ++ly;
+  lx = (9u + (lx - ly)) / 2u;
+  lx = lx < 4u ? 4u : lx > 9u ? 9u : lx;
+  return 2 << lx;
+}
+
+constexpr int kChunks = kMaxNum / kWarp;  // a row's steps in chunks of a warp
+
+// Sklansky's inclusive scan of the kChunks chunks v (element lane + 32 j
+// of the row in v[j] of lane `lane`) in blocks of PER chunks: a block's
+// first element plus the last element of the block before it, then the
+// levels s = 1, 2, ... within the block (an element with bit s of its
+// place adds the last element of the half below it), level by level as
+// ATen's scan_innermost_dim runs them
+template <int PER>
+__device__ __forceinline__ void sklansky(float (&v)[kChunks], int lane) {
+#pragma unroll
+  for (int j0 = 0; j0 < kChunks; j0 += PER) {
+    if (j0 > 0) {
+      const float total = __shfl_sync(kFull, v[j0 - 1], kWarp - 1);
+      if (lane == 0) v[j0] = add(v[j0], total);
     }
-    if (t < n) cum[t] = mine;
+#pragma unroll
+    for (int sh = 1; sh < kWarp; sh <<= 1)
+#pragma unroll
+      for (int j = j0; j < j0 + PER && j < kChunks; ++j) {
+        const float o = __shfl_sync(kFull, v[j], (lane & ~(2 * sh - 1)) + sh - 1);
+        if (lane & sh) v[j] = add(v[j], o);
+      }
+#pragma unroll
+    for (int sc = 1; sc < PER; sc <<= 1)  // the levels of 32 sc elements
+#pragma unroll
+      for (int j = j0; j < j0 + PER && j < kChunks; ++j)
+        if ((j - j0) & sc) {
+          const int src = j0 + ((j - j0) & ~(2 * sc - 1)) + sc - 1;
+          v[j] = add(v[j], __shfl_sync(kFull, v[src], kWarp - 1));
+        }
+  }
+}
+
+// cum[0 .. n), n <= 128: the corrections, in place their inclusive
+// cumulative sum in torch.cumsum's order on the card (ATen's
+// scan_innermost_dim), by one warp, four chunks of 32 in registers: blocks
+// of B columns (B >= 32), a block's first element plus the total of the
+// blocks before it, then Sklansky's levels s = 1, 2, ... B / 2 (an element
+// with bit s of its place in the block adds the last element of the half
+// below it).  Where at most two corrections are not zero every order gives
+// the same sums (an added +0 leaves a sum's bits, and the corrections are
+// never -0), so those are added left to right: the scan in every row gives
+// the same bits, but a launch up to 15 % longer (utils/kernel_ab.py --kernels
+// kd on an H100).
+__device__ void aten_cumsum(float* cum, int n, int B, int lane) {
+  float v[kChunks];
+  int nonzero = 0;
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = lane + j * kWarp;
+    v[j] = i < n ? cum[i] : 0.0f;
+    nonzero += __popc(__ballot_sync(kFull, v[j] != 0.0f));
+  }
+  if (nonzero <= 2) {
+    float run = 0.0f;
+#pragma unroll
+    for (int j = 0; j < kChunks; ++j) {
+      float mine = run;
+      for (unsigned m = __ballot_sync(kFull, v[j] != 0.0f); m != 0u; m &= m - 1u) {
+        const int b = __ffs(m) - 1;
+        run = add(run, __shfl_sync(kFull, v[j], b));
+        if (lane >= b) mine = run;
+      }
+      v[j] = mine;
+    }
+  } else if (B == kWarp) {
+    sklansky<1>(v, lane);
+  } else if (B == 2 * kWarp) {
+    sklansky<2>(v, lane);
+  } else {
+    sklansky<kChunks>(v, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < kChunks; ++j) {
+    const int i = lane + j * kWarp;
+    if (i < n) cum[i] = v[j];
   }
 }
 
@@ -296,8 +400,8 @@ __device__ float interp(float x, const float* xp, const float* fp, int n) {
 }
 
 // NV, NUM, NSEG: the compile-time shape, or all 0 for the run-time shape;
-// ROWS rows a CTA, a warpgroup each
-template <int NV, int NUM, int NSEG, int ROWS>
+// ROWS rows a CTA, a warpgroup each; OBS the obstacle-active form
+template <int NV, int NUM, int NSEG, int ROWS, bool OBS>
 __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const Args a) {
   extern __shared__ __align__(128) float sm[];
   __shared__ __align__(8) uint64_t bars[2];
@@ -305,7 +409,8 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
   const int nl = 2 * (num - 1), nx = nvar + 3, ny = nvar + 4;
   constexpr int NL = NUM ? 2 * (NUM - 1) : 0;
   const int npath = a.npath, staged = a.path_staged ? npath : 0;
-  const Smem L = smem_layout(nvar, num, nseg, staged, ROWS);
+  const int nblk = OBS ? a.nblk : 0;
+  const Smem L = smem_layout(nvar, num, nseg, staged, ROWS, nblk);
   const int row = threadIdx.x / kRowThreads, tid = threadIdx.x % kRowThreads;
   const int warp = tid / kWarp, lane = tid % kWarp;
   const int r = blockIdx.x * ROWS + row;
@@ -350,7 +455,10 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
   float* mres = co + 6 * kCo;   // 5 x kCo: the multiplier contractions
   float* bres = co + 11 * kCo;  // 5 x kCo: the right-hand sides' contractions
   float* flags = co + 16 * kCo;  // unwrap's: a correction in av, in aa
+  float* ores = co + 18 * kCo;  // 4 x kCo: the obstacle blocks' (residual x, y; b x, y)
   float* nrm = rb_ + L.nrm;
+  float *xo = rb_ + L.xo, *yo = rb_ + L.yo, *ro = rb_ + L.ro, *rvo = rb_ + L.rvo;
+  float* bvo = rb_ + L.bvo;
   const int numv = L.numv;
   const int lrow0 = tid, lrow1 = tid + kRowThreads;  // this thread's lane rows
   const float b_lane0 = lrow0 < num - 1 ? a.lane_ub : a.lane_lb;
@@ -371,6 +479,14 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
     if (lrow0 < nl) sl0 = a.s_lane0[static_cast<size_t>(r) * nl + lrow0];
     if (lrow1 < nl) sl1 = a.s_lane0[static_cast<size_t>(r) * nl + lrow1];
     if (tid == 0) flags[0] = flags[1] = 0.0f;
+    if constexpr (OBS) {  // the row's scenario's obstacles: a step a thread
+      const size_t ob = static_cast<size_t>(r / a.per_scen) * nblk * num;
+      if (tid < num)
+        for (int o = 0; o < nblk; ++o) {
+          xo[o * num + tid] = a.x_obs[ob + o * num + tid];
+          yo[o * num + tid] = a.y_obs[ob + o * num + tid];
+        }
+    }
   }
   __syncthreads();  // the barriers' initialisation and the tails
   if (!live) return;
@@ -400,6 +516,54 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
   // ---- the polar initialisation ----
   const int t = tid;
   const bool step = t < num;
+  // the obstacle polar step of this step's position (px, py) in every
+  // block: the radius into d buffer dout (clamped below by 1 for the
+  // guess, by d_floor from buffer din else), the residuals into ro, their
+  // block sums into rvo and, with_b, the b vectors' into bvo (each block
+  // sum term o into accumulator o % 4, as PyTorch sums the blocks)
+  auto obstacle_step = [&](float px, float py, int din, int dout, bool first, bool with_b) {
+    if constexpr (OBS) {
+      if (!step) return;
+      const int bn = pad4(nblk * num);
+      const float* dprev = rb_ + L.d + din * bn;
+      float* dnew = rb_ + L.d + dout * bn;
+      float sx[4] = {}, sy[4] = {}, bx[4] = {}, by[4] = {};
+      for (int o = 0; o < nblk; ++o) {
+        const int q = o * num + t;
+        const float wc = sub(px, xo[q]), ws = sub(py, yo[q]);
+        const float al = atan2f(mul(ws, a.a_obs), mul(wc, a.b_obs));
+        const float c = cosf(al), s = sinf(al);
+        const float c1 = mul(a.rho_obs, add(mul(a.a2_obs, mul(c, c)), mul(a.b2_obs, mul(s, s))));
+        const float c2 =
+            mul(a.rho_obs, add(mul(mul(a.a_obs, wc), c), mul(mul(a.b_obs, ws), s)));
+        float d = __fdiv_rn(c2, c1);
+        if (first) {
+          d = clamp_min(d, 1.0f);
+        } else {
+          const float prev = t == 0 ? 1.0f : dprev[q - 1];
+          d = mmd_order::maximum(d, add(1.0f, mul(a.g_obs, sub(prev, 1.0f))));
+        }
+        dnew[q] = d;
+        const float res_x = sub(wc, mul(mul(a.a_obs, d), c));
+        const float res_y = sub(ws, mul(mul(a.b_obs, d), s));
+        ro[q] = res_x;
+        ro[nblk * num + q] = res_y;
+        sx[o & 3] = add(sx[o & 3], res_x);
+        sy[o & 3] = add(sy[o & 3], res_y);
+        if (with_b) {
+          bx[o & 3] = add(bx[o & 3], add(xo[q], mul(mul(d, c), a.a_obs)));
+          by[o & 3] = add(by[o & 3], add(yo[q], mul(mul(d, s), a.b_obs)));
+        }
+      }
+      auto four = [](const float* v) { return add(add(add(v[0], v[1]), v[2]), v[3]); };
+      rvo[t] = four(sx);
+      rvo[L.numv + t] = four(sy);
+      if (with_b) {
+        bvo[t] = four(bx);
+        bvo[L.numv + t] = four(by);
+      }
+    }
+  };
   float xd = 0.0f, yd = 0.0f, xdd = 0.0f, ydd = 0.0f, xx = 0.0f, yy = 0.0f;
   mbar_wait(&bars[1]);
   if (step) {
@@ -424,8 +588,8 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
       if (pb != 0.0f) flags[1] = 1.0f;
     }
     row_sync(row);
-    if (warp == 0 && flags[0] != 0.0f) warp_cumsum(ca, num - 1, lane);
-    if (warp == 1 && flags[1] != 0.0f) warp_cumsum(cb, num - 1, lane);
+    if (warp == 0 && flags[0] != 0.0f) aten_cumsum(ca, num - 1, a.scan_block, lane);
+    if (warp == 1 && flags[1] != 0.0f) aten_cumsum(cb, num - 1, a.scan_block, lane);
     row_sync(row);
     if (t >= 1 && step) {
       av = add(av, ca[t - 1]);
@@ -455,14 +619,25 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
   polar_vectors(true);
   if (lrow0 < nl) bl[lrow0] = sub(b_lane0, sl0);
   if (lrow1 < nl) bl[lrow1] = sub(b_lane1, sl1);
+  if constexpr (OBS) {  // the guess's positions and their obstacle step
+    float gx = 0.0f, gy = 0.0f;
+    if (step) {
+      gx = chain_s<NV, 1>(cxb, P + t * nvar, nvar, 1);
+      gy = chain_s<NV, 1>(cyb, P + t * nvar, nvar, 1);
+    }
+    obstacle_step(gx, gy, 0, 0, true, true);
+  }
   row_sync(row);
 
   // the pass's chains: slot o < 4 nvar the multipliers' (residual p = o /
   // nvar against Pdd or Pd), then 4 nvar right-hand sides' (b vector p);
   // from lane_base the lane chains (the residual, then b, against A_lane),
-  // in a warp of their own where 8 nvar <= 96
+  // in a warp of their own where 8 nvar <= 96; in the obstacle-active form
+  // then 4 nvar of the obstacle blocks' sums against P (residual x, y; b
+  // x, y)
   const int lane_base = 8 * nvar <= 96 && 2 * nvar <= kWarp ? 96 : 8 * nvar;
-  const int slots = lane_base + 2 * nvar;
+  const int obs_base = lane_base + 2 * nvar;
+  const int slots = obs_base + (OBS ? 4 * nvar : 0);
   float rn = 0.0f, cxy = 0.0f;
   for (int it = 0; it <= a.maxiter; ++it) {
     const bool m_lane = it > 0, with_b = it < a.maxiter;
@@ -474,35 +649,47 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
         const float* v = (b ? bv : rv) + p * numv;
         const float v0 = chain<NUM, NV>(v, (p < 2 ? Pdd : Pd) + jj, num, nvar);
         (b ? bres : mres)[p * kCo + jj] = v0;
-      } else if (o >= lane_base) {
+      } else if (o >= lane_base && o < obs_base) {
         const int b = o - lane_base >= nvar, jj = (o - lane_base) % nvar;
         if (b ? !with_b : !m_lane) continue;
         const float v0 = chain<NL, NV>(b ? bl : rl, Al + jj, nl, nvar);
         (b ? bres : mres)[4 * kCo + jj] = v0;
+      } else if (OBS && o >= obs_base) {
+        const int p = (o - obs_base) / nvar, jj = (o - obs_base) % nvar;
+        if (p >= 2 && !with_b) continue;
+        const float* v = (p < 2 ? rvo : bvo) + (p & 1) * numv;
+        ores[p * kCo + jj] = chain<NUM, NV>(v, P + jj, num, nvar);
       }
     }
     row_sync(row);
     if (xs) {
       lxy = sub(sub(lxy, mul(rho_i, mres[0 * kCo + j])), mul(rho_i, mres[2 * kCo + j]));
+      if (OBS) lxy = sub(lxy, mul(a.rho_obs, ores[j]));
       if (with_b) {
-        const float lcx = sub(sub(sub(-lxy, mul(rho_p, cbar)), mul(rho_i, bres[0 * kCo + j])),
-                              mul(rho_i, bres[2 * kCo + j]));
+        float lcx = sub(sub(sub(-lxy, mul(rho_p, cbar)), mul(rho_i, bres[0 * kCo + j])),
+                        mul(rho_i, bres[2 * kCo + j]));
+        if (OBS) lcx = sub(lcx, mul(a.rho_obs, ores[2 * kCo + j]));
         rx[j] = -lcx;
       }
     }
     if (ys) {
       float l = sub(sub(lxy, mul(rho_i, mres[1 * kCo + j])), mul(rho_i, mres[3 * kCo + j]));
       if (m_lane) l = sub(l, mul(rho_l, mres[4 * kCo + j]));
+      if (OBS) l = sub(l, mul(a.rho_obs, ores[kCo + j]));
       lxy = l;
       if (with_b) {
-        const float lcy =
+        float lcy =
             sub(sub(sub(sub(-lxy, mul(rho_p, cbar)), mul(rho_i, bres[1 * kCo + j])),
                     mul(rho_i, bres[3 * kCo + j])),
                 mul(rho_l, bres[4 * kCo + j]));
+        if (OBS) lcy = sub(lcy, mul(a.rho_obs, ores[3 * kCo + j]));
         ry[j] = -lcy;
       }
     }
-    if (it > 0 && tid == 0) rn = add(add(nrm[0], nrm[1]), nrm[2]);
+    if (it > 0 && tid == 0) {
+      rn = add(add(nrm[0], nrm[1]), nrm[2]);
+      if (OBS) rn = add(rn, nrm[3]);
+    }
     if (!with_b) break;
     row_sync(row);
 
@@ -561,6 +748,7 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
       if (lrow0 < nl) bl[lrow0] = sub(b_lane0, sl0);
       if (lrow1 < nl) bl[lrow1] = sub(b_lane1, sl1);
     }
+    obstacle_step(xx, yy, it & 1, (it + 1) & 1, false, next);
     row_sync(row);
 
     // ---- the norms ----
@@ -575,6 +763,12 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
           [&](int i) { return warp < 2 && i >= num ? base[second + i - num] : base[i]; }, len,
           shift, Square(), lane);
       if (lane == 0) nrm[warp] = sqrtf(s);
+    } else if (OBS) {  // the obstacle residuals' norm, (rows, 2 nblk num)
+      const int len = 2 * nblk * num;
+      const int shift = static_cast<int>((static_cast<long long>(r) * len) % 4);
+      const float s = mmd_order::row_reduce([&](int i) { return ro[i]; }, len, shift,
+                                            Square(), lane);
+      if (lane == 0) nrm[3] = sqrtf(s);
     }
   }
 
@@ -619,15 +813,25 @@ __global__ void __launch_bounds__(ROWS* kRowThreads) outer_project_kernel(const 
   // ---- the end of the row ----
 }
 
-template <int NV, int NUM, int NSEG, int ROWS>
+template <int NV, int NUM, int NSEG, int ROWS, bool OBS>
 int launch(const Args& a, int bytes, cudaStream_t stream) {
-  static const cudaError_t opted = cudaFuncSetAttribute(
-      outer_project_kernel<NV, NUM, NSEG, ROWS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
+  static const cudaError_t opted =
+      cudaFuncSetAttribute(outer_project_kernel<NV, NUM, NSEG, ROWS, OBS>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (opted != cudaSuccess) return static_cast<int>(opted);
   const int blocks = (a.rows + ROWS - 1) / ROWS;
-  outer_project_kernel<NV, NUM, NSEG, ROWS><<<blocks, ROWS * kRowThreads, bytes, stream>>>(a);
+  outer_project_kernel<NV, NUM, NSEG, ROWS, OBS>
+      <<<blocks, ROWS * kRowThreads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool OBS>
+int launch_form(const Args& a, int bytes, cudaStream_t s, int rows_per_cta, int compiled) {
+  if (compiled)
+    return rows_per_cta == 1 ? launch<kNvar, kNum, kSeg, 1, OBS>(a, bytes, s)
+                             : launch<kNvar, kNum, kSeg, 2, OBS>(a, bytes, s);
+  return rows_per_cta == 1 ? launch<0, 0, 0, 1, OBS>(a, bytes, s)
+                           : launch<0, 0, 0, 2, OBS>(a, bytes, s);
 }
 
 }  // namespace
@@ -641,7 +845,10 @@ int launch(const Args& a, int bytes, cudaStream_t stream) {
 // ops/outer_project.constants gives them.  rows_per_cta 1 or 2 rows a CTA;
 // compiled 1 for the compile-time instantiation (nvar 11, num 100, 4
 // segments: refused at another shape), 0 for the run-time one
-// (ops/outer_project.launch_choice picks both).
+// (ops/outer_project.launch_choice picks both).  x_obs, y_obs null and
+// nblk 0 for the stochastic form; else the obstacles (rows / per_scen,
+// nblk, num) of the obstacle-active form, its constants as
+// ops/outer_project.obstacle_constants gives them.
 extern "C" int mmd_outer_project(
     const float* params, const float* b_eq_x, const float* b_eq_y, const float* lamda_x0,
     const float* lamda_y0, const float* s_lane0, const float* G_vx, const float* G_py,
@@ -652,28 +859,33 @@ extern "C" int mmd_outer_project(
     float* steering, float* kappa_interp, float* acc, float* steer, int rows, int nvar, int num,
     int nseg, int maxiter, int npath, float rho_ineq, float rho_proj, float rho_lane,
     float lane_ub, float lane_lb, float v_min, float v_max, float a_max, float inv_dt,
-    float wheel_base, int rows_per_cta, int compiled, void* stream) {
+    float wheel_base, int rows_per_cta, int compiled, const float* x_obs, const float* y_obs,
+    int nblk, int per_scen, float rho_obs, float a_obs, float b_obs, float a2_obs,
+    float b2_obs, float g_obs, void* stream) {
   if (rows <= 0) return 0;
   if (nvar < 1 || nvar > kMaxNvar || num < 2 || num > kMaxNum || nseg < 1 || nseg > kMaxSeg ||
       maxiter < 1 || (npath > 0 && (arc == nullptr || kap == nullptr)) ||
       (rows_per_cta != 1 && rows_per_cta != 2) ||
-      (compiled && (nvar != kNvar || num != kNum || nseg != kSeg)))
+      (compiled && (nvar != kNvar || num != kNum || nseg != kSeg)) || nblk < 0 ||
+      (nblk > 0 && (x_obs == nullptr || y_obs == nullptr || per_scen < 1 ||
+                    rows % per_scen != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   int staged = npath > 0 && npath <= kMaxPathStaged ? npath : 0;
-  int bytes = smem_layout(nvar, num, nseg, staged, rows_per_cta).total * 4;
+  int bytes = smem_layout(nvar, num, nseg, staged, rows_per_cta, nblk).total * 4;
   if (bytes > kMaxSmem) {  // the path from device memory
     staged = 0;
-    bytes = smem_layout(nvar, num, nseg, 0, rows_per_cta).total * 4;
+    bytes = smem_layout(nvar, num, nseg, 0, rows_per_cta, nblk).total * 4;
   }
   if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   const Args a{params, b_eq_x, b_eq_y, lamda_x0, lamda_y0, s_lane0, G_vx, G_py, Gix, Giy, P,
                Pd, Pdd, Al, Kix, Kiy, arc, kap, c_x, c_y, x, y, xdot, ydot, xddot, yddot,
                res_norm, lamda_x, lamda_y, s_lane, steering, kappa_interp, acc, steer, rows,
-               nvar, num, nseg, maxiter, npath, staged > 0, rho_ineq, rho_proj, rho_lane,
-               lane_ub, lane_lb, v_min, v_max, a_max, inv_dt, wheel_base};
+               nvar, num, nseg, maxiter, npath, staged > 0,
+               cumsum_block(static_cast<unsigned>(rows), static_cast<unsigned>(num - 1)),
+               rho_ineq, rho_proj, rho_lane,
+               lane_ub, lane_lb, v_min, v_max, a_max, inv_dt, wheel_base, x_obs, y_obs, nblk,
+               per_scen, rho_obs, a_obs, b_obs, a2_obs, b2_obs, g_obs};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (compiled)
-    return rows_per_cta == 1 ? launch<kNvar, kNum, kSeg, 1>(a, bytes, s)
-                             : launch<kNvar, kNum, kSeg, 2>(a, bytes, s);
-  return rows_per_cta == 1 ? launch<0, 0, 0, 1>(a, bytes, s) : launch<0, 0, 0, 2>(a, bytes, s);
+  return nblk > 0 ? launch_form<true>(a, bytes, s, rows_per_cta, compiled)
+                  : launch_form<false>(a, bytes, s, rows_per_cta, compiled);
 }

@@ -1,24 +1,33 @@
 // Kernel (e): an outer CEM iteration's step from the reduced sets to the
 // next parameters, for every scenario of a chunk in one launch.
 //
-// Replaces what XLA fuses from the JAX package's outer iteration in
-// mmd_opt (mpc_mmd_tpu/solver.py:235-300, solver_frenet.py:201-257: the
-// obstacle risk, the sort by risk, the lane risks, the scalar cost, the
-// sort by cost, cem_update at sampling.py:74, the best candidate), which
-// the port ran as about 150 PyTorch launches an outer iteration plus the
-// sorts and gathers (ops/outer_tail.py's plain version: risk.mmd_obs,
+// Replaces what XLA fuses from the JAX package's outer iteration
+// (mpc_mmd_tpu/solver.py:235-300, solver_frenet.py:199-257: the obstacle
+// risk, the sort by risk, the lane risks, the scalar cost, the sort by
+// cost, cem_update at sampling.py:74, the best candidate), which the port
+// ran as about 150 PyTorch launches an outer iteration plus the sorts and
+// gathers (ops/outer_tail.py's plain version: the mode's risk.*_obs, then
 // sampling.cem_tail).  Like kernels (a)-(d) it replaces an XLA lowering.
+//
+// The risk form is a template argument (MODE): the MMD with reduced sets
+// (mmd_opt), the MMD with the uniform weights and bandwidth the solver
+// gives (mmd_random, whose lane risk is zero on the straight road), CVaR
+// (risk.cvar_reduce: the mean of the samples at or above their linear
+// alpha-quantile), SAA (the count of positive samples times the float32
+// reciprocal of num_reduced) and none (det: every risk zero, no rollout
+// read).
 //
 // Per scenario n of N, with the candidates in the order of the
 // projection residual (position i is projection row n nb + order[n, i]):
 //   1. the obstacle risk of every candidate: the violation of each reduced
 //      rollout (the largest of clamp(1 - dx^2 / a^2 - dy^2 / b^2, 0) over
-//      the obstacles and the steps) and its MMD against zero with the
-//      candidate's beta and sigma;
+//      the obstacles and the steps) and the mode's reduction of the
+//      candidate's violations (its MMD against zero with its beta and
+//      sigma, CVaR or SAA);
 //   2. the n_cost least risks, by a stable sort (NaN last, ties by index);
-//   3. their lane risk (the MMD of the lower and upper lane violations)
-//      and, on the road where weight_lane_des is not 0, the weighted
-//      desired-lane risk;
+//   3. their lane risk (the mode's reduction of the lower and of the upper
+//      lane violations, summed) and, on the road where weight_lane_des is
+//      not 0, the weighted desired-lane risk;
 //   4. their scalar cost (sampling.scalar_cost, or frenet_scalar_cost);
 //   5. the n_el least costs, by a stable sort;
 //   6. cem_update: the exponential weights, the mean and covariance
@@ -37,7 +46,12 @@
 // operation (torch_order.cuh: each sum in PyTorch's order; each
 // elementwise step with its own rounding; expf, sqrtf as PyTorch's
 // kernels call them; a tensor over a Python float as a product with the
-// float32 reciprocal), so that the kernel gives its bits.
+// float32 reciprocal), so that the kernel gives its bits.  CVaR's
+// quantile is torch.quantile's on the card: the values at the sorted
+// positions floor and ceil of the float32 rank q (R - 1), joined by
+// ATen's lerp with the weight rank - floor (cvar_reduce below); a row with
+// a NaN has a NaN quantile, so no sample passes the >= mask and its CVaR
+// is 0.
 //
 // What bounds it on the card: per scenario it reads the reduced rollouts
 // (nb R T floats twice: 0.26 MB at fastrt) and the candidates' rows,
@@ -88,6 +102,8 @@ constexpr int kNorms = 11;  // a kept candidate's cost norms (8, and 3 on the ro
 constexpr float kSqrt5 = 2.2360679774997896964f;
 
 enum Kind { kLaplace = 0, kGaussian = 1, kMatern52 = 2 };
+// the risk forms, in ops/outer_tail.py's MODES order
+enum Mode { kMmdOpt = 0, kMmdRandom = 1, kCvar = 2, kSaa = 3, kDet = 4 };
 
 struct Args {
   const long long* order;
@@ -102,6 +118,10 @@ struct Args {
   float inv_a2, inv_b2, y_lb, y_ub, ker_wt, w_obs, w_lane, w_des, y_des1, y_des2,
       gamma_lane_des, steer_max, w_des_lane, w_centr, a_centr, inv_lamda, a_m1, a_m, a_c1,
       a_c, jitter, v_min, v_max;
+  // CVaR's quantile positions and weights (alpha_quant; alpha_quant_lane
+  // for the desired lane), SAA's 1 / num_reduced
+  int q_lo, q_hi, q_lo_des, q_hi_des;
+  float q_w, q_w_des, inv_R;
 };
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -138,6 +158,44 @@ __device__ float mmd_vs_zero(const float* beta, const float* c, float sigma, int
   return mul(ker_wt, sub(quad, mul(2.0f, cross)));
 }
 
+// ATen's lerp (Lerp.h): a + w (b - a) for |w| < 0.5, else b - (b - a) (1 - w),
+// each product and sum contracted into one fused multiply-add as PyTorch's
+// build of it computes them (torch.lerp on the H100 matched this form at
+// every one of 2^20 inputs a weight, and torch.quantile with it)
+__device__ __forceinline__ float lerp_aten(float a, float b, float w) {
+  return fabsf(w) < 0.5f ? __fmaf_rn(w, sub(b, a), a) : __fmaf_rn(sub(a, b), sub(1.0f, w), b);
+}
+
+// risk.cvar_reduce of the R samples s, by one thread: torch.quantile's
+// linear interpolation between sorted positions lo and hi with weight w
+// (a stable sort: the value at a position is the same whichever of a tie
+// lands there), the mean of the samples >= it; 0 if a sample is NaN
+__device__ float cvar_reduce(const float* s, int R, int lo, int hi, float w) {
+  float vlo = 0.0f, vhi = 0.0f;
+  for (int i = 0; i < R; ++i) {
+    const float x = s[i];
+    if (x != x) return 0.0f;
+    int rank = 0;
+    for (int j = 0; j < R; ++j) rank += s[j] < x || (s[j] == x && j < i);
+    if (rank == lo) vlo = x;
+    if (rank == hi) vhi = x;
+  }
+  const float var = lerp_aten(vlo, vhi, w);
+  int n = 0;
+  for (int i = 0; i < R; ++i) n += s[i] >= var;
+  const float sum = mmd_order::small_reduce([&](int i) { return s[i] >= var ? s[i] : 0.0f; },
+                                            R, Add());
+  return n > 0 ? dvd(sum, static_cast<float>(n)) : 0.0f;
+}
+
+// risk.saa_reduce of the R samples s, by one thread: the count of
+// positive samples times the float32 1 / num_reduced
+__device__ __forceinline__ float saa_reduce(const float* s, int R, float inv_R) {
+  int n = 0;
+  for (int i = 0; i < R; ++i) n += s[i] > 0.0f;
+  return mul(static_cast<float>(n), inv_R);
+}
+
 // warp max of v >= 0, NaN if any lane's is NaN (amax)
 __device__ __forceinline__ float warp_amax(float v) {
   const bool nan = __any_sync(kFull, v != v);
@@ -163,7 +221,9 @@ __device__ __forceinline__ void stamp(const Args& a, int k) {
   if (a.clock != nullptr && threadIdx.x == 0) a.clock[blockIdx.x * 8 + k] = clock64();
 }
 
+template <int MODE>
 __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
+  constexpr bool kMmd = MODE == kMmdOpt || MODE == kMmdRandom;
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -189,7 +249,7 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   __shared__ float bar_des[kWarps][kMaxR];
 
   stamp(a, 0);
-  for (int q = threadIdx.x; q < nobs * T; q += kThreads) {
+  for (int q = threadIdx.x; MODE != kDet && q < nobs * T; q += kThreads) {
     const int o = q / T, t = q % T;
     obs[q] = a.x_obs[(static_cast<size_t>(n) * nobs + o) * a.obs_len + t];
     obs[nobs * T + q] = a.y_obs[(static_cast<size_t>(n) * nobs + o) * a.obs_len + t];
@@ -202,7 +262,7 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   // ---- 1. the obstacle risk of this CTA's candidates ----
   // rollout q of the CTA's (i1 - i0) R; a warp loads kBatch of its
   // rollouts (T <= 64: two steps a lane) before it scores them
-  const int nq = (i1 - i0) * R;
+  const int nq = MODE == kDet ? 0 : (i1 - i0) * R;
   const float* xs = a.x_roll + (static_cast<size_t>(n) * nb + i0) * R * T;
   const float* ys = a.y_roll + (static_cast<size_t>(n) * nb + i0) * R * T;
   for (int q0 = warp; q0 < nq; q0 += kWarps * kBatch) {
@@ -238,11 +298,20 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
     }
   }
   __syncthreads();
-  for (int i = i0 + warp; i < i1; i += kWarps) {
-    const size_t ci = static_cast<size_t>(n) * nb + i;
-    const float rk = mmd_vs_zero(a.beta + ci * R, viol + (i - i0) * R, a.sigma[ci], R, a.kind,
-                                 a.ker_wt, static_cast<long long>(ci), lane);
-    if (lane == 0) risk[i] = rk;
+  if constexpr (kMmd) {  // a warp a candidate
+    for (int i = i0 + warp; i < i1; i += kWarps) {
+      const size_t ci = static_cast<size_t>(n) * nb + i;
+      const float rk = mmd_vs_zero(a.beta + ci * R, viol + (i - i0) * R, a.sigma[ci], R,
+                                   a.kind, a.ker_wt, static_cast<long long>(ci), lane);
+      if (lane == 0) risk[i] = rk;
+    }
+  } else {  // a thread a candidate
+    for (int i = i0 + static_cast<int>(threadIdx.x); i < i1; i += kThreads) {
+      const float* v = viol + (i - i0) * R;
+      risk[i] = MODE == kCvar  ? cvar_reduce(v, R, a.q_lo, a.q_hi, a.q_w)
+                : MODE == kSaa ? saa_reduce(v, R, a.inv_R)
+                               : 0.0f;
+    }
   }
   stamp(a, 1);
   cluster.sync();
@@ -270,14 +339,17 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   const int nk = (n_cost - rank + cs - 1) / cs;  // k = rank + q cs, q < nk
   const int num = a.num;
   const int n_norms = a.frenet ? kNorms : 8, n_des = a.with_des ? 2 : 0;
-  const int tasks = R + n_des + n_norms;  // a kept candidate's warps before its MMDs
+  // det has no lane risk, nor has mmd_random on the straight road
+  const bool lane_on = MODE != kDet && !(MODE == kMmdRandom && !a.frenet);
+  const int n_lane = lane_on ? R : 0;
+  const int tasks = n_lane + n_des + n_norms;  // a kept candidate's warps before its risks
   for (int task = warp; task < nk * tasks; task += kWarps) {
     const int q = task / tasks, sub_task = task % tasks, k = rank + q * cs;
     const int i = kept[k];
     const size_t ci = static_cast<size_t>(n) * nb + i;
     const float* yroll = a.y_roll + ci * R * T;
     const long long flat = static_cast<long long>(n) * n_cost + k;
-    if (sub_task < R) {  // the lane violations of rollout sub_task
+    if (sub_task < n_lane) {  // the lane violations of rollout sub_task
       const int r = sub_task;
       float ml = 0.0f, mu = 0.0f;
       for (int t = lane; t < T; t += kWarp) {
@@ -292,14 +364,14 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
         lb_ub[q][r] = ml;
         lb_ub[q][kMaxR + r] = mu;
       }
-    } else if (sub_task < R + n_des) {  // a desired-lane norm over the R T points
+    } else if (sub_task < n_lane + n_des) {  // a desired-lane norm over the R T points
       const int RT = R * T, shift = static_cast<int>((flat * RT) % 4);
-      const float yd = sub_task == R ? a.y_des1 : a.y_des2;
+      const float yd = sub_task == n_lane ? a.y_des1 : a.y_des2;
       const float v = sqrtf(mmd_order::row_reduce(
           [&](int p) { return sub(yroll[p], yd); }, RT, shift, Square(), lane));
-      if (lane == 0) norms[q][kNorms + sub_task - R] = v;
+      if (lane == 0) norms[q][kNorms + sub_task - n_lane] = v;
     } else {  // a norm of the scalar cost
-      const int c = sub_task - R - n_des;
+      const int c = sub_task - n_lane - n_des;
       const size_t rb = row_of(i) * num;
       const float *s = a.steer + rb, *yv = a.y + rb, *xd = a.xdot + rb, *yd = a.ydot + rb;
       const float *xdd = a.xddot + rb, *ydd = a.yddot + rb;
@@ -340,7 +412,7 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
   }
   __syncthreads();
   stamp(a, 3);
-  const int n_mmd = a.with_des ? 3 : 2;
+  const int n_mmd = lane_on ? (a.with_des ? 3 : 2) : 0;  // the lane risks a kept
   for (int task = warp; task < nk * n_mmd; task += kWarps) {
     const int q = task / n_mmd, m = task % n_mmd, k = rank + q * cs;
     const size_t ci = static_cast<size_t>(n) * nb + kept[k];
@@ -353,15 +425,22 @@ __global__ void __launch_bounds__(kThreads) outer_tail_kernel(const Args a) {
       __syncwarp();
       samples = bar_des[warp];
     }
-    const float v = mmd_vs_zero(a.beta + ci * R, samples, a.sigma[ci], R, a.kind, a.ker_wt,
-                                flat, lane);
-    if (lane == 0) mmds[q][m] = v;
+    if constexpr (kMmd) {
+      const float v = mmd_vs_zero(a.beta + ci * R, samples, a.sigma[ci], R, a.kind, a.ker_wt,
+                                  flat, lane);
+      if (lane == 0) mmds[q][m] = v;
+    } else if (lane == 0) {
+      mmds[q][m] = MODE == kCvar ? (m == 2 ? cvar_reduce(samples, R, a.q_lo_des, a.q_hi_des,
+                                                         a.q_w_des)
+                                           : cvar_reduce(samples, R, a.q_lo, a.q_hi, a.q_w))
+                                 : saa_reduce(samples, R, a.inv_R);
+    }
   }
   __syncthreads();
   for (int q = threadIdx.x; q < nk; q += kThreads) {  // the costs, into rank 0's memory
     const int k = rank + q * cs, i = kept[k];
     const float* c = norms[q];
-    const float lane_k = add(mmds[q][0], mmds[q][1]);
+    const float lane_k = lane_on ? add(mmds[q][0], mmds[q][1]) : 0.0f;
     const float des = a.with_des ? mul(a.w_des, mmds[q][2]) : 0.0f;
     const float risk_w = mul(a.w_obs, risk[i]), lane_w = mul(a.w_lane, lane_k);
     float base = add(a.res_norm[row_of(i)], mul(0.1f, c[0]));
@@ -517,10 +596,12 @@ extern "C" int mmd_outer_tail_cluster(int N) {
 // The cluster size of the last launch.
 extern "C" int mmd_outer_tail_last_cluster() { return last_cluster; }
 
-// Inputs as ops/outer_tail.py passes them; cs the cluster size (0: the
-// size mmd_outer_tail_cluster picks); clock null, or N cs x 8 int64 for
-// clock64 stamps of each CTA's thread 0 at its phases; kept_cta null, or
-// N cs x n_cost int64 for the kept candidates each CTA ranked.
+// Inputs as ops/outer_tail.py passes them; mode the risk form (Mode);
+// beta and sigma null in cvar, saa and det, the rollouts and obstacles
+// null in det; cs the cluster size (0: the size mmd_outer_tail_cluster
+// picks); clock null, or N cs x 8 int64 for clock64 stamps of each CTA's
+// thread 0 at its phases; kept_cta null, or N cs x n_cost int64 for the
+// kept candidates each CTA ranked.
 extern "C" int mmd_outer_tail(
     const long long* order, const float* y, const float* xdot, const float* ydot,
     const float* xddot, const float* yddot, const float* res_norm, const float* steer,
@@ -531,16 +612,23 @@ extern "C" int mmd_outer_tail(
     float* risk_lane_best, long long* best, long long* kept_out, long long* elites_out,
     long long* clock, long long* kept_cta, int N, int nb, int n_cost,
     int n_el, int R, int T, int num, int nobs, int obs_len, int maxiter, int it, int kind,
-    int frenet, int with_des, int cs, float inv_a2, float inv_b2, float y_lb, float y_ub,
+    int mode, int frenet, int with_des, int cs, float inv_a2, float inv_b2, float y_lb,
+    float y_ub,
     float ker_wt, float w_obs, float w_lane, float w_des, float y_des1, float y_des2,
     float gamma_lane_des, float steer_max, float w_des_lane, float w_centr, float a_centr,
     float inv_lamda, float a_m1, float a_m, float a_c1, float a_c, float jitter, float v_min,
-    float v_max, void* stream) {
+    float v_max, int q_lo, int q_hi, float q_w, int q_lo_des, int q_hi_des, float q_w_des,
+    float inv_R, void* stream) {
   if (N <= 0) return 0;
   if (nb < 2 || nb > kMaxNb || n_cost < 1 || n_cost > kMaxCost || n_cost > nb || n_el < 1 ||
       n_el > n_cost || R < 1 || R > kMaxR || T < 1 || T > kMaxT || num < 3 || num > 4096 ||
       nobs < 1 || obs_len < T || it < 0 || it >= maxiter || kind < kLaplace ||
-      kind > kMatern52 || (frenet && kappa == nullptr))
+      kind > kMatern52 || (frenet && kappa == nullptr) || mode < kMmdOpt || mode > kDet ||
+      q_lo < 0 || q_hi < q_lo || q_hi >= R || q_lo_des < 0 || q_hi_des < q_lo_des ||
+      q_hi_des >= R || (mode != kDet && (x_roll == nullptr || y_roll == nullptr ||
+                                         x_obs == nullptr || y_obs == nullptr)) ||
+      ((mode == kMmdOpt || mode == kMmdRandom) && (beta == nullptr || sigma == nullptr)) ||
+      (mode == kDet && with_des))
     return static_cast<int>(cudaErrorInvalidValue);
   if (cs == 0) cs = mmd_outer_tail_cluster(N);
   if (cs != 1 && cs != 2 && cs != 4 && cs != 8) return static_cast<int>(cudaErrorInvalidValue);
@@ -551,7 +639,7 @@ extern "C" int mmd_outer_tail(
                num, nobs, obs_len, maxiter, it, kind, frenet, with_des, inv_a2, inv_b2, y_lb,
                y_ub, ker_wt, w_obs, w_lane, w_des, y_des1, y_des2, gamma_lane_des, steer_max,
                w_des_lane, w_centr, a_centr, inv_lamda, a_m1, a_m, a_c1, a_c, jitter, v_min,
-               v_max};
+               v_max, q_lo, q_hi, q_lo_des, q_hi_des, q_w, q_w_des, inv_R};
   last_cluster = cs;
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr[1];
@@ -561,11 +649,18 @@ extern "C" int mmd_outer_tail(
   attr[0].val.clusterDim.z = 1;
   cfg.gridDim = dim3(N * cs);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = static_cast<size_t>(2 * nobs * T) * sizeof(float);
+  cfg.dynamicSmemBytes = mode == kDet ? 0 : static_cast<size_t>(2 * nobs * T) * sizeof(float);
   cfg.stream = static_cast<cudaStream_t>(stream);
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, outer_tail_kernel, a);
+  cudaError_t err;
+  switch (mode) {
+    case kMmdOpt: err = cudaLaunchKernelEx(&cfg, outer_tail_kernel<kMmdOpt>, a); break;
+    case kMmdRandom: err = cudaLaunchKernelEx(&cfg, outer_tail_kernel<kMmdRandom>, a); break;
+    case kCvar: err = cudaLaunchKernelEx(&cfg, outer_tail_kernel<kCvar>, a); break;
+    case kSaa: err = cudaLaunchKernelEx(&cfg, outer_tail_kernel<kSaa>, a); break;
+    default: err = cudaLaunchKernelEx(&cfg, outer_tail_kernel<kDet>, a);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

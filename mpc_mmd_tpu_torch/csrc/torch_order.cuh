@@ -1,7 +1,7 @@
 // PyTorch's orders of summation on the card (ATen's Reduce.cuh), for the
 // kernels whose outputs must carry the bits of a plain chain of PyTorch
-// operations: kernel (d) (outer_project.cu: its norms) and kernel (e)
-// (outer_tail.cu).  Every sum here adds terms that the chain rounds on
+// operations: kernel (d) (outer_project.cu: its norms and the obstacle
+// blocks' sums) and kernel (e) (outer_tail.cu).  Every sum here adds terms that the chain rounds on
 // their own (a product is an elementwise kernel before the sum), each
 // accumulator starting from +0, with the IEEE add and no contraction; a
 // 2-norm's terms are the fused squares of NormTwoOps.
@@ -127,6 +127,10 @@ __device__ __forceinline__ float clamp_min(float v, float lo) {
 // torch.minimum: a NaN operand wins
 __device__ __forceinline__ float minimum(float a, float b) {
   return a != a ? a : b != b ? b : fminf(a, b);
+}
+// torch.maximum, and torch.clamp with a tensor min: a NaN operand wins
+__device__ __forceinline__ float maximum(float a, float b) {
+  return a != a ? a : b != b ? b : fmaxf(a, b);
 }
 
 }  // namespace mmd_order

@@ -58,8 +58,9 @@ _SIGNATURES = {
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
     "mmd_inner_cem_scratch": [_I] * 5,
     "mmd_inner_cem_last_cluster": [],
-    "mmd_outer_project": [_P] * 34 + [_I] * 6 + [_F] * 10 + [_I] * 2 + [_P],
-    "mmd_outer_tail": [_P] * 32 + [_I] * 15 + [_F] * 23 + [_P],
+    "mmd_outer_project": ([_P] * 34 + [_I] * 6 + [_F] * 10 + [_I] * 2 + [_P, _P, _I, _I]
+                          + [_F] * 6 + [_P]),
+    "mmd_outer_tail": [_P] * 32 + [_I] * 16 + [_F] * 23 + [_I, _I, _F, _I, _I, _F, _F, _P],
     "mmd_outer_tail_cluster": [_I],
     "mmd_outer_tail_last_cluster": [],
 }

@@ -15,9 +15,12 @@ compile-time instantiation or at the run-time-shape one
 computed before the outer loop's sort by residual are the ones it has
 after it.
 
-On the card the kernel takes the "prefactored" strategy without obstacle
-terms (every risk-aware mode); the "exact" strategy and the ``det``
-baseline's obstacle-active projection keep the plain chain
+The kernel has two forms: the stochastic projection of every risk-aware
+mode, and the obstacle-active one (``ProjectionConfig.with_obstacle_terms``:
+the ``det`` baseline's, and the straight solver's when it is asked for),
+which adds each obstacle block's polar step, residuals and multiplier
+terms to every AM round.  On the card the solvers take the kernel under
+the "prefactored" strategy; the "exact" strategy keeps the plain chain
 (``solver.SolverSetup._routes``).
 """
 
@@ -112,8 +115,18 @@ def constants(cfg: ProblemConfig):
             f32(veh.wheel_base)]
 
 
+def obstacle_constants(cfg: ProblemConfig):
+    """The obstacle-active form's float32 constants: rho_obs, a_obs,
+    b_obs, a_obs^2 and b_obs^2 (products of Python floats), and 1 -
+    gamma_obs."""
+    pj, ob = cfg.projection, cfg.obstacles
+    f32 = lambda v: float(np.float32(v))
+    return [f32(pj.rho_obs), f32(ob.a_obs), f32(ob.b_obs), f32(ob.a_obs ** 2),
+            f32(ob.b_obs ** 2), f32(1.0 - pj.gamma_obs)]
+
+
 def _check(cfg: ProblemConfig, ws: Workspace, params, b_eq_x, b_eq_y, lamda_x,
-           lamda_y, s_lane, arc_vec, kappa) -> int:
+           lamda_y, s_lane, arc_vec, kappa, x_obs=None, y_obs=None) -> int:
     """The number of rows; raises on arguments neither version takes."""
     h = cfg.horizon
     rows, nvar, num = params.shape[0], h.nvar, h.num
@@ -132,6 +145,18 @@ def _check(cfg: ProblemConfig, ws: Workspace, params, b_eq_x, b_eq_y, lamda_x,
     if ws.P.shape != (num, nvar):
         raise ValueError(f"outer_project: the workspace's P {tuple(ws.P.shape)} "
                          f"is not ({num}, {nvar})")
+    if cfg.projection.with_obstacle_terms:
+        ob = cfg.obstacles
+        if x_obs is None or y_obs is None:
+            raise ValueError("outer_project: the obstacle terms read x_obs and y_obs")
+        n = 1 if x_obs.dim() == 2 else x_obs.shape[0]
+        if (x_obs.shape[-2:] != (ob.num_obs * ob.num_circles, num)
+                or y_obs.shape != x_obs.shape or x_obs.dim() not in (2, 3)
+                or rows % n != 0):
+            raise ValueError(f"outer_project: the obstacle terms take x_obs, y_obs "
+                             f"(N, {ob.num_obs * ob.num_circles}, {num}) of N scenarios "
+                             f"whose rows come one after another, got "
+                             f"{tuple(x_obs.shape)} for {rows} rows")
     return rows
 
 
@@ -150,20 +175,22 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
     (rows, 2 (num - 1)) the multipliers and the lane slack carried from the
     outer iteration before; x_obs, y_obs (N, num_obs, num) the obstacles
     of the N scenarios whose candidates the rows are, one scenario after
-    another (read by the plain version: the scenario count of its products,
-    and the obstacle terms), or None for one scenario; arc_vec and kappa
+    another (read by the plain version: the scenario count of its products;
+    by both versions with the obstacle terms), or None for one scenario
+    without them; arc_vec and kappa
     (n_path,) the path of the Frenet solve, or None.  Returns
     :class:`OuterProjection`.
 
     CPU tensors take :func:`outer_project_plain`; CUDA tensors launch
-    kernel (d) (float32, one device; the "prefactored" strategy without
-    obstacle terms, num <= 128, nvar <= 16) or raise.  ``rows_per_cta`` (1
+    kernel (d) (float32, one device; the "prefactored" strategy, num <=
+    128, nvar <= 16; with ``with_obstacle_terms`` its obstacle-active form,
+    which reads x_obs, y_obs) or raise.  ``rows_per_cta`` (1
     or 2) and ``runtime_shape`` force the launch's choices
     (:func:`launch_choice`); ``lib``: another build of the kernels'
     library (``utils/kernel_ab.py``), else the package's.
     """
     rows = _check(cfg, ws, params, b_eq_x, b_eq_y, lamda_x, lamda_y, s_lane,
-                  arc_vec, kappa)
+                  arc_vec, kappa, x_obs, y_obs)
     h = cfg.horizon
     per_cta, compiled = launch_choice(h.nvar, h.num, cfg.guess.num_segments, rows,
                                       rows_per_cta, runtime_shape)
@@ -173,9 +200,9 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
         return outer_project_plain(cfg, ws, params, b_eq_x, b_eq_y, lamda_x,
                                    lamda_y, s_lane, x_obs, y_obs, arc_vec, kappa)
     pj = cfg.projection
-    if cfg.solve_strategy != "prefactored" or pj.with_obstacle_terms:
+    if cfg.solve_strategy != "prefactored":
         raise ValueError("outer_project: the kernel takes the prefactored strategy "
-                         "without obstacle terms (outer_project_plain takes the rest)")
+                         "(outer_project_plain takes the exact one)")
     if not (h.num <= MAX_NUM and h.nvar <= MAX_NVAR
             and cfg.guess.num_segments <= MAX_SEGMENTS and pj.maxiter >= 1):
         raise ValueError(f"outer_project: the kernel takes num <= {MAX_NUM}, nvar <= "
@@ -184,7 +211,10 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
     inputs = [t.contiguous() for t in inputs]
     mats = [ws.G_vx, ws.G_py, ws.guess_kkt_x_inv, ws.guess_kkt_y_inv, ws.P, ws.Pdot,
             ws.Pddot, ws.A_lane, ws.proj_kkt_x_inv, ws.proj_kkt_y_inv]
-    _build.require_cuda_f32("outer_project", *inputs, *mats, *path)
+    obs = []
+    if pj.with_obstacle_terms:
+        obs = [x_obs.contiguous(), y_obs.contiguous()]
+    _build.require_cuda_f32("outer_project", *inputs, *mats, *path, *obs)
     dev, nvar, num = params.device, h.nvar, h.num
     out = OuterProjection(*(torch.empty(rows, n, dtype=torch.float32, device=dev)
                             for n in (nvar, nvar, num, num, num, num, num, num, 1,
@@ -197,7 +227,10 @@ def outer_project(cfg: ProblemConfig, ws: Workspace, params: torch.Tensor,
         *(t.data_ptr() for t in out),
         rows, nvar, num, cfg.guess.num_segments, pj.maxiter,
         arc_vec.shape[0] if path else 0, *constants(cfg), per_cta, int(compiled),
-        _build.stream())
+        *((t.data_ptr() for t in obs) if obs else (None, None)),
+        obs[0].shape[-2] if obs else 0,
+        rows // (1 if obs[0].dim() == 2 else obs[0].shape[0]) if obs else 0,
+        *obstacle_constants(cfg), _build.stream())
     _build.check(err, "outer_project")
     outer_project.launches += 1
     return out

@@ -1,24 +1,25 @@
 """Kernel (e): an outer iteration's step from the reduced sets to the next
-parameters in ``mmd_opt``, every scenario of a chunk in one launch (CUDA
-source ``csrc/outer_tail.cu``), and its plain version.
+parameters, every scenario of a chunk in one launch (CUDA source
+``csrc/outer_tail.cu``), and its plain version.
 
 The JAX package runs this part of an outer iteration inside its jitted
 ``lax.scan`` (``mpc_mmd_tpu/solver.py:235-300``,
-``solver_frenet.py:201-257``): the obstacle risk of every candidate, the
+``solver_frenet.py:199-257``): the obstacle risk of every candidate, the
 sort by risk, the lane risks and the scalar cost of the ``ellite_num_cost``
 kept, the sort by cost, ``cem_update`` and the best candidate.
 :func:`outer_tail_plain` is the port's chain of PyTorch operations for it
-(:func:`candidates`, ``risk.mmd_obs``, then :func:`chain_tail`:
-``sampling.cem_tail`` with ``sampling.candidate_cost``; about 150
-launches an outer iteration on the card, and the gathers by the residual
-order); :func:`outer_tail` runs all of it in one launch, a thread-block
-cluster a scenario.
+(:func:`candidates`, the mode's risk (``risk.obstacle_risk``), then
+:func:`chain_tail`: ``sampling.cem_tail`` with ``sampling.candidate_cost``;
+about 150 launches an outer iteration on the card, and the gathers by the
+residual order); :func:`outer_tail` runs all of it in one launch, a
+thread-block cluster a scenario, in each risk mode (``config.RISK_MODES``:
+the MMD with reduced sets, the MMD with uniform weights, CVaR, SAA, and
+``det``'s none).
 
-On the card the solvers take the kernel in ``mmd_opt`` under the
+On the card the solvers take the kernel in every mode under the
 "prefactored" strategy without a candidate mesh of several ranks
-(``solver.SolverSetup._routes``); ``cvar``, ``saa`` and ``mmd_random``
-score their risks with other functions and keep the chain
-(:func:`candidates` and :func:`chain_tail` after their risks).
+(``solver.SolverSetup._routes``); "exact" and a mesh keep the chain
+(:func:`candidates` and :func:`chain_tail` after the mode's risk).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ import torch
 
 from . import _build
 from .. import risk, sampling
-from ..config import ProblemConfig
+from ..config import RISK_MODES, ProblemConfig
 from .inner_cem import KINDS
 from .outer_project import OuterProjection
 
@@ -89,21 +90,44 @@ def chain_tail(cfg: ProblemConfig, frenet: bool, risk_obs: torch.Tensor, cand,
                       kept["pos"], elites)
 
 
+def filled(cfg: ProblemConfig, lead, device, beta, sigma, x_roll, y_roll):
+    """(beta, sigma, x_roll, y_roll) of candidates ``lead`` (N, nb) as the
+    chain reads them in every mode: where they are None, the uniform
+    weights (``risk.uniform_weights``) and, in ``det``, zero rollouts."""
+    if x_roll is None:
+        R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
+        x_roll = y_roll = torch.zeros(*lead, R, T, device=device)
+    if beta is None:
+        beta, sigma = risk.uniform_weights(cfg, lead, device)
+    return beta, sigma, x_roll, y_roll
+
+
 def outer_tail_plain(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
-                     order: torch.Tensor, params: torch.Tensor, beta: torch.Tensor,
-                     sigma: torch.Tensor, x_roll: torch.Tensor, y_roll: torch.Tensor,
+                     order: torch.Tensor, params: torch.Tensor,
+                     beta: Optional[torch.Tensor], sigma: Optional[torch.Tensor],
+                     x_roll: Optional[torch.Tensor], y_roll: Optional[torch.Tensor],
                      x_obs: torch.Tensor, y_obs: torch.Tensor, z: torch.Tensor,
                      mean: torch.Tensor, cov: torch.Tensor, v_des: torch.Tensor,
                      res: torch.Tensor, res_2: torch.Tensor, it: int) -> TailResult:
-    """Plain version: ``risk.mmd_obs`` and :func:`chain_tail` on the
-    candidates gathered in residual order.  Arguments and result as
-    :func:`outer_tail`."""
+    """Plain version: the mode's risk (``risk.obstacle_risk``) and
+    :func:`chain_tail` on the candidates gathered in residual order, with
+    what the chain reads where the mode reads nothing (:func:`filled`).
+    Arguments and result as :func:`outer_tail`."""
     cand = candidates(pj, order, params, frenet)
-    T = x_roll.shape[-1]
-    risk_obs = risk.mmd_obs(cfg, beta, sigma, x_roll, y_roll, x_obs[:, None, :, :T],
-                            y_obs[:, None, :, :T])
+    beta, sigma, x_roll, y_roll = filled(cfg, order.shape, order.device, beta, sigma,
+                                         x_roll, y_roll)
+    risk_obs = risk.obstacle_risk(cfg, beta, sigma, x_roll, y_roll, x_obs, y_obs)
     cand.update(roll=y_roll, beta=beta, sigma=sigma)
     return chain_tail(cfg, frenet, risk_obs, cand, z, mean, cov, v_des, res, res_2, it)
+
+
+def quantile_at(alpha: float, R: int):
+    """torch.quantile's linear interpolation of R sorted samples at
+    alpha on the card: (the lower position, the upper one, the weight),
+    from the float32 rank alpha (R - 1)."""
+    rank = np.float32(alpha) * np.float32(R - 1)
+    lo = int(rank)
+    return lo, int(np.ceil(rank)), float(rank - np.float32(lo))
 
 
 def constants(cfg: ProblemConfig):
@@ -120,20 +144,33 @@ def constants(cfg: ProblemConfig):
             f32(lane.gamma_lane_des), f32(veh.steer_max), f32(fr.weight_des_lane),
             f32(fr.weight_centr), f32(veh.a_centr), inv(c.lamda),
             f32(1.0 - c.alpha_mean), f32(c.alpha_mean), f32(1.0 - c.alpha_cov),
-            f32(c.alpha_cov), f32(c.cov_jitter), f32(veh.v_min), f32(veh.v_max)]
+            f32(c.alpha_cov), f32(c.cov_jitter), f32(veh.v_min), f32(veh.v_max),
+            *quantile_at(rk.alpha_quant, rk.num_reduced),
+            *quantile_at(rk.alpha_quant_lane, rk.num_reduced), inv(rk.num_reduced)]
 
 
 def _check(cfg, pj, order, params, beta, sigma, x_roll, y_roll, x_obs, y_obs, z, mean,
            cov, v_des, res, res_2, it):
-    """(N, nb, R, T); raises on arguments neither version takes."""
+    """(N, nb, R, T); raises on arguments neither version takes: beta and
+    sigma are given in the MMD modes alone and None in the others, the
+    rollouts in every mode but ``det``."""
     if order.dim() != 2:
         raise ValueError(f"outer_tail: order {tuple(order.shape)} must be (N, nb)")
     N, nb = order.shape
     c = cfg.cem
     R, T = cfg.risk.num_reduced, cfg.horizon.num_prime
     num, n_el = cfg.horizon.num, c.ellite_num
-    if cfg.risk.mode != "mmd_opt":
-        raise ValueError(f"outer_tail: the mmd_opt tail, got mode {cfg.risk.mode!r}")
+    mode = cfg.risk.mode
+    if mode not in RISK_MODES:
+        raise ValueError(f"outer_tail: a mode of {RISK_MODES}, got {mode!r}")
+    mmd = mode in ("mmd_opt", "mmd_random")
+    for name, t, reads in (("beta", beta, mmd), ("sigma", sigma, mmd),
+                           ("x_roll", x_roll, mode != "det"),
+                           ("y_roll", y_roll, mode != "det")):
+        if (t is not None) != reads:
+            raise ValueError(f"outer_tail: {name} must be "
+                             f"{'given' if reads else 'None'} in {mode}, which "
+                             f"{'reads' if reads else 'does not read'} it")
     want = {"params": (params, (N, nb, 8)), "beta": (beta, (N, nb, R)),
             "sigma": (sigma, (N, nb)), "x_roll": (x_roll, (N, nb, R, T)),
             "y_roll": (y_roll, (N, nb, R, T)), "z": (z, (N, nb - n_el, 8)),
@@ -141,7 +178,7 @@ def _check(cfg, pj, order, params, beta, sigma, x_roll, y_roll, x_obs, y_obs, z,
             "res": (res, (N, c.maxiter_cem)), "res_2": (res_2, (N, c.maxiter_cem)),
             "y": (pj.y, (N * nb, num)), "res_norm": (pj.res_norm, (N * nb,))}
     for name, (t, shape) in want.items():
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"outer_tail: {name} {tuple(t.shape)} must be {shape}")
     if (x_obs.dim() != 3 or x_obs.shape[0] != N or x_obs.shape[-1] < T
             or y_obs.shape != x_obs.shape):
@@ -157,36 +194,41 @@ def _check(cfg, pj, order, params, beta, sigma, x_roll, y_roll, x_obs, y_obs, z,
 
 
 def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
-               order: torch.Tensor, params: torch.Tensor, beta: torch.Tensor,
-               sigma: torch.Tensor, x_roll: torch.Tensor, y_roll: torch.Tensor,
+               order: torch.Tensor, params: torch.Tensor, beta: Optional[torch.Tensor],
+               sigma: Optional[torch.Tensor], x_roll: Optional[torch.Tensor],
+               y_roll: Optional[torch.Tensor],
                x_obs: torch.Tensor, y_obs: torch.Tensor, z: torch.Tensor,
                mean: torch.Tensor, cov: torch.Tensor, v_des: torch.Tensor,
                res: torch.Tensor, res_2: torch.Tensor, it: int, *, cluster: int = 0,
                lib=None, clock: Optional[torch.Tensor] = None,
                kept_cta: Optional[torch.Tensor] = None) -> TailResult:
-    """The ``mmd_opt`` step of outer iteration ``it`` of a chunk of N
-    scenarios, from the projection's rows and the reduced sets to the next
-    CEM moments and parameters.
+    """The step of outer iteration ``it`` of a chunk of N scenarios, from
+    the projection's rows and the candidates' rollouts to the next CEM
+    moments and parameters, in the risk mode of ``cfg``.
 
     pj the iteration's :class:`OuterProjection` (rows N nb, scenario after
     scenario); order (N, nb) int64 its stable sort by residual; params (N,
     nb, 8) the iteration's parameters by projection row; beta (N, nb, R),
-    sigma (N, nb), x_roll, y_roll (N, nb, R, T) the reduced sets of the
-    candidates in residual order (the Frenet points on the road); x_obs,
-    y_obs (N, num_obs, >= T) the obstacles; z (N, nb - ellite_num, 8) the
-    resample's normals; mean (N, 8), cov (N, 8, 8); v_des one value.
-    ``frenet`` takes the on-road cost (``pj.steering`` and
-    ``pj.kappa_interp``) for the straight-road one (``pj.steer``).
-    Writes res[:, it] and res_2[:, it]; returns :class:`TailResult`.
+    sigma (N, nb), x_roll, y_roll (N, nb, R, T) the reduced sets (in
+    ``mmd_opt``) or the R rollouts of the candidates in residual order (the
+    Frenet points on the road); beta and sigma None in ``cvar``, ``saa``
+    and ``det``, which read neither, and the rollouts None in ``det``,
+    which reads none; x_obs, y_obs (N, num_obs, >= T) the obstacles; z (N,
+    nb - ellite_num, 8) the resample's normals; mean (N, 8), cov (N, 8,
+    8); v_des one value.  ``frenet`` takes the on-road cost
+    (``pj.steering`` and ``pj.kappa_interp``) for the straight-road one
+    (``pj.steer``).  Writes res[:, it] and res_2[:, it]; returns
+    :class:`TailResult`.
 
     CPU tensors take :func:`outer_tail_plain`; CUDA tensors launch kernel
-    (e) (float32 and an int64 order, one device; nb <= 256, ellite_num_cost
-    <= 32, R <= 16, T <= 64) or raise.  ``cluster`` forces the cluster
-    size (1, 2, 4, 8; 0 lets the kernel pick); ``lib`` another build of the
-    kernels' library (``utils/kernel_ab.py``); ``clock`` an int64 tensor of
-    N cluster x 8 for the clock64 stamps of each CTA's phases; ``kept_cta``
-    an int64 tensor of N cluster x ellite_num_cost for the kept candidates
-    each CTA ranked (every CTA of a scenario ranks the risks itself).
+    (e) in the mode's form (float32 and an int64 order, one device; nb <=
+    256, ellite_num_cost <= 32, R <= 16, T <= 64) or raise.  ``cluster``
+    forces the cluster size (1, 2, 4, 8; 0 lets the kernel pick); ``lib``
+    another build of the kernels' library (``utils/kernel_ab.py``);
+    ``clock`` an int64 tensor of N cluster x 8 for the clock64 stamps of
+    each CTA's phases; ``kept_cta`` an int64 tensor of N cluster x
+    ellite_num_cost for the kept candidates each CTA ranked (every CTA of
+    a scenario ranks the risks itself).
     """
     N, nb, R, T = _check(cfg, pj, order, params, beta, sigma, x_roll, y_roll, x_obs,
                          y_obs, z, mean, cov, v_des, res, res_2, it)
@@ -194,8 +236,10 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
         raise ValueError(f"outer_tail: a cluster of 0, 1, 2, 4 or 8 CTAs, got {cluster}")
     rows = [getattr(pj, name) for name in _ROWS] + [
         pj.steering if frenet else pj.steer] + ([pj.kappa_interp] if frenet else [])
+    mode = cfg.risk.mode
     floats = [params, beta, sigma, x_roll, y_roll, x_obs, y_obs, z, mean, cov, v_des]
-    if all(t.device.type == "cpu" for t in [order, res, res_2] + rows + floats):
+    given = [t for t in floats if t is not None]
+    if all(t.device.type == "cpu" for t in [order, res, res_2] + rows + given):
         return outer_tail_plain(cfg, frenet, pj, order, params, beta, sigma, x_roll,
                                 y_roll, x_obs, y_obs, z, mean, cov, v_des, res, res_2, it)
     c = cfg.cem
@@ -204,8 +248,9 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
         raise ValueError(f"outer_tail: the kernel takes num_batch <= 256, "
                          f"ellite_num_cost <= 32, R <= 16 and T <= 64, got {nb}, "
                          f"{n_cost}, {R}, {T}")
-    floats = [t.contiguous() for t in floats]
-    _build.require_cuda_f32("outer_tail", *rows, *floats, res, res_2)
+    floats = [None if t is None else t.contiguous() for t in floats]
+    _build.require_cuda_f32("outer_tail", *rows, *(t for t in floats if t is not None), res,
+                            res_2)
     if order.dtype != torch.int64 or order.device != res.device:
         raise TypeError("outer_tail: order must be int64 on the tensors' device")
     order = order.contiguous()
@@ -221,15 +266,17 @@ def outer_tail(cfg: ProblemConfig, frenet: bool, pj: OuterProjection,
     lib = lib or _build.library()
     err = lib.mmd_outer_tail(
         order.data_ptr(), *(t.data_ptr() for t in rows),
-        None if kappa is None else kappa.data_ptr(), *(t.data_ptr() for t in floats),
+        None if kappa is None else kappa.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in floats),
         *(t.data_ptr() for t in out_f), res.data_ptr(), res_2.data_ptr(),
         risk_obs.data_ptr(), risk_lane.data_ptr(), best.data_ptr(), kept.data_ptr(),
         elites.data_ptr(), None if clock is None else clock.data_ptr(),
         None if kept_cta is None else kept_cta.data_ptr(),
         N, nb, n_cost, c.ellite_num, R, T, cfg.horizon.num, x_obs.shape[1],
-        x_obs.shape[2], c.maxiter_cem, it, KINDS.index(cfg.risk.kernel), int(frenet),
-        int(frenet and cfg.risk.weight_lane_des != 0.0), cluster, *constants(cfg),
-        _build.stream())
+        x_obs.shape[2], c.maxiter_cem, it, KINDS.index(cfg.risk.kernel),
+        RISK_MODES.index(mode), int(frenet),
+        int(frenet and mode != "det" and cfg.risk.weight_lane_des != 0.0),
+        cluster, *constants(cfg), _build.stream())
     _build.check(err, "outer_tail")
     outer_tail.launches += 1
     return TailResult(*out_f, best, risk_obs, risk_lane, kept, elites)

@@ -66,6 +66,31 @@ def mmd_obs(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
     return mmd_vs_zero(beta, viol, sigma, cfg.risk.ker_wt, kind=cfg.risk.kernel)
 
 
+def uniform_weights(cfg: ProblemConfig, lead, device):
+    """The weights 1/R (*lead, R) and bandwidth 0.01 (*lead) of candidates
+    whose R rollouts are not reduced: ``mmd_random``'s MMD reads them, and
+    the straight-road solve reports them with the pick of every mode but
+    ``mmd_opt``."""
+    R = cfg.risk.num_reduced
+    return (torch.full((*lead, R), 1.0 / R, device=device),
+            torch.full(tuple(lead), 0.01, device=device))
+
+
+def obstacle_risk(cfg: ProblemConfig, beta, sigma, x_roll: torch.Tensor,
+                  y_roll: torch.Tensor, x_obs: torch.Tensor, y_obs: torch.Tensor):
+    """The obstacle risk (N, nb) of the candidates' rollouts (N, nb, R, T)
+    against the obstacles (N, num_obs, >= T) in the mode of ``cfg``: the
+    MMD with beta (N, nb, R) and sigma (N, nb), CVaR, SAA (neither reads
+    beta or sigma), or zero in ``det``."""
+    mode, T = cfg.risk.mode, x_roll.shape[-1]
+    if mode == "det":
+        return torch.zeros(x_roll.shape[:-2], device=x_roll.device)
+    obs = (x_roll, y_roll, x_obs[:, None, :, :T], y_obs[:, None, :, :T])
+    if mode in ("mmd_opt", "mmd_random"):
+        return mmd_obs(cfg, beta, sigma, *obs)
+    return (cvar_obs if mode == "cvar" else saa_obs)(cfg, *obs)
+
+
 def mmd_lane(cfg: ProblemConfig, beta: torch.Tensor, sigma: torch.Tensor,
              y_roll: torch.Tensor) -> torch.Tensor:
     lb, ub = lane_bars(cfg, y_roll)

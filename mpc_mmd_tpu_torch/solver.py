@@ -6,7 +6,7 @@ Counterpart of ``mpc_mmd_tpu/solver.py``.  One outer iteration:
   guess QP -> AM projection -> controls (kernel (d)) -> stable sort by
   projection residual -> noisy rollouts (K4n) -> obstacle risk -> keep the
   ellite_num_cost lowest risks -> lane risk -> scalar cost -> elites ->
-  CEM update (kernel (e) in ``mmd_opt``).
+  CEM update (kernel (e), in every mode).
 
 ``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them and
 takes their distance matrices (kernel (f)), and picks a weighted reduced
@@ -49,7 +49,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from . import risk as risk_mod
+from . import risk
 from .config import ProblemConfig
 from .device import resolve_device, to_device
 from .dynamics import beta_parameters, perturb_controls
@@ -212,19 +212,16 @@ class SolverSetup:
 
     def _routes(self):
         """(kernel (d), kernel (e)): whether an outer iteration runs its
-        guess QP, projection and controls as ``ops.outer_project``, and its
-        ``mmd_opt`` tail (risk, sort, cost, CEM update) as ``ops.outer_tail``.
-        Each wrapper launches its kernel on the card and runs its plain
-        version on the CPU.  These keep their chains of PyTorch operations
-        on every device: the "exact" strategy (LU solves, the reference's
-        inner CEM) both; the ``det`` baseline's obstacle-active projection
-        (``with_obstacle_terms``) the projection; the tails of ``cvar``,
-        ``saa`` and ``mmd_random`` (their own risks) and a candidate mesh of
+        guess QP, projection and controls as ``ops.outer_project`` (the
+        obstacle-active projection of ``with_obstacle_terms`` too), and its
+        tail (the mode's risk, sort, cost, CEM update) as
+        ``ops.outer_tail``.  Each wrapper launches its kernel on the card
+        and runs its plain version on the CPU.  These keep their chains of
+        PyTorch operations on every device: the "exact" strategy (LU
+        solves, the reference's inner CEM) both; a candidate mesh of
         several ranks (each rank scores its block) the tail."""
-        cfg = self.cfg
-        prefactored = cfg.solve_strategy == "prefactored"
-        return (prefactored and not cfg.projection.with_obstacle_terms,
-                prefactored and cfg.risk.mode == "mmd_opt" and not self._split())
+        prefactored = self.cfg.solve_strategy == "prefactored"
+        return prefactored, prefactored and not self._split()
 
     def _glue_routes(self) -> GlueRoutes:
         """Whether an outer iteration forms its noisy controls inside the
@@ -245,6 +242,12 @@ class SolverSetup:
     def _split(self) -> bool:
         """Whether a candidate mesh splits the solve over several ranks."""
         return False
+
+    def _picked(self, ens, n_ix, pos):
+        """The values beyond the trajectory and the risks that ``BEST``
+        names, of the pick ``pos`` (N,) of scenarios ``n_ix`` in the last
+        iteration's ensemble ``ens``: none."""
+        return {}
 
     def graph_stats(self):
         """Per captured graph: its key, nodes, capture and instantiation
@@ -344,17 +347,18 @@ class SolverSetup:
         * ``_ensemble(ctx, keys, acc_T, steer_T)``: the candidates' reduced
           rollouts {"x", "roll": (N, nb, R, T), "beta": (N, nb, R), "sigma":
           (N, nb), ...} from the iteration's column ``keys`` of the key
-          table, which kernel (e) scores;
-        * ``_risks(ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T)``: the
+          table, which kernel (e) scores (None where the mode reads none);
+        * ``_risks(ctx, keys, acc_T, steer_T, x_obs, y_obs)``: the
           obstacle risk (N, nb) and {name: (N, nb, ...)} the cost reads,
-          on the chain's path.
+          on the chain's path;
+        * ``_picked(ens, n_ix, pos)``: the pick's values of the last
+          ensemble that ``BEST`` names.
         """
         cfg, ws, noise = self.cfg, self.ws, self.noise
         N = keys.shape[0]
         nb, nvar, T = cfg.cem.num_batch, cfg.horizon.nvar, cfg.horizon.num_prime
         n_el = cfg.cem.ellite_num
         rows = N * nb
-        x_obs_T, y_obs_T = x_obs[:, None, :, :T], y_obs[:, None, :, :T]
         kernel_d, kernel_e = self._routes()
         path = self._path(ctx)
         b_eq_x, b_eq_y = b_eq_x.repeat(N, 1), b_eq_y.repeat(N, 1)
@@ -385,8 +389,8 @@ class SolverSetup:
                                   ens["sigma"], ens["x"], ens["roll"], x_obs, y_obs, z,
                                   mean, cov, v_des, res, res_2, it)
             else:
-                risk_obs, ens = self._risks(ctx, keys[:, it], acc_T, steer_T, x_obs_T,
-                                            y_obs_T)
+                risk_obs, ens = self._risks(ctx, keys[:, it], acc_T, steer_T, x_obs,
+                                            y_obs)
                 cand = candidates(pj, order, params, self.FRENET)
                 cand.update(ens)
                 z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
@@ -401,8 +405,7 @@ class SolverSetup:
         at_row = lambda t: t.reshape(N, nb, *t.shape[1:])[n_ix, row]
         best = dict(cx=at_row(pj.c_x), cy=at_row(pj.c_y), steer=at_row(steer),
                     risk_obs=tail.risk_obs, risk_lane=tail.risk_lane,
-                    **{name: t[n_ix, pos] for name, t in ens.items()
-                       if name in ("beta", "sigma", "res_beta")})
+                    **self._picked(ens, n_ix, pos))
         return {name: best[name] for name in self.BEST}, res, res_2, mean, cov
 
 
@@ -464,35 +467,41 @@ class Solver(SolverSetup):
         return {}
 
     def _ensemble(self, state0, keys, acc_T, steer_T, mine=slice(None)):
-        """The noisy controls of all C candidates (N, C, T) and the
-        rollouts of the candidates ``mine``: in ``mmd_opt`` R^2 mother
-        rollouts reduced to R ({"x", "roll": (N, c, R, T), "beta": (N, c,
-        R), "sigma": (N, c), "res_beta": the inner residuals (N, c,
-        maxiter)}), else R rollouts with uniform weights 1/R and bandwidth
-        0.01."""
+        """The rollouts of the candidates ``mine`` of the noisy controls
+        (N, C, T): in ``mmd_opt`` R^2 mother rollouts reduced to R ({"x",
+        "roll": (N, c, R, T), "beta": (N, c, R), "sigma": (N, c),
+        "res_beta": the inner residuals (N, c, maxiter)}), else R rollouts
+        with the uniform weights and bandwidth (``risk.uniform_weights``)
+        where the mode reads them (``mmd_random``) and None in ``cvar`` and
+        ``saa``."""
         cfg = self.cfg
-        mother = cfg.risk.mode == "mmd_opt"
-        xr, yr = self._rollouts(keys, acc_T, steer_T, state0, mother, mine)
-        if mother:
+        mode = cfg.risk.mode
+        xr, yr = self._rollouts(keys, acc_T, steer_T, state0, mode == "mmd_opt", mine)
+        if mode == "mmd_opt":
             rs = select_reduced(cfg, self.ws, xr, yr, self._inner, self._inner_fixed,
                                 self._glue_routes().inner_prologue)
             return dict(x=rs.x_red, roll=rs.y_red, beta=rs.beta, sigma=rs.sigma,
                         res_beta=rs.res)
-        return dict(x=xr, roll=yr, **self._uniform(xr.shape[:-2]))
+        beta = sigma = None
+        if mode == "mmd_random":
+            beta, sigma = risk.uniform_weights(cfg, xr.shape[:-2], self.device)
+        return dict(x=xr, roll=yr, beta=beta, sigma=sigma)
 
-    def _uniform(self, lead):
-        """The weights, bandwidths and inner residuals of candidates (lead)
-        that are not reduced."""
-        R = self.cfg.risk.num_reduced
-        return dict(beta=torch.full(lead + (R,), 1.0 / R, device=self.device),
-                    sigma=torch.full(lead, 0.01, device=self.device),
-                    res_beta=torch.zeros(lead + (self.cfg.beta_cem.maxiter,),
+    def _picked(self, ens, n_ix, pos):
+        """The pick's beta (N, R), sigma (N,) and inner residuals (N,
+        maxiter): its reduced set's in ``mmd_opt``, else the uniform weights
+        and no residual."""
+        if self.cfg.risk.mode == "mmd_opt":
+            return {name: ens[name][n_ix, pos] for name in ("beta", "sigma", "res_beta")}
+        beta, sigma = risk.uniform_weights(self.cfg, pos.shape, self.device)
+        return dict(beta=beta, sigma=sigma,
+                    res_beta=torch.zeros(*pos.shape, self.cfg.beta_cem.maxiter,
                                          device=self.device))
 
-    def _risks(self, state0, keys, acc_T, steer_T, x_obs_T, y_obs_T):
+    def _risks(self, state0, keys, acc_T, steer_T, x_obs, y_obs):
         """Obstacle risk (N, C) and, per candidate, the rollouts the lane
-        risk reads (N, C, R, T), beta (N, C, R), sigma (N, C) and the inner
-        residuals (N, C, maxiter).
+        risk reads (N, C, R, T), beta (N, C, R), sigma (N, C) and in
+        ``mmd_opt`` the inner residuals (N, C, maxiter).
 
         With a ``candidate_mesh`` (the latency mode) every rank draws the
         noisy controls of all C candidates, as the solve alone does, rolls
@@ -501,7 +510,6 @@ class Solver(SolverSetup):
         (mpc_mmd_tpu/solver.py:259-268): the selection and the CEM update
         after it run on every rank alike."""
         cfg = self.cfg
-        mode = cfg.risk.mode
         mesh = self.candidate_mesh
         mine, gather = slice(None), lambda t: t
         if self._split():
@@ -511,18 +519,14 @@ class Solver(SolverSetup):
             sizes = [hi - lo for lo, hi in spans]
             gather = lambda t: gather_blocks(t, mesh, sizes, dim=1)
         e = self._ensemble(state0, keys, acc_T, steer_T, mine)
-        if mode in ("mmd_opt", "mmd_random"):
-            risk_obs = risk_mod.mmd_obs(cfg, e["beta"], e["sigma"], e["x"], e["roll"],
-                                        x_obs_T, y_obs_T)
-        elif mode == "cvar":
-            risk_obs = risk_mod.cvar_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
-        else:
-            risk_obs = risk_mod.saa_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
-        if mode == "mmd_opt":
+        risk_obs = risk.obstacle_risk(cfg, e["beta"], e["sigma"], e["x"], e["roll"], x_obs,
+                                      y_obs)
+        if cfg.risk.mode == "mmd_opt":
             return gather(risk_obs), {name: gather(e[name])
                                       for name in ("roll", "beta", "sigma", "res_beta")}
-        return gather(risk_obs), dict(roll=gather(e["roll"]),
-                                      **self._uniform(acc_T.shape[:-1]))
+        # the chain's lane risks read weights in every mode
+        beta, sigma = risk.uniform_weights(cfg, acc_T.shape[:-1], self.device)
+        return gather(risk_obs), dict(roll=gather(e["roll"]), beta=beta, sigma=sigma)
 
     def _body(self, keys, init_state, mean, cov, x_obs, y_obs, v_des):
         """The device body of a chunk's solve: the boundary rows and the

@@ -12,10 +12,11 @@ straight-road solve (``solver.py``):
   (K4n with a state per lane), converted pointwise to Frenet for the risks
   (kernel (g));
 * the scalar cost gains the centripetal-acceleration and desired-lane
-  terms (``sampling.frenet_scalar_cost``, in ``mmd_opt`` kernel (e)), and
+  terms (``sampling.frenet_scalar_cost``; kernel (e) in every mode), and
   ``mmd_random`` keeps its lane risk;
 * ``det`` runs the obstacle-active projection (``with_obstacle_terms`` is
-  forced on), one initial state and no rollout, with every risk zero;
+  forced on; kernel (d)'s obstacle-active form), one initial state and no
+  rollout, with every risk zero (kernel (e)'s ``det`` form);
 * the result carries the best candidate's speed and steering profiles
   and the final CEM moments (``mean_param`` warm-starts the next step).
 
@@ -36,11 +37,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from . import risk as risk_mod
+from . import risk
 from .config import ProblemConfig
 from .frenet import FrenetFrame, global_to_frenet_points, global_to_frenet_state
 from .noise import init_state_count
 from .ops import frenet_points
+from .ops.outer_tail import filled
 from .qp import Workspace
 from .solver import MODES, SolverSetup, select_reduced
 
@@ -121,17 +123,16 @@ class FrenetSolver(SolverSetup):
     def _ensemble(self, ctx, keys, acc_T, steer_T):
         """The Frenet points of the candidates' rollouts {"x": s, "roll": l
         (N, C, R, T)}, beta (N, C, R) and sigma (N, C): in ``mmd_opt`` the
-        reduced sets of R^2 mother rollouts, else R rollouts with uniform
-        weights; in ``det`` no rollout (zeros)."""
+        reduced sets of R^2 mother rollouts, in ``mmd_random`` R rollouts
+        with the uniform weights (``risk.uniform_weights``), in ``cvar`` and
+        ``saa`` R rollouts and no weights (None), in ``det`` nothing (None:
+        kernel (e) reads none)."""
         frame, states0 = ctx
         cfg = self.cfg
-        lead, R, T = acc_T.shape[:-1], cfg.risk.num_reduced, acc_T.shape[-1]
         mode = cfg.risk.mode
-        beta = torch.full(lead + (R,), 1.0 / R, device=self.device)
-        sigma = torch.full(lead, 0.01, device=self.device)
         if mode == "det":
-            zeros = torch.zeros(lead + (R, T), device=self.device)
-            return dict(x=zeros, roll=zeros, beta=beta, sigma=sigma)
+            return dict(x=None, roll=None, beta=None, sigma=None)
+        beta = sigma = None
         mother = mode == "mmd_opt"
         routes = self._glue_routes()
         xg, yg = self._rollouts(keys, acc_T, steer_T, states0, mother)
@@ -139,27 +140,22 @@ class FrenetSolver(SolverSetup):
             rs = select_reduced(cfg, self.ws, xg, yg, self._inner, self._inner_fixed,
                                 routes.inner_prologue)
             xg, yg, beta, sigma = rs.x_red, rs.y_red, rs.beta, rs.sigma
+        elif mode == "mmd_random":
+            beta, sigma = risk.uniform_weights(cfg, acc_T.shape[:-1], self.device)
         convert = frenet_points if routes.frenet_points else global_to_frenet_points
         s_roll, l_roll = convert(frame, xg, yg)
         return dict(x=s_roll, roll=l_roll, beta=beta, sigma=sigma)
 
-    def _risks(self, ctx, keys, acc_T, steer_T, x_obs_T, y_obs_T):
+    def _risks(self, ctx, keys, acc_T, steer_T, x_obs, y_obs):
         """Obstacle risk (N, C) and, per candidate, the Frenet lateral
         offsets of the rollouts the lane risks read (N, C, R, T), beta
-        (N, C, R) and sigma (N, C)."""
-        cfg = self.cfg
-        mode = cfg.risk.mode
+        (N, C, R) and sigma (N, C), with what the chain reads where the mode
+        reads nothing (``ops.outer_tail.filled``)."""
         e = self._ensemble(ctx, keys, acc_T, steer_T)
-        if mode == "det":
-            risk_obs = torch.zeros(acc_T.shape[:-1], device=self.device)
-        elif mode in ("mmd_opt", "mmd_random"):
-            risk_obs = risk_mod.mmd_obs(cfg, e["beta"], e["sigma"], e["x"], e["roll"],
-                                        x_obs_T, y_obs_T)
-        elif mode == "cvar":
-            risk_obs = risk_mod.cvar_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
-        else:
-            risk_obs = risk_mod.saa_obs(cfg, e["x"], e["roll"], x_obs_T, y_obs_T)
-        return risk_obs, dict(roll=e["roll"], beta=e["beta"], sigma=e["sigma"])
+        beta, sigma, x, roll = filled(self.cfg, acc_T.shape[:-1], self.device, e["beta"],
+                                      e["sigma"], e["x"], e["roll"])
+        return (risk.obstacle_risk(self.cfg, beta, sigma, x, roll, x_obs, y_obs),
+                dict(roll=roll, beta=beta, sigma=sigma))
 
     @torch.no_grad()
     def solve(self, idx_mpc: int, init_state_global, mean_param, cov_param,

@@ -2,19 +2,25 @@
 the card, eagerly and in the CUDA graph's replay.
 
     python -m mpc_mmd_tpu_torch.utils.inner_split [--root DIR] [--out DIR]
+        [--paths NAME ...]
 
 Runs, in a fresh process and from the package under ``--root`` (default:
 this checkout; another one is, for example, ``git archive <commit>``
 unpacked under ``build/``), ``chip_smoke.py``'s full-width fastrt
-``mmd_opt`` solve, Path A's "xla" solve, Path D's "xla" ``FrenetSolver``
-solve and the fastrt solve at a scenario chunk of 4 (E4):
+``mmd_opt`` solve, Path A's "xla" solve, Path B's ``cvar``, ``saa`` and
+``mmd_random`` solves of the same workload, Path D's "xla" and ``det``
+``FrenetSolver`` solves and the fastrt solve at a scenario chunk of 4
+(E4), or those that ``--paths`` names:
 
 - eagerly (``graph=False``): one warm-up solve, then one under
   ``torch.profiler`` with every call of each stage function (``STAGES``:
   the guess QP, the projection, the controls, the noisy controls, the
   rollouts, the refit, the inner CEM's prologue with kernel (c) inside,
   the reduced rollouts' gathers after it (``take_rows``), the Frenet
-  conversion, the risks, the costs, the CEM update, the argsorts; and
+  conversion, the risks of every mode, the projection's obstacle terms,
+  the chains of kernels (d) and (e) where the solver keeps them
+  (``outer_project_plain``, ``chain_tail``), the costs, the CEM update,
+  the argsorts; and
   where the checkout has them kernels (d) and (e), the rollout draws with
   K4n and kernels (f) and (g)) inside a ``record_function`` range
   that opens and closes with ``torch.cuda.synchronize()``, so that the
@@ -43,6 +49,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "inner_split"
+PATHS = ("fastrt", "e4", "path_a_xla", "path_b_cvar", "path_b_saa", "path_b_mmd_random",
+         "path_d_xla", "path_d_det")
 
 WORKER = r"""
 import importlib, json, sys
@@ -74,7 +82,11 @@ STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
           ("risk", "mmd_obs"), ("risk", "mmd_lane"), ("risk", "mmd_lane_des"),
           ("solver", "scalar_cost"), ("sampling", "scalar_cost"),
           ("solver_frenet", "frenet_scalar_cost"), ("sampling", "frenet_scalar_cost"),
-          ("solver", "cem_update"), ("sampling", "cem_update")]
+          ("solver", "cem_update"), ("sampling", "cem_update"),
+          ("solver", "outer_project_plain"), ("solver", "chain_tail"),
+          ("risk", "cvar_obs"), ("risk", "saa_obs"), ("risk", "cvar_lane"),
+          ("risk", "saa_lane"), ("risk", "cvar_lane_des"), ("risk", "saa_lane_des"),
+          ("projection", "_obs_polar"), ("projection", "_obs_residuals")]
 dev = torch.device("cuda", 0)
 _build.build()
 _build.library()
@@ -192,30 +204,43 @@ def split(make, solve):
             "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
 
 
+paths = sys.argv[2].split(",")
 out = {"device": torch.cuda.get_device_name(0)}
 cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50, mode="mmd_opt",
                       noise="gaussian", noise_level=0.1)
-probe = Solver(cfg, device=dev, graph=False)
-scen = cs.obstacle_scenarios(torch, 8, 6, probe.ws.tot_time)
-out["fastrt"] = split(lambda g: Solver(cfg, device=dev, graph=g),
-                      lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i], 15.0))
-xs = torch.stack([x for x, _ in scen])
-ys = torch.stack([y for _, y in scen])
-out["e4"] = split(lambda g: Solver(cfg, device=dev, graph=g, scenario_chunk=4),
-                  lambda s, i: s.solve_batch([4 * i + j for j in range(4)], cs.INIT,
-                                             cs.MEAN, cs.COV, xs[4 * i:4 * i + 4],
-                                             ys[4 * i:4 * i + 4], 15.0))
 cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
                          num_prime=50, mode="mmd_opt")
-init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
-cut = dynamic_cutin(cfg_a, 2, device=dev)
-out["path_a_xla"] = split(lambda g: Solver(cfg_a, device=dev, graph=g),
-                          lambda s, i: s.solve(i, init_d, mean_d, cov_d, cut.x_traj[i],
-                                               cut.y_traj[i], v_des))
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
+if {"fastrt", "e4"} & set(paths):
+    probe = Solver(cfg, device=dev, graph=False)
+    scen = cs.obstacle_scenarios(torch, 8, 6, probe.ws.tot_time)
+    xs = torch.stack([x for x, _ in scen])
+    ys = torch.stack([y for _, y in scen])
+if "fastrt" in paths:
+    out["fastrt"] = split(lambda g: Solver(cfg, device=dev, graph=g),
+                          lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i], 15.0))
+if "e4" in paths:
+    out["e4"] = split(lambda g: Solver(cfg, device=dev, graph=g, scenario_chunk=4),
+                      lambda s, i: s.solve_batch([4 * i + j for j in range(4)], cs.INIT,
+                                                 cs.MEAN, cs.COV, xs[4 * i:4 * i + 4],
+                                                 ys[4 * i:4 * i + 4], 15.0))
+init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
+cut = dynamic_cutin(cfg_a, 2, device=dev)
+# Path A "xla" and Path B's modes: the dynamic cut-in workload
+for name, mode in (("path_a_xla", "mmd_opt"), ("path_b_cvar", "cvar"),
+                   ("path_b_saa", "saa"), ("path_b_mmd_random", "mmd_random")):
+    if name in paths:
+        c = cfg_a.with_risk_mode(mode)
+        out[name] = split(lambda g, c=c: Solver(c, device=dev, graph=g),
+                          lambda s, i: s.solve(i, init_d, mean_d, cov_d, cut.x_traj[i],
+                                               cut.y_traj[i], v_des))
 args = cs.onroad_problem(torch, cfg_d, dev)
-out["path_d_xla"] = split(lambda g: FrenetSolver(cfg_d, device=dev, graph=g),
+# Path D: the on-road FrenetSolver in mmd_opt ("xla") and det
+for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det")):
+    if name in paths:
+        c = cfg_d.with_risk_mode(mode)
+        out[name] = split(lambda g, c=c: FrenetSolver(c, device=dev, graph=g),
                           lambda s, i: s.solve(i, *args))
 print(json.dumps(out))
 """
@@ -226,11 +251,14 @@ def main(argv=None):
     p.add_argument("--root", default=str(ROOT),
                    help="root of the checkout whose package runs")
     p.add_argument("--out", default=str(OUT_DIR))
+    p.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS,
+                   help="the solves to split")
     a = p.parse_args(argv)
     root = Path(a.root).resolve()
     if not (root / "chip_smoke.py").is_file():
         raise SystemExit(f"inner_split: {root} holds no chip_smoke.py")
-    run = subprocess.run([sys.executable, "-c", WORKER, str(root)], cwd=root,
+    run = subprocess.run([sys.executable, "-c", WORKER, str(root), ",".join(a.paths)],
+                         cwd=root,
                          capture_output=True, text=True)
     if run.returncode:
         raise SystemExit(f"inner_split: failed:\n{run.stderr[-4000:]}")

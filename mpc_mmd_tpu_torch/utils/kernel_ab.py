@@ -68,7 +68,9 @@ floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
 ``torch._standard_gamma`` of both halves' parameters.  Kernel (d)
 (``kd_now``, ``csrc/outer_project.cu``; ``kd_before`` DIR's
 ``outer_project.cu``, built with DIR's headers first) at ``KD_SHAPES``
-(fastrt at chunks 1, 4 and 8, Path A, Path D; inputs from ``kd_inputs``):
+(fastrt at chunks 1, 4 and 8, Path A, Path D, and the obstacle-active form
+at Path D ``det`` and a straight solve with 6 obstacles; inputs from
+``kd_inputs``):
 each build and each forced launch choice of ``kd_now`` (``KD_CHOICES``:
 one or two rows a CTA, the run-time-shape instantiation) against the plain
 version (how many entries of each output are bit-equal) and bit-equal to
@@ -82,7 +84,11 @@ unwrap, the multiplier and right-hand-side contractions, the KKT solves,
 trajectory and lane rows, the polar re-estimate, the norms, the path and
 the outputs).  Kernel (e) (``ke_now``, ``ke_before``) at every forced
 cluster size (1, 2, 4, 8 CTAs a scenario) against its plain version and
-bit-equal to ``ke_before`` at ``KE_SHAPES`` (inputs from ``ke_inputs``):
+bit-equal to ``ke_before`` at ``KE_SHAPES`` (fastrt, Path A, Path D in
+``mmd_opt``, and the risk forms at Path B's ``cvar`` (also at a chunk of
+4), ``saa``, ``mmd_random`` and Path D's and its ``det``; inputs from
+``ke_inputs``; a form that DIR's source lacks is run by the current build
+alone):
 every output, the kept and elite indices and the pick included; each
 size's warm device time in turns, the picked size's L2-cold and evicted
 times, the size the kernel picks and the clock64 cycles of rank 0's
@@ -107,6 +113,7 @@ Writes
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import ctypes
 import json
 import os
@@ -160,10 +167,20 @@ KC_SHAPES = ((64, 64, 10, 12, "laplace"), (100, 100, 10, 20, "laplace"),
              (512, 64, 10, 12, "laplace"), (64, 64, 10, 12, "gaussian"),
              (64, 64, 10, 12, "matern52"), (2048, 64, 10, 12, "laplace"))
 
-# kernel (d)'s and (e)'s shapes: (workload, scenarios a chunk, on the road)
+# kernel (d)'s and (e)'s shapes: (workload, scenarios a chunk, on the road);
+# (d)'s obstacle-active form at Path D det and a straight solve with 6
+# obstacles, (e)'s risk forms at Path B's three modes (and its cvar at a
+# chunk of 4) and Path D's four
 KD_SHAPES = (("fastrt", 1, False), ("fastrt", 4, False), ("fastrt", 8, False),
-             ("path_a", 1, False), ("path_d", 1, True))
-KE_SHAPES = KD_SHAPES
+             ("path_a", 1, False), ("path_d", 1, True), ("path_d_det", 1, True),
+             ("fastrt_obs", 1, False))
+KE_SHAPES = KD_SHAPES[:5] + (
+    ("path_b_cvar", 1, False), ("path_b_saa", 1, False), ("path_b_mmd_random", 1, False),
+    ("path_b_cvar", 4, False), ("path_d_cvar", 1, True), ("path_d_saa", 1, True),
+    ("path_d_mmd_random", 1, True), ("path_d_det", 1, True))
+# what a build's source must hold for a form: the obstacle-active form of
+# (d), the risk forms of (e)
+KD_OBS_MARKER, KE_FORMS_MARKER = "obstacle_step", "kCvar"
 
 MICRO = r"""
 #include <cuda_runtime.h>
@@ -516,9 +533,11 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             entry = {"kd": "mmd_outer_project", "ke": "mmd_outer_tail",
                      "kf": "mmd_inner_prologue"}[kind]
             sig = list(_build._SIGNATURES[entry])
-            marker, current, drop = LATER_ARGS[kind]
-            earlier = marker not in sources[name][1] and (
-                marker in (_build.CSRC / current).read_text())
+            current, later = LATER_ARGS[kind]
+            now = (_build.CSRC / current).read_text()
+            drop = tuple(d for marker, at in later
+                         if marker not in sources[name][1] and marker in now for d in at)
+            earlier = bool(drop)
             if earlier:
                 sig = [t for i, t in enumerate(sig) if i not in {d % len(sig) for d in drop}]
             getattr(lib, entry).argtypes = sig
@@ -566,11 +585,13 @@ class EarlierEntry:
                                   if i not in {d % len(args) for d in self._drop}))
 
 
-# per kind: the argument an earlier entry may lack, the current source that
-# has it, and its positions in the current entry
-LATER_ARGS = {"kd": ("rows_per_cta", "outer_project.cu", (-3, -2)),
-              "ke": ("kept_cta", "outer_tail.cu", (31,)),
-              "kf": ("splits", "inner_prologue.cu", (-2,))}
+# per kind: the current source, and each argument an earlier entry may lack
+# (a name the source has with it) with its positions in the current entry
+LATER_ARGS = {"kd": ("outer_project.cu", (("rows_per_cta", (-13, -12)),
+                                          ("per_scen", tuple(range(-11, -1))))),
+              "ke": ("outer_tail.cu", (("kept_cta", (31,)),
+                                       ("q_lo_des", (44, -8, -7, -6, -5, -4, -3, -2)))),
+              "kf": ("inner_prologue.cu", (("splits", (-2,)),))}
 
 
 def resources(ptxas: str, so: Path) -> dict:
@@ -716,8 +737,10 @@ def kd_inputs(gen, cfg, N: int, path: bool = False):
     chip_smoke's initial state, the multipliers and lane slack that the
     plain version leaves after one iteration from zero (the state a second
     outer iteration carries) and N scenarios' obstacles (which set the
-    plain version's scenario count); with ``path`` a curved path of 600
-    points.  Returns (args, kwargs) of ``ops.outer_project``."""
+    plain version's scenario count: two, or with the obstacle terms the
+    configuration's num_obs, on the candidates' way); with ``path`` a
+    curved path of 600 points.  Returns (args, kwargs) of
+    ``ops.outer_project``."""
     from ..ops.outer_project import outer_project_plain
     from ..qp import boundary_vectors, build_workspace
     from ..sampling import initial_params
@@ -735,9 +758,12 @@ def kd_inputs(gen, cfg, N: int, path: bool = False):
     bx, by = boundary_vectors(cfg, torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0, 0.0], device=dev))
     bx, by = bx.repeat(N, 1), by.repeat(N, 1)
     t = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device=dev)
-    kw = dict(x_obs=torch.stack([30.0 + 8.0 * t + 5.0 * o for o in range(2 * N)]).reshape(
-                  N, 2, -1),
-              y_obs=torch.full((N, 2, cfg.horizon.num), 1.75, device=dev))
+    n_obs = cfg.obstacles.num_obs if cfg.projection.with_obstacle_terms else 2
+    lanes = torch.tensor([1.75, -1.75], device=dev)[torch.arange(N * n_obs, device=dev) % 2]
+    kw = dict(x_obs=torch.stack([30.0 + 8.0 * t + 5.0 * o for o in range(N * n_obs)]
+                                ).reshape(N, n_obs, -1),
+              y_obs=(lanes[:, None] * torch.ones_like(t)).reshape(N, n_obs, -1)
+              if n_obs != 2 else torch.full((N, 2, cfg.horizon.num), 1.75, device=dev))
     if path:
         s = torch.linspace(0.0, 300.0, 600, device=dev)
         kw.update(arc_vec=s, kappa=0.01 * torch.sin(s / 30.0))
@@ -749,17 +775,22 @@ def kd_inputs(gen, cfg, N: int, path: bool = False):
 
 
 def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
-    """Kernel (e)'s inputs for a chunk of N scenarios of ``cfg`` (mmd_opt),
-    on the generator's device: a projection of ``kd_inputs``' rows by the
-    plain version, its residual order, reduced rollouts around the
-    candidates' trajectories, weights and bandwidths, six obstacles along
-    the candidates' mean path, normal resample draws, chip_smoke's moments
-    (with ``nonpd`` a covariance that is not positive definite, whose
-    resample is NaN).  The plain tail's best elite of scenario 0 is copied
-    to its last position, so that the kept and the elites hold a tie in
-    risk and in cost.  Returns the arguments of ``ops.outer_tail``."""
+    """Kernel (e)'s inputs for a chunk of N scenarios of ``cfg`` in its
+    risk mode, on the generator's device: a projection of ``kd_inputs``'
+    rows by the plain version, its residual order, reduced rollouts around
+    the candidates' trajectories, weights and bandwidths (in ``mmd_random``
+    the uniform ones the solvers give it; None where the mode reads none,
+    and in ``det`` no rollouts either), six obstacles along the candidates'
+    mean path, normal resample draws, chip_smoke's moments (with ``nonpd``
+    a covariance that is not positive definite, whose resample is NaN).
+    Every scenario's candidate 3 has a NaN in a rollout and candidate 7
+    rollouts far from every obstacle and inside the lanes (no violation).
+    The plain tail's best elite of scenario 0 is copied to its last
+    position, so that the kept and the elites hold a tie in risk and in
+    cost.  Returns the arguments of ``ops.outer_tail``."""
     from ..ops.outer_project import outer_project_plain
     from ..ops.outer_tail import outer_tail_plain
+    from ..risk import uniform_weights
     dev = gen.device
     args, kw = kd_inputs(gen, cfg, N, frenet)
     pj = outer_project_plain(*args, **kw)
@@ -773,6 +804,15 @@ def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
     beta = torch.rand(N, nb, R, device=dev, generator=gen) + 0.1
     beta = beta / beta.sum(dim=-1, keepdim=True)
     sigma = 0.5 + torch.rand(N, nb, device=dev, generator=gen)
+    mode = cfg.risk.mode
+    if mode == "mmd_random":
+        beta, sigma = uniform_weights(cfg, (N, nb), dev)
+    elif mode != "mmd_opt":          # cvar, saa and det read no weights
+        beta = sigma = None
+    if nb > 7:
+        x_roll[:, 3, 0, T // 2] = float("nan")
+        x_roll[:, 7] = x_roll[:, 7] + 1.0e4
+        y_roll[:, 7] = 0.5 * (cfg.lane.y_lb + cfg.lane.y_ub)
     mid = pj.x.reshape(N, nb, num).mean(dim=1)                       # (N, num)
     x_obs = torch.stack([mid + 4.0 * o - 10.0 for o in range(6)], dim=1)
     y_obs = torch.tensor([-1.75, 1.75, 0.0, -1.75, 1.75, 0.0], device=dev)[None, :, None]
@@ -783,6 +823,8 @@ def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
     cov = (-cov if nonpd else cov).contiguous()
     v_des = torch.tensor(15.0, device=dev)
     res = torch.zeros(N, cfg.cem.maxiter_cem, device=dev)
+    if mode == "det":
+        x_roll = y_roll = None
     out = [cfg, frenet, pj, order, args[2].reshape(N, nb, 8), beta, sigma, x_roll, y_roll,
            x_obs, y_obs, z, mean, cov, v_des, res, res.clone(), 1]
     tail = outer_tail_plain(*out[:15], res.clone(), res.clone(), 1)
@@ -797,7 +839,8 @@ def ke_inputs(gen, cfg, N: int, frenet: bool = False, nonpd: bool = False):
     out[4] = out[4].clone()
     out[4][0, int(order[0, last])] = out[4][0, int(order[0, best])]
     for i in (5, 6, 7, 8):
-        out[i][0, last] = out[i][0, best]
+        if out[i] is not None:
+            out[i][0, last] = out[i][0, best]
     return out
 
 
@@ -952,18 +995,35 @@ FLUSH_FLOATS = 16 * 2 ** 20   # 64 MB, written between launches: past the 50 MB 
 
 def _workloads():
     from ..config import dynamic_workload, fastrt_workload, onroad_workload
+    obs = lambda cfg: cfg.replace(projection=dataclasses.replace(
+        cfg.projection, with_obstacle_terms=True))
     return {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
-            "path_d": onroad_workload()}
+            "path_d": onroad_workload(), "fastrt_obs": obs(fastrt_workload()),
+            "path_d_det": obs(onroad_workload(mode="det")),
+            **{f"path_b_{m}": dynamic_workload(noise_level=0.2, mode=m)
+               for m in ("cvar", "saa", "mmd_random")},
+            **{f"path_d_{m}": onroad_workload(mode=m) for m in ("cvar", "saa", "mmd_random")}}
+
+
+def _with_form(names: list, cfg, kind: str) -> list:
+    """The builds of ``names`` whose source has the form of kernel (d) or
+    (e) that ``cfg`` takes (an earlier build may lack it)."""
+    if kind == "kd" and cfg.projection.with_obstacle_terms:
+        return [n for n in names if KD_OBS_MARKER in SOURCES.get(n, "")]
+    if kind == "ke" and cfg.risk.mode != "mmd_opt":
+        return [n for n in names if KE_FORMS_MARKER in SOURCES.get(n, "")]
+    return names
 
 
 def evictor(lib, gen, name: str, N: int):
     """A launch of kernel (c) (``lib``'s) at the inner CEM's shape on the
     path of a KD / KE shape, as the solve's graph runs it before (d); None
     without ``lib``."""
-    if lib is None:
+    shapes = {"fastrt": (64 * N, 64, 10, 12), "path_a": (100, 100, 10, 20),
+              "path_d": (100, 100, 4, 20)}
+    if lib is None or name not in shapes:    # a path without kernel (c)
         return None
-    C, S, k, maxiter = {"fastrt": (64 * N, 64, 10, 12), "path_a": (100, 100, 10, 20),
-                        "path_d": (100, 100, 4, 20)}[name]
+    C, S, k, maxiter = shapes[name]
     inp, n_el, rho, reg = kc_inputs(gen, C, S, k, maxiter)
     outs = _kc(lib, inp, k, n_el, rho, reg, "laplace")
     return lambda: _kc(lib, inp, k, n_el, rho, reg, "laplace", outs)
@@ -1030,10 +1090,11 @@ def run_kd(libs: dict, names: list, gen, log, evict_lib=None, warm_only=False) -
     from ..ops.outer_project import OuterProjection, outer_project, outer_project_plain
     choices = (KD_CHOICES if "rows_per_cta" in inspect.signature(outer_project).parameters
                else {})
-    exact = [n for n in names if "_clock" not in n]
     cfgs = _workloads()
     recs = []
     for name, N, frenet in KD_SHAPES:
+        have = _with_form(names, cfgs[name], "kd")
+        exact = [n for n in have if "_clock" not in n]
         args, kw = kd_inputs(gen, cfgs[name], N, frenet)
         ref = outer_project_plain(*args, **kw)
         calls = {}
@@ -1058,7 +1119,7 @@ def run_kd(libs: dict, names: list, gen, log, evict_lib=None, warm_only=False) -
                            warm_only=warm_only)
         clock = {b: _clock_regions(libs[b], b, lambda b=b: outer_project(*args, **kw,
                                                                            lib=libs[b]))
-                 for b in names if "_clock" in b}
+                 for b in have if "_clock" in b}
         recs.append({"shape": [name, N], "bit_equal_to_plain": plain,
                      "bit_equal_to_before": before, "device_ms": times, "clock": clock})
         log(f"kernel (d) {name} x {N}: bit-equal to kd_before {before}; bit-equal entries "
@@ -1083,7 +1144,9 @@ def run_ke(libs: dict, names: list, gen, log, evict_lib=None, warm_only=False) -
     cfgs = _workloads()
     fields = TailResult._fields + ("res", "res_2")
     recs = []
+    all_names = names
     for name, N, frenet in KE_SHAPES:
+        names = _with_form(all_names, cfgs[name], "ke")
         args = ke_inputs(gen, cfgs[name], N, frenet)
         r1, r2 = args[15].clone(), args[16].clone()
         ref = tuple(outer_tail_plain(*args[:15], r1, r2, args[17])) + (r1, r2)

@@ -1,19 +1,22 @@
 """Single-solve latency and device work of two checkouts, timed in turns.
 
     python -m mpc_mmd_tpu_torch.utils.solve_ab --before DIR [--turns ABBA]
-        [--solves 3] [--out DIR]
+        [--solves 3] [--paths NAME ...] [--out DIR]
 
 ``--before DIR`` names the root of another checkout of this repository,
 for example ``git archive <commit>`` unpacked under ``build/``.  Each turn
 runs, in a fresh process and from one root's package, ``chip_smoke.py``'s
-full-width fastrt ``mmd_opt`` solve, Path A's fused and "xla" solves and
-Path D's "xla" ``FrenetSolver`` solve: one warm-up solve, ``--solves``
+full-width fastrt ``mmd_opt`` solve, Path A's fused and "xla" solves,
+Path B's ``cvar``, ``saa`` and ``mmd_random`` solves of that workload and
+Path D's "xla" and ``det`` ``FrenetSolver`` solves (or those that
+``--paths`` names): one warm-up solve, ``--solves``
 timed ones (wall ms to ``torch.cuda.synchronize``; their median and 99th
 percentile over a root's turns) and one under ``torch.profiler`` (device
 busy ms, idle share, device events); on the card each is a CUDA graph,
-whose node count is recorded.  Then the Path D closed-loop step
-(``path_d_step``): the solve times of two 20-step ``run_episode`` episodes
-on that solver, as ``chip_smoke.py`` 16b runs them.  The turns take the roots in
+whose node count is recorded.  Then the Path D closed-loop steps
+(``path_d_step`` in mmd_opt, ``path_d_det_step``): the solve times of two
+20-step ``run_episode`` episodes on that solver, as ``chip_smoke.py`` 16b
+runs them.  The turns take the roots in
 the order ``--turns`` gives (``A`` the checkout this module is in, ``B``
 the other), so a host that drifts during the call weighs on both.  Prints
 one JSON line per turn and the medians per root, and writes
@@ -34,6 +37,8 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "solve_ab"
+PATHS = ("fastrt", "path_a_fused", "path_a_xla", "path_b_cvar", "path_b_saa",
+         "path_b_mmd_random", "path_d_xla", "path_d_step", "path_d_det", "path_d_det_step")
 
 # One turn: run from the root in argv[1], with that root's package and
 # chip_smoke.py's problems.
@@ -73,39 +78,55 @@ def run(solve, solver):
             "graph_nodes": sum(g["nodes"] for g in solver.graph_stats())}
 
 
+paths = sys.argv[3].split(",")
 out = {}
 cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50, mode="mmd_opt",
                       noise="gaussian", noise_level=0.1)
-s = Solver(cfg, device=dev)
-scen = cs.obstacle_scenarios(torch, 4, 6, s.ws.tot_time)
-out["fastrt"] = run(lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0), s)
+if "fastrt" in paths:
+    s = Solver(cfg, device=dev)
+    scen = cs.obstacle_scenarios(torch, 4, 6, s.ws.tot_time)
+    out["fastrt"] = run(lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0),
+                        s)
 
 cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
                          num_prime=50, mode="mmd_opt")
 init, mean, cov, v_des = ego_initial_state("dynamic")
 cut = dynamic_cutin(cfg_a, 3, device=dev)
-os.environ["MPC_MMD_FUSED_CEM"] = "1"
-sa = Solver(cfg_a, device=dev)
-out["path_a_fused"] = run(lambda i: sa.solve(i, init, mean, cov, cut.x_traj[i % 3],
-                                             cut.y_traj[i % 3], v_des), sa)
-os.environ.pop("MPC_MMD_FUSED_CEM")
-sx = Solver(cfg_a, device=dev)
-out["path_a_xla"] = run(lambda i: sx.solve(i, init, mean, cov, cut.x_traj[i % 3],
-                                           cut.y_traj[i % 3], v_des), sx)
+# Path A fused and "xla", Path B's modes: the dynamic cut-in workload
+for name, mode, fused in (("path_a_fused", "mmd_opt", True),
+                          ("path_a_xla", "mmd_opt", False),
+                          ("path_b_cvar", "cvar", False), ("path_b_saa", "saa", False),
+                          ("path_b_mmd_random", "mmd_random", False)):
+    if name not in paths:
+        continue
+    if fused:
+        os.environ["MPC_MMD_FUSED_CEM"] = "1"
+    sa = Solver(cfg_a.with_risk_mode(mode), device=dev)
+    out[name] = run(lambda i: sa.solve(i, init, mean, cov, cut.x_traj[i % 3],
+                                       cut.y_traj[i % 3], v_des), sa)
+    os.environ.pop("MPC_MMD_FUSED_CEM", None)
 
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
 args = cs.onroad_problem(torch, cfg_d, dev)
-fs = FrenetSolver(cfg_d, device=dev)
-out["path_d_xla"] = run(lambda i: fs.solve(i, *args), fs)
-# the closed-loop step: two episodes of 20 steps on that solver
 from mpc_mmd_tpu_torch.closedloop import run_episode
-steps = []
-for _ in range(2):
-    r = run_episode(cfg_d, route_kind="curved", v_des=15.0, max_steps=20, goal_arc=300.0,
-                    seed=0, solver=fs)
-    steps += [1e3 * t for t in r.solve_times]
-out["path_d_step"] = {"ms": steps}
+# Path D in mmd_opt ("xla") and det, and each one's closed-loop step: the
+# solve times of two 20-step episodes on that solver
+for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det")):
+    step = "path_d_step" if mode == "mmd_opt" else f"{name}_step"
+    if name not in paths and step not in paths:
+        continue
+    c = cfg_d.with_risk_mode(mode)
+    fs = FrenetSolver(c, device=dev)
+    if name in paths:
+        out[name] = run(lambda i: fs.solve(i, *args), fs)
+    if step in paths:
+        steps = []
+        for _ in range(2):
+            r = run_episode(c, route_kind="curved", v_des=15.0, max_steps=20,
+                            goal_arc=300.0, seed=0, solver=fs)
+            steps += [1e3 * t for t in r.solve_times]
+        out[step] = {"ms": steps}
 print(json.dumps(out))
 """
 
@@ -118,6 +139,8 @@ def main(argv=None):
                    help="order of the turns, A = this checkout, B = --before")
     p.add_argument("--solves", type=int, default=3,
                    help="timed solves per path and turn")
+    p.add_argument("--paths", nargs="+", default=list(PATHS), choices=PATHS,
+                   help="the solves to time")
     p.add_argument("--out", default=str(OUT_DIR))
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -130,7 +153,8 @@ def main(argv=None):
             raise SystemExit(f"solve_ab: {r} holds no chip_smoke.py")
     turns = []
     for t in a.turns:
-        run = subprocess.run([sys.executable, "-c", WORKER, str(roots[t]), str(a.solves)],
+        run = subprocess.run([sys.executable, "-c", WORKER, str(roots[t]), str(a.solves),
+                              ",".join(a.paths)],
                              cwd=roots[t], capture_output=True, text=True)
         if run.returncode:
             raise SystemExit(f"solve_ab: turn {t} failed:\n{run.stderr[-4000:]}")

@@ -1203,3 +1203,91 @@ def test_frenet_points_kernel_equals_its_plain_version(cuda, N):
     assert frenet_points.launches == before + 1
     ref = global_to_frenet_points(frame, x, y)
     assert all(_same_bits(g, r) for g, r in zip(got, ref))
+
+
+def _onroad(mode="mmd_opt"):
+    from mpc_mmd_tpu_torch import onroad_workload
+    return onroad_workload(mode=mode)
+
+
+@pytest.mark.parametrize("name,N,frenet,mode", [
+    ("path_a", 1, False, "cvar"), ("path_a", 1, False, "saa"),
+    ("path_a", 1, False, "mmd_random"), ("path_a", 4, False, "cvar"),
+    ("path_d", 1, True, "cvar"), ("path_d", 1, True, "saa"),
+    ("path_d", 1, True, "mmd_random"), ("path_d", 1, True, "det")])
+def test_outer_tail_risk_forms_give_the_plain_chain_bits(cuda, name, N, frenet, mode):
+    """Kernel (e)'s other risk forms (Path B's three modes at 100
+    candidates, R 10, and its cvar at a chunk of 4; Path D's four, R 4) at
+    every cluster size against the plain chain on the card
+    (``kernel_ab.ke_inputs``: a rollout with a NaN, a candidate without a
+    violation, the best elite copied): every output bit-equal, the kept,
+    the elites and the pick exact."""
+    from mpc_mmd_tpu_torch.ops import outer_tail
+    from mpc_mmd_tpu_torch.ops.outer_tail import outer_tail_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import ke_inputs
+    cfg = {"path_a": dynamic_workload(noise_level=0.2, mode=mode),
+           "path_d": _onroad(mode)}[name]
+    args = ke_inputs(cuda, cfg, N, frenet)
+    res_p, res2_p = args[15].clone(), args[16].clone()
+    ref = tuple(outer_tail_plain(*args[:15], res_p, res2_p, args[17])) + (res_p, res2_p)
+    before = outer_tail.launches
+    for cluster in (0, 1, 2, 4, 8):
+        res_k, res2_k = args[15].clone(), args[16].clone()
+        got = tuple(outer_tail(*args[:15], res_k, res2_k, args[17], cluster=cluster)) + (
+            res_k, res2_k)
+        for i, (g, r) in enumerate(zip(got, ref)):
+            assert _bits(g, r), (i, cluster)
+    assert outer_tail.launches == before + 5
+
+
+@pytest.mark.parametrize("forced", [
+    {}, {"rows_per_cta": 1}, {"rows_per_cta": 2}, {"runtime_shape": True},
+    {"rows_per_cta": 2, "runtime_shape": True}])
+@pytest.mark.parametrize("name,N,frenet", [
+    ("path_d", 1, True), ("fastrt", 1, False), ("fastrt", 4, False)])
+def test_outer_project_obstacle_form_gives_the_plain_chain_bits(cuda, name, N, frenet,
+                                                                forced):
+    """Kernel (d)'s obstacle-active form (Path D ``det``, 4 obstacle blocks,
+    and a straight solve with 6, alone and at a chunk of 4) at each launch
+    choice: every output bit-equal to the plain chain on the card."""
+    from mpc_mmd_tpu_torch.ops import outer_project
+    from mpc_mmd_tpu_torch.ops.outer_project import outer_project_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kd_inputs
+    cfg = {"fastrt": fastrt_workload(), "path_d": _onroad("det")}[name]
+    cfg = cfg.replace(projection=dataclasses.replace(cfg.projection,
+                                                     with_obstacle_terms=True))
+    args, kw = kd_inputs(cuda, cfg, N, frenet)
+    got = outer_project(*args, **kw, **forced)
+    ref = outer_project_plain(*args, **kw)
+    for field, g, r in zip(got._fields, got, ref):
+        assert _bits(g, r), field
+
+
+@pytest.mark.parametrize("mode", ["cvar", "det"])
+def test_graphed_path_b_cvar_and_path_d_det_equal_the_eager_ones(cuda, mode):
+    """Path B ``cvar`` and Path D ``det``, on kernels (d) and (e): the
+    graphed solves bit-equal to the eager ones."""
+    from mpc_mmd_tpu_torch import FrenetSolver
+    if mode == "cvar":
+        from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
+        cfg = dynamic_workload(noise_level=0.2, mode="cvar")
+        init, mean, cov, v_des = ego_initial_state("dynamic")
+        cut = dynamic_cutin(cfg, 2, device="cuda")
+        make = lambda graph: Solver(cfg, device="cuda", graph=graph)
+        calls = [lambda s, i=i: s.solve(i, init, mean, cov, cut.x_traj[i], cut.y_traj[i],
+                                        v_des) for i in range(2)]
+    else:
+        from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
+        from mpc_mmd_tpu_torch.frenet import build_smoother
+        cfg = _onroad("det")
+        plant = SyntheticPlant(cfg, make_route("curved"),
+                               ((12.0, 0.5), (18.0, 3.0), (40.0, 0.0), (60.0, 3.5)),
+                               obstacle_speed=1.0)
+        tot_time = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device="cuda")
+        frame, xo, yo, init = local_problem(cfg, plant, build_smoother(
+            cfg.frenet.num_path, device="cuda"), tot_time)
+        cov = np.diag([20.0] * 4 + [100.0] * 4)
+        make = lambda graph: FrenetSolver(cfg, device="cuda", graph=graph)
+        calls = [lambda s, i=i: s.solve(i, init, [10.0 + i] * 4 + [0.0] * 4, cov, xo, yo,
+                                        10.0, frame) for i in range(2)]
+    graph_against_eager(make, calls)

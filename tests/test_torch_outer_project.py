@@ -1,5 +1,5 @@
 """Kernel (d)'s wrapper ``ops.outer_project`` against the JAX package's
-guess QP, projection and controls.
+guess QP, projection and controls, with and without the obstacle terms.
 
 On the CPU the wrapper runs its plain version (``outer_project_plain``:
 ``qp.compute_guess``, ``projection.project``,
@@ -9,7 +9,10 @@ kernel against that chain.  Both packages get the same float32 workspace,
 parameters, boundary rows and carried multipliers and slack (those a JAX
 projection leaves), made from a numpy seed, at 16 candidates with and
 without a path, at one and two AM rounds; row 1's desired speeds lie past
-v_max, so that the polar clip saturates.  Tolerances: the coefficients
+v_max, so that the polar clip saturates; with ``with_obstacle_terms`` (the
+``det`` projection, ``mpc_mmd_tpu/projection.py:150-260``) two obstacles
+on the candidates' way, against JAX ``project(..., with_obstacle_terms)``
+with its obstacle-augmented workspace.  Tolerances: the coefficients
 within 2e-3 and the trajectories, residuals, multipliers and slack within
 1e-4 of their scale (``tests/test_torch_qp.py``: float32 sums of
 coefficient-sized terms in another order); the controls within 1e-3 of
@@ -37,11 +40,21 @@ torch.set_num_threads(1)
 NB = 16
 
 
-def _case(maxiter, path, seed=0):
-    """(cfg, the JAX workspace, the port's, inputs as numpy, path kwargs)."""
+def _obstacles(num):
+    """Two obstacles (2, num) on the candidates' way: one ahead in their
+    lane, slower, and one in the other lane."""
+    t = np.linspace(0.0, 15.0, num)
+    return (np.stack([25.0 + 8.0 * t, 60.0 + 5.0 * t]).astype(np.float32),
+            np.stack([1.75 + 0 * t, -1.75 + 0 * t]).astype(np.float32))
+
+
+def _case(maxiter, path, seed=0, obs=False):
+    """(cfg, the JAX workspace, the port's, inputs as numpy, path kwargs);
+    with ``obs`` the obstacle terms, and the kwargs carry the obstacles."""
     cfg = jc.fastrt_workload(num_reduced=4, num_obs=2, num_prime=15)
     cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=NB),
-                      projection=dataclasses.replace(cfg.projection, maxiter=maxiter))
+                      projection=dataclasses.replace(cfg.projection, maxiter=maxiter,
+                                                     with_obstacle_terms=obs))
     jws = jqp.build_workspace(cfg)
     tws = workspace_from_numpy({n: np.asarray(getattr(jws, n)) for n in jws._fields},
                                "cpu")
@@ -59,10 +72,14 @@ def _case(maxiter, path, seed=0):
     # iteration's carried state
     nvar, num = cfg.horizon.nvar, cfg.horizon.num
     gx, gy = jqp.compute_guess(cfg, jws, jnp.asarray(params), bx, by)
+    if obs:
+        kw["x_obs"], kw["y_obs"] = _obstacles(num)
     zo = jnp.zeros((2, num))
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    jkw.setdefault("x_obs", zo)
+    jkw.setdefault("y_obs", zo)
     first = jproj.project(cfg, jws, gx, gy, bx, by, jnp.zeros((NB, nvar)),
-                          jnp.zeros((NB, nvar)), jnp.zeros((NB, 2 * (num - 1))), zo, zo,
-                          **{k: jnp.asarray(v) for k, v in kw.items()})
+                          jnp.zeros((NB, nvar)), jnp.zeros((NB, 2 * (num - 1))), **jkw)
     carried = [np.asarray(t) for t in (first.lamda_x, first.lamda_y, first.s_lane)]
     return cfg, jws, tws, [params, bx, by, *carried], kw
 
@@ -72,17 +89,26 @@ def _jax(cfg, jws, inputs, kw):
     params, bx, by, lx, ly, sl = map(jnp.asarray, inputs)
     gx, gy = jqp.compute_guess(cfg, jws, params, bx, by)
     zo = jnp.zeros((2, cfg.horizon.num))
-    pr = jproj.project(cfg, jws, gx, gy, bx, by, lx, ly, sl, zo, zo,
-                       **{k: jnp.asarray(v) for k, v in kw.items()})
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    jkw.setdefault("x_obs", zo)
+    jkw.setdefault("y_obs", zo)
+    pr = jproj.project(cfg, jws, gx, gy, bx, by, lx, ly, sl, **jkw)
     acc, steer = jdyn.controls_from_trajectory(pr.xdot, pr.ydot, pr.xddot, pr.yddot,
                                                cfg.horizon.dt, cfg.vehicle.wheel_base)
     return dict(pr._asdict(), acc=acc, steer=steer), gx
 
 
-@pytest.mark.parametrize("maxiter", [1, 2])
-@pytest.mark.parametrize("path", [False, True])
-def test_outer_project_matches_jax(maxiter, path):
-    cfg, jws, tws, inputs, kw = _case(maxiter, path)
+# (path, AM rounds, obstacle terms); the cases without obstacle terms keep
+# the ids [path-maxiter] they had before
+PROJECT_CASES = [pytest.param(path, maxiter, False, id=f"{path}-{maxiter}")
+                 for path in (False, True) for maxiter in (1, 2)] + [
+    pytest.param(path, maxiter, True, id=f"obstacles-{'road' if path else 'straight'}-"
+                 f"{maxiter}") for path in (False, True) for maxiter in (1, 2)]
+
+
+@pytest.mark.parametrize("path,maxiter,obs", PROJECT_CASES)
+def test_outer_project_matches_jax(path, maxiter, obs):
+    cfg, jws, tws, inputs, kw = _case(maxiter, path, obs=obs)
     ref, gx = _jax(cfg, jws, inputs, kw)
     # row 1's guess drives faster than v_max: its velocity radius is clipped
     speed = np.abs(np.asarray(jws.Pdot) @ np.asarray(gx[1]))
@@ -101,6 +127,17 @@ def test_outer_project_matches_jax(maxiter, path):
         np.testing.assert_allclose(g, r, rtol=0, atol=tol, err_msg=name)
     assert bool(got.steering.any()) == path
     assert bool(got.kappa_interp.any()) == path
+    if obs:    # the obstacle terms move the trajectories: the stochastic form differs
+        plain = outer_project_plain(
+            to_torch_cfg(cfg.replace(projection=dataclasses.replace(
+                cfg.projection, with_obstacle_terms=False))),
+            workspace_from_numpy({n: np.asarray(getattr(jqp.build_workspace(
+                cfg.replace(projection=dataclasses.replace(
+                    cfg.projection, with_obstacle_terms=False))), n))
+                for n in jws._fields}, "cpu"),
+            *(torch.from_numpy(np.array(a)) for a in inputs),
+            **{k: torch.from_numpy(v) for k, v in kw.items()})
+        assert float((plain.y - got.y).abs().max()) > 1e-2
 
 
 def test_outer_project_on_the_cpu_is_the_plain_version():
@@ -127,6 +164,18 @@ def test_outer_project_refuses_what_neither_version_takes():
     with pytest.raises(ValueError, match="path"):
         ops.outer_project(tcfg, tws, *args, arc_vec=path["arc_vec"],
                           kappa=path["kappa"][:-1])
+    # the obstacle terms are taken now (test_outer_project_matches_jax); they
+    # still need the obstacles, one block each of num steps
+    cfg, _, tws, inputs, kw = _case(1, False, obs=True)
+    tcfg = to_torch_cfg(cfg)
+    args = [torch.from_numpy(np.array(a)) for a in inputs]
+    xo, yo = (torch.from_numpy(kw[k]) for k in ("x_obs", "y_obs"))
+    with pytest.raises(ValueError, match="obstacle"):
+        ops.outer_project(tcfg, tws, *args)
+    with pytest.raises(ValueError, match="obstacle"):
+        ops.outer_project(tcfg, tws, *args, x_obs=xo[:, :-1], y_obs=yo[:, :-1])
+    with pytest.raises(ValueError, match="obstacle"):
+        ops.outer_project(tcfg, tws, *args, x_obs=xo[:1], y_obs=yo[:1])
 
 
 @pytest.mark.parametrize("shape,rows,forced,runtime,want", [

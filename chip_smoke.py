@@ -17,8 +17,10 @@ Phases, each of which must pass:
 3. each kernel against its plain PyTorch twin on the card, with CUDA-event
    times of both:
    K1 top-k indices equal exactly at every shape a solve path launches it
-   with (``launch_shapes``; the "xla" selection launches kernel (c)
-   instead: the "xt" and "g" selections' fastrt (64, 57, 101), k = 10,
+   with (``launch_shapes``: every selection runs as a form of kernel (c),
+   so no path launches K1, K2, K2t or K3; they are checked at the shapes
+   where the forms' chains, their plain versions, launch them): the "xt"
+   and "g" selections' fastrt (64, 57, 101), k = 10,
    "xt"'s iteration-0 batch (1, 64, 101), "g"'s (64, 64, 101), and the
    elite pick (64, 64), k = 7; the same on Path A, (100, 89, 101), (1,
    100, 101) and (100, 100, 101), and Path D, (100, 89, 17), (1, 100, 17)
@@ -47,20 +49,28 @@ Phases, each of which must pass:
    equal exactly, row sums and K_red within rtol 1e-5 + atol 1e-6;
    K5 one-hot top-k at (64, 57, 101), k = 10: indices and one-hot rows
    equal exactly;
-   kernel (c), the whole inner beta-CEM of the "xla" selection
-   (``ops.inner_cem``), against its plain version (``inner_cem_plain``: K1,
-   K2 and PyTorch's operations, on the card) from the same inputs at every
-   shape a path launches it with (``launch_shapes``: fastrt's 64
-   candidates, 64 samples, M = 100, k = 10, 12 iterations; Path E's chunks
-   of 4 and 8 (256 and 512 candidates); Path A's 100 x 100, M = 100, 20
-   iterations; Path D's 100 x 100, M = 16, k = 4; Path F's M = 25 and
-   225), at fastrt's with the gaussian and matern52 kernels, and at 11a's
-   chunk of 32 (2,048 candidates), a NaN lane and tied |beta| in the first
-   batch: at one iteration the winners' indices equal exactly and their
-   weights, bandwidths and costs within rtol 1e-5 + atol 1e-6; at the
-   path's iterations every candidate's costs within rtol 1e-4 + atol 1e-6,
-   at most 2 % of a shape's candidates apart (each logged with the first
-   iteration apart); how many candidates are bit-equal is logged;
+   kernel (c), the whole inner beta-CEM (``ops.inner_cem``) in the form of
+   each (selection, elite-carry) pair, against its plain version
+   (``inner_cem_plain``: the pair's chain of K1, K2, K2t, K3 and
+   PyTorch's operations, on the card) from the same inputs at every shape
+   and form a path launches it with (``launch_shapes``: "xla" at fastrt's
+   64 candidates, 64 samples, M = 100, k = 10, 12 iterations, Path E's
+   chunks of 4 and 8 (256 and 512 candidates), Path A's 100 x 100, M =
+   100, 20 iterations, Path D's 100 x 100, M = 16, k = 4, Path F's M = 25
+   and 225; without elite-carry at fastrt's; "fused" at Path A, its chunk
+   of 4 (400 candidates), Path D, F5 and F15; "xt" at fastrt, Path A, Path
+   D, F5 and F15; "g" at fastrt, Path A, Path D and F15), "xla" also at
+   fastrt's with the gaussian and matern52 kernels, at 11a's chunk of 32
+   (2,048 candidates) and without elite-carry at F15 (its elites run
+   again), a NaN lane and tied |beta| in the first batch (and an infinite
+   lane for "fused"): "xla" with elite-carry at one iteration the winners'
+   indices equal exactly and their weights, bandwidths and costs within
+   rtol 1e-5 + atol 1e-6, at the path's iterations every candidate's costs
+   within rtol 1e-4 + atol 1e-6, at most 2 % of a shape's candidates apart
+   (each logged with the first iteration apart); every other form bit for
+   bit in every output of every candidate at one iteration and the path's,
+   and "fused" at the chunk of 4 also against each scenario's 100
+   candidates alone; how many candidates are bit-equal is logged;
    kernel (d), the outer iteration's guess QP, AM projection and controls
    (``ops.outer_project``, ``csrc/outer_project.cu``), against its plain
    version (``outer_project_plain``) from the same inputs
@@ -122,12 +132,12 @@ Phases, each of which must pass:
    selection (``MPC_MMD_FUSED_CEM=1``) at full width: 100 candidates x 20
    iterations, 100 mother rollouts, inner CEM 100 samples x 20 iterations,
    Beta noise 0.2; one warm-up solve, then 2 cut-in scenarios of
-   ``scenarios.dynamic_cutin``, each checked as in 4, with
-   exactly maxiter_cem x beta_cem.maxiter launches each of K3, K2 and K1
-   and maxiter_cem each of K4n and kernel (f) per solve; one more fused solve under
-   ``torch.profiler`` (device busy ms, idle share, K3's device ms per
-   solve); then 2 solves with the default "xla" selection (kernel (c)) at
-   the same width;
+   ``scenarios.dynamic_cutin``, each checked as in 4, with exactly
+   maxiter_cem launches each of kernel (c)'s fused form, K4n and kernel
+   (f) per solve and none of K1, K2 and K3 (``inner_launches``); one more
+   fused solve under ``torch.profiler`` (device busy ms, idle share, the
+   fused form's device ms per solve); then 2 solves with the default
+   "xla" selection (kernel (c)) at the same width;
 7. Path B, the same workload in ``cvar`` (one warm-up, 2 solves), then one
    solve each of ``mmd_random`` and ``saa``: finite, with exactly one
    launch each of kernels (d) and (e) and K4n an outer iteration and the
@@ -169,8 +179,8 @@ Phases, each of which must pass:
       steering_best and exactly 20 launches each of kernels (c), (d), (e),
       K4n and kernels (f) and (g) (no K1, no K2, no K4),
       and one more under ``torch.profiler`` (device busy, idle share);
-   c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 400 each of K3, K2
-      and K1 and 20 each of K4n and kernels (f) and (g);
+   c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 20 each of kernel
+      (c)'s fused form, K4n and kernels (f) and (g), no K1, K2 or K3;
    d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 launches
       each of K4n, kernels (g), (d) and (e), no K4) and ``det`` (no
       rollout: 20 each of (d)'s obstacle-active form and (e)'s ``det``
@@ -200,8 +210,9 @@ Phases, each of which must pass:
    b. a chunk of 4 tie-free blocking scenarios against each scenario
       solved alone on the card, on the same draws: cx, cy and risk_obs
       within 1e-4 of their scale;
-   c. Path A fused at chunk 4 over 4 cut-in scenarios: exactly 400 each
-      of K3, K2 and K1 and 20 each of K4n and kernel (f) per chunk;
+   c. Path A fused at chunk 4 over 4 cut-in scenarios: exactly 20 each of
+      kernel (c)'s fused form, K4n and kernel (f) per chunk, no K1, K2 or
+      K3;
    d. Path B ``cvar`` at chunk 4: exactly 20 launches each of K4n and
       kernels (d) and (e) per chunk;
    e. the sweep CLI over Path C's 40 static scenarios in ``mmd_opt`` with
@@ -216,13 +227,14 @@ Phases, each of which must pass:
       identical draws, held as in 5.
    Each of a, c-f runs with the launch counts set to 0 just before it and
    read just after.
-12. the "xt" and "g" selections (``MPC_MMD_SELECTION``): one warm-up and
-   one counted solve each of fastrt, Path A and Path D (``FrenetSolver``),
-   finite, with exactly 2 x maxiter_cem x beta_cem.maxiter K1 launches,
-   maxiter_cem x beta_cem.maxiter of K2's lane-major entry ("xt") or of
-   K2 ("g"), and maxiter_cem of K4; then one outer iteration of each on
-   the card against the CPU with identical draws, held as in 5 (Path D
-   on seed 1's draws);
+12. the "xt" and "g" selections (``MPC_MMD_SELECTION``) and "xla" without
+   elite-carry (``MPC_MMD_ELITE_CARRY=0``): one warm-up and one counted
+   solve each of fastrt, Path A and Path D (``FrenetSolver``; fastrt alone
+   without elite-carry), finite, with exactly maxiter_cem launches of
+   kernel (c) in the pair's form and none of K1, K2 and K2t, and
+   maxiter_cem of K4n; then one outer iteration of each on the card
+   against the CPU with identical draws, held as in 5 (Path D on seed 1's
+   draws);
 13. the distribution layer (``parallel/mesh.py``):
    a. a one-rank NCCL group in this process: ``sharded_sweep`` over 8
       fastrt scenarios, bit-equal to ``solve_batch`` with 8 solves'
@@ -258,9 +270,10 @@ Phases, each of which must pass:
       warm-up and 3 timed solves each, launches per solve exactly what
       ``launch_shapes`` (and phase 3's K3 and K4 shapes) give the path;
       then one outer iteration on the card against the CPU with identical
-      draws, held as in 5; and one solve under "g" at N = 15 (its blocked
-      (C, S', M, M) exponential is 1.8 GB an inner iteration), its time
-      and peak memory logged, launches as in 12;
+      draws, held as in 5; and one solve under "g" at N = 15 (kernel (c)'s
+      form; its chain's blocked (C, S', M, M) exponential was 1.8 GB an
+      inner iteration), its time and peak memory logged, launches as in
+      12;
    c. the sweep CLI at ``--workload static --costs mmd_opt cvar --noises
       beta --noise_levels 0.3 --num_reduced_sets 5 15 --num_obs 6
       --num_prime 50 --num_configs 4``, each store's meta naming its N, and
@@ -316,9 +329,10 @@ Phases, each of which must pass:
       the path launched, every replay under CUDA's sync debug mode at
       "error", and every result kept unchanged to the end: three
       full-width fastrt solves (other seeds, scenarios, initial states and
-      v_des; the first captures), two ``solve_batch`` calls of 7 scenarios
-      at chunk 4 (a graph for the chunk of 4 and one for the short chunk of
-      3), three Path A fused solves with Beta noise, two Path A "xla"
+      v_des; the first captures), the same under "xt", two ``solve_batch``
+      calls of 7 scenarios at chunk 4 (a graph for the chunk of 4 and one
+      for the short chunk of 3), three Path A fused solves with Beta noise
+      (kernel (c)'s fused form), two Path A "xla"
       and two Path B ``cvar`` solves with Beta noise, and three Path D
       ``FrenetSolver`` steps of a moving plant (state, frame, obstacles,
       mean and v_des all changed) in ``mmd_opt`` and in ``det``; each
@@ -341,11 +355,12 @@ Prints phase 16's JSON record (``{"graph": ...}``), the kernels' JSON
 record and the card's nvidia-smi line, and as the last line ``{"ok": true,
 "device": {...}}``.  In the kernels' record, ``launches`` counts the
 launches of the paths' runs (phases 4, 6, 7, 9 a-e, g, 10 b-d, f, 11 a,
-c-f, 12, 13, 14 b-c and 16 a-b; K2's lane-major entry, its own
-row, launches only under "xt" in 12 and 14b; kernel (c) on every path
-of the "xla" selection, one launch an outer iteration, where K1 and K2
-launch only under "fused", "xt" and "g"); K5
-is on no path of the package, and its count is that of its own phase.
+c-f, 12, 13, 14 b-c and 16 a-b; kernel (c) on every path of every
+selection, one launch an outer iteration, and its forms' rows
+``inner_cem_fused``, ``inner_cem_xt`` and ``inner_cem_g`` those of their
+form; K1, K2, K2t and K3 on none since kernel (c) took every selection:
+their rows time them at the chains' shapes); K5 is on no path of the
+package, and its count is that of its own phase.
 Kernels (d) and (e) launch once an outer iteration wherever
 ``loop_launches`` routes them, and the shapes of ``outer_shapes`` add
 up to every path's count (``check_launch_shapes``); so do K4n and
@@ -504,49 +519,72 @@ def f32_bytes(*tensors):
 
 
 def launch_shapes(paths):
-    """K1's, K2's and kernel (c)'s launch shapes on each path, from its
-    configuration.
+    """K1's, K2's, K2t's, K3's and kernel (c)'s launch shapes on each path,
+    from its configuration.
 
-    ``paths`` maps a path's name to (config, selection) or, for a path
-    that solves scenario chunks, (config, selection, scenarios per chunk):
-    a chunk of N scenarios runs one outer loop over its N x num_batch
-    candidates.  Returns (k1, k2, k2t, kc): k1 maps (shape, k, kwargs), k2
-    and k2t (K2's lane-major entry) (number of systems, n), kc (C, S, M, k,
-    maxiter, kernel kind) to {path: launches per solve (per chunk)}.  The
-    "xla" selection runs with elite-carry as kernel (c), one launch an
-    outer iteration, and launches neither K1 nor K2.  "xt" runs with
-    elite-carry: the top-k of the shared iteration-0 batch (1, S, M+1) and
-    the QP of all C x S rows once per outer iteration, then the S - n_el
-    fresh rows of every candidate through K2's lane-major entry; "g" the
-    same with K2, but its iteration 0 takes the top-k of the broadcast (C,
-    S, M+1) batch; the "fused" one recomputes every row with K3 and solves
-    C x S systems.  These three pick the n_el elites of every candidate's S
-    costs with K1 in every inner iteration.
+    ``paths`` maps a path's name to (config, selection), or (config,
+    selection, scenarios per chunk) for a path that solves scenario chunks
+    (a chunk of N scenarios runs one outer loop over its N x num_batch
+    candidates), or (config, selection, chunk, elite-carry).  Returns (k1,
+    k2, k2t, k3, kc): k1 maps (shape, k, kwargs), k2 and k2t (K2's
+    lane-major entry) (number of systems, n), k3 (C, S, M+1, k), kc (C, S,
+    M, k, maxiter, kernel kind, selection, elite-carry) to {path: launches
+    per solve (per chunk)}.  Every (selection, elite-carry) pair runs as
+    kernel (c)'s form of it, one launch an outer iteration
+    (``inner_launches``), and launches none of K1, K2, K2t and K3: those
+    tables name, with 0 launches, the shapes at which the pair's chain (its
+    plain version) launches them, which phase 3 checks and times: with
+    elite-carry the top-k of the shared iteration-0 batch (1, S, M+1) ("g":
+    of the broadcast (C, S, M+1) batch) and the QP of all C x S rows once
+    per outer iteration, then the S - n_el fresh rows of every candidate,
+    through K2 (K2's lane-major entry under "xt"); without it every row's
+    top-k and QP every iteration; "fused" K3 and K2 on every row; and the
+    elite pick of every candidate's S costs with K1.  The "xla" selection
+    with elite-carry names no chain shape.
     """
-    k1, k2, k2t, kc = {}, {}, {}, {}
-    for path, (cfg, selection, *chunk) in paths.items():
-        b, C = cfg.beta_cem, cfg.cem.num_batch * (chunk[0] if chunk else 1)
+    k1, k2, k2t, k3, kc = {}, {}, {}, {}, {}
+    for path, (cfg, selection, *rest) in paths.items():
+        chunk = rest[0] if rest else 1
+        carry = (rest[1] if len(rest) > 1 else True) and selection != "fused"
+        b, C = cfg.beta_cem, cfg.cem.num_batch * chunk
         S, n_el, it, outer = (b.num_samples_cem, b.num_ellite, b.maxiter,
                               cfg.cem.maxiter_cem)
         M, k = cfg.risk.num_mother, cfg.risk.num_reduced
-        if selection == "xla":
-            kc.setdefault((C, S, M, k, it, cfg.risk.kernel), {})[path] = outer
+        kc.setdefault((C, S, M, k, it, cfg.risk.kernel, selection, carry), {})[path] = outer
+        if (selection, carry) == ("xla", True):
             continue
         sel = (("absolute", True), ("slice_to", M))
         # K2 is keyed by (systems, n): two paths may solve as many systems
         # of another size
+        t1, t3 = {((C, S), n_el, ())}, set()
         if selection == "fused":
-            t1 = {}
-            t2 = {(C * S, k): it * outer}
+            t3, t2 = {(C, S, M + 1, k)}, {(C * S, k)}
+        elif carry:
+            t1 |= {((C, S - n_el, M + 1), k, sel), ((C if selection == "g" else 1, S, M + 1),
+                                                   k, sel)}
+            t2 = {(C * (S - n_el), k), (C * S, k)}
         else:
-            t1 = {((C, S - n_el, M + 1), k, sel): (it - 1) * outer,
-                  ((C if selection == "g" else 1, S, M + 1), k, sel): outer}
-            t2 = {(C * (S - n_el), k): (it - 1) * outer, (C * S, k): outer}
-        t1[((C, S), n_el, ())] = it * outer
-        for table, add in ((k1, t1), (k2t if selection == "xt" else k2, t2)):
-            for key, n in add.items():
-                table.setdefault(key, {})[path] = n
-    return k1, k2, k2t, kc
+            t1.add(((C, S, M + 1), k, sel))
+            t2 = {(C * S, k)}
+        for table, keys in ((k1, t1), (k2t if selection == "xt" else k2, t2), (k3, t3)):
+            for key in keys:
+                table.setdefault(key, {})[path] = 0
+    return k1, k2, k2t, k3, kc
+
+
+def inner_launches(cfg, selection, carry=True, n=1):
+    """The inner CEM's launches in ``n`` solves (or chunks) of ``cfg`` under
+    the (selection, elite-carry) pair: kernel (c) once an outer iteration,
+    and its form's own count (``ops.inner_cem_fused``, ``_xt``, ``_g``)."""
+    from mpc_mmd_tpu_torch.ops.inner_cem import FORMS
+    outer = n * cfg.cem.maxiter_cem
+    return {"inner_cem": outer,
+            **({FORMS[selection].__name__: outer} if selection in FORMS else {})}
+
+
+def kernels_of(ops, want):
+    """The wrappers named in ``want`` with a count above 0."""
+    return tuple(fn for fn in ops.KERNELS if want.get(fn.__name__))
 
 
 def check_launch_shapes(tables, per_solve):
@@ -783,22 +821,21 @@ def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400,
                 library=("no single call", None))
 
 
-def check_fused_selection(torch, ops, plain, dev, gen):
+def check_fused_selection(torch, ops, plain, dev, gen, k3_at):
     """K3 at the dynamic workload's (100, 100, 101) and the fastrt
     (64, 64, 101) selection shapes, k = 10, at the on-road (100, 100,
     17), k = 4, at Path A's chunk of 4 scenarios (400, 100, 101), and at
     Path F's (100, 100, 26), k = 5, and (100, 100, 226), k = 15 (D read
-    from device memory there); D from random features.  Returns the
-    dynamic shape's record, with the on-road, chunk and Path F ones under
-    ``cases``."""
+    from device memory there); D from random features.  ``k3_at``:
+    ``launch_shapes``' K3 table (the fused chain's shapes, at which no path
+    launches K3: kernel (c)'s fused form runs instead).
+    Returns the dynamic shape's record, with the on-road, chunk and Path F
+    ones under ``cases``."""
     err = 0.0
     cases = []
-    for C, S, M, k, at in ((100, 100, 100, 10, {"path_a_fused": 400}),
-                           (64, 64, 100, 10, None),
-                           (100, 100, 16, 4, {"path_d_fused": 400}),
-                           (400, 100, 100, 10, {"path_e_fused4": 400}),
-                           *((100, 100, N * N, N, {f"path_f{N}_fused": 400})
-                             for N in RECORD_SIZES)):
+    for C, S, M, k in ((100, 100, 100, 10), (64, 64, 100, 10), (100, 100, 16, 4),
+                       (400, 100, 100, 10), *((100, 100, N * N, N) for N in RECORD_SIZES)):
+        at = None if C == 64 else k3_at.get((C, S, M + 1, k), {})
         samples = torch.randn(C, S, M + 1, device=dev, generator=gen)
         samples[..., M] = samples[..., M].abs() * 3 + 0.01
         samples[0, 1, 7] = float("nan")                      # NaN lane
@@ -852,37 +889,83 @@ def check_topk_onehot(torch, ops, plain, dev, gen):
                 ops=idx.numel() * 100, library=("no single call", None))
 
 
+# Kernel (c)'s forms other than "xla": the record's name (the form's own
+# launch count), its source and what it replaces
+KC_FORMS = {
+    "fused": ("inner_cem_fused", "inner_cem_fused.cu",
+              "mpc_mmd_tpu/ops/topk_kernel_pallas.py:87 (K3's pallas_call, the "
+              "fused selection mpc_mmd_tpu/reduced_set.py:494-496 inside the inner "
+              "beta-CEM's lax.scan :740, compiled by XLA)"),
+    "xt": ("inner_cem_xt", "inner_cem.cu",
+           "mpc_mmd_tpu/ops/qp_pallas.py:85 (K2's lane-major entry and K1 "
+           "topk_pallas.py:116, the xt selection mpc_mmd_tpu/reduced_set.py:511-531 "
+           "inside the inner beta-CEM's lax.scan :700, compiled by XLA)"),
+    "g": ("inner_cem_g", "inner_cem.cu",
+          "mpc_mmd_tpu/ops/topk_pallas.py:116 (K1 and K2 qp_pallas.py:109, the g "
+          "selection mpc_mmd_tpu/reduced_set.py:497-510 inside the inner beta-CEM's "
+          "lax.scan :700, compiled by XLA)")}
+
+
 def check_inner_cem(torch, ops, gen, shapes):
-    """Kernel (c) against its plain version (``inner_cem_plain``: K1, K2
-    and PyTorch's operations) on the card at every path shape
-    (``launch_shapes``' (C, S, M, k, maxiter, kind), and the shapes it
-    maps to no launch), from the same inputs (``kernel_ab.kc_inputs``: a
-    NaN lane and tied |beta| in the first batch): at one iteration the
-    winners' indices equal exactly, their weights and bandwidths and the
-    costs within rtol 1e-5 + atol 1e-6; at the path's maxiter each
-    candidate's costs within rtol 1e-4 + atol 1e-6 at every iteration, for
-    all but at most 2 % of a shape's candidates (two costs within
-    round-off may swap elites where the resample's products round apart:
-    each such candidate is logged with its first iteration apart).
-    Returns the first shape's record, the others under ``cases``."""
-    from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain, last_cluster_size
+    """Kernel (c) against its plain versions on the card at every path
+    shape and form (``launch_shapes``' (C, S, M, k, maxiter, kind,
+    selection, elite-carry), and the shapes it maps to no launch), from the
+    same inputs (``kernel_ab.kc_inputs``: a NaN lane and tied |beta| in the
+    first batch, and an infinite lane for "fused"; under "g" the
+    coefficients whose L1 distances D are).  The "xla" form with elite-carry
+    against ``inner_cem_plain``'s "xla" chain: at one iteration the winners'
+    indices equal exactly, their weights and bandwidths and the costs
+    within rtol 1e-5 + atol 1e-6; at the path's maxiter each candidate's
+    costs within rtol 1e-4 + atol 1e-6 at every iteration, for all but at
+    most 2 % of a shape's candidates (two costs within round-off may swap
+    elites where the resample's products round apart: each such candidate
+    is logged with its first iteration apart).  Every other form against
+    its pair's chain (``inner_cem_plain(..., selection, carry)``: K1, K2,
+    K2t, K3 and PyTorch's operations) bit for bit in every output of every
+    candidate (NaN to NaN), at one iteration and the path's; "fused" at a
+    chunk of 4 scenarios also against each scenario's candidates alone.
+    How many candidates are bit-equal is logged.  Returns {form: record}
+    ("xla", "fused", "xt", "g"): a form's first shape's record, its others
+    under ``cases`` (the "xla" form without elite-carry among "xla"'s), each
+    timed on inputs without the edge rows (``kc_inputs(edges=False)``)."""
+    from mpc_mmd_tpu_torch.ops.inner_cem import inner_cem_plain, last_cluster_size, recomputes
     from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
-    cases, err = [], 0.0
-    for (C, S, M, k, maxiter, kind), at in shapes.items():
-        label = f"C={C}, S={S}, M={M}, k={k}, maxiter={maxiter}, {kind}"
+    cases, err = {}, {}
+    names = ("beta_w", "sigma_w", "idx_best", "res")
+    for (C, S, M, k, maxiter, kind, selection, carry), at in shapes.items():
+        label = (f"C={C}, S={S}, M={M}, k={k}, maxiter={maxiter}, {kind}, "
+                 f"{selection!r}, elite-carry {carry}")
+        strict = (selection, carry) != ("xla", True)
         for iters in (1, maxiter):
-            inp, n_el, rho, reg = kc_inputs(gen, C, S, k, iters, kind)
+            inp, n_el, rho, reg, _, cx, cy = kc_inputs(
+                gen, C, S, k, iters, kind, inf_lane=selection == "fused", full=True)
+            form = dict(selection=selection, carry=carry,
+                        coeffs=(cx, cy) if selection == "g" else None)
             args = (*inp, k, n_el, rho, reg, kind)
-            got = ops.inner_cem(*args)
+            got = ops.inner_cem(*args, **form)
             cluster = last_cluster_size() if got[0].is_cuda else None
-            ref = inner_cem_plain(*args)
+            ref = inner_cem_plain(*args, **form)
             torch.cuda.synchronize()
-            if not all(bool(torch.isfinite(g).all()) for g in (got[0], got[1], got[3])):
+            each = {name: int(((g == r) | (g.isnan() & r.isnan())).reshape(C, -1)
+                              .all(dim=1).sum()) for name, g, r in zip(names, got, ref)}
+            if strict:
+                if each != {name: C for name in names}:
+                    fail(f"kernel (c) inner_cem: the form is not bit-equal to its "
+                         f"chain at {label}, {iters} iteration(s): {each} of {C}")
+                if selection == "fused" and C % 4 == 0 and C >= 400:
+                    # a chunk of 4 scenarios against each scenario alone
+                    q = C // 4
+                    for lo in range(0, C, q):
+                        part = (inp[0][lo:lo + q].contiguous(), None, *inp[2:])
+                        alone = ops.inner_cem(*part, k, n_el, rho, reg, kind, **form)
+                        if not all(torch.equal(a[lo:lo + q], b)
+                                   for a, b in zip(got, alone)):
+                            fail(f"kernel (c) inner_cem: the fused form's chunk of 4 "
+                                 f"differs from its candidates {lo}-{lo + q - 1} "
+                                 f"alone at {label}")
+            elif not all(bool(torch.isfinite(g).all()) for g in (got[0], got[1], got[3])):
                 fail(f"kernel (c) inner_cem: non-finite output at {label}")
-            same = torch.ones(C, dtype=torch.bool, device=got[0].device)
-            for g, r in zip(got, ref):
-                same &= (g == r).reshape(C, -1).all(dim=1)
-            if iters == 1:
+            elif iters == 1:
                 for name, g, r in (("beta_w", got[0], ref[0]), ("sigma_w", got[1], ref[1]),
                                    ("res", got[3], ref[3])):
                     bad = (g - r).abs() > 1e-5 * r.abs() + 1e-6
@@ -905,29 +988,39 @@ def check_inner_cem(torch, ops, gen, shapes):
                     fail(f"kernel (c) inner_cem: {len(apart)} of {C} candidates' costs "
                          f"outside rtol 1e-4 + atol 1e-6 of the plain version, more "
                          f"than 2 %, at {label}")
-            err = max(err, float((got[3] - ref[3]).abs().max()))
-            each = {name: int((g == r).reshape(C, -1).all(dim=1).sum()) for name, g, r in
-                    zip(("beta_w", "sigma_w", "idx_best", "res"), got, ref)}
+            gap = ((got[3] - ref[3]).abs().nan_to_num(0.0)).max()
+            key = selection if selection in KC_FORMS else "xla"
+            err[key] = max(err.get(key, 0.0), float(gap))
             log(f"kernel (c) at {label}, {iters} iteration(s), clusters of {cluster} "
-                f"CTA(s) a candidate: {int(same.sum())} of "
-                f"{C} candidates bit-equal to the plain version in every output "
-                f"({each}); max |res gap| {float((got[3] - ref[3]).abs().max()):.3e}")
+                f"CTA(s) a candidate: {min(each.values())} of {C} candidates bit-equal "
+                f"to the plain version in every output ({each}); max |res gap| "
+                f"{float(gap):.3e}")
         if not at:
             continue
-        rows = S + (maxiter - 1) * (S - n_el)
-        cases.append(dict(
-            shape=label, call=(lambda a=args: ops.inner_cem(*a)),
+        # timed on inputs without the edge rows: under "fused" a NaN lane
+        # turns every fresh row into a sentinel row, whose rounds it skips
+        inp, n_el, rho, reg, _, cx, cy = kc_inputs(gen, C, S, k, maxiter, kind, full=True,
+                                                   edges=False)
+        form = dict(form, coeffs=(cx, cy) if selection == "g" else None)
+        args = (*inp, k, n_el, rho, reg, kind)
+        rows = S + (maxiter - 1) * (S if recomputes(selection, carry, M) else S - n_el)
+        cases.setdefault(selection if selection in KC_FORMS else "xla", []).append(dict(
+            shape=label, call=(lambda a=args, f=form: ops.inner_cem(*a, **f)),
             match="inner_cem_kernel", launches_per_solve=at,
             nbytes=f32_bytes(*(t for t in inp if t is not None), got[0], got[1], got[3])
             + 8 * got[2].numel(),
             # a division, an exp and an add per (row, selected row, column), as K3
             ops=3 * C * rows * k * M, library=("no single call", None),
-            was_device_ms=KC_WAS_MS.get((C, S, M, k, maxiter, kind)),
-            plain_ms=cuda_ms(torch, lambda a=args: inner_cem_plain(*a), reps=3,
-                             warmup=1)))
-    main = dict(cases[0], max_abs_err=err, cases=cases)
-    main["ms"] = cuda_ms(torch, main["call"], reps=20)
-    return main
+            was_device_ms=(KC_WAS_MS.get((C, S, M, k, maxiter, kind))
+                           if not strict else None),
+            plain_ms=cuda_ms(torch, lambda a=args, f=form: inner_cem_plain(*a, **f),
+                             reps=3, warmup=1)))
+    out = {}
+    for key, recs in cases.items():
+        main = dict(recs[0], max_abs_err=err[key], cases=recs)
+        main["ms"] = cuda_ms(torch, main["call"], reps=20)
+        out[key] = main
+    return out
 
 
 def obstacle_terms(cfg):
@@ -1403,13 +1496,15 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc, kd_, ke_, k4n, kf, kg):
+                  kd, kb, kc, kd_, ke_, k4n, kf, kg, kc_forms):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape), ``kd`` kernel (a)'s record,
     ``kd_``, ``ke_`` kernel (d)'s and (e)'s and ``k4n``, ``kf``, ``kg``
-    K4n's and kernel (f)'s and (g)'s.  The draw kernels replace no
-    TPU kernel: ``replaces`` names the JAX package's draw site and the
-    XLA lowering they stand for."""
+    K4n's and kernel (f)'s and (g)'s, ``kc_forms`` kernel (c)'s by form
+    (``check_inner_cem``): "inner_cem" counts the launches of every form,
+    ``inner_cem_fused``, ``_xt`` and ``_g`` those of their form.  The draw
+    kernels replace no TPU kernel: ``replaces`` names the JAX package's
+    draw site and the XLA lowering they stand for."""
     record = []
     for fn, src_file, tpu, (rec, largest) in (
             (ops.topk_indices, "topk.cu", "mpc_mmd_tpu/ops/topk_pallas.py:116",
@@ -1450,7 +1545,9 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
              "the inner CEM, compiled by XLA; no Pallas kernel)", (kf, None)),
             (ops.frenet_points, "frenet_points.cu", "mpc_mmd_tpu/solver_frenet.py:197 "
              "(global_to_frenet_points frenet.py:229 through _nearest :168, compiled by "
-             "XLA; no Pallas kernel)", (kg, None))):
+             "XLA; no Pallas kernel)", (kg, None)),
+            *((getattr(ops, name), src, tpu, (kc_forms[f], None))
+              for f, (name, src, tpu) in KC_FORMS.items() if f in kc_forms)):
         name = fn.__name__
         row = {"name": name, "route": "cuda",
                "source": f"mpc_mmd_tpu_torch/csrc/{src_file}", "replaces": tpu,
@@ -1789,24 +1886,26 @@ def traced(fn):
 
 def trace_path_a(torch, ops, solver, cfg, call):
     """One Path A fused solve under ``torch.profiler``: device busy ms, idle
-    share and K3's device ms per solve."""
+    share and the device ms per solve of its inner CEM's kernel (kernel
+    (c)'s fused form, or K3 where the chain runs)."""
     r, summary, prof = traced(lambda: solver.solve(call[0], *call[1]))
     check_solve(r, cfg)
-    k3 = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and "topk_kernel_matrices_kernel" in e.name]
-    k3_ms = sum(e.time_range.elapsed_us() for e in k3) / 1e3
-    n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
+    on_kc = "inner_cem" in inner_launches(cfg, "fused")
+    name = "inner_cem_kernel" if on_kc else "topk_kernel_matrices_kernel"
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and name in e.name]
+    ev_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    n = cfg.cem.maxiter_cem * (1 if on_kc else cfg.beta_cem.maxiter)
     # the launches themselves are counted exactly by the wrapper (the path's
     # check); the profiler may drop a record, never add one
-    if not n_inner <= 2 * len(k3) <= 2 * n_inner:
-        fail(f"Path A trace: {len(k3)} K3 device events in one solve of "
-             f"{n_inner} launches")
+    if not n <= 2 * len(ev) <= 2 * n:
+        fail(f"Path A trace: {len(ev)} {name} device events in one solve of "
+             f"{n} launches")
     log(f"Path A fused, one solve under torch.profiler: {summary['wall_ms']:.1f} ms "
         f"wall, device busy {summary['device_busy_ms']:.2f} ms, idle share "
-        f"{summary['idle_share']:.3f}, {summary['device_events']} device events; K3 "
-        f"{k3_ms:.3f} ms over {len(k3)} launches (PERF.md's profile before the K3 "
-        f"redesign: busy 90.9 ms, idle 0.786, K3 33.2 ms over 400); top "
+        f"{summary['idle_share']:.3f}, {summary['device_events']} device events; "
+        f"{name} {ev_ms:.3f} ms over {len(ev)} launches (the fused chain, K3 and its "
+        f"glue, in PERF.md: busy 45.2 ms, K3 9.1 ms over 400); top "
         f"{summary['top'][:4]}")
 
 
@@ -2108,14 +2207,14 @@ def path_d(torch, ops, dev, cfg, per_solve):
         f"{summary['device_events']} device events; top {summary['top'][:5]}")
 
     # c. the fused selection
+    inner_f = inner_launches(cfg, "fused")
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
-    r, secs, got = counted(torch, ops, "Path D fused", (K3, K2, K1, K4, KG, D),
+    r, secs, got = counted(torch, ops, "Path D fused",
+                           kernels_of(ops, inner_f) + (K4, KG, D),
                            lambda: solver.solve(4, *args))
     os.environ.pop("MPC_MMD_FUSED_CEM")
     check_frenet_solve(r, cfg, "Path D fused")
-    expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner, **draws}, 1,
-           "Path D fused")
+    expect(got, {**inner_f, **draws}, 1, "Path D fused")
     path_launches.append(got)
     per_solve["path_d_fused"] = dict(got)
     log(f"Path D mmd_opt, fused selection: {1e3 * secs:.1f} ms (first fused "
@@ -2303,22 +2402,20 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
     # c. Path A with the fused selection at chunk 4
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
     cut = dynamic_cutin(cfg_a, 8, device=dev)
-    outer_a, n_inner = cfg_a.cem.maxiter_cem, cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
+    inner_f = inner_launches(cfg_a, "fused")
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
     try:
         sa = Solver(cfg_a, device=dev, scenario_chunk=4)
         check_rows(sa.solve_batch([5, 6, 7, 8], init_d, mean_d, cov_d, cut.x_traj[4:],
                                   cut.y_traj[4:], v_des), cfg_a)        # warm-up
         r, secs, got = counted(
-            torch, ops, "Path E fused chunk", (K3, K2, K1, K4, D, B),
+            torch, ops, "Path E fused chunk", kernels_of(ops, inner_f) + (K4, D, B),
             lambda: sa.solve_batch([1, 2, 3, 4], init_d, mean_d, cov_d,
                                    cut.x_traj[:4], cut.y_traj[:4], v_des))
     finally:
         os.environ.pop("MPC_MMD_FUSED_CEM")
     check_rows(r, cfg_a)
-    expect(got, {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-                 "topk_indices": n_inner,
-                 **loop_launches(cfg_a)}, "Path E c, one chunk of 4")
+    expect(got, {**inner_f, **loop_launches(cfg_a)}, "Path E c, one chunk of 4")
     per_solve["path_e_fused4"] = dict(got)
     path_launches.append(got)
     log(f"Path E c, Path A fused at scenario_chunk 4 (4 cut-in scenarios): "
@@ -2413,14 +2510,14 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
 
 def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     """Phase 12: the "xt" and "g" selections (``MPC_MMD_SELECTION``) on the
-    fastrt, Path A and Path D solves (see the module docstring).  Returns
-    the launch counts of its runs; adds each run's launches per solve to
-    ``per_solve``."""
+    fastrt, Path A and Path D solves, and the fastrt solve without
+    elite-carry (``MPC_MMD_ELITE_CARRY=0``; see the module docstring).
+    Returns the launch counts of its runs; adds each run's launches per
+    solve to ``per_solve``."""
     from mpc_mmd_tpu_torch import FrenetSolver, Solver
     from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
-    K1, K2, K2t, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.eq_qp_solve_t,
-                       ops.noisy_rollout)
+    K4 = ops.noisy_rollout
     names = [fn.__name__ for fn in ops.KERNELS]
     init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
     cut = dynamic_cutin(cfg_a, 2, device=dev)
@@ -2440,18 +2537,37 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
                                 fastrt.ws.tot_time.cpu(), blocking=True)[0]
     one_iter = lambda c: c.replace(cem=dataclasses.replace(c.cem, maxiter_cem=1))
     path_launches = []
-    for sel, qp in (("xt", K2t), ("g", K2)):
+    # fastrt "xla" without elite-carry: its chain's bits from kernel (c)
+    os.environ["MPC_MMD_ELITE_CARRY"] = "0"
+    try:
+        check_solve(fastrt.solve(0, INIT, MEAN, COV, *scen[0], 15.0), cfg)  # warm-up
+        inner = inner_launches(cfg, "xla", carry=False)
+        r, secs, got = counted(torch, ops, "fastrt xla, no elite-carry",
+                               kernels_of(ops, inner) + (K4, ops.prng_draws),
+                               lambda: fastrt.solve(1, INIT, MEAN, COV, *scen[1], 15.0))
+        check_solve(r, cfg)
+        want = {k: {**inner, **loop_launches(cfg)}.get(k, 0) for k in names}
+        if got != want:
+            fail(f"fastrt without elite-carry: launches {got}, expected {want}")
+        per_solve["fastrt_nocarry"] = dict(got)
+        path_launches.append(got)
+        log(f"fastrt mmd_opt, 'xla' without elite-carry: {1e3 * secs:.1f} ms a solve, "
+            f"risk_obs {float(r.risk_obs):.4f}; launches {got}")
+        cuda_vs_cpu(torch, one_iter(cfg), (INIT, MEAN, COV, xo, yo, 15.0),
+                    "fastrt xla, no elite-carry")
+    finally:
+        os.environ.pop("MPC_MMD_ELITE_CARRY")
+    for sel in ("xt", "g"):
         os.environ["MPC_MMD_SELECTION"] = sel
         try:
             for name, (c, solver, check, calls) in paths.items():
                 check(solver.solve(calls[0][0], *calls[0][1]), c)       # warm-up
+                inner = inner_launches(c, sel)
                 r, secs, got = counted(torch, ops, f"{name} {sel}",
-                                       (K1, qp, K4, ops.prng_draws),
+                                       kernels_of(ops, inner) + (K4, ops.prng_draws),
                                        lambda: solver.solve(calls[1][0], *calls[1][1]))
                 check(r, c)
-                n_inner = c.cem.maxiter_cem * c.beta_cem.maxiter
-                want = {K1.__name__: 2 * n_inner, qp.__name__: n_inner,
-                        **loop_launches(c, frenet=name == "path_d")}
+                want = {**inner, **loop_launches(c, frenet=name == "path_d")}
                 want = {k: want.get(k, 0) for k in names}
                 if got != want:
                     fail(f"{name} with the {sel!r} selection: launches {got}, "
@@ -2789,9 +2905,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
     t_phase = time.perf_counter()
-    K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
-                      ops.noisy_rollout)
-    KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
+    K4, KC, D, B = ops.noisy_rollout, ops.inner_cem, ops.prng_draws, ops.prng_beta
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches, record = [], {}
 
@@ -2824,9 +2938,17 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         g_a, e_a, got = graph_against_eager(
             torch, ops, "Path A fused, Beta noise",
             lambda graph: Solver(cfg_a, device=dev, graph=graph), a_calls,
-            (K3, K2, K1, K4, D, B))
+            kernels_of(ops, inner_launches(cfg_a, "fused")) + (K4, D, B))
     finally:
         os.environ.pop("MPC_MMD_FUSED_CEM")
+    path_launches.append(got)
+    os.environ["MPC_MMD_SELECTION"] = "xt"
+    try:
+        _, _, got = graph_against_eager(
+            torch, ops, "fastrt xt", lambda graph: Solver(cfg, device=dev, graph=graph),
+            fastrt_calls, kernels_of(ops, inner_launches(cfg, "xt")) + (K4, D))
+    finally:
+        os.environ.pop("MPC_MMD_SELECTION")
     path_launches.append(got)
     g_ax, e_ax, got = graph_against_eager(
         torch, ops, "Path A xla, Beta noise",
@@ -2901,7 +3023,8 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     record["closed_loop_step_mean_ms"] = {k: 1e3 * float(np.mean(v))
                                           for k, v in episodes.items()}
     got = ops.launch_counts()
-    missing = [fn.__name__ for fn in (K1, K2, K3, K4, KC, D, B) if got[fn.__name__] < 1]
+    missing = [fn.__name__ for fn in (*kernels_of(ops, inner_launches(cfg_a, "fused")),
+                                      K4, KC, D, B) if got[fn.__name__] < 1]
     if missing:
         fail(f"16b: kernels of the timed paths not launched: {missing}")
     path_launches.append(got)
@@ -3069,21 +3192,20 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
     # iteration in G_BLOCK_BYTES blocks, once, its time and peak memory
     # logged with no limit on either
     from mpc_mmd_tpu_torch.reduced_set import G_BLOCK_BYTES
+    cfg, solver, calls = solvers[15]
+    inner = inner_launches(cfg, "g")
     os.environ["MPC_MMD_SELECTION"] = "g"
     try:
-        cfg, solver, calls = solvers[15]
         r, secs, got = counted(torch, ops, "14b N = 15 g",
-                               (ops.topk_indices, ops.eq_qp_solve, ops.noisy_rollout,
-                                ops.inner_prologue, ops.prng_draws, ops.prng_beta),
+                               kernels_of(ops, inner) + (
+                                   ops.noisy_rollout, ops.inner_prologue,
+                                   ops.prng_draws, ops.prng_beta),
                                lambda: solver.solve(calls[0][0], *calls[0][1]))
     finally:
         os.environ.pop("MPC_MMD_SELECTION")
     check_solve(r, cfg)
-    n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     expect = {k: 0 for k in names}
-    expect.update({ops.topk_indices.__name__: 2 * n_inner,
-                   ops.eq_qp_solve.__name__: n_inner,
-                   **loop_launches(cfg)})
+    expect.update({**inner, **loop_launches(cfg)})
     if got != expect:
         fail(f"14b N = 15 g: launches {got}, expected {expect}")
     path_launches.append(got)
@@ -3200,7 +3322,9 @@ def main():
     # Path F: the JAX record's static beta 0.3 cells at N = 5 and 15
     paths_f = {f"path_f{N}_{sel}": (record_config(N), sel)
                for N in RECORD_SIZES for sel in SELECTIONS_F}
-    k1_at, k2_at, k2t_at, kc_at = launch_shapes({**paths_f, "fastrt": (cfg, "xla"),
+    # (each form's first path shape heads its record: fastrt, Path A fused)
+    k1_at, k2_at, k2t_at, k3_at, kc_at = launch_shapes({
+                                  "fastrt": (cfg, "xla"),
                                   "sweep_mmd_opt": (cfg, "xla"),
                                   "path_a_fused": (cfg_a, "fused"),
                                   "path_a_xla": (cfg_a, "xla"),
@@ -3215,8 +3339,9 @@ def main():
                                   "fastrt_xt": (cfg, "xt"), "path_a_xt": (cfg_a, "xt"),
                                   "path_d_xt": (cfg_d, "xt"), "fastrt_g": (cfg, "g"),
                                   "path_a_g": (cfg_a, "g"), "path_d_g": (cfg_d, "g"),
+                                  "fastrt_nocarry": (cfg, "xla", 1, False),
                                   "dist_nccl": (cfg, "xla"),
-                                  "dist_mesh_sweep": (cfg, "xla", 4)})
+                                  "dist_mesh_sweep": (cfg, "xla", 4), **paths_f})
     # the draw kernels' shapes, on the paths whose launches per solve are read
     # after a warm-up solve (a fresh solver's first solve adds the
     # solver-fixed draws), and the validator's chunks of 256 and 176 solves
@@ -3232,7 +3357,7 @@ def main():
         "path_d_exact": (cfg_dx, True, 1), "fastrt_xt": (cfg, False, 1),
         "path_a_xt": (cfg_a, False, 1), "path_d_xt": (cfg_d, True, 1),
         "fastrt_g": (cfg, False, 1), "path_a_g": (cfg_a, False, 1),
-        "path_d_g": (cfg_d, True, 1),
+        "path_d_g": (cfg_d, True, 1), "fastrt_nocarry": (cfg, False, 1),
         **{p: (c, False, 1) for p, (c, _) in paths_f.items()}})
     draw_at[(768, 50_000)] = {"validator_1200": 4}
     draw_at[(528, 50_000)] = {"validator_1200": 1}
@@ -3279,7 +3404,7 @@ def main():
     k4v = check_rollout(torch, ops, rollout_plain, dev, gen, lanes=256_000)
     log(f"K4 fused_rollout at the validator's shape (256,000 x 50): max abs err "
         f"{k4v['max_abs_err']:.3e}; {k4v['ms']:.4f} ms vs plain {k4v['plain_ms']:.4f} ms")
-    k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen)
+    k3 = check_fused_selection(torch, ops, topk_kernel_matrices_plain, dev, gen, k3_at)
     log(f"K3 topk_kernel_matrices: indices exact, max abs err {k3['max_abs_err']:.3e}; "
         f"{k3['ms']:.4f} ms vs plain {k3['plain_ms']:.4f} ms at (100, 100, 101); "
         f"plain {k3['cases'][1]['plain_ms']:.4f} ms at (100, 100, 17), k=4, "
@@ -3287,16 +3412,25 @@ def main():
     k5 = check_topk_onehot(torch, ops, topk_onehot_plain, dev, gen)
     k5_launches = ops.topk_onehot.launches
     log(f"K5 topk_onehot: exact; {k5['ms']:.4f} ms vs plain {k5['plain_ms']:.4f} ms")
-    # kernel (c) at every "xla" path shape, the gaussian and matern52 solves of
-    # 9g and 11a's chunk of 32 scenarios (no counted launches there)
+    # kernel (c) at every path shape and form, the gaussian and matern52
+    # solves of 9g, 11a's chunk of 32 scenarios, "xla" without elite-carry
+    # at N = 15 (its elites run again) and 14b's "g" solve at N = 15 (no
+    # counted launches there)
     main_kc = (cfg.cem.num_batch, cfg.beta_cem.num_samples_cem, cfg.risk.num_mother,
                cfg.risk.num_reduced, cfg.beta_cem.maxiter)     # fastrt's, first
-    kc = check_inner_cem(torch, ops, gen, {
-        main_kc + ("laplace",): kc_at[main_kc + ("laplace",)], **kc_at,
-        **{main_kc + (kind,): {} for kind in ("gaussian", "matern52")},
-        (32 * main_kc[0],) + main_kc[1:] + ("laplace",): {}})
-    log(f"kernel (c) inner_cem: at {len(kc_at) + 3} shapes within the tolerances; "
-        f"{kc['ms']:.4f} ms vs plain {kc['plain_ms']:.4f} ms at {kc['shape']}")
+    xla = ("xla", True)
+    kc_forms = check_inner_cem(torch, ops, gen, {
+        main_kc + ("laplace",) + xla: kc_at[main_kc + ("laplace",) + xla], **kc_at,
+        **{main_kc + (kind,) + xla: {} for kind in ("gaussian", "matern52")},
+        (32 * main_kc[0],) + main_kc[1:] + ("laplace",) + xla: {},
+        (100, 100, 225, 15, 20, "laplace", "xla", False): {},
+        (100, 100, 225, 15, 20, "laplace", "g", True): {}})
+    kc = kc_forms["xla"]
+    log(f"kernel (c) inner_cem: at {len(kc_at) + 5} shapes and forms within the "
+        f"tolerances (every form but 'xla' with elite-carry bit-equal to its chain); "
+        f"{kc['ms']:.4f} ms vs plain {kc['plain_ms']:.4f} ms at {kc['shape']}; forms "
+        + "; ".join(f"{f} {r['ms']:.4f} ms vs plain {r['plain_ms']:.4f} ms at {r['shape']}"
+                    for f, r in kc_forms.items() if f != "xla"))
     # kernels (d) and (e) at every shape and form a path launches them with
     # (each risk mode a form of (e), det's obstacle terms a form of (d)), at
     # 11a's chunk of 32 scenarios and (d)'s obstacle form at a straight
@@ -3307,7 +3441,8 @@ def main():
     on = lambda name, chunk=1: (name, workloads[name][0], workloads[name][1], chunk)
     outer_paths = {
         **{p: on("fastrt") for p in ("fastrt", "sweep_mmd_opt", "path_e_chunk1",
-                                     "fastrt_xt", "fastrt_g", "dist_nccl")},
+                                     "fastrt_xt", "fastrt_g", "fastrt_nocarry",
+                                     "dist_nccl")},
         **{p: on(f"f{c.risk.num_reduced}") for p, (c, _) in paths_f.items()},
         **{p: on("fastrt", 4) for p in ("path_e_chunk4", "sweep_batch_mmd_opt",
                                         "dist_mesh_sweep")},
@@ -3354,7 +3489,8 @@ def main():
     floor_ms = profiled_ms(torch, lambda: one.fill_(1.0), match="")[0]
     log(f"launch floor: fill_ of one float, {floor_ms:.4f} ms device time")
     for name, rec in (("K1", k1), ("K2", k2), ("K2 lane-major", k2t), ("K3", k3),
-                      ("K4", k4), ("K4", k4v), ("K5", k5), ("kernel (c)", kc),
+                      ("K4", k4), ("K4", k4v), ("K5", k5),
+                      *((f"kernel (c) {f!r}", r) for f, r in kc_forms.items()),
                       ("kernel (d)", kd_rec), ("kernel (e)", ke_rec), ("K4n", k4n_rec),
                       ("kernel (f)", kf_rec), ("kernel (g)", kg_rec)):
         measure(torch, name, rec)
@@ -3391,15 +3527,13 @@ def main():
     torch.cuda.synchronize()
     log(f"Path A warm-up solve: {time.perf_counter() - t0:.2f} s")
     calls_a = [(i, (init_d, mean_d, cov_d, xs[i], ys[i], v_des)) for i in (1, 2)]
+    inner_a = inner_launches(cfg_a, "fused")
     got = timed_solves(torch, ops, solver_a, cfg_a, calls_a,
                        "Path A (dynamic cut-in, beta 0.2, mmd_opt, fused selection)",
-                       (ops.topk_kernel_matrices, ops.eq_qp_solve,
-                        ops.topk_indices, ops.noisy_rollout, ops.inner_prologue,
-                        ops.prng_draws, ops.prng_beta))
-    n_inner = cfg_a.cem.maxiter_cem * cfg_a.beta_cem.maxiter
-    want = {"topk_kernel_matrices": n_inner, "eq_qp_solve": n_inner,
-            "topk_indices": n_inner,
-            **loop_launches(cfg_a)}
+                       kernels_of(ops, inner_a) + (
+                           ops.noisy_rollout, ops.inner_prologue, ops.prng_draws,
+                           ops.prng_beta))
+    want = {**inner_a, **loop_launches(cfg_a)}
     want = {fn.__name__: want.get(fn.__name__, 0) * len(calls_a) for fn in ops.KERNELS}
     if got != want:
         fail(f"Path A launches {got}, expected {want} ({len(calls_a)} solves)")
@@ -3466,6 +3600,8 @@ def main():
         # ---- 14. every reduced-set size, the record's N = 5 and 15 cells ----
         shape_tables = {"topk_indices": k1_at, "eq_qp_solve": k2_at,
                         "eq_qp_solve_t": k2t_at, "inner_cem": kc_at,
+                        **{name: {key: at for key, at in kc_at.items() if key[6] == f}
+                           for f, (name, _, _) in KC_FORMS.items()},
                         "topk_kernel_matrices": checked(k3),
                         "fused_rollout": checked(k4),
                         "prng_draws": draw_at, "outer_project": kd_at,
@@ -3487,11 +3623,14 @@ def main():
     launches["topk_onehot"] = k5_launches
     check_launch_shapes(shape_tables, per_solve)
     for path in sorted({p for at in kc_at.values() for p in at}):
-        if any(per_solve[path].get(fn.__name__) for fn in (ops.topk_indices,
-                                                          ops.eq_qp_solve)):
-            fail(f"{path}: the xla selection launched K1 or K2 ({per_solve[path]})")
+        if any(per_solve[path].get(fn.__name__) for fn in (
+                ops.topk_indices, ops.eq_qp_solve, ops.eq_qp_solve_t,
+                ops.topk_kernel_matrices)):
+            fail(f"{path}: a path on kernel (c) launched K1, K2, K2t or K3 "
+                 f"({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec)
+                           k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec,
+                           kc_forms)
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)

@@ -1,7 +1,8 @@
 // PyTorch's orders of summation on the card (ATen's Reduce.cuh), for the
 // kernels whose outputs must carry the bits of a plain chain of PyTorch
 // operations: kernel (d) (outer_project.cu: its norms and the obstacle
-// blocks' sums) and kernel (e) (outer_tail.cu).  Every sum here adds terms that the chain rounds on
+// blocks' sums), kernel (e) (outer_tail.cu) and kernel (c)'s "xt" form
+// (inner_cem_body.cuh).  Every sum here adds terms that the chain rounds on
 // their own (a product is an elementwise kernel before the sum), each
 // accumulator starting from +0, with the IEEE add and no contraction; a
 // 2-norm's terms are the fused squares of NormTwoOps.
@@ -23,7 +24,8 @@
 // along a strided axis (the output's axis is the fastest) takes one thread
 // an output, term k into accumulator k % 4, the four added in order.
 // kernel (c) (inner_cem.cu) checked the first two forms bit for bit
-// against PyTorch on the H100, kernel (e) the third.
+// against PyTorch on the H100, kernel (e) the third (and kernel (c)'s "xt"
+// form its cost's two k-term sums, which take it).
 
 #pragma once
 
@@ -115,6 +117,17 @@ __device__ __forceinline__ float strided_sum(Get t, int K) {
   if (k + 1 < K) a1 = __fadd_rn(a1, t(k + 1));
   if (k + 2 < K) a2 = __fadd_rn(a2, t(k + 2));
   return __fadd_rn(__fadd_rn(__fadd_rn(a0, a1), a2), a3);
+}
+
+// The same order for N terms held in registers (N a compile-time
+// constant): kernel (c)'s "xt" form, whose cost sums a (k, rows) tensor
+// along its first axis
+template <int N>
+__device__ __forceinline__ float strided_sum(const float (&v)[N]) {
+  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int i = 0; i < N; ++i) acc[i % 4] = __fadd_rn(acc[i % 4], v[i]);
+  return __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[1]), acc[2]), acc[3]);
 }
 
 // PyTorch's clamp on the card: NaN stays NaN, else min(max(v, lo), hi)

@@ -4,7 +4,9 @@ K1 ``topk_indices``, K2 ``eq_qp_solve`` (and its lane-major entry
 ``eq_qp_solve_t``), K3 ``topk_kernel_matrices``, K4 ``fused_rollout`` and
 K5 ``topk_onehot``; the JAX key chain's draws, ``prng_draws`` (keys to
 bits, uniforms or normals) and ``prng_beta`` (Beta draws); kernel (c)
-``inner_cem``, the whole inner beta-CEM of the "xla" selection; the outer
+``inner_cem``, the whole inner beta-CEM under every selection (and the
+launch counts of its forms, ``inner_cem_fused``, ``inner_cem_xt`` and
+``inner_cem_g``); the outer
 iteration's kernel (d) ``outer_project`` (guess QP, projection, controls)
 and kernel (e) ``outer_tail`` (risk, cost and CEM update in ``mmd_opt``);
 and the glue around the rollouts: K4n ``noisy_rollout`` (K4's entry that
@@ -12,7 +14,8 @@ forms the noisy controls as it loads them), kernel (f) ``inner_prologue``
 (the refit and distance matrices before the inner CEM) and kernel (g)
 ``frenet_points`` (the on-road rollouts' Frenet coordinates).  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
-tensors, counting launches in ``<wrapper>.launches``.
+tensors, counting launches in ``<wrapper>.launches`` (the forms' counts
+beside them in ``KERNELS``).
 
 A CUDA graph (``graph.py``) replays kernels without calling their
 wrappers: it reads the counts its capture added (:func:`launch_counts`
@@ -24,7 +27,7 @@ capture runs nothing) and adds them again at every replay
 from typing import Dict
 
 from .frenet_points import frenet_points
-from .inner_cem import inner_cem
+from .inner_cem import inner_cem, inner_cem_fused, inner_cem_g, inner_cem_xt
 from .inner_prologue import inner_prologue
 from .outer_project import outer_project
 from .outer_tail import outer_tail
@@ -36,7 +39,8 @@ from .topk_kernel import topk_kernel_matrices
 
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
            topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
-           outer_tail, noisy_rollout, inner_prologue, frenet_points)
+           outer_tail, noisy_rollout, inner_prologue, frenet_points, inner_cem_fused,
+           inner_cem_xt, inner_cem_g)
 
 
 def reset_launch_counts() -> None:
@@ -61,7 +65,7 @@ def add_launches(counts: Dict[str, int]) -> None:
 
 
 __all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_points", "fused_rollout", "inner_cem",
-           "inner_prologue", "noisy_rollout", "outer_project", "outer_tail", "prng_beta",
-           "prng_draws", "topk_indices", "topk_onehot", "topk_kernel_matrices",
-           "KERNELS", "add_launches", "launch_counts", "reset_launch_counts",
-           "set_launch_counts"]
+           "inner_cem_fused", "inner_cem_g", "inner_cem_xt", "inner_prologue",
+           "noisy_rollout", "outer_project", "outer_tail", "prng_beta", "prng_draws",
+           "topk_indices", "topk_onehot", "topk_kernel_matrices", "KERNELS",
+           "add_launches", "launch_counts", "reset_launch_counts", "set_launch_counts"]

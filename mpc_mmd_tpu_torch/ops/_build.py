@@ -10,7 +10,7 @@ rollout kernel chains ``tanf``/``sinf``/``cosf`` over 50 steps, and its
 tolerance assumes the IEEE-accurate functions; the random-number kernels
 (``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
 own kernels to give their twins' bits, and kernels (c) to (g)
-(``inner_cem.cu``, ``outer_project.cu``, ``outer_tail.cu``,
+(``inner_cem.cu`` and ``inner_cem_fused.cu``, ``outer_project.cu``, ``outer_tail.cu``,
 ``inner_prologue.cu``, ``frenet_points.cu``) the quotients,
 transcendental functions and sums of PyTorch's kernels to give their plain
 versions'.
@@ -55,8 +55,8 @@ _SIGNATURES = {
     "mmd_frenet_points": [_P] * 9 + [_I, _I, _F, _P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
-    "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_P],
-    "mmd_inner_cem_scratch": [_I] * 5,
+    "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_I, _I, _L, _P],
+    "mmd_inner_cem_scratch": [_I] * 7,
     "mmd_inner_cem_last_cluster": [],
     "mmd_outer_project": ([_P] * 34 + [_I] * 6 + [_F] * 10 + [_I] * 2 + [_P, _P, _I, _I]
                           + [_F] * 6 + [_P]),

@@ -7,27 +7,21 @@ Counterpart of ``select_reduced_set_batched`` in
 
 Per candidate, the (M, M) L1 distance matrix of the mother rollouts'
 coefficients is computed once; each inner iteration then runs the
-selection stage on every sample and solves the k x k weight QP (K2).  The
-"xla" selection picks the top-k |beta| lanes (K1), gathers those rows of D
-and takes exp(-rows/sigma); with elite-carry its whole loop is kernel (c)
-(``ops.inner_cem``: every iteration of every candidate in one launch,
-K1's rounds, the kernel values and K2's solve inside), and its plain
-version is that chain.  The "fused" selection does the selection stage in
-one kernel (K3).  "xt" is "xla" in the lane-major layout
-(reduced_set.py:513-533): the rows are gathered as (k, C, S', M), K_red
-straight into (k, k, C S') and row_sum into (k, C S'), the layout of K2's
-lane-major entry (``eq_qp_solve_t``), and beta stays (k, C, S') through
-the iteration.  "g"
-is the reduce-before-gather form (reduced_set.py:497-512): every mother
-row's kernel sum for the sample's bandwidth, then the k selected ones
-gathered, and K_red from the selected rows' features by pairwise L1; its
-(C, S', M, M) exponential is taken in blocks of candidates
-(:data:`G_BLOCK_BYTES`).  Under the gaussian and matern52 kernels the
-"xla" and "xt" selections also keep the squared L2 distance matrix D2 and
-gather its rows beside those of D, and ``kernel_of`` maps the pair to K.
-The JAX package writes the gathers as one-hot einsums to suit the TPU;
-here they are direct gathers, which are exact, so the elite rows and every
-carried value pass through bit-unchanged (TF32 is off in any case, see
+selection stage on every sample and solves the k x k weight QP.  The
+"xla" selection picks the top-k |beta| lanes, gathers those rows of D and
+takes exp(-rows/sigma); "xt" is "xla" in the lane-major layout with K2's
+lane-major entry; "fused" does the selection stage as K3 does; "g" sums
+every mother row's kernel values before gathering the selected ones.
+Every (selection, elite-carry) pair is one launch of kernel (c) an outer
+iteration on the card (``ops.inner_cem``: every iteration of every
+candidate, in the pair's own arithmetic), and its plain version is the
+pair's chain of K1, K2 / K2t / K3 and PyTorch's operations
+(``ops.inner_cem.inner_cem_plain``), which the CPU runs; see
+``ops/inner_cem.py``.  Under the gaussian and matern52 kernels the "xla"
+and "xt" selections also read the squared L2 distance matrix D2.  The JAX
+package writes the gathers as one-hot einsums to suit the TPU; here they
+are direct gathers, which are exact, so the elite rows and every carried
+value pass through bit-unchanged (TF32 is off in any case, see
 ``__init__``).
 
 The selection is resolved at call time as in the JAX package
@@ -40,9 +34,10 @@ and the next batch is ``cat(elites, fresh)``, so rows 0..n_el-1 are the
 elites by construction.  Their selection and QP results are carried
 instead of recomputed (elite-carry, with a candidate-shared iteration 0
 under "xla" and "xt").  The "fused" selection, and the others with
-``MPC_MMD_ELITE_CARRY=0``, run the full-recompute loop instead: every row
-in every iteration, from the broadcast (C, S, M+1) batch at iteration 0
-(reduced_set.py:721-740).
+``MPC_MMD_ELITE_CARRY=0``, recompute every row in every iteration, from
+the broadcast (C, S, M+1) batch at iteration 0 (reduced_set.py:721-740);
+a row's results depend on the row and D alone, so kernel (c) gives those
+chains' bits from its elite-carry scheme.
 """
 
 from __future__ import annotations
@@ -57,15 +52,8 @@ import torch
 from .config import ProblemConfig
 from .kernels import distance_matrices, kernel_of
 from .noise import ExactInnerDraws, InnerDraws
-from .ops import eq_qp_solve_t, inner_cem, topk_indices, topk_kernel_matrices
-from .ops.inner_cem import beta_qp, finish, resample, selection_qp_xla, take_rows
-
-SELECTIONS = ("xla", "xt", "fused", "g")
-
-# Bytes of "g"'s exponential temporary (candidates, S', M, M) per block of
-# candidates: at the dynamic workload's width (100 x 100 x 100 x 100) one
-# call would otherwise hold 400 MB.
-G_BLOCK_BYTES = 64 * 2 ** 20
+from .ops import inner_cem
+from .ops.inner_cem import G_BLOCK_BYTES, SELECTIONS, take_rows
 
 
 class ReducedSet(NamedTuple):
@@ -75,22 +63,6 @@ class ReducedSet(NamedTuple):
     x_red: torch.Tensor     # (C, k, T) reduced rollouts
     y_red: torch.Tensor
     res: torch.Tensor       # (C, maxiter) best MMD residual per iteration
-
-
-def _beta_qp_t(K_red_t: torch.Tensor, row_sum_t: torch.Tensor, M: int,
-               cfg: ProblemConfig):
-    """``ops.inner_cem.beta_qp`` in the lane-major layout
-    (reduced_set.py:108-139): K_red_t (k, k, B), row_sum_t (k, B); returns
-    (beta_t (k, B), mmd (B,)), the QP through K2's lane-major entry."""
-    b = cfg.beta_cem
-    k, B = K_red_t.shape[0], K_red_t.shape[-1]
-    eye_flat = torch.eye(k, dtype=K_red_t.dtype, device=K_red_t.device).reshape(k * k, 1)
-    cost_t = b.rho_beta * K_red_t.reshape(k * k, B) + b.qp_reg * eye_flat
-    r_t = (b.rho_beta / M) * row_sum_t
-    beta_t, mu = eq_qp_solve_t(cost_t, r_t.contiguous())
-    br = torch.sum(beta_t * r_t, dim=0)
-    mmd = (-br - mu - b.qp_reg * torch.sum(beta_t * beta_t, dim=0)) / b.rho_beta
-    return beta_t, mmd
 
 
 def resolve_selection(cfg: ProblemConfig, selection: Optional[str] = None) -> str:
@@ -200,128 +172,17 @@ def select_reduced_set_batched(cfg: ProblemConfig, cx: torch.Tensor,
     """
     selection, elite_carry = selection_key(cfg, selection)
     b = cfg.beta_cem
-    M = cfg.risk.num_mother
-    k = cfg.risk.num_reduced
-    S = b.num_samples_cem
-    n_el = b.num_ellite
-    kind = cfg.risk.kernel
-    C = cx.shape[0]
-    dev = cx.device
-
-    D, D2 = distances if distances is not None else distance_matrices(cx, cy, kind)
-    samples0_row, A_all, Zf_all, lane_floor = (fixed if fixed is not None
-                                               else inner_fixed(cfg, draws))
-    c_ix = torch.arange(C, device=dev)[:, None, None]
-
-    if (selection, elite_carry) == ("xla", True):
-        beta_w, sigma_w, idx_best, res = inner_cem(
-            D, D2, samples0_row, A_all, Zf_all, lane_floor, k, n_el, b.rho_beta,
-            b.qp_reg, kind)
-        return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=take_rows(x_roll, idx_best),
-                          y_red=take_rows(y_roll, idx_best), res=res)
-
-    # "xt" keeps beta lane-major, (k, C, rows): its row axis is the last
-    lane_major = selection == "xt"
-    b_axis = 2 if lane_major else 1
-
-    def take_beta(beta, idx):
-        """beta's rows idx (C, n), in beta's layout."""
-        if lane_major:
-            return torch.gather(beta, 2, idx[None].expand(k, -1, -1))
-        return take_rows(beta, idx)
-
-    def lane_major_qp(idx_t, sigma):
-        """The "xt" stage from the top-k lanes idx_t (k, C', S') and the
-        bandwidths sigma (C', S'): K_mixed as (k, C', S', M), K_red_t[i, j]
-        = K_mixed[i, ..., idx_t[j]], the QP lane-major.  Returns beta
-        (k, C', S') and cost (C', S')."""
-        c_ix_t = torch.arange(idx_t.shape[1], device=dev)[None, :, None]
-        rows = D[c_ix_t, idx_t]                              # (k, C', S', M)
-        rows2 = None if D2 is None else D2[c_ix_t, idx_t]
-        K_mixed = kernel_of(kind, sigma[None, :, :, None], rows, rows2)
-        K_red_t = torch.gather(K_mixed.permute(0, 3, 1, 2), 1,
-                               idx_t[None].expand(k, -1, -1, -1))  # (k, k, C', S')
-        Cc, Ss = sigma.shape
-        beta_t, cost = _beta_qp_t(K_red_t.reshape(k, k, Cc * Ss),
-                                  K_mixed.sum(dim=-1).reshape(k, Cc * Ss), M, cfg)
-        return beta_t.reshape(k, Cc, Ss), cost.reshape(Cc, Ss)
-
-    def row_kernel_sums(sigma):
-        """G (C, S', M): G[c, s, r] = sum_m exp(-D[c, r, m] / sigma[c, s]),
-        the exponential taken a block of candidates at a time."""
-        S_sub = sigma.shape[1]
-        per = max(1, G_BLOCK_BYTES // (4 * S_sub * M * M))
-        return torch.cat([
-            torch.exp(-D[lo:lo + per, None] / sigma[lo:lo + per, :, None, None]).sum(-1)
-            for lo in range(0, C, per)])
-
-    def selection_qp(samples_sub):
-        """Selection and weight QP of the rows (C, S', M+1)."""
-        if selection == "xla":
-            return selection_qp_xla(samples_sub, D, D2, k, kind, b.rho_beta, b.qp_reg)
-        if selection == "fused":
-            row_sum, K_red, idx = topk_kernel_matrices(samples_sub, D, k)
-            idx = idx.long()
-        else:
-            sigma = samples_sub[..., M]                      # (C, S')
-            idx = topk_indices(samples_sub.contiguous(), k, absolute=True,
-                               slice_to=M).long()            # (C, S', k)
-            if selection == "xt":
-                return (idx,) + finish(*lane_major_qp(idx.permute(2, 0, 1), sigma))
-            row_sum = torch.gather(row_kernel_sums(sigma), 2, idx)   # "g"
-            feats = torch.cat((cx, cy), dim=2)
-            fsel = feats[c_ix, idx]                          # (C, S', k, F)
-            d_sub = torch.sum(torch.abs(fsel[:, :, :, None, :]
-                                        - fsel[:, :, None, :, :]), dim=-1)
-            K_red = torch.exp(-d_sub / sigma[..., None, None])
-        beta, cost = beta_qp(K_red, row_sum, M, b.rho_beta, b.qp_reg)
-        return (idx,) + finish(beta, cost)
-
-    samples = samples0_row[None].expand(C, S, M + 1)
-    mins = []
-    if elite_carry:
-        if selection == "g":
-            idx_all, beta_all, cost = selection_qp(samples)
-        else:
-            # iteration 0 of "xt": every candidate starts from the same
-            # sample rows, so the top-k is computed once and gathered
-            # against each candidate's D
-            sigma0 = samples0_row[:, M]                      # (S,)
-            idx0 = topk_indices(samples0_row[None].contiguous(), k, absolute=True,
-                                slice_to=M)[0].long()        # (S, k)
-            beta_all, cost = finish(*lane_major_qp(
-                idx0.T[:, None].expand(k, C, S), sigma0.expand(C, S)))
-            idx_all = idx0[None].expand(C, S, k)
-        for t in range(b.maxiter):
-            if t > 0:
-                idx_f, beta_f, cost_f = selection_qp(samples[:, n_el:])
-                idx_all = torch.cat((el_idx, idx_f), dim=1)
-                beta_all = torch.cat((el_beta, beta_f), dim=b_axis)
-                cost = torch.cat((el_cost, cost_f), dim=1)
-            samples, idx_el, el_cost = resample(samples, cost, A_all[t], Zf_all[t],
-                                                lane_floor, n_el)
-            el_idx = take_rows(idx_all, idx_el)
-            el_beta = take_beta(beta_all, idx_el)
-            mins.append(cost.min(dim=1).values)
-    else:
-        # full recompute; iteration 0 runs on the broadcast batch (K3 takes
-        # its candidate stride of 0, the top-k a copy)
-        for t in range(b.maxiter):
-            idx_all, beta_all, cost = selection_qp(samples)
-            samples = resample(samples, cost, A_all[t], Zf_all[t], lane_floor, n_el)[0]
-            mins.append(cost.min(dim=1).values)
-
-    # winner of the last iteration; sigma from the post-update batch (the
-    # reference's quirk)
-    i_min = torch.argmin(cost, dim=1, keepdim=True)          # (C, 1)
-    beta_w = take_beta(beta_all, i_min)
-    beta_w = beta_w[..., 0].T.contiguous() if lane_major else beta_w[:, 0]
-    sigma_w = torch.gather(samples[..., M], 1, i_min)[:, 0]
-    idx_best = take_rows(idx_all, i_min)[:, 0]              # (C, k)
-    x_red = take_rows(x_roll, idx_best)
-    y_red = take_rows(y_roll, idx_best)
-    return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=x_red, y_red=y_red,
-                      res=torch.stack(mins, dim=1))
+    D, D2 = (distances if distances is not None
+             else distance_matrices(cx, cy, cfg.risk.kernel))
+    inner = fixed if fixed is not None else inner_fixed(cfg, draws)
+    # on the card the pair's form of kernel (c) (faster than every chain at
+    # every path shape, PERF.md); on the CPU the wrapper runs the chain
+    beta_w, sigma_w, idx_best, res = inner_cem(
+        D, D2, *inner, cfg.risk.num_reduced, b.num_ellite, b.rho_beta, b.qp_reg,
+        cfg.risk.kernel, selection=selection, carry=elite_carry,
+        coeffs=(cx, cy) if selection == "g" else None, g_block=G_BLOCK_BYTES)
+    return ReducedSet(beta=beta_w, sigma=sigma_w, x_red=take_rows(x_roll, idx_best),
+                      y_red=take_rows(y_roll, idx_best), res=res)
 
 
 def _beta_qp_exact(K_red: torch.Tensor, row_sum: torch.Tensor, M: int,

@@ -10,8 +10,8 @@ Counterpart of ``mpc_mmd_tpu/solver.py``.  One outer iteration:
 
 ``mmd_opt`` rolls R^2 mother rollouts per candidate, refits them and
 takes their distance matrices (kernel (f)), and picks a weighted reduced
-set of R with the inner beta-CEM (kernel (c), or K1, K2, or K3 and K2
-under the other selections) before the MMD risks.  The other modes
+set of R with the inner beta-CEM (kernel (c), in the form of each
+selection) before the MMD risks.  The other modes
 roll R rollouts per candidate: ``mmd_random`` scores them by MMD with
 uniform weights 1/R and bandwidth 0.01 and no lane risk, ``cvar`` and
 ``saa`` by CVaR and by the violation fraction.
@@ -426,8 +426,8 @@ class Solver(SolverSetup):
     ``graph=False`` runs it eagerly.
     ``noise`` defaults to :class:`JaxNoise` on ``device``: the JAX
     package's draws for the same ``idx_mpc``.  On a CUDA
-    device the rollouts, top-k selections, fused selections and weight QPs
-    run the hand-written kernels (``ops``); on the CPU their plain twins.
+    device the rollouts, the inner CEM and the outer iteration's glue run
+    the hand-written kernels (``ops``); on the CPU their plain twins.
     ``cfg.solve_strategy`` "exact" runs the reference-parity inner CEM
     (``reduced_set.select_reduced_set``) and KKT solves; only K4 of the
     kernels is on its path.  ``scenario_chunk`` (default

@@ -10,13 +10,18 @@ unpacked under ``build/``), ``chip_smoke.py``'s full-width fastrt
 ``mmd_opt`` solve, Path A's "xla" solve, Path B's ``cvar``, ``saa`` and
 ``mmd_random`` solves of the same workload, Path D's "xla" and ``det``
 ``FrenetSolver`` solves and the fastrt solve at a scenario chunk of 4
-(E4), or those that ``--paths`` names:
+(E4), or those that ``--paths`` names (also the inner CEM's other
+selections, as ``utils/solve_ab.py`` names them: fastrt and Path A under
+"xt" and "g", fastrt "xla" without elite-carry, Path A and Path D fused,
+the record's static cells at N = 5 and 15 fused and at N = 15 "xla"):
 
 - eagerly (``graph=False``): one warm-up solve, then one under
   ``torch.profiler`` with every call of each stage function (``STAGES``:
   the guess QP, the projection, the controls, the noisy controls, the
   rollouts, the refit, the inner CEM's prologue with kernel (c) inside,
-  the reduced rollouts' gathers after it (``take_rows``), the Frenet
+  the reduced rollouts' gathers after it (``take_rows``), the inner
+CEM's chain where the solver keeps it (``inner_cem_plain``: its K1, K2,
+K2t and K3 calls, ``beta_qp`` and ``resample``), the Frenet
   conversion, the risks of every mode, the projection's obstacle terms,
   the chains of kernels (d) and (e) where the solver keeps them
   (``outer_project_plain``, ``chain_tail``), the costs, the CEM update,
@@ -50,10 +55,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "inner_split"
 PATHS = ("fastrt", "e4", "path_a_xla", "path_b_cvar", "path_b_saa", "path_b_mmd_random",
-         "path_d_xla", "path_d_det")
+         "path_d_xla", "path_d_det", "fastrt_xt", "fastrt_g", "fastrt_nocarry",
+         "path_a_fused", "path_a_xt", "path_a_g", "path_d_fused", "path_f5_fused",
+         "path_f15_fused", "path_f15_xla")
 
 WORKER = r"""
-import importlib, json, sys
+import importlib, json, os, sys
 root = sys.argv[1]
 sys.path.insert(0, root)
 import torch
@@ -78,6 +85,14 @@ STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
           ("solver", "refit_coefficients"), ("solver", "inner_prologue"),
           ("solver", "select_reduced_set_batched"),
           ("reduced_set", "inner_cem"), ("reduced_set", "take_rows"),
+          ("reduced_set", "inner_cem_plain"),
+          # the inner CEM's chains: in reduced_set.py before they were forms
+          # of kernel (c), in ops/inner_cem.py since
+          ("reduced_set", "topk_kernel_matrices"), ("reduced_set", "topk_indices"),
+          ("reduced_set", "eq_qp_solve_t"), ("reduced_set", "beta_qp"),
+          ("reduced_set", "resample"), ("ops.inner_cem", "topk_kernel_matrices"),
+          ("ops.inner_cem", "topk_indices"), ("ops.inner_cem", "eq_qp_solve_t"),
+          ("ops.inner_cem", "beta_qp"), ("ops.inner_cem", "resample"),
           ("solver_frenet", "global_to_frenet_points"), ("solver_frenet", "frenet_points"),
           ("risk", "mmd_obs"), ("risk", "mmd_lane"), ("risk", "mmd_lane_des"),
           ("solver", "scalar_cost"), ("sampling", "scalar_cost"),
@@ -200,8 +215,29 @@ def split(make, solve):
             "replay_kernels": {name: [ms, n] for name, (ms, n) in replay_by_name.items()
                                if any(k in name for k in (
                                    "inner_cem", "outer_project", "outer_tail",
-                                   "noisy_rollout", "inner_prologue", "frenet_points"))},
+                                   "noisy_rollout", "inner_prologue", "frenet_points",
+                                   "topk", "eq_qp"))},
             "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
+
+
+# the inner CEM's selection of a path: the environment its solves run in
+SELECT = {"fastrt_xt": {"MPC_MMD_SELECTION": "xt"}, "fastrt_g": {"MPC_MMD_SELECTION": "g"},
+          "fastrt_nocarry": {"MPC_MMD_ELITE_CARRY": "0"},
+          "path_a_fused": {"MPC_MMD_FUSED_CEM": "1"}, "path_a_xt": {"MPC_MMD_SELECTION": "xt"},
+          "path_a_g": {"MPC_MMD_SELECTION": "g"}, "path_d_fused": {"MPC_MMD_FUSED_CEM": "1"},
+          "path_f5_fused": {"MPC_MMD_FUSED_CEM": "1"},
+          "path_f15_fused": {"MPC_MMD_FUSED_CEM": "1"}}
+
+
+def selected(name, fn):
+    # fn() under the path's selection; the variables are read at call time
+    env = SELECT.get(name, {})
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
 
 
 paths = sys.argv[2].split(",")
@@ -212,14 +248,16 @@ cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.
                          num_prime=50, mode="mmd_opt")
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
-if {"fastrt", "e4"} & set(paths):
+if {"fastrt", "e4", "fastrt_xt", "fastrt_g", "fastrt_nocarry"} & set(paths):
     probe = Solver(cfg, device=dev, graph=False)
     scen = cs.obstacle_scenarios(torch, 8, 6, probe.ws.tot_time)
     xs = torch.stack([x for x, _ in scen])
     ys = torch.stack([y for _, y in scen])
-if "fastrt" in paths:
-    out["fastrt"] = split(lambda g: Solver(cfg, device=dev, graph=g),
-                          lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i], 15.0))
+for name in ("fastrt", "fastrt_xt", "fastrt_g", "fastrt_nocarry"):
+    if name in paths:
+        out[name] = selected(name, lambda: split(
+            lambda g: Solver(cfg, device=dev, graph=g),
+            lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i], 15.0)))
 if "e4" in paths:
     out["e4"] = split(lambda g: Solver(cfg, device=dev, graph=g, scenario_chunk=4),
                       lambda s, i: s.solve_batch([4 * i + j for j in range(4)], cs.INIT,
@@ -227,21 +265,35 @@ if "e4" in paths:
                                                  ys[4 * i:4 * i + 4], 15.0))
 init_d, mean_d, cov_d, v_des = ego_initial_state("dynamic")
 cut = dynamic_cutin(cfg_a, 2, device=dev)
-# Path A "xla" and Path B's modes: the dynamic cut-in workload
-for name, mode in (("path_a_xla", "mmd_opt"), ("path_b_cvar", "cvar"),
-                   ("path_b_saa", "saa"), ("path_b_mmd_random", "mmd_random")):
+# Path A under each selection and Path B's modes: the dynamic cut-in workload
+for name, mode in (("path_a_xla", "mmd_opt"), ("path_a_fused", "mmd_opt"),
+                   ("path_a_xt", "mmd_opt"), ("path_a_g", "mmd_opt"),
+                   ("path_b_cvar", "cvar"), ("path_b_saa", "saa"),
+                   ("path_b_mmd_random", "mmd_random")):
     if name in paths:
         c = cfg_a.with_risk_mode(mode)
-        out[name] = split(lambda g, c=c: Solver(c, device=dev, graph=g),
-                          lambda s, i: s.solve(i, init_d, mean_d, cov_d, cut.x_traj[i],
-                                               cut.y_traj[i], v_des))
+        out[name] = selected(name, lambda: split(
+            lambda g, c=c: Solver(c, device=dev, graph=g),
+            lambda s, i: s.solve(i, init_d, mean_d, cov_d, cut.x_traj[i], cut.y_traj[i],
+                                 v_des)))
 args = cs.onroad_problem(torch, cfg_d, dev)
-# Path D: the on-road FrenetSolver in mmd_opt ("xla") and det
-for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det")):
+# Path D: the on-road FrenetSolver in mmd_opt ("xla", fused) and det
+for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det"),
+                   ("path_d_fused", "mmd_opt")):
     if name in paths:
         c = cfg_d.with_risk_mode(mode)
-        out[name] = split(lambda g, c=c: FrenetSolver(c, device=dev, graph=g),
-                          lambda s, i: s.solve(i, *args))
+        out[name] = selected(name, lambda: split(
+            lambda g, c=c: FrenetSolver(c, device=dev, graph=g),
+            lambda s, i: s.solve(i, *args)))
+# the record's static cells (chip_smoke.py's Path F)
+for name, N in (("path_f5_fused", 5), ("path_f15_fused", 15), ("path_f15_xla", 15)):
+    if name in paths:
+        cf = cs.record_config(N)
+        probe = Solver(cf, device=dev, graph=False)
+        scen_f = cs.obstacle_scenarios(torch, 2, cf.obstacles.num_obs, probe.ws.tot_time)
+        out[name] = selected(name, lambda: split(
+            lambda g, c=cf: Solver(c, device=dev, graph=g),
+            lambda s, i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen_f[i], 15.0)))
 print(json.dumps(out))
 """
 

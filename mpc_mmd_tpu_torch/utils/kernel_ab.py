@@ -32,8 +32,9 @@ registers a thread, not 4 and 64), ``kc_cluster1`` / ``kc_cluster2`` /
 ``kc_cluster4`` (kernel (c) at a forced cluster size), ``kc_warps8``
 (its CTAs of 8 warps at every k), ``kc_rows2`` (two selected rows at once
 in its phase B at every width), ``kc_dfirst`` (D placed first in shared
-memory at every width), ``kc_runkind`` (the kernel kind a run-time value
-in its phase B, one body of kernel values an instantiation); with
+memory at every width); kernel (c)'s builds compile ``inner_cem.cu``, the
+body it includes and ``inner_cem_fused.cu`` as one unit (``kc_source``),
+so that a variant reaches every form; with
 ``--diagnose`` also ``k1_no_rounds`` (K1 loads, sorts and stores each
 lane's head, no round), ``prng_no_chain`` / ``prng_no_rounds`` (kernel
 (b) without its chain phase, or with no candidate entering a round),
@@ -61,8 +62,13 @@ candidates of mixed alpha (10^-8 to 10^2) at 31, 33, 100 and 400
 candidates; every kernel (c) build but the clock ones bit-equal to
 ``kc_before`` (NaN to NaN) in all four outputs at ``KC_SHAPES`` (the seven
 path shapes, gaussian and matern52, 2,048 candidates), with the cluster
-size each launch took.  Then the times: each build's device time per
-launch from ``torch.profiler`` (20 launches, 3 windows), the builds of a
+size each launch took (its "xla" form; an earlier source without the
+forms is called without their arguments).  With ``--kernels forms``,
+kernel (c)'s forms from the package's library against their chains at
+``KC_FORM_SHAPES`` (``run_forms``: every form bit-equal to its chain,
+the chain timed as a graph replay, the forms' kernels in turns).  Then
+the times: each build's device time per launch from ``torch.profiler``
+(20 launches, 3 windows), the builds of a
 shape in turns (the order reversed every other window), beside the launch
 floor (``fill_`` of one float), ``torch.topk`` and, for kernel (b),
 ``torch._standard_gamma`` of both halves' parameters.  Kernel (d)
@@ -166,6 +172,22 @@ KC_SHAPES = ((64, 64, 10, 12, "laplace"), (100, 100, 10, 20, "laplace"),
              (100, 100, 15, 20, "laplace"), (256, 64, 10, 12, "laplace"),
              (512, 64, 10, 12, "laplace"), (64, 64, 10, 12, "gaussian"),
              (64, 64, 10, 12, "matern52"), (2048, 64, 10, 12, "laplace"))
+
+# kernel (c)'s forms at the path shapes that run them: (path, C, S, k,
+# maxiter, ((selection, elite-carry), ...)), laplace; fastrt "xla" without
+# elite-carry; Path A's chunk of 4 fused (EA4); at N = 15 "xla" without
+# elite-carry, whose elites run again (no path runs it); and the fused form
+# at the static cells' shapes N = 11 ... 14, between Path A's M = 100 and
+# F15's 225, where the form and its chain cross
+KC_FORM_SHAPES = (("fastrt", 64, 64, 10, 12, (("xt", True), ("g", True), ("xla", False))),
+                  ("path_a", 100, 100, 10, 20, (("fused", False), ("xt", True), ("g", True))),
+                  ("path_d", 100, 100, 4, 20, (("fused", False), ("xt", True), ("g", True))),
+                  ("path_e_fused4", 400, 100, 10, 20, (("fused", False),)),
+                  ("path_f5", 100, 100, 5, 20, (("fused", False), ("xt", True))),
+                  ("path_f15", 100, 100, 15, 20, (("fused", False), ("xt", True), ("g", True),
+                                                  ("xla", False))),
+                  *((f"static_n{N}", 100, 100, N, 20, (("fused", False),))
+                    for N in (11, 12, 13, 14)))
 
 # kernel (d)'s and (e)'s shapes: (workload, scenarios a chunk, on the road);
 # (d)'s obstacle-active form at Path D det and a straight solve with 6
@@ -295,8 +317,8 @@ def regions_variant(src: str, name: str, anchors, head: str, end: str, entry: st
             "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
             "                                                cudaMemcpyDeviceToDevice));\n}\n")
     CLOCK_REGIONS[name] = ["staging"] + [r for _, r in anchors] + ["tail"]
-    return _replace(src, "namespace {\n", head_decl + helper + "namespace {\n", name,
-                    count=1) + tail
+    ns = "namespace {\n" if "namespace {\n" in src else "namespace mmd_cem {\n"
+    return _replace(src, ns, head_decl + helper + ns, name, count=1) + tail
 
 
 def kc_clock_variant(src: str, name: str = "kc_clock") -> str:
@@ -344,30 +366,20 @@ def kd_clock_variant(src: str, name: str = "kd_clock") -> str:
     return regions_variant(src, name, anchors, head, end, "mmd_outer_project_clock", "kd")
 
 
-def kc_runkind_variant(src: str, name: str = "kc_runkind") -> str:
-    """Kernel (c) with the kernel kind a run-time value in phase B: one body
-    of kernel values an instantiation, each group of selected rows in two
-    halves whatever the kind, its fast division still one branch a group."""
-    for old, new in (
-            ("template <int kKind, bool kFast>\n__device__ __forceinline__ float kernel_value(",
-             "template <bool kFast>\n__device__ __forceinline__ float kernel_value(int kKind, "),
-            ("template <int kKind>\n__device__ __forceinline__ bool numerators_in_range(",
-             "__device__ __forceinline__ bool numerators_in_range(int kKind, "),
-            ("template <int kKind, int I0, int N, int J, int kSlots, class LoadD, class LoadD2>\n"
-             "__device__ __forceinline__ void kernel_rows(",
-             "template <int I0, int N, int J, int kSlots, class LoadD, class LoadD2>\n"
-             "__device__ __forceinline__ void kernel_rows(int kKind, "),
-            ("numerators_in_range<kKind>(", "numerators_in_range(kKind, "),
-            ("kernel_value<kKind, true>(", "kernel_value<true>(kKind, "),
-            ("kernel_value<kKind, false>(", "kernel_value<false>(kKind, ")):
-        src = _replace(src, old, new, name)
-    head, _, tail = _between(src, "            if (a.kind == kLaplace) {\n",
-                             "          };\n", name)
-    return head + (
-        "            kernel_rows<0, H>(a.kind, e, ld, ld2, M, lane, dsig, dden, div_ok);\n"
-        "            if constexpr (H < J)\n"
-        "              kernel_rows<H, J - H>(a.kind, e, ld, ld2, M, lane, dsig, dden, div_ok);\n"
-    ) + tail
+def kc_source(csrc: Path) -> str:
+    """Kernel (c)'s sources in ``csrc`` as one translation unit:
+    ``inner_cem.cu`` with the body it includes (``inner_cem_body.cuh``)
+    inlined and ``inner_cem_fused.cu``'s instantiations after it, where the
+    directory has them (an earlier checkout's ``inner_cem.cu`` stands
+    alone), so that a variant's textual change reaches every form."""
+    cem = (csrc / "inner_cem.cu").read_text()
+    body = csrc / "inner_cem_body.cuh"
+    if not body.exists():
+        return cem
+    inc = '#include "inner_cem_body.cuh"\n'
+    fused = (csrc / "inner_cem_fused.cu").read_text().replace(inc, "")
+    return _replace(cem, inc, body.read_text().replace("#pragma once\n", ""),
+                    "kc_source") + fused
 
 
 def builds(before: Path, diagnose: bool = False) -> dict:
@@ -412,10 +424,10 @@ def builds(before: Path, diagnose: bool = False) -> dict:
                                                          "kd_clock_before"))
     if (before / "outer_tail.cu").exists():
         out["ke_before"] = ("ke", (before / "outer_tail.cu").read_text())
-    cem = (_build.CSRC / "inner_cem.cu").read_text()
+    cem = kc_source(_build.CSRC)
     out["kc_now"] = ("kc", cem)
     if (before / "inner_cem.cu").exists():
-        out["kc_before"] = ("kc", (before / "inner_cem.cu").read_text())
+        out["kc_before"] = ("kc", kc_source(before))
         if diagnose:
             out["kc_clock_before"] = ("kc", kc_clock_variant(out["kc_before"][1],
                                                              "kc_clock_before"))
@@ -431,7 +443,6 @@ def builds(before: Path, diagnose: bool = False) -> dict:
             ("kc_rows2", rows, "return 2;"),
             ("kc_dfirst", "const bool d_first = slots_of(M) <= 4;", "const bool d_first = true;")):
         out[name] = ("kc", _replace(cem, old, new, name))
-    out["kc_runkind"] = ("kc", kc_runkind_variant(cem))
     if diagnose:
         out["kc_clock"] = ("kc", kc_clock_variant(cem))
     staged_max = re.compile(r"constexpr int kStagedMaxM = \d+;")
@@ -525,8 +536,13 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             lib.mmd_topk_kernel_matrices.argtypes = [P, ctypes.c_longlong, P, P, P, P,
                                                      I, I, I, I, P]
         elif kind == "kc":
-            lib.mmd_inner_cem.argtypes = _build._SIGNATURES["mmd_inner_cem"]
-            lib.mmd_inner_cem_scratch.argtypes = _build._SIGNATURES["mmd_inner_cem_scratch"]
+            # an earlier source's entry lacks the form, recompute and g_block
+            forms = "long long g_block" in sources[name][1]
+            sig = _build._SIGNATURES["mmd_inner_cem"]
+            lib.mmd_inner_cem.argtypes = sig if forms else sig[:22] + sig[-1:]
+            lib.mmd_inner_cem_scratch.argtypes = _build._SIGNATURES[
+                "mmd_inner_cem_scratch"][:7 if forms else 5]
+            lib.kc_forms = forms
             if name.startswith("kc_clock"):
                 lib.mmd_inner_cem_clock.argtypes = [P, I]
         elif kind in ("kd", "ke", "kf"):
@@ -701,13 +717,20 @@ def k3_inputs(gen, C, S, M):
     return samples, (f[:, :, None, :] - f[:, None, :, :]).abs().sum(-1).contiguous()
 
 
-def kc_inputs(gen, C, S, k, maxiter, kind="laplace"):
+def kc_inputs(gen, C, S, k, maxiter, kind="laplace", inf_lane=False, full=False,
+              edges=True):
     """Kernel (c)'s inputs at C candidates, S samples, k = num_reduced (M =
     k^2 mother rollouts) and maxiter iterations, as chip_smoke.py checks
     it: ``reduced_set.inner_inputs`` of mother rollouts with random
     coefficients and of random draws, the first batch's row 1 with a NaN
-    lane and its row 2 with tied |beta|.  Returns (inputs, n_el, rho,
-    reg)."""
+    lane and its row 2 with tied |beta| (and with ``inf_lane`` its row 3
+    with an infinite lane, which wins every round of the "fused" form's
+    top-k); with ``edges`` false none of these (the inputs a form is timed
+    on: under "fused" a row with a NaN lane selects the sentinel and wins,
+    and the NaN reaches every fresh row, whose rounds are then skipped).
+    Returns (inputs, n_el, rho, reg), and with ``full`` also the
+    configuration and the coefficients cx, cy (C, M, 11) whose L1
+    distances are D."""
     import dataclasses
     from ..config import static_workload
     from ..noise import InnerDraws
@@ -721,12 +744,16 @@ def kc_inputs(gen, C, S, k, maxiter, kind="laplace"):
     draws = InnerDraws(*(torch.randn(shape, device=gen.device, generator=gen)
                          for shape in ((S, M + 1), (maxiter, S - n_el, n_el),
                                        (maxiter, S - n_el, M + 1))))
-    draws.samples0[1, 7 % M] = float("nan")
-    draws.samples0[2, :M] = torch.round(draws.samples0[2, :M])
+    if edges:
+        draws.samples0[1, 7 % M] = float("nan")
+        draws.samples0[2, :M] = torch.round(draws.samples0[2, :M])
+    if edges and inf_lane:
+        draws.samples0[3, 11 % M] = float("inf")
     # coefficients at a spread whose kernel values lie between 0 and 1
     cx, cy = (0.3 * torch.randn(C, M, 11, device=gen.device, generator=gen)
               for _ in range(2))
-    return inner_inputs(cfg, cx, cy, draws), n_el, b.rho_beta, b.qp_reg
+    out = (inner_inputs(cfg, cx, cy, draws), n_el, b.rho_beta, b.qp_reg)
+    return out + (cfg, cx, cy) if full else out
 
 
 def kd_inputs(gen, cfg, N: int, path: bool = False):
@@ -1349,10 +1376,11 @@ def run_prng(libs: dict, names: list, gen, log) -> list:
 
 
 def _kc(lib, inp, k, n_el, rho, reg, kind, outs=None):
-    """Kernel (c) of one build on ``inp`` (``kc_inputs``), as
-    ``ops.inner_cem`` calls it; returns (beta_w, sigma_w, idx_best, res)."""
+    """Kernel (c)'s "xla" form with elite-carry of one build on ``inp``
+    (``kc_inputs``), as ``ops.inner_cem`` calls it; returns (beta_w,
+    sigma_w, idx_best, res)."""
     import numpy as np
-    from ..ops.inner_cem import KINDS
+    from ..ops.inner_cem import G_BLOCK_BYTES, KINDS
     D, D2, s0, A, Z, floor = inp
     C, M, S, maxiter = D.shape[0], D.shape[-1], s0.shape[0], A.shape[0]
     kind_i = KINDS.index(kind)
@@ -1362,14 +1390,16 @@ def _kc(lib, inp, k, n_el, rho, reg, kind, outs=None):
                 torch.full((C, k), -1, dtype=torch.int64, device="cuda"),
                 torch.full((C, maxiter), float("nan"), device="cuda"))
     beta_w, sigma_w, idx_best, res = outs
-    per = lib.mmd_inner_cem_scratch(S, M, k, n_el, kind_i)
+    forms = getattr(lib, "kc_forms", False)
+    per = lib.mmd_inner_cem_scratch(S, M, k, n_el, kind_i, *((0, 0) if forms else ()))
     scratch = torch.empty(max(1, C * per), device="cuda")
     _call(lib.mmd_inner_cem(
         D.data_ptr(), None if D2 is None else D2.data_ptr(), s0.data_ptr(), A.data_ptr(),
         Z.data_ptr(), floor.data_ptr(), beta_w.data_ptr(), sigma_w.data_ptr(),
         idx_best.data_ptr(), res.data_ptr(), scratch.data_ptr(), C, S, M, k, n_el, maxiter,
         kind_i, rho, reg, float(np.float32(-rho * (1.0 / M))),
-        float(np.float32(1.0) / np.float32(rho)), _stream()), "mmd_inner_cem")
+        float(np.float32(1.0) / np.float32(rho)),
+        *((0, 0, G_BLOCK_BYTES // 4) if forms else ()), _stream()), "mmd_inner_cem")
     return outs
 
 
@@ -1438,6 +1468,133 @@ def run_kc(libs: dict, names: list, gen, log, shapes=KC_SHAPES) -> list:
     return recs
 
 
+def graph_ms(fn, reps: int = 5) -> float:
+    """Milliseconds a replay of ``fn()`` captured as one CUDA graph (as a
+    solve runs a chain of many launches), CUDA events around ``reps``
+    replays after one more."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                         # the warm-up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        graph.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def inner_chain(cfg, cx, cy, inp, k, n_el, rho, reg, selection, carry):
+    """The plain chain of the inner CEM under (selection, elite-carry) on
+    ``inp``: ``ops.inner_cem.inner_cem_plain`` with the form arguments
+    where the package has them, else (an earlier checkout, whose
+    ``select_reduced_set_batched`` ran the chains itself) the chain inside
+    ``select_reduced_set_batched`` (with the winner's indices read off its
+    last gather).  Returns (beta_w, sigma_w, idx_best, res)."""
+    import inspect
+    from ..ops.inner_cem import inner_cem_plain
+    from .. import reduced_set as rs
+    kind = cfg.risk.kernel
+    if "selection" in inspect.signature(inner_cem_plain).parameters:
+        return inner_cem_plain(*inp, k, n_el, rho, reg, kind, selection=selection,
+                               carry=carry, coeffs=(cx, cy))
+    D, D2, s0, A, Z, floor = inp
+    marker = torch.zeros(cx.shape[0], cx.shape[1], 1, device=cx.device)
+    got = {}
+    take = rs.take_rows
+
+    def last_gather(t, idx):
+        if t is marker:
+            got["idx"] = idx
+            return t
+        return take(t, idx)
+
+    old = os.environ.get("MPC_MMD_ELITE_CARRY")
+    os.environ["MPC_MMD_ELITE_CARRY"] = "1" if carry else "0"
+    rs.take_rows = last_gather
+    try:
+        red = rs.select_reduced_set_batched(cfg, cx, cy, marker, marker, None,
+                                            selection=selection, distances=(D, D2),
+                                            fixed=rs.InnerFixed(s0, A, Z, floor))
+    finally:
+        rs.take_rows = take
+        if old is None:
+            os.environ.pop("MPC_MMD_ELITE_CARRY")
+        else:
+            os.environ["MPC_MMD_ELITE_CARRY"] = old
+    return red.beta, red.sigma, got["idx"], red.res
+
+
+def run_forms(gen, log, shapes=KC_FORM_SHAPES) -> list:
+    """Kernel (c)'s forms against their chains on the card, from the
+    package's library: at each path shape and (selection, elite-carry)
+    pair the chain (``inner_chain``), the "xla" form with elite-carry
+    (``ops.inner_cem``) and, where the package has it, the pair's own
+    form, on the same inputs (``kc_inputs``: a NaN lane and tied |beta|,
+    and an infinite lane for "fused").  Logs how many candidates of the
+    chain are bit-equal (NaN to NaN) to the "xla" form and to the pair's
+    form in each output (beta_w, sigma_w, idx_best, res), raises where the
+    pair's form is not bit-equal to its chain (after every shape ran), and
+    times the chain (a replay of it captured as one CUDA graph, as a solve
+    runs it) and the forms' kernels (device ms, in turns), on inputs
+    without the edge rows (``kc_inputs(edges=False)``)."""
+    import inspect
+    from .. import ops
+    forms = "selection" in inspect.signature(ops.inner_cem).parameters
+    recs, apart = [], []
+    for path, C, S, k, maxiter, pairs in shapes:
+        for selection, carry in pairs:
+            inp, n_el, rho, reg, cfg, cx, cy = kc_inputs(
+                gen, C, S, k, maxiter, inf_lane=selection == "fused", full=True)
+            args = (*inp, k, n_el, rho, reg, "laplace")
+            chain = inner_chain(cfg, cx, cy, inp, k, n_el, rho, reg, selection, carry)
+            xla = ops.inner_cem(*args)
+            kw = dict(selection=selection, carry=carry, coeffs=(cx, cy))
+            own = ops.inner_cem(*args, **kw) if forms else None
+            torch.cuda.synchronize()
+            names = ("beta_w", "sigma_w", "idx_best", "res")
+
+            def equal(got):
+                return {n: int(((g == r) | (g.isnan() & r.isnan())).reshape(C, -1)
+                               .all(dim=1).sum()) for n, g, r in zip(names, got, chain)}
+
+            rec = {"path": path, "shape": [C, S, k * k, k, maxiter], "selection": selection,
+                   "carry": carry, "chain_equal_to_xla": equal(xla),
+                   "form_equal_to_chain": equal(own) if own is not None else None}
+            # timed on inputs without the edge rows
+            inp, n_el, rho, reg, cfg, cx, cy = kc_inputs(gen, C, S, k, maxiter, full=True,
+                                                         edges=False)
+            args = (*inp, k, n_el, rho, reg, "laplace")
+            kw = dict(selection=selection, carry=carry, coeffs=(cx, cy))
+            rec["chain_graph_ms"] = graph_ms(lambda: inner_chain(
+                cfg, cx, cy, inp, k, n_el, rho, reg, selection, carry))
+            timed = {"xla": lambda: ops.inner_cem(*args)}
+            if own is not None:
+                timed["form"] = lambda: ops.inner_cem(*args, **kw)
+            rec["device_ms"] = in_turns(timed, "inner_cem_kernel")
+            recs.append(rec)
+            log(f"forms {path} C={C}, S={S}, M={k * k}, k={k}, {maxiter} it., "
+                f"({selection!r}, carry={carry}): chain bit-equal to the 'xla' form in "
+                f"{rec['chain_equal_to_xla']} of {C} candidates, to its own form in "
+                f"{rec['form_equal_to_chain']}; chain {rec['chain_graph_ms']:.3f} ms a "
+                f"graph replay; kernel device us "
+                + ", ".join(f"{n} {[round(1e3 * t, 1) for t in ts]}"
+                            for n, ts in rec["device_ms"].items()))
+            if own is not None and rec["form_equal_to_chain"] != {n: C for n in names}:
+                apart.append((path, selection, carry, rec["form_equal_to_chain"], C))
+    if apart:
+        raise RuntimeError(f"kernel (c)'s forms not bit-equal to their chains "
+                           f"(path, selection, carry, candidates equal, of): {apart}")
+    return recs
+
+
 def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
         warm_only: bool = False) -> dict:
     out.mkdir(parents=True, exist_ok=True)
@@ -1452,15 +1609,17 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
     log(f"card: {smi.stdout.strip()}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     sources = builds(before, diagnose)
     if kernels:
-        unknown = set(kernels) - {v[0] for v in sources.values()} - set(sources)
+        unknown = (set(kernels) - {v[0] for v in sources.values()} - set(sources)
+                   - {"forms"})
         if unknown:
             raise SystemExit(f"kernel_ab: no kind or build named {sorted(unknown)}")
         sources = {n: v for n, v in sources.items() if v[0] in kernels or n in kernels}
     t0 = time.perf_counter()
-    # the package's library (kernel (c) between the outer kernels' launches)
-    # compiles beside the builds
+    # the package's library (kernel (c) between the outer kernels' launches;
+    # kernel (c)'s forms, and its build beside DIR's) compiles beside the builds
     package = threading.Thread(target=_build.build, daemon=True)
-    if not warm_only and any(kind in ("kd", "ke") for kind, _ in sources.values()):
+    kinds = {kind for kind, _ in sources.values()}
+    if (not warm_only and kinds & {"kd", "ke"}) or "kc" in kinds or "forms" in (kernels or ()):
         package.start()
     libs = build_all(sources, log, before)
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
@@ -1577,7 +1736,11 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
         rec["prng_beta"] = run_prng(libs, prngs, gen, log)
     kcs = [n for n, (kind, _) in sources.items() if kind == "kc"]
     if kcs:
-        rec["kc"] = run_kc(libs, kcs, gen, log)
+        # the package's build of kernel (c) beside the others (its "xla" form)
+        package.join()
+        libs["kc_package"] = _build.library()
+        libs["kc_package"].kc_forms = True
+        rec["kc"] = run_kc(libs, kcs + ["kc_package"], gen, log)
     kds = [n for n, (kind, _) in sources.items() if kind == "kd"]
     kes = [n for n, (kind, _) in sources.items() if kind == "ke"]
     # kernel (c), launched between (d)'s or (e)'s: the package's build
@@ -1591,6 +1754,9 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
     glue = [n for n, (kind, _) in sources.items() if kind in GLUE_ENTRIES]
     if glue:
         rec["glue"] = run_glue(libs, glue, gen, log, warm_only)
+    if kernels and "forms" in kernels:
+        _build.library()
+        rec["forms"] = run_forms(gen, log)
     rec["resources"] = RESOURCES
     (out / "kernel_ab.json").write_text(json.dumps(rec, indent=1))
     (out / "kernel_ab.txt").write_text("\n".join(lines) + "\n")
@@ -1605,8 +1771,8 @@ def main(argv=None) -> None:
                    help="also the diagnostic builds and the latency microbenchmark")
     p.add_argument("--kernels", nargs="*", default=None,
                    help="build and run only these kinds (k1 k2 k3 prng kc kd ke kf k4n kg "
-                   "micro) "
-                   "or builds")
+                   "micro), or builds, and with forms kernel (c)'s forms against their "
+                   "chains from the package's library")
     p.add_argument("--out", type=Path, default=OUT_DIR)
     p.add_argument("--warm_only", action="store_true",
                    help="kernels (d) and (e): warm times only (no L2-cold or evicted "

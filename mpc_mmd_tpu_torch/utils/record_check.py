@@ -191,7 +191,6 @@ _STAGES = (("solver", ("initial_params", "noisy_controls", "batched_rollouts",
            ("sampling", ("scalar_cost", "cem_update")),
            ("noise:JaxNoise", ("rollout_eps", "cem_z")),
            ("noise:FixedNoise", ("rollout_eps", "cem_z")),
-           ("reduced_set", ("topk_indices",)),
            ("ops.inner_cem", ("topk_indices", "eq_qp_solve")),
            ("risk", ("mmd_obs", "mmd_lane")))
 _INPUTS = ("eq_qp_solve", "topk_indices")

@@ -9,7 +9,11 @@ runs, in a fresh process and from one root's package, ``chip_smoke.py``'s
 full-width fastrt ``mmd_opt`` solve, Path A's fused and "xla" solves,
 Path B's ``cvar``, ``saa`` and ``mmd_random`` solves of that workload and
 Path D's "xla" and ``det`` ``FrenetSolver`` solves (or those that
-``--paths`` names): one warm-up solve, ``--solves``
+``--paths`` names; also the inner CEM's other selections: fastrt and Path
+A under "xt" and "g", fastrt "xla" without elite-carry
+(``MPC_MMD_ELITE_CARRY=0``), Path D fused, and the record's static
+cells at N = 5 and 15 fused and at N = 15 "xla", ``chip_smoke.py``'s
+``record_config``): one warm-up solve, ``--solves``
 timed ones (wall ms to ``torch.cuda.synchronize``; their median and 99th
 percentile over a root's turns) and one under ``torch.profiler`` (device
 busy ms, idle share, device events); on the card each is a CUDA graph,
@@ -38,7 +42,9 @@ import torch
 ROOT = Path(__file__).resolve().parents[2]
 OUT_DIR = ROOT / "build" / "solve_ab"
 PATHS = ("fastrt", "path_a_fused", "path_a_xla", "path_b_cvar", "path_b_saa",
-         "path_b_mmd_random", "path_d_xla", "path_d_step", "path_d_det", "path_d_det_step")
+         "path_b_mmd_random", "path_d_xla", "path_d_step", "path_d_det", "path_d_det_step",
+         "fastrt_xt", "fastrt_g", "fastrt_nocarry", "path_a_xt", "path_a_g",
+         "path_d_fused", "path_f5_fused", "path_f15_fused", "path_f15_xla")
 
 # One turn: run from the root in argv[1], with that root's package and
 # chip_smoke.py's problems.
@@ -78,33 +84,62 @@ def run(solve, solver):
             "graph_nodes": sum(g["nodes"] for g in solver.graph_stats())}
 
 
+# the inner CEM's selection of a path: the environment its solves run in
+SELECT = {"fastrt_xt": {"MPC_MMD_SELECTION": "xt"}, "fastrt_g": {"MPC_MMD_SELECTION": "g"},
+          "fastrt_nocarry": {"MPC_MMD_ELITE_CARRY": "0"},
+          "path_a_fused": {"MPC_MMD_FUSED_CEM": "1"}, "path_a_xt": {"MPC_MMD_SELECTION": "xt"},
+          "path_a_g": {"MPC_MMD_SELECTION": "g"}, "path_d_fused": {"MPC_MMD_FUSED_CEM": "1"},
+          "path_f5_fused": {"MPC_MMD_FUSED_CEM": "1"},
+          "path_f15_fused": {"MPC_MMD_FUSED_CEM": "1"}}
+
+
+def selected(name, fn):
+    # fn() under the path's selection; the variables are read at call time
+    env = SELECT.get(name, {})
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+
+
 paths = sys.argv[3].split(",")
 out = {}
 cfg = fastrt_workload(num_reduced=10, num_obs=6, num_prime=50, mode="mmd_opt",
                       noise="gaussian", noise_level=0.1)
-if "fastrt" in paths:
+for name in ("fastrt", "fastrt_xt", "fastrt_g", "fastrt_nocarry"):
+    if name not in paths:
+        continue
     s = Solver(cfg, device=dev)
     scen = cs.obstacle_scenarios(torch, 4, 6, s.ws.tot_time)
-    out["fastrt"] = run(lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0),
-                        s)
+    out[name] = selected(name, lambda: run(
+        lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0), s))
+# the record's static cells (chip_smoke.py's Path F)
+for name, N in (("path_f5_fused", 5), ("path_f15_fused", 15), ("path_f15_xla", 15)):
+    if name not in paths:
+        continue
+    cf = cs.record_config(N)
+    s = Solver(cf, device=dev)
+    scen = cs.obstacle_scenarios(torch, 4, cf.obstacles.num_obs, s.ws.tot_time)
+    out[name] = selected(name, lambda: run(
+        lambda i: s.solve(i, cs.INIT, cs.MEAN, cs.COV, *scen[i % 4], 15.0), s))
 
 cfg_a = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
                          num_prime=50, mode="mmd_opt")
 init, mean, cov, v_des = ego_initial_state("dynamic")
 cut = dynamic_cutin(cfg_a, 3, device=dev)
-# Path A fused and "xla", Path B's modes: the dynamic cut-in workload
-for name, mode, fused in (("path_a_fused", "mmd_opt", True),
-                          ("path_a_xla", "mmd_opt", False),
-                          ("path_b_cvar", "cvar", False), ("path_b_saa", "saa", False),
-                          ("path_b_mmd_random", "mmd_random", False)):
+# Path A under each selection, Path B's modes: the dynamic cut-in workload
+for name, mode in (("path_a_fused", "mmd_opt"), ("path_a_xla", "mmd_opt"),
+                   ("path_a_xt", "mmd_opt"), ("path_a_g", "mmd_opt"),
+                   ("path_b_cvar", "cvar"), ("path_b_saa", "saa"),
+                   ("path_b_mmd_random", "mmd_random")):
     if name not in paths:
         continue
-    if fused:
-        os.environ["MPC_MMD_FUSED_CEM"] = "1"
     sa = Solver(cfg_a.with_risk_mode(mode), device=dev)
-    out[name] = run(lambda i: sa.solve(i, init, mean, cov, cut.x_traj[i % 3],
-                                       cut.y_traj[i % 3], v_des), sa)
-    os.environ.pop("MPC_MMD_FUSED_CEM", None)
+    out[name] = selected(name, lambda: run(
+        lambda i: sa.solve(i, init, mean, cov, cut.x_traj[i % 3], cut.y_traj[i % 3],
+                           v_des), sa))
 
 cfg_d = onroad_workload(num_reduced=4, num_obs=4, num_prime=50, noise="gaussian",
                         noise_level=0.1)
@@ -112,14 +147,15 @@ args = cs.onroad_problem(torch, cfg_d, dev)
 from mpc_mmd_tpu_torch.closedloop import run_episode
 # Path D in mmd_opt ("xla") and det, and each one's closed-loop step: the
 # solve times of two 20-step episodes on that solver
-for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det")):
-    step = "path_d_step" if mode == "mmd_opt" else f"{name}_step"
+for name, mode in (("path_d_xla", "mmd_opt"), ("path_d_det", "det"),
+                   ("path_d_fused", "mmd_opt")):
+    step = {"path_d_xla": "path_d_step", "path_d_det": "path_d_det_step"}.get(name)
     if name not in paths and step not in paths:
         continue
     c = cfg_d.with_risk_mode(mode)
     fs = FrenetSolver(c, device=dev)
     if name in paths:
-        out[name] = run(lambda i: fs.solve(i, *args), fs)
+        out[name] = selected(name, lambda: run(lambda i: fs.solve(i, *args), fs))
     if step in paths:
         steps = []
         for _ in range(2):

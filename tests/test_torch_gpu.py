@@ -16,7 +16,8 @@ iteration: the winner's indices exact, its weights, bandwidth and costs
 within rtol 1e-5 + atol 1e-6; over every iteration the costs within rtol
 1e-4 + atol 1e-6 for all but 2 % of the candidates (near-ties that the
 resample's round-off may decide; on the H100 every output has been
-bit-equal); kernels (d) and (e): every output within rtol 1e-5 + atol 1e-6
+bit-equal), and each of its other forms ("fused", "xt", "g", without
+elite-carry) bit-equal to its chain; kernels (d) and (e): every output within rtol 1e-5 + atol 1e-6
 of the plain version on the card, (e)'s kept, elites and pick exact; at
 the path shapes every output bit-equal to the plain version, (d) at each
 launch choice (rows a CTA, compile-time or run-time shape) and (e) at
@@ -302,6 +303,50 @@ def test_inner_cem_kernel_at_the_edges_of_its_split(cuda, C, S, k, kind):
             assert int(apart.sum()) <= 0.02 * C
 
 
+# kernel (c)'s forms (C, S, k, maxiter, selection, elite-carry), laplace:
+# each at the path shapes that run it (fastrt "xt", "g" and "xla" without
+# elite-carry; Path A and D and F5 / F15 fused, Path A's chunk of 4 fused;
+# Path A, D, F5 and F15 "xt" and "g"), "xla" and "xt" without elite-carry at
+# F15 and M = 169 (their elites run again: a row's sums move with its
+# place), and the edges of the split: one candidate, S = 33, M = 144 at S =
+# 256
+INNER_CEM_FORMS = [(64, 64, 10, 12, "xt", True), (64, 64, 10, 12, "g", True),
+                   (64, 64, 10, 12, "xla", False), (100, 100, 10, 20, "fused", False),
+                   (100, 100, 10, 20, "xt", True), (100, 100, 10, 20, "g", True),
+                   (400, 100, 10, 20, "fused", False), (100, 100, 4, 20, "fused", False),
+                   (100, 100, 4, 20, "xt", True), (100, 100, 4, 20, "g", True),
+                   (100, 100, 5, 20, "fused", False), (100, 100, 5, 20, "xt", True),
+                   (100, 100, 15, 20, "fused", False), (100, 100, 15, 20, "xt", True),
+                   (100, 100, 15, 20, "g", True), (100, 100, 15, 20, "xla", False),
+                   (100, 100, 13, 6, "xt", False), (1, 64, 10, 4, "fused", False),
+                   (64, 33, 10, 4, "g", False), (64, 256, 12, 4, "fused", False)]
+
+
+@pytest.mark.parametrize("C,S,k,maxiter,selection,carry", INNER_CEM_FORMS)
+def test_inner_cem_form_is_bit_equal_to_its_chain(cuda, C, S, k, maxiter, selection,
+                                                  carry):
+    """Each form against its (selection, elite-carry) pair's chain
+    (``inner_cem_plain``: K1, K2, K2t, K3 and PyTorch's operations on the
+    card) bit for bit in every output, NaN to NaN, with a NaN lane, tied
+    |beta| and for "fused" an infinite lane in the first batch; one launch,
+    counted by the wrapper and by the form's own count."""
+    from mpc_mmd_tpu_torch.ops.inner_cem import FORMS
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
+    for iters in (1, maxiter):
+        inp, n_el, rho, reg, _, cx, cy = kc_inputs(
+            cuda, C, S, k, iters, inf_lane=selection == "fused", full=True)
+        args = (*inp, k, n_el, rho, reg, "laplace")
+        form = dict(selection=selection, carry=carry, coeffs=(cx, cy))
+        own = FORMS.get(selection, inner_cem)
+        before = (inner_cem.launches, own.launches)
+        got = inner_cem(*args, **form)
+        assert (inner_cem.launches, own.launches) == (before[0] + 1, before[1] + 1)
+        ref = inner_cem_plain(*args, **form)
+        torch.cuda.synchronize()
+        for name, g, r in zip(("beta_w", "sigma_w", "idx_best", "res"), got, ref):
+            assert bool(((g == r) | (g.isnan() & r.isnan())).all()), (name, iters)
+
+
 def test_inner_cem_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     from mpc_mmd_tpu_torch.utils.kernel_ab import kc_inputs
     inp, n_el, rho, reg = kc_inputs(cuda, 2, 16, 4, 2)
@@ -557,13 +602,14 @@ def test_record_cell_outer_iteration_cuda_matches_cpu(cuda, monkeypatch, N, sele
     monkeypatch.setattr(solver_mod, "select_reduced_set_batched",
                         lambda c, *a, **kw: seen.append(a) or inner(c, *a, **kw))
     h = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(0, *args)
-    # the "xla" selection's inner CEM is kernel (c), once an outer iteration
-    qp, n = ({"xt": (eq_qp_solve_t, cfg.beta_cem.maxiter),
-              "fused": (eq_qp_solve, cfg.beta_cem.maxiter)}.get(selection)
-             or (inner_cem, cfg.cem.maxiter_cem))
-    before = qp.launches
+    # every selection's inner CEM is kernel (c) in its form, once an outer
+    # iteration
+    from mpc_mmd_tpu_torch.ops.inner_cem import FORMS
+    own = FORMS.get(selection, inner_cem)
+    before = (inner_cem.launches, own.launches)
     g = Solver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
-    assert qp.launches == before + n
+    n = cfg.cem.maxiter_cem
+    assert (inner_cem.launches, own.launches) == (before[0] + n, before[1] + n)
     torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
     cpu_in = seen[0]
@@ -577,8 +623,10 @@ def test_record_cell_outer_iteration_cuda_matches_cpu(cuda, monkeypatch, N, sele
 
 
 def test_dynamic_fused_outer_iteration_cuda_matches_cpu(cuda, monkeypatch):
-    """Path A (dynamic workload, Beta noise, fused selection) for one outer
-    iteration: the CPU run records its Beta draws and the card replays them."""
+    """Path A (dynamic workload, Beta noise, fused selection: kernel (c)'s
+    fused form on the card) for one outer iteration: the CPU run records its
+    Beta draws and the card replays them."""
+    from mpc_mmd_tpu_torch.ops.inner_cem import FORMS
     monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
     cfg = dynamic_workload(num_reduced=4, num_obs=2, noise_level=0.2)
     cfg = cfg.replace(cem=dataclasses.replace(cfg.cem, num_batch=16, maxiter_cem=1),
@@ -593,9 +641,10 @@ def test_dynamic_fused_outer_iteration_cuda_matches_cpu(cuda, monkeypatch):
             np.diag([20.0] * 4 + [100.0] * 4), xo, yo, 15.0)
     h = Solver(cfg, device="cpu", noise=FixedNoise(arrays, "cpu", record)).solve(0, *args)
     assert arrays["beta"].shape == (1, 2, 16, 4, cfg.horizon.num_prime)
-    before = topk_kernel_matrices.launches
+    before = (FORMS["fused"].launches, topk_kernel_matrices.launches)
     g = Solver(cfg, device="cuda", noise=FixedNoise(arrays, "cuda")).solve(0, *args)
-    assert topk_kernel_matrices.launches == before + cfg.beta_cem.maxiter
+    assert (FORMS["fused"].launches, topk_kernel_matrices.launches) == (
+        before[0] + cfg.cem.maxiter_cem, before[1])
     torch.testing.assert_close(g.cx.cpu(), h.cx, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.cy.cpu(), h.cy, rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(g.risk_obs.cpu(), h.risk_obs, rtol=1e-3, atol=1e-3)
@@ -971,7 +1020,7 @@ def test_graphed_chunks_with_a_short_last_one_equal_the_eager_ones(cuda):
 
 def test_graphed_path_a_fused_beta_solve_equals_the_eager_one(cuda, monkeypatch):
     """Path A: the dynamic cut-in workload at full width, Beta noise 0.2,
-    the fused selection (K3), three cut-in scenarios."""
+    the fused selection (kernel (c)'s fused form), three cut-in scenarios."""
     from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
     monkeypatch.setenv("MPC_MMD_FUSED_CEM", "1")
     cfg = dynamic_workload(num_reduced=10, num_obs=6, noise="beta", noise_level=0.2,
@@ -981,7 +1030,9 @@ def test_graphed_path_a_fused_beta_solve_equals_the_eager_one(cuda, monkeypatch)
     calls = [lambda s, i=i: s.solve(i, init, mean, cov, cut.x_traj[i], cut.y_traj[i],
                                     v_des) for i in range(3)]
     g = graph_against_eager(lambda graph: Solver(cfg, device="cuda", graph=graph), calls)
-    assert g.graph_stats()[0]["launches"]["topk_kernel_matrices"] == 400
+    launches = g.graph_stats()[0]["launches"]
+    assert launches["inner_cem_fused"] == launches["inner_cem"] == 20
+    assert "topk_kernel_matrices" not in launches
 
 
 def test_graphed_frenet_episode_steps_equal_the_eager_ones(cuda):

@@ -414,6 +414,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -451,6 +452,26 @@ FP32_OPS_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 # H100 SXM 32-bit integer operations: 64 INT32 lanes an SM against 128
 # float32 lanes, whose fused multiply-add counts twice in the 67 TFLOP/s
 INT32_OPS_PER_S = FP32_OPS_PER_S / 4
+
+
+# The critical path of one rollout step in clock64 cycles, measured in this
+# run (``kernel_ab.step_cycles``: one lane's dependent chain of
+# rollout.cu's step(), alone on its SM): K4n's (a_t and tan(s_t) formed
+# before the chain) and K4's (tanf in it).  A lane's T steps of it at the
+# card's highest SM clock are a latency bound that no block shape beats.
+STEP_CYCLES = {}
+
+
+def sm_clock_max_mhz():
+    """The card's highest SM clock (nvidia-smi's clocks.max.sm), in MHz;
+    NaN where nvidia-smi is missing (a rehearsal on the CPU)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                              "--format=csv,noheader,nounits"], capture_output=True,
+                             text=True)
+    except FileNotFoundError:
+        return float("nan")
+    return float(out.stdout.split()[0])
 
 
 def bound(nbytes, ops, int_ops=0):
@@ -814,6 +835,8 @@ def check_rollout(torch, ops, rollout_plain, dev, gen, lanes=6400,
                 shape=f"{lanes} lanes x 50 steps, "
                       + ("a state per lane" if per_lane else "one shared state"),
                 call=lambda: ops.fused_rollout(*args), match="rollout_kernel",
+                latency_bound_ms=50 * STEP_CYCLES.get("k4", math.nan) / sm_clock_max_mhz()
+                / 1e3,
                 # two inputs read, two outputs written; ~16 float32
                 # operations a lane-step (tan, cos, sin and sqrt as one each)
                 nbytes=f32_bytes(acc, steer, s0, x, y), ops=16 * acc.numel(),
@@ -1296,7 +1319,37 @@ def _bits_apart(got, ref):
     return int((~((got == ref) | (got.isnan() & ref.isnan()))).sum())
 
 
-def check_noisy_rollout(torch, ops, gen, shapes, workloads):
+def glue_clock_builds():
+    """``utils/kernel_ab.py``'s clock variants of K4n and kernel (f) from
+    this checkout's sources (``k4n_clock``, ``kf_clock``: thread 0 of each
+    block stamps the cycles of each phase) and its step microbenchmark
+    (``step_now``), built beside the package."""
+    from mpc_mmd_tpu_torch.ops import _build
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    srcs = {f"{kind}_clock": (kind, kernel_ab.glue_clock_variant(
+        kind, (_build.CSRC / src).read_text(), f"{kind}_clock"))
+        for kind, src, _ in kernel_ab.GLUE_SOURCES if kind in kernel_ab.GLUE_CLOCKS}
+    srcs["step_now"] = ("step", kernel_ab.STEP_MICRO)
+    return kernel_ab.build_all(srcs, lambda msg: log(f"  {msg}"))
+
+
+def phase_cycles(wrapper, args, clocks, name, per=None):
+    """The mean cycles thread 0 of a block spends in each phase of the
+    clock build ``name`` of ``clocks`` (``glue_clock_builds``) at these
+    arguments, and with ``per`` the steps' cycles a step; {} without it."""
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    if name not in clocks:
+        return {}
+    got = kernel_ab._clock_regions(clocks[name], name,
+                                   lambda: wrapper(*args, lib=clocks[name]),
+                                   entry=kernel_ab.GLUE_CLOCK_ENTRY)
+    out = {r: round(v["mean"]) for r, v in got["cycles"].items()}
+    if per and "steps" in out:
+        out["steps_per_step"] = round(out["steps"] / per, 1)
+    return out
+
+
+def check_noisy_rollout(torch, ops, gen, shapes, workloads, clocks=None):
     """K4n (``ops.noisy_rollout``, ``csrc/rollout.cu``'s noisy-controls
     entry) against its plain version (``noisy_rollout_plain``:
     ``perturb_controls``, the mother pairing and K4 on the card) from the
@@ -1333,6 +1386,10 @@ def check_noisy_rollout(torch, ops, gen, shapes, workloads):
         cases.append(dict(
             shape=label, call=(lambda a=args: ops.noisy_rollout(*a)),
             match="noisy_rollout_kernel", launches_per_solve=at, cold=True,
+            phases=phase_cycles(ops.noisy_rollout, args, clocks or {}, "k4n_clock", per=T),
+            # the latency bound: T steps of one lane's chain at the card's
+            # highest SM clock
+            latency_bound_ms=T * STEP_CYCLES.get("k4n", math.nan) / sm_clock_max_mhz() / 1e3,
             # the controls and the draws read once, the positions written;
             # K4's 16 operations a lane-step and 5 of the noise
             nbytes=f32_bytes(*args[:6], *got), ops=21 * lanes * T,
@@ -1344,7 +1401,7 @@ def check_noisy_rollout(torch, ops, gen, shapes, workloads):
     return main
 
 
-def check_inner_prologue(torch, ops, gen, shapes, workloads):
+def check_inner_prologue(torch, ops, gen, shapes, workloads, clocks=None):
     """Kernel (f) (``ops.inner_prologue``, ``csrc/inner_prologue.cu``)
     against its plain version (``inner_prologue_plain``:
     ``qp.refit_coefficients``' cuBLAS products and
@@ -1390,6 +1447,7 @@ def check_inner_prologue(torch, ops, gen, shapes, workloads):
         cases.append(dict(
             shape=label, call=(lambda a=args: ops.inner_prologue(*a)),
             match="inner_prologue_kernel", launches_per_solve=at, cold=True,
+            phases=phase_cycles(ops.inner_prologue, args, clocks or {}, "kf_clock"),
             nbytes=f32_bytes(args[1], args[2], args[0].P_prime, args[0].refit_inv,
                              *(t for t in got if t is not None)),
             # the two products' multiply-adds count two; a difference, an
@@ -1489,6 +1547,9 @@ def measure(torch, name, rec):
             f"{what}: {case['library_ms']}"
             + (f"; launches per solve {per_solve}" if per_solve else "")
             + (f"; L2-cold {case['l2_cold_ms']:.4f} ms" if "l2_cold_ms" in case else "")
+            + (f"; latency bound {case['latency_bound_ms']:.4f} ms"
+               if "latency_bound_ms" in case else "")
+            + (f"; cycles a phase {case['phases']}" if case.get("phases") else "")
             + (f"; was {case['was_device_ms']:.4f} ms (KC_WAS_MS, an earlier run's)"
                if case.get("was_device_ms") else ""))
     for key in ("device_ms", "bound_ms", "bound_by", "library_ms"):
@@ -1563,7 +1624,7 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
         if "cases" in rec:
             row["shapes"] = [{k: c[k] for k in (
                 "shape", "device_ms", "l2_cold_ms", "bound_ms", "bound_by", "plain_ms",
-                "library_ms", "launches_per_solve") if k in c}
+                "library_ms", "launches_per_solve", "latency_bound_ms", "phases") if k in c}
                 for c in rec["cases"]]
         if "row_major_gap" in rec:
             row["row_major_gap"] = rec["row_major_gap"]
@@ -3305,9 +3366,26 @@ def main():
 
     # ---- 2. build ---------------------------------------------------------
     t0 = time.perf_counter()
+    clocks = {}
+
+    def build_clocks():
+        try:
+            clocks.update(glue_clock_builds())
+        except (RuntimeError, OSError) as e:   # nvcc's failure, or none found
+            clocks["error"] = e
+    clock_build = threading.Thread(target=build_clocks, daemon=True)
+    clock_build.start()
     lib_path = _build.build()
     _build.library()
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
+    clock_build.join()
+    if "error" in clocks:
+        fail(f"the clock and step builds of K4n and kernel (f) failed: {clocks['error']}")
+    from mpc_mmd_tpu_torch.utils.kernel_ab import step_cycles
+    STEP_CYCLES.update(step_cycles(clocks["step_now"]))
+    log(f"critical path of a rollout step, one lane alone: {STEP_CYCLES['k4n']:.1f} "
+        f"cycles (K4n's, tan formed), {STEP_CYCLES['k4']:.1f} (K4's, tanf in it); SM "
+        f"clock {sm_clock_max_mhz():.0f} MHz at most")
     for line in _build.build_log().splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             log(f"  ptxas: {line.strip()}")
@@ -3473,11 +3551,12 @@ def main():
     # K4n, kernels (f) and (g) at every shape a path launches them with; (f)
     # also with the gaussian and matern52 kernels of 9g
     k4n_at, kf_at, kg_at = glue_shapes(outer_paths)
-    k4n_rec = check_noisy_rollout(torch, ops, gen, k4n_at, workloads)
+    k4n_rec = check_noisy_rollout(torch, ops, gen, k4n_at, workloads, clocks)
     log(f"K4n noisy_rollout: at {len(k4n_at) + 1} shapes bit-equal; {k4n_rec['ms']:.4f} "
         f"ms vs plain {k4n_rec['plain_ms']:.4f} ms at {k4n_rec['shape']}")
     kf_rec = check_inner_prologue(torch, ops, gen, {
-        **kf_at, ("fastrt", 1, "gaussian"): {}, ("fastrt", 1, "matern52"): {}}, workloads)
+        **kf_at, ("fastrt", 1, "gaussian"): {}, ("fastrt", 1, "matern52"): {}}, workloads,
+        clocks)
     log(f"kernel (f) inner_prologue: at {len(kf_at) + 3} shapes bit-equal; "
         f"{kf_rec['ms']:.4f} ms vs plain {kf_rec['plain_ms']:.4f} ms at {kf_rec['shape']}")
     kg_rec = check_frenet_points(torch, ops, gen, kg_at, workloads)

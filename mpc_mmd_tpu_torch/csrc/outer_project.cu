@@ -81,6 +81,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "async_copy.cuh"
 #include "torch_order.cuh"
 
 namespace {
@@ -181,39 +182,12 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
-// ---- TMA bulk copies onto an mbarrier ----
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_fence_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src, unsigned bytes,
-                                          uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
-      "[%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], 0;\n"
-      "@!p bra WAIT;\n"
-      "}\n" ::"r"(smem_u32(bar))
-      : "memory");
-}
+// ---- TMA bulk copies onto an mbarrier (async_copy.cuh) ----
+using mmd_async::bulk_copy;
+using mmd_async::mbar_expect;
+using mmd_async::mbar_fence_init;
+using mmd_async::mbar_init;
+using mmd_async::mbar_wait;
 // the floats of a copy that TMA takes: whole 16-byte blocks of an aligned source
 __device__ __forceinline__ int bulk_floats(const float* src, int n) {
   return (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? (n & ~3) : 0;

@@ -17,6 +17,7 @@ source.
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import numpy as np
@@ -27,7 +28,33 @@ from ..config import NoiseConfig
 from ..dynamics import perturb_controls
 from ..dynamics import rollout as rollout_plain
 
-MAX_STEPS = 900   # T: a block's two (32, T) slabs fit in shared memory
+MAX_STEPS = 900   # T: a block's two (32, T) slabs fit in shared memory (K4)
+MAX_SMEM = 227 * 1024         # the shared memory a block may take
+SMALL_LAUNCH = 12800          # K4n: lanes a launch up to which a block takes 32
+
+
+def noisy_lanes(lanes: int) -> int:
+    """K4n's lanes a block (csrc/rollout.cu's noisy_lanes): 32 up to
+    :data:`SMALL_LAUNCH` lanes a launch, 64 up to twice that, else 160."""
+    return 32 if lanes <= SMALL_LAUNCH else 64 if lanes <= 2 * SMALL_LAUNCH else 160
+
+
+def noisy_smem_bytes(N: int, C: int, R: int, per: int, dc: int, T: int) -> int:
+    """Shared memory of a K4n block (csrc/rollout.cu's noisy_layout) for N
+    x C candidates of ``per`` lanes: the two (LB, T | 1) slabs at
+    :func:`noisy_lanes`' LB lanes a block, the acc and steer rows of the
+    most candidates a block's lanes touch, and the draw and eps_const slabs
+    of the most scenarios (or, under Beta noise, candidates) they touch,
+    each with room for its source's place in a 16-byte block.  A block
+    starts at a multiple of LB lanes, at most span - gcd(LB, span) lanes
+    into a candidate or scenario of span lanes."""
+    LB = noisy_lanes(N * C * per)
+    spanned = lambda span: 1 + (span - math.gcd(LB, span) + LB - 1) // span
+    nc, ns = spanned(per), spanned(C * per)
+    nd = nc if dc > 1 else ns
+    ctl = (nc * T + 4 + 3) & ~3
+    draw, eps = (nd * R * T + 8) & ~3, (ns * R * T + 8) & ~3
+    return 4 * (2 * LB * (T | 1) + 4 + 2 * ctl + 2 * draw + eps)
 
 
 def fused_rollout(acc: torch.Tensor, steer: torch.Tensor, state0: torch.Tensor,
@@ -118,7 +145,8 @@ def noisy_rollout(acc: torch.Tensor, steer: torch.Tensor, d_acc: torch.Tensor,
     ``dynamics.perturb_controls``' (``noise``).
 
     CPU tensors take :func:`noisy_rollout_plain`; CUDA tensors launch K4n
-    (float32, one device, T at most :data:`MAX_STEPS`) or raise.  ``lib``:
+    (float32, one device, a block's staging within :data:`MAX_SMEM` bytes
+    of shared memory, :func:`noisy_smem_bytes`) or raise.  ``lib``:
     another build of the kernels' library (``utils/kernel_ab.py``), else
     the package's.
     """
@@ -145,8 +173,10 @@ def noisy_rollout(acc: torch.Tensor, steer: torch.Tensor, d_acc: torch.Tensor,
         return noisy_rollout_plain(*inputs, noise, dt, wheel_base, mother)
     inputs = tuple(t.contiguous() for t in inputs)
     _build.require_cuda_f32("noisy_rollout", *inputs)
-    if T > MAX_STEPS:
-        raise ValueError(f"noisy_rollout: the kernel takes T <= {MAX_STEPS}, got {T}")
+    smem = noisy_smem_bytes(N, C, R, per, dc, T)
+    if smem > MAX_SMEM:
+        raise ValueError(f"noisy_rollout: a block would stage {smem} bytes at {R} draws "
+                         f"x {T} steps, past the {MAX_SMEM} bytes of shared memory")
     x = torch.empty(N, C, per, T, dtype=torch.float32, device=acc.device)
     y = torch.empty_like(x)
     f32 = lambda v: float(np.float32(v))

@@ -11,8 +11,8 @@ checked and timed in turns.
 build takes from DIR first), for example from ``git show
 <commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
 builds and runs only the builds of those kinds (``k1 k2 k3 prng kc kd
-ke kf k4n kg micro``; K5 is in ``topk.cu``) and those named (``kc_now
-kc_before``).
+ke kf k4n kg micro``; K5 is in ``topk.cu``; ``k4n`` brings ``step_now``)
+and those named (``kc_now kc_before``).
 Each build's CPU seconds are logged.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
 under ``build/kernel_ab/`` (one ``nvcc`` per build, all started together)
@@ -102,14 +102,23 @@ thread 0 between its stamps (1 risk of its share, 2 the others' risks and
 the sort, 3 and 4 the lane risks and the costs as the source's
 ``stamp`` calls mark them, 5 elites, moments and the Cholesky factor, 6
 resample and outputs).  The glue around the rollouts: kernel (f)
-(``kf_now``, ``csrc/inner_prologue.cu``) at ``KF_SHAPES``, K4n
-(``k4n_now``, ``csrc/rollout.cu``'s noisy-controls entry) at
-``K4N_SHAPES`` and kernel (g) (``kg_now``, ``csrc/frenet_points.cu``) at
-``KG_SHAPES`` (inputs from ``kf_inputs``, ``k4n_inputs``, ``kg_inputs``),
-and DIR's builds of them where DIR has their sources (``kf_before``,
-``k4n_before``, ``kg_before``): each bit-equal to its plain version in
-every output (else it raises), and their warm and L2-cold device times
-in turns.  Each build's registers,
+(``kf_now``, ``csrc/inner_prologue.cu``; also at each forced cluster
+size, ``kf_now@1/2/4``) at ``KF_SHAPES``, K4n (``k4n_now``,
+``csrc/rollout.cu``'s noisy-controls entry, and its ``GLUE_VARIANTS``) at
+``K4N_SHAPES`` (every path shape of both) and kernel (g) (``kg_now``,
+``csrc/frenet_points.cu``) at ``KG_SHAPES`` (inputs from ``kf_inputs``,
+``k4n_inputs``, ``kg_inputs``), and DIR's builds of them where DIR has
+their sources (``kf_before``, ``k4n_before``, ``kg_before``; an earlier
+(f) entry is called through ``SplitsEntry``): each bit-equal to its plain
+version in every output (else it raises), (f)'s plain D and D2 checked
+bit-symmetric, K4 of every K4n build bit-equal to the first's at
+``K4_SHAPES``, and their warm and L2-cold device times in turns; the
+clock builds (``k4n_clock``, ``kf_clock`` and DIR's ``*_clock_before``,
+``glue_clock_variant``: the cycles of thread 0 of each block in each
+phase of ``GLUE_CLOCKS``) at every shape; ``step_now`` (``STEP_MICRO``:
+one lane's dependent chain of the rollout step alone, in cycles a step);
+and each K4n and (f) build's SASS (``cuobjdump -sass``) written to
+``--out``.  Each build's registers,
 spills and SASS instructions per kernel (``cuobjdump -sass``) are logged.
 Writes
 ``kernel_ab.json`` and ``kernel_ab.txt`` to ``--out`` (default
@@ -222,6 +231,63 @@ extern "C" int micro(long long* out, unsigned seed, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 """
+
+
+# The critical path of one rollout step on the card: one lane (thread 0 of
+# one warp, alone on its SM) runs n dependent steps of rollout.cu's step()
+# from cells in shared memory, K4n's loop (a_t and tan(s_t) given) or K4's
+# (tanf(s_t) in it); clock64 cycles a step.  T steps of it over the SM clock
+# are a latency bound on a launch that no block shape can beat.
+STEP_MICRO = r"""
+#include "rollout.cu"
+
+namespace {
+template <bool K4>
+__global__ void step_chain(const float* cells, int n, float dt, float wheel_base,
+                           long long* out, float* sink) {
+  __shared__ float a_s[256], s_s[256];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    a_s[i] = cells[i];
+    s_s[i] = cells[256 + i];
+  }
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  State q = {0.0f, 1.75f, 5.0f, 0.0f, 0.0f};
+  const WheelBase L = wheel_base_of(wheel_base);
+  const long long t0 = clock64();
+  for (int t = 0; t < n; ++t) {
+    const float a_t = a_s[t], s_t = s_s[t];
+    step(q, a_t, K4 ? tanf(s_t) : s_t, dt, L);
+  }
+  out[K4 ? 1 : 0] = clock64() - t0;
+  sink[K4 ? 1 : 0] = q.x + q.y;
+}
+}  // namespace
+
+extern "C" int mmd_step_chain(const float* cells, int n, float dt, float wheel_base,
+                              long long* out, float* sink, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  step_chain<false><<<1, 32, 0, s>>>(cells, n, dt, wheel_base, out, sink);
+  step_chain<true><<<1, 32, 0, s>>>(cells, n, dt, wheel_base, out, sink);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+
+def step_cycles(lib, n: int = 256) -> dict:
+    """Clock64 cycles of one step of a lane's dependent chain (STEP_MICRO):
+    K4n's (a_t, tan(s_t) formed) and K4's (tanf in the chain), at fastrt's
+    dt 0.15 and wheel base 2.5, from acc 1 +- 0.5 and steer 0 +- 0.1."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    cells = torch.cat((1.0 + 0.5 * torch.randn(256, device="cuda", generator=gen),
+                       torch.tan(0.1 * torch.randn(256, device="cuda", generator=gen))))
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    sink = torch.zeros(2, device="cuda")
+    for _ in range(2):   # the second run from a warm instruction cache
+        _call(lib.mmd_step_chain(cells.data_ptr(), n, 0.15, 2.5, out.data_ptr(),
+                                 sink.data_ptr(), _stream()), "step_chain")
+        torch.cuda.synchronize()
+    return {"k4n": out[0].item() / n, "k4": out[1].item() / n}
 
 
 def _replace(src: str, old: str, new: str, name: str, count: int = -1) -> str:
@@ -366,6 +432,86 @@ def kd_clock_variant(src: str, name: str = "kd_clock") -> str:
     return regions_variant(src, name, anchors, head, end, "mmd_outer_project_clock", "kd")
 
 
+# K4n's and kernel (f)'s phases, timed by clock64() in the k4n_clock and
+# kf_clock variants: per kind, alternatives of (kernel start, kernel stop,
+# head, ((anchor, region), ...)) within the kernel's text, the first one
+# whose anchors the source has; the current sources mark their phases
+# ("// ---- k4n: ..."), the earlier sources by their own lines.  A region runs
+# from its anchor to the next; the first, "staging", from the head, the
+# last to the stop (the kernel's end).
+GLUE_CLOCKS = {
+    "k4n": (("// ---- k4n: begin", "// ---- k4n: end", "// ---- k4n: begin\n",
+             (("// ---- k4n: forming", "forming"), ("// ---- k4n: steps", "steps"),
+              ("// ---- k4n: write-back", "write-back"))),
+            ("noisy_rollout_kernel(const float* __restrict__ acc", "\n}\n\n}  // namespace",
+             "  const int i = threadIdx.x;\n",
+             (("  // thread i forms its own lane's controls", "forming"),
+              ("  // the steps as K4 takes them", "steps"),
+              ("  const int cells = nb * T;", "write-back")))),
+    "kf": (("// ---- kf: begin", "// ---- kf: end", "// ---- kf: begin\n",
+            (("// ---- kf: refit", "refit"), ("// ---- kf: aa", "aa"), ("// ---- kf: D", "D"))),
+           ("inner_prologue_kernel(const float* __restrict__ xr", "\n}\n\nsize_t smem_bytes(",
+            "  const int b = blockIdx.x, tid = threadIdx.x;\n",
+            (("  // the refit of rollout m of channel ch", "refit"),
+             ("  if (D2 != nullptr) {\n    for (int m = tid", "aa"),
+             ("  const long long out0 =", "D")))),
+}
+GLUE_CLOCK_ENTRY = "mmd_glue_clock"
+# variants of the current K4n source (rollout.cu: K4 with it, through the
+# shared step): sinf and cosf for psi where the source takes sincosf, 32,
+# 64, 128 or 160 lanes a block at every launch, the steps in 10 chunks (5
+# in the source)
+GLUE_VARIANTS = {"k4n": (
+    ("k4n_sinf_cosf", "  float s, c;\n  sincosf(q.psi, &s, &c);",
+     "  const float c = cosf(q.psi), s = sinf(q.psi);"),
+    *((f"k4n_lanes{n}", "  return lanes <= kSmallLaunch ? 32 : lanes <= 2 * kSmallLaunch ? 64 : 160;",
+       f"  return {n};") for n in (32, 64, 128, 160)),
+    ("k4n_chunks10", "constexpr int kChunks = 5;", "constexpr int kChunks = 10;"))}
+# kernel (f)'s forced cluster sizes (``ops.inner_prologue``'s keyword), run
+# by the current build beside its own choice
+KF_CLUSTERS = (1, 2, 4)
+
+
+def glue_clock_variant(kind: str, src: str, name: str):
+    """K4n or kernel (f) (``kind``) with the cycles thread 0 of each block
+    spends in each phase of GLUE_CLOCKS (slot 0 staging, then one a phase;
+    the last slot the whole block), read by ``mmd_glue_clock``; None if
+    the source has no alternative's anchors."""
+    for start, stop, head, anchors in GLUE_CLOCKS[kind]:
+        a = src.find(start)
+        b = src.find(stop, a + 1) if a >= 0 else -1
+        mid = src[a:b]
+        if a < 0 or b < 0 or head not in mid or any(x not in mid for x, _ in anchors):
+            continue
+        n = len(anchors) + 1
+        stamp = ("{{ if (threadIdx.x == 0) {{ const long long n_ = clock64(); "
+                 "gc_acc[gc_cur] += n_ - gc_t; gc_t = n_; gc_cur = {}; }} }} ")
+        mid = mid.replace(head, head + f"  long long gc_acc[{n}] = {{}};\n"
+                          "  const long long gc_t0 = clock64();\n  long long gc_t = gc_t0;\n"
+                          "  int gc_cur = 0;\n", 1)
+        for i, (anchor, _) in enumerate(anchors):
+            mid = mid.replace(anchor, stamp.format(i + 1) + anchor)
+        fin = ("\n  if (threadIdx.x == 0 && blockIdx.x < 4096) {\n"
+               "    gc_acc[gc_cur] += clock64() - gc_t;\n"
+               f"    for (int i_ = 0; i_ < {n}; ++i_) g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + i_] "
+               "= gc_acc[i_];\n"
+               f"    g_clock[blockIdx.x * {KC_CLOCK_SLOTS} + {KC_CLOCK_SLOTS - 1}] = "
+               "clock64() - gc_t0;\n  }\n")
+        mid = mid + fin   # the kernel's end: the stop marker, or its closing brace
+        decl = (f"__device__ long long g_clock[4096 * {KC_CLOCK_SLOTS}];\n"
+                "static void* g_clock_ptr() {\n  void* p = nullptr;\n"
+                "  cudaGetSymbolAddress(&p, g_clock);\n  return p;\n}\n")
+        entry = (f"extern \"C\" int {GLUE_CLOCK_ENTRY}(void* out, int reset) {{\n"
+                 "  if (reset) return static_cast<int>(cudaMemset(g_clock_ptr(), 0, "
+                 "sizeof(g_clock)));\n"
+                 "  return static_cast<int>(cudaMemcpyFromSymbol(out, g_clock, sizeof(g_clock), 0,\n"
+                 "                                                cudaMemcpyDeviceToDevice));\n}\n")
+        out = src[:a] + mid + src[b:]
+        CLOCK_REGIONS[name] = ["staging"] + [r for _, r in anchors]
+        return _replace(out, "namespace {\n", decl + "namespace {\n", name, count=1) + entry
+    return None
+
+
 def kc_source(csrc: Path) -> str:
     """Kernel (c)'s sources in ``csrc`` as one translation unit:
     ``inner_cem.cu`` with the body it includes (``inner_cem_body.cuh``)
@@ -411,10 +557,20 @@ def builds(before: Path, diagnose: bool = False) -> dict:
         out["prng_clock"] = ("prng", clock_variant(beta))
     if (before / "topk_kernel.cu").exists():
         out["k3_before"] = ("k3", (before / "topk_kernel.cu").read_text())
+    out["step_now"] = ("step", STEP_MICRO)
     for kind, src, entry in GLUE_SOURCES:
         out[f"{kind}_now"] = (kind, (_build.CSRC / src).read_text())
         if (before / src).exists() and entry in (before / src).read_text():
             out[f"{kind}_before"] = (kind, (before / src).read_text())
+        for name, old, new in GLUE_VARIANTS.get(kind, ()):
+            if old in out[f"{kind}_now"][1]:
+                out[name] = (kind, _replace(out[f"{kind}_now"][1], old, new, name))
+        for suffix in ("now", "before"):
+            if kind in GLUE_CLOCKS and f"{kind}_{suffix}" in out:
+                name = f"{kind}_clock" + ("_before" if suffix == "before" else "")
+                clocked = glue_clock_variant(kind, out[f"{kind}_{suffix}"][1], name)
+                if clocked is not None:
+                    out[name] = (kind, clocked)
     out["kd_now"] = ("kd", (_build.CSRC / "outer_project.cu").read_text())
     out["kd_clock"] = ("kd", kd_clock_variant(out["kd_now"][1]))
     out["ke_now"] = ("ke", (_build.CSRC / "outer_tail.cu").read_text())
@@ -529,6 +685,8 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
         lib = ctypes.CDLL(str(so))
         if kind == "micro":
             lib.micro.argtypes = [P, ctypes.c_uint, P]
+        elif kind == "step":
+            lib.mmd_step_chain.argtypes = [P, I, ctypes.c_float, ctypes.c_float, P, P, P]
         elif kind == "k1":
             lib.mmd_topk_indices.argtypes = [P, P, I, I, I, I, I, P]
             lib.mmd_topk_onehot.argtypes = [P, P, P, I, I, I, I, I, P]
@@ -545,9 +703,8 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             lib.kc_forms = forms
             if name.startswith("kc_clock"):
                 lib.mmd_inner_cem_clock.argtypes = [P, I]
-        elif kind in ("kd", "ke", "kf"):
-            entry = {"kd": "mmd_outer_project", "ke": "mmd_outer_tail",
-                     "kf": "mmd_inner_prologue"}[kind]
+        elif kind in ("kd", "ke"):
+            entry = {"kd": "mmd_outer_project", "ke": "mmd_outer_tail"}[kind]
             sig = list(_build._SIGNATURES[entry])
             current, later = LATER_ARGS[kind]
             now = (_build.CSRC / current).read_text()
@@ -568,6 +725,14 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             fn = getattr(lib, GLUE_ENTRIES[kind])
             fn.argtypes = _build._SIGNATURES[GLUE_ENTRIES[kind]]
             fn.restype = ctypes.c_int
+            if kind == "k4n":
+                lib.mmd_fused_rollout.argtypes = _build._SIGNATURES["mmd_fused_rollout"]
+            if "_clock" in name:
+                getattr(lib, GLUE_CLOCK_ENTRY).argtypes = [P, I]
+            if kind in ("k4n", "kf"):
+                dump_sass(so, OUT_DIR / f"{name}.sass")
+            if kind == "kf" and "int splits" in sources[name][1]:
+                lib = SplitsEntry(lib)
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -585,8 +750,7 @@ SOURCES = {}       # a build's name -> its CUDA source
 
 class EarlierEntry:
     """An earlier build whose C entry lacks arguments that the current
-    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta,
-    kernel (f)'s splits):
+    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta):
     its calls drop the arguments at the positions ``drop`` (negative from
     the end)."""
 
@@ -601,13 +765,40 @@ class EarlierEntry:
                                   if i not in {d % len(args) for d in self._drop}))
 
 
+def parent_splits(B: int, M: int, sms: int) -> int:
+    """The earlier launch choice of kernel (f) (``ops.inner_prologue
+    .splits_for``): CTAs a candidate's rows of D went to, enough for two
+    on each multiprocessor, at least 16 rows each."""
+    return max(1, min(-(-2 * sms // B), -(-M // 16)))
+
+
+class SplitsEntry:
+    """An earlier build of kernel (f), whose entry took ``splits`` where
+    the current one takes the cluster size: its calls pass that build's
+    own choice (:func:`parent_splits`) in its place."""
+
+    def __init__(self, lib):
+        self._lib = lib
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name != "mmd_inner_prologue":
+            return fn
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+        def call(*args):
+            args = list(args)
+            args[-2] = parent_splits(args[8], args[9], sms)
+            return fn(*args)
+        return call
+
+
 # per kind: the current source, and each argument an earlier entry may lack
 # (a name the source has with it) with its positions in the current entry
 LATER_ARGS = {"kd": ("outer_project.cu", (("rows_per_cta", (-13, -12)),
                                           ("per_scen", tuple(range(-11, -1))))),
               "ke": ("outer_tail.cu", (("kept_cta", (31,)),
-                                       ("q_lo_des", (44, -8, -7, -6, -5, -4, -3, -2)))),
-              "kf": ("inner_prologue.cu", (("splits", (-2,)),))}
+                                       ("q_lo_des", (44, -8, -7, -6, -5, -4, -3, -2))))}
 
 
 def resources(ptxas: str, so: Path) -> dict:
@@ -640,20 +831,28 @@ def resources(ptxas: str, so: Path) -> dict:
     return out
 
 
+def dump_sass(so: Path, path: Path) -> None:
+    """``cuobjdump -sass`` of a build, where the toolkit has it."""
+    tool = Path(_build._nvcc()).parent / "cuobjdump"
+    if tool.exists():
+        path.write_text(subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                                       text=True).stdout)
+
+
 def device_ms(fn, match: str, reps: int = 20) -> float:
     """Device milliseconds per call: the device events whose name holds
     ``match`` in a profiled window of ``reps`` calls, which should number at
     least ``reps`` (a library call may launch several kernels).  The
     profiler now and then records no device event in a session, or drops
     launches' records: as in chip_smoke.py's ``profiled_ms``, each session
-    opens with a short ``spin_kernel`` left out of the count, and of five
+    opens with a short ``spin_kernel`` left out of the count, and of ten
     sessions the first full one counts, else the fullest, per recorded
     event, if it holds at least half of them."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
     best = []
-    for _ in range(5):
+    for _ in range(10):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda._sleep(100)
             for _ in range(reps):
@@ -966,17 +1165,30 @@ GLUE_SOURCES = (("kf", "inner_prologue.cu", "mmd_inner_prologue"),
                 ("k4n", "rollout.cu", "mmd_noisy_rollout"),
                 ("kg", "frenet_points.cu", "mmd_frenet_points"))
 GLUE_ENTRIES = {kind: entry for kind, _, entry in GLUE_SOURCES}
-KF_SHAPES = (("fastrt", 1, "laplace"), ("fastrt", 4, "laplace"), ("path_a", 1, "laplace"),
-             ("path_d", 1, "laplace"), ("fastrt", 1, "matern52"))
-K4N_SHAPES = (("fastrt", 1, "mmd_opt"), ("fastrt", 4, "mmd_opt"), ("path_a", 1, "mmd_opt"),
-              ("path_a", 1, "cvar"), ("path_d", 1, "mmd_opt"))
+# every path shape: fastrt x 1, 4, 8 (E1, E4, E8), Path A x 1, 4 (A, EA4),
+# Path D, the record cells N = 5 and 15 (F5, F15); (f) also with D2; K4n
+# also Path B's R rollouts under Beta noise x 1, 4 (B, EB4) and Path D's
+# other modes
+KF_SHAPES = (("fastrt", 1, "laplace"), ("fastrt", 4, "laplace"), ("fastrt", 8, "laplace"),
+             ("path_a", 1, "laplace"), ("path_a", 4, "laplace"), ("path_d", 1, "laplace"),
+             ("f5", 1, "laplace"), ("f15", 1, "laplace"), ("fastrt", 1, "matern52"))
+K4N_SHAPES = (("fastrt", 1, "mmd_opt"), ("fastrt", 4, "mmd_opt"), ("fastrt", 8, "mmd_opt"),
+              ("path_a", 1, "mmd_opt"), ("path_a", 4, "mmd_opt"), ("path_a", 1, "cvar"),
+              ("path_a", 4, "cvar"), ("path_d", 1, "mmd_opt"), ("path_d", 1, "cvar"),
+              ("f5", 1, "mmd_opt"), ("f15", 1, "mmd_opt"))
 KG_SHAPES = (("path_d", 1), ("path_d", 4))
+# K4 (``rollout.cu``'s other entry, sharing K4n's step): lanes, a state per
+# lane?  The exact strategy's 6,400 and on-road 1,600, and the validator's
+K4_SHAPES = ((6400, False), (1600, True), (256_000, False))
 
 
 def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
     """Kernel (f), K4n and kernel (g): every build bit-equal to its plain
     version in every output at its shapes (else it raises), and the builds
-    of a kind timed in turns, warm and L2-cold."""
+    of a kind timed in turns, warm and L2-cold; (f)'s plain D and D2 checked
+    for bit-symmetry; K4 of every K4n build bit-equal to the first's (K4's
+    bits do not move) and timed in turns; the clock builds' cycles a phase
+    (mean and max over the blocks' thread 0) at every shape."""
     from ..frenet import global_to_frenet_points
     from ..ops.frenet_points import frenet_points
     from ..ops.inner_prologue import inner_prologue, inner_prologue_plain
@@ -997,20 +1209,75 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
                       "frenet_points_kernel"))
     recs = []
     for kind, label, args, wrapper, plain, match in cases:
-        builds = [n for n in names if n.startswith(f"{kind}_")]
+        builds = [n for n in names if n.startswith(f"{kind}_") and "_clock" not in n]
+        clocks = [n for n in names if n.startswith(f"{kind}_clock")]
         if not builds:
             continue
         ref = plain(*args)
         calls = {b: (lambda b=b: wrapper(*args, lib=libs[b])) for b in builds}
+        if kind == "kf" and "kf_now" in builds and "int cluster" in SOURCES.get("kf_now", ""):
+            from ..ops.inner_prologue import MAX_SMEM, smem_bytes
+            B, M, T = args[1].shape[0] * args[1].shape[1], args[1].shape[2], args[1].shape[3]
+            nvar = args[0].P_prime.shape[1]
+            calls.update({f"kf_now@{c}": (lambda c=c: wrapper(*args, lib=libs["kf_now"],
+                                                               cluster=c))
+                          for c in KF_CLUSTERS if smem_bytes(M, T, nvar, c) <= MAX_SMEM})
         for b, fn in calls.items():
             got = fn()
             torch.cuda.synchronize()
             if not all(same_bits(g, r) for g, r in zip(got, ref) if r is not None):
                 raise RuntimeError(f"{b} is not bit-equal to its plain version at {label}")
-        times = three_ways(calls, match, warm_only=warm_only)
-        recs.append({"kind": kind, "shape": label, "device_ms": times})
+        rec = {"kind": kind, "shape": label}
+        if kind == "kf":
+            rec["plain_symmetric"] = {
+                f: same_bits(t, t.transpose(-1, -2))
+                for f, t in (("D", ref.D), ("D2", ref.D2)) if t is not None}
+            log(f"kf {label}: the plain chain's {rec['plain_symmetric']} bit-symmetric")
+        rec["device_ms"] = three_ways(calls, match, warm_only=warm_only)
         log(f"{kind} {label}: {builds} bit-equal to the plain version; device us "
-            f"{_fmt_times(times)}")
+            f"{_fmt_times(rec['device_ms'])}")
+        if clocks:
+            T = args[1].shape[-1] if kind == "kf" else args[0].shape[-1]
+            rec["clock"] = {}
+            for c in clocks:
+                rec["clock"][c] = _clock_regions(
+                    libs[c], c, lambda c=c: wrapper(*args, lib=libs[c]),
+                    entry=GLUE_CLOCK_ENTRY)
+                cyc = rec["clock"][c]["cycles"]
+                steps = (f"; steps / T {cyc['steps']['mean'] / T:.1f} cycles"
+                         if "steps" in cyc else "")
+                log(f"{kind} {label} {c}: {rec['clock'][c]['blocks']} blocks, cycles "
+                    + ", ".join(f"{r} {v['mean']:.0f} (max {v['max']:.0f})"
+                                for r, v in cyc.items()) + steps
+                    + f"; SM clock {rec['clock'][c]['sm_clock']}")
+        recs.append(rec)
+    k4s = [n for n in names if n.startswith("k4n_") and "_clock" not in n]
+    for lanes, per_lane in (K4_SHAPES if k4s else ()):
+        acc = 1.0 + 0.5 * torch.randn(lanes, 50, device="cuda", generator=gen)
+        steer = 0.1 * torch.randn(lanes, 50, device="cuda", generator=gen)
+        s0 = torch.tensor([0.0, 1.75, 5.0, 0.0, 0.0], device="cuda")
+        if per_lane:
+            s0 = s0 + torch.tensor([0.05, 0.1, 0.5, 0.1, 0.02], device="cuda") * torch.randn(
+                lanes, 5, device="cuda", generator=gen)
+        outs = {n: (torch.empty_like(acc), torch.empty_like(acc)) for n in k4s}
+
+        def k4(n):
+            x, y = outs[n]
+            _call(libs[n].mmd_fused_rollout(
+                acc.data_ptr(), steer.data_ptr(), s0.data_ptr(), 5 if per_lane else 0,
+                x.data_ptr(), y.data_ptr(), lanes, 50, 0.15, 2.5, _stream()), n)
+        for n in k4s:
+            k4(n)
+        torch.cuda.synchronize()
+        equal = {n: all(same_bits(a, b) for a, b in zip(outs[n], outs[k4s[0]]))
+                 for n in k4s[1:]}
+        if not all(equal.values()):
+            raise RuntimeError(f"K4's bits moved at {lanes} lanes: {equal}")
+        times = three_ways({n: (lambda n=n: k4(n)) for n in k4s}, "rollout_kernel",
+                           warm_only=warm_only)
+        label = f"{lanes} lanes x 50" + (", a state per lane" if per_lane else "")
+        recs.append({"kind": "k4", "shape": label, "bit_equal": equal, "device_ms": times})
+        log(f"k4 {label}: {k4s} bit-equal; device us {_fmt_times(times)}")
     return recs
 
 
@@ -1021,11 +1288,16 @@ FLUSH_FLOATS = 16 * 2 ** 20   # 64 MB, written between launches: past the 50 MB 
 
 
 def _workloads():
-    from ..config import dynamic_workload, fastrt_workload, onroad_workload
+    from ..config import (dynamic_workload, fastrt_workload, onroad_workload,
+                          static_workload)
     obs = lambda cfg: cfg.replace(projection=dataclasses.replace(
         cfg.projection, with_obstacle_terms=True))
+    # the JAX record's static cells (chip_smoke.record_config)
+    record = lambda N: static_workload(num_reduced=N, num_obs=6, num_prime=50,
+                                       noise="beta", noise_level=0.3, mode="mmd_opt")
     return {"fastrt": fastrt_workload(), "path_a": dynamic_workload(noise_level=0.2),
             "path_d": onroad_workload(), "fastrt_obs": obs(fastrt_workload()),
+            "f5": record(5), "f15": record(15),
             "path_d_det": obs(onroad_workload(mode="det")),
             **{f"path_b_{m}": dynamic_workload(noise_level=0.2, mode=m)
                for m in ("cvar", "saa", "mmd_random")},
@@ -1080,11 +1352,12 @@ def _equal_counts(got, ref) -> list:
             for g, r in zip(got, ref)]
 
 
-def _clock_regions(lib, name: str, call, per: int = 1) -> dict:
+def _clock_regions(lib, name: str, call, per: int = 1,
+                   entry: str = "mmd_outer_project_clock") -> dict:
     """The cycles thread 0 of each block spends in each region of a clock
     build (mean and max over the blocks that stamped), divided by ``per``."""
     stamps = torch.zeros(4096 * KC_CLOCK_SLOTS, dtype=torch.int64, device="cuda")
-    entry = getattr(lib, "mmd_outer_project_clock")
+    entry = getattr(lib, entry)
     _call(entry(stamps.data_ptr(), 1), name)
     torch.cuda.synchronize()
     call()
@@ -1613,16 +1886,23 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
                    - {"forms"})
         if unknown:
             raise SystemExit(f"kernel_ab: no kind or build named {sorted(unknown)}")
-        sources = {n: v for n, v in sources.items() if v[0] in kernels or n in kernels}
+        sources = {n: v for n, v in sources.items() if v[0] in kernels or n in kernels
+                   or (v[0] == "step" and "k4n" in kernels)}
     t0 = time.perf_counter()
     # the package's library (kernel (c) between the outer kernels' launches;
     # kernel (c)'s forms, and its build beside DIR's) compiles beside the builds
     package = threading.Thread(target=_build.build, daemon=True)
     kinds = {kind for kind, _ in sources.values()}
-    if (not warm_only and kinds & {"kd", "ke"}) or "kc" in kinds or "forms" in (kernels or ()):
+    # (K4n's plain version runs the package's K4)
+    if ((not warm_only and kinds & {"kd", "ke"}) or kinds & {"kc", "k4n"}
+            or "forms" in (kernels or ())):
         package.start()
     libs = build_all(sources, log, before)
     log(f"{len(libs)} builds in {time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        sass = OUT_DIR / f"{name}.sass"
+        if sass.exists() and out.resolve() != OUT_DIR.resolve():
+            (out / sass.name).write_text(sass.read_text())
     k1s = [n for n, (kind, _) in sources.items() if kind == "k1"]
     k2s = [n for n, (kind, _) in sources.items() if kind == "k2"]
     k3s = [n for n, (kind, _) in sources.items() if kind == "k3"]
@@ -1751,8 +2031,14 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
         rec["kd"] = run_kd(libs, kds, gen, log, evict_lib, warm_only)
     if kes:
         rec["ke"] = run_ke(libs, kes, gen, log, evict_lib, warm_only)
+    if "step_now" in libs:
+        rec["step_cycles"] = step_cycles(libs["step_now"])
+        log(f"critical path of a rollout step, one lane alone (clock64 cycles): "
+            f"{rec['step_cycles']}; SM clock {sm_clock_mhz()}")
     glue = [n for n, (kind, _) in sources.items() if kind in GLUE_ENTRIES]
     if glue:
+        if package.is_alive():
+            package.join()
         rec["glue"] = run_glue(libs, glue, gen, log, warm_only)
     if kernels and "forms" in kernels:
         _build.library()

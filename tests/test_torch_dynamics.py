@@ -241,3 +241,45 @@ def test_noisy_rollout_rejects_bad_shapes():
         noisy_rollout(acc, acc, d, d, eps, torch.zeros(2, 5), *args)
     x, _ = noisy_rollout_plain(acc, acc, d, d, eps, torch.zeros(4, 5), *args)
     assert x.shape == (1, 4, 4, 3)
+
+
+# every path's K4n launch: (scenarios, C, R, lanes a candidate, draws' dc,
+# T): fastrt x 1, 4, 8 (E1, E4, E8), Path A mother x 1, 4 (A, EA4) and Path
+# B's R under Beta noise x 1, 4 (B, EB4), Path D mother and its other
+# modes, F5 and F15 (Beta, mother)
+K4N_PATHS = [(1, 64, 10, 100, 1, 50), (4, 64, 10, 100, 1, 50), (8, 64, 10, 100, 1, 50),
+             (1, 100, 10, 100, 100, 50), (4, 100, 10, 100, 100, 50),
+             (1, 100, 10, 10, 100, 50), (4, 100, 10, 10, 100, 50),
+             (1, 100, 4, 16, 1, 50), (1, 100, 4, 4, 1, 50), (1, 100, 5, 25, 100, 50),
+             (1, 100, 15, 225, 100, 50)]
+
+
+@pytest.mark.parametrize("N,C,R,per,dc,T", K4N_PATHS)
+def test_noisy_smem_at_every_path_shape(N, C, R, per, dc, T):
+    """K4n's block (32 lanes up to 12,800 lanes a launch, 64 up to 25,600,
+    else 160) stages
+    its candidates' control rows, the draw slabs of its scenarios
+    (gaussian) or candidates (Beta) and eps_const within the 227 KB a block
+    may take: what its lanes touch, and at most 40 floats more."""
+    from mpc_mmd_tpu_torch.ops.rollout import MAX_SMEM, noisy_lanes, noisy_smem_bytes
+    LB = noisy_lanes(N * C * per)
+    lanes = N * C * per
+    assert LB == (32 if lanes <= 12800 else 64 if lanes <= 25600 else 160)
+    smem = noisy_smem_bytes(N, C, R, per, dc, T)
+    # the candidates and scenarios LB lanes starting at a multiple of LB touch
+    starts = range(0, N * C * per, LB)
+    nc = max((l0 + LB - 1) // per - l0 // per + 1 for l0 in starts)
+    ns = max((l0 + LB - 1) // (C * per) - l0 // (C * per) + 1 for l0 in starts)
+    nd = nc if dc > 1 else ns
+    need = 2 * LB * 51 + 2 * nc * T + (2 * nd + ns) * R * T
+    assert 4 * need <= smem <= min(MAX_SMEM, 4 * (need + 40))
+
+
+def test_noisy_smem_values_and_refusal():
+    from mpc_mmd_tpu_torch.ops.rollout import MAX_SMEM, noisy_smem_bytes
+    # fastrt: slabs 2 x 32 x 51, two candidates' rows (2 x 104), and the
+    # draws and eps of one scenario (3 x 508: 6,400 lanes, a multiple of 32)
+    assert noisy_smem_bytes(1, 64, 10, 100, 1, 50) == 4 * (3264 + 4 + 208 + 3 * 508)
+    # K4's T <= 900 is not K4n's: its staging passes 227 KB there
+    assert noisy_smem_bytes(1, 64, 10, 100, 1, 900) > MAX_SMEM
+    assert noisy_smem_bytes(1, 64, 10, 100, 1, 300) <= MAX_SMEM

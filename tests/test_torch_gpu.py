@@ -23,7 +23,9 @@ the path shapes every output bit-equal to the plain version, (d) at each
 launch choice (rows a CTA, compile-time or run-time shape) and (e) at
 every cluster size, whose CTAs keep the same candidates; (d)'s run-time
 shape at num 60 within rtol 1e-5 + atol 1e-6; K4n and kernels (f) and (g)
-bit-equal to their plain versions on the card at two path shapes each.
+bit-equal to their plain versions on the card at two path shapes each, K4n
+and (f) also at their edges (run-time T, Beta draws with a state per lane,
+F15, 11a's chunk of 32; (f) at every cluster size, D and D2 symmetric).
 """
 
 import dataclasses
@@ -1238,6 +1240,73 @@ def test_inner_prologue_kernel_equals_its_plain_version(cuda, name, N, kind, ord
     ref = inner_prologue_plain(*args)
     assert (got.D2 is None) == (kind == "laplace")
     assert all(_same_bits(g, r) for g, r in zip(got, ref) if r is not None)
+
+
+def _record(N):
+    from mpc_mmd_tpu_torch import static_workload
+    return static_workload(num_reduced=N, num_obs=6, num_prime=50, noise="beta",
+                           noise_level=0.3, mode="mmd_opt")
+
+
+def _steps(cfg, T):
+    return cfg.replace(horizon=dataclasses.replace(cfg.horizon, num_prime=T))
+
+
+@pytest.mark.parametrize("cfg,N,frenet,const", [
+    (lambda: _steps(_workload("fastrt"), 37), 1, False, 0.0),        # run-time T
+    (lambda: _steps(_workload("path_a", "cvar"), 64), 2, True, 0.0),  # Beta, R, T 64
+    (lambda: _workload("path_a"), 1, True, 0.02),     # Beta, mother, a state per lane
+    (lambda: _workload("path_a", "cvar"), 4, False, 0.0),             # EB4
+    (lambda: _workload("path_d", "cvar"), 1, True, 0.0),              # R = 4 lanes
+    (lambda: _workload("fastrt"), 32, False, 0.01),   # 11a's chunk of 32
+    (lambda: _record(15), 1, False, 0.0), (lambda: _record(5), 1, False, 0.0)])
+def test_noisy_rollout_kernel_at_its_edges(cuda, cfg, N, frenet, const):
+    """K4n against its plain version on the card, x and y bit for bit:
+    T 37 and 64 (the run-time instantiation), Beta draws with a state per
+    lane, mother pairing on and off, const noise, 11a's chunk of 32
+    scenarios and the record cells' R = 15 and 5."""
+    from mpc_mmd_tpu_torch.ops.rollout import noisy_rollout_plain
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k4n_inputs
+    args = k4n_inputs(cuda, cfg(), N, frenet, const)
+    before = noisy_rollout.launches
+    got = noisy_rollout(*args)
+    assert noisy_rollout.launches == before + 1
+    ref = noisy_rollout_plain(*args)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+
+
+def test_noisy_rollout_wrapper_refuses_staging_past_shared_memory(cuda):
+    from mpc_mmd_tpu_torch.utils.kernel_ab import k4n_inputs
+    args = k4n_inputs(cuda, _steps(_workload("fastrt"), 900), 1)
+    with pytest.raises(ValueError):
+        noisy_rollout(*args)
+
+
+@pytest.mark.parametrize("cfg,N,kind", [
+    (lambda: _record(15), 1, "laplace"), (lambda: _record(15), 1, "gaussian"),
+    (lambda: _record(5), 1, "matern52"), (lambda: _workload("fastrt"), 32, "laplace"),
+    (lambda: _steps(_workload("path_d"), 37), 2, "gaussian"),          # run-time T
+    (lambda: _workload("fastrt").replace(horizon=dataclasses.replace(
+        _workload("fastrt").horizon, order=4)), 1, "laplace")])           # nvar 5
+def test_inner_prologue_kernel_at_every_cluster_size(cuda, cfg, N, kind):
+    """Kernel (f) at F15's M = 225, F5, 11a's chunk of 32 (2,048
+    candidates), a run-time T and nvar 5, at its own launch shape and at
+    every forced cluster size that fits: cx, cy, D and D2 bit-equal to the
+    plain version, and D and D2 bit-symmetric on the card."""
+    from mpc_mmd_tpu_torch.ops import inner_prologue
+    from mpc_mmd_tpu_torch.ops.inner_prologue import (CLUSTERS, MAX_SMEM,
+                                                      inner_prologue_plain, smem_bytes)
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kf_inputs
+    args = kf_inputs(cuda, cfg(), N, kind)
+    ref = inner_prologue_plain(*args)
+    _, M, T = args[1].shape[1:]
+    for c in [None] + [c for c in CLUSTERS
+                       if smem_bytes(M, T, args[0].P_prime.shape[1], c) <= MAX_SMEM]:
+        got = inner_prologue(*args, cluster=c)
+        assert all(_same_bits(g, r) for g, r in zip(got, ref) if r is not None), c
+    for mat in (ref.D, ref.D2, got.D, got.D2):
+        if mat is not None:
+            assert _same_bits(mat, mat.transpose(1, 2))
 
 
 @pytest.mark.parametrize("N", [1, 4])

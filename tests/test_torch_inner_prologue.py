@@ -1,5 +1,6 @@
 """Kernel (f)'s wrapper (``ops.inner_prologue``; on the CPU its plain
-version) against the JAX package's refit and distance matrices, the
+version) against the JAX package's refit and distance matrices, the plain
+chain's symmetry at the paths' shapes, the kernel's launch shape, the
 solver's routes to (f) and K4n, and the hoisted inner-CEM inputs.
 
 Inputs are made from a seed with numpy.  Tolerances: the coefficients at
@@ -99,6 +100,75 @@ def test_inner_prologue_rejects_bad_shapes():
     with pytest.raises(ValueError):
         ops.inner_prologue(ws, torch.zeros(1, C, M, T - 1), torch.zeros(1, C, M, T - 1),
                            "laplace")
+
+
+@pytest.mark.parametrize("M,seed", [(100, 5), (16, 6), (225, 7)])
+def test_plain_distances_are_bit_symmetric_and_match_jax(M, seed):
+    """At fastrt's, Path D's and F15's mother rollouts (M = 100, 16, 225;
+    T = 50, nvar 11) the plain chain's D and D2 are exactly symmetric, the
+    property kernel (f) rests on to compute each unordered pair once, and
+    D is JAX's pairwise_l1 of the same features at the file's tolerance."""
+    rng = np.random.default_rng(seed)
+    T_, nvar = 50, 11
+    cfg = jc.fastrt_workload(num_reduced=4, num_prime=T_)
+    ws = build_workspace(to_torch_cfg(cfg), device="cpu")
+    t = 0.3 * np.arange(T_)
+    v = rng.uniform(5, 15, (1, 2, M, 1))
+    x = (v * t + np.cumsum(rng.normal(0, 0.05, (1, 2, M, T_)), axis=-1)).astype(np.float32)
+    y = (rng.normal(0, 1.75, (1, 2, M, 1))
+         + np.cumsum(rng.normal(0, 0.05, (1, 2, M, T_)), axis=-1)).astype(np.float32)
+    got = inner_prologue_plain(ws, torch.from_numpy(x), torch.from_numpy(y), "gaussian")
+    assert got.cx.shape == (2, M, nvar)
+    for mat in (got.D, got.D2):
+        assert torch.equal(mat, mat.transpose(1, 2))
+    feats = np.concatenate((got.cx.numpy(), got.cy.numpy()), axis=2)
+    np.testing.assert_allclose(got.D.numpy(), np.asarray(jk.pairwise_l1(feats, feats)),
+                               rtol=1e-5, atol=1e-3)
+
+
+# every path's (candidates a launch, M): fastrt x 1, 4, 8 (E1, E4, E8),
+# Path A x 1, 4 (A, EA4), Path D, F5, F15 and 11a's chunk of 32
+PATH_SHAPES = [(64, 100), (256, 100), (512, 100), (100, 100), (400, 100), (100, 16),
+               (100, 25), (100, 225), (2048, 100)]
+
+
+@pytest.mark.parametrize("B,M", PATH_SHAPES)
+def test_launch_shape_at_every_path_shape(B, M):
+    """Kernel (f)'s cluster at H100's 132 multiprocessors: two CTAs a
+    candidate where two a candidate still fit one a multiprocessor, else
+    one; within 227 KB of shared memory a CTA, and at every path shape at
+    least two CTAs an SM (M = 225 included: no CTA holds an SM alone)."""
+    from mpc_mmd_tpu_torch.ops.inner_prologue import (CLUSTERS, MAX_SMEM, launch_shape,
+                                                      smem_bytes)
+    cs = launch_shape(B, M, 50, 11, 132)
+    assert cs in CLUSTERS
+    assert cs == (2 if 2 * B <= 132 else 1)
+    assert 2 * (smem_bytes(M, 50, 11, cs) + 1024) <= 228 * 1024 <= MAX_SMEM + 1024
+
+
+def test_launch_shape_values_and_smem():
+    from mpc_mmd_tpu_torch.ops.inner_prologue import launch_shape, smem_bytes
+    assert [launch_shape(B, M, 50, 11, 132) for B, M in PATH_SHAPES] == [
+        2, 1, 1, 1, 1, 1, 1, 1, 1]
+    # fastrt at one CTA a candidate: an mbarrier, 2 x 100 x 50 staged
+    # floats (+ 4 each), 100 x 24 features, P (50 x 12), Rinv (11 x 12), aa
+    assert smem_bytes(100, 50, 11, 1) == 4 * (4 + 2 * 5004 + 2400 + 600 + 132 + 100)
+    # Path D at two: the warps' row buffers (8 x 32 x 9) outgrow 2 x 8
+    # staged rows
+    assert smem_bytes(16, 50, 11, 2) == 4 * (4 + 2304 + 16 * 24 + 600 + 132 + 16)
+    # F15: two CTAs an SM (1 KB of each CTA's is the card's own) at one CTA
+    # a candidate, three at two
+    one, two = (smem_bytes(225, 50, 11, c) + 1024 for c in (1, 2))
+    assert 3 * one > 228 * 1024 >= 2 * one and 3 * two <= 228 * 1024
+
+
+def test_launch_shape_refusals():
+    from mpc_mmd_tpu_torch.ops.inner_prologue import launch_shape
+    with pytest.raises(ValueError):
+        launch_shape(64, 100, 50, 17, 132)          # nvar past 16
+    with pytest.raises(ValueError):
+        launch_shape(64, 2000, 50, 11, 132)         # features past 227 KB a CTA
+    assert launch_shape(256, 900, 50, 11, 132) == 4  # one and two CTAs do not fit
 
 
 def _cfg(mode="mmd_opt", **kw):

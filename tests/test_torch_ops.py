@@ -308,15 +308,18 @@ def _kernel_ab_variants():
 def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
     """The A/B tool's variants are textual changes of csrc/topk.cu,
     csrc/eq_qp.cu, csrc/topk_kernel.cu, csrc/prng.cu, kernel (c)'s sources
-    as one unit (inner_cem.cu, the body it includes and inner_cem_fused.cu)
-    and csrc/outer_project.cu (kernel (c)'s cluster sizes and clock stamps;
-    kc_clock_before stamps the earlier kernel (c); kernel (d)'s clock
-    stamps, kd_clock_before the earlier outer_project.cu's): each must find
-    its anchor and change the source."""
+    as one unit (inner_cem.cu, the body it includes and inner_cem_fused.cu),
+    csrc/outer_project.cu, csrc/rollout.cu and csrc/inner_prologue.cu
+    (kernel (c)'s cluster sizes and clock stamps; kc_clock_before stamps the
+    earlier kernel (c); kernel (d)'s clock stamps, kd_clock_before the
+    earlier outer_project.cu's; K4n's variants and K4n's and kernel (f)'s
+    clock stamps, *_clock_before the earlier sources'): each must find its
+    anchor and change the source."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
     for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu", "inner_cem_body.cuh",
-                 "inner_cem_fused.cu", "outer_project.cu", "outer_tail.cu"):
+                 "inner_cem_fused.cu", "outer_project.cu", "outer_tail.cu", "rollout.cu",
+                 "inner_prologue.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]
@@ -340,6 +343,11 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
         assert src.count("kd_cur = ") >= len(regions) - 1 >= 8
         assert {"guess", "KKT", "norms", "path and outputs"} <= set(regions)
         assert 'extern "C" int mmd_outer_project_clock' in src
+    elif variant.startswith(("k4n_clock", "kf_clock")):
+        # the counters and a stamp before every phase, and the clock's C entry
+        regions = kernel_ab.CLOCK_REGIONS[variant]
+        assert src.count("gc_cur = ") == len(regions) == 4
+        assert f'extern "C" int {kernel_ab.GLUE_CLOCK_ENTRY}' in src
 
 
 def test_solve_ab_checks_its_arguments_and_needs_a_card(tmp_path, monkeypatch):

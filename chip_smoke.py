@@ -106,8 +106,22 @@ Phases, each of which must pass:
    ``inner_prologue_plain``: the refit's cuBLAS products, pairwise_l1 and
    pairwise_l2sq; ``global_to_frenet_points``) at every shape a path
    launches them with (``glue_shapes``), K4n also with const noise, (f)
-   also with the gaussian and matern52 kernels, (g) also at a chunk of 4
-   and with edge points and a NaN: every output bit-equal;
+   also with the gaussian and matern52 kernels, (g) also at a chunk of 4,
+   with edge points and a NaN, on ``kernel_ab.kg_case``'s adversarial
+   inputs (ties across tiles, non-finite points and path points, squares
+   that overflow, duplicate path points, ragged sizes, points at a circular
+   path's centre, every point NaN) and on a closed-loop frame
+   (``kernel_ab.kg_closedloop``: local_problem's frame 150 m along the
+   curved route): every output bit-equal, and (g)'s nearest indices and
+   visited tiles (each wrapper's ``probe`` launch) its twin's
+   (``nearest_pruned``), the tiles visited a point logged; (g)'s state
+   form (``ops.frenet_states``: the noisy initial states and boundary
+   rows) against ``frenet.initial_states`` at every on-road mode's number
+   of states (16, 4, 1) and at 100 and 256 on the closed-loop frame and
+   adversarial ones, and its obstacle form (``ops.frenet_obstacles``)
+   against ``global_to_frenet_obstacle`` at the closed loop's obstacles
+   and adversarial ones: every output bit-equal, the indices and visited
+   tiles the twin's;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
@@ -118,7 +132,8 @@ Phases, each of which must pass:
    ``torch.linalg.solve`` of the bordered KKT system for K2,
    ``torch.cdist(p=1)`` of the features for kernel (f)'s D; the port
    never calls any; none for K3, K4, K4n, K5 and kernels (c), (d), (e),
-   (g)); K4n and kernels (f) and (g) also L2-cold;
+   (g)); K4n and kernels (f) and (g) also L2-cold, (g) also where every
+   warp visits every tile;
 4. the full-width fastrt ``mmd_opt`` solve (64 candidates x 10 iterations,
    100 mother rollouts, inner CEM 64 samples x 12 iterations): one warm-up
    solve, then 3 scenarios, each with finite coefficients and risk and
@@ -177,14 +192,15 @@ Phases, each of which must pass:
    b. ``FrenetSolver`` in ``mmd_opt`` with the "xla" selection: one
       warm-up solve, then 2 solves with finite cx, cy, v_best and
       steering_best and exactly 20 launches each of kernels (c), (d), (e),
-      K4n and kernels (f) and (g) (no K1, no K2, no K4),
-      and one more under ``torch.profiler`` (device busy, idle share);
+      K4n and kernels (f) and (g) (no K1, no K2, no K4) and one of (g)'s
+      state form, and one more under ``torch.profiler`` (device busy, idle
+      share);
    c. one solve with ``MPC_MMD_FUSED_CEM=1``: exactly 20 each of kernel
       (c)'s fused form, K4n and kernels (f) and (g), no K1, K2 or K3;
    d. one solve each of ``cvar``, ``saa``, ``mmd_random`` (20 launches
       each of K4n, kernels (g), (d) and (e), no K4) and ``det`` (no
       rollout: 20 each of (d)'s obstacle-active form and (e)'s ``det``
-      form);
+      form); each one launch of (g)'s state form;
    e. one outer iteration of ``mmd_opt`` on the card against the CPU with
       identical draws: seed 1's, v_best and steering_best within 1e-3;
       and seed 5's, whose inner CEM meets a near-tie that round-off
@@ -193,7 +209,11 @@ Phases, each of which must pass:
       --route curved --episodes 1 --max_steps 20``, in ``mmd_opt``, ``cvar``
       and ``det``, run in this process: each prints its episode line and
       launches one (d) and one (e) an outer iteration of every step, the
-      first two their other kernels, ``det`` nothing else but the draws.
+      first two their other kernels, and one each of (g)'s state and
+      obstacle forms a step, ``det`` nothing else but the draws;
+   g. ``local_problem``'s host ms a step (to ``torch.cuda.synchronize``)
+      with the obstacles through (g)'s obstacle form and through its
+      chain on the card, in turns, logged.
    Each of b-d and f runs with the launch counts set to 0 just before it
    and read just after.
 11. Path E, scenario chunks (``Solver(cfg, scenario_chunk=N).solve_batch``:
@@ -636,7 +656,9 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     rollouts (``SolverSetup._glue_routes``): K4n an outer iteration, kernel (f) in
     ``mmd_opt`` and kernel (g) on the road, except under "exact", with the
     candidates split and in ``det``, where the chain launches K4 (``det``
-    rolls nothing out)."""
+    rolls nothing out); and on the road (g)'s state form once a solve,
+    ``det`` included, except under "exact" and with the candidates
+    split."""
     outer, det = cfg.cem.maxiter_cem, cfg.risk.mode == "det"
     draws = n * (outer * (1 if det else 2) + (1 if frenet else 0))
     if fresh:
@@ -652,7 +674,8 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
             "fused_rollout": n * outer if not det and not glue else 0,
             "noisy_rollout": n * outer if glue else 0,
             "inner_prologue": n * outer if glue and cfg.risk.mode == "mmd_opt" else 0,
-            "frenet_points": n * outer if glue and frenet else 0}
+            "frenet_points": n * outer if glue and frenet else 0,
+            "frenet_states": n if prefactored and not split and frenet else 0}
 
 
 def draw_shapes(paths):
@@ -1299,19 +1322,22 @@ def glue_shapes(paths):
     """K4n's, kernel (f)'s and kernel (g)'s launch shapes on each path, as
     ``outer_shapes`` gives kernel (d)'s: ``paths`` maps a path's name to
     (workload, config, on the road, scenarios a chunk).  Returns (k4n, kf,
-    kg): {(workload, scenarios, mother rollouts?)}, {(workload, scenarios,
-    MMD kernel)} and {(workload, scenarios)}, each to {path: launches per
-    solve (per chunk)}, from ``loop_launches``' routes."""
-    k4n, kf, kg = {}, {}, {}
+    kg, ks): {(workload, scenarios, mother rollouts?)}, {(workload,
+    scenarios, MMD kernel)}, {(workload, scenarios)} and (g)'s state form's
+    {(workload, initial states)}, each to {path: launches per solve (per
+    chunk)}, from ``loop_launches``' routes."""
+    from mpc_mmd_tpu_torch.noise import init_state_count
+    k4n, kf, kg, ks = {}, {}, {}, {}
     for path, (name, cfg, frenet, chunk) in paths.items():
         n = loop_launches(cfg, frenet=frenet)
         for table, kernel, key in (
                 (k4n, "noisy_rollout", (name, chunk, cfg.risk.mode == "mmd_opt")),
                 (kf, "inner_prologue", (name, chunk, cfg.risk.kernel)),
-                (kg, "frenet_points", (name, chunk))):
+                (kg, "frenet_points", (name, chunk)),
+                (ks, "frenet_states", (name, init_state_count(cfg)))):
             if n[kernel]:
                 table.setdefault(key, {})[path] = n[kernel]
-    return k4n, kf, kg
+    return k4n, kf, kg, ks
 
 
 def _bits_apart(got, ref):
@@ -1328,7 +1354,7 @@ def glue_clock_builds():
     from mpc_mmd_tpu_torch.utils import kernel_ab
     srcs = {f"{kind}_clock": (kind, kernel_ab.glue_clock_variant(
         kind, (_build.CSRC / src).read_text(), f"{kind}_clock"))
-        for kind, src, _ in kernel_ab.GLUE_SOURCES if kind in kernel_ab.GLUE_CLOCKS}
+        for kind, src, _ in kernel_ab.GLUE_SOURCES if kind in ("k4n", "kf")}
     srcs["step_now"] = ("step", kernel_ab.STEP_MICRO)
     return kernel_ab.build_all(srcs, lambda msg: log(f"  {msg}"))
 
@@ -1463,47 +1489,222 @@ def check_inner_prologue(torch, ops, gen, shapes, workloads, clocks=None):
     return main
 
 
+# Work of kernel (g)'s search, for its bound: about 5 float operations a
+# (point, path point) pair of a tile its warp visits (two differences, two
+# squares, an add; the compare and the select ride on them) and 7 a (point,
+# tile) bound (two compares and differences, two squares, an add); a
+# full scan does the 5 for every pair
+KG_PAIR_OPS, KG_BOUND_OPS = 5, 7
+
+
+def search_work(torch, frame, x, visits):
+    """(operations of the search these points needed, the full scan's, the
+    tiles visited a point (mean, max)) from the probe's visits."""
+    from mpc_mmd_tpu_torch.ops.frenet_points import TILE
+    n = frame.x_path.shape[0]
+    tiles = -(-n // TILE)
+    v = visits.double()
+    pairs = float(torch.clamp(v * TILE, max=n).sum())
+    ops_ = KG_PAIR_OPS * pairs + KG_BOUND_OPS * x.numel() * tiles
+    return ops_, KG_PAIR_OPS * x.numel() * n, (float(v.mean()), int(visits.max()))
+
+
+def probe_against_twin(torch, form, idx, visits, tx, ty, frame, label):
+    """A probe launch's nearest indices and visited tiles (kernel (g)'s
+    ``form``) against the twin's (``nearest_pruned``) at the points tx, ty;
+    returns the visits."""
+    from mpc_mmd_tpu_torch.ops.frenet_points import nearest_pruned
+    tidx, tvisits = nearest_pruned(frame, tx, ty)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)):
+        fail(f"kernel (g) {form} at {label}: indices or visited tiles not the twin's "
+             f"({int((idx.long() != tidx).sum())} indices, "
+             f"{int((visits.long() != tvisits).sum())} visits apart)")
+    return visits
+
+
+def points_against_plain(torch, ops, frame, x, y, label):
+    """Kernel (g)'s rollout form (``ops.frenet_points``, the launch the
+    path makes) against global_to_frenet_points, s and l bit for bit; its
+    probe launch the same, with its indices and visited tiles against the
+    twin's.  Returns (s, l, visits)."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_points
+    got = ops.frenet_points(frame, x, y)
+    *probed, idx, visits = ops.frenet_points(frame, x, y, probe=True)
+    ref = global_to_frenet_points(frame, x, y)
+    torch.cuda.synchronize()
+    for launch, out in (("", got), (" (its probe)", probed)):
+        for field, g, r in zip(("s", "l"), out, ref):
+            bad = _bits_apart(g, r)
+            if bad:
+                fail(f"kernel (g) frenet_points{launch}: {field} not bit-equal to the plain "
+                     f"version at {bad} entries, {label}")
+    probe_against_twin(torch, "frenet_points", idx, visits, x, y, frame, label)
+    return (*got, visits)
+
+
 def check_frenet_points(torch, ops, gen, shapes, workloads):
     """Kernel (g) (``ops.frenet_points``, ``csrc/frenet_points.cu``)
     against its plain version (``frenet.global_to_frenet_points`` on the
-    card) from the same points (``kernel_ab.kg_inputs``: rollouts around a
-    curved path of 600 points, with a point equidistant from two path
-    points, points before the path's start and past its end, one on the
-    last path point and a NaN) at every shape a path launches it with
-    (Path D's 100 candidates x 4 rollouts x 50 in every mode that rolls
-    out) and at a chunk of 4 of them: s and l bit-equal.  ``shapes`` maps
-    (workload, scenarios) to {path: launches per solve}.  Returns the first
-    shape's record, the others under ``cases``."""
+    card) from the same points, s and l bit-equal, and its nearest indices
+    and visited tiles against the twin's (``nearest_pruned``): at every
+    shape a path launches it with (``kernel_ab.kg_inputs``: Path D's 100
+    candidates x 4 rollouts x 50 around a curved path of 600 points, with a
+    point equidistant from two path points, points before the path's start
+    and past its end, one on the last path point and a NaN), at a chunk of
+    4 of them, on a closed-loop frame (``kernel_ab.kg_closedloop``) and on
+    ``kernel_ab.kg_case``'s adversarial inputs; the tiles visited a point
+    logged.  ``shapes`` maps (workload, scenarios) to {path: launches per
+    solve}.  Returns the first shape's record, the others (the chunk of 4,
+    the closed-loop frame and the two inputs on which every warp visits
+    every tile) under ``cases``."""
     from mpc_mmd_tpu_torch.frenet import global_to_frenet_points
-    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_inputs
+    from mpc_mmd_tpu_torch.ops.frenet_points import TILE
+    from mpc_mmd_tpu_torch.utils.kernel_ab import (KG_CASES, KG_FULL, kg_case,
+                                                   kg_closedloop, kg_inputs)
+    name0 = next(iter(shapes))[0]
+    inputs = [(f"{name} x {N}", kg_inputs(gen, workloads[name][0], N), at)
+              for (name, N), at in shapes.items()]
+    inputs.append((f"{name0} x 4", kg_inputs(gen, workloads[name0][0], 4), None))
+    inputs.append((f"{name0} x 1 on a closed-loop frame",
+                   kg_closedloop(gen, workloads[name0][0])[0], None))
+    inputs += [(case, kg_case(case, gen.device), None) for case in KG_CASES]
     cases = []
-    for (name, N), at in list(shapes.items()) + [((next(iter(shapes))[0], 4), None)]:
-        frame, x, y = kg_inputs(gen, workloads[name][0], N)
-        got = ops.frenet_points(frame, x, y)
-        ref = global_to_frenet_points(frame, x, y)
-        torch.cuda.synchronize()
+    for label, (frame, x, y), at in inputs:
         n = frame.x_path.shape[0]
-        label = f"{name} x {N}: {x.numel():,} points, a path of {n}"
-        for field, g, r in zip("sl", got, ref):
-            bad = _bits_apart(g, r)
-            if bad:
-                fail(f"kernel (g) frenet_points: {field} not bit-equal to the plain "
-                     f"version at {bad} entries, {label}")
-        log(f"kernel (g) at {label}: s and l bit-equal to the plain version, edge "
-            f"points included")
-        if at is None:
+        label = f"{label}: {x.numel():,} points, a path of {n}"
+        *got, visits = points_against_plain(torch, ops, frame, x, y, label)
+        work, full, (mean, most) = search_work(torch, frame, x, visits)
+        log(f"kernel (g) at {label}: s and l bit-equal to the plain version (the launch "
+            f"and its probe), the probe's indices and visited tiles the twin's; tiles "
+            f"visited a point: mean {mean:.2f}, max {most} of {-(-n // TILE)}; search "
+            f"{work:.3g} operations (the full scan {full:.3g})")
+        if not (at is not None or label.startswith(f"{name0} x 4")
+                or "closed-loop" in label or label.split(":")[0] in KG_FULL):
             continue
         cases.append(dict(
             shape=label, call=(lambda a=(frame, x, y): ops.frenet_points(*a)),
             match="frenet_points_kernel", launches_per_solve=at, cold=True,
-            nbytes=f32_bytes(x, y, *got, *frame[:5]),
-            # two differences, two squares and an add a (point, path point)
-            ops=5 * x.numel() * n, library=("no single call", None),
+            nbytes=f32_bytes(x, y, *got, *frame[:5]), ops=work, full_scan_ops=full,
+            tiles_visited={"mean": mean, "max": most},
+            library=("no single call", None),
             plain_ms=cuda_ms(torch, lambda a=(frame, x, y): global_to_frenet_points(*a),
                              reps=5, warmup=1)))
     main = dict(cases[0], max_abs_err=0.0, cases=cases)
     main["ms"] = cuda_ms(torch, main["call"], reps=20)
     return main
+
+
+def check_frenet_states(torch, ops, gen, shapes, workloads):
+    """Kernel (g)'s state form (``ops.frenet_states``) against its plain
+    version (``frenet.initial_states`` on the card) from the same draws
+    (``kernel_ab.kg_state_inputs``) at every on-road mode's number of
+    states (``shapes``: {(workload, states): {path: launches per solve}}:
+    Path D's 16 in ``mmd_opt``, 4 in ``cvar`` / ``saa`` / ``mmd_random``,
+    1 in ``det``) on the closed-loop frame, at 100 and 256 states (ATen's
+    one-output sums past a warp and vectorised) and at 16 on adversarial
+    frames: the states and boundary rows bit-equal, and the nearest
+    indices and visited tiles (its probe) the twin's.  Returns the first
+    shape's record, the other timed shapes under ``cases``."""
+    from mpc_mmd_tpu_torch.frenet import initial_states
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case, kg_closedloop, kg_state_inputs
+    name0 = next(iter(shapes))[0]
+    cfg = workloads[name0][0]
+    frame = kg_closedloop(gen, cfg)[0][0]
+    runs = [(f"{name} x {n} states on a closed-loop frame", frame, n, (0.0, 0.0), at)
+            for (name, n), at in shapes.items()]
+    runs += [(f"{n} states on a closed-loop frame", frame, n, (0.0, 0.0), None)
+             for n in (100, 256)]
+    for case in ("tie_between_non_adjacent_tiles", "duplicate_path_points",
+                 "nan_path_point", "squares_overflow"):
+        f, x, y = kg_case(case, gen.device)
+        runs.append((f"16 states on {case}", f, 16, (float(x[0]), float(y[0])), None))
+    cases = []
+    for label, fr, n, where, at in runs:
+        args = kg_state_inputs(gen, cfg, fr, n, where)
+        got = ops.frenet_states(*args)
+        ref = initial_states(*args)
+        *_, idx, visits = ops.frenet_states(*args, probe=True)
+        torch.cuda.synchronize()
+        for field, g, r in zip(("states", "b_eq_x", "b_eq_y"), got, ref):
+            bad = _bits_apart(g, r)
+            if bad:
+                fail(f"kernel (g) frenet_states: {field} not bit-equal to the plain "
+                     f"version at {bad} entries, {label}")
+        xs = got[0][:, 0]
+        probe_against_twin(torch, "frenet_states", idx, visits, xs, got[0][:, 1], fr, label)
+        work, _, (mean, most) = search_work(torch, fr, xs, visits)
+        log(f"kernel (g) frenet_states at {label}: states, b_eq_x, b_eq_y bit-equal to "
+            f"frenet.initial_states; tiles visited a state: mean {mean:.2f}, max {most}")
+        if at is None and n != 256:
+            continue
+        cases.append(dict(
+            shape=label, call=(lambda a=args: ops.frenet_states(*a)),
+            match="frenet_states_kernel", launches_per_solve=at, cold=True,
+            nbytes=f32_bytes(args[1], args[2], *got, *fr[:6]),
+            # the search, and about 150 operations a state: three insertion
+            # points, four interpolations, atan2 three times, sin and cos
+            # twice, the chain rule; the sums
+            ops=work + 150 * n, tiles_visited={"mean": mean, "max": most},
+            library=("no single call", None),
+            plain_ms=cuda_ms(torch, lambda a=args: initial_states(*a), reps=5, warmup=1)))
+    main = dict(cases[0], max_abs_err=0.0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
+
+
+def check_frenet_obstacles(torch, ops, gen, workloads, per_step):
+    """Kernel (g)'s obstacle form (``ops.frenet_obstacles``) against its
+    plain version (``frenet.global_to_frenet_obstacle`` on the card) at
+    the closed loop's obstacles on a closed-loop frame
+    (``kernel_ab.kg_closedloop``) and at adversarial positions
+    (``kernel_ab.kg_case``'s points, random velocities and headings): every
+    output bit-equal, and the nearest indices and visited tiles (its probe)
+    the twin's.  ``per_step``: {path: launches a step}.  Returns the
+    closed-loop shape's record."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_obstacle
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case, kg_closedloop
+    (frame, _, _), obs = kg_closedloop(gen, workloads["path_d"][0])
+    runs = [(f"path_d's {obs.shape[0]} obstacles on a closed-loop frame", frame, obs)]
+    for case in ("far_off_the_path", "non_finite_query", "inf_path_point",
+                 "duplicate_path_points", "ragged_sizes"):
+        f, x, y = kg_case(case, gen.device)
+        m = x.shape[0]
+        o = torch.stack((x, y, 3.0 * torch.randn(m, device=gen.device, generator=gen),
+                         torch.randn(m, device=gen.device, generator=gen),
+                         3.0 * torch.rand(m, device=gen.device, generator=gen)), dim=1)
+        runs.append((f"{m} obstacles on {case}", f, o))
+    outs = []
+    for label, fr, o in runs:
+        got = ops.frenet_obstacles(fr, o)
+        *probed, idx, visits = ops.frenet_obstacles(fr, o, probe=True)
+        ref = global_to_frenet_obstacle(fr, *o.unbind(1))
+        torch.cuda.synchronize()
+        for launch, out in (("", got), (" (its probe)", probed)):
+            for field, g, r in zip(("s", "l", "vs", "vl", "psi_rel"), out, ref):
+                bad = _bits_apart(g, r)
+                if bad:
+                    fail(f"kernel (g) frenet_obstacles{launch}: {field} not bit-equal to "
+                         f"the plain version at {bad} entries, {label}")
+        probe_against_twin(torch, "frenet_obstacles", idx, visits, o[:, 0], o[:, 1], fr,
+                           label)
+        log(f"kernel (g) frenet_obstacles at {label}: every output bit-equal to "
+            f"global_to_frenet_obstacle (the launch and its probe), the probe's indices "
+            f"and visited tiles the twin's")
+        outs.append((got, visits))
+    got, visits = outs[0]
+    work, _, (mean, most) = search_work(torch, frame, obs[:, 0], visits)
+    rec = dict(shape=runs[0][0], call=(lambda: ops.frenet_obstacles(frame, obs)),
+               match="frenet_points_kernel", launches_per_solve=per_step, cold=True,
+               nbytes=f32_bytes(obs, *got, *frame[:6]),
+               # the search, and about 80 operations an obstacle (its frame,
+               # kappa, the heading, vs, vl)
+               ops=work + 80 * obs.shape[0], tiles_visited={"mean": mean, "max": most},
+               library=("no single call", None),
+               plain_ms=cuda_ms(torch, lambda: global_to_frenet_obstacle(
+                   frame, *obs.unbind(1)), reps=5, warmup=1), max_abs_err=0.0)
+    rec["ms"] = cuda_ms(torch, rec["call"], reps=20)
+    return rec
 
 
 # Kernel (c)'s device ms a launch before its cluster redesign (one block of
@@ -1531,6 +1732,8 @@ def measure(torch, name, rec):
                 torch, lambda c=case: (flush.fill_(1.0), c["call"]()), match=case["match"])[0]
         case["bound_ms"], case["bound_by"] = bound(case["nbytes"], case["ops"],
                                                    case.get("int_ops", 0))
+        if "full_scan_ops" in case:
+            case["full_scan_bound_ms"] = bound(case["nbytes"], case["full_scan_ops"])[0]
         what, lib = case["library"]
         # a library call named by its kernel is held to one device event a
         # call (``profiled_ms``'s retries); unnamed, every event counts
@@ -1550,18 +1753,25 @@ def measure(torch, name, rec):
             + (f"; latency bound {case['latency_bound_ms']:.4f} ms"
                if "latency_bound_ms" in case else "")
             + (f"; cycles a phase {case['phases']}" if case.get("phases") else "")
+            + (f"; tiles visited a point {case['tiles_visited']}"
+               if "tiles_visited" in case else "")
+            + (f"; the full scan's bound {case['full_scan_bound_ms']:.4f} ms"
+               if "full_scan_bound_ms" in case else "")
             + (f"; was {case['was_device_ms']:.4f} ms (KC_WAS_MS, an earlier run's)"
                if case.get("was_device_ms") else ""))
-    for key in ("device_ms", "bound_ms", "bound_by", "library_ms"):
-        rec[key] = rec.get("cases", [rec])[0][key]
+    for key in ("device_ms", "bound_ms", "bound_by", "library_ms", "l2_cold_ms",
+                "tiles_visited", "full_scan_bound_ms"):
+        if key in rec.get("cases", [rec])[0]:
+            rec[key] = rec.get("cases", [rec])[0][key]
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc, kd_, ke_, k4n, kf, kg, kc_forms):
+                  kd, kb, kc, kd_, ke_, k4n, kf, kg, ks, ko, kc_forms):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape), ``kd`` kernel (a)'s record,
     ``kd_``, ``ke_`` kernel (d)'s and (e)'s and ``k4n``, ``kf``, ``kg``
-    K4n's and kernel (f)'s and (g)'s, ``kc_forms`` kernel (c)'s by form
+    K4n's and kernel (f)'s and (g)'s, ``ks``, ``ko`` (g)'s state and
+    obstacle forms', ``kc_forms`` kernel (c)'s by form
     (``check_inner_cem``): "inner_cem" counts the launches of every form,
     ``inner_cem_fused``, ``_xt`` and ``_g`` those of their form.  The draw
     kernels replace no TPU kernel: ``replaces`` names the JAX package's
@@ -1607,6 +1817,13 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
             (ops.frenet_points, "frenet_points.cu", "mpc_mmd_tpu/solver_frenet.py:197 "
              "(global_to_frenet_points frenet.py:229 through _nearest :168, compiled by "
              "XLA; no Pallas kernel)", (kg, None)),
+            (ops.frenet_states, "frenet_points.cu", "mpc_mmd_tpu/solver_frenet.py:133 "
+             "(the noisy initial states' Frenet states, global_to_frenet_state "
+             "frenet.py:173 vmapped through _nearest :168, their means and the b_eq "
+             "rows :133-138, compiled by XLA; no Pallas kernel)", (ks, None)),
+            (ops.frenet_obstacles, "frenet_points.cu", "mpc_mmd_tpu/closedloop.py:268 "
+             "(global_to_frenet_obstacle frenet.py:210 through _nearest :168; no Pallas "
+             "kernel)", (ko, None)),
             *((getattr(ops, name), src, tpu, (kc_forms[f], None))
               for f, (name, src, tpu) in KC_FORMS.items() if f in kc_forms)):
         name = fn.__name__
@@ -1624,8 +1841,12 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
         if "cases" in rec:
             row["shapes"] = [{k: c[k] for k in (
                 "shape", "device_ms", "l2_cold_ms", "bound_ms", "bound_by", "plain_ms",
-                "library_ms", "launches_per_solve", "latency_bound_ms", "phases") if k in c}
+                "library_ms", "launches_per_solve", "latency_bound_ms", "phases",
+                "tiles_visited", "full_scan_bound_ms") if k in c}
                 for c in rec["cases"]]
+        for key in ("tiles_visited", "full_scan_bound_ms"):
+            if key in rec:
+                row[key] = rec[key]
         if "row_major_gap" in rec:
             row["row_major_gap"] = rec["row_major_gap"]
         if largest:
@@ -2225,7 +2446,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.noisy_rollout)
     KC, D, KG = ops.inner_cem, ops.prng_draws, ops.frenet_points
-    KD, KE = ops.outer_project, ops.outer_tail
+    KD, KE, KS, KO = ops.outer_project, ops.outer_tail, ops.frenet_states, ops.frenet_obstacles
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
     draws = loop_launches(cfg, frenet=True)
@@ -2271,7 +2492,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
     inner_f = inner_launches(cfg, "fused")
     os.environ["MPC_MMD_FUSED_CEM"] = "1"
     r, secs, got = counted(torch, ops, "Path D fused",
-                           kernels_of(ops, inner_f) + (K4, KG, D),
+                           kernels_of(ops, inner_f) + (K4, KG, KS, D),
                            lambda: solver.solve(4, *args))
     os.environ.pop("MPC_MMD_FUSED_CEM")
     check_frenet_solve(r, cfg, "Path D fused")
@@ -2286,7 +2507,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
         cfg_m = cfg.with_risk_mode(mode)
         s = FrenetSolver(cfg_m, device=dev)
         r, secs, got = counted(torch, ops, f"Path D {mode}",
-                               (KD, KE, D) if mode == "det" else (KD, KE, K4, KG, D),
+                               (KD, KE, KS, D) if mode == "det" else (KD, KE, K4, KG, KS, D),
                                lambda: s.solve(5, *args))
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
         fresh = loop_launches(cfg_m, frenet=True, fresh=True)
@@ -2311,8 +2532,8 @@ def path_d(torch, ops, dev, cfg, per_solve):
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
     # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (KC, KD, KE, K4, KG, D)),
-                          ("cvar", (KD, KE, K4, KG, D)), ("det", (KD, KE, D))):
+    for mode, kernels in (("mmd_opt", (KC, KD, KE, K4, KG, KS, KO, D)),
+                          ("cvar", (KD, KE, K4, KG, KS, KO, D)), ("det", (KD, KE, KS, KO, D))):
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             results, secs, got = counted(
@@ -2323,9 +2544,12 @@ def path_d(torch, ops, dev, cfg, per_solve):
         if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
             fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
         if mode == "det" and {k for k, v in got.items() if v} != {
-                D.__name__, KD.__name__, KE.__name__}:
-            fail(f"Path D closed loop det launched other kernels than (d), (e) and the "
-                 f"draws: {got}")
+                D.__name__, KD.__name__, KE.__name__, KS.__name__, KO.__name__}:
+            fail(f"Path D closed loop det launched other kernels than (d), (e), (g)'s "
+                 f"state and obstacle forms and the draws: {got}")
+        if not got[KS.__name__] == got[KO.__name__] == results[0].steps:
+            fail(f"Path D closed loop {mode}: not one launch each of (g)'s state and "
+                 f"obstacle forms a step of {results[0].steps}: {got}")
         if got[KD.__name__] != got[KE.__name__] or got[KE.__name__] != (
                 results[0].steps * cfg.cem.maxiter_cem):
             fail(f"Path D closed loop {mode}: not one (d) and one (e) an outer iteration "
@@ -2336,6 +2560,49 @@ def path_d(torch, ops, dev, cfg, per_solve):
         log(f"Path D closed loop, python -m mpc_mmd_tpu_torch.cli.closedloop --mode "
             f"{mode} --route curved --episodes 1 --max_steps 20: {secs:.2f} s; "
             f"{json.dumps(episode)}; launches {got}")
+
+    # g. local_problem's host ms a step: the obstacles through (g)'s obstacle
+    # form, and through its chain on the card, in turns
+    from mpc_mmd_tpu_torch import closedloop
+    from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
+    from mpc_mmd_tpu_torch.frenet import build_smoother, global_to_frenet_obstacle
+    plant = SyntheticPlant(cfg, make_route("curved"), ONROAD_OBSTACLES)
+    smoother = build_smoother(cfg.frenet.num_path, device=dev)
+    tot = torch.as_tensor(np.linspace(0, cfg.horizon.t_fin, cfg.horizon.num),
+                          dtype=torch.float32, device=dev)
+    chain = lambda frame, obs: global_to_frenet_obstacle(frame, *obs.unbind(1))
+    ms = {"kernel": [], "chain": []}
+    try:
+        for label in ("kernel", "chain", "chain", "kernel") * 5:
+            closedloop.frenet_obstacles = KO if label == "kernel" else chain
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            local_problem(cfg, plant, smoother, tot)
+            torch.cuda.synchronize()
+            ms[label].append(1e3 * (time.perf_counter() - t0))
+    finally:
+        closedloop.frenet_obstacles = KO
+    # and of it the path smoother alone (frenet.smooth_path: maxiter rounds of
+    # eager operations, two (n+1)-square matrix-vector products a round)
+    from mpc_mmd_tpu_torch.frenet import smooth_path, waypoint_window
+    x_e, y_e = plant.state[:2]
+    x_wp, y_wp, _ = waypoint_window(plant.spline, x_e, y_e, cfg.frenet.lookahead,
+                                    cfg.frenet.num_path)
+    wp = [torch.as_tensor(np.asarray(w - e, np.float32), device=dev)
+          for w, e in ((x_wp, x_e), (y_wp, y_e))]
+    smooth = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        smooth_path(smoother, *wp, cfg.frenet.smooth_threshold)
+        torch.cuda.synchronize()
+        smooth.append(1e3 * (time.perf_counter() - t0))
+    log(f"Path D g: local_problem's host ms a step (to synchronize; 10 each in turns), "
+        f"obstacles through (g)'s obstacle form p50 {np.median(ms['kernel']):.3f} "
+        f"(min {min(ms['kernel']):.3f}), through the chain p50 "
+        f"{np.median(ms['chain']):.3f} (min {min(ms['chain']):.3f}); of it the path "
+        f"smoother ({smoother.maxiter} rounds) p50 {np.median(smooth):.3f} (min "
+        f"{min(smooth):.3f})")
     return path_launches
 
 
@@ -3037,12 +3304,12 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     g_d, e_d, got = graph_against_eager(
         torch, ops, "Path D FrenetSolver mmd_opt, 3 steps, every input changed",
         lambda graph: FrenetSolver(cfg_d, device=dev, graph=graph),
-        [lambda s, a=a: s.solve(*a) for a in steps], (KC, K4, D))
+        [lambda s, a=a: s.solve(*a) for a in steps], (KC, K4, ops.frenet_states, D))
     path_launches.append(got)
-    _, _, got = graph_against_eager(
+    g_det, _, got = graph_against_eager(
         torch, ops, "Path D FrenetSolver det, 3 steps, every input changed",
         lambda graph: FrenetSolver(cfg_d.with_risk_mode("det"), device=dev, graph=graph),
-        [lambda s, a=a: s.solve(*a) for a in steps], (KD, KE, D))
+        [lambda s, a=a: s.solve(*a) for a in steps], (KD, KE, ops.frenet_states, D))
     path_launches.append(got)
 
     # b. eager against graphed, in turns
@@ -3134,7 +3401,11 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     record["graphs"] = {label: [{k: s[k] for k in ("nodes", "capture_s", "instantiate_s",
                                                    "replays")} for s in g.graph_stats()]
                         for label, g in (("fastrt", g_fastrt), ("path_a_fused", g_a),
-                                         ("path_a_xla", g_ax), ("path_d", g_d))}
+                                         ("path_a_xla", g_ax), ("path_d", g_d),
+                                         ("path_d_det", g_det))}
+    log(f"16d: graph nodes, Path D mmd_opt "
+        f"{[g['nodes'] for g in record['graphs']['path_d']]}, det "
+        f"{[g['nodes'] for g in record['graphs']['path_d_det']]}")
     log(f"phase 16: {time.perf_counter() - t_phase:.1f} s")
     return path_launches, record
 
@@ -3333,6 +3604,7 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -3550,7 +3822,7 @@ def main():
         f"at {ke_rec['shape']}")
     # K4n, kernels (f) and (g) at every shape a path launches them with; (f)
     # also with the gaussian and matern52 kernels of 9g
-    k4n_at, kf_at, kg_at = glue_shapes(outer_paths)
+    k4n_at, kf_at, kg_at, ks_at = glue_shapes(outer_paths)
     k4n_rec = check_noisy_rollout(torch, ops, gen, k4n_at, workloads, clocks)
     log(f"K4n noisy_rollout: at {len(k4n_at) + 1} shapes bit-equal; {k4n_rec['ms']:.4f} "
         f"ms vs plain {k4n_rec['plain_ms']:.4f} ms at {k4n_rec['shape']}")
@@ -3560,8 +3832,17 @@ def main():
     log(f"kernel (f) inner_prologue: at {len(kf_at) + 3} shapes bit-equal; "
         f"{kf_rec['ms']:.4f} ms vs plain {kf_rec['plain_ms']:.4f} ms at {kf_rec['shape']}")
     kg_rec = check_frenet_points(torch, ops, gen, kg_at, workloads)
-    log(f"kernel (g) frenet_points: at {len(kg_at) + 1} shapes bit-equal; "
-        f"{kg_rec['ms']:.4f} ms vs plain {kg_rec['plain_ms']:.4f} ms at {kg_rec['shape']}")
+    log(f"kernel (g) frenet_points: at {len(kg_at) + 2} shapes and the adversarial inputs "
+        f"bit-equal; {kg_rec['ms']:.4f} ms vs plain {kg_rec['plain_ms']:.4f} ms at "
+        f"{kg_rec['shape']}")
+    ks_rec = check_frenet_states(torch, ops, gen, ks_at, workloads)
+    log(f"kernel (g) frenet_states: at {len(ks_at)} on-road modes' shapes and the others "
+        f"bit-equal; {ks_rec['ms']:.4f} ms vs plain {ks_rec['plain_ms']:.4f} ms at "
+        f"{ks_rec['shape']}")
+    ko_at = {p: 1 for p in ("closedloop_mmd_opt", "closedloop_cvar", "closedloop_det")}
+    ko_rec = check_frenet_obstacles(torch, ops, gen, workloads, ko_at)
+    log(f"kernel (g) frenet_obstacles: bit-equal; {ko_rec['ms']:.4f} ms vs plain "
+        f"{ko_rec['plain_ms']:.4f} ms at {ko_rec['shape']}")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
     one = torch.zeros(1, device=dev)
@@ -3571,7 +3852,9 @@ def main():
                       ("K4", k4), ("K4", k4v), ("K5", k5),
                       *((f"kernel (c) {f!r}", r) for f, r in kc_forms.items()),
                       ("kernel (d)", kd_rec), ("kernel (e)", ke_rec), ("K4n", k4n_rec),
-                      ("kernel (f)", kf_rec), ("kernel (g)", kg_rec)):
+                      ("kernel (f)", kf_rec), ("kernel (g)", kg_rec),
+                      ("kernel (g) state form", ks_rec),
+                      ("kernel (g) obstacle form", ko_rec)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
@@ -3686,6 +3969,8 @@ def main():
                         "prng_draws": draw_at, "outer_project": kd_at,
                         "outer_tail": ke_at, "noisy_rollout": k4n_at,
                         "inner_prologue": kf_at, "frenet_points": kg_at,
+                        "frenet_states": ks_at,
+                        "frenet_obstacles": {("path_d", cfg_d.obstacles.num_obs): ko_at},
                         "prng_beta": {k: v for k, v in beta_at.items() if v}}
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
 
@@ -3709,7 +3994,9 @@ def main():
                  f"({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
                            k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec,
+                           ks_rec, ko_rec,
                            kc_forms)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s, the build included")
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))
     log(smi)

@@ -26,8 +26,8 @@ import torch
 from .config import ProblemConfig
 from .dynamics import constant_velocity_obstacles
 from .frenet import (SmootherWorkspace, build_smoother, fit_path_spline,
-                     global_to_frenet_obstacle, path_parameters, smooth_path,
-                     waypoint_window)
+                     path_parameters, smooth_path, waypoint_window)
+from .ops import frenet_obstacles
 from .solver_frenet import FrenetSolver
 
 
@@ -189,7 +189,9 @@ def local_problem(cfg: ProblemConfig, plant: SyntheticPlant,
     (ego at the origin, heading psi): the smoothed local path's
     :class:`FrenetFrame`, the visible obstacles' constant-velocity Frenet
     trajectories x_obs, y_obs (num_obs, num), and the global state
-    [0, 0, v, vdot, psi, psidot], on ``tot_time``'s device."""
+    [0, 0, v, vdot, psi, psidot], on ``tot_time``'s device.  The obstacles
+    go to Frenet through kernel (g)'s obstacle form
+    (``ops.frenet_obstacles``; its plain version on the CPU)."""
     dev = tot_time.device
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     x_e, y_e, v_e, psi_e, psidot_e = plant.state
@@ -202,8 +204,7 @@ def local_problem(cfg: ProblemConfig, plant: SyntheticPlant,
     obs_shift = perceive_obstacles(cfg, plant, (x_e, y_e), psi_e).copy()
     obs_shift[:, 0] -= x_e
     obs_shift[:, 1] -= y_e
-    s_o, l_o, vs_o, vl_o, psi_o = global_to_frenet_obstacle(
-        frame, *f32(obs_shift[:, :5]).unbind(1))
+    s_o, l_o, vs_o, vl_o, psi_o = frenet_obstacles(frame, f32(obs_shift[:, :5]))
     x_obs, y_obs, _ = constant_velocity_obstacles(s_o, l_o, vs_o, vl_o, psi_o,
                                                   tot_time)
     init_global = f32([0.0, 0.0, v_e, plant.vdot, psi_e, psidot_e])

@@ -7,10 +7,12 @@ after them is torch on the solver's device with static shapes: the
 jerk-penalised path smoothing (its KKT inverse built once on the host in
 float64), the path parameters, and the conversions.
 
-The nearest-point search of the rollout conversion is one batched distance
+The nearest-point search of the conversions is one batched distance
 matrix and one ``argmin`` over all points, as in the JAX package (which
 replaces the reference's per-point scan with it).  ``torch.argmin`` returns
-the first minimum, as ``jnp.argmin`` does.
+the first minimum, as ``jnp.argmin`` does.  These chains are the plain
+versions of kernel (g)'s forms (``ops/frenet_points.py``), which the
+on-road solve and the closed loop run on the card.
 """
 
 from __future__ import annotations
@@ -236,6 +238,35 @@ def global_to_frenet_obstacle(frame: FrenetFrame, x_o, y_o, vx_o, vy_o, psi_o):
     vs = v_o * torch.cos(psi_rel) / (1.0 - l * kappa_i)
     vl = v_o * torch.sin(psi_rel)
     return s, l, vs, vl, psi_rel
+
+
+def initial_states(frame: FrenetFrame, z: torch.Tensor, init_state: torch.Tensor,
+                   mu, sig, nb: int):
+    """The on-road solve's n noisy initial states and its boundary rows,
+    from the standard normals ``z`` (n, 4) and the global state
+    ``init_state`` (6,) [x, y, v, vdot, psi, psidot]: (x, y) perturbed by
+    ``z``'s first two columns times ``sig`` plus ``mu``, the velocity and
+    heading shared; their Frenet states (:func:`global_to_frenet_state`)
+    and the means of s, l, vs, vl, as, al.  Returns the states (n, 5) [x,
+    y, vx, vy, psi], b_eq_x (nb, 3) [s, vs, as] and b_eq_y (nb, 4) [l, vl,
+    al, 0], every row the means."""
+    n, dev = z.shape[0], z.device
+    x_g, y_g, v_g, vdot_g, psi_g, psidot_g = init_state.unbind(0)
+    vx_g = v_g * torch.cos(psi_g)
+    vy_g = v_g * torch.sin(psi_g)
+    xs = x_g + z[:, 0] * sig[0] + mu[0]
+    ys = y_g + z[:, 1] * sig[1] + mu[1]
+    ones = torch.ones(n, device=dev)
+    vxs, vys = vx_g * ones, vy_g * ones
+    psis = torch.atan2(vy_g, vx_g) * ones
+    temps = torch.stack((xs, ys, torch.sqrt(vxs ** 2 + vys ** 2),
+                         vdot_g * ones, psis, psidot_g * ones), dim=1)
+    conv = global_to_frenet_state(frame, temps)
+    s_m, l_m, vs_m, vl_m, as_m, al_m = (c.sum() * (1.0 / n) for c in conv[:6])
+    nb1 = torch.ones((nb, 1), device=dev)
+    b_eq_x = torch.cat((s_m * nb1, vs_m * nb1, as_m * nb1), dim=1)
+    b_eq_y = torch.cat((l_m * nb1, vl_m * nb1, al_m * nb1, torch.zeros_like(nb1)), dim=1)
+    return torch.stack((xs, ys, vxs, vys, psis), dim=1), b_eq_x, b_eq_y
 
 
 def global_to_frenet_points(frame: FrenetFrame, x: torch.Tensor, y: torch.Tensor

@@ -12,7 +12,9 @@ and kernel (e) ``outer_tail`` (risk, cost and CEM update in ``mmd_opt``);
 and the glue around the rollouts: K4n ``noisy_rollout`` (K4's entry that
 forms the noisy controls as it loads them), kernel (f) ``inner_prologue``
 (the refit and distance matrices before the inner CEM) and kernel (g)
-``frenet_points`` (the on-road rollouts' Frenet coordinates).  Each wrapper
+``frenet_points`` (the on-road rollouts' Frenet coordinates), with its
+state form ``frenet_states`` (the on-road solve's noisy initial states and
+boundary rows) and obstacle form ``frenet_obstacles``.  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
 tensors, counting launches in ``<wrapper>.launches`` (the forms' counts
 beside them in ``KERNELS``).
@@ -26,7 +28,7 @@ capture runs nothing) and adds them again at every replay
 
 from typing import Dict
 
-from .frenet_points import frenet_points
+from .frenet_points import frenet_obstacles, frenet_points, frenet_states
 from .inner_cem import inner_cem, inner_cem_fused, inner_cem_g, inner_cem_xt
 from .inner_prologue import inner_prologue
 from .outer_project import outer_project
@@ -40,7 +42,7 @@ from .topk_kernel import topk_kernel_matrices
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
            topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
            outer_tail, noisy_rollout, inner_prologue, frenet_points, inner_cem_fused,
-           inner_cem_xt, inner_cem_g)
+           inner_cem_xt, inner_cem_g, frenet_states, frenet_obstacles)
 
 
 def reset_launch_counts() -> None:
@@ -64,7 +66,8 @@ def add_launches(counts: Dict[str, int]) -> None:
         fn.launches += counts.get(fn.__name__, 0)
 
 
-__all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_points", "fused_rollout", "inner_cem",
+__all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_obstacles", "frenet_points",
+           "frenet_states", "fused_rollout", "inner_cem",
            "inner_cem_fused", "inner_cem_g", "inner_cem_xt", "inner_prologue",
            "noisy_rollout", "outer_project", "outer_tail", "prng_beta", "prng_draws",
            "topk_indices", "topk_onehot", "topk_kernel_matrices", "KERNELS",

@@ -52,7 +52,9 @@ _SIGNATURES = {
     "mmd_fused_rollout": [_P, _P, _P, _I, _P, _P, _I, _I, _F, _F, _P],
     "mmd_noisy_rollout": [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_F] * 4 + [_I, _F, _F, _P],
     "mmd_inner_prologue": [_P] * 8 + [_I] * 5 + [_P],
-    "mmd_frenet_points": [_P] * 9 + [_I, _I, _F, _P],
+    "mmd_frenet_points": [_P] * 11 + [_I, _I, _F, _P],
+    "mmd_frenet_obstacles": [_P] * 10 + [_I, _I, _F, _P],
+    "mmd_frenet_states": [_P] * 13 + [_I, _I, _I] + [_F] * 6 + [_P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_I, _I, _L, _P],

@@ -148,6 +148,7 @@ class GlueRoutes(NamedTuple):
     noisy_rollout: bool    # K4n: the noisy controls formed inside the rollout
     inner_prologue: bool   # kernel (f): the refit and distance matrices
     frenet_points: bool    # kernel (g): the on-road rollouts' Frenet points
+    frenet_states: bool = False  # kernel (g)'s state form: the on-road initial states
 
 
 class SolverSetup:
@@ -228,16 +229,19 @@ class SolverSetup:
         rollout (``ops.noisy_rollout``, K4n), refits the mother rollouts and
         takes their distance matrices as ``ops.inner_prologue`` (kernel
         (f), ``mmd_opt``) and converts the on-road rollouts to Frenet as
-        ``ops.frenet_points`` (kernel (g)).  Each wrapper launches its
-        kernel on the card and runs its plain version on the CPU.  These
-        keep their chains on every device: the "exact" strategy, a
-        candidate mesh of several ranks (each rank rolls out its block of
-        the candidates) and the ``det`` baseline, which rolls nothing out."""
+        ``ops.frenet_points`` (kernel (g)), and whether an on-road solve
+        forms its noisy initial states and boundary rows as
+        ``ops.frenet_states`` (kernel (g)'s state form, ``det`` included).
+        Each wrapper launches its kernel on the card and runs its plain
+        version on the CPU.  These keep their chains on every device: the
+        "exact" strategy and a candidate mesh of several ranks (each rank
+        rolls out its block of the candidates); the ``det`` baseline rolls
+        nothing out."""
         cfg = self.cfg
-        glue = (cfg.solve_strategy == "prefactored" and not self._split()
-                and cfg.risk.mode != "det")
+        kernels = cfg.solve_strategy == "prefactored" and not self._split()
+        glue = kernels and cfg.risk.mode != "det"
         return GlueRoutes(glue, glue and cfg.risk.mode == "mmd_opt",
-                          glue and self.FRENET)
+                          glue and self.FRENET, kernels and self.FRENET)
 
     def _split(self) -> bool:
         """Whether a candidate mesh splits the solve over several ranks."""

@@ -4,8 +4,9 @@ Counterpart of ``mpc_mmd_tpu/solver_frenet.py``.  What differs from the
 straight-road solve (``solver.py``):
 
 * n noisy initial states, (x, y) perturbed from ``init_state_z`` (see
-  :mod:`mpc_mmd_tpu_torch.noise`; n is ``init_state_count``);
-* the equality boundary conditions from the mean of their Frenet states;
+  :mod:`mpc_mmd_tpu_torch.noise`; n is ``init_state_count``), and the
+  equality boundary conditions from the mean of their Frenet states (kernel
+  (g)'s state form, one launch a solve);
 * the projection in the Frenet frame, with the curvature-coupled steering
   as the candidates' steer (kernel (d) computes both);
 * rollouts in the GLOBAL frame, lane m of every candidate from state m
@@ -39,9 +40,9 @@ import torch
 
 from . import risk
 from .config import ProblemConfig
-from .frenet import FrenetFrame, global_to_frenet_points, global_to_frenet_state
+from .frenet import FrenetFrame, global_to_frenet_points, initial_states
 from .noise import init_state_count
-from .ops import frenet_points
+from .ops import frenet_points, frenet_states
 from .ops.outer_tail import filled
 from .qp import Workspace
 from .solver import MODES, SolverSetup, select_reduced
@@ -90,28 +91,14 @@ class FrenetSolver(SolverSetup):
                         init_state_global: torch.Tensor):
         """The noisy initial states (n, 5) [x, y, vx, vy, psi], drawn from
         the noise source's ``init_key``, and the Frenet boundary rows
-        (b_eq_x, b_eq_y) from the mean of their Frenet states."""
+        (b_eq_x, b_eq_y) from the mean of their Frenet states: kernel (g)'s
+        state form (``ops.frenet_states``) where ``_glue_routes`` sends
+        them, else its plain version ``frenet.initial_states``."""
         cfg = self.cfg
-        x_g, y_g, v_g, vdot_g, psi_g, psidot_g = init_state_global.unbind(0)
-        vx_g = v_g * torch.cos(psi_g)
-        vy_g = v_g * torch.sin(psi_g)
-        n = init_state_count(cfg)
-        z = self.noise.init_state_z(init_key, n)
-        mu, sig = cfg.frenet.init_mu, cfg.frenet.init_sigma
-        xs = x_g + z[:, 0] * sig[0] + mu[0]
-        ys = y_g + z[:, 1] * sig[1] + mu[1]
-        ones = torch.ones(n, device=self.device)
-        vxs, vys = vx_g * ones, vy_g * ones
-        psis = torch.atan2(vy_g, vx_g) * ones
-        temps = torch.stack((xs, ys, torch.sqrt(vxs ** 2 + vys ** 2),
-                             vdot_g * ones, psis, psidot_g * ones), dim=1)
-        conv = global_to_frenet_state(frame, temps)
-        s_m, l_m, vs_m, vl_m, as_m, al_m = (c.sum() * (1.0 / n) for c in conv[:6])
-        nb1 = torch.ones((cfg.cem.num_batch, 1), device=self.device)
-        b_eq_x = torch.cat((s_m * nb1, vs_m * nb1, as_m * nb1), dim=1)
-        b_eq_y = torch.cat((l_m * nb1, vl_m * nb1, al_m * nb1,
-                            torch.zeros_like(nb1)), dim=1)
-        return torch.stack((xs, ys, vxs, vys, psis), dim=1), b_eq_x, b_eq_y
+        z = self.noise.init_state_z(init_key, init_state_count(cfg))
+        convert = frenet_states if self._glue_routes().frenet_states else initial_states
+        return convert(frame, z, init_state_global, cfg.frenet.init_mu,
+                       cfg.frenet.init_sigma, cfg.cem.num_batch)
 
     BEST = ("cx", "cy", "steer", "risk_obs")
     FRENET = True

@@ -94,6 +94,7 @@ STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
           ("ops.inner_cem", "topk_indices"), ("ops.inner_cem", "eq_qp_solve_t"),
           ("ops.inner_cem", "beta_qp"), ("ops.inner_cem", "resample"),
           ("solver_frenet", "global_to_frenet_points"), ("solver_frenet", "frenet_points"),
+          ("solver_frenet", "initial_states"), ("solver_frenet", "frenet_states"),
           ("risk", "mmd_obs"), ("risk", "mmd_lane"), ("risk", "mmd_lane_des"),
           ("solver", "scalar_cost"), ("sampling", "scalar_cost"),
           ("solver_frenet", "frenet_scalar_cost"), ("sampling", "frenet_scalar_cost"),
@@ -216,6 +217,7 @@ def split(make, solve):
                                if any(k in name for k in (
                                    "inner_cem", "outer_project", "outer_tail",
                                    "noisy_rollout", "inner_prologue", "frenet_points",
+                                   "frenet_states",
                                    "topk", "eq_qp"))},
             "stages": dict(sorted(stages.items(), key=lambda kv: -kv[1]["events"]))}
 

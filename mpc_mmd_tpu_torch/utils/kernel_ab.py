@@ -106,18 +106,27 @@ resample and outputs).  The glue around the rollouts: kernel (f)
 size, ``kf_now@1/2/4``) at ``KF_SHAPES``, K4n (``k4n_now``,
 ``csrc/rollout.cu``'s noisy-controls entry, and its ``GLUE_VARIANTS``) at
 ``K4N_SHAPES`` (every path shape of both) and kernel (g) (``kg_now``,
-``csrc/frenet_points.cu``) at ``KG_SHAPES`` (inputs from ``kf_inputs``,
-``k4n_inputs``, ``kg_inputs``), and DIR's builds of them where DIR has
-their sources (``kf_before``, ``k4n_before``, ``kg_before``; an earlier
-(f) entry is called through ``SplitsEntry``): each bit-equal to its plain
+``csrc/frenet_points.cu``, and its variants ``kg_warps2`` /
+``kg_warps8``, CTAs of 2 or 8 warps, and ``kg_notma``, the path staged by
+the threads alone) at ``KG_SHAPES``, on a closed-loop frame (``kg_closedloop``)
+and on the two inputs that visit every tile (``KG_FULL`` of ``kg_case``),
+with the tiles visited a point (the twin's), and its state and obstacle
+forms at Path D's states and the closed loop's obstacles where a build's
+source has them (``KG_FORMS``) (inputs from ``kf_inputs``,
+``k4n_inputs``, ``kg_inputs``, ``kg_state_inputs``), and DIR's builds of
+them where DIR has their sources (``kf_before``, ``k4n_before``,
+``kg_before``; an earlier (f) entry is called through ``SplitsEntry``, an
+earlier (g) entry without the probe's outputs through ``EarlierEntry``):
+each bit-equal to its plain
 version in every output (else it raises), (f)'s plain D and D2 checked
 bit-symmetric, K4 of every K4n build bit-equal to the first's at
 ``K4_SHAPES``, and their warm and L2-cold device times in turns; the
-clock builds (``k4n_clock``, ``kf_clock`` and DIR's ``*_clock_before``,
+clock builds (``k4n_clock``, ``kf_clock``, ``kg_clock`` (staging, search,
+wait, outputs of (g)'s point kernel) and DIR's ``*_clock_before``,
 ``glue_clock_variant``: the cycles of thread 0 of each block in each
-phase of ``GLUE_CLOCKS``) at every shape; ``step_now`` (``STEP_MICRO``:
+phase of ``GLUE_CLOCKS``) at every shape but the forms'; ``step_now`` (``STEP_MICRO``:
 one lane's dependent chain of the rollout step alone, in cycles a step);
-and each K4n and (f) build's SASS (``cuobjdump -sass``) written to
+and each K4n, (f) and (g) build's SASS (``cuobjdump -sass``) written to
 ``--out``.  Each build's registers,
 spills and SASS instructions per kernel (``cuobjdump -sass``) are logged.
 Writes
@@ -138,6 +147,7 @@ import threading
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from .. import prng
@@ -456,6 +466,9 @@ GLUE_CLOCKS = {
              ("  if (D2 != nullptr) {\n    for (int m = tid", "aa"),
              ("  const long long out0 =", "D")))),
 }
+GLUE_CLOCKS["kg"] = (("// ---- kg: begin", "// ---- kg: end", "// ---- kg: begin\n",
+                      (("// ---- kg: search", "search"), ("// ---- kg: wait", "wait"),
+                       ("// ---- kg: outputs", "outputs"))),)
 GLUE_CLOCK_ENTRY = "mmd_glue_clock"
 # variants of the current K4n source (rollout.cu: K4 with it, through the
 # shared step): sinf and cosf for psi where the source takes sincosf, 32,
@@ -466,7 +479,12 @@ GLUE_VARIANTS = {"k4n": (
      "  const float c = cosf(q.psi), s = sinf(q.psi);"),
     *((f"k4n_lanes{n}", "  return lanes <= kSmallLaunch ? 32 : lanes <= 2 * kSmallLaunch ? 64 : 160;",
        f"  return {n};") for n in (32, 64, 128, 160)),
-    ("k4n_chunks10", "constexpr int kChunks = 5;", "constexpr int kChunks = 10;"))}
+    ("k4n_chunks10", "constexpr int kChunks = 5;", "constexpr int kChunks = 10;")),
+    # kernel (g): CTAs of 2 or 8 warps, the path staged by the threads
+    "kg": (*((f"kg_warps{n}", "constexpr int kWarps = 4;", f"constexpr int kWarps = {n};")
+             for n in (2, 8)),
+           ("kg_notma", "  return (reinterpret_cast<uintptr_t>(src) & 15) == 0 ? (n & ~3) : 0;",
+            "  return src ? 0 : n;"))}
 # kernel (f)'s forced cluster sizes (``ops.inner_prologue``'s keyword), run
 # by the current build beside its own choice
 KF_CLUSTERS = (1, 2, 4)
@@ -725,14 +743,24 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
             fn = getattr(lib, GLUE_ENTRIES[kind])
             fn.argtypes = _build._SIGNATURES[GLUE_ENTRIES[kind]]
             fn.restype = ctypes.c_int
+            # an earlier (g) entry lacks the probe's idx and visits
+            earlier_kg = kind == "kg" and KG_PROBE not in sources[name][1]
+            if earlier_kg:
+                fn.argtypes = [t for i, t in enumerate(fn.argtypes) if i not in KG_PROBE_AT]
             if kind == "k4n":
                 lib.mmd_fused_rollout.argtypes = _build._SIGNATURES["mmd_fused_rollout"]
+            for extra in KG_FORMS if kind == "kg" else ():
+                if extra in sources[name][1]:
+                    getattr(lib, extra).argtypes = _build._SIGNATURES[extra]
+                    getattr(lib, extra).restype = ctypes.c_int
             if "_clock" in name:
                 getattr(lib, GLUE_CLOCK_ENTRY).argtypes = [P, I]
-            if kind in ("k4n", "kf"):
+            if kind in ("k4n", "kf", "kg"):
                 dump_sass(so, OUT_DIR / f"{name}.sass")
             if kind == "kf" and "int splits" in sources[name][1]:
                 lib = SplitsEntry(lib)
+            if earlier_kg:
+                lib = EarlierEntry(lib, GLUE_ENTRIES[kind], KG_PROBE_AT)
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -750,7 +778,8 @@ SOURCES = {}       # a build's name -> its CUDA source
 
 class EarlierEntry:
     """An earlier build whose C entry lacks arguments that the current
-    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta):
+    wrapper passes (kernel (d)'s launch choices, kernel (e)'s kept_cta,
+    kernel (g)'s probe outputs):
     its calls drop the arguments at the positions ``drop`` (negative from
     the end)."""
 
@@ -1158,6 +1187,132 @@ def kg_inputs(gen, cfg, N: int = 1):
     return frame, x, y
 
 
+# Kernel (g)'s adversarial inputs (``kg_case``): ties, points far off the
+# path, squares that overflow, non-finite points and path points, duplicate
+# path points, ragged sizes; and at Path D's 20,000 points the two that
+# make every warp visit every tile (``KG_FULL``)
+KG_CASES = ("tie_across_a_tile_boundary", "tie_between_non_adjacent_tiles",
+            "far_off_the_path", "squares_overflow", "non_finite_query", "nan_path_point",
+            "inf_path_point", "duplicate_path_points", "path_shorter_than_a_tile",
+            "ragged_sizes", "circle_centre", "all_non_finite")
+KG_FULL = ("circle_centre", "all_non_finite")
+
+
+def kg_case(name: str, dev="cpu"):
+    """(frame, x, y) of kernel (g)'s adversarial input ``name`` on ``dev``:
+    the frame ``frenet.path_parameters`` of the case's path, the points
+    1-d.  Made from a numpy generator of its own (seed 31)."""
+    from ..frenet import path_parameters
+    rng = np.random.default_rng(31)
+    line = lambda n: (np.arange(n, dtype=np.float32), np.zeros(n, np.float32))
+
+    def curvy(n):
+        t = np.linspace(0.0, 1.0, n)
+        return 300.0 * t, 8.0 * np.sin(2.0 * np.pi * t) + 20.0 * t * t
+
+    if name == "tie_across_a_tile_boundary":
+        # (31.5, 0.75) is as far from points 31 and 32, the last of tile 0
+        # and the first of tile 1
+        xp, yp = line(100)
+        px = np.concatenate(([31.5, 15.5, 63.5], rng.uniform(0, 99, 40)))
+        py = np.concatenate(([0.75, -2.0, 0.0], rng.normal(0, 1, 40)))
+    elif name == "tie_between_non_adjacent_tiles":
+        # a U: out along y = 0 (points 0-49), back along y = 2 (50-99); the
+        # warp starts at the return leg's tile, and (10, 1) ties points 10
+        # and 89, two tiles apart, where the first tile's bound equals the best
+        xp = np.concatenate((np.arange(50), 99 - np.arange(50, 100)))
+        yp = np.concatenate((np.zeros(50), np.full(50, 2.0)))
+        px = np.concatenate(([10.0], 10.0 + rng.uniform(-0.4, 0.4, 31)))
+        py = np.concatenate(([1.0], np.full(31, 1.9)))
+    elif name == "far_off_the_path":
+        xp, yp = curvy(300)
+        px, py = rng.uniform(-1e4, 1e4, 70), rng.uniform(-1e4, 1e4, 70)
+    elif name == "squares_overflow":
+        xp, yp = line(90)
+        xp = xp * 1e18
+        px = np.concatenate((np.full(32, 3e19), rng.uniform(-1e20, 1e20, 40)))
+        py = np.concatenate((np.full(32, 2e19), rng.uniform(-3e19, 3e19, 40)))
+    elif name == "non_finite_query":
+        xp, yp = curvy(200)
+        px, py = rng.uniform(0, 300, 96), rng.uniform(-5, 30, 96)
+        px[5], py[40], px[70], py[70] = np.nan, np.inf, -np.inf, np.nan
+    elif name in ("nan_path_point", "inf_path_point"):
+        xp, yp = curvy(200)
+        if name == "nan_path_point":
+            yp[37] = np.nan
+        else:
+            xp[37], xp[150] = np.inf, -np.inf
+        px, py = rng.uniform(0, 300, 64), rng.uniform(-5, 30, 64)
+        px[3] = np.inf
+    elif name == "duplicate_path_points":
+        xp, yp = (np.repeat(a, 3) for a in curvy(60))
+        px = np.concatenate((xp[::7], rng.uniform(0, 300, 20)))
+        py = np.concatenate((yp[::7] + 0.25, rng.uniform(-5, 30, 20)))
+    elif name == "path_shorter_than_a_tile":
+        xp, yp = curvy(5)
+        px, py = rng.uniform(-10, 310, 37), rng.uniform(-5, 30, 37)
+    elif name == "ragged_sizes":
+        xp, yp = curvy(45)
+        px, py = rng.uniform(-10, 310, 77), rng.uniform(-5, 30, 77)
+    elif name == "circle_centre":
+        # every tile's bound is the radius squared: every warp visits all
+        th = np.linspace(0.0, 2.0 * np.pi, 600)
+        xp, yp = 50.0 * np.cos(th), 50.0 * np.sin(th)
+        px, py = rng.normal(0, 1e-3, 20_000), rng.normal(0, 1e-3, 20_000)
+    elif name == "all_non_finite":
+        xp, yp = curvy(600)
+        px, py = np.full(20_000, np.nan), rng.uniform(-5, 30, 20_000)
+    else:
+        raise ValueError(f"kg_case: no case {name!r}")
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return path_parameters(f32(xp), f32(yp)), f32(px), f32(py)
+
+
+def kg_closedloop(gen, cfg, arc: float = 150.0, N: int = 1):
+    """Kernel (g)'s inputs on a closed-loop frame: ``closedloop.local_problem``'s
+    frame with the ego ``arc`` metres along ``run_episode``'s curved route
+    (ego-shifted: the ego at the origin, its heading the route's), and
+    ``cfg``'s N x num_batch x R rollouts of num_prime steps from the ego
+    along that heading (``_trajectories``), on the generator's device.
+    Returns (frame, x, y) and the obstacles' rows (num_obs, 5) of
+    ``local_problem`` there, the obstacle form's input."""
+    from ..closedloop import SyntheticPlant, make_route, perceive_obstacles
+    from ..frenet import build_smoother, path_parameters, smooth_path, waypoint_window
+    dev = gen.device
+    plant = SyntheticPlant(cfg, make_route("curved"), ((arc + 12.0, 0.5), (arc + 40.0, 3.0)))
+    sp = plant.spline
+    plant.state = np.array([float(sp.cs_x(arc)), float(sp.cs_y(arc)), 8.0,
+                            float(sp.cs_phi(arc)), 0.0])
+    x_e, y_e, _, psi_e, _ = plant.state
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    x_wp, y_wp, _ = waypoint_window(sp, x_e, y_e, cfg.frenet.lookahead, cfg.frenet.num_path)
+    x_sm, y_sm = smooth_path(build_smoother(cfg.frenet.num_path, device=dev),
+                             f32(x_wp - x_e), f32(y_wp - y_e), cfg.frenet.smooth_threshold)
+    frame = path_parameters(x_sm, y_sm)
+    lead = (N, cfg.cem.num_batch, cfg.risk.num_reduced)
+    u, w = _trajectories(gen, lead, cfg.horizon.num_prime, cfg.horizon.dt)
+    w = w - w[..., :1]                      # every rollout from the ego
+    c, s = float(np.cos(psi_e)), float(np.sin(psi_e))
+    obs = perceive_obstacles(cfg, plant, (x_e, y_e), psi_e).copy()
+    obs[:, 0] -= x_e
+    obs[:, 1] -= y_e
+    return (frame, u * c - w * s, u * s + w * c), f32(obs[:, :5])
+
+
+def kg_state_inputs(gen, cfg, frame, n: int, at=(0.0, 0.0)):
+    """The state form's inputs (``ops.frenet_states``'s arguments) for n
+    states around the global point ``at`` of ``frame``: standard normals
+    z (n, 4) and the state [x, y, 6, 0.5, psi, 0.05] with psi the path's
+    heading at its 10th point (or 0.3), on the generator's device."""
+    dev = gen.device
+    z = torch.randn(n, 4, device=dev, generator=gen)
+    fx, fy = frame.Fx_dot[min(10, frame.Fx_dot.shape[0] - 1)], frame.Fy_dot[
+        min(10, frame.Fy_dot.shape[0] - 1)]
+    psi = float(torch.atan2(fy, fx)) if bool(torch.isfinite(fx) & torch.isfinite(fy)) else 0.3
+    init = torch.tensor([at[0], at[1], 6.0, 0.5, psi, 0.05], device=dev)
+    return frame, z, init, cfg.frenet.init_mu, cfg.frenet.init_sigma, cfg.cem.num_batch
+
+
 # the glue around the rollouts: (kind, source, C entry) of kernel (f), K4n
 # and kernel (g), and their shapes: (workload, scenarios, MMD kernel),
 # (workload, scenarios, mode) and (workload, scenarios)
@@ -1177,6 +1332,12 @@ K4N_SHAPES = (("fastrt", 1, "mmd_opt"), ("fastrt", 4, "mmd_opt"), ("fastrt", 8, 
               ("path_a", 4, "cvar"), ("path_d", 1, "mmd_opt"), ("path_d", 1, "cvar"),
               ("f5", 1, "mmd_opt"), ("f15", 1, "mmd_opt"))
 KG_SHAPES = (("path_d", 1), ("path_d", 4))
+# kernel (g)'s other entries: the state and obstacle forms (a build whose
+# source lacks one is not run there)
+KG_FORMS = ("mmd_frenet_states", "mmd_frenet_obstacles")
+# the probe's idx and visits in mmd_frenet_points (the source's text of
+# them, their positions), which an earlier entry lacks
+KG_PROBE, KG_PROBE_AT = "float* l, int* idx, int* visits", (9, 10)
 # K4 (``rollout.cu``'s other entry, sharing K4n's step): lanes, a state per
 # lane?  The exact strategy's 6,400 and on-road 1,600, and the validator's
 K4_SHAPES = ((6400, False), (1600, True), (256_000, False))
@@ -1189,8 +1350,9 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
     for bit-symmetry; K4 of every K4n build bit-equal to the first's (K4's
     bits do not move) and timed in turns; the clock builds' cycles a phase
     (mean and max over the blocks' thread 0) at every shape."""
-    from ..frenet import global_to_frenet_points
-    from ..ops.frenet_points import frenet_points
+    from ..frenet import global_to_frenet_obstacle, global_to_frenet_points, initial_states
+    from ..ops.frenet_points import (frenet_obstacles, frenet_points, frenet_states,
+                                     nearest_pruned)
     from ..ops.inner_prologue import inner_prologue, inner_prologue_plain
     from ..ops.rollout import noisy_rollout, noisy_rollout_plain
     cfgs = _workloads()
@@ -1207,9 +1369,27 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
         args = kg_inputs(gen, cfgs[name], N)
         cases.append(("kg", f"{name} x {N}", args, frenet_points, global_to_frenet_points,
                       "frenet_points_kernel"))
+    if any(n.startswith("kg_") for n in names):
+        (frame, x, y), obs = kg_closedloop(gen, cfgs["path_d"])
+        cases.append(("kg", "path_d x 1 on a closed-loop frame", (frame, x, y),
+                      frenet_points, global_to_frenet_points, "frenet_points_kernel"))
+        cases += [("kg", case, kg_case(case, "cuda"), frenet_points, global_to_frenet_points,
+                   "frenet_points_kernel") for case in KG_FULL]
+        # the forms, where a build's source has them: the state form at Path
+        # D's states in mmd_opt, cvar / saa / mmd_random and det, the obstacle
+        # form at the closed loop's obstacles
+        for n in (16, 4, 1):
+            cases.append(("kg", f"frenet_states x {n} on a closed-loop frame",
+                          kg_state_inputs(gen, cfgs["path_d"], frame, n), frenet_states,
+                          initial_states, "frenet_states_kernel", "mmd_frenet_states"))
+        cases.append(("kg", f"frenet_obstacles x {obs.shape[0]} on a closed-loop frame",
+                      (frame, obs), frenet_obstacles,
+                      lambda f, o: global_to_frenet_obstacle(f, *o.unbind(1)),
+                      "frenet_points_kernel", "mmd_frenet_obstacles"))
     recs = []
-    for kind, label, args, wrapper, plain, match in cases:
-        builds = [n for n in names if n.startswith(f"{kind}_") and "_clock" not in n]
+    for kind, label, args, wrapper, plain, match, *entry in cases:
+        builds = [n for n in names if n.startswith(f"{kind}_") and "_clock" not in n
+                  and (not entry or entry[0] in SOURCES.get(n, ""))]
         clocks = [n for n in names if n.startswith(f"{kind}_clock")]
         if not builds:
             continue
@@ -1233,11 +1413,17 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
                 f: same_bits(t, t.transpose(-1, -2))
                 for f, t in (("D", ref.D), ("D2", ref.D2)) if t is not None}
             log(f"kf {label}: the plain chain's {rec['plain_symmetric']} bit-symmetric")
+        if kind == "kg" and wrapper is frenet_points:
+            _, visits = nearest_pruned(args[0], args[1], args[2])
+            rec["tiles_visited"] = {"mean": float(visits.double().mean()),
+                                    "max": int(visits.max())}
+            log(f"kg {label}: tiles visited a point (the twin's, tiles of 32) "
+                f"{rec['tiles_visited']}")
         rec["device_ms"] = three_ways(calls, match, warm_only=warm_only)
         log(f"{kind} {label}: {builds} bit-equal to the plain version; device us "
             f"{_fmt_times(rec['device_ms'])}")
-        if clocks:
-            T = args[1].shape[-1] if kind == "kf" else args[0].shape[-1]
+        if clocks and not entry:
+            T = args[1].shape[-1] if kind == "kf" else args[0].shape[-1] if kind == "k4n" else 1
             rec["clock"] = {}
             for c in clocks:
                 rec["clock"][c] = _clock_regions(

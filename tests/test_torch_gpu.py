@@ -25,7 +25,10 @@ every cluster size, whose CTAs keep the same candidates; (d)'s run-time
 shape at num 60 within rtol 1e-5 + atol 1e-6; K4n and kernels (f) and (g)
 bit-equal to their plain versions on the card at two path shapes each, K4n
 and (f) also at their edges (run-time T, Beta draws with a state per lane,
-F15, 11a's chunk of 32; (f) at every cluster size, D and D2 symmetric).
+F15, 11a's chunk of 32; (f) at every cluster size, D and D2 symmetric), (g)
+also on its adversarial inputs and a closed-loop frame (its indices and
+visited tiles its twin's), and (g)'s state and obstacle forms bit-equal to
+their chains.
 """
 
 import dataclasses
@@ -48,6 +51,7 @@ from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
 from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
 from mpc_mmd_tpu_torch.sampling import _cholesky
 from mpc_mmd_tpu_torch.utils import chunk_bits
+from mpc_mmd_tpu_torch.utils.kernel_ab import KG_CASES
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -1323,6 +1327,114 @@ def test_frenet_points_kernel_equals_its_plain_version(cuda, N):
     assert frenet_points.launches == before + 1
     ref = global_to_frenet_points(frame, x, y)
     assert all(_same_bits(g, r) for g, r in zip(got, ref))
+
+
+@pytest.mark.parametrize("case", KG_CASES)
+def test_frenet_points_kernel_on_adversarial_inputs(cuda, case):
+    """Kernel (g) on ``kernel_ab.kg_case``'s adversarial inputs (ties across
+    tiles, non-finite points and path points, overflowing squares,
+    duplicate path points, ragged sizes, and the two cases that visit every
+    tile): s and l bit-equal to global_to_frenet_points on the card, and
+    each point's nearest index and its warp's visited tiles (the probe's)
+    the twin's (``nearest_pruned``)."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_points
+    from mpc_mmd_tpu_torch.ops.frenet_points import frenet_points, nearest_pruned
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case
+    frame, x, y = kg_case(case, "cuda")
+    got = frenet_points(frame, x, y)
+    s, l, idx, visits = frenet_points(frame, x, y, probe=True)
+    ref = global_to_frenet_points(frame, x, y)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    assert _same_bits(s, ref[0]) and _same_bits(l, ref[1])
+    tidx, tvisits = nearest_pruned(frame, x, y)
+    assert torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)
+
+
+def test_frenet_points_kernel_on_a_closed_loop_frame(cuda):
+    """Kernel (g) on local_problem's frame 150 m along the curved route
+    (``kernel_ab.kg_closedloop``) at Path D's shape: bit-equal to its plain
+    version, its indices and visits the twin's; the obstacle form on that
+    step's obstacles bit-equal to global_to_frenet_obstacle."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_obstacle, global_to_frenet_points
+    from mpc_mmd_tpu_torch.ops import frenet_obstacles
+    from mpc_mmd_tpu_torch.ops.frenet_points import frenet_points, nearest_pruned
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_closedloop
+    (frame, x, y), obs = kg_closedloop(cuda, _workload("path_d"))
+    got = frenet_points(frame, x, y)
+    s, l, idx, visits = frenet_points(frame, x, y, probe=True)
+    ref = global_to_frenet_points(frame, x, y)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    assert _same_bits(s, ref[0]) and _same_bits(l, ref[1])
+    tidx, tvisits = nearest_pruned(frame, x, y)
+    assert torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)
+    before = frenet_obstacles.launches
+    got = frenet_obstacles(frame, obs)
+    assert frenet_obstacles.launches == before + 1
+    *probed, idx, visits = frenet_obstacles(frame, obs, probe=True)
+    assert frenet_obstacles.launches == before + 1
+    ref = global_to_frenet_obstacle(frame, *obs.unbind(1))
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    assert all(_same_bits(g, r) for g, r in zip(probed, ref))
+    tidx, tvisits = nearest_pruned(frame, obs[:, 0], obs[:, 1])
+    assert torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)
+
+
+@pytest.mark.parametrize("n", [1, 4, 16, 100, 128, 256])
+@pytest.mark.parametrize("case", ["path_d", "closed_loop", "tie_between_non_adjacent_tiles",
+                                  "duplicate_path_points", "nan_path_point",
+                                  "squares_overflow"])
+def test_frenet_states_kernel_equals_its_plain_version(cuda, case, n):
+    """Kernel (g)'s state form against frenet.initial_states on the card:
+    the states, b_eq_x and b_eq_y bit-equal, at ``det``'s 1 state, Path D's
+    4 and 16 and 100 to 256 (ATen's one-output sums past a warp and
+    vectorised), on Path D's, a closed-loop and adversarial frames; its
+    probe's nearest indices and visited tiles the twin's."""
+    from mpc_mmd_tpu_torch.frenet import initial_states
+    from mpc_mmd_tpu_torch.ops import frenet_states
+    from mpc_mmd_tpu_torch.ops.frenet_points import nearest_pruned
+    from mpc_mmd_tpu_torch.utils.kernel_ab import (kg_case, kg_closedloop, kg_frame,
+                                                   kg_state_inputs)
+    cfg = _workload("path_d")
+    if case == "path_d":
+        frame, at = kg_frame("cuda"), (40.0, 1.0)
+    elif case == "closed_loop":
+        frame, at = kg_closedloop(cuda, cfg)[0][0], (0.0, 0.0)
+    else:
+        frame, x, y = kg_case(case, "cuda")
+        at = (float(x[0]), float(y[0]))
+    args = kg_state_inputs(cuda, cfg, frame, n, at)
+    before = frenet_states.launches
+    got = frenet_states(*args)
+    assert frenet_states.launches == before + 1
+    ref = initial_states(*args)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    *_, idx, visits = frenet_states(*args, probe=True)
+    tidx, tvisits = nearest_pruned(frame, got[0][:, 0], got[0][:, 1])
+    assert torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)
+
+
+@pytest.mark.parametrize("case", ["far_off_the_path", "non_finite_query", "inf_path_point",
+                                  "duplicate_path_points", "ragged_sizes"])
+def test_frenet_obstacles_kernel_equals_its_plain_version(cuda, case):
+    """Kernel (g)'s obstacle form against global_to_frenet_obstacle on the
+    card, the case's points as obstacle positions with random velocities
+    and headings: every output bit-equal, its probe's nearest indices and
+    visited tiles the twin's."""
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_obstacle
+    from mpc_mmd_tpu_torch.ops import frenet_obstacles
+    from mpc_mmd_tpu_torch.ops.frenet_points import nearest_pruned
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case
+    frame, x, y = kg_case(case, "cuda")
+    m = x.shape[0]
+    obs = torch.stack((x, y, 3.0 * torch.randn(m, device="cuda", generator=cuda),
+                       torch.randn(m, device="cuda", generator=cuda),
+                       3.0 * torch.rand(m, device="cuda", generator=cuda)), dim=1)
+    got = frenet_obstacles(frame, obs)
+    ref = global_to_frenet_obstacle(frame, *obs.unbind(1))
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    *_, idx, visits = frenet_obstacles(frame, obs, probe=True)
+    tidx, tvisits = nearest_pruned(frame, x, y)
+    assert torch.equal(idx.long(), tidx) and torch.equal(visits.long(), tvisits)
 
 
 def _onroad(mode="mmd_opt"):

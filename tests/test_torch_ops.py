@@ -312,14 +312,14 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
     csrc/outer_project.cu, csrc/rollout.cu and csrc/inner_prologue.cu
     (kernel (c)'s cluster sizes and clock stamps; kc_clock_before stamps the
     earlier kernel (c); kernel (d)'s clock stamps, kd_clock_before the
-    earlier outer_project.cu's; K4n's variants and K4n's and kernel (f)'s
-    clock stamps, *_clock_before the earlier sources'): each must find its
-    anchor and change the source."""
+    earlier outer_project.cu's; K4n's and kernel (g)'s variants and K4n's
+    and kernels (f) and (g)'s clock stamps, *_clock_before the earlier
+    sources'): each must find its anchor and change the source."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
     for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu", "inner_cem_body.cuh",
                  "inner_cem_fused.cu", "outer_project.cu", "outer_tail.cu", "rollout.cu",
-                 "inner_prologue.cu"):
+                 "inner_prologue.cu", "frenet_points.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]

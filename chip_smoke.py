@@ -121,7 +121,15 @@ Phases, each of which must pass:
    adversarial ones, and its obstacle form (``ops.frenet_obstacles``)
    against ``global_to_frenet_obstacle`` at the closed loop's obstacles
    and adversarial ones: every output bit-equal, the indices and visited
-   tiles the twin's;
+   tiles the twin's, and with the horizon's times (as ``local_problem``
+   launches it) its trajectories bit-equal to
+   ``constant_velocity_obstacles``; kernel (h), the closed loop's local
+   path in one launch (``ops.local_frame``, ``csrc/local_frame.cu``),
+   against its chain (``frenet.smooth_path`` then ``path_parameters``)
+   and its twin (``local_frame_twin``) on ``kernel_ab.kh_window``'s
+   windows (three routes near three points, num_path 600 and 64, one and
+   ten rounds), windows with a NaN waypoint and the closed loop's window:
+   every output bit-equal, NaN to NaN;
    then the launch floor (the device time of ``fill_`` on one float) and,
    for each kernel at the shapes above (K1 and K2 at every path shape, K3
    and K4 at each timed one), its own device time per launch from
@@ -210,10 +218,16 @@ Phases, each of which must pass:
       and ``det``, run in this process: each prints its episode line and
       launches one (d) and one (e) an outer iteration of every step, the
       first two their other kernels, and one each of (g)'s state and
-      obstacle forms a step, ``det`` nothing else but the draws;
+      obstacle forms and of (h) a step, ``det`` nothing else but the
+      draws; each step's ``local_problem`` runs under an ATen counter
+      and must run no ``mv``, ``addmv`` or ``cumsum`` (its operations a
+      step logged);
    g. ``local_problem``'s host ms a step (to ``torch.cuda.synchronize``)
-      with the obstacles through (g)'s obstacle form and through its
-      chain on the card, in turns, logged.
+      with its frame from (h) and from the chain (``smooth_path``,
+      ``path_parameters``) on the card, in turns, and the closed-loop step
+      a vehicle stack waits for (``local_problem``, then the ``det`` and
+      the ``mmd_opt`` solve) the same way; logged with the ATen
+      operations of ``local_problem`` either way.
    Each of b-d and f runs with the launch counts set to 0 just before it
    and read just after.
 11. Path E, scenario chunks (``Solver(cfg, scenario_chunk=N).solve_batch``:
@@ -1346,15 +1360,16 @@ def _bits_apart(got, ref):
 
 
 def glue_clock_builds():
-    """``utils/kernel_ab.py``'s clock variants of K4n and kernel (f) from
-    this checkout's sources (``k4n_clock``, ``kf_clock``: thread 0 of each
-    block stamps the cycles of each phase) and its step microbenchmark
-    (``step_now``), built beside the package."""
+    """``utils/kernel_ab.py``'s clock variants of K4n and kernels (f) and (h)
+    from this checkout's sources (``k4n_clock``, ``kf_clock``, ``kh_clock``:
+    thread 0 of each block stamps the cycles of each phase) and its step
+    microbenchmark (``step_now``), built beside the package."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
     srcs = {f"{kind}_clock": (kind, kernel_ab.glue_clock_variant(
         kind, (_build.CSRC / src).read_text(), f"{kind}_clock"))
-        for kind, src, _ in kernel_ab.GLUE_SOURCES if kind in ("k4n", "kf")}
+        for kind, src in (("k4n", "rollout.cu"), ("kf", "inner_prologue.cu"),
+                          ("kh", "local_frame.cu"))}
     srcs["step_now"] = ("step", kernel_ab.STEP_MICRO)
     return kernel_ab.build_all(srcs, lambda msg: log(f"  {msg}"))
 
@@ -1660,11 +1675,17 @@ def check_frenet_obstacles(torch, ops, gen, workloads, per_step):
     (``kernel_ab.kg_closedloop``) and at adversarial positions
     (``kernel_ab.kg_case``'s points, random velocities and headings): every
     output bit-equal, and the nearest indices and visited tiles (its probe)
-    the twin's.  ``per_step``: {path: launches a step}.  Returns the
-    closed-loop shape's record."""
+    the twin's; with the horizon's times (as local_problem launches it) also
+    the constant-velocity trajectories x_obs, y_obs bit-equal to
+    ``dynamics.constant_velocity_obstacles``.  ``per_step``: {path:
+    launches a step}.  Returns the closed-loop shape's record (with the
+    trajectories)."""
+    from mpc_mmd_tpu_torch.dynamics import constant_velocity_obstacles
     from mpc_mmd_tpu_torch.frenet import global_to_frenet_obstacle
     from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case, kg_closedloop
-    (frame, _, _), obs = kg_closedloop(gen, workloads["path_d"][0])
+    cfg = workloads["path_d"][0]
+    (frame, _, _), obs = kg_closedloop(gen, cfg)
+    tot = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device=gen.device)
     runs = [(f"path_d's {obs.shape[0]} obstacles on a closed-loop frame", frame, obs)]
     for case in ("far_off_the_path", "non_finite_query", "inf_path_point",
                  "duplicate_path_points", "ragged_sizes"):
@@ -1688,23 +1709,135 @@ def check_frenet_obstacles(torch, ops, gen, workloads, per_step):
                          f"the plain version at {bad} entries, {label}")
         probe_against_twin(torch, "frenet_obstacles", idx, visits, o[:, 0], o[:, 1], fr,
                            label)
+        traj = ops.frenet_obstacles(fr, o, tot_time=tot)
+        ref_t = tuple(ref) + constant_velocity_obstacles(*ref, tot)[:2]
+        torch.cuda.synchronize()
+        for field, g, r in zip(("s", "l", "vs", "vl", "psi_rel", "x_obs", "y_obs"), traj,
+                               ref_t):
+            bad = _bits_apart(g, r)
+            if bad:
+                fail(f"kernel (g) frenet_obstacles with the horizon's times: {field} not "
+                     f"bit-equal to the chain at {bad} entries, {label}")
         log(f"kernel (g) frenet_obstacles at {label}: every output bit-equal to "
             f"global_to_frenet_obstacle (the launch and its probe), the probe's indices "
-            f"and visited tiles the twin's")
+            f"and visited tiles the twin's; with the horizon's times x_obs and y_obs "
+            f"bit-equal to constant_velocity_obstacles")
         outs.append((got, visits))
     got, visits = outs[0]
     work, _, (mean, most) = search_work(torch, frame, obs[:, 0], visits)
-    rec = dict(shape=runs[0][0], call=(lambda: ops.frenet_obstacles(frame, obs)),
+    traj = ops.frenet_obstacles(frame, obs, tot_time=tot)
+
+    def plain():
+        conv = global_to_frenet_obstacle(frame, *obs.unbind(1))
+        return constant_velocity_obstacles(*conv, tot)
+    rec = dict(shape=f"{runs[0][0]}, with {tot.shape[0]} times",
+               call=(lambda: ops.frenet_obstacles(frame, obs, tot_time=tot)),
                match="frenet_points_kernel", launches_per_solve=per_step, cold=True,
-               nbytes=f32_bytes(obs, *got, *frame[:6]),
-               # the search, and about 80 operations an obstacle (its frame,
-               # kappa, the heading, vs, vl)
-               ops=work + 80 * obs.shape[0], tiles_visited={"mean": mean, "max": most},
+               nbytes=f32_bytes(obs, tot, *traj, *frame[:6]),
+               # the search, about 80 operations an obstacle (its frame,
+               # kappa, the heading, vs, vl) and 4 a trajectory point
+               ops=work + 80 * obs.shape[0] + 4 * traj[-1].numel(),
+               tiles_visited={"mean": mean, "max": most},
                library=("no single call", None),
-               plain_ms=cuda_ms(torch, lambda: global_to_frenet_obstacle(
-                   frame, *obs.unbind(1)), reps=5, warmup=1), max_abs_err=0.0)
+               plain_ms=cuda_ms(torch, plain, reps=5, warmup=1), max_abs_err=0.0)
     rec["ms"] = cuda_ms(torch, rec["call"], reps=20)
     return rec
+
+
+def lf_phases(torch, ops, clocks, sw, x, y, thr):
+    """Kernel (h)'s cycles a phase from its clock build (``kh_clock`` of
+    ``clocks``, ``glue_clock_builds``: thread 0 of each CTA stamps its
+    phases), as ``kernel_ab.kh_phases`` gives them, and the latency bound's
+    cycles: the rounds' dependent chain, warp 0's group's products and
+    update a round (the mean over the CTAs) each round."""
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    got = kernel_ab._clock_regions(clocks["kh_clock"], "kh_clock",
+                                   lambda: ops.local_frame(sw, x, y, thr,
+                                                           lib=clocks["kh_clock"]),
+                                   entry=kernel_ab.GLUE_CLOCK_ENTRY)
+    out = kernel_ab.kh_phases(got["cycles"], sw.maxiter)
+    return out, sw.maxiter * (out["products a round"] + out["update a round"])
+
+
+def check_local_frame(torch, ops, dev, per_step, clocks):
+    """Kernel (h) (``ops.local_frame``, ``csrc/local_frame.cu``) against its
+    plain version, the chain ``frenet.smooth_path`` then
+    ``frenet.path_parameters`` on the card, and against its twin
+    (``local_frame_twin``): every output bit-equal (NaN to NaN) on
+    ``kernel_ab.kh_window``'s windows (the curved, straight and circuit
+    routes near three points, at num_path 600 and 64, one and ten
+    rounds), on windows with a NaN waypoint, and on the closed loop's
+    window (``kernel_ab.kh_closedloop``: local_problem's 150 m along the
+    curved route).  ``per_step``: {path: launches a closed-loop step};
+    ``clocks``: ``glue_clock_builds``' builds.  Returns the closed-loop
+    shape's record, num_path 64 under ``cases``."""
+    from mpc_mmd_tpu_torch import onroad_workload
+    from mpc_mmd_tpu_torch.frenet import build_smoother, path_parameters, smooth_path
+    from mpc_mmd_tpu_torch.ops.local_frame import local_frame_twin
+    from mpc_mmd_tpu_torch.utils.kernel_ab import (KH_AT, KH_ROUNDS, KH_ROUTES, KH_WIDTHS,
+                                                   kh_closedloop, kh_window)
+    cfg = onroad_workload()
+    thr = cfg.frenet.smooth_threshold
+    chain = lambda sw, x, y: path_parameters(*smooth_path(sw, x, y, thr))
+
+    def held(sw, x, y, label):
+        got = ops.local_frame(sw, x, y, thr)
+        ref = chain(sw, x, y)
+        twin = local_frame_twin(sw, x, y, thr)
+        torch.cuda.synchronize()
+        for field, g, r, t in zip(ref._fields, got, ref, twin):
+            for what, v in (("kernel (h)", g), ("its twin", t)):
+                bad = _bits_apart(v, r)
+                if bad:
+                    fail(f"{what}: {field} not bit-equal to the chain at {bad} entries, "
+                         f"{label}")
+        return got
+
+    windows = [(f"{r} near point {at}, num_path {n}", *kh_window(r, at, n, dev))
+               for r in KH_ROUTES for at in KH_AT for n in KH_WIDTHS]
+    for where in (37, 599):
+        x, y = kh_window("curved", 4000, 600, dev)
+        x[where] = float("nan")
+        windows.append((f"curved near point 4000 with a NaN waypoint at {where}", x, y))
+    for label, x, y in windows:
+        for rounds in KH_ROUNDS:
+            held(build_smoother(x.shape[0], maxiter=rounds, device=dev), x, y,
+                 f"{label}, {rounds} rounds")
+    sw, x, y = kh_closedloop(cfg, dev)
+    n = x.shape[0]
+    held(sw, x, y, "the closed loop's window")
+    log(f"kernel (h) local_frame: {len(windows) * len(KH_ROUNDS)} windows and the closed "
+        f"loop's bit-equal to the chain (smooth_path, path_parameters) and to its twin, "
+        f"NaN to NaN")
+    cases = []
+    sw64 = build_smoother(64, device=dev)
+    x64, y64 = kh_window("curved", 4000, 64, dev)
+    for label, (s_, xx, yy), at in (
+            (f"the closed loop's window, num_path {n}", (sw, x, y), per_step),
+            ("a curved window, num_path 64", (sw64, x64, y64), None)):
+        m, rounds = xx.shape[0], s_.maxiter
+        phases, chain_cycles = lf_phases(torch, ops, clocks, s_, xx, yy, thr)
+        got = ops.local_frame(s_, xx, yy, thr)
+        cases.append(dict(
+            shape=f"{label}: {rounds} rounds",
+            call=(lambda a=(s_, xx, yy): ops.local_frame(*a, thr)),
+            match="local_frame_kernel", launches_per_solve=at, cold=True,
+            phases=phases,
+            # the latency bound: the rounds' dependent chain, a group's
+            # products and update a round, at the card's highest SM clock
+            latency_bound_ms=chain_cycles / sm_clock_max_mhz() / 1e3,
+            # K^-1's kept rows read once, the waypoints in, six outputs;
+            # two fused multiply-adds a term a row a round, about 150
+            # operations a row's update (atan2f, cosf, sinf), 50 a point's
+            # path parameters (sqrtf, powf, the quotient)
+            nbytes=4 * m * (m + 1) + f32_bytes(xx, yy, *got[:6]),
+            ops=4 * rounds * m * (m + 1) + 150 * rounds * m + 50 * m,
+            library=("no single call: torch.mv is one of the 2 maxiter products, "
+                     "the rounds' updates and the path parameters are not one call", None),
+            plain_ms=cuda_ms(torch, lambda a=(s_, xx, yy): chain(*a), reps=5, warmup=1)))
+    main = dict(cases[0], max_abs_err=0.0, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"], reps=20)
+    return main
 
 
 # Kernel (c)'s device ms a launch before its cluster redesign (one block of
@@ -1766,12 +1899,12 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc, kd_, ke_, k4n, kf, kg, ks, ko, kc_forms):
+                  kd, kb, kc, kd_, ke_, k4n, kf, kg, ks, ko, kh, kc_forms):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape), ``kd`` kernel (a)'s record,
     ``kd_``, ``ke_`` kernel (d)'s and (e)'s and ``k4n``, ``kf``, ``kg``
     K4n's and kernel (f)'s and (g)'s, ``ks``, ``ko`` (g)'s state and
-    obstacle forms', ``kc_forms`` kernel (c)'s by form
+    obstacle forms', ``kh`` kernel (h)'s, ``kc_forms`` kernel (c)'s by form
     (``check_inner_cem``): "inner_cem" counts the launches of every form,
     ``inner_cem_fused``, ``_xt`` and ``_g`` those of their form.  The draw
     kernels replace no TPU kernel: ``replaces`` names the JAX package's
@@ -1822,8 +1955,11 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
              "frenet.py:173 vmapped through _nearest :168, their means and the b_eq "
              "rows :133-138, compiled by XLA; no Pallas kernel)", (ks, None)),
             (ops.frenet_obstacles, "frenet_points.cu", "mpc_mmd_tpu/closedloop.py:268 "
-             "(global_to_frenet_obstacle frenet.py:210 through _nearest :168; no Pallas "
-             "kernel)", (ko, None)),
+             "(global_to_frenet_obstacle frenet.py:210 through _nearest :168, and "
+             "constant_velocity_obstacles dynamics.py:118; no Pallas kernel)", (ko, None)),
+            (ops.local_frame, "local_frame.cu", "mpc_mmd_tpu/frenet.py:134 (smooth_path's "
+             "lax.scan :111 and path_parameters :148, called at closedloop.py:256-262, "
+             "compiled by XLA; no Pallas kernel)", (kh, None)),
             *((getattr(ops, name), src, tpu, (kc_forms[f], None))
               for f, (name, src, tpu) in KC_FORMS.items() if f in kc_forms)):
         name = fn.__name__
@@ -2503,12 +2639,14 @@ def path_d(torch, ops, dev, cfg, per_solve):
         f"solve); launches {got}")
 
     # d. the other modes, one solve each
+    solvers = {}
     for mode in ("cvar", "saa", "mmd_random", "det"):
         cfg_m = cfg.with_risk_mode(mode)
         s = FrenetSolver(cfg_m, device=dev)
         r, secs, got = counted(torch, ops, f"Path D {mode}",
                                (KD, KE, KS, D) if mode == "det" else (KD, KE, K4, KG, KS, D),
                                lambda: s.solve(5, *args))
+        solvers[mode] = s
         check_frenet_solve(r, cfg_m, f"Path D {mode}")
         fresh = loop_launches(cfg_m, frenet=True, fresh=True)
         expect(got, fresh, 1,
@@ -2531,11 +2669,15 @@ def path_d(torch, ops, dev, cfg, per_solve):
         if seed == 1 and not err <= 1e-3:
             fail(f"Path D: the controls differ between cuda and cpu by {err} (> 1e-3)")
 
-    # f. the closed-loop CLI
-    for mode, kernels in (("mmd_opt", (KC, KD, KE, K4, KG, KS, KO, D)),
-                          ("cvar", (KD, KE, K4, KG, KS, KO, D)), ("det", (KD, KE, KS, KO, D))):
+    # f. the closed-loop CLI, each step's local_problem under an ATen counter
+    from mpc_mmd_tpu_torch import closedloop
+    KH = ops.local_frame
+    lp_ops = {}
+    for mode, kernels in (("mmd_opt", (KC, KD, KE, K4, KG, KS, KO, KH, D)),
+                          ("cvar", (KD, KE, K4, KG, KS, KO, KH, D)),
+                          ("det", (KD, KE, KS, KO, KH, D))):
         buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
+        with contextlib.redirect_stdout(buf), aten_counted(closedloop, "local_problem") as seen:
             results, secs, got = counted(
                 torch, ops, f"Path D closed loop {mode}", kernels,
                 lambda: closedloop_cli.main(["--mode", mode, "--route", "curved",
@@ -2544,66 +2686,105 @@ def path_d(torch, ops, dev, cfg, per_solve):
         if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
             fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
         if mode == "det" and {k for k, v in got.items() if v} != {
-                D.__name__, KD.__name__, KE.__name__, KS.__name__, KO.__name__}:
+                D.__name__, KD.__name__, KE.__name__, KS.__name__, KO.__name__, KH.__name__}:
             fail(f"Path D closed loop det launched other kernels than (d), (e), (g)'s "
-                 f"state and obstacle forms and the draws: {got}")
-        if not got[KS.__name__] == got[KO.__name__] == results[0].steps:
-            fail(f"Path D closed loop {mode}: not one launch each of (g)'s state and "
-                 f"obstacle forms a step of {results[0].steps}: {got}")
-        if got[KD.__name__] != got[KE.__name__] or got[KE.__name__] != (
-                results[0].steps * cfg.cem.maxiter_cem):
-            fail(f"Path D closed loop {mode}: not one (d) and one (e) an outer iteration "
-                 f"of each of {results[0].steps} steps: {got}")
+                 f"state and obstacle forms, (h) and the draws: {got}")
         steps = results[0].steps
+        if not got[KS.__name__] == got[KO.__name__] == got[KH.__name__] == steps:
+            fail(f"Path D closed loop {mode}: not one launch each of (g)'s state and "
+                 f"obstacle forms and of (h) a step of {steps}: {got}")
+        if got[KD.__name__] != got[KE.__name__] or got[KE.__name__] != (
+                steps * cfg.cem.maxiter_cem):
+            fail(f"Path D closed loop {mode}: not one (d) and one (e) an outer iteration "
+                 f"of each of {steps} steps: {got}")
+        if seen["calls"] != steps or any(seen[op] for op in ("mv", "addmv", "cumsum")):
+            fail(f"Path D closed loop {mode}: local_problem ran the smoother's chain "
+                 f"({seen['calls']} calls for {steps} steps; ATen {dict(seen)})")
+        lp_ops[mode] = (sum(v for k, v in seen.items() if k != "calls") / steps,
+                        dict(seen))
         path_launches.append(got)
         per_solve[f"closedloop_{mode}"] = {k: v / steps for k, v in got.items()}
         log(f"Path D closed loop, python -m mpc_mmd_tpu_torch.cli.closedloop --mode "
             f"{mode} --route curved --episodes 1 --max_steps 20: {secs:.2f} s; "
-            f"{json.dumps(episode)}; launches {got}")
+            f"{json.dumps(episode)}; launches {got}; local_problem's ATen operations a "
+            f"step {lp_ops[mode][0]:.1f}, no mv, addmv or cumsum")
 
-    # g. local_problem's host ms a step: the obstacles through (g)'s obstacle
-    # form, and through its chain on the card, in turns
-    from mpc_mmd_tpu_torch import closedloop
+    # g. local_problem's host ms a step (to torch.cuda.synchronize) with its
+    # frame from kernel (h) and from the chain it replaces, in turns; and the
+    # closed-loop step a vehicle stack waits for, local_problem then the
+    # solve (det and mmd_opt, their graphs captured above), the same way
     from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
-    from mpc_mmd_tpu_torch.frenet import build_smoother, global_to_frenet_obstacle
+    from mpc_mmd_tpu_torch.frenet import build_smoother, path_parameters, smooth_path
     plant = SyntheticPlant(cfg, make_route("curved"), ONROAD_OBSTACLES)
     smoother = build_smoother(cfg.frenet.num_path, device=dev)
     tot = torch.as_tensor(np.linspace(0, cfg.horizon.t_fin, cfg.horizon.num),
                           dtype=torch.float32, device=dev)
-    chain = lambda frame, obs: global_to_frenet_obstacle(frame, *obs.unbind(1))
-    ms = {"kernel": [], "chain": []}
+    chain = lambda sw, x, y, thr: path_parameters(*smooth_path(sw, x, y, thr))
+    with aten_counted(closedloop, "local_problem") as seen_h:
+        closedloop.local_problem(cfg, plant, smoother, tot)
+    closedloop.local_frame = chain
     try:
-        for label in ("kernel", "chain", "chain", "kernel") * 5:
-            closedloop.frenet_obstacles = KO if label == "kernel" else chain
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            local_problem(cfg, plant, smoother, tot)
-            torch.cuda.synchronize()
-            ms[label].append(1e3 * (time.perf_counter() - t0))
+        with aten_counted(closedloop, "local_problem") as seen_c:
+            closedloop.local_problem(cfg, plant, smoother, tot)
     finally:
-        closedloop.frenet_obstacles = KO
-    # and of it the path smoother alone (frenet.smooth_path: maxiter rounds of
-    # eager operations, two (n+1)-square matrix-vector products a round)
-    from mpc_mmd_tpu_torch.frenet import smooth_path, waypoint_window
-    x_e, y_e = plant.state[:2]
-    x_wp, y_wp, _ = waypoint_window(plant.spline, x_e, y_e, cfg.frenet.lookahead,
-                                    cfg.frenet.num_path)
-    wp = [torch.as_tensor(np.asarray(w - e, np.float32), device=dev)
-          for w, e in ((x_wp, x_e), (y_wp, y_e))]
-    smooth = []
-    for _ in range(10):
+        closedloop.local_frame = KH
+
+    def step(s):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        smooth_path(smoother, *wp, cfg.frenet.smooth_threshold)
+        frame, x_obs, y_obs, init = local_problem(cfg, plant, smoother, tot)
+        if s is not None:
+            s.solve(7, init, MEAN, COV, x_obs, y_obs, 15.0, frame)
         torch.cuda.synchronize()
-        smooth.append(1e3 * (time.perf_counter() - t0))
-    log(f"Path D g: local_problem's host ms a step (to synchronize; 10 each in turns), "
-        f"obstacles through (g)'s obstacle form p50 {np.median(ms['kernel']):.3f} "
-        f"(min {min(ms['kernel']):.3f}), through the chain p50 "
-        f"{np.median(ms['chain']):.3f} (min {min(ms['chain']):.3f}); of it the path "
-        f"smoother ({smoother.maxiter} rounds) p50 {np.median(smooth):.3f} (min "
-        f"{min(smooth):.3f})")
+        return 1e3 * (time.perf_counter() - t0)
+
+    timed = {}
+    try:
+        for what, s in (("local_problem", None), ("det step", solvers["det"]),
+                        ("mmd_opt step", solver)):
+            for label in ("kernel", "chain", "chain", "kernel") * 5:
+                closedloop.local_frame = KH if label == "kernel" else chain
+                timed.setdefault((what, label), []).append(step(s))
+    finally:
+        closedloop.local_frame = KH
+    p50 = {k: float(np.median(v)) for k, v in timed.items()}
+    log(f"Path D g: host ms a step to synchronize (10 each in turns; p50, min), the frame "
+        f"from kernel (h) / from the chain: "
+        + "; ".join(f"{what} {p50[(what, 'kernel')]:.3f} ({min(timed[(what, 'kernel')]):.3f}) "
+                    f"/ {p50[(what, 'chain')]:.3f} ({min(timed[(what, 'chain')]):.3f})"
+                    for what in ("local_problem", "det step", "mmd_opt step"))
+        + f"; local_problem's ATen operations {sum(v for k, v in seen_h.items() if k != 'calls')}"
+        f" with (h), {sum(v for k, v in seen_c.items() if k != 'calls')} with the chain "
+        f"(of them mv {seen_c['mv']}, cumsum {seen_c['cumsum']})")
     return path_launches
+
+
+@contextlib.contextmanager
+def aten_counted(module, name):
+    """Wraps ``module.name`` for the block: each call runs under a
+    TorchDispatchMode that counts its ATen operations by name (the CUDA
+    kernels of ``ops`` are launched through ctypes and do not pass the
+    dispatcher).  Yields the Counter, with the calls under "calls"."""
+    import collections
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen = collections.Counter()
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen[func.overloadpacket.__name__] += 1
+            return func(*args, **(kwargs or {}))
+
+    orig = getattr(module, name)
+
+    def watched(*args, **kw):
+        seen["calls"] += 1
+        with Count():
+            return orig(*args, **kw)
+    setattr(module, name, watched)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, orig)
 
 
 def stacked(torch, scenarios):
@@ -3652,7 +3833,8 @@ def main():
     log(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     clock_build.join()
     if "error" in clocks:
-        fail(f"the clock and step builds of K4n and kernel (f) failed: {clocks['error']}")
+        fail(f"the clock and step builds of K4n and kernels (f) and (h) failed: "
+             f"{clocks['error']}")
     from mpc_mmd_tpu_torch.utils.kernel_ab import step_cycles
     STEP_CYCLES.update(step_cycles(clocks["step_now"]))
     log(f"critical path of a rollout step, one lane alone: {STEP_CYCLES['k4n']:.1f} "
@@ -3843,6 +4025,11 @@ def main():
     ko_rec = check_frenet_obstacles(torch, ops, gen, workloads, ko_at)
     log(f"kernel (g) frenet_obstacles: bit-equal; {ko_rec['ms']:.4f} ms vs plain "
         f"{ko_rec['plain_ms']:.4f} ms at {ko_rec['shape']}")
+    # kernel (h), once a closed-loop step
+    kh_at = ko_at
+    kh_rec = check_local_frame(torch, ops, dev, kh_at, clocks)
+    log(f"kernel (h) local_frame: bit-equal; {kh_rec['ms']:.4f} ms vs plain "
+        f"{kh_rec['plain_ms']:.4f} ms at {kh_rec['shape']}")
 
     # ---- 3b. each kernel's device time, bound and library yardstick -------
     one = torch.zeros(1, device=dev)
@@ -3854,7 +4041,7 @@ def main():
                       ("kernel (d)", kd_rec), ("kernel (e)", ke_rec), ("K4n", k4n_rec),
                       ("kernel (f)", kf_rec), ("kernel (g)", kg_rec),
                       ("kernel (g) state form", ks_rec),
-                      ("kernel (g) obstacle form", ko_rec)):
+                      ("kernel (g) obstacle form", ko_rec), ("kernel (h)", kh_rec)):
         measure(torch, name, rec)
 
     # ---- 4. the full-width fastrt solve -----------------------------------
@@ -3971,6 +4158,7 @@ def main():
                         "inner_prologue": kf_at, "frenet_points": kg_at,
                         "frenet_states": ks_at,
                         "frenet_obstacles": {("path_d", cfg_d.obstacles.num_obs): ko_at},
+                        "local_frame": {("path_d", cfg_d.frenet.num_path): kh_at},
                         "prng_beta": {k: v for k, v in beta_at.items() if v}}
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
 
@@ -3994,8 +4182,7 @@ def main():
                  f"({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
                            k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec,
-                           ks_rec, ko_rec,
-                           kc_forms)
+                           ks_rec, ko_rec, kh_rec, kc_forms)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s, the build included")
     log(json.dumps({"graph": graph_record}))
     log(json.dumps({"kernels": record}))

@@ -10,8 +10,8 @@ collision ends the episode.
 
 The plant, the actuator, perception and the control noise (numpy, seeded
 ``3*seed + 5*i + 23`` per step) stay host numpy, exactly as in the JAX
-package; the path, the conversions and the solve run on the solver's
-device.
+package; the path (kernel (h) on the card), the conversions (kernel (g)'s
+obstacle form) and the solve run on the solver's device.
 """
 
 from __future__ import annotations
@@ -24,10 +24,8 @@ import numpy as np
 import torch
 
 from .config import ProblemConfig
-from .dynamics import constant_velocity_obstacles
-from .frenet import (SmootherWorkspace, build_smoother, fit_path_spline,
-                     path_parameters, smooth_path, waypoint_window)
-from .ops import frenet_obstacles
+from .frenet import SmootherWorkspace, build_smoother, fit_path_spline, waypoint_window
+from .ops import frenet_obstacles, local_frame
 from .solver_frenet import FrenetSolver
 
 
@@ -189,26 +187,32 @@ def local_problem(cfg: ProblemConfig, plant: SyntheticPlant,
     (ego at the origin, heading psi): the smoothed local path's
     :class:`FrenetFrame`, the visible obstacles' constant-velocity Frenet
     trajectories x_obs, y_obs (num_obs, num), and the global state
-    [0, 0, v, vdot, psi, psidot], on ``tot_time``'s device.  The obstacles
-    go to Frenet through kernel (g)'s obstacle form
-    (``ops.frenet_obstacles``; its plain version on the CPU)."""
+    [0, 0, v, vdot, psi, psidot], on ``tot_time``'s device.  The host's
+    waypoints, obstacle rows and state go over in one copy (from pinned
+    memory on the card); the frame comes from kernel (h)
+    (``ops.local_frame``: the smoother's rounds and the path parameters),
+    the obstacles' Frenet states and trajectories from kernel (g)'s
+    obstacle form (``ops.frenet_obstacles``); on the CPU their plain
+    versions."""
     dev = tot_time.device
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     x_e, y_e, v_e, psi_e, psidot_e = plant.state
-    x_wp, y_wp, _ = waypoint_window(plant.spline, x_e, y_e,
-                                    cfg.frenet.lookahead, cfg.frenet.num_path)
-    x_sm, y_sm = smooth_path(smoother, f32(x_wp - x_e), f32(y_wp - y_e),
-                             cfg.frenet.smooth_threshold)
-    frame = path_parameters(x_sm, y_sm)
-
-    obs_shift = perceive_obstacles(cfg, plant, (x_e, y_e), psi_e).copy()
-    obs_shift[:, 0] -= x_e
-    obs_shift[:, 1] -= y_e
-    s_o, l_o, vs_o, vl_o, psi_o = frenet_obstacles(frame, f32(obs_shift[:, :5]))
-    x_obs, y_obs, _ = constant_velocity_obstacles(s_o, l_o, vs_o, vl_o, psi_o,
-                                                  tot_time)
-    init_global = f32([0.0, 0.0, v_e, plant.vdot, psi_e, psidot_e])
-    return frame, x_obs, y_obs, init_global
+    n, m = cfg.frenet.num_path, cfg.obstacles.num_obs
+    x_wp, y_wp, _ = waypoint_window(plant.spline, x_e, y_e, cfg.frenet.lookahead, n)
+    obs = perceive_obstacles(cfg, plant, (x_e, y_e), psi_e)[:, :5].copy()
+    obs[:, 0] -= x_e
+    obs[:, 1] -= y_e
+    host = torch.empty(2 * n + 5 * m + 6, dtype=torch.float32,
+                       pin_memory=dev.type == "cuda")
+    h = host.numpy()
+    h[:n] = x_wp - x_e
+    h[n:2 * n] = y_wp - y_e
+    h[2 * n:2 * n + 5 * m] = obs.reshape(-1)
+    h[2 * n + 5 * m:] = (0.0, 0.0, v_e, plant.vdot, psi_e, psidot_e)
+    buf = host.to(dev, non_blocking=True)
+    frame = local_frame(smoother, buf[:n], buf[n:2 * n], cfg.frenet.smooth_threshold)
+    *_, x_obs, y_obs = frenet_obstacles(frame, buf[2 * n:2 * n + 5 * m].view(m, 5),
+                                        tot_time=tot_time)
+    return frame, x_obs, y_obs, buf[2 * n + 5 * m:]
 
 
 def run_episode(cfg: ProblemConfig, route_kind: str = "curved",

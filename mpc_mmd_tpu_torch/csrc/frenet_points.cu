@@ -9,7 +9,9 @@
 //                         means and the boundary rows b_eq_x, b_eq_y);
 //   mmd_frenet_obstacles  the obstacles' (s, l, vs, vl, psi_rel), one
 //                         launch a closed-loop step
-//                         (frenet.global_to_frenet_obstacle).
+//                         (frenet.global_to_frenet_obstacle), and their
+//                         constant-velocity trajectories x_obs, y_obs
+//                         (dynamics.constant_velocity_obstacles).
 //
 // Replaces what XLA fuses from the JAX package's conversions
 // (mpc_mmd_tpu/frenet.py: _nearest :168, global_to_frenet_state :173,
@@ -460,12 +462,16 @@ struct PointArgs {
   int* visits;
   int count;
   float tiny;
+  const float* t;    // obstacles: the horizon's times (num), or null
+  float* traj;       // obstacles: x_obs, y_obs (count, num) each
+  int num;
 };
 
-// a live point's outputs from its nearest index
+// a live point's outputs from its nearest index; an obstacle's s, l, vs
+// and vl also into sv (its trajectories' terms)
 template <int FORM, bool PROBE>
 __device__ __forceinline__ void point_out(const Path& p, const PointArgs& a, int q, int idx,
-                                          int seen, float x, float y) {
+                                          int seen, float x, float y, float (&sv)[4]) {
   const Frame f = frame_at(p, idx, x, y, a.tiny);
   if (PROBE) {
     a.idx[q] = idx;
@@ -481,9 +487,37 @@ __device__ __forceinline__ void point_out(const Path& p, const PointArgs& a, int
   const float psi_rel = relative_heading(row[4], f.tx, f.ty);
   const float den = __fsub_rn(1.0f, __fmul_rn(f.l, ki));
   const int m = a.count;
-  a.more[q] = __fdiv_rn(__fmul_rn(v, cosf(psi_rel)), den);
-  a.more[m + q] = __fmul_rn(v, sinf(psi_rel));
+  const float vs = __fdiv_rn(__fmul_rn(v, cosf(psi_rel)), den);
+  const float vl = __fmul_rn(v, sinf(psi_rel));
+  a.more[q] = vs;
+  a.more[m + q] = vl;
   a.more[2 * m + q] = psi_rel;
+  sv[0] = f.s;
+  sv[1] = f.l;
+  sv[2] = vs;
+  sv[3] = vl;
+}
+
+// The constant-velocity trajectories of the warp's live obstacles
+// (dynamics.constant_velocity_obstacles): s + vs t and l + vl t, the
+// product and the sum each rounded; an obstacle at a time, its times
+// spread over the warp's lanes
+__device__ __forceinline__ void trajectories(const PointArgs& a, int warp_first, bool live,
+                                             const float (&sv)[4]) {
+  const int lane = threadIdx.x % 32;
+  for (unsigned m = __ballot_sync(kFull, live); m != 0u; m &= m - 1u) {
+    const int src = __ffs(m) - 1, q = warp_first + src;
+    float o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[i] = __shfl_sync(kFull, sv[i], src);
+    float* xo = a.traj + static_cast<long long>(q) * a.num;
+    float* yo = xo + static_cast<long long>(a.count) * a.num;
+    for (int k = lane; k < a.num; k += 32) {
+      const float tk = a.t[k];
+      xo[k] = __fadd_rn(o[0], __fmul_rn(o[2], tk));
+      yo[k] = __fadd_rn(o[1], __fmul_rn(o[3], tk));
+    }
+  }
 }
 
 // (the "// ---- kg:" marks delimit the phases kernel_ab's kg_clock times)
@@ -508,7 +542,9 @@ frenet_points_kernel(PathArgs pa, PointArgs a) {
   // ---- kg: wait
   wait_path(p);
   // ---- kg: outputs
-  if (live) point_out<FORM, PROBE>(p, a, q, idx, seen, x, y);
+  float sv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (live) point_out<FORM, PROBE>(p, a, q, idx, seen, x, y, sv);
+  if (FORM == kObstacles && a.t != nullptr) trajectories(a, warp_first, live, sv);
   // ---- kg: end
 }
 
@@ -716,18 +752,23 @@ extern "C" int mmd_frenet_points(const float* x, const float* y, const float* x_
                                  const float* arc, float* s, float* l, int* idx, int* visits,
                                  int points, int n, float tiny, void* stream) {
   const PathArgs pa = {x_path, y_path, fx, fy, arc, nullptr, n};
-  return launch_form<kPoints>(pa, {x, y, s, l, nullptr, idx, visits, points, tiny}, stream);
+  return launch_form<kPoints>(
+      pa, {x, y, s, l, nullptr, idx, visits, points, tiny, nullptr, nullptr, 0}, stream);
 }
 
 // obs (m, 5) rows [x, y, vx, vy, psi]; out (5, m): s, l, vs, vl, psi_rel;
-// idx, visits (m,)
+// idx, visits (m,); t (num,) the horizon's times and traj (2, m, num)
+// x_obs, y_obs, or both null
 extern "C" int mmd_frenet_obstacles(const float* obs, const float* x_path,
                                     const float* y_path, const float* fx, const float* fy,
                                     const float* arc, const float* kappa, float* out, int* idx,
-                                    int* visits, int m, int n, float tiny, void* stream) {
+                                    int* visits, const float* t, float* traj, int num, int m,
+                                    int n, float tiny, void* stream) {
+  if ((t == nullptr) != (traj == nullptr) || (t != nullptr && num < 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   const PathArgs pa = {x_path, y_path, fx, fy, arc, kappa, n};
   return launch_form<kObstacles>(
-      pa, {obs, nullptr, out, out + m, out + 2 * m, idx, visits, m, tiny}, stream);
+      pa, {obs, nullptr, out, out + m, out + 2 * m, idx, visits, m, tiny, t, traj, num}, stream);
 }
 
 // z (n, 4), init (6,); states (n, 5), b_eq_x (nb, 3), b_eq_y (nb, 4);

@@ -262,60 +262,13 @@ __device__ __forceinline__ float unwrap_step(float a0, float a1) {
   return fabsf(dd) < kInterval ? 0.0f : sub(ddmod, dd);
 }
 
-// torch.cumsum's block of columns for a (rows, n) tensor along its rows:
-// 2 X, log2 X as ATen's get_log_num_threads_x_inner_scan takes it (in
-// unsigned arithmetic, as ATen does)
-__host__ __device__ inline int cumsum_block(unsigned rows, unsigned n) {
-  unsigned lx = 0, ly = 0;
-  while ((1u << lx) < n) ++lx;
-  while ((1u << ly) < rows) ++ly;
-  lx = (9u + (lx - ly)) / 2u;
-  lx = lx < 4u ? 4u : lx > 9u ? 9u : lx;
-  return 2 << lx;
-}
-
 constexpr int kChunks = kMaxNum / kWarp;  // a row's steps in chunks of a warp
 
-// Sklansky's inclusive scan of the kChunks chunks v (element lane + 32 j
-// of the row in v[j] of lane `lane`) in blocks of PER chunks: a block's
-// first element plus the last element of the block before it, then the
-// levels s = 1, 2, ... within the block (an element with bit s of its
-// place adds the last element of the half below it), level by level as
-// ATen's scan_innermost_dim runs them
-template <int PER>
-__device__ __forceinline__ void sklansky(float (&v)[kChunks], int lane) {
-#pragma unroll
-  for (int j0 = 0; j0 < kChunks; j0 += PER) {
-    if (j0 > 0) {
-      const float total = __shfl_sync(kFull, v[j0 - 1], kWarp - 1);
-      if (lane == 0) v[j0] = add(v[j0], total);
-    }
-#pragma unroll
-    for (int sh = 1; sh < kWarp; sh <<= 1)
-#pragma unroll
-      for (int j = j0; j < j0 + PER && j < kChunks; ++j) {
-        const float o = __shfl_sync(kFull, v[j], (lane & ~(2 * sh - 1)) + sh - 1);
-        if (lane & sh) v[j] = add(v[j], o);
-      }
-#pragma unroll
-    for (int sc = 1; sc < PER; sc <<= 1)  // the levels of 32 sc elements
-#pragma unroll
-      for (int j = j0; j < j0 + PER && j < kChunks; ++j)
-        if ((j - j0) & sc) {
-          const int src = j0 + ((j - j0) & ~(2 * sc - 1)) + sc - 1;
-          v[j] = add(v[j], __shfl_sync(kFull, v[src], kWarp - 1));
-        }
-  }
-}
-
 // cum[0 .. n), n <= 128: the corrections, in place their inclusive
-// cumulative sum in torch.cumsum's order on the card (ATen's
-// scan_innermost_dim), by one warp, four chunks of 32 in registers: blocks
-// of B columns (B >= 32), a block's first element plus the total of the
-// blocks before it, then Sklansky's levels s = 1, 2, ... B / 2 (an element
-// with bit s of its place in the block adds the last element of the half
-// below it).  Where at most two corrections are not zero every order gives
-// the same sums (an added +0 leaves a sum's bits, and the corrections are
+// cumulative sum in torch.cumsum's order on the card for the rows of a
+// (rows, n) tensor (ATen's scan_innermost_dim: torch_order.cuh's
+// scan_innermost), by one warp, four chunks of 32 in registers.  Where at
+// most two corrections are not zero every order gives the same sums (an added +0 leaves a sum's bits, and the corrections are
 // never -0), so those are added left to right: the scan in every row gives
 // the same bits, but a launch up to 15 % longer (utils/kernel_ab.py --kernels
 // kd on an H100).
@@ -340,12 +293,8 @@ __device__ void aten_cumsum(float* cum, int n, int B, int lane) {
       }
       v[j] = mine;
     }
-  } else if (B == kWarp) {
-    sklansky<1>(v, lane);
-  } else if (B == 2 * kWarp) {
-    sklansky<2>(v, lane);
   } else {
-    sklansky<kChunks>(v, lane);
+    mmd_order::scan_innermost(v, B, lane);
   }
 #pragma unroll
   for (int j = 0; j < kChunks; ++j) {
@@ -855,7 +804,7 @@ extern "C" int mmd_outer_project(
                Pd, Pdd, Al, Kix, Kiy, arc, kap, c_x, c_y, x, y, xdot, ydot, xddot, yddot,
                res_norm, lamda_x, lamda_y, s_lane, steering, kappa_interp, acc, steer, rows,
                nvar, num, nseg, maxiter, npath, staged > 0,
-               cumsum_block(static_cast<unsigned>(rows), static_cast<unsigned>(num - 1)),
+               mmd_order::cumsum_block(static_cast<unsigned>(rows), static_cast<unsigned>(num - 1)),
                rho_ineq, rho_proj, rho_lane,
                lane_ub, lane_lb, v_min, v_max, a_max, inv_dt, wheel_base, x_obs, y_obs, nblk,
                per_scen, rho_obs, a_obs, b_obs, a2_obs, b2_obs, g_obs};

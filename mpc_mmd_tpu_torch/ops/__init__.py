@@ -14,7 +14,10 @@ forms the noisy controls as it loads them), kernel (f) ``inner_prologue``
 (the refit and distance matrices before the inner CEM) and kernel (g)
 ``frenet_points`` (the on-road rollouts' Frenet coordinates), with its
 state form ``frenet_states`` (the on-road solve's noisy initial states and
-boundary rows) and obstacle form ``frenet_obstacles``.  Each wrapper
+boundary rows) and obstacle form ``frenet_obstacles`` (with the
+obstacles' constant-velocity trajectories); and the closed loop's kernel
+(h) ``local_frame`` (the path smoother's rounds and the path parameters of
+a step's local path).  Each wrapper
 takes its plain twin for CPU tensors and launches its kernel for CUDA
 tensors, counting launches in ``<wrapper>.launches`` (the forms' counts
 beside them in ``KERNELS``).
@@ -31,6 +34,7 @@ from typing import Dict
 from .frenet_points import frenet_obstacles, frenet_points, frenet_states
 from .inner_cem import inner_cem, inner_cem_fused, inner_cem_g, inner_cem_xt
 from .inner_prologue import inner_prologue
+from .local_frame import local_frame
 from .outer_project import outer_project
 from .outer_tail import outer_tail
 from .prng import prng_beta, prng_draws
@@ -42,7 +46,7 @@ from .topk_kernel import topk_kernel_matrices
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
            topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
            outer_tail, noisy_rollout, inner_prologue, frenet_points, inner_cem_fused,
-           inner_cem_xt, inner_cem_g, frenet_states, frenet_obstacles)
+           inner_cem_xt, inner_cem_g, frenet_states, frenet_obstacles, local_frame)
 
 
 def reset_launch_counts() -> None:
@@ -68,7 +72,7 @@ def add_launches(counts: Dict[str, int]) -> None:
 
 __all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_obstacles", "frenet_points",
            "frenet_states", "fused_rollout", "inner_cem",
-           "inner_cem_fused", "inner_cem_g", "inner_cem_xt", "inner_prologue",
+           "inner_cem_fused", "inner_cem_g", "inner_cem_xt", "inner_prologue", "local_frame",
            "noisy_rollout", "outer_project", "outer_tail", "prng_beta", "prng_draws",
            "topk_indices", "topk_onehot", "topk_kernel_matrices", "KERNELS",
            "add_launches", "launch_counts", "reset_launch_counts", "set_launch_counts"]

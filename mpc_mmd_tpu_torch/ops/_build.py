@@ -11,9 +11,9 @@ tolerance assumes the IEEE-accurate functions; the random-number kernels
 (``prng.cu``) must call the same ``logf``/``log1pf``/``expf`` as PyTorch's
 own kernels to give their twins' bits, and kernels (c) to (g)
 (``inner_cem.cu`` and ``inner_cem_fused.cu``, ``outer_project.cu``, ``outer_tail.cu``,
-``inner_prologue.cu``, ``frenet_points.cu``) the quotients,
-transcendental functions and sums of PyTorch's kernels to give their plain
-versions'.
+``inner_prologue.cu``, ``frenet_points.cu``) and (h) (``local_frame.cu``)
+the quotients, transcendental functions, sums and products of PyTorch's,
+cuBLAS's and CUB's kernels to give their plain versions'.
 
 Each exported function returns its ``cudaError_t``; :func:`check` raises if
 it is not 0.  Kernels launch on PyTorch's current stream and allocate
@@ -53,7 +53,7 @@ _SIGNATURES = {
     "mmd_noisy_rollout": [_P] * 6 + [_I, _P, _P] + [_I] * 7 + [_F] * 4 + [_I, _F, _F, _P],
     "mmd_inner_prologue": [_P] * 8 + [_I] * 5 + [_P],
     "mmd_frenet_points": [_P] * 11 + [_I, _I, _F, _P],
-    "mmd_frenet_obstacles": [_P] * 10 + [_I, _I, _F, _P],
+    "mmd_frenet_obstacles": [_P] * 12 + [_I, _I, _I, _F, _P],
     "mmd_frenet_states": [_P] * 13 + [_I, _I, _I] + [_F] * 6 + [_P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
@@ -65,6 +65,7 @@ _SIGNATURES = {
     "mmd_outer_tail": [_P] * 32 + [_I] * 16 + [_F] * 23 + [_I, _I, _F, _I, _I, _F, _F, _P],
     "mmd_outer_tail_cluster": [_I],
     "mmd_outer_tail_last_cluster": [],
+    "mmd_local_frame": [_P] * 4 + [_I, _I, _F, _P],
 }
 
 _lock = threading.Lock()

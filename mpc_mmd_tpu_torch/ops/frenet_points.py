@@ -7,9 +7,10 @@ search, an exact tile-pruned scan of the path (CUDA source
 * :func:`frenet_states`, the noisy initial states after their draw (the
   states, their Frenet states, the six means and the boundary rows), one
   launch a solve; plain version ``frenet.initial_states``;
-* :func:`frenet_obstacles`, the obstacles' (s, l, vs, vl, psi_rel), one
-  launch a closed-loop step; plain version
-  ``frenet.global_to_frenet_obstacle``.
+* :func:`frenet_obstacles`, the obstacles' (s, l, vs, vl, psi_rel) and
+  their constant-velocity trajectories, one launch a closed-loop step;
+  plain version ``frenet.global_to_frenet_obstacle`` and
+  ``dynamics.constant_velocity_obstacles``.
 
 The JAX package converts inside its jitted solve (``mpc_mmd_tpu/frenet.py``
 ``_nearest`` :168, called at ``solver_frenet.py:133-138`` and :197) and
@@ -37,6 +38,7 @@ import numpy as np
 import torch
 
 from . import _build
+from ..dynamics import constant_velocity_obstacles
 from ..frenet import (FrenetFrame, _nearest, global_to_frenet_obstacle,
                       global_to_frenet_points, initial_states)
 
@@ -166,34 +168,44 @@ def frenet_states(frame: FrenetFrame, z: torch.Tensor, init_state: torch.Tensor,
 frenet_states.launches = 0
 
 
-def frenet_obstacles(frame: FrenetFrame, obs: torch.Tensor, *, lib=None,
-                     probe: bool = False):
+def frenet_obstacles(frame: FrenetFrame, obs: torch.Tensor, *, tot_time: torch.Tensor = None,
+                     lib=None, probe: bool = False):
     """The obstacles' rows ``obs`` (m, 5) [x, y, vx, vy, psi] in Frenet:
     (s, l, vs, vl, psi_rel), each (m,), as
-    ``frenet.global_to_frenet_obstacle`` converts them.
+    ``frenet.global_to_frenet_obstacle`` converts them; with ``tot_time``
+    (num,) also their constant-velocity trajectories x_obs, y_obs (m, num),
+    as ``dynamics.constant_velocity_obstacles`` makes them.
 
-    CPU tensors take ``frenet.global_to_frenet_obstacle``; CUDA tensors
-    launch kernel (g)'s obstacle form or raise.  ``probe`` (a check's
-    launch, not counted): also each obstacle's nearest index and its
-    warp's visited tiles (on the CPU the twin's).
+    CPU tensors take ``frenet.global_to_frenet_obstacle`` (and
+    ``constant_velocity_obstacles``); CUDA tensors launch kernel (g)'s
+    obstacle form or raise.  ``probe`` (a check's launch, not counted):
+    also each obstacle's nearest index and its warp's visited tiles (on the
+    CPU the twin's).
     """
     if obs.dim() != 2 or obs.shape[1] != 5:
         raise ValueError(f"frenet_obstacles: obs must be (m, 5), got {tuple(obs.shape)}")
+    if tot_time is not None and tot_time.dim() != 1:
+        raise ValueError(f"frenet_obstacles: tot_time must be 1-d, got {tuple(tot_time.shape)}")
     path, n = _path(frame, "frenet_obstacles", kappa=True)
-    if all(t.device.type == "cpu" for t in (obs,) + path):
-        return (tuple(global_to_frenet_obstacle(frame, *obs.unbind(1)))
-                + _twin_probe(probe, frame, obs[:, 0], obs[:, 1]))
-    path, (obs,) = _card("frenet_obstacles", path, n, obs)
-    m = obs.shape[0]
+    times = () if tot_time is None else (tot_time,)
+    if all(t.device.type == "cpu" for t in (obs,) + times + path):
+        out = tuple(global_to_frenet_obstacle(frame, *obs.unbind(1)))
+        if tot_time is not None:
+            out += constant_velocity_obstacles(*out, tot_time)[:2]
+        return out + _twin_probe(probe, frame, obs[:, 0], obs[:, 1])
+    path, (obs, *times) = _card("frenet_obstacles", path, n, obs, *times)
+    m, num = obs.shape[0], tot_time.shape[0] if times else 0
     out = torch.empty((5, m), device=obs.device)
+    traj = torch.empty((2, m, num), device=obs.device) if times else None
     extra, ptrs = _probe_out(probe, (m,), obs.device)
     lib = lib or _build.library()
-    _build.check(lib.mmd_frenet_obstacles(obs.data_ptr(), *(t.data_ptr() for t in path),
-                                          out.data_ptr(), *ptrs, m, n, TINY,
-                                          _build.stream()), "frenet_obstacles")
+    _build.check(lib.mmd_frenet_obstacles(
+        obs.data_ptr(), *(t.data_ptr() for t in path), out.data_ptr(), *ptrs,
+        times[0].data_ptr() if times else None, traj.data_ptr() if times else None, num, m,
+        n, TINY, _build.stream()), "frenet_obstacles")
     if not probe:
         frenet_obstacles.launches += 1
-    return tuple(out.unbind(0)) + extra
+    return tuple(out.unbind(0)) + (tuple(traj.unbind(0)) if times else ()) + extra
 
 
 frenet_obstacles.launches = 0

@@ -11,7 +11,7 @@ checked and timed in turns.
 build takes from DIR first), for example from ``git show
 <commit>:mpc_mmd_tpu_torch/csrc/topk.cu > DIR/topk.cu``.  ``--kernels``
 builds and runs only the builds of those kinds (``k1 k2 k3 prng kc kd
-ke kf k4n kg micro``; K5 is in ``topk.cu``; ``k4n`` brings ``step_now``)
+ke kf k4n kg kh micro``; K5 is in ``topk.cu``; ``k4n`` brings ``step_now``)
 and those named (``kc_now kc_before``).
 Each build's CPU seconds are logged.  Each build below
 is compiled with the flags of ``ops/_build.py`` into its own shared library
@@ -124,7 +124,17 @@ bit-symmetric, K4 of every K4n build bit-equal to the first's at
 clock builds (``k4n_clock``, ``kf_clock``, ``kg_clock`` (staging, search,
 wait, outputs of (g)'s point kernel) and DIR's ``*_clock_before``,
 ``glue_clock_variant``: the cycles of thread 0 of each block in each
-phase of ``GLUE_CLOCKS``) at every shape but the forms'; ``step_now`` (``STEP_MICRO``:
+phase of ``GLUE_CLOCKS``) at every shape but the forms'; kernel (h)
+(``kh_now``, ``csrc/local_frame.cu``, a cluster of 16 CTAs;
+``kh_runtime_t``, its terms' loop at run-time T where num_path 600
+unrolls it; ``kh_cluster8``, a cluster of 8 CTAs that reads each group
+from the slab each round; ``kh_before`` where DIR has it): bit-equal to
+the chain (``frenet.smooth_path``, ``path_parameters``) on
+``kh_window``'s windows and the closed loop's (``kh_closedloop``), timed
+in turns warm and L2-cold on the closed loop's, and ``kh_clock``'s
+(``GLUE_CLOCKS["kh"]``) cycles a phase (staging; the wait for a round's
+inputs, products, update and exchange a round; CTA 0's gather and path
+parameters); ``step_now`` (``STEP_MICRO``:
 one lane's dependent chain of the rollout step alone, in cycles a step);
 and each K4n, (f) and (g) build's SASS (``cuobjdump -sass``) written to
 ``--out``.  Each build's registers,
@@ -469,6 +479,12 @@ GLUE_CLOCKS = {
 GLUE_CLOCKS["kg"] = (("// ---- kg: begin", "// ---- kg: end", "// ---- kg: begin\n",
                       (("// ---- kg: search", "search"), ("// ---- kg: wait", "wait"),
                        ("// ---- kg: outputs", "outputs"))),)
+# kernel (h): a round's phases (the first four, each entered once a round),
+# then CTA 0's after the last round
+KH_ROUND_PHASES = ("wait", "products", "update", "exchange")
+GLUE_CLOCKS["kh"] = (("// ---- kh: begin", "// ---- kh: end", "// ---- kh: begin\n",
+                      tuple((f"// ---- kh: {p}", p)
+                            for p in KH_ROUND_PHASES + ("gather", "path parameters"))),)
 GLUE_CLOCK_ENTRY = "mmd_glue_clock"
 # variants of the current K4n source (rollout.cu: K4 with it, through the
 # shared step): sinf and cosf for psi where the source takes sincosf, 32,
@@ -491,7 +507,7 @@ KF_CLUSTERS = (1, 2, 4)
 
 
 def glue_clock_variant(kind: str, src: str, name: str):
-    """K4n or kernel (f) (``kind``) with the cycles thread 0 of each block
+    """K4n or kernel (f), (g) or (h) (``kind``) with the cycles thread 0 of each block
     spends in each phase of GLUE_CLOCKS (slot 0 staging, then one a phase;
     the last slot the whole block), read by ``mmd_glue_clock``; None if
     the source has no alternative's anchors."""
@@ -530,6 +546,25 @@ def glue_clock_variant(kind: str, src: str, name: str):
     return None
 
 
+def kh_cluster8(src: str) -> str:
+    """Kernel (h) on a cluster of 8 CTAs: up to 80 rows a CTA, more groups
+    than warps, so a warp takes its groups in turn and reads each from the
+    slab in every round."""
+    name = "kh_cluster8"
+    src = _replace(src, "constexpr int kCluster = 16;", "constexpr int kCluster = 8;", name)
+    a, mid, b = _between(src, "static_assert(kUnit * (((kMaxN", ";\n", name)
+    src = a + b[2:]
+    src = _replace(src, "  const int first = kGroup * warp, count = min(kGroup, rows - first);\n"
+                   "  float ak[kGroup][kMaxT];\n"
+                   "  if (count > 0) load_group<TT>(ak, slab, first, count, n, L.T, base, step);\n",
+                   "  const int groups = (rows + kGroup - 1) / kGroup;\n"
+                   "  float ak[kGroup][kMaxT];\n", name)
+    return _replace(src, "    if (count > 0) {\n",
+                    "    for (int gi = warp; gi < groups; gi += kWarps) {\n"
+                    "      const int first = kGroup * gi, count = min(kGroup, rows - first);\n"
+                    "      load_group<TT>(ak, slab, first, count, n, L.T, base, step);\n", name)
+
+
 def kc_source(csrc: Path) -> str:
     """Kernel (c)'s sources in ``csrc`` as one translation unit:
     ``inner_cem.cu`` with the body it includes (``inner_cem_body.cuh``)
@@ -550,7 +585,8 @@ def builds(before: Path, diagnose: bool = False) -> dict:
     """name -> (kind, CUDA source); kind is "k1" (topk.cu), "k2" (eq_qp.cu),
     "k3" (topk_kernel.cu), "prng" (prng.cu), "kc" (inner_cem.cu), "kd"
     (outer_project.cu), "ke" (outer_tail.cu), "kf" (inner_prologue.cu),
-    "k4n" (rollout.cu), "kg" (frenet_points.cu) or "micro"."""
+    "k4n" (rollout.cu), "kg" (frenet_points.cu), "kh" (local_frame.cu) or
+    "micro"."""
     topk = (_build.CSRC / "topk.cu").read_text()
     qp = (_build.CSRC / "eq_qp.cu").read_text()
     fused = (_build.CSRC / "topk_kernel.cu").read_text()
@@ -589,6 +625,20 @@ def builds(before: Path, diagnose: bool = False) -> dict:
                 clocked = glue_clock_variant(kind, out[f"{kind}_{suffix}"][1], name)
                 if clocked is not None:
                     out[name] = (kind, clocked)
+    out["kh_now"] = ("kh", (_build.CSRC / "local_frame.cu").read_text())
+    # kernel (h) with the terms' loop at run-time T at every width
+    out["kh_runtime_t"] = ("kh", _replace(
+        out["kh_now"][1], "  const bool path = (n + 1 + kWarp - 1) / kWarp == kPathT && "
+        "n + 1 >= kStridedFrom;", "  const bool path = false;", "kh_runtime_t"))
+    out["kh_cluster8"] = ("kh", kh_cluster8(out["kh_now"][1]))
+    if (before / "local_frame.cu").exists():
+        out["kh_before"] = ("kh", (before / "local_frame.cu").read_text())
+    for suffix in ("now", "before"):
+        if f"kh_{suffix}" in out:
+            name = "kh_clock" + ("_before" if suffix == "before" else "")
+            clocked = glue_clock_variant("kh", out[f"kh_{suffix}"][1], name)
+            if clocked is not None:
+                out[name] = ("kh", clocked)
     out["kd_now"] = ("kd", (_build.CSRC / "outer_project.cu").read_text())
     out["kd_clock"] = ("kd", kd_clock_variant(out["kd_now"][1]))
     out["ke_now"] = ("ke", (_build.CSRC / "outer_tail.cu").read_text())
@@ -676,7 +726,7 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
         SOURCES[name] = src
         cu, so = OUT_DIR / f"{name}.cu", OUT_DIR / f"{name}.so"
         cu.write_text(src)
-        own = (["-I", str(before)] if kind in ("kc", "kd", "ke", "kf", "k4n", "kg")
+        own = (["-I", str(before)] if kind in ("kc", "kd", "ke", "kf", "k4n", "kg", "kh")
                and name.endswith("_before") else [])
         cmd = [nvcc, *_build.NVCC_FLAGS, *own, "-I", str(_build.CSRC), "-shared", "-o",
                str(so), str(cu)]
@@ -753,6 +803,12 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
                 if extra in sources[name][1]:
                     getattr(lib, extra).argtypes = _build._SIGNATURES[extra]
                     getattr(lib, extra).restype = ctypes.c_int
+            # an earlier obstacle entry lacks the trajectories' t, traj and num
+            earlier_ko = (kind == "kg" and KG_FORMS[1] in sources[name][1]
+                          and KG_TRAJ not in sources[name][1])
+            if earlier_ko:
+                fn_o = getattr(lib, KG_FORMS[1])
+                fn_o.argtypes = [t for i, t in enumerate(fn_o.argtypes) if i not in KG_TRAJ_AT]
             if "_clock" in name:
                 getattr(lib, GLUE_CLOCK_ENTRY).argtypes = [P, I]
             if kind in ("k4n", "kf", "kg"):
@@ -761,6 +817,14 @@ def build_all(sources: dict, log, before: Path = None) -> dict:
                 lib = SplitsEntry(lib)
             if earlier_kg:
                 lib = EarlierEntry(lib, GLUE_ENTRIES[kind], KG_PROBE_AT)
+            if earlier_ko:
+                lib = EarlierEntry(lib, KG_FORMS[1], KG_TRAJ_AT)
+        elif kind == "kh":
+            lib.mmd_local_frame.argtypes = _build._SIGNATURES["mmd_local_frame"]
+            lib.mmd_local_frame.restype = ctypes.c_int
+            if "_clock" in name:
+                getattr(lib, GLUE_CLOCK_ENTRY).argtypes = [P, I]
+            dump_sass(so, OUT_DIR / f"{name}.sass")
         elif kind == "prng":
             L = ctypes.c_longlong
             lib.mmd_prng_beta.argtypes = [P, P, P, L, L, L, L, P, P]
@@ -1270,14 +1334,15 @@ def kg_case(name: str, dev="cpu"):
 
 def kg_closedloop(gen, cfg, arc: float = 150.0, N: int = 1):
     """Kernel (g)'s inputs on a closed-loop frame: ``closedloop.local_problem``'s
-    frame with the ego ``arc`` metres along ``run_episode``'s curved route
-    (ego-shifted: the ego at the origin, its heading the route's), and
+    frame (kernel (h)'s, ``ops.local_frame``; its chain on the CPU) with the
+    ego ``arc`` metres along ``run_episode``'s curved route (ego-shifted:
+    the ego at the origin, its heading the route's), and
     ``cfg``'s N x num_batch x R rollouts of num_prime steps from the ego
     along that heading (``_trajectories``), on the generator's device.
     Returns (frame, x, y) and the obstacles' rows (num_obs, 5) of
     ``local_problem`` there, the obstacle form's input."""
     from ..closedloop import SyntheticPlant, make_route, perceive_obstacles
-    from ..frenet import build_smoother, path_parameters, smooth_path, waypoint_window
+    from ..ops.local_frame import local_frame
     dev = gen.device
     plant = SyntheticPlant(cfg, make_route("curved"), ((arc + 12.0, 0.5), (arc + 40.0, 3.0)))
     sp = plant.spline
@@ -1285,10 +1350,7 @@ def kg_closedloop(gen, cfg, arc: float = 150.0, N: int = 1):
                             float(sp.cs_phi(arc)), 0.0])
     x_e, y_e, _, psi_e, _ = plant.state
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    x_wp, y_wp, _ = waypoint_window(sp, x_e, y_e, cfg.frenet.lookahead, cfg.frenet.num_path)
-    x_sm, y_sm = smooth_path(build_smoother(cfg.frenet.num_path, device=dev),
-                             f32(x_wp - x_e), f32(y_wp - y_e), cfg.frenet.smooth_threshold)
-    frame = path_parameters(x_sm, y_sm)
+    frame = local_frame(*kh_closedloop(cfg, dev, arc), cfg.frenet.smooth_threshold)
     lead = (N, cfg.cem.num_batch, cfg.risk.num_reduced)
     u, w = _trajectories(gen, lead, cfg.horizon.num_prime, cfg.horizon.dt)
     w = w - w[..., :1]                      # every rollout from the ego
@@ -1297,6 +1359,43 @@ def kg_closedloop(gen, cfg, arc: float = 150.0, N: int = 1):
     obs[:, 0] -= x_e
     obs[:, 1] -= y_e
     return (frame, u * c - w * s, u * s + w * c), f32(obs[:, :5])
+
+
+# Kernel (h)'s windows: the routes, the route points the ego is near and
+# the path widths (``kh_window``), and its round counts
+KH_ROUTES = ("curved", "straight", "circuit")
+KH_AT = (0, 4000, 11000)
+KH_WIDTHS = (600, 64)
+KH_ROUNDS = (1, 10)
+
+
+def kh_window(route: str, at: int, n: int, dev="cpu"):
+    """Kernel (h)'s input: the ego-shifted waypoint window (x_wp, y_wp),
+    float32 (n,) on ``dev``, of ``closedloop.make_route(route)`` with the
+    ego near the route's point ``at``, jittered by a numpy generator of its
+    own (seed 5 + at), over 300 m of arc."""
+    from ..closedloop import make_route
+    from ..frenet import fit_path_spline, waypoint_window
+    sp = fit_path_spline(*make_route(route))
+    rng = np.random.default_rng(5 + at)
+    xe = sp.x_data[at] + rng.normal(0.0, 0.5)
+    ye = sp.y_data[at] + rng.normal(0.0, 0.5)
+    xw, yw, _ = waypoint_window(sp, xe, ye, 300.0, n)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return f32(xw - xe), f32(yw - ye)
+
+
+def kh_closedloop(cfg, dev, arc: float = 150.0):
+    """``closedloop.local_problem``'s waypoints with the ego ``arc`` metres
+    along ``run_episode``'s curved route (``kg_closedloop``'s step), and
+    the smoother: (sw, x_wp, y_wp), kernel (h)'s arguments."""
+    from ..closedloop import make_route
+    from ..frenet import build_smoother, fit_path_spline, waypoint_window
+    sp = fit_path_spline(*make_route("curved"))
+    x_e, y_e = float(sp.cs_x(arc)), float(sp.cs_y(arc))
+    x_wp, y_wp, _ = waypoint_window(sp, x_e, y_e, cfg.frenet.lookahead, cfg.frenet.num_path)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
+    return build_smoother(cfg.frenet.num_path, device=dev), f32(x_wp - x_e), f32(y_wp - y_e)
 
 
 def kg_state_inputs(gen, cfg, frame, n: int, at=(0.0, 0.0)):
@@ -1338,6 +1437,9 @@ KG_FORMS = ("mmd_frenet_states", "mmd_frenet_obstacles")
 # the probe's idx and visits in mmd_frenet_points (the source's text of
 # them, their positions), which an earlier entry lacks
 KG_PROBE, KG_PROBE_AT = "float* l, int* idx, int* visits", (9, 10)
+# the obstacle form's trajectory arguments t, traj and num (the source's
+# text of them, their positions), which an earlier entry lacks
+KG_TRAJ, KG_TRAJ_AT = "const float* t, float* traj, int num", (10, 11, 12)
 # K4 (``rollout.cu``'s other entry, sharing K4n's step): lanes, a state per
 # lane?  The exact strategy's 6,400 and on-road 1,600, and the validator's
 K4_SHAPES = ((6400, False), (1600, True), (256_000, False))
@@ -1465,6 +1567,56 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
         recs.append({"kind": "k4", "shape": label, "bit_equal": equal, "device_ms": times})
         log(f"k4 {label}: {k4s} bit-equal; device us {_fmt_times(times)}")
     return recs
+
+
+def kh_phases(cycles: dict, rounds: int) -> dict:
+    """Kernel (h)'s cycles a phase from a kh_clock launch (``_clock_regions``'
+    cycles): the staging's and the whole block's mean over the CTAs, a
+    round's phases' mean a round, CTA 0's gather and path parameters its
+    own (the most over the CTAs)."""
+    out = {"staging": cycles["staging"]["mean"]}
+    out.update({f"{p} a round": cycles[p]["mean"] / rounds for p in KH_ROUND_PHASES})
+    out.update({p: cycles[p]["max"] for p in ("gather", "path parameters")})
+    out["whole"] = cycles["block"]["mean"]
+    return {k: round(v, 1) for k, v in out.items()}
+
+
+def run_kh(libs: dict, names: list, log, warm_only=False) -> list:
+    """Kernel (h): every build bit-equal to the chain (``frenet.smooth_path``
+    then ``path_parameters``) on ``kh_window``'s windows (every route,
+    point, width and round count) and on the closed loop's window
+    (``kh_closedloop``), where it raises otherwise; the builds but the clock
+    builds timed in turns on the closed loop's window, warm and L2-cold;
+    and each clock build's cycles a phase there (``kh_phases``)."""
+    from ..config import onroad_workload
+    from ..frenet import build_smoother, path_parameters, smooth_path
+    from ..ops.local_frame import local_frame
+    cfg = onroad_workload()
+    thr = cfg.frenet.smooth_threshold
+    runs = [(f"{r} near {at}, num_path {n}, {k} rounds",
+             (build_smoother(n, maxiter=k, device="cuda"), *kh_window(r, at, n, "cuda")))
+            for r in KH_ROUTES for at in KH_AT for n in KH_WIDTHS for k in KH_ROUNDS]
+    closed = ("the closed loop's window", kh_closedloop(cfg, "cuda"))
+    for label, (sw, x, y) in runs + [closed]:
+        ref = path_parameters(*smooth_path(sw, x, y, thr))
+        for b in names:
+            got = local_frame(sw, x, y, thr, lib=libs[b])
+            torch.cuda.synchronize()
+            if not all(same_bits(g, r) for g, r in zip(got, ref)):
+                raise RuntimeError(f"{b} is not bit-equal to the chain at {label}")
+    log(f"kh: {names} bit-equal to the chain at {len(runs) + 1} windows")
+    sw, x, y = closed[1]
+    calls = {b: (lambda b=b: local_frame(sw, x, y, thr, lib=libs[b]))
+             for b in names if "_clock" not in b}
+    times = three_ways(calls, "local_frame_kernel", warm_only=warm_only)
+    rec = {"kind": "kh", "shape": closed[0], "device_ms": times, "clock": {}}
+    for c in (b for b in names if "_clock" in b):
+        got = _clock_regions(libs[c], c, lambda c=c: local_frame(sw, x, y, thr, lib=libs[c]),
+                             entry=GLUE_CLOCK_ENTRY)
+        rec["clock"][c] = kh_phases(got["cycles"], sw.maxiter)
+    log(f"kh {closed[0]}: device us {_fmt_times(times)}; clock64 cycles {rec['clock']}; "
+        f"SM clock {sm_clock_mhz()}")
+    return [rec]
 
 
 # kernel (d)'s forced launch choices (``ops.outer_project``'s keywords)
@@ -2221,6 +2373,9 @@ def run(before: Path, out: Path, diagnose: bool = False, kernels=None,
         rec["step_cycles"] = step_cycles(libs["step_now"])
         log(f"critical path of a rollout step, one lane alone (clock64 cycles): "
             f"{rec['step_cycles']}; SM clock {sm_clock_mhz()}")
+    khs = [n for n, (kind, _) in sources.items() if kind == "kh"]
+    if khs:
+        rec["kh"] = run_kh(libs, khs, log, warm_only)
     glue = [n for n, (kind, _) in sources.items() if kind in GLUE_ENTRIES]
     if glue:
         if package.is_alive():
@@ -2242,7 +2397,7 @@ def main(argv=None) -> None:
     p.add_argument("--diagnose", action="store_true",
                    help="also the diagnostic builds and the latency microbenchmark")
     p.add_argument("--kernels", nargs="*", default=None,
-                   help="build and run only these kinds (k1 k2 k3 prng kc kd ke kf k4n kg "
+                   help="build and run only these kinds (k1 k2 k3 prng kc kd ke kf k4n kg kh "
                    "micro), or builds, and with forms kernel (c)'s forms against their "
                    "chains from the package's library")
     p.add_argument("--out", type=Path, default=OUT_DIR)

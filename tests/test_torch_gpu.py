@@ -28,7 +28,10 @@ and (f) also at their edges (run-time T, Beta draws with a state per lane,
 F15, 11a's chunk of 32; (f) at every cluster size, D and D2 symmetric), (g)
 also on its adversarial inputs and a closed-loop frame (its indices and
 visited tiles its twin's), and (g)'s state and obstacle forms bit-equal to
-their chains.
+their chains (the obstacle form's constant-velocity trajectories too);
+kernel (h) bit-equal to its chain (the smoother and the path parameters)
+and to its twin, on windows of three routes at two widths and one and ten
+rounds, NaN to NaN, its phase-clock build too.
 """
 
 import dataclasses
@@ -51,7 +54,8 @@ from mpc_mmd_tpu_torch.ops.topk import topk_indices_plain, topk_onehot_plain
 from mpc_mmd_tpu_torch.ops.topk_kernel import topk_kernel_matrices_plain
 from mpc_mmd_tpu_torch.sampling import _cholesky
 from mpc_mmd_tpu_torch.utils import chunk_bits
-from mpc_mmd_tpu_torch.utils.kernel_ab import KG_CASES
+from mpc_mmd_tpu_torch.utils.kernel_ab import (KG_CASES, KH_AT, KH_ROUNDS, KH_ROUTES, KH_WIDTHS,
+                                               kh_window)
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.gpu
@@ -1523,3 +1527,181 @@ def test_graphed_path_b_cvar_and_path_d_det_equal_the_eager_ones(cuda, mode):
         calls = [lambda s, i=i: s.solve(i, init, [10.0 + i] * 4 + [0.0] * 4, cov, xo, yo,
                                         10.0, frame) for i in range(2)]
     graph_against_eager(make, calls)
+
+
+@pytest.mark.parametrize("maxiter", KH_ROUNDS)
+@pytest.mark.parametrize("n", KH_WIDTHS)
+@pytest.mark.parametrize("at", KH_AT)
+@pytest.mark.parametrize("route", KH_ROUTES)
+def test_local_frame_kernel_equals_its_chain_and_twin(cuda, route, at, n, maxiter):
+    """Kernel (h) against the chain (frenet.smooth_path, then
+    path_parameters) on the card and against its twin: every output
+    bit-equal; one counted launch."""
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.ops import local_frame
+    from mpc_mmd_tpu_torch.ops.local_frame import local_frame_twin
+    x, y = kh_window(route, at, n, "cuda")
+    sw = tf.build_smoother(n, maxiter=maxiter, device="cuda")
+    before = local_frame.launches
+    got = local_frame(sw, x, y, 0.1)
+    assert local_frame.launches == before + 1
+    ref = tf.path_parameters(*tf.smooth_path(sw, x, y, 0.1))
+    twin = local_frame_twin(sw, x, y, 0.1)
+    for name, g, r, t in zip(got._fields, got, ref, twin):
+        assert _same_bits(g, r), name
+        assert _same_bits(t, r), name
+
+
+@pytest.fixture(scope="module")
+def kh_clock_build(tmp_path_factory):
+    """Kernel (h)'s clock build (``kernel_ab.glue_clock_variant``), as
+    chip_smoke.py and kernel_ab build it, compiled once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from mpc_mmd_tpu_torch.ops import _build
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    src = kernel_ab.glue_clock_variant("kh", (_build.CSRC / "local_frame.cu").read_text(),
+                                       "kh_clock")
+    out = kernel_ab.OUT_DIR
+    kernel_ab.OUT_DIR = tmp_path_factory.mktemp("kh_clock")
+    try:
+        return kernel_ab.build_all({"kh_clock": ("kh", src)}, lambda msg: None)["kh_clock"]
+    finally:
+        kernel_ab.OUT_DIR = out
+
+
+@pytest.mark.parametrize("n", [600, 64])
+def test_local_frame_kernel_and_its_clock_build(cuda, kh_clock_build, n):
+    """Kernel (h)'s one cluster of 16 CTAs on a curved window, through the
+    package's build and through its clock build: the chain's bits from
+    both, and every CTA's thread 0 stamping each round's phases and the
+    whole, CTA 0 alone its gather and path parameters."""
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.ops import local_frame
+    from mpc_mmd_tpu_torch.utils import kernel_ab
+    x, y = kh_window("curved", 4000, n, "cuda")
+    sw = tf.build_smoother(n, device="cuda")
+    ref = tf.path_parameters(*tf.smooth_path(sw, x, y, 0.1))
+    got = local_frame(sw, x, y, 0.1)
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    stamps = torch.zeros(4096 * kernel_ab.KC_CLOCK_SLOTS, dtype=torch.int64, device="cuda")
+    assert kh_clock_build.mmd_glue_clock(stamps.data_ptr(), 1) == 0
+    got = local_frame(sw, x, y, 0.1, lib=kh_clock_build)
+    assert kh_clock_build.mmd_glue_clock(stamps.data_ptr(), 0) == 0
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    st = stamps.view(4096, kernel_ab.KC_CLOCK_SLOTS)
+    regions = kernel_ab.CLOCK_REGIONS["kh_clock"]
+    assert bool((st[:16, -1] > 0).all()) and bool((st[16:] == 0).all())
+    for i, r in enumerate(regions):
+        if r in kernel_ab.KH_ROUND_PHASES or r == "staging":
+            assert bool((st[:16, i] > 0).all()), r
+        elif r in ("gather", "path parameters"):
+            assert int(st[0, i]) > 0 and bool((st[1:16, i] == 0).all()), r
+
+
+@pytest.mark.parametrize("where", [("x", 37), ("y", 0), ("x", 599)])
+def test_local_frame_kernel_propagates_a_nan_waypoint(cuda, where):
+    """A NaN waypoint: kernel (h)'s outputs the chain's, NaN to NaN."""
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.ops import local_frame
+    x, y = kh_window("curved", 4000, 600, "cuda")
+    (x if where[0] == "x" else y)[where[1]] = float("nan")
+    sw = tf.build_smoother(600, device="cuda")
+    got = local_frame(sw, x, y, 0.1)
+    ref = tf.path_parameters(*tf.smooth_path(sw, x, y, 0.1))
+    assert all(_same_bits(g, r) for g, r in zip(got, ref))
+    assert bool(got.x_path.isnan().any())
+
+
+def test_local_frame_build_and_launch_failures_raise(cuda, monkeypatch, tmp_path):
+    """The kernel's entry refusing a launch (a path shorter than it takes)
+    and an entry that returns an error raise through the wrapper's check;
+    the wrapper refuses a path past MAX_PATH; a build whose source does
+    not compile raises."""
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.ops import _build, local_frame
+    x, y = kh_window("curved", 0, 64, "cuda")
+    sw = tf.build_smoother(64, device="cuda")
+    out = torch.empty((6, 64), device="cuda")
+    err = _build.library().mmd_local_frame(sw.kkt_inv.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                           out.data_ptr(), 10, 10, 0.1, _build.stream())
+    assert err != 0
+    with pytest.raises(RuntimeError, match="local_frame"):
+        _build.check(err, "local_frame")
+
+    class Failing:
+        def mmd_local_frame(self, *args):
+            return 1
+    with pytest.raises(RuntimeError, match="local_frame"):
+        local_frame(sw, x, y, 0.1, lib=Failing())
+    with pytest.raises(ValueError):
+        local_frame(tf.build_smoother(700, device="cuda"), torch.zeros(700, device="cuda"),
+                    torch.zeros(700, device="cuda"))
+    (tmp_path / "csrc").mkdir()
+    (tmp_path / "csrc" / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path / "csrc")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        _build.build()
+
+
+def test_obstacle_form_trajectories_equal_the_chains(cuda):
+    """Kernel (g)'s obstacle form with the horizon's times on a closed-loop
+    frame and on adversarial positions: the five conversions and x_obs,
+    y_obs bit-equal to global_to_frenet_obstacle and
+    constant_velocity_obstacles on the card."""
+    from mpc_mmd_tpu_torch.dynamics import constant_velocity_obstacles
+    from mpc_mmd_tpu_torch.frenet import global_to_frenet_obstacle
+    from mpc_mmd_tpu_torch.ops import frenet_obstacles
+    from mpc_mmd_tpu_torch.utils.kernel_ab import kg_case, kg_closedloop
+    cfg = _workload("path_d")
+    (frame, _, _), obs = kg_closedloop(cuda, cfg)
+    tot = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device="cuda")
+    runs = [(frame, obs)]
+    for case in ("far_off_the_path", "non_finite_query", "ragged_sizes"):
+        f, x, y = kg_case(case, "cuda")
+        m = x.shape[0]
+        runs.append((f, torch.stack((x, y, 3.0 * torch.randn(m, device="cuda", generator=cuda),
+                                     torch.randn(m, device="cuda", generator=cuda),
+                                     torch.rand(m, device="cuda", generator=cuda)), dim=1)))
+    for f, o in runs:
+        before = frenet_obstacles.launches
+        got = frenet_obstacles(f, o, tot_time=tot)
+        assert frenet_obstacles.launches == before + 1
+        conv = global_to_frenet_obstacle(f, *o.unbind(1))
+        ref = tuple(conv) + constant_velocity_obstacles(*conv, tot)[:2]
+        assert len(got) == 7 and all(_same_bits(g, r) for g, r in zip(got, ref))
+
+
+def test_local_problem_on_the_card_equals_its_chains(cuda):
+    """closedloop.local_problem on the card: one launch each of (h) and
+    (g)'s obstacle form, and its frame, trajectories and state the bits of
+    the chains they replace."""
+    from mpc_mmd_tpu_torch import closedloop as cl
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.dynamics import constant_velocity_obstacles
+    from mpc_mmd_tpu_torch.ops import frenet_obstacles, local_frame
+    cfg = _onroad("mmd_opt")
+    plant = cl.SyntheticPlant(cfg, cl.make_route("curved"),
+                              ((12.0, 0.5), (18.0, 3.0), (40.0, 0.0), (60.0, 3.5)),
+                              obstacle_speed=1.0)
+    plant.step(0.5, 0.02)
+    tot = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device="cuda")
+    sw = tf.build_smoother(cfg.frenet.num_path, device="cuda")
+    counts = (local_frame.launches, frenet_obstacles.launches)
+    frame, x_obs, y_obs, init = cl.local_problem(cfg, plant, sw, tot)
+    assert (local_frame.launches, frenet_obstacles.launches) == (counts[0] + 1, counts[1] + 1)
+    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device="cuda")
+    x_e, y_e, v_e, psi_e, psidot_e = plant.state
+    x_wp, y_wp, _ = tf.waypoint_window(plant.spline, x_e, y_e, cfg.frenet.lookahead,
+                                       cfg.frenet.num_path)
+    ref = tf.path_parameters(*tf.smooth_path(sw, f32(x_wp - x_e), f32(y_wp - y_e),
+                                             cfg.frenet.smooth_threshold))
+    obs = cl.perceive_obstacles(cfg, plant, (x_e, y_e), psi_e).copy()
+    obs[:, 0] -= x_e
+    obs[:, 1] -= y_e
+    conv = tf.global_to_frenet_obstacle(ref, *f32(obs[:, :5]).unbind(1))
+    xo, yo, _ = constant_velocity_obstacles(*conv, tot)
+    assert all(_same_bits(g, r) for g, r in zip(frame, ref))
+    assert _same_bits(x_obs, xo) and _same_bits(y_obs, yo)
+    assert torch.equal(init, f32([0.0, 0.0, v_e, plant.vdot, psi_e, psidot_e]))

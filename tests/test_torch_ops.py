@@ -314,12 +314,13 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
     earlier kernel (c); kernel (d)'s clock stamps, kd_clock_before the
     earlier outer_project.cu's; K4n's and kernel (g)'s variants and K4n's
     and kernels (f) and (g)'s clock stamps, *_clock_before the earlier
-    sources'): each must find its anchor and change the source."""
+    sources'; kernel (h)'s run-time T, cluster of 8 and clock stamps): each
+    must find its anchor and change the source."""
     from mpc_mmd_tpu_torch.ops import _build
     from mpc_mmd_tpu_torch.utils import kernel_ab
     for name in ("topk.cu", "eq_qp.cu", "inner_cem.cu", "inner_cem_body.cuh",
                  "inner_cem_fused.cu", "outer_project.cu", "outer_tail.cu", "rollout.cu",
-                 "inner_prologue.cu", "frenet_points.cu"):
+                 "inner_prologue.cu", "frenet_points.cu", "local_frame.cu"):
         (tmp_path / name).write_text((_build.CSRC / name).read_text())
     srcs = kernel_ab.builds(tmp_path, diagnose=True)
     assert srcs["k1_before"][1] == srcs["k1_now"][1]
@@ -348,6 +349,15 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
         regions = kernel_ab.CLOCK_REGIONS[variant]
         assert src.count("gc_cur = ") == len(regions) == 4
         assert f'extern "C" int {kernel_ab.GLUE_CLOCK_ENTRY}' in src
+    elif variant.startswith("kh_clock"):
+        # kernel (h): a stamp before each round's phases and CTA 0's two
+        regions = kernel_ab.CLOCK_REGIONS[variant]
+        assert src.count("gc_cur = ") == len(regions) == 7
+        assert f'extern "C" int {kernel_ab.GLUE_CLOCK_ENTRY}' in src
+    elif variant == "kh_cluster8":
+        # 8 CTAs, a warp's groups in turn, each read from the slab a round
+        assert "constexpr int kCluster = 8;" in src and "a CTA with more groups" not in src
+        assert "for (int gi = warp; gi < groups; gi += kWarps)" in src
 
 
 def test_solve_ab_checks_its_arguments_and_needs_a_card(tmp_path, monkeypatch):

@@ -325,21 +325,26 @@ Phases, each of which must pass:
    comparisons and are not counted.
 15. the JAX key chain's draws: ``noise.JaxNoise``, the default noise of
    every path above, draws through kernel (a) ``ops.prng_draws`` (keys to
-   bits, uniforms or normals) and kernel (b) ``ops.prng_beta`` (Beta),
-   CUDA source ``csrc/prng.cu``.  Every exact launch check above counts
-   them too (``loop_launches``: per outer iteration one draw for the
-   rollout noise, one for the CEM resample, one Beta launch under Beta
-   noise; one more draw a Frenet solve; a fresh solver's first solve adds
-   the solver-fixed draws; and kernels (d) and (e): one (d) an outer
-   iteration on every path but "exact" and ``det``, one (e) in
-   ``mmd_opt`` but under "exact" and the two-rank candidate split), and
-   ``draw_shapes`` gives their shapes:
-   a. kernel (a) against its twin at every path shape (a solve's rollout
-      noise, 3 keys a scenario of R x T normals; its resample, a key a
-      scenario; a Frenet solve's initial states) and at the validator's
-      chunks (768 and 528 keys x 50,000: 256 solves x 1000 rollouts x 50
-      steps x 3 families): bits equal, uniforms and normals within 1 ulp
-      (the twin's double-rounded fma);
+   bits, uniforms or normals), its plan form ``ops.prng_plan`` (a solve's
+   every Gaussian draw in one launch, from its key table) and kernel (b)
+   ``ops.prng_beta`` (Beta), CUDA source ``csrc/prng.cu``.  Every exact
+   launch check above counts them too (``loop_launches``: one plan a
+   solve or chunk, one Beta launch an outer iteration under Beta noise; a
+   fresh solver's first solve adds the solver-fixed draws by
+   ``prng_draws``; and kernels (d) and (e): one (d) an outer iteration on
+   every path but "exact" and ``det``, one (e) in ``mmd_opt`` but under
+   "exact" and the two-rank candidate split), and ``draw_shapes`` gives
+   their shapes:
+   a. kernel (a) against its twin at every segment shape of a path's plan
+      (a solve's rollout noise, 3 keys a scenario of R x T normals an
+      iteration; its resample, a key a scenario an iteration; a Frenet
+      solve's initial states) and at the validator's chunks (768 and 528
+      keys x 50,000: 256 solves x 1000 rollouts x 50 steps x 3 families):
+      bits equal, uniforms and normals within 1 ulp (the twin's
+      double-rounded fma); its plan form at every path's plan
+      (``JaxNoise.plan`` on a key table of the path's chunk and
+      iterations): each segment bit-equal to ``prng_draws`` of its keys,
+      within 1 ulp of the twin;
    b. kernel (b) against its twin at Path A's Beta 0.2 shape (2 keys x 100
       candidates x 500), its chunk of 4, Path F's at N = 5 and 15, and a
       Beta validator chunk (512 keys x 50,000): within rtol 1e-5 + atol
@@ -353,10 +358,11 @@ Phases, each of which must pass:
       solve captures the graph, the second, a replay bit-equal to it, is
       held: the controls within 1e-3, both runs' costs per outer iteration
       printed;
-   e. both kernels' device time, bound and library call (``torch.randn``
-      with a generator; ``torch._standard_gamma``), then the validator's
-      time at 1200 x 1000 and the fastrt and Path A solve latencies on the
-      new draws.
+   e. the kernels' device time, bound and library call (``torch.randn``
+      with a generator; ``torch._standard_gamma``), the plan form's beside
+      the device time of the per-iteration draws it replaces at each plan,
+      then the validator's time at 1200 x 1000 and the fastrt and Path A
+      solve latencies on the new draws.
 16. the solve as one CUDA graph, each solver graphed by default against
    one made with ``graph=False`` (eager) on the same inputs:
    a. bit for bit, with equal launch counts per call and every kernel of
@@ -657,12 +663,13 @@ def check_launch_shapes(tables, per_solve):
 def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     """The launches in ``n`` solves (or chunks) of ``cfg`` on its default
     noise (``noise.JaxNoise``) that every selection makes: the draw
-    kernels, per outer iteration one ``prng_draws`` for the rollout noise
-    (``det`` rolls nothing out) and one for the outer CEM's resample, and
-    under Beta noise one ``prng_beta``; a Frenet solve one ``prng_draws``
-    more for its noisy initial states; a fresh solver's first solve also
-    the solver-fixed draws: the initial batch and, in ``mmd_opt``, the
-    inner CEM's samples0, u and z (samples0 and z under "exact").  Then
+    kernels, one ``prng_plan`` a solve (kernel (a)'s plan form: every
+    iteration's rollout noise, which ``det`` does not draw, and outer CEM
+    resample, and a Frenet solve's noisy initial states, in one launch)
+    and under Beta noise one ``prng_beta`` an outer iteration; a fresh
+    solver's first solve also the solver-fixed draws, by ``prng_draws``:
+    the initial batch and, in ``mmd_opt``, the inner CEM's samples0, u and
+    z (samples0 and z under "exact").  Then
     the outer iteration's kernels (``SolverSetup._routes``): kernel (d) an
     outer iteration except under "exact" (its obstacle-active form in
     ``det``), kernel (e) an outer iteration in every mode except under
@@ -674,7 +681,7 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     ``det`` included, except under "exact" and with the candidates
     split."""
     outer, det = cfg.cem.maxiter_cem, cfg.risk.mode == "det"
-    draws = n * (outer * (1 if det else 2) + (1 if frenet else 0))
+    draws = 0
     if fresh:
         draws += 1 + ((2 if cfg.solve_strategy == "exact" else 3)
                       if cfg.risk.mode == "mmd_opt" else 0)
@@ -682,7 +689,7 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
     prefactored = cfg.solve_strategy == "prefactored"
     project, tail = prefactored, prefactored and not split
     glue = prefactored and not det and not split
-    return {"prng_draws": draws, "prng_beta": beta,
+    return {"prng_draws": draws, "prng_plan": n, "prng_beta": beta,
             "outer_project": n * outer if project else 0,
             "outer_tail": n * outer if tail else 0,
             "fused_rollout": n * outer if not det and not glue else 0,
@@ -695,13 +702,16 @@ def loop_launches(cfg, n=1, frenet=False, fresh=False, split=False):
 def draw_shapes(paths):
     """The draw kernels' launch shapes on each path, as ``launch_shapes``
     gives K1's: ``paths`` maps a path's name to (config, Frenet?,
-    scenarios per chunk).  Returns (draws, beta): {(keys, n): {path:
-    launches per solve}} and {(keys, candidates, n, P): {...}}.  A chunk
-    draws its scenarios' keys in one launch: the rollout noise 3 keys a
-    scenario of R x T normals, the resample a key a scenario, the Beta
-    draws 2 keys a scenario over every candidate's R x T."""
+    scenarios per chunk).  Returns (plans, draws, beta): kernel (a)'s plan
+    form, one launch a solve, {(chunk, iterations, R or None, T, n_cem,
+    n_params, initial states or None): {path: 1}}, the arguments of
+    ``JaxNoise.plan``; the per-key form's shapes of those segments, {(keys,
+    n): {}} (no solve launches it since the plan form: phase 15 holds it to
+    its twin there); and {(keys, candidates, n, P): {path: launches per
+    solve}} of the Beta draws, 2 keys a scenario over every candidate's R
+    x T an outer iteration."""
     from mpc_mmd_tpu_torch.noise import init_state_count
-    dr, be = {}, {}
+    pl, dr, be = {}, {}, {}
 
     def add(table, key, path, count):
         at = table.setdefault(key, {})
@@ -710,14 +720,19 @@ def draw_shapes(paths):
     for path, (cfg, frenet, chunk) in paths.items():
         outer, R, T = cfg.cem.maxiter_cem, cfg.risk.num_reduced, cfg.horizon.num_prime
         nb, c = cfg.cem.num_batch, cfg.cem
-        if cfg.risk.mode != "det":
-            add(dr, (3 * chunk, R * T), path, outer)
+        n_cem = nb - c.ellite_num
+        rolls = cfg.risk.mode != "det"
+        n_init = init_state_count(cfg) if frenet else None
+        add(pl, (chunk, outer, R if rolls else None, T, n_cem, c.num_params, n_init),
+            path, 1)
+        if rolls:
+            dr.setdefault((3 * chunk, R * T), {})
             if cfg.noise.kind == "beta":
                 add(be, (2 * chunk, nb, R * T, T), path, outer)
-        add(dr, (chunk, (nb - c.ellite_num) * c.num_params), path, outer)
+        dr.setdefault((chunk, n_cem * c.num_params), {})
         if frenet:
-            add(dr, (1, init_state_count(cfg) * 4), path, 1)
-    return dr, be
+            dr.setdefault((1, n_init * 4), {})
+    return pl, dr, be
 
 
 def check_topk(torch, ops, topk_plain, gen, shapes):
@@ -1899,9 +1914,10 @@ def measure(torch, name, rec):
 
 
 def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
-                  kd, kb, kc, kd_, ke_, k4n, kf, kg, ks, ko, kh, kc_forms):
+                  kd, kp, kb, kc, kd_, ke_, k4n, kf, kg, ks, ko, kh, kc_forms):
     """The kernels' JSON record (see the module docstring); ``k4`` is the
     pair (main path shape, validator shape), ``kd`` kernel (a)'s record,
+    ``kp`` its plan form's,
     ``kd_``, ``ke_`` kernel (d)'s and (e)'s and ``k4n``, ``kf``, ``kg``
     K4n's and kernel (f)'s and (g)'s, ``ks``, ``ko`` (g)'s state and
     obstacle forms', ``kh`` kernel (h)'s, ``kc_forms`` kernel (c)'s by form
@@ -1926,6 +1942,10 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
             (ops.prng_draws, "prng.cu", "mpc_mmd_tpu/dynamics.py:91 (jax.random.normal "
              "through XLA's threefry2x32, jax/_src/prng.py:1092; no Pallas kernel)",
              (kd, None)),
+            (ops.prng_plan, "prng.cu", "mpc_mmd_tpu/solver.py:186,299 and "
+             "solver_frenet.py:56-58 (a solve's jax.random.normal draws inside its "
+             "lax.scan, dynamics.py:91-95, through XLA's threefry2x32; no Pallas "
+             "kernel)", (kp, None)),
             (ops.prng_beta, "prng.cu", "mpc_mmd_tpu/dynamics.py:110 (jax.random.beta "
              "through XLA, jax/_src/random.py:1133,1398; no Pallas kernel)",
              (kb, None)),
@@ -1978,7 +1998,8 @@ def kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, k4, k5, k2t,
             row["shapes"] = [{k: c[k] for k in (
                 "shape", "device_ms", "l2_cold_ms", "bound_ms", "bound_by", "plain_ms",
                 "library_ms", "launches_per_solve", "latency_bound_ms", "phases",
-                "tiles_visited", "full_scan_bound_ms") if k in c}
+                "tiles_visited", "full_scan_bound_ms", "former_device_ms",
+                "former_launches") if k in c}
                 for c in rec["cases"]]
         for key in ("tiles_visited", "full_scan_bound_ms"):
             if key in rec:
@@ -2059,6 +2080,60 @@ def check_prng_draws(torch, ops, dev, gen, shapes):
     return main
 
 
+def check_prng_plan(torch, ops, dev, plans):
+    """Kernel (a)'s plan form at every path's plan (``draw_shapes``; the
+    first is fastrt's): the segments of ``JaxNoise.plan`` on a key table
+    of the plan's chunk and iterations, each bit-equal to the per-key
+    form's draws of its keys (``prng_draws``, kernel against kernel) and
+    within 1 ulp of the twin's; the per-key form's launches it replaces
+    (``rollout_eps`` and ``cem_z`` an iteration and ``init_state_z``, as
+    solves drew them before: (keys, n, launches a solve) under
+    ``former``) for phase 15e to time.  Returns the first plan's record,
+    with the others under ``cases``."""
+    from mpc_mmd_tpu_torch import prng
+    from mpc_mmd_tpu_torch.noise import JaxNoise
+    noise = JaxNoise(dev)
+    cases, worst = [], 0
+    lib_gen = torch.Generator(device=dev).manual_seed(1)
+    for key, at in plans.items():
+        chunk, outer, R, T, n_cem, n_params, n_init = key
+        table = noise.keys(list(range(7, 7 + chunk)), outer).to(dev)
+        init = None if n_init is None else (noise.init_key(7), n_init)
+        segments = noise.plan(table, R, T, n_cem, n_params, init)
+        got = ops.prng_plan(segments)
+        for (keys, n, dist), view in zip(segments, got):
+            flat = keys.reshape(-1, 2)
+            if not torch.equal(view.reshape(-1, n), ops.prng_draws(flat, n, dist)):
+                fail(f"prng_plan: a segment of {len(flat)} keys x {n} differs from "
+                     f"prng_draws' at the plan {key}")
+            worst = max(worst, ulp_gap(torch, view.reshape(-1, n), prng.draws(flat, n, dist)))
+        if worst > 1:
+            fail(f"prng_plan: {worst} ulp from the twin's at the plan {key}")
+        former = [(chunk, n_cem * n_params, outer)]
+        if R is not None:
+            former.append((3 * chunk, R * T, outer))
+        if init is not None:
+            former.append((1, n_init * 4, 1))
+        total = sum(keys[..., 0].numel() * n for keys, n, _ in segments)
+        n_keys = sum(keys[..., 0].numel() for keys, _, _ in segments)
+        cases.append(dict(
+            shape=(f"chunk {chunk} x {outer} iterations: "
+                   + ", ".join(f"{keys[..., 0].numel()} keys x {n}" for keys, n, _ in segments)
+                   + f" ({total} normals)"),
+            call=(lambda s=segments: ops.prng_plan(s)), match="plan_kernel", cold=True,
+            nbytes=16 * n_keys + 4 * total, int_ops=HASH_OPS * total,
+            ops=NORMAL_OPS * total, launches_per_solve=at, former=former,
+            former_launches=sum(count for _, _, count in former),
+            library=("torch.randn of as many normals with a generator",
+                     lambda total=total: torch.randn(total, generator=lib_gen, device=dev)),
+            library_match="distribution_elementwise_grid_stride_kernel",
+            plain_ms=cuda_ms(torch, lambda s=segments: prng.plan(s), reps=5)))
+    torch.cuda.synchronize()
+    main = dict(cases[0], max_abs_err=0.0, ulp=worst, cases=cases)
+    main["ms"] = cuda_ms(torch, main["call"])
+    return main
+
+
 def check_prng_beta(torch, ops, dev, gen, shapes):
     """Kernel (b) against its twin on the card at every path shape (the
     first is Path A's): Beta draws within rtol 1e-5 + atol 1e-6, with the
@@ -2116,9 +2191,10 @@ def check_prng_beta(torch, ops, dev, gen, shapes):
     return main
 
 
-def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
+def path_draws(torch, ops, dev, cfg, draw_at, beta_at, plan_at):
     """Phase 15: the JAX key chain's draws on the card (see the module
-    docstring).  Returns the records of kernels (a) and (b)."""
+    docstring).  Returns the records of kernel (a), its plan form and
+    kernel (b)."""
     from mpc_mmd_tpu_torch import Solver
     t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(15)
@@ -2128,6 +2204,10 @@ def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
     log(f"15a: prng_draws against its twin at {sorted(draw_at)} (keys, n): bits equal, "
         f"uniforms and normals within {kd['ulp']} ulp (max abs {kd['max_abs_err']:.3e}); "
         f"{kd['ms']:.4f} ms vs plain {kd['plain_ms']:.4f} ms at {kd['shape']}")
+    kp = check_prng_plan(torch, ops, dev, plan_at)
+    log(f"15a: prng_plan at {len(plan_at)} path plans: every segment bit-equal to "
+        f"prng_draws of its keys, within {kp['ulp']} ulp of the twin; {kp['ms']:.4f} ms "
+        f"vs plain {kp['plain_ms']:.4f} ms at {kp['shape']}")
     kb = check_prng_beta(torch, ops, dev, gen, beta_at)
     log(f"15b: prng_beta against its twin at {sorted(beta_at)} (keys, candidates, n, P): "
         f"max abs {kb['max_abs_err']:.3e}, {kb['flips']} accept tests flipped; "
@@ -2180,6 +2260,19 @@ def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
     # e. device times, bounds and library calls; the solves and the validator
     # on the new draws
     measure(torch, "prng_draws", kd)
+    measure(torch, "prng_plan", kp)
+    for case in kp["cases"]:
+        # each former launch shape timed alone (one device event a call),
+        # times its launches a solve
+        case["former_device_ms"] = sum(
+            count * profiled_ms(torch, lambda k=random_keys(torch, gen, dev, K), n=n:
+                                ops.prng_draws(k, n), match="draws_kernel")[0]
+            for K, n, count in case["former"])
+        log(f"15e: the {case['former_launches']} per-iteration draws the plan replaces "
+            f"at {case['shape']} ({case['former']}: keys, n, launches): "
+            f"{case['former_device_ms']:.4f} ms device time a solve, against "
+            f"{case['device_ms']:.4f} ms in one plan launch")
+    kp["former_device_ms"] = kp["cases"][0]["former_device_ms"]
     measure(torch, "prng_beta", kb)
     lat = {k: [round(1e3 * x, 1) for x in v] for k, v in TIMES.items()
            if k.startswith(("fastrt (", "Path A ("))}
@@ -2187,7 +2280,7 @@ def path_draws(torch, ops, dev, cfg, draw_at, beta_at):
         f"{1e3 * TIMES['validator_1200']:.1f} ms (30-98 ms with the former "
         f"per-row draws, PERF.md); solve latencies (ms) {lat}")
     log(f"phase 15: {time.perf_counter() - t_phase:.1f} s")
-    return kd, kb
+    return kd, kp, kb
 
 
 def obstacle_scenarios(torch, n, num_obs, tot_time, blocking=False):
@@ -2376,7 +2469,7 @@ def path_c(torch, ops, dev, work, per_solve):
     from mpc_mmd_tpu_torch.validate import CHUNK, make_validator
 
     KC, K4, KF = ops.inner_cem, ops.noisy_rollout, ops.inner_prologue
-    D, B = ops.prng_draws, ops.prng_beta
+    D, P, B = ops.prng_draws, ops.prng_plan, ops.prng_beta
     data = os.path.join(work, "data")
     path_launches, roots, sweeps = [], {}, {}
 
@@ -2384,7 +2477,7 @@ def path_c(torch, ops, dev, work, per_solve):
     for mode in ("mmd_opt", "cvar"):
         _, secs, got = counted(
             torch, ops, f"Path C sweep {mode}",
-            (KC, KF, K4, D) if mode == "mmd_opt" else (K4, D),
+            (KC, KF, K4, P) if mode == "mmd_opt" else (K4, P),
             lambda: sweep_cli.main(["--costs", mode, "--out", data, *SWEEP_FLAGS]))
         found = glob.glob(os.path.join(data, "static", "*", "*", "*", f"{mode}_*"))
         if len(found) != 1:
@@ -2433,7 +2526,7 @@ def path_c(torch, ops, dev, work, per_solve):
 
     # d. dynamic cut-in cvar sweep (every solve kept) and its validation
     dyn, secs, got = counted(
-        torch, ops, "Path C dynamic sweep", (K4, D, B),
+        torch, ops, "Path C dynamic sweep", (K4, P, B),
         lambda: sweep_cli.run_sweep("dynamic", "cvar", "beta", 0.2, 10, 6, 50,
                                     20, data, chunk=20, dispatch="pipeline",
                                     accept_all=True, device=dev))
@@ -2517,7 +2610,7 @@ def path_c(torch, ops, dev, work, per_solve):
         cfg_k = cfg_k.replace(risk=dataclasses.replace(cfg_k.risk, kernel=kind))
         solver = Solver(cfg_k, device=dev)
         scen = obstacle_scenarios(torch, 1, 6, solver.ws.tot_time)[0]
-        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (KC, KF, K4, D),
+        r, secs, got = counted(torch, ops, f"Path C {kind} kernel", (KC, KF, K4, P),
                                lambda: solver.solve(0, INIT, MEAN, COV, *scen, 15.0))
         check_solve(r, cfg_k)
         log(f"Path C fastrt mmd_opt, {kind} kernel: {1e3 * secs:.1f} ms (first "
@@ -2581,7 +2674,7 @@ def path_d(torch, ops, dev, cfg, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.noisy_rollout)
-    KC, D, KG = ops.inner_cem, ops.prng_draws, ops.frenet_points
+    KC, D, KG = ops.inner_cem, ops.prng_plan, ops.frenet_points
     KD, KE, KS, KO = ops.outer_project, ops.outer_tail, ops.frenet_states, ops.frenet_obstacles
     n_inner = cfg.cem.maxiter_cem * cfg.beta_cem.maxiter
     outer = cfg.cem.maxiter_cem
@@ -2686,13 +2779,15 @@ def path_d(torch, ops, dev, cfg, per_solve):
         if not {"collided", "steps", "mean_solve_ms", "p99_solve_ms"} <= set(episode):
             fail(f"Path D closed loop {mode}: no episode line ({buf.getvalue()!r})")
         if mode == "det" and {k for k, v in got.items() if v} != {
-                D.__name__, KD.__name__, KE.__name__, KS.__name__, KO.__name__, KH.__name__}:
+                D.__name__, ops.prng_draws.__name__, KD.__name__, KE.__name__, KS.__name__,
+                KO.__name__, KH.__name__}:
             fail(f"Path D closed loop det launched other kernels than (d), (e), (g)'s "
                  f"state and obstacle forms, (h) and the draws: {got}")
         steps = results[0].steps
-        if not got[KS.__name__] == got[KO.__name__] == got[KH.__name__] == steps:
+        if not got[KS.__name__] == got[KO.__name__] == got[KH.__name__] == got[
+                D.__name__] == steps:
             fail(f"Path D closed loop {mode}: not one launch each of (g)'s state and "
-                 f"obstacle forms and of (h) a step of {steps}: {got}")
+                 f"obstacle forms, of (h) and of (a)'s plan form a step of {steps}: {got}")
         if got[KD.__name__] != got[KE.__name__] or got[KE.__name__] != (
                 steps * cfg.cem.maxiter_cem):
             fail(f"Path D closed loop {mode}: not one (d) and one (e) an outer iteration "
@@ -2821,7 +2916,7 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
 
     K1, K2, K3, K4 = (ops.topk_indices, ops.eq_qp_solve, ops.topk_kernel_matrices,
                       ops.noisy_rollout)
-    KC, D, B = ops.inner_cem, ops.prng_draws, ops.prng_beta
+    KC, D, B = ops.inner_cem, ops.prng_plan, ops.prng_beta
     names = [fn.__name__ for fn in ops.KERNELS]
     one_solve = {k: round(v) for k, v in per_solve["fastrt"].items()}
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -2959,7 +3054,8 @@ def path_e(torch, ops, dev, cfg, cfg_a, cfg_d, work, sweeps, per_solve):
         lambda: sweep_cli.main(["--costs", "mmd_opt", "--out", data_b, *flags,
                                 "--scenario_chunk", "4"]))
     want = {k: n_chunks * v for k, v in one_solve.items()}
-    want[D.__name__] += loop_launches(cfg, 0, fresh=True)[D.__name__]   # its solver's
+    draws = ops.prng_draws.__name__
+    want[draws] += loop_launches(cfg, 0, fresh=True)[draws]   # its solver's
     expect(got, want, f"Path E e, {n_chunks} chunks of 4 scenarios")
     per_solve["sweep_batch_mmd_opt"] = {k: v / n_chunks for k, v in got.items()}
     path_launches.append(got)
@@ -3052,7 +3148,7 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
         check_solve(fastrt.solve(0, INIT, MEAN, COV, *scen[0], 15.0), cfg)  # warm-up
         inner = inner_launches(cfg, "xla", carry=False)
         r, secs, got = counted(torch, ops, "fastrt xla, no elite-carry",
-                               kernels_of(ops, inner) + (K4, ops.prng_draws),
+                               kernels_of(ops, inner) + (K4, ops.prng_plan),
                                lambda: fastrt.solve(1, INIT, MEAN, COV, *scen[1], 15.0))
         check_solve(r, cfg)
         want = {k: {**inner, **loop_launches(cfg)}.get(k, 0) for k in names}
@@ -3073,7 +3169,7 @@ def path_selections(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
                 check(solver.solve(calls[0][0], *calls[0][1]), c)       # warm-up
                 inner = inner_launches(c, sel)
                 r, secs, got = counted(torch, ops, f"{name} {sel}",
-                                       kernels_of(ops, inner) + (K4, ops.prng_draws),
+                                       kernels_of(ops, inner) + (K4, ops.prng_plan),
                                        lambda: solver.solve(calls[1][0], *calls[1][1]))
                 check(r, c)
                 want = {**inner, **loop_launches(c, frenet=name == "path_d")}
@@ -3212,7 +3308,7 @@ def path_dist(torch, ops, dev, cfg, work, per_solve):
                                                    solver.ws.tot_time))
         seeds, init, mean, cov = list(range(1, 9)), f32(INIT), f32(MEAN), f32(COV)
         sweep = sharded_sweep(cfg, solver.ws, make_mesh(1))
-        r, secs, got = counted(torch, ops, "distribution a", (KC, K4, ops.prng_draws),
+        r, secs, got = counted(torch, ops, "distribution a", (KC, K4, ops.prng_plan),
                                lambda: sweep(seeds, init, mean, cov, xs, ys, 15.0))
         expect(got, 8, "distribution a, sharded_sweep of 8 scenarios", fresh=1)
         per_solve["dist_nccl"] = {k: v / 8 for k, v in got.items()}
@@ -3414,7 +3510,7 @@ def path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve):
     from mpc_mmd_tpu_torch.scenarios import dynamic_cutin, ego_initial_state
 
     t_phase = time.perf_counter()
-    K4, KC, D, B = ops.noisy_rollout, ops.inner_cem, ops.prng_draws, ops.prng_beta
+    K4, KC, D, B = ops.noisy_rollout, ops.inner_cem, ops.prng_plan, ops.prng_beta
     f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     path_launches, record = [], {}
 
@@ -3712,7 +3808,7 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
         r, secs, got = counted(torch, ops, "14b N = 15 g",
                                kernels_of(ops, inner) + (
                                    ops.noisy_rollout, ops.inner_prologue,
-                                   ops.prng_draws, ops.prng_beta),
+                                   ops.prng_plan, ops.prng_beta),
                                lambda: solver.solve(calls[0][0], *calls[0][1]))
     finally:
         os.environ.pop("MPC_MMD_SELECTION")
@@ -3737,7 +3833,7 @@ def path_sizes(torch, ops, dev, work, per_solve, tables):
             "--num_obs", "6", "--num_prime", "50", "--num_configs", "4", "--out", data,
             "--device", "cuda"]
     _, secs, got = counted(torch, ops, "14c sweep", (ops.inner_cem, ops.noisy_rollout,
-                                                     ops.inner_prologue, ops.prng_draws,
+                                                     ops.inner_prologue, ops.prng_plan,
                                                      ops.prng_beta),
                            lambda: sweep_cli.main(argv))
     path_launches.append(got)
@@ -3879,10 +3975,11 @@ def main():
     # solver-fixed draws), and the validator's chunks of 256 and 176 solves
     cfg_b = cfg_a.with_risk_mode("cvar")
     cfg_x, cfg_dx = (c.replace(solve_strategy="exact") for c in (cfg, cfg_d))
-    draw_at, beta_at = draw_shapes({
+    plan_at, draw_at, beta_at = draw_shapes({
         "fastrt": (cfg, False, 1), "path_a_fused": (cfg_a, False, 1),
         "path_a_xla": (cfg_a, False, 1), "path_b_cvar": (cfg_b, False, 1),
         "path_d_xla": (cfg_d, True, 1), "path_d_fused": (cfg_d, True, 1),
+        "path_d_det": (cfg_d.with_risk_mode("det"), True, 1),
         "path_e_chunk1": (cfg, False, 1), "path_e_chunk4": (cfg, False, 4),
         "path_e_chunk8": (cfg, False, 8), "path_e_fused4": (cfg_a, False, 4),
         "path_e_cvar4": (cfg_b, False, 4), "path_e_exact": (cfg_x, False, 1),
@@ -4056,7 +4153,7 @@ def main():
         torch, ops, solver, cfg,
         [(i, (INIT, MEAN, COV, *scen[i], 15.0)) for i in range(1, 4)],
         "fastrt (static, gaussian 0.1, xla selection)",
-        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_draws))]
+        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_plan))]
     per_solve = {"fastrt": {k: v / 3 for k, v in path_launches[-1].items()}}
 
     # ---- 5. one outer iteration, card against CPU -------------------------
@@ -4080,7 +4177,7 @@ def main():
     got = timed_solves(torch, ops, solver_a, cfg_a, calls_a,
                        "Path A (dynamic cut-in, beta 0.2, mmd_opt, fused selection)",
                        kernels_of(ops, inner_a) + (
-                           ops.noisy_rollout, ops.inner_prologue, ops.prng_draws,
+                           ops.noisy_rollout, ops.inner_prologue, ops.prng_plan,
                            ops.prng_beta))
     want = {**inner_a, **loop_launches(cfg_a)}
     want = {fn.__name__: want.get(fn.__name__, 0) * len(calls_a) for fn in ops.KERNELS}
@@ -4094,7 +4191,7 @@ def main():
     path_launches.append(timed_solves(
         torch, ops, solver_a, cfg_a, calls_a,
         "Path A (dynamic cut-in, beta 0.2, mmd_opt, xla selection)",
-        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_draws,
+        (ops.inner_cem, ops.inner_prologue, ops.noisy_rollout, ops.prng_plan,
          ops.prng_beta)))
     per_solve["path_a_xla"] = {k: v / len(calls_a)
                                for k, v in path_launches[-1].items()}
@@ -4110,7 +4207,7 @@ def main():
         got = timed_solves(torch, ops, solver_b, cfg_b, calls_a[:n],
                            f"Path B (dynamic cut-in, beta 0.2, {mode})",
                            (ops.outer_project, ops.outer_tail, ops.noisy_rollout,
-                            ops.prng_draws, ops.prng_beta))
+                            ops.prng_plan, ops.prng_beta))
         want = loop_launches(cfg_b, n, fresh=not warm)
         want = {fn.__name__: want.get(fn.__name__, 0) for fn in ops.KERNELS}
         if got != want:
@@ -4153,7 +4250,8 @@ def main():
                            for f, (name, _, _) in KC_FORMS.items()},
                         "topk_kernel_matrices": checked(k3),
                         "fused_rollout": checked(k4),
-                        "prng_draws": draw_at, "outer_project": kd_at,
+                        "prng_draws": draw_at, "prng_plan": plan_at,
+                        "outer_project": kd_at,
                         "outer_tail": ke_at, "noisy_rollout": k4n_at,
                         "inner_prologue": kf_at, "frenet_points": kg_at,
                         "frenet_states": ks_at,
@@ -4163,7 +4261,7 @@ def main():
         path_launches += path_sizes(torch, ops, dev, work, per_solve, shape_tables)
 
     # ---- 15. the JAX key chain's draws on the card ---------------------------
-    kd, kb = path_draws(torch, ops, dev, cfg, draw_at, beta_at)
+    kd, kp, kb = path_draws(torch, ops, dev, cfg, draw_at, beta_at, plan_at)
 
     # ---- 16. the solve as one CUDA graph --------------------------------------
     launches_g, graph_record = path_graph(torch, ops, dev, cfg, cfg_a, cfg_d, per_solve)
@@ -4181,7 +4279,7 @@ def main():
             fail(f"{path}: a path on kernel (c) launched K1, K2, K2t or K3 "
                  f"({per_solve[path]})")
     record = kernel_record(ops, launches, per_solve, floor_ms, k1, k2, k3, (k4, k4v), k5,
-                           k2t, kd, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec,
+                           k2t, kd, kp, kb, kc, kd_rec, ke_rec, k4n_rec, kf_rec, kg_rec,
                            ks_rec, ko_rec, kh_rec, kc_forms)
     log(f"chip_smoke: {time.perf_counter() - t_start:.0f} s, the build included")
     log(json.dumps({"graph": graph_record}))

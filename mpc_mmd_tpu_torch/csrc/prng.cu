@@ -29,6 +29,19 @@
 // reads its key (L1-resident) and writes one word, neighbours on
 // neighbouring addresses.
 //
+// Kernel a's plan form: every Gaussian draw of a solve in one launch.  A
+// solve's normals depend on nothing but its key table (threefry is
+// counter-based), so the draws that the JAX package makes inside its outer
+// loop (rollout noise and resample an iteration, the noisy initial states
+// once) are drawn at the head of the solve: up to kPlanSegments segments,
+// each a strided view of up to three axes of int64 key pairs read straight
+// from the device key table, n draws a key, written to one buffer at the
+// segment's offset.  The grid is 1-d over the concatenated (segment, key,
+// element) space; a thread takes kPlanPer elements kPlanThreads apart, so
+// that each store instruction of a warp writes neighbouring words and the
+// thread's independent 20-round hash chains overlap on the INT32 pipe.
+// Each element is draws_kernel's: the same bits_at, unit and normal_of.
+//
 // Kernel b, Beta draws for K keys x B candidates x n elements.  Element e
 // of every candidate of key k draws from the same keys: the halves of
 // split(key), then split(half, n)[e], and from there each gamma's chain of
@@ -466,6 +479,62 @@ beta_shared_kernel(const long long* __restrict__ keys,
   }
 }
 
+// the plan: segments back to back in the output, each a key view of sizes
+// size[0] x size[1] x size[2] (row-major, strides in int64 words) with n
+// draws a key from element start on; passed by value
+constexpr int kPlanSegments = 4;
+constexpr int kPlanThreads = 128;
+constexpr int kPlanPer = 4;            // elements a thread
+constexpr int kPlanFields = 10;        // int64 fields a segment, as the entry takes them
+
+struct PlanSegment {
+  const long long* keys;
+  unsigned size1, size2;               // the view's inner two sizes
+  long long stride[3];
+  unsigned n, start;
+  int dist;                            // 1 uniform, 2 normal
+};
+
+struct Plan {
+  PlanSegment seg[kPlanSegments];
+  int count;
+  unsigned total;
+};
+
+__global__ void __launch_bounds__(kPlanThreads) plan_kernel(const Plan p,
+                                                            float* __restrict__ out) {
+  const unsigned base = blockIdx.x * (kPlanThreads * kPlanPer) + threadIdx.x;
+  float v[kPlanPer];
+  // the draws first, every element's chain independent of the others;
+  // the stores after, so that no store stands between two chains' loads
+#pragma unroll
+  for (int j = 0; j < kPlanPer; ++j) {
+    const unsigned g = base + j * kPlanThreads;
+    v[j] = 0.0f;
+    if (g >= p.total) continue;
+    int s = 0;
+#pragma unroll
+    for (int q = 1; q < kPlanSegments; ++q) {
+      if (q < p.count && g >= p.seg[q].start) s = q;
+    }
+    const PlanSegment& S = p.seg[s];
+    const unsigned local = g - S.start;
+    const unsigned k = local / S.n, i = local - k * S.n;
+    const unsigned c = k % S.size2, ab = k / S.size2;
+    const unsigned b = ab % S.size1, a = ab / S.size1;
+    const long long at = a * S.stride[0] + b * S.stride[1] + c * S.stride[2];
+    const uint2 key = make_uint2(static_cast<uint32_t>(S.keys[at]),
+                                 static_cast<uint32_t>(S.keys[at + 1]));
+    const uint32_t bits = bits_at(key, i);
+    v[j] = S.dist == 1 ? unit(bits) : normal_of(bits);
+  }
+#pragma unroll
+  for (int j = 0; j < kPlanPer; ++j) {
+    const unsigned g = base + j * kPlanThreads;
+    if (g < p.total) out[g] = v[j];
+  }
+}
+
 int blocks_for(long long work) {
   const long long b = (work + kThreads - 1) / kThreads;
   return static_cast<int>(b < 65535 ? (b > 0 ? b : 1) : 65535);
@@ -509,5 +578,43 @@ extern "C" int mmd_prng_beta(const long long* keys, const float* alpha,
       keys, alpha, beta, static_cast<int>(B), static_cast<int>(n), static_cast<int>(P),
       static_cast<int>(et), static_cast<int>(bt), static_cast<unsigned>(tiles_e),
       static_cast<unsigned>(tiles_b), out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// A solve's draws in one launch (kernel a's plan form).  fields: count
+// segments of kPlanFields int64 each, host memory: the key pointer, the
+// key view's three sizes and three strides (int64 words; a view of fewer
+// axes pads with size 1), n draws a key, the segment's first element in
+// out (the previous segments' elements), and the distribution (1 uniform,
+// 2 normal).  out: float32, every segment's elements back to back.
+extern "C" int mmd_prng_plan(const long long* fields, int count, float* out,
+                             void* stream) {
+  if (count < 1 || count > kPlanSegments) return cudaErrorInvalidValue;
+  Plan p = {};
+  p.count = count;
+  long long total = 0;
+  for (int s = 0; s < count; ++s) {
+    const long long* f = fields + s * kPlanFields;
+    const long long keys = f[1] * f[2] * f[3], n = f[7];
+    if (f[0] == 0 || f[1] < 1 || f[2] < 1 || f[3] < 1 || n < 1 || f[8] != total ||
+        (f[9] != 1 && f[9] != 2) || f[2] > 0x7FFFFFFFLL || f[3] > 0x7FFFFFFFLL) {
+      return cudaErrorInvalidValue;
+    }
+    PlanSegment& S = p.seg[s];
+    S.keys = reinterpret_cast<const long long*>(f[0]);
+    S.size1 = static_cast<unsigned>(f[2]);
+    S.size2 = static_cast<unsigned>(f[3]);
+    for (int d = 0; d < 3; ++d) S.stride[d] = f[4 + d];
+    S.n = static_cast<unsigned>(n);
+    S.start = static_cast<unsigned>(total);
+    S.dist = static_cast<int>(f[9]);
+    total += keys * n;
+    if (total > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
+  }
+  p.total = static_cast<unsigned>(total);
+  const long long per_block = static_cast<long long>(kPlanThreads) * kPlanPer;
+  const unsigned blocks = static_cast<unsigned>((total + per_block - 1) / per_block);
+  plan_kernel<<<blocks, kPlanThreads, 0, static_cast<cudaStream_t>(stream)>>>(p, out);
   return static_cast<int>(cudaGetLastError());
 }

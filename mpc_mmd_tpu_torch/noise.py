@@ -54,6 +54,21 @@ a CUDA graph (``graph.py``) draws the keys of the scenarios it is replayed
 for.  A scenario meets the same draws in a chunk as alone; the
 solver-fixed draws stay shared by every scenario.
 
+A solve asks for every per-iteration Gaussian family at once, before its
+outer loop: ``solve_draws(table, R, T, n_cem, n_params, init)`` returns a
+:class:`SolveDraws` of views, per outer iteration ``it`` equal to
+``rollout_eps(table[:, it], R, T)`` (none where the solve rolls nothing
+out, R None) and ``cem_z(table[:, it], n_cem, n_params)``, and, given
+``init`` = (init_key, n), ``init_state_z(init_key, n)``.  The JAX package
+draws them inside its ``lax.scan``; threefry is counter-based, so drawing
+them first changes no value, only when they are drawn: :class:`JaxNoise`
+draws them all in one launch of kernel (a)'s plan form
+(``ops.prng_plan``), :class:`FixedNoise` indexes its arrays by the
+table's iteration column once, and :class:`TorchNoise` (and a source
+without the method, :func:`solve_draws`) asks its per-iteration methods.
+The Beta draws stay per iteration: their parameters are the candidates'
+controls.
+
 Under the ``exact`` strategy the inner CEM asks for ``inner_exact``:
 ``samples0`` as above (the JAX package draws it from the same key with
 the covariance ``init_cov_scale * I``) and ``z`` (maxiter, S-n_el, M+1),
@@ -91,7 +106,7 @@ import torch
 
 from . import prng
 from .device import to_device
-from .ops import prng_beta, prng_draws
+from .ops import prng_beta, prng_draws, prng_plan
 
 
 def init_state_count(cfg) -> int:
@@ -110,6 +125,36 @@ class InnerDraws(NamedTuple):
 class ExactInnerDraws(NamedTuple):
     samples0: torch.Tensor      # (S, M+1) standard normal, InnerDraws' own
     z: torch.Tensor             # (maxiter, S - n_el, M + 1)
+
+
+class SolveDraws(NamedTuple):
+    """A solve's Gaussian draws, per outer iteration (``solve_draws``)."""
+    eps: Optional[Tuple[Tuple[torch.Tensor, torch.Tensor, torch.Tensor], ...]]
+    #   eps_acc, eps_steer, eps_const (N, R, T) an iteration; None without rollouts
+    cem_z: Tuple[torch.Tensor, ...]     # (N, n_cem, n_params) an iteration
+    init_z: Optional[torch.Tensor]      # (n, 4) the noisy initial states', or None
+
+
+def per_iteration_draws(source, keys: torch.Tensor, R: Optional[int], T: int,
+                        n_cem: int, n_params: int, init=None) -> SolveDraws:
+    """``solve_draws`` from a source's per-iteration methods: ``rollout_eps``
+    and ``cem_z`` of every column of the key table ``keys`` (N, I, ...),
+    and ``init_state_z`` of ``init`` = (init_key, n)."""
+    its = range(keys.shape[1])
+    eps = None if R is None else tuple(source.rollout_eps(keys[:, it], R, T)
+                                       for it in its)
+    return SolveDraws(eps, tuple(source.cem_z(keys[:, it], n_cem, n_params) for it in its),
+                      None if init is None else source.init_state_z(*init))
+
+
+def solve_draws(source, keys: torch.Tensor, R: Optional[int], T: int, n_cem: int,
+                n_params: int, init=None) -> SolveDraws:
+    """A solve's draws from ``source``: its ``solve_draws``, or for a source
+    that has only the per-iteration methods, :func:`per_iteration_draws`."""
+    draw = getattr(source, "solve_draws", None)
+    if draw is None:
+        return per_iteration_draws(source, keys, R, T, n_cem, n_params, init)
+    return draw(keys, R, T, n_cem, n_params, init)
 
 
 def _seed_table(seeds: Sequence[int], iterations: int) -> torch.Tensor:
@@ -213,6 +258,11 @@ class TorchNoise:
     def cem_z(self, keys: torch.Tensor, n: int, n_params: int) -> torch.Tensor:
         return torch.stack([self._randn((3, s, it), (n, n_params))[0]
                             for s, it in keys.tolist()])
+
+    def solve_draws(self, keys: torch.Tensor, R: Optional[int], T: int, n_cem: int,
+                    n_params: int, init=None) -> SolveDraws:
+        """Every family of every iteration, each re-seeded as alone."""
+        return per_iteration_draws(self, keys, R, T, n_cem, n_params, init)
 
     def init_key(self, idx_mpc: int) -> torch.Tensor:
         return torch.tensor([int(idx_mpc)], dtype=torch.int64)
@@ -352,6 +402,32 @@ class JaxNoise:
         """The outer CEM's resample (N, n, n_params), from k_steer."""
         return self._normal(keys[:, 1], (n, n_params))
 
+    def plan(self, keys: torch.Tensor, R: Optional[int], T: int, n_cem: int,
+             n_params: int, init=None):
+        """The segments of a solve's draws (``ops.prng_plan``) from the key
+        table (N, I, 3, 2), read where it lies: the rollout noise (I, 3, N,
+        R T) from every key of the table (none with R None), the resample
+        (I, N, n_cem n_params) from each k_steer and the noisy initial
+        states' normals from ``init`` = (init_key, n)."""
+        keys = to_device(keys, self.device)
+        segments = [] if R is None else [(keys.permute(1, 2, 0, 3), R * T, "normal")]
+        segments.append((keys[:, :, 1].transpose(0, 1), n_cem * n_params, "normal"))
+        if init is not None:
+            segments.append((self._keys(init[0]), init[1] * 4, "normal"))
+        return segments
+
+    def solve_draws(self, keys: torch.Tensor, R: Optional[int], T: int, n_cem: int,
+                    n_params: int, init=None) -> SolveDraws:
+        """One launch of kernel (a)'s plan form (``ops.prng_plan``) of
+        :meth:`plan`'s segments; an iteration's views are contiguous."""
+        N, I = keys.shape[:2]
+        out = list(prng_plan(self.plan(keys, R, T, n_cem, n_params, init)))
+        eps = None if R is None else out.pop(0).view(I, 3, N, R, T)
+        z = out.pop(0).view(I, N, n_cem, n_params)
+        return SolveDraws(None if eps is None else tuple(tuple(e.unbind(0)) for e in eps),
+                          tuple(z.unbind(0)),
+                          out.pop(0).view(init[1], 4) if init is not None else None)
+
     @staticmethod
     def init_key(idx_mpc: int) -> torch.Tensor:
         """split(PRNGKey(idx_mpc))[0], (2,) int64."""
@@ -479,6 +555,18 @@ class FixedNoise:
 
     def cem_z(self, keys: torch.Tensor, n: int, n_params: int) -> torch.Tensor:
         return self.arrays["cem_z"][keys[:, 1]]
+
+    def solve_draws(self, keys: torch.Tensor, R: Optional[int], T: int, n_cem: int,
+                    n_params: int, init=None) -> SolveDraws:
+        """Every iteration's arrays indexed by the table's iteration column
+        at once (I, N, ...); ``init_state_z`` given ``init``."""
+        its = keys[..., 1].transpose(0, 1).contiguous()
+        eps = None
+        if R is not None:
+            eps = tuple(zip(*(self.arrays[n][its].unbind(0)
+                              for n in ("eps_acc", "eps_steer", "eps_const"))))
+        return SolveDraws(eps, tuple(self.arrays["cem_z"][its].unbind(0)),
+                          None if init is None else self.init_state_z(*init))
 
     def init_key(self, idx_mpc: int) -> torch.Tensor:
         return torch.tensor([int(idx_mpc)], dtype=torch.int64)

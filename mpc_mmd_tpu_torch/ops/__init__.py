@@ -3,7 +3,8 @@
 K1 ``topk_indices``, K2 ``eq_qp_solve`` (and its lane-major entry
 ``eq_qp_solve_t``), K3 ``topk_kernel_matrices``, K4 ``fused_rollout`` and
 K5 ``topk_onehot``; the JAX key chain's draws, ``prng_draws`` (keys to
-bits, uniforms or normals) and ``prng_beta`` (Beta draws); kernel (c)
+bits, uniforms or normals), its plan form ``prng_plan`` (every Gaussian
+draw of a solve in one launch) and ``prng_beta`` (Beta draws); kernel (c)
 ``inner_cem``, the whole inner beta-CEM under every selection (and the
 launch counts of its forms, ``inner_cem_fused``, ``inner_cem_xt`` and
 ``inner_cem_g``); the outer
@@ -37,7 +38,7 @@ from .inner_prologue import inner_prologue
 from .local_frame import local_frame
 from .outer_project import outer_project
 from .outer_tail import outer_tail
-from .prng import prng_beta, prng_draws
+from .prng import prng_beta, prng_draws, prng_plan
 from .qp import eq_qp_solve, eq_qp_solve_t
 from .rollout import fused_rollout, noisy_rollout
 from .topk import topk_indices, topk_onehot
@@ -46,7 +47,8 @@ from .topk_kernel import topk_kernel_matrices
 KERNELS = (topk_indices, eq_qp_solve, topk_kernel_matrices, fused_rollout,
            topk_onehot, eq_qp_solve_t, prng_draws, prng_beta, inner_cem, outer_project,
            outer_tail, noisy_rollout, inner_prologue, frenet_points, inner_cem_fused,
-           inner_cem_xt, inner_cem_g, frenet_states, frenet_obstacles, local_frame)
+           inner_cem_xt, inner_cem_g, frenet_states, frenet_obstacles, local_frame,
+           prng_plan)
 
 
 def reset_launch_counts() -> None:
@@ -74,5 +76,6 @@ __all__ = ["eq_qp_solve", "eq_qp_solve_t", "frenet_obstacles", "frenet_points",
            "frenet_states", "fused_rollout", "inner_cem",
            "inner_cem_fused", "inner_cem_g", "inner_cem_xt", "inner_prologue", "local_frame",
            "noisy_rollout", "outer_project", "outer_tail", "prng_beta", "prng_draws",
+           "prng_plan",
            "topk_indices", "topk_onehot", "topk_kernel_matrices", "KERNELS",
            "add_launches", "launch_counts", "reset_launch_counts", "set_launch_counts"]

@@ -56,6 +56,7 @@ _SIGNATURES = {
     "mmd_frenet_obstacles": [_P] * 12 + [_I, _I, _I, _F, _P],
     "mmd_frenet_states": [_P] * 13 + [_I, _I, _I] + [_F] * 6 + [_P],
     "mmd_prng_draws": [_P, _L, _L, _I, _P, _P],
+    "mmd_prng_plan": [_P, _I, _P, _P],
     "mmd_prng_beta": [_P, _P, _P, _L, _L, _L, _L, _P, _P],
     "mmd_inner_cem": [_P] * 11 + [_I] * 7 + [_F] * 4 + [_I, _I, _L, _P],
     "mmd_inner_cem_scratch": [_I] * 7,

@@ -9,6 +9,11 @@ and these replace that lowering for the port's noise
   normals, ``n`` per key, in one launch: every Gaussian family of a solve
   or a validation.  Bound by its integer operations (about 73 a hash, one
   hash an element); the note in the CUDA source has the numbers.
+* :func:`prng_plan`, kernel (a)'s plan form: up to four such batches in
+  one launch, each a strided view of a device key table read in place, into
+  one buffer: every Gaussian draw of a solve (its rollout noise and outer
+  CEM resample of every iteration, the on-road noisy initial states), drawn
+  at the head of the solve instead of once a family an outer iteration.
 * :func:`prng_beta`, kernel (b): Beta draws, ``jax.random.gamma``'s
   Marsaglia-Tsang loops for both halves in log space.  The candidates of a
   key share each element's key chain, so a block hashes each chain once a
@@ -17,12 +22,15 @@ and these replace that lowering for the port's noise
   function is bound by the candidates' float operations; the kernel waits
   on a chain's dependent hashes (the note in the CUDA source).
 
-Each takes its plain twin (``prng.draws``, ``prng.beta_draws``) for CPU
-tensors and launches its kernel for CUDA tensors, counting launches in
+Each takes its plain twin (``prng.draws``, ``prng.plan``,
+``prng.beta_draws``) for CPU tensors and launches its kernel for CUDA tensors, counting launches in
 ``.launches``.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import Sequence, Tuple
 
 import torch
 
@@ -63,6 +71,59 @@ def prng_draws(keys: torch.Tensor, n: int, dist: str = "normal") -> torch.Tensor
     return out.to(torch.int64) & prng.M32 if dist == "bits" else out
 
 
+PLAN_SEGMENTS = 4
+_PLAN_FIELDS = 10
+
+
+def prng_plan(segments: Sequence[Tuple[torch.Tensor, int, str]]
+              ) -> Tuple[torch.Tensor, ...]:
+    """Several batches of draws in one launch: ``segments`` (keys, n, dist),
+    at most four, keys an int64 view (..., 2) of one to three leading axes
+    whose last axis is unit-strided (a permuted or sliced view of a key
+    table is read in place), dist "uniform" or "normal".  Returns one
+    float32 view (*keys.shape[:-1], n) per segment, all of one buffer in
+    segment order; element i of the row of key k is ``prng_draws``' (k, i).
+    """
+    if not 1 <= len(segments) <= PLAN_SEGMENTS:
+        raise ValueError(f"prng_plan: 1 to {PLAN_SEGMENTS} segments, got {len(segments)}")
+    dev = segments[0][0].device
+    for keys, n, dist in segments:
+        if (keys.dtype != torch.int64 or not 2 <= keys.dim() <= 4 or keys.shape[-1] != 2
+                or keys.stride(-1) != 1 or keys.numel() == 0):
+            raise ValueError(f"prng_plan: keys must be a non-empty int64 (..., 2) view of "
+                             f"1 to 3 leading axes with a unit-strided last axis, got "
+                             f"{keys.dtype} {tuple(keys.shape)} strides {keys.stride()}")
+        if int(n) < 1 or dist not in prng.PLAN_DISTS:
+            raise ValueError(f"prng_plan: n must be >= 1 and dist one of "
+                             f"{prng.PLAN_DISTS}, got {n} and {dist!r}")
+        if keys.device != dev:
+            raise ValueError(f"prng_plan: keys on {keys.device} and {dev}")
+    if dev.type == "cpu":
+        return prng.plan(segments)
+    if dev.type != "cuda" or dev.index != torch.cuda.current_device():
+        raise ValueError(f"prng_plan: keys on {dev}, not the current CUDA device")
+    counts = [keys[..., 0].numel() * int(n) for keys, n, _ in segments]
+    out = torch.empty(sum(counts), dtype=torch.float32, device=dev)
+    fields, at = [], 0
+    for (keys, n, dist), c in zip(segments, counts):
+        lead = keys.dim() - 1
+        sizes = [1] * (3 - lead) + list(keys.shape[:-1])
+        strides = [0] * (3 - lead) + list(keys.stride()[:-1])
+        fields += [keys.data_ptr(), *sizes, *strides, int(n), at,
+                   prng.PLAN_DISTS.index(dist) + 1]
+        at += c
+    table = (ctypes.c_longlong * len(fields))(*fields)
+    err = _build.library().mmd_prng_plan(table, len(segments), out.data_ptr(),
+                                         _build.stream())
+    _build.check(err, "prng_plan")
+    prng_plan.launches += 1
+    views, at = [], 0
+    for (keys, n, _), c in zip(segments, counts):
+        views.append(out[at:at + c].view(*keys.shape[:-1], int(n)))
+        at += c
+    return tuple(views)
+
+
 def prng_beta(keys: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
               n: int) -> torch.Tensor:
     """Beta draws (K, B, n) for keys (K, 2) int64 and parameters alpha,
@@ -94,4 +155,5 @@ def prng_beta(keys: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor,
 
 
 prng_draws.launches = 0
+prng_plan.launches = 0
 prng_beta.launches = 0

@@ -29,9 +29,10 @@ copy.  Normals, gamma and Beta draws go through ``log1p``, ``log`` and
 so they agree within a few ulp; ``tests/test_torch_prng.py`` states and
 prints the gaps.
 
-:func:`draws` and :func:`beta_draws` are the plain twins of the CUDA
-kernels in ``ops/prng.py``: a batch of keys to bits, uniforms or normals,
-and Beta draws whose element keys are shared along a batch axis.  Nothing
+:func:`draws`, :func:`plan` and :func:`beta_draws` are the plain twins of
+the CUDA kernels in ``ops/prng.py``: a batch of keys to bits, uniforms or
+normals; several such batches (a solve's draws) into one buffer; and Beta
+draws whose element keys are shared along a batch axis.  Nothing
 here synchronises with a device beyond what a masked loop needs (the
 gamma loops ask whether any element is still rejected).
 """
@@ -337,6 +338,25 @@ def draws(keys: torch.Tensor, n: int, dist: str = "normal") -> torch.Tensor:
         return bits
     unit = bits_to_unit(bits)
     return unit if dist == "uniform" else unit_to_normal(unit)
+
+
+PLAN_DISTS = ("uniform", "normal")
+
+
+def plan(segments: Sequence[Tuple[torch.Tensor, int, str]]) -> Tuple[torch.Tensor, ...]:
+    """Kernel (a)'s plan form: for segments (keys, n, dist), keys a (..., 2)
+    key view, the draws of :func:`draws` of every segment's keys in one
+    float32 buffer, segment after segment; returns a view (*keys.shape[:-1],
+    n) of it per segment."""
+    counts = [math.prod(k.shape[:-1]) * n for k, n, _ in segments]
+    out = torch.empty(sum(counts), dtype=torch.float32, device=segments[0][0].device)
+    views, at = [], 0
+    for (keys, n, dist), c in zip(segments, counts):
+        view = out[at:at + c].view(*keys.shape[:-1], n)
+        view.copy_(draws(keys.reshape(-1, 2), n, dist).view(view.shape))
+        views.append(view)
+        at += c
+    return tuple(views)
 
 
 def beta_draws(keys: torch.Tensor, alpha: torch.Tensor, beta_: torch.Tensor,

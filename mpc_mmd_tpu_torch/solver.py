@@ -54,7 +54,7 @@ from .config import ProblemConfig
 from .device import resolve_device, to_device
 from .dynamics import beta_parameters, perturb_controls
 from .graph import GraphCache
-from .noise import JaxNoise
+from .noise import JaxNoise, solve_draws
 from .ops import inner_prologue, noisy_rollout, outer_project, outer_tail
 from .ops.outer_project import outer_project_plain
 from .ops.outer_tail import candidates, chain_tail
@@ -82,14 +82,18 @@ class SolveResult(NamedTuple):
 
 
 def rollout_draws(cfg: ProblemConfig, noise, keys: torch.Tensor,
-                  acc_T: torch.Tensor, steer_T: torch.Tensor):
+                  acc_T: torch.Tensor, steer_T: torch.Tensor, eps=None):
     """The draws of the noisy controls of a chunk's candidates (N, C, T),
     each scenario from its row of the iteration's column ``keys`` of the
     noise source's key table (see :mod:`mpc_mmd_tpu_torch.noise`): d_acc,
     d_steer, (N, 1, R, T) standard normals under gaussian noise, (N, C, R,
-    T) Beta draws under Beta noise, and eps_const (N, 1, R, T)."""
+    T) Beta draws under Beta noise, and eps_const (N, 1, R, T).  ``eps``:
+    the iteration's (eps_acc, eps_steer, eps_const) of the solve's
+    ``solve_draws``, else asked of ``noise.rollout_eps``."""
     R, T = cfg.risk.num_reduced, acc_T.shape[-1]
-    d_acc, d_steer, eps_const = (e[:, None] for e in noise.rollout_eps(keys, R, T))
+    if eps is None:
+        eps = noise.rollout_eps(keys, R, T)
+    d_acc, d_steer, eps_const = (e[:, None] for e in eps)
     if cfg.noise.kind == "beta":
         d_acc, d_steer = noise.rollout_beta(
             keys, R, *beta_parameters(acc_T, steer_T, cfg.noise))
@@ -97,11 +101,20 @@ def rollout_draws(cfg: ProblemConfig, noise, keys: torch.Tensor,
 
 
 def noisy_controls(cfg: ProblemConfig, noise, keys: torch.Tensor,
-                   acc_T: torch.Tensor, steer_T: torch.Tensor):
+                   acc_T: torch.Tensor, steer_T: torch.Tensor, eps=None):
     """R noisy variants (N, C, R, T) of the controls (N, C, T) of a chunk's
     candidates, from :func:`rollout_draws`."""
     return perturb_controls(acc_T, steer_T,
-                            *rollout_draws(cfg, noise, keys, acc_T, steer_T), cfg.noise)
+                            *rollout_draws(cfg, noise, keys, acc_T, steer_T, eps),
+                            cfg.noise)
+
+
+class Step(NamedTuple):
+    """What an outer iteration's hooks draw from: the iteration's column of
+    the key table (the Beta draws) and its rollout normals of the solve's
+    ``solve_draws`` (eps_acc, eps_steer, eps_const, or None)."""
+    keys: torch.Tensor
+    eps: Optional[tuple]
 
 
 def batched_rollouts(cfg: ProblemConfig, a_n: torch.Tensor, s_n: torch.Tensor,
@@ -282,19 +295,21 @@ class SolverSetup:
             return None
         return inner_fixed(self.cfg, self._inner)
 
-    def _rollouts(self, keys, acc_T, steer_T, state0, mother: bool, mine=slice(None)):
+    def _rollouts(self, step: Step, acc_T, steer_T, state0, mother: bool,
+                  mine=slice(None)):
         """The noisy rollouts x, y (N, c, n, T) of the candidates ``mine`` of
-        the controls (N, C, T), from the iteration's column ``keys`` of the
-        key table and the initial state(s) ``state0``: K4n where
-        ``_glue_routes`` sends them (every candidate), else the chain of
-        :func:`noisy_controls` and :func:`batched_rollouts` (K4)."""
+        the controls (N, C, T), from the iteration's ``step`` (its key
+        column and rollout normals) and the initial state(s) ``state0``:
+        K4n where ``_glue_routes`` sends them (every candidate), else the
+        chain of :func:`noisy_controls` and :func:`batched_rollouts` (K4)."""
         cfg = self.cfg
         if self._glue_routes().noisy_rollout:
             return noisy_rollout(acc_T, steer_T,
-                                 *rollout_draws(cfg, self.noise, keys, acc_T, steer_T),
+                                 *rollout_draws(cfg, self.noise, step.keys, acc_T, steer_T,
+                                                step.eps),
                                  state0, cfg.noise, cfg.horizon.dt, cfg.vehicle.wheel_base,
                                  mother)
-        a_n, s_n = noisy_controls(cfg, self.noise, keys, acc_T, steer_T)
+        a_n, s_n = noisy_controls(cfg, self.noise, step.keys, acc_T, steer_T, step.eps)
         return batched_rollouts(cfg, a_n[:, mine], s_n[:, mine], state0, mother)
 
     @staticmethod
@@ -324,13 +339,27 @@ class SolverSetup:
             key += (selection_key(self.cfg),)
         return self._graphs.run(key, inputs, body)
 
-    def _outer_cem(self, keys, ctx, b_eq_x, b_eq_y, mean, cov, x_obs,
+    def _draws(self, keys, init=None):
+        """The solve's Gaussian draws, every outer iteration's at once, from
+        the key table ``keys`` (N, maxiter_cem, ...) on the device
+        (``noise.solve_draws``: one launch of kernel (a)'s plan form on the
+        default noise): the rollout normals unless ``det`` rolls nothing
+        out, the outer CEM's resample and, given ``init`` = (init_key, n),
+        the noisy initial states'."""
+        cfg, c = self.cfg, self.cfg.cem
+        R = None if cfg.risk.mode == "det" else cfg.risk.num_reduced
+        return solve_draws(self.noise, keys, R, cfg.horizon.num_prime,
+                           c.num_batch - c.ellite_num, c.num_params, init)
+
+    def _outer_cem(self, keys, draws, ctx, b_eq_x, b_eq_y, mean, cov, x_obs,
                    y_obs, v_des):
         """The outer CEM loop over a chunk of N scenarios, one iteration as
         the module docstring lists it, every step on all N at once.
 
         ``keys`` the noise source's key table of the N scenarios (N,
-        maxiter_cem, ...), on the device; v_des a 0-d tensor; b_eq_x,
+        maxiter_cem, ...), on the device, and ``draws`` its
+        :class:`~mpc_mmd_tpu_torch.noise.SolveDraws` (``_draws``); v_des a
+        0-d tensor; b_eq_x,
         b_eq_y (nb, .), mean (8,) and cov (8, 8) shared by the chunk;
         x_obs, y_obs (N, num_obs, num); ``ctx`` is what the hooks read of
         the solve (the rollouts' initial state, the path).  The projection
@@ -348,20 +377,20 @@ class SolverSetup:
 
         * ``_path(ctx)``: the path's arc_vec and kappa as keyword
           arguments of the projection, or none;
-        * ``_ensemble(ctx, keys, acc_T, steer_T)``: the candidates' reduced
+        * ``_ensemble(ctx, step, acc_T, steer_T)``: the candidates' reduced
           rollouts {"x", "roll": (N, nb, R, T), "beta": (N, nb, R), "sigma":
-          (N, nb), ...} from the iteration's column ``keys`` of the key
-          table, which kernel (e) scores (None where the mode reads none);
-        * ``_risks(ctx, keys, acc_T, steer_T, x_obs, y_obs)``: the
+          (N, nb), ...} from the iteration's :class:`Step` (its column of
+          the key table and its rollout normals), which kernel (e) scores
+          (None where the mode reads none);
+        * ``_risks(ctx, step, acc_T, steer_T, x_obs, y_obs)``: the
           obstacle risk (N, nb) and {name: (N, nb, ...)} the cost reads,
           on the chain's path;
         * ``_picked(ens, n_ix, pos)``: the pick's values of the last
           ensemble that ``BEST`` names.
         """
-        cfg, ws, noise = self.cfg, self.ws, self.noise
+        cfg, ws = self.cfg, self.ws
         N = keys.shape[0]
         nb, nvar, T = cfg.cem.num_batch, cfg.horizon.nvar, cfg.horizon.num_prime
-        n_el = cfg.cem.ellite_num
         rows = N * nb
         kernel_d, kernel_e = self._routes()
         path = self._path(ctx)
@@ -386,18 +415,17 @@ class SolverSetup:
             steer = pj.steering if self.FRENET else pj.steer
             acc_T, steer_T = in_order(pj.acc[:, :T]), in_order(steer[:, :T])
 
+            step = Step(keys[:, it], None if draws.eps is None else draws.eps[it])
+            z = draws.cem_z[it]
             if kernel_e:
-                ens = self._ensemble(ctx, keys[:, it], acc_T, steer_T)
-                z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
+                ens = self._ensemble(ctx, step, acc_T, steer_T)
                 tail = outer_tail(cfg, self.FRENET, pj, order, params, ens["beta"],
                                   ens["sigma"], ens["x"], ens["roll"], x_obs, y_obs, z,
                                   mean, cov, v_des, res, res_2, it)
             else:
-                risk_obs, ens = self._risks(ctx, keys[:, it], acc_T, steer_T, x_obs,
-                                            y_obs)
+                risk_obs, ens = self._risks(ctx, step, acc_T, steer_T, x_obs, y_obs)
                 cand = candidates(pj, order, params, self.FRENET)
                 cand.update(ens)
-                z = noise.cem_z(keys[:, it], nb - n_el, cfg.cem.num_params)
                 tail = chain_tail(cfg, self.FRENET, risk_obs, cand, z, mean, cov, v_des,
                                   res, res_2, it)
             mean, cov, params = tail.mean, tail.cov, tail.params
@@ -470,7 +498,7 @@ class Solver(SolverSetup):
     def _path(self, state0):
         return {}
 
-    def _ensemble(self, state0, keys, acc_T, steer_T, mine=slice(None)):
+    def _ensemble(self, state0, step, acc_T, steer_T, mine=slice(None)):
         """The rollouts of the candidates ``mine`` of the noisy controls
         (N, C, T): in ``mmd_opt`` R^2 mother rollouts reduced to R ({"x",
         "roll": (N, c, R, T), "beta": (N, c, R), "sigma": (N, c),
@@ -480,7 +508,7 @@ class Solver(SolverSetup):
         ``saa``."""
         cfg = self.cfg
         mode = cfg.risk.mode
-        xr, yr = self._rollouts(keys, acc_T, steer_T, state0, mode == "mmd_opt", mine)
+        xr, yr = self._rollouts(step, acc_T, steer_T, state0, mode == "mmd_opt", mine)
         if mode == "mmd_opt":
             rs = select_reduced(cfg, self.ws, xr, yr, self._inner, self._inner_fixed,
                                 self._glue_routes().inner_prologue)
@@ -502,7 +530,7 @@ class Solver(SolverSetup):
                     res_beta=torch.zeros(*pos.shape, self.cfg.beta_cem.maxiter,
                                          device=self.device))
 
-    def _risks(self, state0, keys, acc_T, steer_T, x_obs, y_obs):
+    def _risks(self, state0, step, acc_T, steer_T, x_obs, y_obs):
         """Obstacle risk (N, C) and, per candidate, the rollouts the lane
         risk reads (N, C, R, T), beta (N, C, R), sigma (N, C) and in
         ``mmd_opt`` the inner residuals (N, C, maxiter).
@@ -522,7 +550,7 @@ class Solver(SolverSetup):
             mine = slice(*spans[mesh.rank])
             sizes = [hi - lo for lo, hi in spans]
             gather = lambda t: gather_blocks(t, mesh, sizes, dim=1)
-        e = self._ensemble(state0, keys, acc_T, steer_T, mine)
+        e = self._ensemble(state0, step, acc_T, steer_T, mine)
         risk_obs = risk.obstacle_risk(cfg, e["beta"], e["sigma"], e["x"], e["roll"], x_obs,
                                       y_obs)
         if cfg.risk.mode == "mmd_opt":
@@ -534,13 +562,15 @@ class Solver(SolverSetup):
 
     def _body(self, keys, init_state, mean, cov, x_obs, y_obs, v_des):
         """The device body of a chunk's solve: the boundary rows and the
-        rollouts' initial state, then the outer loop; {field: (N, ...)}."""
+        rollouts' initial state, the solve's draws, then the outer loop;
+        {field: (N, ...)}."""
         b_eq_x, b_eq_y = boundary_vectors(self.cfg, init_state)
         state0 = torch.stack((init_state[0], init_state[1], init_state[2],
                               init_state[3],
                               torch.atan2(init_state[3], init_state[2])))
         best, res, res_2, mean, cov = self._outer_cem(
-            keys, state0, b_eq_x, b_eq_y, mean, cov, x_obs, y_obs, v_des)
+            keys, self._draws(keys), state0, b_eq_x, b_eq_y, mean, cov, x_obs, y_obs,
+            v_des)
         return dict(best, res=res, res_2=res_2, mean_param=mean, cov_param=cov)
 
     def _solve_chunk(self, seeds, init_state, mean_param, cov_param,

@@ -87,15 +87,15 @@ class FrenetSolver(SolverSetup):
                 cfg.projection, with_obstacle_terms=True))
         super().__init__(cfg, device, noise, ws, FRENET_MODES, graph)
 
-    def _initial_states(self, frame: FrenetFrame, init_key: torch.Tensor,
+    def _initial_states(self, frame: FrenetFrame, z: torch.Tensor,
                         init_state_global: torch.Tensor):
-        """The noisy initial states (n, 5) [x, y, vx, vy, psi], drawn from
+        """The noisy initial states (n, 5) [x, y, vx, vy, psi] from the
+        standard normals ``z`` (n, 4) the solve's ``solve_draws`` drew from
         the noise source's ``init_key``, and the Frenet boundary rows
         (b_eq_x, b_eq_y) from the mean of their Frenet states: kernel (g)'s
         state form (``ops.frenet_states``) where ``_glue_routes`` sends
         them, else its plain version ``frenet.initial_states``."""
         cfg = self.cfg
-        z = self.noise.init_state_z(init_key, init_state_count(cfg))
         convert = frenet_states if self._glue_routes().frenet_states else initial_states
         return convert(frame, z, init_state_global, cfg.frenet.init_mu,
                        cfg.frenet.init_sigma, cfg.cem.num_batch)
@@ -107,7 +107,7 @@ class FrenetSolver(SolverSetup):
         frame, _ = ctx
         return dict(arc_vec=frame.arc_vec, kappa=frame.kappa)
 
-    def _ensemble(self, ctx, keys, acc_T, steer_T):
+    def _ensemble(self, ctx, step, acc_T, steer_T):
         """The Frenet points of the candidates' rollouts {"x": s, "roll": l
         (N, C, R, T)}, beta (N, C, R) and sigma (N, C): in ``mmd_opt`` the
         reduced sets of R^2 mother rollouts, in ``mmd_random`` R rollouts
@@ -122,7 +122,7 @@ class FrenetSolver(SolverSetup):
         beta = sigma = None
         mother = mode == "mmd_opt"
         routes = self._glue_routes()
-        xg, yg = self._rollouts(keys, acc_T, steer_T, states0, mother)
+        xg, yg = self._rollouts(step, acc_T, steer_T, states0, mother)
         if mother:
             rs = select_reduced(cfg, self.ws, xg, yg, self._inner, self._inner_fixed,
                                 routes.inner_prologue)
@@ -133,12 +133,12 @@ class FrenetSolver(SolverSetup):
         s_roll, l_roll = convert(frame, xg, yg)
         return dict(x=s_roll, roll=l_roll, beta=beta, sigma=sigma)
 
-    def _risks(self, ctx, keys, acc_T, steer_T, x_obs, y_obs):
+    def _risks(self, ctx, step, acc_T, steer_T, x_obs, y_obs):
         """Obstacle risk (N, C) and, per candidate, the Frenet lateral
         offsets of the rollouts the lane risks read (N, C, R, T), beta
         (N, C, R) and sigma (N, C), with what the chain reads where the mode
         reads nothing (``ops.outer_tail.filled``)."""
-        e = self._ensemble(ctx, keys, acc_T, steer_T)
+        e = self._ensemble(ctx, step, acc_T, steer_T)
         beta, sigma, x, roll = filled(self.cfg, acc_T.shape[:-1], self.device, e["beta"],
                                       e["sigma"], e["x"], e["roll"])
         return (risk.obstacle_risk(self.cfg, beta, sigma, x, roll, x_obs, y_obs),
@@ -166,13 +166,17 @@ class FrenetSolver(SolverSetup):
 
     def _body(self, keys, init_key, init_state, mean, cov, x_obs, y_obs, v_des,
               **frame):
-        """The device body of a solve: the noisy initial states, the outer
+        """The device body of a solve: the solve's draws (one launch of
+        kernel (a)'s plan form on the default noise, the noisy initial
+        states' normals with them), the noisy initial states, the outer
         loop, the best candidate's speed profile; the frame's tensors come
         by their ``FrenetFrame`` names."""
         frame = FrenetFrame(**frame)
-        states0, b_eq_x, b_eq_y = self._initial_states(frame, init_key, init_state)
+        draws = self._draws(keys, (init_key, init_state_count(self.cfg)))
+        states0, b_eq_x, b_eq_y = self._initial_states(frame, draws.init_z, init_state)
         best, res, _, mean, cov = self._outer_cem(
-            keys, (frame, states0), b_eq_x, b_eq_y, mean, cov, x_obs, y_obs, v_des)
+            keys, draws, (frame, states0), b_eq_x, b_eq_y, mean, cov, x_obs, y_obs,
+            v_des)
         best = {name: t[0] for name, t in best.items()}
         Pdot = self.ws.Pdot
         v_best = torch.sqrt((Pdot @ best["cx"]) ** 2 + (Pdot @ best["cy"]) ** 2)

@@ -81,7 +81,8 @@ STAGES = [("solver", "compute_guess"), ("qp", "compute_guess"),
           ("solver", "outer_project"), ("solver", "outer_tail"),
           ("solver", "noisy_controls"), ("solver_frenet", "noisy_controls"),
           ("solver", "batched_rollouts"), ("solver_frenet", "batched_rollouts"),
-          ("solver", "rollout_draws"), ("solver", "noisy_rollout"),
+          ("solver", "rollout_draws"), ("solver", "solve_draws"),
+          ("solver", "noisy_rollout"),
           ("solver", "refit_coefficients"), ("solver", "inner_prologue"),
           ("solver", "select_reduced_set_batched"),
           ("reduced_set", "inner_cem"), ("reduced_set", "take_rows"),

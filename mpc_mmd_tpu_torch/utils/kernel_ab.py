@@ -125,16 +125,24 @@ clock builds (``k4n_clock``, ``kf_clock``, ``kg_clock`` (staging, search,
 wait, outputs of (g)'s point kernel) and DIR's ``*_clock_before``,
 ``glue_clock_variant``: the cycles of thread 0 of each block in each
 phase of ``GLUE_CLOCKS``) at every shape but the forms'; kernel (h)
-(``kh_now``, ``csrc/local_frame.cu``, a cluster of 16 CTAs;
+(``kh_now``, ``csrc/local_frame.cu``, a cluster of 16 CTAs whose warps
+stage their rows of K^-1 by a bulk copy each and keep them in registers,
+exchange a round's rows by one bulk copy a peer and compute their own
+rows' path parameters;
 ``kh_runtime_t``, its terms' loop at run-time T where num_path 600
-unrolls it; ``kh_cluster8``, a cluster of 8 CTAs that reads each group
-from the slab each round; ``kh_before`` where DIR has it): bit-equal to
-the chain (``frenet.smooth_path``, ``path_parameters``) on
+unrolls it; ``kh_pr22``, the first design, ``csrc/variants/
+local_frame_pr22.cu``: a slab of K^-1 by one bulk copy a CTA, the
+exchange by st.async a (row, CTA) pair, the path parameters in CTA 0
+alone; ``kh_cluster8``, that design on a cluster of 8 CTAs that reads
+each group from the slab each round; ``kh_before`` where DIR has it):
+bit-equal to the chain (``frenet.smooth_path``, ``path_parameters``) on
 ``kh_window``'s windows and the closed loop's (``kh_closedloop``), timed
-in turns warm and L2-cold on the closed loop's, and ``kh_clock``'s
-(``GLUE_CLOCKS["kh"]``) cycles a phase (staging; the wait for a round's
-inputs, products, update and exchange a round; CTA 0's gather and path
-parameters); ``step_now`` (``STEP_MICRO``:
+in turns warm and L2-cold on the closed loop's, and ``kh_clock``'s and
+``kh_clock_pr22``'s (``GLUE_CLOCKS["kh"]``) cycles a phase (staging; the
+wait for a round's inputs, products, update and exchange a round; the
+path parameters, the slowest CTA's, with the wait for the last round's
+rows, and CTA 0's scan in the current design; CTA 0's gather and path
+parameters in the first); ``step_now`` (``STEP_MICRO``:
 one lane's dependent chain of the rollout step alone, in cycles a step);
 and each K4n, (f) and (g) build's SASS (``cuobjdump -sass``) written to
 ``--out``.  Each build's registers,
@@ -480,11 +488,14 @@ GLUE_CLOCKS["kg"] = (("// ---- kg: begin", "// ---- kg: end", "// ---- kg: begin
                       (("// ---- kg: search", "search"), ("// ---- kg: wait", "wait"),
                        ("// ---- kg: outputs", "outputs"))),)
 # kernel (h): a round's phases (the first four, each entered once a round),
-# then CTA 0's after the last round
+# then the current design's path parameters (every CTA's own rows, after
+# the wait for the last round's) and CTA 0's scan of the increments, or the
+# first design's gather of every row into CTA 0 and its path parameters
 KH_ROUND_PHASES = ("wait", "products", "update", "exchange")
-GLUE_CLOCKS["kh"] = (("// ---- kh: begin", "// ---- kh: end", "// ---- kh: begin\n",
-                      tuple((f"// ---- kh: {p}", p)
-                            for p in KH_ROUND_PHASES + ("gather", "path parameters"))),)
+KH_TAILS = (("path parameters", "scan"), ("gather", "path parameters"))
+GLUE_CLOCKS["kh"] = tuple(("// ---- kh: begin", "// ---- kh: end", "// ---- kh: begin\n",
+                           tuple((f"// ---- kh: {p}", p) for p in KH_ROUND_PHASES + tail))
+                          for tail in KH_TAILS)
 GLUE_CLOCK_ENTRY = "mmd_glue_clock"
 # variants of the current K4n source (rollout.cu: K4 with it, through the
 # shared step): sinf and cosf for psi where the source takes sincosf, 32,
@@ -546,8 +557,11 @@ def glue_clock_variant(kind: str, src: str, name: str):
     return None
 
 
+KH_PR22 = _build.CSRC / "variants" / "local_frame_pr22.cu"
+
+
 def kh_cluster8(src: str) -> str:
-    """Kernel (h) on a cluster of 8 CTAs: up to 80 rows a CTA, more groups
+    """Kernel (h)'s first design (``KH_PR22``) on a cluster of 8 CTAs: up to 80 rows a CTA, more groups
     than warps, so a warp takes its groups in turn and reads each from the
     slab in every round."""
     name = "kh_cluster8"
@@ -630,12 +644,14 @@ def builds(before: Path, diagnose: bool = False) -> dict:
     out["kh_runtime_t"] = ("kh", _replace(
         out["kh_now"][1], "  const bool path = (n + 1 + kWarp - 1) / kWarp == kPathT && "
         "n + 1 >= kStridedFrom;", "  const bool path = false;", "kh_runtime_t"))
-    out["kh_cluster8"] = ("kh", kh_cluster8(out["kh_now"][1]))
+    # the first design, kept as the yardstick, and its cluster of 8
+    out["kh_pr22"] = ("kh", KH_PR22.read_text())
+    out["kh_cluster8"] = ("kh", kh_cluster8(out["kh_pr22"][1]))
     if (before / "local_frame.cu").exists():
         out["kh_before"] = ("kh", (before / "local_frame.cu").read_text())
-    for suffix in ("now", "before"):
+    for suffix in ("now", "before", "pr22"):
         if f"kh_{suffix}" in out:
-            name = "kh_clock" + ("_before" if suffix == "before" else "")
+            name = "kh_clock" + ("" if suffix == "now" else f"_{suffix}")
             clocked = glue_clock_variant("kh", out[f"kh_{suffix}"][1], name)
             if clocked is not None:
                 out[name] = ("kh", clocked)
@@ -1572,11 +1588,12 @@ def run_glue(libs: dict, names: list, gen, log, warm_only=False) -> list:
 def kh_phases(cycles: dict, rounds: int) -> dict:
     """Kernel (h)'s cycles a phase from a kh_clock launch (``_clock_regions``'
     cycles): the staging's and the whole block's mean over the CTAs, a
-    round's phases' mean a round, CTA 0's gather and path parameters its
-    own (the most over the CTAs)."""
+    round's phases' mean a round, the tail's phases (``KH_TAILS``) the most
+    over the CTAs (CTA 0's scan or gather; the path parameters every
+    CTA's, CTA 0's alone in the first design)."""
     out = {"staging": cycles["staging"]["mean"]}
     out.update({f"{p} a round": cycles[p]["mean"] / rounds for p in KH_ROUND_PHASES})
-    out.update({p: cycles[p]["max"] for p in ("gather", "path parameters")})
+    out.update({p: cycles[p]["max"] for tail in KH_TAILS for p in tail if p in cycles})
     out["whole"] = cycles["block"]["mean"]
     return {k: round(v, 1) for k, v in out.items()}
 

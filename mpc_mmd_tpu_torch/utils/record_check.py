@@ -170,11 +170,13 @@ def record_check(out: str, device="cuda", n_mc: int = 1000, workers: int = 1,
 # The stages of an outer iteration in ``solver.py``'s order, each a name
 # that ``solver.py`` (or ``reduced_set.py``, ``ops/inner_cem.py``,
 # ``risk.py``) calls through its module, or a method of the noise sources
-# ("module:Class"): the guess QP, the projection, the controls, the draws
-# and the noisy controls, the K4 rollouts, the refit, the inner CEM (the
-# top-k selections and elite picks, the K2 weight QPs; a selection's input
-# is the resample of the iteration before), the risks, the scalar cost, the
-# outer CEM's draws and update; and the argsorts and argmins of the solver
+# ("module:Class"): the solve's Gaussian draws (every iteration's, drawn
+# before the loop and recorded as iteration 0's), the guess QP, the
+# projection, the controls, the noisy controls, the K4 rollouts, the
+# refit, the inner CEM (the top-k selections and elite picks, the K2
+# weight QPs; a selection's input is the resample of the iteration
+# before), the risks, the scalar cost, the outer CEM's update; and the
+# argsorts and argmins of the solver
 # and of ``sampling.cem_tail``.  Stages in ``_INPUTS`` record their
 # arguments too.  While the taps are in, the "xla" selection's inner CEM,
 # the outer iteration and the steps around the rollouts run their plain
@@ -189,8 +191,8 @@ _STAGES = (("solver", ("initial_params", "noisy_controls", "batched_rollouts",
            ("projection", ("project",)),
            ("dynamics", ("controls_from_trajectory",)),
            ("sampling", ("scalar_cost", "cem_update")),
-           ("noise:JaxNoise", ("rollout_eps", "cem_z")),
-           ("noise:FixedNoise", ("rollout_eps", "cem_z")),
+           ("noise:JaxNoise", ("solve_draws",)),
+           ("noise:FixedNoise", ("solve_draws",)),
            ("ops.inner_cem", ("topk_indices", "eq_qp_solve")),
            ("risk", ("mmd_obs", "mmd_lane")))
 _INPUTS = ("eq_qp_solve", "topk_indices")

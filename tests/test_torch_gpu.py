@@ -31,7 +31,10 @@ visited tiles its twin's), and (g)'s state and obstacle forms bit-equal to
 their chains (the obstacle form's constant-velocity trajectories too);
 kernel (h) bit-equal to its chain (the smoother and the path parameters)
 and to its twin, on windows of three routes at two widths and one and ten
-rounds, NaN to NaN, its phase-clock build too.
+rounds, at widths from 64 to 639 path points, NaN to NaN, its phase-clock
+build too; kernel (a)'s plan form bit-equal to per-segment ``prng_draws``
+at the solves' plans, and a graphed solve of each path one plan launch and
+no ``prng_draws`` launch.
 """
 
 import dataclasses
@@ -952,6 +955,90 @@ def test_prng_kernels_give_the_jax_reference_draws(cuda):
     np.testing.assert_allclose(got.cpu().numpy(), ref["beta"], rtol=1e-5, atol=1e-6)
 
 
+def _plan_config(name):
+    """A path's configuration, scenarios a chunk and on-road initial states
+    (None on the straight road), for kernel (a)'s plan form."""
+    from mpc_mmd_tpu_torch.noise import init_state_count
+    if name in ("fastrt", "e8"):
+        return fastrt_workload(), 8 if name == "e8" else 1, None
+    cfg = _onroad("det" if name == "det" else "mmd_opt")
+    return cfg, 1, init_state_count(cfg)
+
+
+@pytest.mark.parametrize("name", ["fastrt", "e8", "path_d", "det"])
+def test_prng_plan_kernel_equals_per_segment_draws(cuda, name):
+    """Kernel (a)'s plan form at a solve's plan (``JaxNoise.solve_draws``:
+    fastrt, a chunk of 8 of it, Path D with its noisy initial states, det
+    without rollout noise): one launch, each segment bit-equal to
+    ``prng_draws`` of its keys, and every iteration's views bit-equal to
+    the per-iteration draws, ``rollout_eps``, ``cem_z`` and
+    ``init_state_z``."""
+    from mpc_mmd_tpu_torch.noise import JaxNoise
+    from mpc_mmd_tpu_torch.ops import prng_draws, prng_plan
+    cfg, N, n_init = _plan_config(name)
+    c, R, T = cfg.cem, cfg.risk.num_reduced, cfg.horizon.num_prime
+    noise = JaxNoise("cuda")
+    table = noise.keys(list(range(5, 5 + N)), c.maxiter_cem).cuda()
+    init = None if n_init is None else (noise.init_key(5), n_init)
+    R = None if name == "det" else R
+    n_cem = c.num_batch - c.ellite_num
+    before = prng_plan.launches
+    got = noise.solve_draws(table, R, T, n_cem, c.num_params, init)
+    assert prng_plan.launches == before + 1
+    for it in range(c.maxiter_cem):
+        col = table[:, it]
+        if R is not None:
+            rows = prng_draws(col.reshape(-1, 2), R * T).view(N, 3, R, T)
+            for j, e in enumerate(got.eps[it]):
+                assert torch.equal(e, rows[:, j])
+            for a, b in zip(got.eps[it], noise.rollout_eps(col, R, T)):
+                assert torch.equal(a, b)
+        assert torch.equal(got.cem_z[it], prng_draws(col[:, 1], n_cem * c.num_params).view(
+            N, n_cem, c.num_params))
+        assert torch.equal(got.cem_z[it], noise.cem_z(col, n_cem, c.num_params))
+    if init is not None:
+        assert torch.equal(got.init_z, noise.init_state_z(*init))
+    else:
+        assert got.init_z is None
+
+
+@pytest.mark.parametrize("name", ["fastrt", "path_b", "path_d", "det"])
+def test_a_graphed_solve_draws_its_noise_in_one_plan_launch(cuda, name):
+    """A replay of a graphed solve of each path launches kernel (a)'s plan
+    form once and ``prng_draws`` never (the solver-fixed draws are made
+    before the capture)."""
+    from mpc_mmd_tpu_torch import FrenetSolver
+    from mpc_mmd_tpu_torch.ops import launch_counts
+    cov = np.diag([20.0] * 4 + [100.0] * 4)
+    if name in ("fastrt", "path_b"):
+        cfg = (fastrt_workload() if name == "fastrt"
+               else dynamic_workload(noise_level=0.2, mode="cvar"))
+        xs, ys = _static(2)
+        solver = Solver(cfg, device="cuda")
+        solve = lambda i: solver.solve(i, [0.0, 1.75, 5.0, 0.0, 0.0, 0.0],
+                                       [15.0] * 4 + [0.0] * 4, cov, xs[i], ys[i], 15.0)
+    else:
+        from mpc_mmd_tpu_torch.closedloop import SyntheticPlant, local_problem, make_route
+        from mpc_mmd_tpu_torch.frenet import build_smoother
+        cfg = _onroad("det" if name == "det" else "mmd_opt")
+        plant = SyntheticPlant(cfg, make_route("curved"),
+                               ((12.0, 0.5), (18.0, 3.0), (40.0, 0.0), (60.0, 3.5)),
+                               obstacle_speed=1.0)
+        tot_time = torch.linspace(0.0, cfg.horizon.t_fin, cfg.horizon.num, device="cuda")
+        frame, xo, yo, init = local_problem(cfg, plant, build_smoother(
+            cfg.frenet.num_path, device="cuda"), tot_time)
+        solver = FrenetSolver(cfg, device="cuda")
+        solve = lambda i: solver.solve(i, init, [10.0] * 4 + [0.0] * 4, cov, xo, yo, 10.0,
+                                       frame)
+    solve(0)
+    torch.cuda.synchronize()
+    before = launch_counts()
+    solve(1)
+    torch.cuda.synchronize()
+    got = {k: n - before[k] for k, n in launch_counts().items()}
+    assert solver.graph and got["prng_plan"] == 1 and got["prng_draws"] == 0, got
+
+
 # ---------------------------------------------------------------------------
 # The solve as a CUDA graph (graph.py): every replay against the eager card
 # solve (graph=False) of the same inputs
@@ -1574,8 +1661,8 @@ def kh_clock_build(tmp_path_factory):
 def test_local_frame_kernel_and_its_clock_build(cuda, kh_clock_build, n):
     """Kernel (h)'s one cluster of 16 CTAs on a curved window, through the
     package's build and through its clock build: the chain's bits from
-    both, and every CTA's thread 0 stamping each round's phases and the
-    whole, CTA 0 alone its gather and path parameters."""
+    both, and every CTA's thread 0 stamping each round's phases, its own
+    rows' path parameters and the whole, CTA 0 alone its scan."""
     from mpc_mmd_tpu_torch import frenet as tf
     from mpc_mmd_tpu_torch.ops import local_frame
     from mpc_mmd_tpu_torch.utils import kernel_ab
@@ -1593,10 +1680,29 @@ def test_local_frame_kernel_and_its_clock_build(cuda, kh_clock_build, n):
     regions = kernel_ab.CLOCK_REGIONS["kh_clock"]
     assert bool((st[:16, -1] > 0).all()) and bool((st[16:] == 0).all())
     for i, r in enumerate(regions):
-        if r in kernel_ab.KH_ROUND_PHASES or r == "staging":
+        if r in kernel_ab.KH_ROUND_PHASES or r in ("staging", "path parameters"):
             assert bool((st[:16, i] > 0).all()), r
-        elif r in ("gather", "path parameters"):
+        elif r == "scan":
             assert int(st[0, i]) > 0 and bool((st[1:16, i] == 0).all()), r
+
+
+@pytest.mark.parametrize("n", [65, 127, 515, 516, 601, 639])
+def test_local_frame_kernel_at_every_width(cuda, n):
+    """Kernel (h) at widths between ``kh_window``'s (cuBLAS's blocked and
+    strided orders on both sides of 516 columns, a last CTA whose rows are
+    not a whole number of units, the most path points it takes): bit-equal
+    to the chain and to its twin at ten rounds."""
+    from mpc_mmd_tpu_torch import frenet as tf
+    from mpc_mmd_tpu_torch.ops import local_frame
+    from mpc_mmd_tpu_torch.ops.local_frame import local_frame_twin
+    x, y = kh_window("circuit", 4000, n, "cuda")
+    sw = tf.build_smoother(n, maxiter=10, device="cuda")
+    got = local_frame(sw, x, y, 0.1)
+    ref = tf.path_parameters(*tf.smooth_path(sw, x, y, 0.1))
+    twin = local_frame_twin(sw, x, y, 0.1)
+    for name, g, r, t in zip(got._fields, got, ref, twin):
+        assert _same_bits(g, r), name
+        assert _same_bits(t, r), name
 
 
 @pytest.mark.parametrize("where", [("x", 37), ("y", 0), ("x", 599)])

@@ -272,3 +272,70 @@ def test_fixed_noise_replays_by_the_iteration_column_of_its_table():
         assert np.array_equal(e.numpy(), np.stack([d[name][2]] * 2))
     z = noise.cem_z(table[:, 1], 11, 8)
     assert np.array_equal(z.numpy(), np.stack([d["cem_z"][1]] * 2))
+
+
+class CountingNoise(JaxNoise):
+    """``JaxNoise`` that counts what a solve asks of it."""
+
+    ASKED = ("solve_draws", "rollout_eps", "cem_z", "init_state_z")
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.asked = dict.fromkeys(self.ASKED, 0)
+        for name in self.ASKED:
+            setattr(self, name, self._counted(name, getattr(self, name)))
+
+    def _counted(self, name, fn):
+        def call(*a, **kw):
+            self.asked[name] += 1
+            return fn(*a, **kw)
+        return call
+
+
+@pytest.mark.parametrize("road,mode", [("straight", "mmd_opt"), ("straight", "cvar"),
+                                       ("frenet", "cvar"), ("frenet", "det")])
+def test_a_solve_draws_its_noise_once_and_matches_jax(road, mode):
+    """A graphed solve (warm-up and replay) asks its noise source for
+    ``solve_draws`` once a solve and for ``rollout_eps``, ``cem_z`` and
+    ``init_state_z`` never (kernel (a)'s plan form draws them all on the
+    card), and still meets the JAX solve of the same idx_mpc within the
+    bars of the module docstring."""
+    if road == "straight":
+        cfg = _cfg(3).replace(risk=dataclasses.replace(_cfg(3).risk, mode=mode))
+        js = JSolver(cfg)
+        noise = CountingNoise("cpu")
+        ts = _graphed(TSolver(to_torch_cfg(cfg), device="cpu", ws=_ws(js), noise=noise))
+        xts, yts = blocking_scenarios(js.ws.tot_time, 2)
+        xo, yo = np.asarray(xts[1]), np.asarray(yts[1])
+    else:
+        cfg = frenet_cfg(mode, 3)
+        js = jax_solver(cfg)
+        noise = CountingNoise("cpu")
+        ts = _graphed(TFrenetSolver(to_torch_cfg(cfg), device="cpu", ws=_ws(js),
+                                    noise=noise))
+        jframe, tframe, init, xo, yo = _scenario()
+    for solves, idx in enumerate((3, 8), 1):
+        if road == "straight":
+            ref = js.solve(idx, jnp.asarray(INIT), jnp.asarray(MEAN), jnp.asarray(COV),
+                           jnp.asarray(xo), jnp.asarray(yo), 15.0)
+            got = ts.solve(idx, INIT, MEAN, COV, xo, yo, 15.0)
+            a_r, s_r = _controls(js.ws, cfg, ref.cx, ref.cy)
+            a_m, s_m = _controls(js.ws, cfg, jnp.asarray(got.cx.numpy()),
+                                 jnp.asarray(got.cy.numpy()))
+            assert max(np.abs(a_r - a_m).max(), np.abs(s_r - s_m).max()) <= 1e-3
+            names = ("res", "risk_obs", "mean_param")
+        else:
+            ref = js.solve(idx, jnp.asarray(init), jnp.asarray(MEAN0), jnp.asarray(COV0),
+                           jnp.asarray(xo), jnp.asarray(yo), 10.0, jframe)
+            got = ts.solve(idx, init, MEAN0, COV0, xo, yo, 10.0, tframe)
+            for name in ("v_best", "steering_best"):
+                np.testing.assert_allclose(getattr(got, name).numpy(),
+                                           np.asarray(getattr(ref, name)),
+                                           rtol=0, atol=1e-3, err_msg=name)
+            names = ("risk_obs", "res", "mean_param", "cov_param")
+        for name in names:
+            np.testing.assert_allclose(getattr(got, name).numpy(),
+                                       np.asarray(getattr(ref, name)),
+                                       rtol=1e-3, atol=1e-3, err_msg=name)
+        assert noise.asked == dict(solve_draws=solves, rollout_eps=0, cem_z=0,
+                                   init_state_z=0)

@@ -350,7 +350,7 @@ def test_kernel_ab_variants_apply_to_the_kernel_sources(tmp_path, variant):
         assert src.count("gc_cur = ") == len(regions) == 4
         assert f'extern "C" int {kernel_ab.GLUE_CLOCK_ENTRY}' in src
     elif variant.startswith("kh_clock"):
-        # kernel (h): a stamp before each round's phases and CTA 0's two
+        # kernel (h): a stamp before each round's phases and the tail's two
         regions = kernel_ab.CLOCK_REGIONS[variant]
         assert src.count("gc_cur = ") == len(regions) == 7
         assert f'extern "C" int {kernel_ab.GLUE_CLOCK_ENTRY}' in src

@@ -51,7 +51,7 @@ from mpc_mmd_tpu_torch import Solver as TSolver
 from mpc_mmd_tpu_torch import ops, prng
 from mpc_mmd_tpu_torch.cli import sweep
 from mpc_mmd_tpu_torch.config import static_workload
-from mpc_mmd_tpu_torch.noise import (JaxNoise, init_state_count,
+from mpc_mmd_tpu_torch.noise import (FixedNoise, JaxNoise, TorchNoise, init_state_count,
                                      record_solve_draws)
 from mpc_mmd_tpu_torch.qp import build_workspace, workspace_from_numpy
 from mpc_mmd_tpu_torch.validate import make_validator_core
@@ -329,6 +329,92 @@ def test_wrappers_take_the_twins_on_the_cpu_and_check_their_inputs():
         ops.prng_beta(keys, a, a, 7)
     with pytest.raises(ValueError, match="one"):
         ops.prng_beta(keys, a, a[:, :, :4], 10)
+
+
+def _jax_rows(keys, n):
+    """``jax.random.normal(key, (n,))`` of every key of an int64 (..., 2)
+    view, (..., n)."""
+    flat = keys.reshape(-1, 2).numpy().astype(np.uint32)
+    rows = jax.vmap(lambda kk: jax.random.normal(kk, (n,)))(jnp.asarray(flat))
+    return np.asarray(rows).reshape(*keys.shape[:-1], n)
+
+
+@pytest.mark.parametrize("frenet", [False, True])
+def test_plan_twin_gives_each_segment_the_jax_rows(frenet):
+    """Kernel (a)'s plan form on a chunk's key table (N 2, I 3), as a solve
+    hands it over (``JaxNoise.solve_draws``): the rollout noise from every
+    key of the permuted table, the resample from each k_steer, and on the
+    road the noisy initial states' key.  Each segment's row k is
+    ``jax.random.normal(keys[k], (n,))`` within 4 ulp and ``prng.draws``'
+    row bit for bit; the wrapper takes the twin on the CPU, and the
+    segments share one buffer in their order."""
+    table = JaxNoise.keys([3, 11], 3)
+    segments = [(table.permute(1, 2, 0, 3), 4 * 7, "normal"),
+                (table[:, :, 1].transpose(0, 1), 5 * 8, "normal")]
+    if frenet:
+        segments.append((JaxNoise.init_key(5).view(1, 2), 6 * 4, "normal"))
+    got = prng.plan(segments)
+    for (keys, n, dist), view in zip(segments, got):
+        assert view.shape == (*keys.shape[:-1], n)
+        assert torch.equal(view.reshape(-1, n), prng.draws(keys.reshape(-1, 2), n, dist))
+        assert _ulps(view.numpy(), _jax_rows(keys, n)).max() <= ULP
+    for a, b in zip(ops.prng_plan(segments), got):
+        assert torch.equal(a, b)
+    assert all(v.untyped_storage().data_ptr() == got[0].untyped_storage().data_ptr()
+               for v in got)
+    assert [v.storage_offset() for v in got] == list(np.cumsum(
+        [0] + [v.numel() for v in got[:-1]]))
+
+
+def test_plan_refuses_bad_segments_and_tables():
+    table = JaxNoise.keys([3], 2)
+    ok = (table[:, :, 1], 8, "normal")
+    for bad, match in (([], "segments"), ([ok] * 5, "segments"),
+                       ([(table[:, :, 1], 0, "normal")], "n must"),
+                       ([(table[:, :, 1], 8, "bits")], "dist"),
+                       ([(table.to(torch.int32), 8, "normal")], "int64"),
+                       ([(table[..., :1], 8, "normal")], "int64"),
+                       ([(table.transpose(-1, -2), 8, "normal")], "unit-strided"),
+                       ([(table.view(1, 1, 2, 3, 2), 8, "normal")], "1 to 3"),
+                       ([(table[:0], 8, "normal")], "non-empty")):
+        with pytest.raises(ValueError, match=match):
+            ops.prng_plan(bad)
+
+
+def _draw_source(kind, I, R, T, n_cem, n_init):
+    if kind == "jax":
+        return JaxNoise("cpu")
+    if kind == "torch":
+        return TorchNoise(torch.Generator(), "cpu")
+    rng = np.random.default_rng(4)
+    return FixedNoise({"eps_acc": rng.normal(size=(I, R, T)),
+                       "eps_steer": rng.normal(size=(I, R, T)),
+                       "eps_const": rng.normal(size=(I, R, T)),
+                       "cem_z": rng.normal(size=(I, n_cem, 8)),
+                       "init_state_z": rng.normal(size=(n_init, 4))}, "cpu")
+
+
+@pytest.mark.parametrize("kind", ["jax", "fixed", "torch"])
+@pytest.mark.parametrize("rollouts", [True, False])
+def test_solve_draws_views_equal_the_per_iteration_draws(kind, rollouts):
+    """``solve_draws`` of a two-scenario table: at every iteration the views
+    equal ``rollout_eps`` and ``cem_z`` of the table's column bit for bit
+    (none without rollouts, as ``det``), the initial states' normals equal
+    ``init_state_z``, and an iteration's views are contiguous."""
+    I, R, T, n_cem, n_init = 3, 4, 7, 5, 6
+    src = _draw_source(kind, I, R, T, n_cem, n_init)
+    table = src.keys([3, 11], I)
+    init = (src.init_key(5), n_init)
+    got = src.solve_draws(table, R if rollouts else None, T, n_cem, 8, init)
+    assert (got.eps is None) != rollouts and len(got.cem_z) == I
+    for it in range(I):
+        if rollouts:
+            for a, b in zip(got.eps[it], src.rollout_eps(table[:, it], R, T)):
+                assert a.shape == (2, R, T) and a.is_contiguous() and torch.equal(a, b)
+        z = got.cem_z[it]
+        assert z.is_contiguous() and torch.equal(z, src.cem_z(table[:, it], n_cem, 8))
+    assert torch.equal(got.init_z, src.init_state_z(*init))
+    assert src.solve_draws(table, R, T, n_cem, 8).init_z is None
 
 
 def _small_cfg(noise="gaussian"):
